@@ -1,18 +1,29 @@
-"""Main CLI of the port: guided eval / infer of the G-Net family
-(port of boxsegliver_tpu/cli/main.py:33-66,390-543; reference entry/main_g.py).
+"""Main CLI of the port: training and guided eval / infer of the G-Net
+family (port of boxsegliver_tpu/cli/main.py:33-66,186-337,340-377,390-543;
+reference entry/main_g.py).
 
-    python -m boxsegliver_torch.cli.main liver --mode eval --tag 002_gnet_sp \
-        --model GUNet --classes Liver Tumor --im_height 256 --im_width 256 \
-        --im_channel 3 --random_flip 3 --normalizer instance_norm \
-        --use_context --context_list hist 200 --use_spatial --min_std 2 \
-        --metrics_eval Dice VOE RVD --primary_metric Tumor/Dice \
-        --batch_size 8 --eval_mirror --ckpt_path gunet.npz
+    python -m boxsegliver_torch.cli.main liver --mode train --tag 002_gnet_sp \
+        --model GUNet --classes Liver Tumor --test_fold 2 --im_height 256 \
+        --im_width 256 --im_channel 3 --random_flip 3 --dataset LiTS \
+        --normalizer instance_norm --use_context --context_list hist 200 \
+        --hist_noise --use_spatial --spatial_random 1.0 \
+        --spatial_inner_random --center_random_ratio 0.2 \
+        --stddev_random_ratio 0.4 --min_std 2 --noise_scale 0.05 \
+        --primary_metric Tumor/Dice --secondary_metric Liver/Dice \
+        --loss_weight_type numerical --loss_numeric_w 0.2 0.4 4.4 \
+        --batch_size 8 --learning_policy plateau --eval_per_epoch \
+        --evaluator Volume --save_best          # + 002_gnet_sp.sh's others
+    python -m boxsegliver_torch.cli.main liver --mode eval ... --eval_mirror
 
-Runs on the GPU unless ``--device cpu`` is given.  ``--ckpt_path`` takes a
-``.npz`` of flattened flax variables (README) or a ``.pt`` state_dict.
-``--mode eval`` scores the test fold; ``--mode infer`` saves predictions.
-Every other branch of the JAX CLI raises NotImplementedError naming its
-roadmap item.
+Runs on the GPU unless ``--device cpu`` is given.  ``--mode train`` trains
+the 2D G-Net path with the online 2D eval per epoch and writes checkpoints
+under ``--model_dir`` (train/checkpoint.py).  ``--mode eval`` scores the
+test fold with the guided sweep and ``--mode infer`` saves predictions;
+their weights come from ``--ckpt_path`` (a checkpoint, a ``.pt``
+state_dict or a ``.npz`` of flattened flax variables), else from
+``--model_dir``: the best checkpoint, or the latest periodic one under
+``--eval_final`` or when there is no best.  Every other branch of the JAX
+CLI raises NotImplementedError naming its roadmap item.
 """
 
 from __future__ import annotations
@@ -63,22 +74,43 @@ def resolve_dataset_dir(args) -> Path:
     return Path(args.data_root) / args.dataset
 
 
-def build_model_from_args(args, device):
-    """The flagged model on ``device`` in eval mode, weights from
-    --ckpt_path."""
+def _build_model(args):
     import torch
 
     from boxsegliver_torch.models import build_model, get_model_params
-    from boxsegliver_torch.models.weights import load_weights
 
-    if not getattr(args, "ckpt_path", None):
-        _not_ported("restoring from --model_dir checkpoints (pass --ckpt_path)",
-                    "queue A, training slice")
     params = get_model_params(args)
     dtype = torch.bfloat16 if args.compute_dtype == "bfloat16" else torch.float32
-    model = build_model(params["model"], args=args,
-                        model_kwargs=params["model_kwargs"], dtype=dtype)
-    load_weights(model, args.ckpt_path)
+    return build_model(params["model"], args=args,
+                       model_kwargs=params["model_kwargs"], dtype=dtype)
+
+
+def eval_checkpoint(args) -> Path:
+    """The weights eval restores (JAX evaluate's selection): --ckpt_path,
+    else model_dir's best checkpoint, else — under --eval_final or when
+    there is no best — its latest periodic checkpoint."""
+    from boxsegliver_torch.train.checkpoint import CheckpointManager
+
+    if getattr(args, "ckpt_path", None):
+        return Path(args.ckpt_path)
+    ckpt = CheckpointManager(args.model_dir)
+    if not getattr(args, "eval_final", False) and ckpt.has_best():
+        return ckpt.best_path()
+    latest = ckpt.latest_path()
+    if latest is None:
+        raise FileNotFoundError(f"no checkpoint under {ckpt.model_dir}; "
+                                "train first or pass --ckpt_path")
+    return latest
+
+
+def build_model_from_args(args, device):
+    """The flagged model on ``device`` in eval mode, weights from
+    eval_checkpoint(args)."""
+    from boxsegliver_torch.train.checkpoint import model_state
+
+    model = _build_model(args)
+    args.restored_from = str(eval_checkpoint(args))
+    model.load_state_dict(model_state(args.restored_from), strict=True)
     return model.to(device).eval()
 
 
@@ -87,14 +119,112 @@ def main(argv=None):
     logger = setup_logger(args.model_dir, args.mode, args.tag, args.out_file)
     logger.info("Task %s, mode %s, model_dir %s", args.task, args.mode,
                 args.model_dir)
-    if args.mode == "train":
-        _not_ported("--mode train", "queue A, training slice")
     if args.mode == "export":
         _not_ported("--mode export", "queue A, serving")
     device = config_mod.resolve_device(args.device)
     dataset_dir = resolve_dataset_dir(args)
+    if args.mode == "train":
+        return train(args, dataset_dir, logger, device)
     return evaluate(args, dataset_dir, logger, device,
                     do_eval=args.mode == "eval")
+
+
+def _check_train_path(args):
+    if args.model == "UNet3D" or args.task == "nf_3d":
+        _not_ported("3D training", "queue A, 3D tower")
+    if args.task.startswith("nf"):
+        _not_ported(f"task {args.task} training", "queue A, NF tasks")
+    if args.eval_per_epoch and args.eval_3d:
+        _not_ported("--eval_3d inline volume eval", "queue A, main-path eval")
+    if args.normalizer == "batch_norm" and not args.without_norm:
+        _not_ported("--mode train with --normalizer batch_norm",
+                    "queue A, UNet / batch-norm training")
+
+
+def build_trainer(args, device, cache=None):
+    """Trainer of the flagged model, seeded from --seed, with the device
+    augmentation (cache: a DeviceVolumeCache for the index layout)."""
+    import torch
+
+    from boxsegliver_torch.data.pipeline import make_preprocess_fn
+    from boxsegliver_torch.train.trainer import Trainer
+
+    model = _build_model(args)
+    model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
+    return Trainer(model, args, ["Background"] + list(args.classes), device,
+                   preprocess_fn=make_preprocess_fn(args, cache=cache),
+                   save_ckpt_steps=int(getattr(args, "save_ckpt_steps", 5000)))
+
+
+def _split_pids(args, dataset_dir):
+    from boxsegliver_torch.data.kfold import (LITS_SEED, read_or_create_k_folds,
+                                              train_test_split)
+    from boxsegliver_torch.data.meta import load_meta
+
+    metas = load_meta(dataset_dir)
+    folds = read_or_create_k_folds(
+        Path(dataset_dir) / "k_folds.txt", [m["PID"] for m in metas],
+        k_split=args.k_folds, seed=LITS_SEED)
+    return train_test_split(folds, args.test_fold)
+
+
+def train(args, dataset_dir, logger, device):
+    from boxsegliver_torch.data.pipeline import TrainDataset
+    from boxsegliver_torch.data.sampler import TrainSampler
+
+    _check_train_path(args)
+    cache = None
+    if getattr(args, "device_cache", False):
+        from boxsegliver_torch.data.device_cache import DeviceVolumeCache
+        train_pids, _ = _split_pids(args, dataset_dir)
+        try:
+            cache = DeviceVolumeCache(dataset_dir, [int(p) for p in train_pids],
+                                      device, budget_gb=args.device_cache_gb)
+        except MemoryError as e:
+            logger.warning("--device_cache disabled (%s); falling back to "
+                           "the streaming host sampler", e)
+
+    trainer = build_trainer(args, device, cache=cache)
+    start = trainer.restore()
+    logger.info("Starting at global step %d on %s", start, device)
+    sampler = TrainSampler(dataset_dir, args, mode="train", seed=args.seed,
+                           zbase=cache.zbase if cache else None)
+    dataset = TrainDataset(sampler, args, seed=args.seed)
+    eval_fn = _make_online_eval(args, dataset_dir) if args.eval_per_epoch \
+        else None
+    max_steps = args.num_of_steps or args.num_of_total_steps
+    try:
+        trainer.train(dataset, max_steps=max_steps, eval_fn=eval_fn)
+    finally:
+        dataset.close()
+        trainer.summary.close()
+    logger.info("Training finished at step %d", trainer.global_step)
+    return trainer
+
+
+def _make_online_eval(args, dataset_dir, num_batches: int = 0):
+    """OnlineEval2D over the eval split with the deterministic eval-mode
+    device processing (no noise, no flips; reference 2D batch-metric
+    averaging)."""
+    import functools
+
+    from boxsegliver_torch.data.pipeline import _process_batch, norm_statics
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.evaluators.online2d import OnlineEval2D
+
+    sampler = TrainSampler(dataset_dir, args, mode="eval")
+    statics = norm_statics(args)
+    statics["use_gamma"] = False  # deterministic eval processing
+    process_fn = functools.partial(
+        _process_batch, im_h=args.im_height, im_w=args.im_width,
+        noise_scale=0.0, random_flip=0,
+        use_spatial=bool(getattr(args, "use_spatial", False)),
+        min_std=float(getattr(args, "min_std", 2.0)), **statics)
+    return OnlineEval2D(sampler, args, process_fn,
+                        ["Background"] + list(args.classes),
+                        num_batches=num_batches,
+                        use_global_dice=bool(getattr(args, "use_global_dice",
+                                                     False)))
 
 
 def evaluate(args, dataset_dir, logger, device, do_eval=True):
@@ -118,7 +248,7 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
                     "queue A, host-loop overflow fallback")
 
     model = build_model_from_args(args, device)
-    logger.info("Restored %s from %s on %s", args.model, args.ckpt_path,
+    logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
     metas = load_meta(dataset_dir)
     folds = read_or_create_k_folds(

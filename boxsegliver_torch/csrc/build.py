@@ -8,7 +8,7 @@ shared memory, spills) is kept beside each library as ``<lib>.log``.
 
     from boxsegliver_torch.csrc import build
     libs = build.build_all()            # one nvcc per source, in parallel
-    lib = build.load("guide_render")    # builds on first use
+    lib = build.load("in_relu")         # builds on first use
 """
 
 from __future__ import annotations
@@ -23,15 +23,19 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent
-SOURCES = ("guide_render",)
+SOURCES = ("guide_render", "in_relu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures of the exported functions, set on load
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures of each source's exported functions, set on load
 _ARGTYPES = {
-    "guide_render": ("guide_render",
-                     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                     + [ctypes.c_float] * 2 + [ctypes.c_void_p]),
+    "guide_render": {
+        "guide_render": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]},
+    "in_relu": {
+        "in_relu_fwd": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+        "in_relu_bwd_stats": [_P] * 6 + [_I] * 4 + [_P],
+        "in_relu_bwd_apply": [_P] * 8 + [_I] * 4 + [_P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -98,10 +102,10 @@ def load(name: str) -> ctypes.CDLL:
         t0 = time.perf_counter()
         _finish(name, *_start(name), t0)
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = _ARGTYPES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     _LOADED[name] = lib
     return lib
 

@@ -14,6 +14,11 @@ reference NetworksV2/GUNet.py:31-488).
 
 Input and output are NHWC (``{"images", "context", "sp_guide"}`` → logits
 [bs, h, w, num_classes]), as in the JAX package; NCHW is used inside.
+``forward(inputs, train=True, generator=g)`` is train mode: ``--dropout``
+after the first norm of each encoder level and ``side_dropout`` on the
+context MLP's hidden layers draw their masks from ``g``.  Every
+instance-norm + ReLU pair with a full affine (the decoder, and the
+unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
 Not ported yet (the constructor raises): ``use_se``, the ``vgg16*`` and
 ``conv`` context models, ``img_grad``.
 """
@@ -28,8 +33,10 @@ from torch import nn
 
 from boxsegliver_torch.models.layers import (MLP, ChannelAffine, Conv,
                                              ConvNormAct, Dense, Norm, UpConv,
-                                             avg_pool2x2_same, he_normal_,
+                                             avg_pool2x2_same, dropout,
+                                             fused_pair, he_normal_,
                                              init_kernel_, max_pool2x2)
+from boxsegliver_torch.ops.kernels import instance_norm_relu
 
 
 class GUNet(nn.Module):
@@ -72,6 +79,7 @@ class GUNet(nn.Module):
         self.without_norm = without_norm
         self.weight_init = weight_init
         self.dtype = dtype
+        self.dropout = float(dropout or 0.0)
 
         n = num_down_samples
         levels = range(n + 1)
@@ -79,7 +87,9 @@ class GUNet(nn.Module):
             n_mod = init_channels * sum(2 ** i for i in levels
                                         if i in self.mod_layers) * 2
             self.context = MLP(context_length,
-                               list(context_fc_channels) + [n_mod])
+                               list(context_fc_channels) + [n_mod],
+                               use_dropout=side_dropout > 0,
+                               keep_prob=1.0 - side_dropout)
         if use_spatial:
             for i in levels:
                 if i not in self.mod_layers:
@@ -152,20 +162,25 @@ class GUNet(nn.Module):
     def _layer(self, name: str) -> nn.Module:
         return self._modules[name]
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype or torch.float32
         n = self.num_down_samples
 
         context_params = None
         if self.use_context:
-            context_params = self.context(inputs["context"].to(dt))
+            context_params = self.context(inputs["context"].to(dt),
+                                          train=train, generator=generator)
 
         spatial_params = [None] * (n + 1)
         if self.use_spatial:
             gs = inputs["sp_guide"].to(dt).permute(0, 3, 1, 2)
             for i in range(n + 1):
                 if i in self.mod_layers:
-                    spatial_params[i] = self._layer(f"spatial_conv{i + 1}")(gs)
+                    layer = self._layer(f"spatial_conv{i + 1}")
+                    spatial_params[i] = (layer(gs, train=train)
+                                         if isinstance(layer, ConvNormAct)
+                                         else layer(gs))
                 if i < n:
                     gs = avg_pool2x2_same(gs)
 
@@ -175,11 +190,23 @@ class GUNet(nn.Module):
         for i in range(n + 1):
             ch = self.init_channels * 2 ** i
             modulated = i in self.mod_layers
+            plain_level = not (modulated and (self.use_context
+                                              or self.use_spatial))
             for j in range(2):
                 name = f"Encode{i + 1}_conv{j + 1}"
                 x = self._layer(name)(x)
-                if not self.without_norm:
-                    x = self._layer(name + "_norm")(x)
+                norm = (None if self.without_norm
+                        else self._layer(name + "_norm"))
+                if (plain_level and not (self.dropout or self.after_affine)
+                        and fused_pair(norm, True)):
+                    # an unmodulated level: norm + ReLU is kernel B2's
+                    # function
+                    x = instance_norm_relu(x, norm.weight, norm.bias)
+                    continue
+                if norm is not None:
+                    x = norm(x, train=train)
+                if j == 0:
+                    x = dropout(x, self.dropout, train, generator)
                 if self.use_context and modulated:
                     gamma = context_params[:, density_mod_id:density_mod_id + ch]
                     x = x * gamma[:, :, None, None]
@@ -196,7 +223,7 @@ class GUNet(nn.Module):
         for i in reversed(range(n)):
             x = self._layer(f"up{i + 1}")(x)
             x = torch.cat([skips[i], x], dim=1)
-            x = self._layer(f"up_conv{i + 1}_1")(x)
-            x = self._layer(f"up_conv{i + 1}_2")(x)
+            x = self._layer(f"up_conv{i + 1}_1")(x, train=train)
+            x = self._layer(f"up_conv{i + 1}_2")(x, train=train)
         logits = self.AdjustChannels(x)
         return logits.float().permute(0, 2, 3, 1)

@@ -12,8 +12,11 @@ Conventions carried over from the flax modules:
 - parameters are named so that the weight bridge (models/weights.py) maps
   flax's ``params``/``batch_stats`` trees onto ``state_dict`` keys by rule.
 
-The forward is eval mode (batch norm reads its running statistics, dropout
-is off): training comes with the training slice.
+Train mode (``train=True``): dropout draws its keep masks from an explicit
+``torch.Generator`` (flax semantics: keep with probability 1 − rate, kept
+units scaled by 1 / (1 − rate)); batch norm in train mode is not ported yet
+and raises.  The instance-norm + ReLU pair with a full affine runs through
+kernel B2 (ops/kernels.InstanceNormReLU) in train and eval mode alike.
 """
 
 from __future__ import annotations
@@ -24,6 +27,32 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from boxsegliver_torch.ops.kernels import instance_norm_relu
+
+_BN_TRAIN = ("batch_norm in train mode is not ported yet (ROADMAP queue A, "
+             "UNet / batch-norm training): flax momentum 0.99 is torch "
+             "momentum 0.01, and flax keeps the biased running variance "
+             "where torch keeps the unbiased one")
+
+
+def dropout_apply(x: torch.Tensor, keep: torch.Tensor,
+                  keep_prob: float) -> torch.Tensor:
+    """flax nn.Dropout with a given keep mask: kept units / keep_prob, the
+    rest 0."""
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout(rate, deterministic=not train)``; the keep mask is
+    uniform(0, 1) < 1 − rate from ``generator`` (on x's device)."""
+    if not train or rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return dropout_apply(x, u < keep_prob, keep_prob)
 
 
 def init_kernel_(weight: torch.Tensor, weight_init: str = "xavier",
@@ -105,7 +134,9 @@ class Norm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(channels))
             self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        if self.normalizer == "batch_norm" and train:
+            raise NotImplementedError(_BN_TRAIN)
         xf = x.float()
         if self.normalizer == "instance_norm":
             mean = xf.mean(dim=(2, 3), keepdim=True)
@@ -123,9 +154,17 @@ class Norm(nn.Module):
         return y.to(x.dtype)
 
 
+def fused_pair(norm: Optional["Norm"], act: bool) -> bool:
+    """Whether norm + ReLU is kernel B2's function: instance norm with a
+    full affine, followed by ReLU."""
+    return (act and norm is not None and norm.normalizer == "instance_norm"
+            and norm.weight is not None and norm.bias is not None)
+
+
 class ConvNormAct(nn.Module):
     """slim.conv2d equivalent: conv + (norm) + ReLU; the conv has a bias
-    iff there is no normalizer."""
+    iff there is no normalizer.  A full-affine instance norm + ReLU runs
+    through kernel B2."""
 
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  normalizer: Optional[str] = "batch_norm",
@@ -139,10 +178,12 @@ class ConvNormAct(nn.Module):
                      if normalizer is not None else None)
         self.act = act
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         x = self.conv(x)
+        if fused_pair(self.norm, self.act):
+            return instance_norm_relu(x, self.norm.weight, self.norm.bias)
         if self.norm is not None:
-            x = self.norm(x)
+            x = self.norm(x, train=train)
         return F.relu(x) if self.act else x
 
 
@@ -177,20 +218,23 @@ class ChannelAffine(nn.Module):
 
 
 class MLP(nn.Module):
-    """slim_nets.mlp: hidden Dense + ReLU layers and a final linear Dense
-    (reference Backbone/slim_nets.py:34-57).  Layers are named Dense_k as
-    flax auto-names them."""
+    """slim_nets.mlp: hidden Dense + ReLU (+ dropout) layers and a final
+    linear Dense (reference Backbone/slim_nets.py:34-57).  Layers are named
+    Dense_k as flax auto-names them."""
 
-    def __init__(self, in_features: int, out_channels: Sequence[int]):
+    def __init__(self, in_features: int, out_channels: Sequence[int],
+                 use_dropout: bool = False, keep_prob: float = 0.5):
         super().__init__()
         self.n_layers = len(out_channels)
+        self.rate = 1.0 - keep_prob if use_dropout else 0.0
         for k, ch in enumerate(out_channels):
             self.add_module(f"Dense_{k}", Dense(in_features, ch))
             in_features = ch
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         for k in range(self.n_layers):
             x = self._modules[f"Dense_{k}"](x)
             if k < self.n_layers - 1:
-                x = F.relu(x)
+                x = dropout(F.relu(x), self.rate, train, generator)
         return x

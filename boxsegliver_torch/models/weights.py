@@ -1,4 +1,4 @@
-"""Weight bridge: flax ``params`` / ``batch_stats`` trees → torch
+"""Weight bridge: flax ``params`` / ``batch_stats`` trees ↔ torch
 ``state_dict``, and weight files for ``--ckpt_path``.
 
 The flax side arrives flattened with "/" separators, as
@@ -17,6 +17,10 @@ the flax tree (models/layers.py), so keys map by rule:
   transpose-conv kernels [kh, kw, in, out] → [in, out, kh, kw] with BOTH
   spatial axes flipped (flax's output phase (p, q) uses tap (1-p, 1-q),
   boxsegliver_tpu/models/layers.py:172-176; torch's uses tap (p, q)).
+
+The inverse, ``state_dict_to_flax`` (with ``flax_names``, torch key → flax
+name), reads the module types to rebuild the names flax gives; the train
+step picks its L2-decayed tensors through it (ops/losses.decayed_parameters).
 """
 
 from __future__ import annotations
@@ -64,6 +68,62 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
         arr = _to_torch_layout(key, np.asarray(arr, np.float32))
         out[flax_key_to_torch(key)] = torch.from_numpy(np.array(arr))
     return out
+
+
+def flax_names(model: torch.nn.Module) -> Dict[str, str]:
+    """state_dict key → flattened flax name ('params/...' for parameters,
+    'batch_stats/...' for running statistics) of every tensor of ``model``."""
+    from boxsegliver_torch.models.layers import ConvNormAct, Norm, UpConv
+
+    modules = dict(model.named_modules())
+    out = {}
+    for mod_name, mod in modules.items():
+        path = []
+        parts = mod_name.split(".") if mod_name else []
+        for i, part in enumerate(parts):
+            parent = modules[".".join(parts[:i])]
+            if isinstance(parent, ConvNormAct):
+                part = {"conv": "Conv_0", "norm": "Norm_0"}[part]
+            path.append(part)
+        if isinstance(mod, Norm):
+            path.append("InstanceNorm_0" if mod.normalizer == "instance_norm"
+                        else "BatchNorm_0")
+            leaves = {"weight": "scale"}
+        elif isinstance(mod, UpConv):
+            path.append("ConvTranspose_0")
+            leaves = {"weight": "kernel"}
+        else:
+            leaves = {"weight": "kernel"}
+        leaves.update(running_mean="mean", running_var="var")
+        tensors = [("params", n) for n, _ in mod.named_parameters(recurse=False)]
+        tensors += [("batch_stats", n)
+                    for n, _ in mod.named_buffers(recurse=False)]
+        for coll, leaf in tensors:
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[key] = "/".join([coll] + path + [leaves.get(leaf, leaf)])
+    return out
+
+
+def _to_flax_layout(name: str, arr: np.ndarray) -> np.ndarray:
+    if not name.endswith("/kernel"):
+        return arr
+    if "/ConvTranspose_0/" in name:
+        return np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
+    if arr.ndim == 4:
+        return np.transpose(arr, (2, 3, 1, 0))
+    return arr.T
+
+
+def state_dict_to_flax(model: torch.nn.Module,
+                       tensors: Mapping[str, torch.Tensor] = None
+                       ) -> Dict[str, np.ndarray]:
+    """Flattened flax variables of ``model``'s tensors (or of ``tensors``,
+    keyed like its state_dict: gradients, say), in flax's layouts."""
+    names = flax_names(model)
+    tensors = model.state_dict() if tensors is None else tensors
+    return {names[k]: np.ascontiguousarray(_to_flax_layout(
+        names[k], v.detach().float().cpu().numpy()))
+        for k, v in tensors.items()}
 
 
 def load_weights(model: torch.nn.Module, path) -> torch.nn.Module:

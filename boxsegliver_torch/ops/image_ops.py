@@ -14,11 +14,14 @@ OpenCV dependency and resizes on the tensor's device instead:
   float32 and so picks another source pixel at some sizes; the index vectors
   here are computed in float64 exactly as cv2 does and applied with a gather,
   so nearest resizes are bit-identical to cv2.
+
+It also carries the train-time crop-and-resize, noise and flips of the JAX
+package's device pipeline (below).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -51,3 +54,99 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     iy = torch.from_numpy(_cv2_nearest_index(h, size[0])).to(x.device)
     ix = torch.from_numpy(_cv2_nearest_index(w, size[1])).to(x.device)
     return x.index_select(-2, iy).index_select(-1, ix)
+
+
+# ---------------------------------------------------------------------------
+# Train-time crop-and-resize and augmentation (port of
+# boxsegliver_tpu/ops/image_ops.py:59-149,177-189), batched.  The random
+# functions take their draws as tensors; ``draw_augment`` fills them from a
+# torch.Generator, and the tests inject JAX's draws instead.
+# ---------------------------------------------------------------------------
+
+def _grid_1d(out_size: int, crop_size: torch.Tensor,
+             crop_start: torch.Tensor) -> torch.Tensor:
+    """[bs] crop sizes / origins -> [bs, out_size] sampling coordinates on
+    the half-pixel grid (jax.image.resize 'linear' convention)."""
+    scale = crop_size.float()[:, None] / out_size
+    dst = torch.arange(out_size, dtype=torch.float32, device=scale.device)
+    return (dst[None] + 0.5) * scale - 0.5 + crop_start.float()[:, None]
+
+
+def _gather_rows_cols(x: torch.Tensor, rows: torch.Tensor,
+                      cols: torch.Tensor) -> torch.Tensor:
+    """x [bs, h, w, ...] -> x[b, rows[b]][:, cols[b]] as [bs, oh, ow, ...]."""
+    tail = x.shape[3:]
+    ones = (1,) * len(tail)
+    ri = rows.reshape(rows.shape + (1,) + ones).expand(
+        rows.shape + (x.shape[2],) + tail)
+    top = torch.gather(x, 1, ri)
+    ci = cols.reshape((cols.shape[0], 1, cols.shape[1]) + ones).expand(
+        (cols.shape[0], rows.shape[1], cols.shape[1]) + tail)
+    return torch.gather(top, 2, ci)
+
+
+def crop_and_resize_2d(image: torch.Tensor, label: Optional[torch.Tensor],
+                       y0: torch.Tensor, x0: torch.Tensor,
+                       crop_h: torch.Tensor, crop_w: torch.Tensor,
+                       out_h: int, out_w: int):
+    """Bilinear resize of each sample's crop window [y0, y0 + crop_h) x
+    [x0, x0 + crop_w) of image [bs, H, W, C] float32 to [bs, out_h, out_w,
+    C], edge-clamped; label [bs, H, W] by nearest sampling with
+    round-half-even, as the JAX package samples it."""
+    ys = _grid_1d(out_h, crop_h, y0)
+    xs = _grid_1d(out_w, crop_w, x0)
+    h, w = image.shape[1], image.shape[2]
+    fy0 = torch.clamp(torch.floor(ys), 0, h - 1)
+    fx0 = torch.clamp(torch.floor(xs), 0, w - 1)
+    fy1 = torch.clamp(fy0 + 1, 0, h - 1)
+    fx1 = torch.clamp(fx0 + 1, 0, w - 1)
+    wy = torch.clamp(ys - fy0, 0.0, 1.0)[:, :, None, None]
+    wx = torch.clamp(xs - fx0, 0.0, 1.0)[:, None, :, None]
+    y0i, y1i = fy0.long(), fy1.long()
+    x0i, x1i = fx0.long(), fx1.long()
+    tl = _gather_rows_cols(image, y0i, x0i)
+    tr = _gather_rows_cols(image, y0i, x1i)
+    bl = _gather_rows_cols(image, y1i, x0i)
+    br = _gather_rows_cols(image, y1i, x1i)
+    out = (tl * (1 - wy) * (1 - wx) + tr * (1 - wy) * wx
+           + bl * wy * (1 - wx) + br * wy * wx)
+    if label is None:
+        return out, None
+    yi = torch.clamp(torch.round(ys), 0, h - 1).long()
+    xi = torch.clamp(torch.round(xs), 0, w - 1).long()
+    return out, _gather_rows_cols(label, yi, xi)
+
+
+def random_noise(image: torch.Tensor, scale: float,
+                 uniform: torch.Tensor) -> torch.Tensor:
+    """image + uniform·|scale| with ``uniform`` drawn in [-1, 1) of the
+    image's shape (reference image_ops.py:209-238)."""
+    return image + uniform * abs(scale)
+
+
+def random_flip(image: torch.Tensor, label: torch.Tensor, coins: torch.Tensor,
+                flip: int = 1):
+    """Per-sample flips of image [bs, h, w, c] and label [bs, h, w]: bit 1
+    flips the width axis where coins[:, 0] >= 0.5, bit 2 the height axis
+    where coins[:, 1] >= 0.5 (reference image_ops.py:241-315)."""
+    for bit, col, img_axis in ((1, 0, 2), (2, 1, 1)):
+        if flip & bit:
+            c = coins[:, col] >= 0.5
+            image = torch.where(c[:, None, None, None],
+                                image.flip(img_axis), image)
+            label = torch.where(c[:, None, None], label.flip(img_axis),
+                                label)
+    return image, label
+
+
+def draw_augment(generator: torch.Generator, shape: Sequence[int],
+                 noise: bool, device) -> dict:
+    """The draws of one batch's augmentation from ``generator`` (on
+    ``device``): ``noise`` uniform in [-1, 1) of the image shape
+    [bs, h, w, c] (when noise is on) and ``flip`` coins [bs, 3] in [0, 1)."""
+    out = {"flip": torch.rand((shape[0], 3), generator=generator,
+                              device=device)}
+    if noise:
+        out["noise"] = torch.rand(tuple(shape), generator=generator,
+                                  device=device) * 2.0 - 1.0
+    return out

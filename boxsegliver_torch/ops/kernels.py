@@ -16,6 +16,12 @@ Kernels:
   3.35 TB/s) and evaluates 2 * 256^2 * K exponentials: the launch latency,
   not bandwidth or arithmetic, bounds it.  No single PyTorch call computes
   this function, so there is no library yardstick.
+- B2 fused instance-norm + ReLU, csrc/in_relu.cu: ``in_relu_fwd`` (the
+  forward of pallas_kernels.fused_instance_norm_relu), ``in_relu_bwd_stats``
+  (B2a, replaces _bwd_stats_kernel) and ``in_relu_bwd_apply`` (B2b, replaces
+  _bwd_apply_kernel), tied together by ``InstanceNormReLU``.  Bandwidth
+  bounds them (source note).  The nearest PyTorch yardstick is two calls,
+  ``F.relu(F.instance_norm(...))``.
 """
 
 from __future__ import annotations
@@ -128,8 +134,209 @@ def gaussian_guide_batch(centers: torch.Tensor, stddevs: torch.Tensor,
 
 gaussian_guide_batch.launches = 0
 
+
+# ---------------------------------------------------------------------------
+# B2: fused instance-norm + ReLU (NCHW; statistics over H, W per (n, c))
+# ---------------------------------------------------------------------------
+
+IN_EPS = 1e-6                  # tf.contrib instance_norm default
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def in_relu_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float = IN_EPS):
+    """Plain PyTorch version of B2-fwd, operation for operation: f32
+    statistics (variance E[x²] − E[x]² clipped at 0, flax's), rstd =
+    rsqrt(var + eps), x̂ = (x − mean)·rstd, y = relu(x̂·γ + β).  Returns y
+    and x̂ in x's dtype and rstd [N, C] f32."""
+    xf = x.float()
+    inv_hw = 1.0 / (x.shape[2] * x.shape[3])
+    mean = xf.sum(dim=(2, 3), keepdim=True) * inv_hw
+    var = torch.clamp_min((xf * xf).sum(dim=(2, 3), keepdim=True) * inv_hw
+                          - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (xf - mean) * rstd
+    z = xhat * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
+    return (torch.clamp_min(z, 0.0).to(x.dtype), xhat.to(x.dtype),
+            rstd[:, :, 0, 0])
+
+
+def _relu_grad(g, xhat, weight, bias):
+    xh = xhat.float()
+    z = xh * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
+    return torch.where(z > 0.0, g.float(), 0.0), xh
+
+
+def in_relu_bwd_stats_plain(g, xhat, weight, bias):
+    """Plain version of B2a: gz = g·[x̂·γ + β > 0]; s1 = Σ_hw gz,
+    s2 = Σ_hw gz·x̂, each [N, C] f32."""
+    gz, xh = _relu_grad(g, xhat, weight, bias)
+    return gz.sum(dim=(2, 3)), (gz * xh).sum(dim=(2, 3))
+
+
+def in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2):
+    """Plain version of B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW), in g's
+    dtype."""
+    gz, xh = _relu_grad(g, xhat, weight, bias)
+    inv_hw = 1.0 / (g.shape[2] * g.shape[3])
+    m1 = (s1 * inv_hw)[..., None, None]
+    m2 = (s2 * inv_hw)[..., None, None]
+    coef = (weight.float().view(1, -1) * rstd)[..., None, None]
+    return (coef * ((gz - m1) - xh * m2)).to(g.dtype)
+
+
+def in_relu_bwd_plain(g, xhat, rstd, weight, bias):
+    """The whole backward in plain PyTorch: gz, s1, s2, dx, then
+    dγ = Σ_n s2 and dβ = Σ_n s1 (pallas_kernels.py:134-135)."""
+    s1, s2 = in_relu_bwd_stats_plain(g, xhat, weight, bias)
+    dx = in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2)
+    return dx, s2.sum(dim=0), s1.sum(dim=0)
+
+
+def _check_in_relu(name, act, others, weight, bias):
+    if act.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {act.dtype} is not float32 or "
+                        "bfloat16")
+    if act.ndim != 4:
+        raise ValueError(f"{name}: expected NCHW, got {tuple(act.shape)}")
+    n, c, h, w = act.shape
+    if n * c >= 2 ** 31 or h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {tuple(act.shape)} exceeds the kernel's "
+                         "limits")
+    for t in others:
+        if t.shape != act.shape or t.dtype != act.dtype:
+            raise ValueError(f"{name}: operands {tuple(t.shape)} {t.dtype} "
+                             f"vs {tuple(act.shape)} {act.dtype}")
+    for t in (weight, bias):
+        if t.dtype != torch.float32 or tuple(t.shape) != (c,):
+            raise ValueError(f"{name}: gamma / beta must be [{c}] float32")
+    for t in (act,) + tuple(others) + (weight, bias):
+        if t.device != act.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{act.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _launch(fn_name, *args):
+    from boxsegliver_torch.csrc import build
+
+    fn = getattr(build.load("in_relu"), fn_name)
+    return fn(*[ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
+                else a for a in args])
+
+
+def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float = IN_EPS):
+    """Kernel B2-fwd: (y, x̂, rstd) of relu(instance_norm(x)·γ + β).
+
+    x: [N, C, H, W] float32 or bfloat16, contiguous; weight, bias: [C]
+    float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32."""
+    if x.device.type == "cpu":
+        return in_relu_fwd_plain(x, weight, bias, eps)
+    _check_in_relu("in_relu_fwd", x, (), weight, bias)
+    n, c, h, w = x.shape
+    y = torch.empty_like(x)
+    xhat = torch.empty_like(x)
+    rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launch("in_relu_fwd", x, weight, bias, y, xhat, rstd, n * c, c,
+                     h * w, float(eps), _DTYPES[x.dtype],
+                     ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"in_relu_fwd launch failed: CUDA error {rc}")
+    in_relu_fwd.launches += 1
+    return y, xhat, rstd
+
+
+def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,
+                      weight: torch.Tensor, bias: torch.Tensor):
+    """Kernel B2a: per-(n, c) s1 = Σ gz and s2 = Σ gz·x̂ ([N, C] float32)."""
+    if g.device.type == "cpu":
+        return in_relu_bwd_stats_plain(g, xhat, weight, bias)
+    _check_in_relu("in_relu_bwd_stats", g, (xhat,), weight, bias)
+    n, c, h, w = g.shape
+    s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    s2 = torch.empty_like(s1)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launch("in_relu_bwd_stats", g, xhat, weight, bias, s1, s2,
+                     n * c, c, h * w, _DTYPES[g.dtype],
+                     ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"in_relu_bwd_stats launch failed: CUDA error {rc}")
+    in_relu_bwd_stats.launches += 1
+    return s1, s2
+
+
+def in_relu_bwd_apply(g: torch.Tensor, xhat: torch.Tensor,
+                      weight: torch.Tensor, bias: torch.Tensor,
+                      rstd: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor):
+    """Kernel B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW) in g's dtype."""
+    if g.device.type == "cpu":
+        return in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2)
+    _check_in_relu("in_relu_bwd_apply", g, (xhat,), weight, bias)
+    n, c, h, w = g.shape
+    for name, t in (("rstd", rstd), ("s1", s1), ("s2", s2)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n, c)
+                or t.device != g.device or not t.is_contiguous()):
+            raise ValueError(f"in_relu_bwd_apply: {name} must be contiguous "
+                             f"[{n}, {c}] float32 on {g.device}")
+    dx = torch.empty_like(g)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _launch("in_relu_bwd_apply", g, xhat, weight, bias, rstd, s1, s2,
+                     dx, n * c, c, h * w, _DTYPES[g.dtype],
+                     ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"in_relu_bwd_apply launch failed: CUDA error {rc}")
+    in_relu_bwd_apply.launches += 1
+    return dx
+
+
+in_relu_fwd.launches = 0
+in_relu_bwd_stats.launches = 0
+in_relu_bwd_apply.launches = 0
+
+
+class InstanceNormReLU(torch.autograd.Function):
+    """relu(instance_norm(x)·γ + β) over NCHW with eps 1e-6: B2-fwd in
+    ``forward``; B2a, B2b, then dγ = Σ_n s2 and dβ = Σ_n s1 in ``backward``.
+    Saves x̂ in x's dtype and rstd in float32, and casts the incoming
+    gradient to x̂'s dtype, as the JAX custom VJP does
+    (pallas_kernels.py:138-160)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        weight32 = weight.float().contiguous()
+        bias32 = bias.float().contiguous()
+        y, xhat, rstd = in_relu_fwd(x.contiguous(), weight32, bias32)
+        ctx.save_for_backward(xhat, rstd, weight32, bias32)
+        ctx.param_dtypes = (weight.dtype, bias.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xhat, rstd, weight, bias = ctx.saved_tensors
+        g = g.to(xhat.dtype).contiguous()
+        s1, s2 = in_relu_bwd_stats(g, xhat, weight, bias)
+        dx = in_relu_bwd_apply(g, xhat, weight, bias, rstd, s1, s2)
+        wdt, bdt = ctx.param_dtypes
+        return dx, s2.sum(dim=0).to(wdt), s1.sum(dim=0).to(bdt)
+
+
+def instance_norm_relu(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor) -> torch.Tensor:
+    """relu(instance_norm(x)·γ + β) through kernel B2 (NCHW, eps 1e-6)."""
+    return InstanceNormReLU.apply(x, weight, bias)
+
+
 # name -> wrapper, for launch-count bookkeeping
-KERNELS = {"gaussian_guide_batch": gaussian_guide_batch}
+KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
+           "in_relu_fwd": in_relu_fwd,
+           "in_relu_bwd_stats": in_relu_bwd_stats,
+           "in_relu_bwd_apply": in_relu_bwd_apply}
 
 
 def reset_launch_counts():

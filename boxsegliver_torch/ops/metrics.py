@@ -1,11 +1,68 @@
-"""Host-side confusion accumulator for global Dice (own copy of
-``ConfusionMatrix`` from boxsegliver_tpu/ops/metrics.py; reference
-loss_metrics.py:506-580).  The in-graph train metrics come with the
-training slice."""
+"""Batch metrics (Dice / VOE / VD) of the train step and the online eval,
+and the host-side confusion accumulator for global Dice (own copy of
+boxsegliver_tpu/ops/metrics.py:16-116; reference loss_metrics.py:261-339,
+506-580)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+TRAIN_METRIC_CHOICES = ("Dice", "VOE", "VD")
+EVAL_METRIC_CHOICES = ("Dice", "VOE", "RVD", "ASSD", "RMSD", "MSD")
+
+
+def metric_dice(logits, labels, eps: float = 1e-5, reduce: bool = True):
+    """Soft dice over all non-batch axes (reference loss_metrics.py:261-301)."""
+    logits, labels = logits.float(), labels.float()
+    axes = tuple(range(1, logits.ndim))
+    intersection = (logits * labels).sum(dim=axes)
+    left = logits.sum(dim=axes)
+    right = labels.sum(dim=axes)
+    dice = (2.0 * intersection + eps) / (left + right + eps)
+    return dice.mean() if reduce else dice
+
+
+def metric_voe(logits, labels, eps: float = 1e-5, reduce: bool = True):
+    """Volumetric overlap error, percent (reference loss_metrics.py:304-320)."""
+    logits, labels = logits.float(), labels.float()
+    axes = tuple(range(1, logits.ndim))
+    numerator = (logits * labels).sum(dim=axes)
+    denominator = torch.clamp(logits + labels, 0.0, 1.0).sum(dim=axes)
+    voe = 100.0 * (1.0 - numerator / (denominator + eps))
+    return voe.mean() if reduce else voe
+
+
+def metric_vd(logits, labels, eps: float = 1e-5, reduce: bool = True):
+    """Relative volume difference, percent (reference loss_metrics.py:323-339)."""
+    logits, labels = logits.float(), labels.float()
+    axes = tuple(range(1, logits.ndim))
+    a = logits.sum(dim=axes)
+    b = labels.sum(dim=axes)
+    vd = 100.0 * ((a - b).abs() / (b + eps))
+    return vd.mean() if reduce else vd
+
+
+# 'rvd' aliases metric_vd: the eval-metric surface names it RVD
+# (loss_metrics.py:60) while the train-metric surface names it VD
+METRIC_FNS = {"dice": metric_dice, "voe": metric_voe, "vd": metric_vd,
+              "rvd": metric_vd}
+
+
+def build_train_metrics(probs, labels, classes, metric_names):
+    """Per-foreground-class train metrics dict keyed '<Class>/<Metric>'
+    (reference UNet.py:137-155).  ``classes`` includes 'Background' at index
+    0; probs [bs, ..., c] are thresholded at 0.5 like the reference's
+    <Class>Pred tensors."""
+    out = {}
+    for i in range(1, len(classes)):
+        pred_i = (probs[..., i] > 0.5).float()
+        lab_i = (labels == i).float()
+        for met in metric_names:
+            fn = METRIC_FNS[met.lower()]
+            out[f"{classes[i]}/{met}"] = fn(pred_i[..., None],
+                                            lab_i[..., None])
+    return out
 
 
 class ConfusionMatrix:

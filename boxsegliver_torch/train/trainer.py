@@ -1,0 +1,318 @@
+"""Training loop of the port on one GPU (port of
+boxsegliver_tpu/train/trainer.py:76-176,215-521; reference
+core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
+
+- One train step: upload the raw host batch → device augmentation
+  (data/pipeline.make_preprocess_fn, guide render = kernel B1) → forward in
+  the compute dtype (every full-affine instance-norm + ReLU pair = kernel
+  B2) → loss (ops/losses.py) → backward → L2 term → optimizer update at
+  lr(step) (train/solver.py).
+- The L2 term 0.5·wd·Σw² is added to the loss value, and its gradient wd·w
+  to the decayed tensors' gradients, without going through autograd.
+- Metric tensors stay on the device; every ``fetch_every`` steps (and at an
+  epoch boundary or the end) one bulk copy brings the window to the host,
+  whose hooks (loss mean, plateau LR, NaN/Inf abort, speed log, summaries)
+  replay it in order, as the JAX package's drain does.
+- Train metrics (<Class>/<Metric>) are computed on the logging cadence only
+  (--metrics_train_steps, 0 = --log_step), zeros otherwise.
+- The plateau controller's lr_scale is read on the host between steps.
+- Randomness (augmentation draws, dropout masks) comes from one
+  torch.Generator on the device, seeded from --seed and saved in the
+  checkpoints.
+
+Not ported yet (they raise): --num_replicas > 1 (DDP with sync batch norm)
+and --steps_per_dispatch > 1 (a CUDA graph of K steps).
+"""
+
+from __future__ import annotations
+
+import logging
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from boxsegliver_torch.data.pipeline import batch_to_device
+from boxsegliver_torch.ops import losses as losses_mod
+from boxsegliver_torch.ops import metrics as metrics_mod
+from boxsegliver_torch.train.checkpoint import (CheckpointManager, load_state,
+                                                warm_start)
+from boxsegliver_torch.train.hooks import (AverageMeter, BestKeeper,
+                                           BestKeeperMA, ReduceLROnPlateau,
+                                           SpeedLogger)
+from boxsegliver_torch.train.solver import Optimizer, make_lr_fn
+from boxsegliver_torch.utils.summary import SummaryWriter
+
+logger = logging.getLogger("boxsegliver")
+
+
+def make_loss_fn(args):
+    """Data loss of --loss_type / --loss_weight_type (reference _build_loss,
+    NetworksV2/GUNet.py:394-413)."""
+    w_params = {}
+    if args.loss_weight_type == "numerical":
+        w_params["numeric_w"] = args.loss_numeric_w
+    return losses_mod.make_loss_fn(args.loss_type, args.loss_weight_type,
+                                   **w_params)
+
+
+class Trainer:
+    """Owns the model, optimizer, generator, checkpoints and host hooks
+    (the reference CustomEstimator.train loop)."""
+
+    def __init__(self, model: torch.nn.Module, args, classes: Sequence[str],
+                 device, preprocess_fn=None, save_ckpt_steps: int = 5000):
+        if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
+            raise NotImplementedError(
+                "--num_replicas > 1 is not ported yet (ROADMAP queue A, DDP "
+                "with sync batch norm)")
+        if int(getattr(args, "steps_per_dispatch", 1)) > 1:
+            raise NotImplementedError(
+                "--steps_per_dispatch > 1 is not ported yet (ROADMAP queue "
+                "A, --steps_per_dispatch as a CUDA graph)")
+        self.args = args
+        self.classes = list(classes)
+        self.device = torch.device(device)
+        self.model = model.to(self.device)
+        self.preprocess_fn = preprocess_fn
+        seed = int(getattr(args, "seed", 1234))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        named = list(self.model.named_parameters())
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.optimizer = Optimizer(args, self.params)
+        self.lr_fn = make_lr_fn(args)
+        self.lr_scale = 1.0
+        self.data_loss_fn = make_loss_fn(args)
+        self.weight_decay = float(args.weight_decay_rate)
+        self.use_reg = (args.optimizer.lower() != "adamw"
+                        and self.weight_decay > 0)
+        decayed = set(losses_mod.decayed_parameters(
+            self.model, bool(getattr(args, "bias_decay", False))))
+        self.decayed_idx = [i for i, n in enumerate(self.param_names)
+                            if n in decayed]
+
+        self.metric_names = list(getattr(args, "metrics_train", ["Dice"]))
+        every = int(getattr(args, "metrics_train_steps", 0) or 0)
+        self.metrics_every = (every if every > 0
+                              else max(1, int(getattr(args, "log_step", 1))))
+        self.metric_keys = [f"{self.classes[i]}/{m}"
+                            for i in range(1, len(self.classes))
+                            for m in self.metric_names]
+        self._zeros = torch.zeros(len(self.metric_keys), device=self.device)
+        self._host_step = 0
+
+        self.ckpt = CheckpointManager(args.model_dir,
+                                      save_interval_steps=save_ckpt_steps)
+        self.loss_meter = AverageMeter()
+        self.speed = SpeedLogger(log_step=args.log_step)
+        self.summary = SummaryWriter(
+            Path(args.model_dir) / "summaries",
+            prefix=getattr(args, "summary_prefix", "") or "")
+        self.plateau: Optional[ReduceLROnPlateau] = None
+        if args.learning_policy == "plateau":
+            self.plateau = ReduceLROnPlateau(
+                args.model_dir,
+                lr_patience=args.lr_patience,
+                tr_patience=getattr(args, "tr_patience", 0) or args.lr_patience * 2,
+                min_delta=args.min_delta,
+                decay_rate=args.lr_decay_rate,
+                min_lr_scale=args.lr_end / args.learning_rate)
+            self.lr_scale = float(self.plateau.lr_scale)
+        self.best_keeper: Optional[BestKeeper] = None
+        if getattr(args, "save_best", False) and getattr(args, "primary_metric", None):
+            if getattr(args, "save_best_ma", False):
+                self.best_keeper = BestKeeperMA(
+                    args.model_dir, args.primary_metric,
+                    getattr(args, "secondary_metric", None),
+                    save_interval=getattr(args, "save_interval", 0),
+                    ma_alpha=getattr(args, "ma_alpha", 0.9))
+            else:
+                self.best_keeper = BestKeeper(
+                    args.model_dir, args.primary_metric,
+                    getattr(args, "secondary_metric", None),
+                    save_interval=getattr(args, "save_interval", 0))
+
+    # -- state -------------------------------------------------------------
+    def state(self) -> Dict:
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self._host_step, "lr_scale": self.lr_scale,
+                "generator": self.generator.get_state()}
+
+    def restore(self) -> int:
+        """Resume from the latest periodic checkpoint if present; else warm
+        start from --warm_start_from / --load_weights (reference
+        core/estimator.py:249-253, core/models.py:160-185)."""
+        path = self.ckpt.latest_path()
+        if path is not None:
+            state = load_state(path)
+            self.model.load_state_dict(state["model"], strict=True)
+            self.optimizer.load_state_dict(state["optimizer"])
+            self.lr_scale = float(state["lr_scale"])
+            self.generator.set_state(state["generator"])
+            self._host_step = int(state["step"])
+            return self._host_step
+        src = (getattr(self.args, "warm_start_from", None)
+               or getattr(self.args, "load_weights", None))
+        if src:
+            if getattr(self.args, "weights_scope", None) or src.endswith(".h5"):
+                raise NotImplementedError(
+                    "--weights_scope and .h5 imports are not ported yet "
+                    "(ROADMAP queue A, UNet / batch-norm training)")
+            src = self._resolve_load_weights(src)
+            n = warm_start(self.model, src)
+            logger.info("Warm started %d tensors from %s", n, src)
+        self._host_step = 0
+        return 0
+
+    def _resolve_load_weights(self, spec: str) -> str:
+        """An explicit path, or a sibling experiment tag under model_dir's
+        parent: its best checkpoint, else its latest periodic one."""
+        p = Path(spec)
+        if p.exists():
+            return str(p)
+        sibling = CheckpointManager(Path(self.args.model_dir).parent / spec)
+        version = getattr(self.args, "load_weights_version", "checkpoint")
+        tag = "best" if version == "checkpoint" else version
+        if sibling.has_best(tag):
+            return str(sibling.best_path(tag))
+        if sibling.latest_path() is not None:
+            return str(sibling.latest_path())
+        raise FileNotFoundError(f"--load_weights {spec!r}: no checkpoint at "
+                                f"{p} or {sibling.model_dir}")
+
+    @property
+    def global_step(self) -> int:
+        return self._host_step
+
+    # -- train -------------------------------------------------------------
+    def gradients(self, features: Dict[str, torch.Tensor],
+                  labels: torch.Tensor):
+        """Forward in train mode, loss and backward: (gradients in
+        ``self.params`` order, total loss, data loss, logits), the L2 term's
+        value and gradient included."""
+        logits = self.model(features, train=True, generator=self.generator)
+        data_loss = self.data_loss_fn(logits, labels)
+        grads = list(torch.autograd.grad(data_loss, self.params,
+                                         allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g
+                 for g, p in zip(grads, self.params)]
+        total = data_loss.detach()
+        if self.use_reg and self.decayed_idx:
+            dec = [self.params[i] for i in self.decayed_idx]
+            with torch.no_grad():
+                total = total + losses_mod.l2_regularization(
+                    dec, self.weight_decay)
+                torch._foreach_add_([grads[i] for i in self.decayed_idx], dec,
+                                    alpha=self.weight_decay)
+        return grads, total, data_loss.detach(), logits.detach()
+
+    def train_step(self, raw_batch: Dict[str, np.ndarray]):
+        """One step on a raw host batch; returns ([total, data, *metrics]
+        as one device tensor, lr)."""
+        batch = batch_to_device(raw_batch, self.device)
+        features, labels = self.preprocess_fn(batch, self.generator)
+        grads, total, data_loss, logits = self.gradients(features, labels)
+        lr = self.lr_fn(self._host_step, self.lr_scale)
+        self.optimizer.step(grads, lr)
+        self._host_step += 1
+        step = self._host_step
+        if self.metric_keys and (step % self.metrics_every == 0 or step == 1):
+            with torch.no_grad():
+                probs = torch.softmax(logits, dim=-1)
+                tm = metrics_mod.build_train_metrics(
+                    probs, labels, self.classes, self.metric_names)
+                mvals = torch.stack([tm[k].float() for k in self.metric_keys])
+        else:
+            mvals = self._zeros
+        vals = torch.cat([torch.stack([total, data_loss]), mvals])
+        return vals, lr
+
+    def train(self, dataset, max_steps: int, eval_fn=None,
+              batches_per_epoch: Optional[int] = None):
+        """Main loop; eval_fn(trainer) -> metrics dict runs every
+        batches_per_epoch steps (the reference's EvaluatorHook)."""
+        start = self.global_step
+        if start >= max_steps:
+            logger.info("Skipping training since max_steps has already saved.")
+            return
+        bpe = batches_per_epoch or self.args.batches_per_epoch
+        fetch_every = max(1, min(int(self.args.log_step),
+                                 int(getattr(self.args, "metrics_fetch_steps",
+                                             0) or 16)))
+        step = start
+        pending: List = []  # [(step, device values, lr)] awaiting one fetch
+        for batch in iter(dataset):
+            vals, lr = self.train_step(batch)
+            pending.append((self.global_step, vals, lr))
+            prev, step = step, self.global_step
+            at_epoch = eval_fn is not None and step // bpe > prev // bpe
+            done = step >= max_steps
+            if len(pending) >= fetch_every or at_epoch or done:
+                self._drain(pending)
+                pending = []
+                if at_epoch:
+                    self._run_eval(eval_fn, step)
+            if done or (self.plateau and self.plateau.should_stop()):
+                break
+        self._drain(pending)
+        self.ckpt.save(self.global_step, self.state())
+
+    def _drain(self, pending):
+        """One bulk device-to-host copy of the window's values, then the host
+        hooks per step in order, and a periodic checkpoint if the window
+        crossed a save boundary."""
+        if not pending:
+            return
+        host = torch.stack([v for _, v, _ in pending]).cpu().numpy()
+        for (step, _, lr), row in zip(pending, host):
+            metrics = {"total_loss": row[0], "data_loss": row[1],
+                       "learning_rate": lr}
+            metrics.update(zip(self.metric_keys, row[2:]))
+            self._after_step(step, metrics)
+        first, last = pending[0][0], pending[-1][0]
+        interval = self.ckpt.save_interval_steps
+        if last // interval > (first - 1) // interval:
+            self.ckpt.save(last, self.state())
+
+    def _after_step(self, step: int, metrics):
+        loss = float(metrics["total_loss"])
+        if not np.isfinite(loss):
+            raise FloatingPointError(
+                f"NaN/Inf loss at step {step}")  # reference NanTensorHook
+        self.loss_meter.update(loss)
+        lr = float(metrics["learning_rate"])
+        if self.plateau is not None:
+            new_scale = self.plateau.step(step, self.loss_meter.avg, lr)
+            if new_scale is not None:
+                self.lr_scale = float(new_scale)
+                logger.info("*** Decay learning rate, scale = %.3g", new_scale)
+        log_vals = {"loss": loss, "loss_mean": self.loss_meter.avg,
+                    "learning_rate": lr}
+        for k, v in metrics.items():
+            if "/" in k:
+                log_vals[k] = float(v)
+        self.speed.maybe_log(step, log_vals)
+        if step % self.args.log_step == 0 or step == 1:
+            self.summary.scalars(log_vals, step)
+        if step % self.args.log_step == 0:
+            self.loss_meter.reset()  # periodic reset (estimator.py:657-675)
+
+    def _run_eval(self, eval_fn, step: int):
+        results = eval_fn(self)
+        if results:
+            self.summary.scalars({f"eval/{k}": v for k, v in results.items()},
+                                 step)
+        if results and self.best_keeper is not None:
+            self.best_keeper.update(
+                step, results,
+                save_cb=lambda tag: self.ckpt.save_best(self.state(), tag))
+
+    # -- predict -----------------------------------------------------------
+    @torch.no_grad()
+    def predict(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Softmax probabilities of one device feature batch (eval mode)."""
+        return torch.softmax(self.model(features, train=False), dim=-1)

@@ -31,11 +31,33 @@ result line):
    A card-vs-CPU check holds the whole sweep on the card against the CPU
    path (64^2, float32, a small GUNet fitted for 200 Adam steps so that
    tumor components are really labeled and propagated).
+   Every full-affine instance-norm + ReLU pair of that forward runs kernel
+   B2-fwd; its launches in this phase are printed, not claimed.
 6. profile — one case's sweep in steady state: wall per step, the
    full-width forward alone, and torch.profiler's kernel time by group and
    by name (device busy share).
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line
+7. kernel B2 — the three kernels of csrc/in_relu.cu (in_relu_fwd,
+   in_relu_bwd_stats, in_relu_bwd_apply) and the autograd Function that
+   ties them against their plain PyTorch versions at the four flagship
+   shapes in bf16 and at float32 edge cases (H·W not a multiple of the
+   vector width, C = 1, bs = 1), with the tolerances stated in
+   ``b2_check``; per-train-step kernel / plain / library ("two calls",
+   F.relu(F.instance_norm(...)), forward and backward) times from CUDA
+   events and the card's bound for the same work.
+8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
+   full width, batch 8, 256^2, bf16 through
+   ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
+   online 2D eval every 12, a best checkpoint; then a resume run on the
+   streaming (device-resize) sampler to step 30.  The launch counters are
+   zeroed right before each run: B1 must launch at least once per step and
+   each B2 kernel at least ten times per step.  The loss must be finite and
+   fall; checkpoints and sidecars must exist.  Then one train step of a
+   small GUNet at 64^2 in float32 without TF32 on the card against the same
+   step on the CPU (loss and updated parameters within 1e-4).
+9. train profile — the flagship train step in steady state: ms/step,
+   slices/s, device busy share and kernel time by group.
+Then one JSON line with every kernel's numbers (launches: the train run of
+phase 8), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -54,12 +76,22 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 non-tensor
-# arithmetic, used for the bound of kernel B1
+# arithmetic, used for the bounds of kernels B1 and B2
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # float operations per (pixel, valid object) of B1: 2 sub, 2 squares,
 # 2 scale mul, 1 add, 1 negate, 1 exp, 1 max
 B1_OPS_PER_TERM = 10
+# float operations per element of B2: fwd = 3 (sum, square, sum) + 2
+# (x − mean, · rstd) + 2 (·γ, + β) + 1 (max); B2a = 2 (affine) + 1 (select)
+# + 3 (two sums, one product); B2b = 2 + 1 + 4 (two subtractions, two
+# products)
+B2_OPS = {"in_relu_fwd": 8, "in_relu_bwd_stats": 6, "in_relu_bwd_apply": 7}
+# the instance-norm + ReLU pairs of one flagship train step (batch 8, 256^2,
+# init_channels 64): Encode1_conv{1,2} and up_conv1_{1,2} at 64 channels,
+# up_conv{2,3,4}_{1,2} below
+B2_STEP_SHAPES = {(8, 64, 256, 256): 4, (8, 128, 128, 128): 2,
+                  (8, 256, 64, 64): 2, (8, 512, 32, 32): 2}
 
 
 def smi() -> str:
@@ -331,7 +363,8 @@ def slice_phase(tmp, ds, dev, seed):
                              f"{want}), Tumor/Dice {results['Tumor/Dice']}")
     n_cases = len(test_metas)
     print(f"  slice: {n_cases} cases, {sum(depths)} slices, {steps} sweep "
-          f"steps (x 8 images of 256^2), B1 launches {launches}")
+          f"steps (x 8 images of 256^2), launches {launches} (B2-fwd runs "
+          f"in every GUNet forward of the sweep)")
     print(f"  slice: {seconds / n_cases:.3f} s/case, "
           f"{sum(depths) / seconds:.2f} slices/s, "
           f"{steps / seconds:.2f} sweep steps/s on {smi()}")
@@ -420,11 +453,51 @@ def sweep_card_vs_cpu(ds, dev, seed):
             raise AssertionError("the fitted model propagated no tumor")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: profile of the guided sweep
+# ---------------------------------------------------------------------------
+
+def kernel_groups(prof):
+    """Device time by kernel group from a torch.profiler run (phases 6 and
+    9)."""
+    from torch.autograd import DeviceType
+
+    def self_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and self_us(e) > 0]
+    kern.sort(key=self_us, reverse=True)
+    groups = {"convolutions (cuDNN / CUTLASS)": 0.0,
+              "B2 in_relu (fwd, bwd_stats, bwd_apply)": 0.0,
+              "B1 guide_render": 0.0,
+              "optimizer (multi-tensor foreach)": 0.0,
+              "memcpy / memset": 0.0,
+              "other elementwise, reductions, copies, gathers": 0.0}
+    for e in kern:
+        name = e.key.lower()
+        if "in_relu" in name:
+            key = "B2 in_relu (fwd, bwd_stats, bwd_apply)"
+        elif "guide_render" in name:
+            key = "B1 guide_render"
+        elif any(t in name for t in ("xmma", "cutlass", "convolve", "gemm",
+                                     "conv2d", "dgrad", "wgrad", "cudnn")):
+            key = "convolutions (cuDNN / CUTLASS)"
+        elif "multi_tensor" in name or "foreach" in name:
+            key = "optimizer (multi-tensor foreach)"
+        elif name.startswith("memcpy") or name.startswith("memset"):
+            key = "memcpy / memset"
+        else:
+            key = "other elementwise, reductions, copies, gathers"
+        groups[key] += self_us(e)
+    return kern, groups, self_us
+
+
 def profile_sweep(tmp, ds):
     """Steady-state time of one case's double sweep, the full-width forward
     alone, and the card's kernel time by group and by name from
     torch.profiler."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from boxsegliver_torch.cli import main as cli
@@ -467,31 +540,10 @@ def profile_sweep(tmp, ds):
         one_case()
         prof_wall = time.perf_counter() - t0
 
-    def self_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and self_us(e) > 0]
-    kern.sort(key=self_us, reverse=True)
-    busy_ms = sum(self_us(e) for e in kern) / 1e3
+    kern, groups, self_us = kernel_groups(prof)
+    busy_ms = sum(groups.values()) / 1e3
     share = max(busy_ms, 1e-9)
-    groups = {"convolutions (cuDNN / CUTLASS)": 0.0,
-              "B1 guide_render": 0.0, "memcpy / memset": 0.0,
-              "PyTorch elementwise, reductions, copies, sort, scatter": 0.0}
-    b1 = None
-    for e in kern:
-        name = e.key.lower()
-        if "guide_render" in name:
-            groups["B1 guide_render"] += self_us(e)
-            b1 = e
-        elif any(t in name for t in ("xmma", "cutlass", "convolve", "gemm")):
-            groups["convolutions (cuDNN / CUTLASS)"] += self_us(e)
-        elif name.startswith("memcpy") or name.startswith("memset"):
-            groups["memcpy / memset"] += self_us(e)
-        else:
-            groups["PyTorch elementwise, reductions, copies, sort, scatter"] \
-                += self_us(e)
+    b1 = next((e for e in kern if "guide_render" in e.key), None)
     wall = min(walls)
     lines = [
         f"card: {smi()}",
@@ -508,7 +560,7 @@ def profile_sweep(tmp, ds):
         "B1 device time: " + (
             f"{self_us(b1) / b1.count:.2f} us per launch ({b1.count} "
             f"launches)" if b1 is not None else "no guide_render events"),
-        ""] + [f"{k:58s} {v / 1e3:9.3f} ms {v / 1e3 / share:7.1%}"
+        ""] + [f"{k:50s} {v / 1e3:9.3f} ms {v / 1e3 / share:7.1%}"
                for k, v in groups.items()] + [
         "",
         f"{'kernel':90s} {'calls':>7s} {'total ms':>10s} {'share':>7s}"]
@@ -519,12 +571,423 @@ def profile_sweep(tmp, ds):
     print("\n".join("  " + ln for ln in lines))
 
 
+# ---------------------------------------------------------------------------
+# phase 7: kernel B2 against its plain version
+# ---------------------------------------------------------------------------
+
+def b2_inputs(shape, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = torch.randn(c, generator=gen, device=dev) * 0.3 + 1.0
+    b = torch.randn(c, generator=gen, device=dev) * 0.3
+    return x, g, w, b
+
+
+def b2_check(shape, dtype, dev, seed):
+    """The three kernels and InstanceNormReLU's backward against their plain
+    versions on the same inputs; returns the worst abs error per kernel.
+
+    Tolerances: x̂ and y (fwd) and dx (B2b) are rounded once to the output
+    dtype: float32 within 1e-5 (the per-plane sums in another order, rsqrt
+    within 2 ulp), bf16 within one bf16 rounding step, 2^-7 of the value,
+    plus 1e-5.  rstd within 1e-5 relative.  s1, s2 (B2a) and dγ, dβ are
+    float32 sums over H·W (and N): 1e-4 relative plus 1e-6·√count."""
+    from boxsegliver_torch.ops import kernels
+
+    x, g, w, b = b2_inputs(shape, dtype, dev, seed)
+    hw = shape[2] * shape[3]
+
+    def close(name, got, ref, rel, abs_):
+        err = (got.float() - ref.float()).abs()
+        bad = err > abs_ + rel * ref.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"B2 {name} {tuple(shape)} {dtype}: "
+                                 f"{int(bad.sum())} elements off, max abs "
+                                 f"err {float(err.max()):.3e}")
+        return float(err.max())
+
+    out_tol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    sum_tol = lambda n: (1e-4, 1e-6 * math.sqrt(n))          # noqa: E731
+    y, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
+    s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
+    s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
+    dx = kernels.in_relu_bwd_apply(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    dx_p = kernels.in_relu_bwd_apply_plain(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    torch.cuda.synchronize()
+    if not (y.dtype == xh.dtype == dx.dtype == dtype
+            and rstd.dtype == s1.dtype == torch.float32):
+        raise AssertionError("B2 output dtypes")
+    errs = {
+        "in_relu_fwd": max(close("y", y, y_p, *out_tol),
+                           close("x_hat", xh, xh_p, *out_tol),
+                           close("rstd", rstd, rstd_p, 1e-5, 0.0)),
+        "in_relu_bwd_stats": max(close("s1", s1, s1_p, *sum_tol(hw)),
+                                 close("s2", s2, s2_p, *sum_tol(hw))),
+        "in_relu_bwd_apply": close("dx", dx, dx_p, *out_tol),
+    }
+    # the autograd Function: B2-fwd, then B2a, B2b, dγ = Σ_n s2, dβ = Σ_n s1
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    br = b.clone().requires_grad_(True)
+    dxa, dw, db = torch.autograd.grad(kernels.instance_norm_relu(xr, wr, br),
+                                      (xr, wr, br), g)
+    dx_r, dw_r, db_r = kernels.in_relu_bwd_plain(g, xh, rstd, w, b)
+    n = shape[0] * hw
+    errs["in_relu_bwd_apply"] = max(errs["in_relu_bwd_apply"],
+                                    close("autograd dx", dxa, dx_r, *out_tol))
+    errs["in_relu_bwd_stats"] = max(errs["in_relu_bwd_stats"],
+                                    close("dgamma", dw, dw_r, *sum_tol(n)),
+                                    close("dbeta", db, db_r, *sum_tol(n)))
+    return errs
+
+
+def b2_times(shape, dev):
+    """Per-call ms at one bf16 shape: kernel, plain, library ("two calls")
+    for the forward and for the backward (the library's backward is the
+    whole backward of F.relu(F.instance_norm(...)), B2a + B2b + dγ, dβ)."""
+    import torch.nn.functional as F
+
+    from boxsegliver_torch.ops import kernels
+
+    x, g, w, b = b2_inputs(shape, torch.bfloat16, dev, seed=1)
+    _, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    s1, s2 = kernels.in_relu_bwd_stats(g, xh, w, b)
+    xr = x.clone().requires_grad_(True)
+    wr = w.clone().requires_grad_(True)
+    br = b.clone().requires_grad_(True)
+    lib_y = F.relu(F.instance_norm(xr, weight=wr, bias=br, eps=1e-6))
+    iters = 20 if shape[2] >= 128 else 50
+    t = {}
+    # kernel, plain, library, then the same again: the best of two turns
+    for turn in range(2):
+        for name, fn in (
+                ("in_relu_fwd", lambda: kernels.in_relu_fwd(x, w, b)),
+                ("in_relu_bwd_stats",
+                 lambda: kernels.in_relu_bwd_stats(g, xh, w, b)),
+                ("in_relu_bwd_apply",
+                 lambda: kernels.in_relu_bwd_apply(g, xh, w, b, rstd, s1,
+                                                   s2)),
+                ("plain in_relu_fwd", lambda: kernels.in_relu_fwd_plain(
+                    x, w, b)),
+                ("plain in_relu_bwd_stats",
+                 lambda: kernels.in_relu_bwd_stats_plain(g, xh, w, b)),
+                ("plain in_relu_bwd_apply",
+                 lambda: kernels.in_relu_bwd_apply_plain(g, xh, w, b, rstd,
+                                                         s1, s2)),
+                ("library fwd", lambda: F.relu(F.instance_norm(
+                    x, weight=w, bias=b, eps=1e-6))),
+                ("library bwd", lambda: torch.autograd.grad(
+                    lib_y, (xr, wr, br), g, retain_graph=True))):
+            ms = cuda_ms(fn, iters=iters, warmup=3)
+            t[name] = min(ms, t.get(name, ms))
+    return t
+
+
+def b2_bound_ms(name, shape):
+    """(bound ms, bound_by) of one call: each input read once, each output
+    written once, and B2_OPS float operations per element at the float32
+    non-tensor peak."""
+    n, c, h, w = shape
+    elems = n * c * h * w
+    planes, params = n * c * 4, c * 4 * 2            # f32 per-plane, γ and β
+    io = {"in_relu_fwd": 3 * elems * 2 + planes,     # x in; y, x̂ out; rstd
+          "in_relu_bwd_stats": 2 * elems * 2 + 2 * planes,
+          "in_relu_bwd_apply": 3 * elems * 2 + 3 * planes}[name] + params
+    t_bytes = io / HBM_BYTES_PER_S * 1e3
+    t_ops = B2_OPS[name] * elems / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def b2_phase(dev):
+    names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+    worst = dict.fromkeys(names, 0.0)
+    cases = [(s, torch.bfloat16) for s in B2_STEP_SHAPES] + [
+        ((2, 8, 7, 9), torch.float32), ((1, 1, 33, 31), torch.float32),
+        ((1, 3, 64, 64), torch.float32), ((3, 1, 5, 3), torch.float32),
+        ((1, 2, 13, 11), torch.bfloat16), ((2, 64, 32, 32), torch.float32)]
+    for i, (shape, dtype) in enumerate(cases):
+        errs = b2_check(shape, dtype, dev, seed=i)
+        print(f"  B2 {str(shape):20s} {str(dtype)[6:]:8s} max abs err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    step = {k: 0.0 for k in ("kernel", "plain", "library", "bound")}
+    recs = {n: {"name": n, "route": "cuda",
+                "source": "boxsegliver_torch/csrc/in_relu.cu",
+                "max_abs_err": worst[n], "ms": 0.0, "plain_ms": 0.0,
+                "bound_ms": 0.0, "library_ms": 0.0} for n in names}
+    recs["in_relu_fwd"]["replaces"] = \
+        "boxsegliver_tpu/ops/pallas_kernels.py:47 (_in_relu_fwd_impl, XLA)"
+    recs["in_relu_bwd_stats"]["replaces"] = \
+        "boxsegliver_tpu/ops/pallas_kernels.py:114"
+    recs["in_relu_bwd_apply"]["replaces"] = \
+        "boxsegliver_tpu/ops/pallas_kernels.py:124"
+    print(f"  {'shape (bf16)':22s} {'kernel':>24s} {'ms':>8s} {'plain':>8s} "
+          f"{'library':>8s} {'bound':>8s}")
+    for shape, count in B2_STEP_SHAPES.items():
+        t = b2_times(shape, dev)
+        for n in names:
+            bound, by = b2_bound_ms(n, shape)
+            lib = t["library fwd" if n == "in_relu_fwd" else "library bwd"]
+            r = recs[n]
+            r["ms"] += count * t[n]
+            r["plain_ms"] += count * t["plain " + n]
+            r["library_ms"] += count * lib
+            r["bound_ms"] += count * bound
+            r["bound_by"] = by
+            print(f"  {str(shape):22s} {n:>24s} {t[n]:8.4f} "
+                  f"{t['plain ' + n]:8.4f} {lib:8.4f} {bound:8.4f}")
+    for r in recs.values():
+        print(f"  B2 {r['name']} per train step (10 calls): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms (two calls; the backward row is the "
+              f"whole backward), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the flagship G-Net training through the CLI
+# ---------------------------------------------------------------------------
+
+# run_scripts/template/002_gnet_sp.sh train flags (the dataset, the fold and
+# the step counts are the smoke's own, appended in train_phase)
+TRAIN_FLAGS = [
+    "liver", "--mode", "train", "--tag", "chip_smoke_train", "--model",
+    "GUNet", "--classes", "Liver", "Tumor", "--test_fold", "2",
+    "--im_height", "256", "--im_width", "256", "--im_channel", "3",
+    "--random_flip", "3", "--num_replicas", "0", "--dataset", "LiTS",
+    "--normalizer", "instance_norm", "--use_context", "--context_list",
+    "hist", "200", "--hist_noise", "--use_spatial", "--spatial_random",
+    "1.0", "--spatial_inner_random", "--center_random_ratio", "0.2",
+    "--stddev_random_ratio", "0.4", "--min_std", "2", "--noise_scale",
+    "0.05", "--num_of_total_steps", "600000", "--primary_metric",
+    "Tumor/Dice", "--secondary_metric", "Liver/Dice", "--loss_weight_type",
+    "numerical", "--loss_numeric_w", "0.2", "0.4", "4.4",
+    "--batches_per_epoch", "2000", "--batch_size", "8",
+    "--weight_decay_rate", "0.000001", "--learning_policy", "plateau",
+    "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
+    "0.2", "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
+B2_KERNELS = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+
+
+def smoke_train_argv(tmp, steps, *extra):
+    return TRAIN_FLAGS + [
+        "--data_root", str(tmp), "--dataset", "ds", "--k_folds", "2",
+        "--test_fold", "0", "--model_dir", str(Path(tmp) / "train_md"),
+        "--num_of_steps", str(steps), "--batches_per_epoch", "12",
+        "--eval_num_batches_per_epoch", "4", "--log_step", "4"] + list(extra)
+
+
+def train_run(argv, steps_expected):
+    """One CLI train run with the launch counters zeroed right before it;
+    returns (trainer, launches, seconds)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    if launches["gaussian_guide_batch"] < steps_expected:
+        raise AssertionError(f"B1 launched {launches['gaussian_guide_batch']}"
+                             f" times in {steps_expected} train steps")
+    for n in B2_KERNELS:
+        if launches[n] < 10 * steps_expected:
+            raise AssertionError(f"{n} launched {launches[n]} times in "
+                                 f"{steps_expected} train steps (10 pairs "
+                                 "per step)")
+    return trainer, launches, seconds
+
+
+def train_phase(tmp):
+    md = Path(tmp) / "train_md"
+    trainer, launches, seconds = train_run(
+        smoke_train_argv(tmp, 24, "--device_cache"), 24)
+    if trainer.global_step != 24:
+        raise AssertionError(f"train stopped at step {trainer.global_step}")
+    for rel in ("ckpt/24/state.pt", "ckpt_best/best/state.pt", "best_result",
+                "summaries/metrics.jsonl"):
+        if not (md / rel).exists():
+            raise AssertionError(f"train: {rel} was not written")
+    lines = [json.loads(ln) for ln in
+             (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
+    loss = {ln["step"]: ln["value"] for ln in lines
+            if ln["tag"] == "chip_smoke_train/loss"}
+    evals = sorted({ln["step"] for ln in lines
+                    if ln["tag"].startswith("chip_smoke_train/eval/")})
+    steps = sorted(loss)
+    if not all(math.isfinite(v) for v in loss.values()):
+        raise AssertionError(f"non-finite train loss: {loss}")
+    late = float(np.mean([loss[s] for s in steps[-3:]]))
+    if not late < loss[steps[0]]:
+        raise AssertionError(f"train loss did not fall: {loss}")
+    if evals != [12, 24]:
+        raise AssertionError(f"online evals at steps {evals}, not [12, 24]")
+    best = json.loads((md / "best_result").read_text())
+    print(f"  train (--device_cache): 24 steps of 8 x 256^2 in {seconds:.2f} s "
+          f"({seconds / 24 * 1e3:.1f} ms/step with set-up, two online evals "
+          f"of 4 batches); loss " + ", ".join(f"{s}: {loss[s]:.4f}"
+                                               for s in steps))
+    print(f"  train launches {launches}; best {best}")
+
+    again, launches2, seconds2 = train_run(smoke_train_argv(tmp, 30), 6)
+    if again.global_step != 30 or not (md / "ckpt" / "30" / "state.pt").exists():
+        raise AssertionError(f"resume ended at step {again.global_step}")
+    print(f"  resume on the streaming sampler: steps 25-30 in {seconds2:.2f} s,"
+          f" launches {launches2}")
+    return launches
+
+
+def train_card_vs_cpu(tmp, dev, seed):
+    """One train step of a small GUNet (GUNet_TINY: init_channels 8, 2
+    down-samples) at 64^2 in float32, TF32 off, on the card and on the CPU
+    from the same weights and the same processed batch (side dropout 0: the
+    two devices' generators draw different masks).  The update is Momentum:
+    an Adam step is lr·g/(|g| + eps), which turns a gradient within
+    round-off of zero into an update of either sign; what is compared here
+    is the step's arithmetic."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import (_process_batch,
+                                                 batch_to_device, norm_statics)
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.ops.image_ops import draw_augment
+
+    argv = smoke_train_argv(tmp, 1, "--im_height", "64", "--im_width", "64",
+                            "--compute_dtype", "float32", "--side_dropout",
+                            "0", "--model_config", "GUNet_TINY.yml",
+                            "--optimizer", "Momentum", "--batch_size", "4",
+                            "--model_dir", str(Path(tmp) / "cmp_md"))
+    args = cli.get_args(argv)
+    sampler = TrainSampler(Path(tmp) / "ds", args, seed=seed)
+    raw = sampler.sample_batch(4)
+    draws = draw_augment(torch.Generator().manual_seed(seed), (4, 64, 64, 3),
+                         noise=True, device="cpu")
+    feats, labels = _process_batch(
+        batch_to_device(raw, "cpu"), draws, im_h=64, im_w=64,
+        noise_scale=0.05, random_flip=3, use_spatial=True, min_std=2.0,
+        **norm_statics(args))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        ft = {k: v.to(d) for k, v in feats.items()}
+        trainer = cli.build_trainer(args, d)
+        trainer.preprocess_fn = lambda batch, gen, ft=ft: (ft, labels.to(d))
+        vals, _ = trainer.train_step({"names": raw["names"]})
+        out.append((float(vals[0]), {k: v.detach().cpu() for k, v in
+                                     trainer.model.state_dict().items()}))
+        trainer.summary.close()
+    loss_err = abs(out[0][0] - out[1][0]) / abs(out[1][0])
+    p_err = max(float((out[0][1][k] - v).abs().max())
+                for k, v in out[1][1].items())
+    print(f"  train step card vs CPU (GUNet_TINY, 64^2, float32): loss "
+          f"{out[0][0]:.6f} / {out[1][0]:.6f} (rel err {loss_err:.2e}), "
+          f"updated parameters max abs err {p_err:.2e}")
+    if not (loss_err <= 1e-4 and p_err <= 1e-4):
+        raise AssertionError("the train step on the card disagrees with the "
+                             "CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: profile of the flagship train step
+# ---------------------------------------------------------------------------
+
+def profile_train(tmp):
+    """Steady-state time of the flagship train step (device cache layout),
+    and the card's kernel time by group from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.device_cache import DeviceVolumeCache
+    from boxsegliver_torch.data.pipeline import TrainDataset
+    from boxsegliver_torch.data.sampler import TrainSampler
+
+    args = cli.get_args(smoke_train_argv(
+        tmp, 10 ** 6, "--model_dir", str(Path(tmp) / "prof_md")))
+    ds = Path(tmp) / "ds"
+    train_pids, _ = cli._split_pids(args, ds)
+    cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda")
+    trainer = cli.build_trainer(args, torch.device("cuda"), cache=cache)
+    data = TrainDataset(TrainSampler(ds, args, seed=args.seed,
+                                     zbase=cache.zbase), args, seed=args.seed)
+
+    def steps(batches):
+        vals = [trainer.train_step(b)[0] for b in batches]
+        torch.stack(vals).cpu()               # one fetch, as the drain does
+
+    try:
+        steps(next(data) for _ in range(5))               # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(next(data) for _ in range(16))
+            walls.append((time.perf_counter() - t0) / 16)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps(next(data) for _ in range(8))
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) / 8
+        batches = [next(data) for _ in range(16)]
+    finally:
+        data.close()
+        trainer.summary.close()
+    # the same steps with the sampler's worker threads stopped: what the
+    # host's dispatch costs without them
+    walls_alone = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(batches)
+        walls_alone.append((time.perf_counter() - t0) / 16)
+    kern, groups, self_us = kernel_groups(prof)
+    busy_ms = sum(groups.values()) / 1e3 / 8
+    wall = min(walls)
+    share = max(busy_ms, 1e-9)
+    b2 = [e for e in kern if "in_relu" in e.key.lower()]
+    lines = [
+        f"card: {smi()}",
+        "flagship train step: GUNet.yml full width, batch 8, 256^2 x 3, "
+        "bf16, device cache, plateau Adam",
+        "wall per step, unprofiled (3 runs of 16): "
+        + ", ".join(f"{w * 1e3:.3f}" for w in walls) + " ms -> "
+        f"{8 / wall:.1f} slices/s",
+        "wall per step with the sampler threads stopped (2 runs of 16 "
+        "pre-sampled batches): "
+        + ", ".join(f"{w * 1e3:.3f}" for w in walls_alone) + " ms",
+        f"kernel launches per step: {sum(e.count for e in kern) / 8:.0f}; "
+        f"kernel time per step: {busy_ms:.3f} ms -> device busy "
+        f"{busy_ms / 1e3 / wall:.1%} of the unprofiled wall, "
+        f"{busy_ms / 1e3 / prof_wall:.1%} of the profiled wall "
+        f"({prof_wall * 1e3:.3f} ms/step)",
+        "B2 device time per step: " + ", ".join(
+            f"{e.key[e.key.find('in_relu'):].split('<')[0]} "
+            f"{self_us(e) / 1e3 / 8:.3f} ms "
+            f"({e.count // 8}/step)" for e in b2),
+        ""] + [f"{k:50s} {v / 1e3 / 8:9.3f} ms/step {v / 1e3 / 8 / share:7.1%}"
+               for k, v in groups.items()] + [
+        "",
+        f"{'kernel':90s} {'calls':>7s} {'ms/step':>9s} {'share':>7s}"]
+    for e in kern[:20]:
+        lines.append(f"{e.key[:90]:90s} {e.count:7d} "
+                     f"{self_us(e) / 1e3 / 8:9.3f} "
+                     f"{self_us(e) / 1e3 / 8 / share:7.1%}")
+    print("\n".join("  " + ln for ln in lines))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     opts = ap.parse_args(argv)
 
-    print("[1/6] device")
+    print("[1/9] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -539,17 +1002,17 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/6] build")
+    print("[2/9] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {build.BUILD_SECONDS})")
     for name in build.SOURCES:
         for line in build.ptxas_log(name).splitlines():
-            if "ptxas info" in line:
-                print("  " + line.strip())
+            if "ptxas info" in line and "Used" in line:
+                print(f"  {name}: " + line.strip())
 
-    print("[3/6] kernel B1 vs plain")
+    print("[3/9] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -559,18 +1022,27 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/6] labeling vs scipy")
+        print("[4/9] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/6] flagship guided eval (run_g) through the CLI")
-        launches = slice_phase(tmp, ds, dev, opts.seed)
+        print("[5/9] flagship guided eval (run_g) through the CLI")
+        slice_phase(tmp, ds, dev, opts.seed)
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/6] profile of one case's sweep (steady state)")
+        print("[6/9] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
+        print("[7/9] kernel B2 vs plain")
+        b2 = b2_phase(dev)
+        print("[8/9] flagship G-Net training through the CLI")
+        launches = train_phase(tmp)
+        train_card_vs_cpu(tmp, dev, opts.seed)
+        print("[9/9] profile of the flagship train step (steady state)")
+        profile_train(tmp)
 
-    rec["launches"] = launches["gaussian_guide_batch"]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}]}))
+    recs = [rec] + [b2[n] for n in B2_KERNELS]
+    for r in recs:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

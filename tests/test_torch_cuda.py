@@ -67,3 +67,77 @@ def test_labeling_on_the_card_matches_cpu(dev):
     c_gpu, s_gpu = labeling.object_moments(obj.to(dev), min_std=2.0)
     torch.testing.assert_close(c_gpu.cpu(), c_cpu, atol=0, rtol=0)
     torch.testing.assert_close(s_gpu.cpu(), s_cpu, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# kernel B2: fused instance-norm + ReLU, forward and backward
+# ---------------------------------------------------------------------------
+
+def _in_relu_inputs(shape, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    c = shape[1]
+    x = torch.from_numpy(rng.normal(0.3, 2.0, shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy(rng.normal(1.0, 0.3, c).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0.0, 0.3, c).astype(np.float32))
+    return (x.to(dev, dtype), g.to(dev, dtype), w.to(dev), b.to(dev))
+
+
+# f32 planes: 1-2 ulp of rsqrt and another summation order of the per-plane
+# sums; bf16 outputs: one bf16 rounding step (2^-8 relative) of values near 4
+_TOL = {torch.float32: dict(atol=2e-5, rtol=1e-5),
+        torch.bfloat16: dict(atol=3e-2, rtol=1e-2)}
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 16, 16), torch.float32), ((1, 1, 7, 9), torch.float32),
+    ((3, 5, 13, 11), torch.float32), ((2, 16, 64, 64), torch.bfloat16),
+    ((1, 3, 5, 7), torch.bfloat16)])
+def test_b2_matches_plain_and_counts(dev, shape, dtype):
+    x, g, w, b = _in_relu_inputs(shape, dtype, dev)
+    n0 = [kernels.in_relu_fwd.launches, kernels.in_relu_bwd_stats.launches,
+          kernels.in_relu_bwd_apply.launches]
+    y, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
+    s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
+    s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
+    dx = kernels.in_relu_bwd_apply(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    dx_p = kernels.in_relu_bwd_apply_plain(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    torch.cuda.synchronize()
+    assert [kernels.in_relu_fwd.launches, kernels.in_relu_bwd_stats.launches,
+            kernels.in_relu_bwd_apply.launches] == [k + 1 for k in n0]
+    assert y.dtype == xh.dtype == dx.dtype == dtype
+    assert rstd.dtype == s1.dtype == torch.float32
+    tol = _TOL[dtype]
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    torch.testing.assert_close(xh.float(), xh_p.float(), **tol)
+    hw = shape[2] * shape[3]
+    torch.testing.assert_close(s1, s1_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(s2, s2_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+
+
+def test_b2_autograd_matches_plain(dev):
+    x, g, w, b = _in_relu_inputs((2, 4, 24, 20), torch.float32, dev, seed=3)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    b.requires_grad_(True)
+    y = kernels.instance_norm_relu(x, w, b)
+    dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
+    _, xh, rstd = kernels.in_relu_fwd_plain(x.detach(), w.detach(), b.detach())
+    want = kernels.in_relu_bwd_plain(g, xh, rstd, w.detach(), b.detach())
+    for got, ref in zip((dx, dw, db), want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_b2_rejects_what_it_does_not_take(dev):
+    x, g, w, b = _in_relu_inputs((2, 4, 8, 8), torch.float32, dev)
+    with pytest.raises(TypeError):
+        kernels.in_relu_fwd(x.half(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.in_relu_fwd(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError):
+        kernels.in_relu_fwd(x, w.cpu(), b)
+    with pytest.raises(ValueError):
+        kernels.in_relu_bwd_stats(g, x.bfloat16(), w, b)

@@ -130,10 +130,12 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
+    # the default normalizer is batch_norm, whose training is not ported
     (["--mode", "train"], "--mode train"),
     (["--mode", "export"], "--mode export"),
     (["--mode", "eval", "--eval_no_sp"], "unguided"),
     (["--mode", "eval", "--device_sweep", "off"], "host loop"),
+    # eval restores from --model_dir now; an empty one names --ckpt_path
     (["--mode", "eval"], "--ckpt_path"),
 ])
 def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
@@ -142,7 +144,8 @@ def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
             "Tumor", "--use_spatial", "--device", "cpu",
             "--data_root", str(troot.parent), "--dataset", troot.name,
             "--model_dir", str(tmp_path)] + extra
-    with pytest.raises(NotImplementedError, match=what):
+    error = FileNotFoundError if what == "--ckpt_path" else NotImplementedError
+    with pytest.raises(error, match=what):
         t_cli.main(argv)
 
 

@@ -38,6 +38,22 @@ def test_no_forbidden_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+TRAIN_SLICE = ["ops/losses.py", "ops/image_ops.py", "ops/metrics.py",
+               "data/sampler.py", "data/device_cache.py", "data/pipeline.py",
+               "train/solver.py", "train/hooks.py", "train/checkpoint.py",
+               "train/trainer.py", "utils/summary.py",
+               "evaluators/online2d.py", "csrc/in_relu.cu"]
+
+
+@pytest.mark.parametrize("rel", TRAIN_SLICE)
+def test_train_slice_modules_are_checked(rel):
+    """The training slice's modules exist and fall under the checks above
+    (the CUDA source is built, not imported)."""
+    path = ROOT / "boxsegliver_torch" / rel
+    assert path.exists()
+    assert path.suffix == ".cu" or path in PORT_FILES
+
+
 def test_port_imports_without_the_jax_stack():
     """Import every port module in a fresh interpreter where the forbidden
     packages cannot be found."""
