@@ -33,7 +33,7 @@ _ARGTYPES = {
     "guide_render": {
         "guide_render": [_P] * 4 + [_I] * 4 + [_F] * 2 + [_P]},
     "in_relu": {
-        "in_relu_fwd": [_P] * 6 + [_I] * 3 + [_F, _I, _P],
+        "in_relu_fwd": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 5 + [_P],
         "in_relu_bwd_stats": [_P] * 6 + [_I] * 4 + [_P],
         "in_relu_bwd_apply": [_P] * 8 + [_I] * 4 + [_P]},
 }

@@ -3,7 +3,9 @@ boxsegliver_tpu/ops/pallas_kernels.py).
 
 Every wrapper checks device, dtype, shape and contiguity, allocates its
 output with ``torch.empty``, launches on PyTorch's current stream and raises
-if the launch failed.  A CPU tensor takes the plain PyTorch version beside
+if the launch failed.  The C functions are bound once, at first use
+(``_bind``), and a launch enters the tensor's device only when it is not
+already the current one.  A CPU tensor takes the plain PyTorch version beside
 it; a CUDA tensor launches the kernel or raises — there is no fall back.
 Each wrapper counts its launches in a plain integer attribute
 (``gaussian_guide_batch.launches``), so a run can show that its main path
@@ -13,25 +15,54 @@ Kernels:
 - B1 ``gaussian_guide_batch`` — csrc/guide_render.cu, replaces
   pallas_kernels.py:_guide_kernel / gaussian_guide_batch.  At the guided
   sweep's shape (2 x 256 x 256, K <= 48) it writes 512 KiB (~0.16 us at
-  3.35 TB/s) and evaluates 2 * 256^2 * K exponentials: the launch latency,
-  not bandwidth or arithmetic, bounds it.  No single PyTorch call computes
-  this function, so there is no library yardstick.
+  3.35 TB/s) and evaluates 2 * 256^2 * K exponentials (~0.24 us at the
+  card's exp rate): the launch latency, not bandwidth or arithmetic, bounds
+  it.  No single PyTorch call computes this function, so there is no
+  library yardstick.
 - B2 fused instance-norm + ReLU, csrc/in_relu.cu: ``in_relu_fwd`` (the
   forward of pallas_kernels.fused_instance_norm_relu), ``in_relu_bwd_stats``
   (B2a, replaces _bwd_stats_kernel) and ``in_relu_bwd_apply`` (B2b, replaces
   _bwd_apply_kernel), tied together by ``InstanceNormReLU``.  Bandwidth
-  bounds them (source note).  The nearest PyTorch yardstick is two calls,
+  bounds them (source note).  The forward takes one of three paths (warp,
+  staged on a thread-block cluster, general), chosen from the shape by
+  ``in_relu_fwd_plan``.  The nearest PyTorch yardstick is two calls,
   ``F.relu(F.instance_norm(...))``.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-_MAX_OBJECTS = 2048        # 5 * K floats of shared memory stay under 48 KiB
-_MAX_BATCH = 65535         # grid.y
+_MAX_OBJECTS = 2048        # the valid-object index list in shared memory
+_MAX_BATCH = 65535         # grid.z
+
+# the C functions of each csrc/ source, bound on first use
+_LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
+            "in_relu_bwd_stats": "in_relu", "in_relu_bwd_apply": "in_relu"}
+_BOUND = {}
+
+
+def _bind(name):
+    from boxsegliver_torch.csrc import build
+
+    fn = _BOUND[name] = getattr(build.load(_LIBRARY[name]), name)
+    return fn
+
+
+def _launch(name, t: torch.Tensor, *args):
+    """Call C function ``name`` with ``args`` (tensor pointers as ints) and
+    the current stream of ``t``'s device; raise if the launch failed."""
+    fn = _BOUND.get(name) or _bind(name)
+    if t.device.index == torch.cuda.current_device():
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(t.device):
+            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def gaussian_guide_batch_plain(centers: torch.Tensor, stddevs: torch.Tensor,
@@ -112,22 +143,12 @@ def gaussian_guide_batch(centers: torch.Tensor, stddevs: torch.Tensor,
                                           height=height, width=width,
                                           scale=scale, offset=offset)
     _check(centers, stddevs, valid, height, width)
-    from boxsegliver_torch.csrc import build
-
-    lib = build.load("guide_render")
     bs, k = centers.shape[:2]
     out = torch.empty((bs, height, width, 1), dtype=torch.float32,
                       device=centers.device)
-    with torch.cuda.device(centers.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.guide_render(
-            ctypes.c_void_p(centers.data_ptr()),
-            ctypes.c_void_p(stddevs.data_ptr()),
-            ctypes.c_void_p(valid.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), bs, k, height, width,
-            float(scale), float(offset), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"guide_render launch failed: CUDA error {rc}")
+    _launch("guide_render", centers, centers.data_ptr(), stddevs.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), bs, k, height, width,
+            float(scale), float(offset))
     gaussian_guide_batch.launches += 1
     return out
 
@@ -218,12 +239,75 @@ def _check_in_relu(name, act, others, weight, bias):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _launch(fn_name, *args):
-    from boxsegliver_torch.csrc import build
+# B2-fwd launch plan (csrc/in_relu.cu): one of three paths, from the shape,
+# the dtype and whether every operand is 16-byte aligned
+FWD_GENERAL, FWD_WARP, FWD_STAGED = 0, 1, 2
+FWD_THREADS = 256              # threads of every B2-fwd CTA
+_WARP_MAX_PACKS = 8            # 16-byte packs a lane holds on the warp path
+_STAGE_MAX = 64 * 1024         # shared memory of a staged CTA
 
-    fn = getattr(build.load("in_relu"), fn_name)
-    return fn(*[ctypes.c_void_p(a.data_ptr()) if isinstance(a, torch.Tensor)
-                else a for a in args])
+
+class FwdPlan(NamedTuple):
+    """How in_relu_fwd covers ``planes`` planes of ``hw`` elements: ``grid``
+    CTAs of FWD_THREADS threads.  warp: ``planes_per_cta`` planes a CTA, one
+    a warp, ``packs`` 16-byte packs a lane.  staged: ``cluster`` CTAs a
+    plane, each holding hw / cluster elements in ``smem_bytes`` of dynamic
+    shared memory.  general: one CTA a plane."""
+    path: int
+    grid: int
+    planes_per_cta: int
+    packs: int
+    cluster: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=None)
+def in_relu_fwd_plan(planes: int, hw: int, dtype: torch.dtype,
+                     aligned: bool = True) -> FwdPlan:
+    """The B2-fwd path for ``planes`` planes of ``hw`` elements of
+    ``dtype``; ``aligned``: x, y and x̂ all start on 16 bytes.
+
+    warp when a plane fits 32 lanes x 8 packs of 16 bytes (2,048 bf16,
+    1,024 f32: the 32^2 level); staged when the plane splits into 1, 2, 4 or
+    8 chunks of whole packs of at most 64 KiB, the fewest that do (the 64^2
+    to 512^2 levels in bf16); general otherwise (odd or unaligned planes,
+    512^2 f32).  The limits are where chip_smoke.py phase 7 measures each
+    path fastest at the flagship shapes (PERF.md §6)."""
+    esize = torch.finfo(dtype).bits // 8
+    per_pack = 16 // esize
+    if aligned and hw % per_pack == 0:
+        groups = hw // per_pack
+        if groups <= 32 * _WARP_MAX_PACKS:
+            packs = 1
+            while packs * 32 < groups:
+                packs *= 2
+            per_cta = FWD_THREADS // 32
+            return FwdPlan(FWD_WARP, -(-planes // per_cta), per_cta, packs,
+                           1, 0)
+        for cs in (1, 2, 4, 8):                   # 8: the portable limit
+            if (hw % (cs * per_pack) == 0 and hw // cs * esize <= _STAGE_MAX
+                    and planes * cs < 2 ** 31):
+                return FwdPlan(FWD_STAGED, planes * cs, 1, 0, cs,
+                               hw // cs * esize)
+    return FwdPlan(FWD_GENERAL, planes, 1, 0, 1, 0)
+
+
+def _fwd_launch(x, weight, bias, eps, plan=None):
+    """Launch B2-fwd on checked CUDA operands under ``plan`` (by default
+    in_relu_fwd_plan's for x's shape and alignment); the C launcher refuses
+    a plan that does not fit the operands.  Counts nothing: in_relu_fwd
+    does."""
+    n, c, h, w = x.shape
+    y = torch.empty_like(x)
+    xhat = torch.empty_like(x)
+    rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    px, py, ph = x.data_ptr(), y.data_ptr(), xhat.data_ptr()
+    if plan is None:
+        plan = in_relu_fwd_plan(n * c, h * w, x.dtype, (px | py | ph) % 16 == 0)
+    _launch("in_relu_fwd", x, px, weight.data_ptr(), bias.data_ptr(), py, ph,
+            rstd.data_ptr(), n * c, c, h * w, float(eps), _DTYPES[x.dtype],
+            plan.path, plan.packs, plan.cluster, plan.smem_bytes)
+    return y, xhat, rstd
 
 
 def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -235,19 +319,9 @@ def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         return in_relu_fwd_plain(x, weight, bias, eps)
     _check_in_relu("in_relu_fwd", x, (), weight, bias)
-    n, c, h, w = x.shape
-    y = torch.empty_like(x)
-    xhat = torch.empty_like(x)
-    rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launch("in_relu_fwd", x, weight, bias, y, xhat, rstd, n * c, c,
-                     h * w, float(eps), _DTYPES[x.dtype],
-                     ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"in_relu_fwd launch failed: CUDA error {rc}")
+    out = _fwd_launch(x, weight, bias, eps)
     in_relu_fwd.launches += 1
-    return y, xhat, rstd
+    return out
 
 
 def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,
@@ -259,13 +333,9 @@ def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,
     n, c, h, w = g.shape
     s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
     s2 = torch.empty_like(s1)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launch("in_relu_bwd_stats", g, xhat, weight, bias, s1, s2,
-                     n * c, c, h * w, _DTYPES[g.dtype],
-                     ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"in_relu_bwd_stats launch failed: CUDA error {rc}")
+    _launch("in_relu_bwd_stats", g, g.data_ptr(), xhat.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            n * c, c, h * w, _DTYPES[g.dtype])
     in_relu_bwd_stats.launches += 1
     return s1, s2
 
@@ -284,13 +354,10 @@ def in_relu_bwd_apply(g: torch.Tensor, xhat: torch.Tensor,
             raise ValueError(f"in_relu_bwd_apply: {name} must be contiguous "
                              f"[{n}, {c}] float32 on {g.device}")
     dx = torch.empty_like(g)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _launch("in_relu_bwd_apply", g, xhat, weight, bias, rstd, s1, s2,
-                     dx, n * c, c, h * w, _DTYPES[g.dtype],
-                     ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"in_relu_bwd_apply launch failed: CUDA error {rc}")
+    _launch("in_relu_bwd_apply", g, g.data_ptr(), xhat.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), rstd.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n * c, c, h * w,
+            _DTYPES[g.dtype])
     in_relu_bwd_apply.launches += 1
     return dx
 

@@ -11,9 +11,12 @@ result line):
    process per source, in parallel) and prints the build time and ptxas
    report.
 3. kernels — kernel B1 (gaussian_guide_batch) against its plain PyTorch
-   version on the card at the guided sweep's shapes and at edge cases;
-   max abs error <= 1e-6; kernel / plain times from CUDA events and the
-   card's bound for the same work.
+   version on the card at the guided sweep's shapes and at edge cases (W
+   not a multiple of 4, one row, K = 0, 1, 150); max abs error <= 1e-6.
+   At the sweep's and the train preprocess's shapes: device time per
+   launch (``graph_ms``: launches captured in a CUDA graph), wrapper time
+   per call and plain time (CUDA events), and the card's bound for the same
+   work (bytes, f32 operations, or exponentials at the SFU rate).
 4. labeling — label_components / ordered_seeds / object_moments on the
    card against scipy.ndimage.label and the numpy
    compute_robust_moments, on the synthetic dataset's GT tumor masks
@@ -39,11 +42,13 @@ result line):
 7. kernel B2 — the three kernels of csrc/in_relu.cu (in_relu_fwd,
    in_relu_bwd_stats, in_relu_bwd_apply) and the autograd Function that
    ties them against their plain PyTorch versions at the four flagship
-   shapes in bf16 and at float32 edge cases (H·W not a multiple of the
-   vector width, C = 1, bs = 1), with the tolerances stated in
-   ``b2_check``; per-train-step kernel / plain / library ("two calls",
-   F.relu(F.instance_norm(...)), forward and backward) times from CUDA
-   events and the card's bound for the same work.
+   shapes in bf16, at edge cases (H·W not a multiple of the vector width,
+   C = 1, bs = 1), one element either side of each B2-fwd path boundary and
+   on an unaligned x, with the tolerances stated in ``b2_check``; the
+   B2-fwd plan of each flagship shape; per shape and per train step each
+   kernel's device time per launch (``graph_ms``), wrapper time per call,
+   plain and library ("two calls", F.relu(F.instance_norm(...)), forward
+   and backward) times, and the card's bound for the same work.
 8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
@@ -57,7 +62,10 @@ result line):
 9. train profile — the flagship train step in steady state: ms/step,
    slices/s, device busy share and kernel time by group.
 Then one JSON line with every kernel's numbers (launches: the train run of
-phase 8), the card's name and power limit, and as the last line
+phase 8; ``ms``: wrapper time, per call for B1 and summed over one train
+step's calls for B2; ``device_ms``: device time per launch, for B2 averaged
+over one train step's launches; ``wrapper_ms``: wrapper time per call), the
+card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -82,6 +90,12 @@ FP32_OPS_PER_S = 67e12
 # float operations per (pixel, valid object) of B1: 2 sub, 2 squares,
 # 2 scale mul, 1 add, 1 negate, 1 exp, 1 max
 B1_OPS_PER_TERM = 10
+# special-function units (MUFU: ex2 of expf) per SM per clock on Hopper; with
+# the SM count and nvidia-smi's clocks.max.sm they give B1's exp rate
+SFU_PER_SM_PER_CLOCK = 16
+# bytes of fresh inputs a device-time loop cycles through: twice the 50 MB
+# L2, so launches read device memory, as the bounds assume
+COLD_BYTES = 100 * 2 ** 20
 # float operations per element of B2: fwd = 3 (sum, square, sum) + 2
 # (x − mean, · rstd) + 2 (·γ, + β) + 1 (max); B2a = 2 (affine) + 1 (select)
 # + 3 (two sums, one product); B2b = 2 + 1 + 4 (two subtractions, two
@@ -101,7 +115,19 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sfu_per_s() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_SM_PER_CLOCK * sms * mhz * 1e6
+
+
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Wrapper time per call: back-to-back calls timed with CUDA events.
+    Where a call's host path outlasts its kernel this reads the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -113,6 +139,34 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(call, n_inputs: int, iters: int, replays: int = 5) -> float:
+    """Device time per launch: ``iters`` calls ``call(i % n_inputs)``
+    captured into one CUDA graph, whose replays are timed with CUDA events,
+    so no host time falls between the launches.  Every call's outputs are
+    kept, so each launch writes fresh memory, and the inputs cycle over
+    ``n_inputs`` sets (COLD_BYTES in all) so that reads miss the L2."""
+    for i in range(min(n_inputs, 2)):
+        call(i)                                   # warm-up outside capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    keep = []
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            keep.append(call(i % n_inputs))
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph, keep
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -147,13 +201,22 @@ def kernel_phase(dev, seed):
     }
     c, s, v = guide_inputs(rng, 2, 20, h, w, dev)
     cases["sigma at min_std"] = (c, torch.full_like(s, 2.0), v)
+    # odd sizes: W not a multiple of 4, one row, several chunks of objects
+    odd = {"W=255": (256, 255, guide_inputs(rng, 2, 20, 256, 255, dev)),
+           "H=1": (1, 256, guide_inputs(rng, 3, 7, 1, 256, dev)),
+           "K=0": (64, 64, guide_inputs(rng, 2, 0, 64, 64, dev)),
+           "K=1": (64, 64, guide_inputs(rng, 2, 1, 64, 64, dev, n_valid=[1, 1])),
+           "K=150 all valid": (96, 80, guide_inputs(rng, 2, 150, 96, 80, dev,
+                                                    n_valid=[150, 150]))}
     worst = 0.0
-    for name, (c, s, v) in cases.items():
+    for name, (c, s, v) in list(cases.items()) + [
+            (n, t) for n, (_, _, t) in odd.items()]:
+        hh, ww = odd[name][:2] if name in odd else (h, w)
         for scale, offset in ((1.0, 0.0), (0.85 / 2.0, 0.5)):
-            out = kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
+            out = kernels.gaussian_guide_batch(c, s, v, height=hh, width=ww,
                                                scale=scale, offset=offset)
             ref = kernels.gaussian_guide_batch_plain(
-                c, s, v, height=h, width=w, scale=scale, offset=offset)
+                c, s, v, height=hh, width=ww, scale=scale, offset=offset)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
             worst = max(worst, err)
@@ -165,39 +228,51 @@ def kernel_phase(dev, seed):
                 raise AssertionError("B1: an all-invalid sample must render "
                                      "the flat offset")
 
-    # timing at the sweep's shape: bs 2 (directions), 256^2, K = 20
-    # (4 user-prior slots + 16 propagated slots), sweep epilogue
-    c, s, v = cases["sweep K=20"]
+    # timing at the main path's shapes: the sweep's (bs 2 directions, 256^2,
+    # K = 20: 4 user-prior slots + 16 propagated slots, sweep epilogue) and
+    # the train preprocess's (batch 8, max_objs 8, a valid prefix)
+    shapes = {"sweep": cases["sweep K=20"],
+              "train": guide_inputs(rng, 8, 8, h, w, dev,
+                                    n_valid=rng.integers(0, 9, 8))}
+    sfu = sfu_per_s()
+    rec = None
+    for shape_name, (c, s, v) in shapes.items():
+        def run_kernel(i=0, c=c, s=s, v=v):
+            return kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
+                                                scale=0.425, offset=0.5)
 
-    def run_kernel():
-        kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
-                                     scale=0.425, offset=0.5)
+        def run_plain(c=c, s=s, v=v):
+            kernels.gaussian_guide_batch_plain(c, s, v, height=h, width=w,
+                                               scale=0.425, offset=0.5)
 
-    def run_plain():
-        kernels.gaussian_guide_batch_plain(c, s, v, height=h, width=w,
-                                           scale=0.425, offset=0.5)
-
-    # plain, kernel, kernel, plain: compare within one call, in turns
-    p1 = cuda_ms(run_plain)
-    k1 = cuda_ms(run_kernel)
-    k2 = cuda_ms(run_kernel)
-    p2 = cuda_ms(run_plain)
-    bs, k = c.shape[:2]
-    n_terms = h * w * int(v.sum())
-    bytes_moved = (c.numel() + s.numel()) * 4 + v.numel() + bs * h * w * 4
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = B1_OPS_PER_TERM * n_terms / FP32_OPS_PER_S * 1e3
-    rec = {"name": "gaussian_guide_batch", "route": "cuda",
-           "source": "boxsegliver_torch/csrc/guide_render.cu",
-           "replaces": "boxsegliver_tpu/ops/pallas_kernels.py:263",
-           "max_abs_err": worst, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None}
-    print(f"  B1 at bs={bs} K={k} {h}x{w} ({int(v.sum())} valid objects): "
-          f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
-          f"bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}: "
-          f"{bytes_moved} B, {B1_OPS_PER_TERM * n_terms} ops)")
+        # plain, kernel, kernel, plain: compare within one call, in turns
+        p1 = cuda_ms(run_plain)
+        k1 = cuda_ms(run_kernel)
+        d1 = graph_ms(run_kernel, 1, iters=200)
+        d2 = graph_ms(run_kernel, 1, iters=200)
+        k2 = cuda_ms(run_kernel)
+        p2 = cuda_ms(run_plain)
+        bs, k = c.shape[:2]
+        n_exp = h * w * int(v.sum())
+        bytes_moved = (c.numel() + s.numel()) * 4 + v.numel() + bs * h * w * 4
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = max(B1_OPS_PER_TERM * n_exp / FP32_OPS_PER_S, n_exp / sfu) * 1e3
+        row = {"name": "gaussian_guide_batch", "route": "cuda",
+               "source": "boxsegliver_torch/csrc/guide_render.cu",
+               "replaces": "boxsegliver_tpu/ops/pallas_kernels.py:263",
+               "max_abs_err": worst, "ms": min(k1, k2),
+               "device_ms": min(d1, d2), "wrapper_ms": min(k1, k2),
+               "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": None}
+        print(f"  B1 {shape_name} bs={bs} K={k} {h}x{w} ({int(v.sum())} "
+              f"valid objects): device {d1:.5f}/{d2:.5f} ms per launch, "
+              f"wrapper {k1:.4f}/{k2:.4f} ms per call, plain "
+              f"{p1:.4f}/{p2:.4f} ms, bound {row['bound_ms']:.6f} ms "
+              f"({row['bound_by']}: {bytes_moved} B -> {t_bytes:.6f} ms; "
+              f"{n_exp} exp at {sfu:.4g}/s, {B1_OPS_PER_TERM * n_exp} f32 ops"
+              f" -> {t_ops:.6f} ms)")
+        rec = rec or row                          # the sweep's row is kept
     return rec
 
 
@@ -585,9 +660,11 @@ def b2_inputs(shape, dtype, dev, seed):
     return x, g, w, b
 
 
-def b2_check(shape, dtype, dev, seed):
+def b2_check(shape, dtype, dev, seed, unaligned=False):
     """The three kernels and InstanceNormReLU's backward against their plain
     versions on the same inputs; returns the worst abs error per kernel.
+    ``unaligned``: B2-fwd reads x from a contiguous view at an odd element
+    offset (its general path).
 
     Tolerances: x̂ and y (fwd) and dx (B2b) are rounded once to the output
     dtype: float32 within 1e-5 (the per-plane sums in another order, rsqrt
@@ -610,7 +687,12 @@ def b2_check(shape, dtype, dev, seed):
 
     out_tol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     sum_tol = lambda n: (1e-4, 1e-6 * math.sqrt(n))          # noqa: E731
-    y, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    x_in = x
+    if unaligned:
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = x.flatten()
+        x_in = flat[1:].view(x.shape)
+    y, xh, rstd = kernels.in_relu_fwd(x_in, w, b)
     y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
     s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
     s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
@@ -644,10 +726,31 @@ def b2_check(shape, dtype, dev, seed):
     return errs
 
 
+def fwd_alternatives(planes, hw):
+    """Other B2-fwd plans for a bf16 shape, timed beside the chosen one: the
+    general path (one CTA a plane, x read twice: the first design of this
+    kernel, unchanged), twice the chosen cluster, and one staged CTA a plane
+    where the warp path is chosen."""
+    from boxsegliver_torch.ops import kernels as K
+
+    plan = K.in_relu_fwd_plan(planes, hw, torch.bfloat16)
+    alts = {"general": K.FwdPlan(K.FWD_GENERAL, planes, 1, 0, 1, 0)}
+    if plan.path == K.FWD_STAGED and plan.cluster < 8:
+        cs = 2 * plan.cluster
+        alts[f"staged x{cs}"] = K.FwdPlan(K.FWD_STAGED, planes * cs, 1, 0, cs,
+                                          plan.smem_bytes // 2)
+    if plan.path == K.FWD_WARP:
+        alts["staged x1"] = K.FwdPlan(K.FWD_STAGED, planes, 1, 0, 1, hw * 2)
+    return alts
+
+
 def b2_times(shape, dev):
-    """Per-call ms at one bf16 shape: kernel, plain, library ("two calls")
-    for the forward and for the backward (the library's backward is the
-    whole backward of F.relu(F.instance_norm(...)), B2a + B2b + dγ, dβ)."""
+    """Per-call ms at one bf16 shape: each kernel's device time per launch
+    ("device <name>", graph_ms) and wrapper time per call ("<name>"),
+    plain, library ("two calls") for the forward and for the backward (the
+    library's backward is the whole backward of F.relu(F.instance_norm(...)),
+    B2a + B2b + dγ, dβ); B2-fwd's device time under the other plans of
+    ``fwd_alternatives`` ("fwd <plan>")."""
     import torch.nn.functional as F
 
     from boxsegliver_torch.ops import kernels
@@ -660,9 +763,33 @@ def b2_times(shape, dev):
     br = b.clone().requires_grad_(True)
     lib_y = F.relu(F.instance_norm(xr, weight=wr, bias=br, eps=1e-6))
     iters = 20 if shape[2] >= 128 else 50
+    # input sets for the device-time loops: COLD_BYTES of x / g in all
+    n_sets = max(1, min(iters, math.ceil(COLD_BYTES / (x.numel() * 2))))
+    sets = [(x, g, xh, rstd, s1, s2)]
+    for i in range(1, n_sets):
+        xi, gi, _, _ = b2_inputs(shape, torch.bfloat16, dev, seed=1 + i)
+        _, xhi, rstdi = kernels.in_relu_fwd(xi, w, b)
+        sets.append((xi, gi, xhi, rstdi) + kernels.in_relu_bwd_stats(
+            gi, xhi, w, b))
     t = {}
     # kernel, plain, library, then the same again: the best of two turns
     for turn in range(2):
+        for name, call in (
+                ("in_relu_fwd",
+                 lambda i: kernels.in_relu_fwd(sets[i][0], w, b)),
+                ("in_relu_bwd_stats",
+                 lambda i: kernels.in_relu_bwd_stats(sets[i][1], sets[i][2],
+                                                     w, b)),
+                ("in_relu_bwd_apply",
+                 lambda i: kernels.in_relu_bwd_apply(
+                     sets[i][1], sets[i][2], w, b, *sets[i][3:]))):
+            ms = graph_ms(call, n_sets, iters)
+            t["device " + name] = min(ms, t.get("device " + name, ms))
+        for alt, plan in fwd_alternatives(shape[0] * shape[1],
+                                          shape[2] * shape[3]).items():
+            ms = graph_ms(lambda i, plan=plan: kernels._fwd_launch(
+                sets[i][0], w, b, kernels.IN_EPS, plan), n_sets, iters)
+            t["fwd " + alt] = min(ms, t.get("fwd " + alt, ms))
         for name, fn in (
                 ("in_relu_fwd", lambda: kernels.in_relu_fwd(x, w, b)),
                 ("in_relu_bwd_stats",
@@ -701,51 +828,89 @@ def b2_bound_ms(name, shape):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+B2_FWD_PATHS = {0: "general", 1: "warp", 2: "staged"}
+
+
 def b2_phase(dev):
+    from boxsegliver_torch.ops import kernels
+
     names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
     worst = dict.fromkeys(names, 0.0)
-    cases = [(s, torch.bfloat16) for s in B2_STEP_SHAPES] + [
-        ((2, 8, 7, 9), torch.float32), ((1, 1, 33, 31), torch.float32),
-        ((1, 3, 64, 64), torch.float32), ((3, 1, 5, 3), torch.float32),
-        ((1, 2, 13, 11), torch.bfloat16), ((2, 64, 32, 32), torch.float32)]
-    for i, (shape, dtype) in enumerate(cases):
-        errs = b2_check(shape, dtype, dev, seed=i)
-        print(f"  B2 {str(shape):20s} {str(dtype)[6:]:8s} max abs err "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(s, bf16) for s in B2_STEP_SHAPES] + [
+        ((2, 8, 7, 9), f32), ((1, 1, 33, 31), f32), ((1, 3, 64, 64), f32),
+        ((3, 1, 5, 3), f32), ((1, 2, 13, 11), bf16), ((2, 64, 32, 32), f32),
+        # one element either side of B2-fwd's path boundaries (warp: 2,048
+        # bf16 / 1,024 f32 a plane; staged: 8 chunks of 64 KiB) and each
+        # staged cluster size
+        ((2, 3, 8, 256), bf16), ((2, 3, 1, 2049), bf16), ((2, 3, 8, 257), bf16),
+        ((2, 3, 32, 32), f32), ((2, 3, 1, 1025), f32), ((2, 3, 4, 257), f32),
+        ((1, 3, 128, 258), bf16), ((1, 2, 256, 256), f32),
+        ((1, 2, 512, 512), bf16), ((1, 2, 1, 262152), bf16),
+        ((1, 2, 512, 512), f32)]
+    for i, (shape, dtype) in enumerate(cases + [((2, 64, 32, 32), bf16)]):
+        unaligned = i == len(cases)
+        errs = b2_check(shape, dtype, dev, seed=i, unaligned=unaligned)
+        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
+                                        shape[2] * shape[3], dtype,
+                                        not unaligned)
+        path = B2_FWD_PATHS[plan.path] + (
+            f" x{plan.cluster}" if plan.cluster > 1 else "") + (
+            " (unaligned x)" if unaligned else "")
+        print(f"  B2 {str(shape):20s} {str(dtype)[6:]:8s} fwd {path}; max "
+              "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         for k, v in errs.items():
             worst[k] = max(worst[k], v)
-    step = {k: 0.0 for k in ("kernel", "plain", "library", "bound")}
     recs = {n: {"name": n, "route": "cuda",
                 "source": "boxsegliver_torch/csrc/in_relu.cu",
-                "max_abs_err": worst[n], "ms": 0.0, "plain_ms": 0.0,
-                "bound_ms": 0.0, "library_ms": 0.0} for n in names}
+                "max_abs_err": worst[n], "ms": 0.0, "device_ms": 0.0,
+                "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0}
+            for n in names}
     recs["in_relu_fwd"]["replaces"] = \
         "boxsegliver_tpu/ops/pallas_kernels.py:47 (_in_relu_fwd_impl, XLA)"
     recs["in_relu_bwd_stats"]["replaces"] = \
         "boxsegliver_tpu/ops/pallas_kernels.py:114"
     recs["in_relu_bwd_apply"]["replaces"] = \
         "boxsegliver_tpu/ops/pallas_kernels.py:124"
-    print(f"  {'shape (bf16)':22s} {'kernel':>24s} {'ms':>8s} {'plain':>8s} "
-          f"{'library':>8s} {'bound':>8s}")
+    print(f"  {'shape (bf16)':22s} {'kernel':>18s} {'device':>8s} "
+          f"{'wrapper':>8s} {'plain':>8s} {'library':>8s} {'bound':>8s} "
+          f"{'of bound':>8s}")
+    calls = sum(B2_STEP_SHAPES.values())
     for shape, count in B2_STEP_SHAPES.items():
+        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
+                                        shape[2] * shape[3], bf16)
+        print(f"  {str(shape):22s} B2-fwd plan: {B2_FWD_PATHS[plan.path]}, "
+              f"grid {plan.grid}, cluster {plan.cluster}, packs a lane "
+              f"{plan.packs}, {plan.smem_bytes} B of dynamic shared memory")
         t = b2_times(shape, dev)
+        bound, _ = b2_bound_ms("in_relu_fwd", shape)
+        print(f"  {str(shape):22s} B2-fwd under other plans: " + ", ".join(
+            f"{k[4:]} {v:.4f} ms ({bound / v:.1%} of bound)"
+            for k, v in t.items() if k.startswith("fwd ")))
         for n in names:
             bound, by = b2_bound_ms(n, shape)
             lib = t["library fwd" if n == "in_relu_fwd" else "library bwd"]
             r = recs[n]
             r["ms"] += count * t[n]
+            r["device_ms"] += count * t["device " + n] / calls
+            r["wrapper_ms"] += count * t[n] / calls
             r["plain_ms"] += count * t["plain " + n]
             r["library_ms"] += count * lib
             r["bound_ms"] += count * bound
             r["bound_by"] = by
-            print(f"  {str(shape):22s} {n:>24s} {t[n]:8.4f} "
-                  f"{t['plain ' + n]:8.4f} {lib:8.4f} {bound:8.4f}")
+            print(f"  {str(shape):22s} {n:>18s} {t['device ' + n]:8.4f} "
+                  f"{t[n]:8.4f} {t['plain ' + n]:8.4f} {lib:8.4f} "
+                  f"{bound:8.4f} {bound / t['device ' + n]:8.1%}")
     for r in recs.values():
-        print(f"  B2 {r['name']} per train step (10 calls): kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        step = r["device_ms"] * calls
+        print(f"  B2 {r['name']} per train step ({calls} calls): device "
+              f"{step:.4f} ms ({r['device_ms']:.5f} ms per launch), "
+              f"wrapper {r['ms']:.4f} ms ({r['wrapper_ms']:.4f} ms per "
+              f"call), plain {r['plain_ms']:.4f} ms, library "
               f"{r['library_ms']:.4f} ms (two calls; the backward row is the "
               f"whole backward), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}), {r['bound_ms'] / step:.1%} of bound")
     return recs
 
 
@@ -1038,7 +1203,8 @@ def main(argv=None):
         profile_train(tmp)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     recs = [rec] + [b2[n] for n in B2_KERNELS]
     for r in recs:
         r["launches"] = launches[r["name"]]

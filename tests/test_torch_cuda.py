@@ -44,6 +44,29 @@ def test_b1_matches_plain_and_counts(dev, k):
     torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("bs,k,h,w,n_valid", [
+    (2, 20, 256, 255, None), (3, 7, 1, 256, None), (2, 5, 1, 1, None),
+    (1, 70, 40, 37, None), (2, 150, 64, 64, 150), (2, 20, 256, 256, 0)])
+def test_b1_odd_shapes_match_plain(dev, bs, k, h, w, n_valid):
+    """W not a multiple of 4 (scalar stores), one row, one pixel, several
+    chunks of 64 valid objects, and no valid object at all."""
+    rng = np.random.default_rng(k + h)
+    c = rng.uniform(-20, max(h, w) + 20, (bs, k, 2)).astype(np.float32)
+    s = rng.uniform(2, 24, (bs, k, 2)).astype(np.float32)
+    v = (rng.random((bs, k)) < 0.5 if n_valid is None
+         else np.arange(k)[None].repeat(bs, 0) < n_valid)
+    c, s, v = (torch.from_numpy(a).to(dev) for a in (c, s, v))
+    out = kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
+                                       scale=0.425, offset=0.5)
+    ref = kernels.gaussian_guide_batch_plain(c, s, v, height=h, width=w,
+                                             scale=0.425, offset=0.5)
+    torch.cuda.synchronize()
+    assert out.shape == (bs, h, w, 1)
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+    if n_valid == 0:
+        assert bool((out == 0.5).all())
+
+
 def test_b1_rejects_what_it_does_not_take(dev):
     c, s, v = _guide_inputs(4, dev)
     with pytest.raises(TypeError):
@@ -116,6 +139,59 @@ def test_b2_matches_plain_and_counts(dev, shape, dtype):
     torch.testing.assert_close(s1, s1_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
     torch.testing.assert_close(s2, s2_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
     torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+
+
+# B2-fwd on each path of its launch plan, one element either side of the
+# path boundaries, and at each staged cluster size
+_BF, _F = torch.bfloat16, torch.float32
+_FWD_PATHS = [
+    ((2, 5, 32, 32), _BF, kernels.FWD_WARP),        # 1,024
+    ((1, 3, 8, 255), _BF, kernels.FWD_WARP),        # 2,040
+    ((1, 3, 8, 256), _BF, kernels.FWD_WARP),        # 2,048: the warp limit
+    ((1, 3, 1, 2049), _BF, kernels.FWD_GENERAL),
+    ((1, 3, 8, 257), _BF, kernels.FWD_STAGED),      # 2,056
+    ((1, 3, 32, 32), _F, kernels.FWD_WARP),         # 1,024
+    ((1, 3, 1, 1025), _F, kernels.FWD_GENERAL),
+    ((1, 3, 4, 257), _F, kernels.FWD_STAGED),       # 1,028
+    ((2, 3, 64, 64), _BF, kernels.FWD_STAGED),      # 8 KiB, one CTA
+    ((3, 3, 64, 64), _F, kernels.FWD_STAGED),       # 16 KiB
+    ((2, 3, 128, 128), _BF, kernels.FWD_STAGED),    # 32 KiB
+    ((1, 3, 128, 256), _BF, kernels.FWD_STAGED),    # 64 KiB, one CTA
+    ((1, 3, 128, 258), _BF, kernels.FWD_STAGED),    # cluster 2
+    ((2, 3, 256, 256), _BF, kernels.FWD_STAGED),    # cluster 2
+    ((1, 2, 256, 256), _F, kernels.FWD_STAGED),     # cluster 4
+    ((1, 2, 512, 512), _BF, kernels.FWD_STAGED),    # cluster 8 x 64 KiB
+    ((1, 2, 1, 262152), _BF, kernels.FWD_GENERAL),  # over 8 x 64 KiB
+    ((1, 2, 512, 512), _F, kernels.FWD_GENERAL)]
+
+
+@pytest.mark.parametrize("shape,dtype,path", _FWD_PATHS)
+def test_b2_fwd_paths_match_plain(dev, shape, dtype, path):
+    n, c, h, w = shape
+    assert kernels.in_relu_fwd_plan(n * c, h * w, dtype).path == path
+    x, _, wt, b = _in_relu_inputs(shape, dtype, dev, seed=h + w)
+    y, xh, rstd = kernels.in_relu_fwd(x, wt, b)
+    y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, wt, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y_p.float(), **_TOL[dtype])
+    torch.testing.assert_close(xh.float(), xh_p.float(), **_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_fwd_unaligned_input(dev, dtype):
+    """A contiguous view at an odd element offset takes the general path."""
+    x, _, w, b = _in_relu_inputs((2, 4, 32, 32), dtype, dev, seed=5)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+    flat[1:] = x.flatten()
+    xu = flat[1:].view(x.shape)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    assert kernels.in_relu_fwd_plan(8, 1024, dtype, aligned=False).path \
+        == kernels.FWD_GENERAL
+    for got, ref in zip(kernels.in_relu_fwd(xu, w, b),
+                        kernels.in_relu_fwd_plain(x, w, b)):
+        tol = _TOL[dtype] if got.dtype == dtype else dict(rtol=1e-5, atol=0)
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
 def test_b2_autograd_matches_plain(dev):
