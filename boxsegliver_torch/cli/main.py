@@ -1,7 +1,19 @@
-"""Main CLI of the port: training and guided eval / infer of the G-Net
-family (port of boxsegliver_tpu/cli/main.py:33-66,186-337,340-377,390-543;
-reference entry/main_g.py).
+"""Main CLI of the port: training, unguided eval / infer of the UNet family
+and guided eval / infer of the G-Net family (port of
+boxsegliver_tpu/cli/main.py:33-66,186-337,340-377,390-543; reference
+entry/main.py, entry/main_g.py).
 
+    python -m boxsegliver_torch.cli.main liver --mode train --tag 001_unet \
+        --model UNet --classes Liver Tumor --test_fold 2 --im_height 256 \
+        --im_width 256 --im_channel 3 --random_flip 3 --dataset LiTS \
+        --noise_scale 0.05 --primary_metric Tumor/Dice \
+        --secondary_metric Liver/Dice --loss_weight_type numerical \
+        --loss_numeric_w 0.2 0.4 4.4 --batch_size 8 \
+        --weight_decay_rate 0.000001 --learning_policy plateau \
+        --learning_rate 0.001 --eval_per_epoch --evaluator Volume \
+        --save_best                              # + 001_unet.sh's others
+    python -m boxsegliver_torch.cli.main liver --mode eval --tag 001_unet \
+        --model UNet ... --metrics_eval Dice VOE RVD --evaluator Volume
     python -m boxsegliver_torch.cli.main liver --mode train --tag 002_gnet_sp \
         --model GUNet --classes Liver Tumor --test_fold 2 --im_height 256 \
         --im_width 256 --im_channel 3 --random_flip 3 --dataset LiTS \
@@ -16,14 +28,18 @@ reference entry/main_g.py).
     python -m boxsegliver_torch.cli.main liver --mode eval ... --eval_mirror
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--mode train`` trains
-the 2D G-Net path with the online 2D eval per epoch and writes checkpoints
-under ``--model_dir`` (train/checkpoint.py).  ``--mode eval`` scores the
-test fold with the guided sweep and ``--mode infer`` saves predictions;
-their weights come from ``--ckpt_path`` (a checkpoint, a ``.pt``
-state_dict or a ``.npz`` of flattened flax variables), else from
-``--model_dir``: the best checkpoint, or the latest periodic one under
-``--eval_final`` or when there is no best.  Every other branch of the JAX
-CLI raises NotImplementedError naming its roadmap item.
+a 2D UNet or G-Net (batch or instance norm) with the online 2D eval per
+epoch, or with ``--eval_3d`` the whole-volume eval of the held-out cases,
+and writes checkpoints under ``--model_dir`` (train/checkpoint.py).
+``--mode eval`` scores the test fold and ``--mode infer`` saves
+predictions: with the guided sweep (``run_g``) for ``--use_spatial``
+models, else (or with ``--eval_no_sp``) with the unguided whole-volume
+eval (``run`` with a DeviceSlicePredictor).  Their weights come from
+``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
+flattened flax variables), else from ``--model_dir``: the best checkpoint,
+or the latest periodic one under ``--eval_final`` or when there is no best.
+Every other branch of the JAX CLI raises NotImplementedError naming its
+roadmap item.
 """
 
 from __future__ import annotations
@@ -134,11 +150,6 @@ def _check_train_path(args):
         _not_ported("3D training", "queue A, 3D tower")
     if args.task.startswith("nf"):
         _not_ported(f"task {args.task} training", "queue A, NF tasks")
-    if args.eval_per_epoch and args.eval_3d:
-        _not_ported("--eval_3d inline volume eval", "queue A, main-path eval")
-    if args.normalizer == "batch_norm" and not args.without_norm:
-        _not_ported("--mode train with --normalizer batch_norm",
-                    "queue A, UNet / batch-norm training")
 
 
 def build_trainer(args, device, cache=None):
@@ -154,6 +165,15 @@ def build_trainer(args, device, cache=None):
     return Trainer(model, args, ["Background"] + list(args.classes), device,
                    preprocess_fn=make_preprocess_fn(args, cache=cache),
                    save_ckpt_steps=int(getattr(args, "save_ckpt_steps", 5000)))
+
+
+def _test_metas(args, dataset_dir):
+    """The metas of the test fold's cases, in meta.json order."""
+    from boxsegliver_torch.data.meta import load_meta
+
+    _, test_pids = _split_pids(args, dataset_dir)
+    test_pids = set(int(p) for p in test_pids)
+    return [m for m in load_meta(dataset_dir) if int(m["PID"]) in test_pids]
 
 
 def _split_pids(args, dataset_dir):
@@ -190,8 +210,18 @@ def train(args, dataset_dir, logger, device):
     sampler = TrainSampler(dataset_dir, args, mode="train", seed=args.seed,
                            zbase=cache.zbase if cache else None)
     dataset = TrainDataset(sampler, args, seed=args.seed)
-    eval_fn = _make_online_eval(args, dataset_dir) if args.eval_per_epoch \
-        else None
+    eval_fn = None
+    if args.eval_per_epoch and args.eval_3d:
+        # the whole-volume eval of the held-out cases (reference --eval_3d)
+        from boxsegliver_torch.evaluators.volume import (EvaluateVolume,
+                                                         make_inline_eval_fn)
+        evaluator = EvaluateVolume(args, dataset_dir,
+                                   ["Background"] + list(args.classes))
+        eval_fn = make_inline_eval_fn(evaluator, _test_metas(args,
+                                                             dataset_dir),
+                                      max_cases=args.eval_num)
+    elif args.eval_per_epoch:
+        eval_fn = _make_online_eval(args, dataset_dir)
     max_steps = args.num_of_steps or args.num_of_total_steps
     try:
         trainer.train(dataset, max_steps=max_steps, eval_fn=eval_fn)
@@ -228,48 +258,48 @@ def _make_online_eval(args, dataset_dir, num_batches: int = 0):
 
 
 def evaluate(args, dataset_dir, logger, device, do_eval=True):
-    from boxsegliver_torch.data.kfold import (LITS_SEED, read_or_create_k_folds,
-                                              train_test_split)
-    from boxsegliver_torch.data.meta import load_meta
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
     if args.model == "UNet3D" or args.task == "nf_3d":
         _not_ported("3D eval", "queue A, 3D tower")
     if args.task in ("nf_inter", "nf2"):
         _not_ported(f"task {args.task}", "queue A, interactive click path")
-    if not getattr(args, "use_spatial", False) or getattr(args, "eval_no_sp",
-                                                          False):
-        _not_ported("unguided volume eval (EvaluateVolume.run)",
-                    "queue A, main-path eval")
-    if args.task == "nf":
-        _not_ported("NF sp-point eval (run_sp)", "queue A, main-path eval")
-    if getattr(args, "device_sweep", "on") != "on":
+    spatial = bool(getattr(args, "use_spatial", False))
+    guided = spatial and not getattr(args, "eval_no_sp", False)
+    if spatial and args.task == "nf":
+        _not_ported("NF sp-point eval (run_sp)", "queue A, NF tasks")
+    if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
+        _not_ported(f"{'guided' if guided else 'unguided'} eval over "
+                    f"--num_replicas {args.num_replicas} devices",
+                    "queue A, DDP with sync batch norm")
+    if guided and getattr(args, "device_sweep", "on") != "on":
         _not_ported("--device_sweep off (the per-slice host loop)",
                     "queue A, host-loop overflow fallback")
 
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
-    metas = load_meta(dataset_dir)
-    folds = read_or_create_k_folds(
-        Path(dataset_dir) / "k_folds.txt", [m["PID"] for m in metas],
-        k_split=args.k_folds, seed=LITS_SEED)
-    _, test_pids = train_test_split(folds, args.test_fold)
-    test_pids = set(int(p) for p in test_pids)
-    eval_metas = [m for m in metas if int(m["PID"]) in test_pids]
+    eval_metas = _test_metas(args, dataset_dir)
+    evaluator = EvaluateVolume(args, dataset_dir,
+                               ["Background"] + list(args.classes))
+    save = args.save_predict or not do_eval
+    if not guided:
+        # the whole-case device predictor: one upload per case, 2.5D
+        # gather + mirror TTA + averaging on the device
+        from boxsegliver_torch.evaluators.device_eval import \
+            DeviceSlicePredictor
+        predictor = DeviceSlicePredictor(model, args, device=device)
+        return evaluator.run(predictor, eval_metas, save=save,
+                             do_eval=do_eval)
 
     from boxsegliver_torch.interactive.device_sweep import GuidedSweepPredictor
 
-    evaluator = EvaluateVolume(args, dataset_dir,
-                               ["Background"] + list(args.classes))
     # same id rule as run_g (base strips Background from classes)
     fg = [c for c in args.classes if c != "Background"]
     tumor_id = fg.index("Tumor") + 1 if "Tumor" in fg else len(fg)
     predictor = GuidedSweepPredictor(model, args, num_classes=len(fg) + 1,
                                      tumor_id=tumor_id, device=device)
-    return evaluator.run_g(predictor, eval_metas,
-                           save=args.save_predict or not do_eval,
-                           do_eval=do_eval)
+    return evaluator.run_g(predictor, eval_metas, save=save, do_eval=do_eval)
 
 
 if __name__ == "__main__":

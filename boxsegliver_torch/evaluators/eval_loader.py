@@ -1,10 +1,11 @@
-"""Full-volume eval loading: organ-bbox crop, align-16, CT re-window and the
-eval context features (own copy of the host part of
-boxsegliver_tpu/evaluators/eval_loader.py; reference parse_case_eval,
-DataLoader/Liver/input_pipeline_g.py:849-936) against the npy cache produced
+"""Full-volume eval loading: organ-bbox crop, align-16, CT re-window, the
+eval context features and the fixed-shape host slice batches with mirror
+TTA (own copy of boxsegliver_tpu/evaluators/eval_loader.py; reference
+parse_case_eval + get_dataset_for_eval_image,
+DataLoader/Liver/input_pipeline_g.py:849-979) against the npy cache produced
 by data/meta.py (HU values reconstructed from the stored uint16 window-clip).
-The per-batch host iterator ``slice_batches`` is not ported: the port's
-evaluators run whole cases on the device.
+``slice_batches`` resizes with the port's cv2.INTER_LINEAR-equivalent
+bilinear resize (ops/image_ops.py) instead of OpenCV.
 """
 
 from __future__ import annotations
@@ -12,11 +13,13 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+import torch
 
 from boxsegliver_torch.data.meta import GRAY_MIN, IM_SCALE
+from boxsegliver_torch.ops.image_ops import resize_bilinear
 
 # Normalization window of the ONLINE pipelines (reference
 # input_pipeline_g.py:46-47: GRAY_MIN=-200, GRAY_MAX=250) — intentionally
@@ -144,6 +147,86 @@ def parse_case_eval(case_meta: Dict, dataset_dir, im_channel: int = 3,
                     oshape=tuple(case_meta["size"]),
                     spacing=tuple(case_meta["spacing"]),
                     lhc=lhc, rhc=rhc, meta=case_meta)
+
+
+def _resize_host(arr: np.ndarray, pshape) -> np.ndarray:
+    """[Z, h, w] -> [Z, ph, pw] float32 numpy, cv2.INTER_LINEAR semantics."""
+    return resize_bilinear(torch.from_numpy(
+        np.ascontiguousarray(arr, np.float32)), pshape).numpy()
+
+
+def slice_batches(case: EvalCase, batch_size: int, pshape: Tuple[int, int],
+                  eval_mirror: bool = False, random_flip: int = 3,
+                  context: Optional[np.ndarray] = None,
+                  sp_guide: Optional[np.ndarray] = None,
+                  guide_bg: float = 0.5
+                  ) -> Iterator[Dict[str, np.ndarray]]:
+    """Fixed-shape [bs, ph, pw, C] slice batches over the case's z range,
+    batch-padded at the end, with optional mirror-TTA variants
+    (reference get_dataset_for_eval_image, input_pipeline_g.py:944-978).
+
+    Each yielded dict carries 'mirror' ∈ {0,1,2,3} and 'pads' on the LAST
+    non-mirror batch.  sp_guide, when given, is [cz, ch, cw] float32 aligned
+    to the cropped volume — or already at [cz, ph, pw] — and travels through
+    the same resize + mirror.  guide_bg fills batch-padding guide slices
+    (0.5 Liver convention, 0.0 NF).  The JAX package resizes each slice's
+    [ch, cw, C] stack with cv2; the channels resize independently, so the
+    port resizes every slice of the volume once instead.
+    """
+    cz = case.depth
+    _, ch, cw = case.volume.shape
+    c = case.lhc + case.rhc + 1
+    pads = (batch_size - cz % batch_size) % batch_size
+    n_batches = (cz + pads) // batch_size
+    need_resize = (ch, cw) != tuple(pshape)
+    vol = (_resize_host(case.volume, pshape) if need_resize
+           else np.asarray(case.volume, np.float32))
+    guide = None
+    if sp_guide is not None:
+        guide = np.asarray(sp_guide, np.float32)
+        if need_resize and guide.shape[1:] != tuple(pshape):
+            guide = _resize_host(guide, pshape)
+
+    for b in range(n_batches):
+        images = np.zeros((batch_size,) + tuple(pshape) + (c,), np.float32)
+        guides = (np.full((batch_size,) + tuple(pshape) + (1,), guide_bg,
+                          np.float32)
+                  if guide is not None else None)
+        for j in range(batch_size):
+            z = b * batch_size + j
+            if z < cz:
+                images[j] = np.transpose(vol[z:z + c], (1, 2, 0))
+                if guides is not None:
+                    guides[j, ..., 0] = guide[z]
+        batch = {"images": images, "names": case.pid, "mirror": 0,
+                 "pads": pads if b == n_batches - 1 else 0}
+        if context is not None:
+            ctx = np.zeros((batch_size, context.shape[1]), np.float32)
+            z0 = case.crop[0] + b * batch_size
+            valid = min(batch_size, context.shape[0] - z0)
+            if valid > 0:
+                ctx[:valid] = context[z0:z0 + valid]
+            batch["context"] = ctx
+        if guides is not None:
+            batch["sp_guide"] = guides
+        yield dict(batch)
+        if eval_mirror:
+            variants = []
+            if random_flip & 1:
+                variants.append((1, lambda a: np.flip(a, axis=2)))
+            if random_flip & 2:
+                variants.append((2, lambda a: np.flip(a, axis=1)))
+            if random_flip & 3 == 3:
+                variants.append((3, lambda a: np.flip(np.flip(a, axis=2),
+                                                      axis=1)))
+            for mid, flip in variants:
+                tmp = dict(batch)
+                tmp["images"] = np.ascontiguousarray(flip(batch["images"]))
+                if guides is not None:
+                    tmp["sp_guide"] = np.ascontiguousarray(
+                        flip(batch["sp_guide"]))
+                tmp["mirror"] = mid
+                yield tmp
 
 
 def load_eval_context(dataset_dir, pid: int, context_list, hist_scale: float

@@ -1,17 +1,23 @@
-"""Volume evaluator of the port: the interactive guided eval ``run_g``
-(port of boxsegliver_tpu/evaluators/volume.py:153-324,453-496; reference
-EvaluateVolume, evaluators/evaluator_liver.py:680-904, 998-1026).
+"""Volume evaluator of the port: the unguided whole-volume eval ``run``
+and the interactive guided eval ``run_g`` (port of
+boxsegliver_tpu/evaluators/volume.py:77-147,153-324,453-538; reference
+EvaluateVolume, evaluators/evaluator_liver.py:524-586, 616-904, 998-1026).
 
-The device sweep (interactive/device_sweep.py) returns each case's merged
-probability volume; everything after it — argmax, nearest resize back to the
-crop, postprocess (tumor→liver merge, largest liver component, tumor masked
-by liver), 3D metrics, global-Dice accumulation and NIfTI save — is host
-numpy as in the JAX package, with the port's cv2-equivalent resize.
+A case's probability volume comes from the device: ``run`` takes a
+DeviceSlicePredictor's whole-case ``device_case`` (evaluators/device_eval.py)
+or, for a plain ``predict_fn`` such as ``Trainer.predict`` (the inline
+``--eval_3d`` eval), the host slice batches of eval_loader.slice_batches
+with their mirror variants; ``run_g`` takes the device sweep
+(interactive/device_sweep.py).  Everything after it — argmax, nearest
+resize back to the crop, postprocess (tumor→liver merge, largest liver
+component, tumor masked by liver), 3D metrics, global-Dice accumulation and
+NIfTI save — is host numpy as in the JAX package, with the port's
+cv2-equivalent resizes.
 
 Not ported yet (each raises, naming its roadmap item): the per-slice host
 propagation loop that the JAX evaluator falls back to when a case overflows
 the sweep's caps or guides are dumped (``--save_sp_guide``), and the
-unguided / sp-point / patch evaluations ``run``, ``run_sp``, ``run_patch``.
+sp-point / patch evaluations ``run_sp``, ``run_patch`` of the NF tasks.
 """
 
 from __future__ import annotations
@@ -30,7 +36,9 @@ from boxsegliver_torch.data import nii as nii_kits
 from boxsegliver_torch.evaluators.base import EvaluateBase
 from boxsegliver_torch.evaluators.eval_loader import (EvalCase,
                                                       load_eval_context,
-                                                      parse_case_eval)
+                                                      parse_case_eval,
+                                                      slice_batches)
+from boxsegliver_torch.interactive.propagation import mirror_variants
 from boxsegliver_torch.ops import array_kits
 from boxsegliver_torch.ops.image_ops import resize_nearest
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
@@ -40,6 +48,14 @@ logger = logging.getLogger("boxsegliver")
 
 _HOST_LOOP = ("the per-slice host propagation loop is not ported yet "
               "(ROADMAP queue A, host-loop overflow fallback)")
+_FLIPS = {1: (2,), 2: (1,), 3: (1, 2)}
+
+
+def _host(probs) -> np.ndarray:
+    """A predict_fn's probabilities as a float32 host array."""
+    if isinstance(probs, torch.Tensor):
+        return probs.float().cpu().numpy()
+    return np.asarray(probs, np.float32)
 
 
 class EvaluateVolume(EvaluateBase):
@@ -53,6 +69,9 @@ class EvaluateVolume(EvaluateBase):
         self.dataset_dir = Path(dataset_dir)
         self.merge_tumor_to_liver = merge_tumor_to_liver
         self.largest = largest
+        self.mirror_div = len(mirror_variants(
+            int(getattr(args, "random_flip", 3)),
+            bool(getattr(args, "eval_mirror", False))))
         self.context_list = None
         if getattr(args, "use_context", False):
             raw = getattr(args, "context_list", None) or ["hist", "200"]
@@ -69,6 +88,82 @@ class EvaluateVolume(EvaluateBase):
         self.gt_label_mode = {"only_liver": "liver01",
                               "tumor": "tumor"}.get(
             getattr(args, "task", "liver"), "none")
+
+    # ------------------------------------------------------------------
+    # per-case prediction
+    # ------------------------------------------------------------------
+
+    def predict_case(self, predict_fn: Callable, case: EvalCase,
+                     sp_guide: Optional[np.ndarray] = None) -> np.ndarray:
+        """Mirror-averaged softmax volume [cz, ph, pw, nc] for one case
+        (reference _predict_case accumulation, evaluator_liver.py:642-656):
+        the predictor's ``device_case`` when it has one, else host slice
+        batches through ``predict_fn``."""
+        args = self.args
+        pshape = (args.im_height, args.im_width)
+        context = None
+        if self.context_list is not None:
+            context = load_eval_context(self.dataset_dir, case.pid,
+                                        self.context_list, args.hist_scale)
+        if hasattr(predict_fn, "device_case"):
+            return predict_fn.device_case(case, context=context,
+                                          sp_guide=sp_guide)
+        chunks: List[np.ndarray] = []
+        pads = 0
+        for batch in slice_batches(case, args.batch_size, pshape,
+                                   eval_mirror=getattr(args, "eval_mirror",
+                                                       False),
+                                   random_flip=getattr(args, "random_flip", 3),
+                                   context=context, sp_guide=sp_guide,
+                                   guide_bg=0.0 if self.nf else 0.5):
+            mirror = batch.pop("mirror")
+            pads = batch.pop("pads") or pads
+            feats = {k: v for k, v in batch.items() if k != "names"}
+            probs = _host(predict_fn(feats))
+            if mirror == 0:
+                chunks.append(probs / self.mirror_div)
+            else:
+                chunks[-1] += (np.flip(probs, axis=_FLIPS[mirror])
+                               / self.mirror_div)
+        volume = np.concatenate(chunks, axis=0)
+        if pads:
+            volume = volume[:-pads]
+        return volume
+
+    def predict_case_patches(self, predict_fn: Callable, case: EvalCase,
+                             overlap: float = 0.5) -> np.ndarray:
+        """Patch-based 2D eval (--eval_in_patches, reference
+        input_pipeline.py:676 + evaluator_liver.py:524-586): each slice is
+        tiled at (im_height, im_width) with overlap-count averaging."""
+        args = self.args
+        ph, pw = args.im_height, args.im_width
+        cz = case.depth
+        _, ch, cw = case.volume.shape
+        c = case.lhc + case.rhc + 1
+        nc = len(self.classes) + 1
+        ys = sorted(set(list(range(0, max(ch - ph, 0) + 1,
+                                   max(1, int(ph * (1 - overlap)))))
+                        + [max(ch - ph, 0)]))
+        xs = sorted(set(list(range(0, max(cw - pw, 0) + 1,
+                                   max(1, int(pw * (1 - overlap)))))
+                        + [max(cw - pw, 0)]))
+        tiles = [(y, x) for y in ys for x in xs]
+        probs = np.zeros((cz, ch, cw, nc), np.float32)
+        counts = np.zeros((ch, cw, 1), np.float32)
+        bs = args.batch_size
+        for z in range(cz):
+            stack = np.transpose(case.volume[z:z + c], (1, 2, 0))
+            batch_tiles = [stack[y:y + ph, x:x + pw] for (y, x) in tiles]
+            for i0 in range(0, len(batch_tiles), bs):
+                chunk = batch_tiles[i0:i0 + bs]
+                arr = np.zeros((bs, ph, pw, c), np.float32)
+                arr[:len(chunk)] = np.stack(chunk)
+                out = _host(predict_fn({"images": arr}))
+                for j, (y, x) in enumerate(tiles[i0:i0 + len(chunk)]):
+                    probs[z, y:y + ph, x:x + pw] += out[j]
+                    if z == 0:
+                        counts[y:y + ph, x:x + pw] += 1.0
+        return probs / counts[None]
 
     # ------------------------------------------------------------------
     # postprocess + metrics
@@ -204,6 +299,38 @@ class EvaluateVolume(EvaluateBase):
                               do_eval, n, t0)
         return self._finish_run(accumulator, n)
 
+    # ------------------------------------------------------------------
+    # main entry (reference run + _run_actual, evaluator_liver.py:704-766,
+    # 906-996)
+    # ------------------------------------------------------------------
+
+    def run(self, predict_fn: Callable, case_metas: Iterable[Dict],
+            save: bool = False, save_path=None, do_eval: bool = True
+            ) -> Dict[str, float]:
+        """Unguided whole-volume evaluation of ``case_metas``."""
+        args = self.args
+        self.clear_metrics()
+        accumulator: Dict[str, int] = defaultdict(int)
+        n = 0
+        skip = getattr(args, "eval_skip_num", 0)
+        limit = getattr(args, "eval_num", -1)
+        for meta in list(case_metas)[skip:]:
+            if 0 < limit <= n:
+                break
+            t0 = time.time()
+            case = parse_case_eval(meta, self.dataset_dir,
+                                   im_channel=args.im_channel,
+                                   parse_label=do_eval, norm=self.norm,
+                                   whole_frame=self.nf)
+            if getattr(args, "eval_in_patches", False):
+                probs = self.predict_case_patches(predict_fn, case)
+            else:
+                probs = self.predict_case(predict_fn, case)
+            n += 1
+            self._finish_case(case, probs, accumulator, save, save_path,
+                              do_eval, n, t0)
+        return self._finish_run(accumulator, n)
+
     def predict_case_g(self, predict_fn, meta: Dict, prior_case: Dict,
                        parse_label: bool = True):
         """One case of the run_g protocol: parse → device double
@@ -278,3 +405,15 @@ class EvaluateVolume(EvaluateBase):
         if model_dir.exists():
             (model_dir / "eval_results_3d.txt").write_text(
                 json.dumps({k: float(v) for k, v in results.items()}))
+
+
+def make_inline_eval_fn(evaluator: EvaluateVolume, case_metas: List[Dict],
+                        max_cases: int = -1):
+    """eval_fn(trainer) for Trainer.train — the epoch-end 3D eval of the
+    held-out cases through the trainer's predict and the host slice batches
+    (reference EvaluatorHook + evaluate_online, core/hooks.py:79-191 /
+    core/estimator.py:334-357)."""
+    def eval_fn(trainer):
+        metas = case_metas if max_cases <= 0 else case_metas[:max_cases]
+        return evaluator.run(trainer.predict, metas, save=False, do_eval=True)
+    return eval_fn

@@ -4,18 +4,22 @@
 The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
-GUNet configs whose context model is ported are carried.
+configs of ported models are carried: the UNet ones and the GUNet ones whose
+context model is ported.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Any, Dict, Optional
 
 import torch
 
 from boxsegliver_torch.models.gunet import GUNet
+from boxsegliver_torch.models.unet import UNet
 
 MODEL_ZOO = {
+    "UNet": UNet,
     "GUNet": GUNet,
 }
 
@@ -27,6 +31,9 @@ _GUNET_BASE = {
 
 # configs/models/<name> and configs/models/ext_config/<name> of the JAX package
 MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
+    "UNet.yml": {"init_channels": 64, "num_down_samples": 4,
+                 "ret_prob": False, "ret_pred": True},
+    "UNet_TINY.yml": {"init_channels": 8, "num_down_samples": 2},
     "GUNet.yml": dict(_GUNET_BASE, context_fc_channels=[256, 256],
                       norm_with_center=True, norm_with_scale=False),
     "GUNet_SP.yml": dict(_GUNET_BASE, context_fc_channels=[200, 200],
@@ -45,6 +52,7 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
 
 # Which constructor fields each model pulls from the flag namespace.
 _ARG_FIELDS = {
+    "UNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
     "GUNet": ("normalizer", "without_norm", "img_grad", "weight_init",
               "use_context", "use_spatial", "use_se", "guide_channel",
               "side_dropout", "dropout", "fix"),
@@ -82,7 +90,9 @@ def build_model(model_name: str, args=None,
     float32, ``dtype`` the compute dtype).  num_classes defaults to
     len(args.classes) + 1 (Background prepended, reference
     NetworksV2/base.py:44).  Input widths that flax infers at init come from
-    the flags: ``--im_channel`` and the summed ``--context_list`` lengths."""
+    the flags: ``--im_channel`` and the summed ``--context_list`` lengths.
+    Keys the model's constructor does not take are dropped, as the JAX
+    package drops the fields a flax module lacks."""
     cls = MODEL_ZOO[model_name]
     kwargs = dict(model_kwargs or {})
     for key in _RUNTIME_KEYS:
@@ -99,4 +109,5 @@ def build_model(model_name: str, args=None,
         kwargs["num_classes"] = num_classes
     if dtype is not None:
         kwargs["dtype"] = dtype
-    return cls(**kwargs)
+    valid = inspect.signature(cls).parameters
+    return cls(**{k: v for k, v in kwargs.items() if k in valid})

@@ -1,5 +1,5 @@
 """Shared building blocks of the UNet model family (port of
-boxsegliver_tpu/models/layers.py:38-84,126-164,206-267).
+boxsegliver_tpu/models/layers.py:38-84,126-164,206-267,337-346).
 
 Conventions carried over from the flax modules:
 - modules take and return NCHW tensors; the models convert from and to the
@@ -14,9 +14,11 @@ Conventions carried over from the flax modules:
 
 Train mode (``train=True``): dropout draws its keep masks from an explicit
 ``torch.Generator`` (flax semantics: keep with probability 1 − rate, kept
-units scaled by 1 / (1 − rate)); batch norm in train mode is not ported yet
-and raises.  The instance-norm + ReLU pair with a full affine runs through
-kernel B2 (ops/kernels.InstanceNormReLU) in train and eval mode alike.
+units scaled by 1 / (1 − rate)); batch norm normalizes with the batch
+statistics and moves its running statistics as flax ``nn.BatchNorm`` with
+``mutable=["batch_stats"]`` does (``Norm``).  The instance-norm + ReLU pair
+with a full affine runs through kernel B2 (ops/kernels.InstanceNormReLU) in
+train and eval mode alike.
 """
 
 from __future__ import annotations
@@ -30,10 +32,8 @@ from torch import nn
 
 from boxsegliver_torch.ops.kernels import instance_norm_relu
 
-_BN_TRAIN = ("batch_norm in train mode is not ported yet (ROADMAP queue A, "
-             "UNet / batch-norm training): flax momentum 0.99 is torch "
-             "momentum 0.01, and flax keeps the biased running variance "
-             "where torch keeps the unbiased one")
+# flax nn.BatchNorm(momentum=0.99): ra <- 0.99 * ra + 0.01 * batch statistic
+BN_MOMENTUM = 0.99
 
 
 def dropout_apply(x: torch.Tensor, keep: torch.Tensor,
@@ -114,10 +114,18 @@ def avg_pool2x2_same(x: torch.Tensor) -> torch.Tensor:
 class Norm(nn.Module):
     """Normalizer selected by name with optional affine params.
 
-    batch_norm: eval with running statistics, eps 1e-3 (slim defaults);
+    batch_norm: eps 1e-3 (slim defaults).  Eval mode normalizes with the
+    running statistics; train mode with the batch's statistics over
+    (N, H, W), computed in float32 from the input's dtype, and then moves
+    the running statistics once per forward as flax does: ra ← 0.99·ra +
+    0.01·batch, with the BIASED batch variance (torch's own running update
+    would store the unbiased one, so the batch norm itself runs without
+    running statistics and the update is made here, outside autograd).
     instance_norm: per-(sample, channel) statistics over H, W, eps 1e-6,
-    variance E[x²] − E[x]² clipped at 0 (flax's fast variance).  A norm
-    without scale or bias has no such parameter.
+    variance E[x²] − E[x]² clipped at 0 (flax's fast variance).  Both
+    normalize in float32, ``(x − mean)·rsqrt(var + eps)·scale + bias``, and
+    cast back to the input's dtype.  A norm without scale or bias has no
+    such parameter.
     """
 
     def __init__(self, normalizer: str, channels: int, use_bias: bool = True,
@@ -136,7 +144,7 @@ class Norm(nn.Module):
 
     def forward(self, x, train: bool = False):
         if self.normalizer == "batch_norm" and train:
-            raise NotImplementedError(_BN_TRAIN)
+            return self._batch_norm_train(x)
         xf = x.float()
         if self.normalizer == "instance_norm":
             mean = xf.mean(dim=(2, 3), keepdim=True)
@@ -152,6 +160,21 @@ class Norm(nn.Module):
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(x.dtype)
+
+    def _batch_norm_train(self, x):
+        """Batch statistics in float32 (one fused pass each way, mixed
+        bf16 / float32 on both devices), then the flax running update from
+        the saved mean and inverse deviation: var = invstd⁻² − eps,
+        recovered in float64."""
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = (invstd.double().pow(-2) - self.eps).clamp_min(0.0).float()
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
+                                    + (1.0 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var
+                                   + (1.0 - BN_MOMENTUM) * var)
+        return y
 
 
 def fused_pair(norm: Optional["Norm"], act: bool) -> bool:
@@ -238,3 +261,14 @@ class MLP(nn.Module):
             if k < self.n_layers - 1:
                 x = dropout(F.relu(x), self.rate, train, generator)
         return x
+
+
+def image_gradients(images: torch.Tensor):
+    """tf.image.image_gradients for NHWC batches: dy[:, i] = x[:, i + 1] −
+    x[:, i] with a zero last row, dx likewise along W (the ``--img_grad``
+    inputs)."""
+    dy = torch.cat([images[:, 1:] - images[:, :-1],
+                    torch.zeros_like(images[:, :1])], dim=1)
+    dx = torch.cat([images[:, :, 1:] - images[:, :, :-1],
+                    torch.zeros_like(images[:, :, :1])], dim=2)
+    return dy, dx

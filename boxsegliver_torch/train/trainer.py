@@ -5,8 +5,11 @@ core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
 - One train step: upload the raw host batch → device augmentation
   (data/pipeline.make_preprocess_fn, guide render = kernel B1) → forward in
   the compute dtype (every full-affine instance-norm + ReLU pair = kernel
-  B2) → loss (ops/losses.py) → backward → L2 term → optimizer update at
-  lr(step) (train/solver.py).
+  B2; batch norm moves its running statistics once per train-mode forward,
+  as flax's ``mutable=["batch_stats"]`` does) → loss (ops/losses.py) →
+  backward → L2 term → optimizer update at lr(step) (train/solver.py).
+  The running statistics are module buffers: they ride the model's
+  state_dict into the checkpoints, resume and warm start.
 - The L2 term 0.5·wd·Σw² is added to the loss value, and its gradient wd·w
   to the decayed tensors' gradients, without going through autograd.
 - Metric tensors stay on the device; every ``fetch_every`` steps (and at an
@@ -65,8 +68,8 @@ class Trainer:
                  device, preprocess_fn=None, save_ckpt_steps: int = 5000):
         if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
             raise NotImplementedError(
-                "--num_replicas > 1 is not ported yet (ROADMAP queue A, DDP "
-                "with sync batch norm)")
+                "--mode train with --num_replicas > 1 is not ported yet "
+                "(ROADMAP queue A, DDP with sync batch norm)")
         if int(getattr(args, "steps_per_dispatch", 1)) > 1:
             raise NotImplementedError(
                 "--steps_per_dispatch > 1 is not ported yet (ROADMAP queue "
@@ -160,8 +163,10 @@ class Trainer:
         if src:
             if getattr(self.args, "weights_scope", None) or src.endswith(".h5"):
                 raise NotImplementedError(
-                    "--weights_scope and .h5 imports are not ported yet "
-                    "(ROADMAP queue A, UNet / batch-norm training)")
+                    "--weights_scope is not ported yet (ROADMAP queue A, "
+                    "--weights_scope partial restore); .h5 imports come with "
+                    "the DenseNet-161 import (ROADMAP queue A, rest of the "
+                    "2D zoo)")
             src = self._resolve_load_weights(src)
             n = warm_start(self.model, src)
             logger.info("Warm started %d tensors from %s", n, src)
@@ -313,6 +318,10 @@ class Trainer:
 
     # -- predict -----------------------------------------------------------
     @torch.no_grad()
-    def predict(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Softmax probabilities of one device feature batch (eval mode)."""
+    def predict(self, features: Dict) -> torch.Tensor:
+        """Softmax probabilities of one feature batch in eval mode (batch
+        norm with its running statistics), on the trainer's device; host
+        arrays are uploaded first (the volume evaluator's host batches)."""
+        features = {k: torch.as_tensor(v, device=self.device)
+                    for k, v in features.items()}
         return torch.softmax(self.model(features, train=False), dim=-1)

@@ -61,6 +61,32 @@ result line):
    step on the CPU (loss and updated parameters within 1e-4).
 9. train profile — the flagship train step in steady state: ms/step,
    slices/s, device busy share and kernel time by group.
+10. UNet train — the headline UNet training (``001_unet.sh train`` flags:
+   UNet.yml at full width, init_channels 64, 4 down-samples, batch norm,
+   batch 8, 256^2 x 3, bf16, numerical loss weights, plateau Adam) through
+   ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, the
+   inline whole-volume eval (--eval_per_epoch --eval_3d --eval_num 1)
+   every 12, a best checkpoint; the loss must fall and the running
+   statistics move; then a resume on the streaming sampler to step 30.
+   The launch counters are zeroed before each run: the batch-norm path
+   runs none of the hand-written kernels and must launch none.  Then one
+   train step of UNet_TINY (batch norm) at 64^2 in float32 on the card
+   against the CPU: loss, parameters and running statistics within 1e-4.
+11. UNet steady state — the UNet train step at the ``001_unet.sh`` flags
+   (batch 8, the smoke's dataset) and the ``bench.py`` workload on the port
+   (its flags: batch 128, --device_cache, --noise_scale 0.1, float32 Adam
+   moments, on 4 synthetic cases of 24 x 512 x 512, k_folds 4): warm-up,
+   then 3 windows of 16 steps, each closed by one fetch of the window's
+   metrics as the train loop's drain does; ms/step and slices/s per
+   window; one profiled window of 8 steps gives the busy share and the
+   device time by kernel group; the analytic GFLOP per slice (forward from
+   the conv shapes, x3 for forward and backward) and its share of the bf16
+   peak.
+12. UNet eval — ``001_unet.sh eval`` through the CLI on phase 10's
+   checkpoint: EvaluateVolume.run with a DeviceSlicePredictor over the
+   test fold; s/case and slices/s (the CLI call, then the same run warm);
+   then device_case on the card against the CPU in float32 on an 8-slice
+   cut of one case (probabilities within 1e-4).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8; ``ms``: wrapper time, per call for B1 and summed over one train
 step's calls for B2; ``device_ms``: device time per launch, for B2 averaged
@@ -74,6 +100,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -87,6 +114,9 @@ import torch
 # arithmetic, used for the bounds of kernels B1 and B2
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet), for the
+# share of peak of the UNet train step (phase 11)
+BF16_FLOPS_PER_S = 989e12
 # float operations per (pixel, valid object) of B1: 2 sub, 2 squares,
 # 2 scale mul, 1 add, 1 negate, 1 exp, 1 max
 B1_OPS_PER_TERM = 10
@@ -533,8 +563,9 @@ def sweep_card_vs_cpu(ds, dev, seed):
 # ---------------------------------------------------------------------------
 
 def kernel_groups(prof):
-    """Device time by kernel group from a torch.profiler run (phases 6 and
-    9)."""
+    """Device time by kernel group from a torch.profiler run (phases 6, 9
+    and 11).  cuDNN's NCHW <-> NHWC layout transposes sit in the cudnn
+    namespace and count with the convolutions."""
     from torch.autograd import DeviceType
 
     def self_us(e):
@@ -545,6 +576,7 @@ def kernel_groups(prof):
             if e.device_type == DeviceType.CUDA and self_us(e) > 0]
     kern.sort(key=self_us, reverse=True)
     groups = {"convolutions (cuDNN / CUTLASS)": 0.0,
+              "batch norm (fwd, bwd)": 0.0,
               "B2 in_relu (fwd, bwd_stats, bwd_apply)": 0.0,
               "B1 guide_render": 0.0,
               "optimizer (multi-tensor foreach)": 0.0,
@@ -556,6 +588,8 @@ def kernel_groups(prof):
             key = "B2 in_relu (fwd, bwd_stats, bwd_apply)"
         elif "guide_render" in name:
             key = "B1 guide_render"
+        elif "batch_norm" in name or "::bn_" in name:
+            key = "batch norm (fwd, bwd)"
         elif any(t in name for t in ("xmma", "cutlass", "convolve", "gemm",
                                      "conv2d", "dgrad", "wgrad", "cudnn")):
             key = "convolutions (cuDNN / CUTLASS)"
@@ -1147,12 +1181,339 @@ def profile_train(tmp):
     print("\n".join("  " + ln for ln in lines))
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: the headline UNet (001_unet.sh, bench.py) on the port
+# ---------------------------------------------------------------------------
+
+# run_scripts/template/001_unet.sh train and eval flags (the dataset, the
+# fold and the step counts are the smoke's own, appended below)
+UNET_COMMON = ["--tag", "chip_smoke_unet", "--model", "UNet", "--classes",
+               "Liver", "Tumor", "--test_fold", "2", "--im_height", "256",
+               "--im_width", "256", "--im_channel", "3", "--random_flip", "3",
+               "--num_replicas", "0", "--dataset", "LiTS"]
+UNET_TRAIN_FLAGS = ["liver", "--mode", "train"] + UNET_COMMON + [
+    "--noise_scale", "0.05", "--num_of_total_steps", "600000",
+    "--primary_metric", "Tumor/Dice", "--secondary_metric", "Liver/Dice",
+    "--loss_weight_type", "numerical", "--loss_numeric_w", "0.2", "0.4",
+    "4.4", "--batches_per_epoch", "2000", "--batch_size", "8",
+    "--weight_decay_rate", "0.000001", "--learning_policy", "plateau",
+    "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
+    "0.2", "--eval_num_batches_per_epoch", "200", "--eval_per_epoch",
+    "--evaluator", "Volume", "--save_best"]
+UNET_EVAL_FLAGS = ["liver", "--mode", "eval"] + UNET_COMMON + [
+    "--metrics_eval", "Dice", "VOE", "RVD", "--primary_metric", "Tumor/Dice",
+    "--batch_size", "8", "--evaluator", "Volume"]
+
+
+def smoke_data(tmp, md, *extra):
+    return ["--data_root", str(tmp), "--dataset", "ds", "--k_folds", "2",
+            "--test_fold", "0", "--model_dir", str(md)] + list(extra)
+
+
+def no_kernel_run(fn, what):
+    """fn() with the launch counters zeroed right before it; the batch-norm
+    UNet path runs no hand-written kernel, so every count must stay 0."""
+    from boxsegliver_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in kernels.KERNELS.items()}
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the batch-norm UNet path launched "
+                             f"{launches}")
+    return out, seconds, launches
+
+
+def unet_train_phase(tmp):
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.train.checkpoint import load_state
+
+    md = Path(tmp) / "unet_md"
+    argv = UNET_TRAIN_FLAGS + smoke_data(
+        tmp, md, "--num_of_steps", "24", "--batches_per_epoch", "12",
+        "--eval_3d", "--eval_num", "1", "--log_step", "4")
+    trainer, seconds, launches = no_kernel_run(
+        lambda: cli.main(argv + ["--device_cache"]), "UNet train")
+    if trainer.global_step != 24:
+        raise AssertionError(f"UNet train stopped at {trainer.global_step}")
+    for rel in ("ckpt/24/state.pt", "ckpt_best/best/state.pt", "best_result",
+                "summaries/metrics.jsonl"):
+        if not (md / rel).exists():
+            raise AssertionError(f"UNet train: {rel} was not written")
+    lines = [json.loads(ln) for ln in
+             (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
+    loss = {ln["step"]: ln["value"] for ln in lines
+            if ln["tag"] == "chip_smoke_unet/loss"}
+    evals = {ln["step"]: ln["value"] for ln in lines
+             if ln["tag"] == "chip_smoke_unet/eval/Liver/Dice"}
+    steps = sorted(loss)
+    if not all(math.isfinite(v) for v in loss.values()):
+        raise AssertionError(f"non-finite UNet train loss: {loss}")
+    late = float(np.mean([loss[s] for s in steps[-3:]]))
+    if not late < loss[steps[0]]:
+        raise AssertionError(f"UNet train loss did not fall: {loss}")
+    if sorted(evals) != [12, 24] or not all(math.isfinite(v)
+                                            for v in evals.values()):
+        raise AssertionError(f"inline volume evals {evals}, not at 12, 24")
+    state = load_state(md / "ckpt" / "24" / "state.pt")["model"]
+    rv = state["Encode1_conv1.norm.running_var"]
+    if bool(torch.equal(rv, torch.ones_like(rv))):
+        raise AssertionError("the running statistics did not move")
+    print(f"  UNet train (001_unet flags, --device_cache): 24 steps of 8 x "
+          f"256^2 in {seconds:.2f} s ({seconds / 24 * 1e3:.1f} ms/step with "
+          f"set-up and two inline volume evals of 1 case); loss "
+          + ", ".join(f"{s}: {loss[s]:.4f}" for s in steps)
+          + f"; eval Liver/Dice {evals}; launches {launches}; {smi()}")
+
+    again, seconds2, _ = no_kernel_run(
+        lambda: cli.main(UNET_TRAIN_FLAGS + smoke_data(
+            tmp, md, "--num_of_steps", "30", "--batches_per_epoch", "12",
+            "--eval_3d", "--eval_num", "1", "--log_step", "4")),
+        "UNet resume")
+    if again.global_step != 30 or not (md / "ckpt" / "30" / "state.pt").exists():
+        raise AssertionError(f"UNet resume ended at step {again.global_step}")
+    print(f"  UNet resume on the streaming sampler: steps 25-30 in "
+          f"{seconds2:.2f} s")
+    return md
+
+
+def unet_train_card_vs_cpu(tmp, dev, seed):
+    """One train step of UNet_TINY (batch norm) at 64^2 in float32, TF32
+    off, on the card and on the CPU from the same weights, running
+    statistics and processed batch; Momentum, as in train_card_vs_cpu."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import (_process_batch,
+                                                 batch_to_device, norm_statics)
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.ops.image_ops import draw_augment
+
+    argv = UNET_TRAIN_FLAGS + smoke_data(
+        tmp, Path(tmp) / "unet_cmp_md", "--im_height", "64", "--im_width",
+        "64", "--compute_dtype", "float32", "--model_config", "UNet_TINY.yml",
+        "--optimizer", "Momentum", "--batch_size", "4")
+    args = cli.get_args(argv)
+    raw = TrainSampler(Path(tmp) / "ds", args, seed=seed).sample_batch(4)
+    draws = draw_augment(torch.Generator().manual_seed(seed), (4, 64, 64, 3),
+                         noise=True, device="cpu")
+    feats, labels = _process_batch(
+        batch_to_device(raw, "cpu"), draws, im_h=64, im_w=64,
+        noise_scale=0.05, random_flip=3, use_spatial=False, min_std=2.0,
+        **norm_statics(args))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        ft = {k: v.to(d) for k, v in feats.items()}
+        trainer = cli.build_trainer(args, d)
+        trainer.preprocess_fn = lambda batch, gen, ft=ft: (ft, labels.to(d))
+        vals, _ = trainer.train_step({"names": raw["names"]})
+        out.append((float(vals[0]), {k: v.detach().cpu() for k, v in
+                                     trainer.model.state_dict().items()}))
+        trainer.summary.close()
+    loss_err = abs(out[0][0] - out[1][0]) / abs(out[1][0])
+    errs = {k: float((out[0][1][k] - v).abs().max())
+            for k, v in out[1][1].items()}
+    p_err = max(v for k, v in errs.items() if "running" not in k)
+    s_err = max(v for k, v in errs.items() if "running" in k)
+    print(f"  UNet train step card vs CPU (UNet_TINY, batch norm, 64^2, "
+          f"float32): loss {out[0][0]:.6f} / {out[1][0]:.6f} (rel err "
+          f"{loss_err:.2e}), parameters max abs err {p_err:.2e}, running "
+          f"statistics max abs err {s_err:.2e}")
+    if not (loss_err <= 1e-4 and p_err <= 1e-4 and s_err <= 1e-4):
+        raise AssertionError("the UNet train step on the card disagrees "
+                             "with the CPU")
+
+
+def unet_gflop_per_slice(model, h, w):
+    """Analytic forward GFLOP of one h x w slice, 2 per MAC: a k x k conv
+    makes Cin·k² MACs per output element, the 2x2 stride-2 transpose conv
+    Cin per output element (each output pixel takes one tap)."""
+    from boxsegliver_torch.models.layers import Conv, UpConv
+
+    macs = []
+
+    def hook(mod, inp, out):
+        per = inp[0].shape[1] * (mod.weight.shape[2] * mod.weight.shape[3]
+                                 if isinstance(mod, Conv) else 1)
+        macs.append(out[0].numel() * per)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv, UpConv))]
+    with torch.inference_mode():
+        model({"images": torch.zeros(1, h, w, 3, device="cuda")})
+    for hk in hooks:
+        hk.remove()
+    return 2 * sum(macs) / 1e9
+
+
+def unet_steady(args, ds, what):
+    """Steady-state UNet train steps of ``args`` on the dataset ``ds`` with
+    the device cache, as bench.py times them: 3 warm-up steps, 3 windows of
+    16 steps, each closed by one fetch of the window's metrics (the train
+    loop's drain), then one profiled window of 8 steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.device_cache import DeviceVolumeCache
+    from boxsegliver_torch.data.pipeline import TrainDataset
+    from boxsegliver_torch.data.sampler import TrainSampler
+
+    bs = int(args.batch_size)
+    train_pids, _ = cli._split_pids(args, ds)
+    cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda",
+                              budget_gb=args.device_cache_gb)
+    trainer = cli.build_trainer(args, torch.device("cuda"), cache=cache)
+    data = TrainDataset(TrainSampler(ds, args, mode="train", seed=1,
+                                     zbase=cache.zbase), args,
+                        seed=args.seed, workers=1, prefetch=4)
+    gflop = 3 * unet_gflop_per_slice(trainer.model, args.im_height,
+                                     args.im_width)
+
+    def window(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals = [trainer.train_step(next(data))[0] for _ in range(n)]
+        host = torch.stack(vals).cpu()             # the drain's one fetch
+        seconds = time.perf_counter() - t0
+        if not torch.isfinite(host).all():
+            raise AssertionError(f"non-finite train step values {host}")
+        return seconds / n
+
+    try:
+        (_, _, launches) = no_kernel_run(lambda: window(3), what)
+        walls = [window(16) for _ in range(3)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prof_wall = window(8)
+    finally:
+        data.close()
+        trainer.summary.close()
+    kern, groups, self_us = kernel_groups(prof)
+    busy_ms = sum(groups.values()) / 1e3 / 8
+    share = max(busy_ms, 1e-9)
+    wall = statistics.median(walls)
+    sps = bs / wall
+    lines = [
+        f"card: {smi()}",
+        f"{what}: UNet.yml full width, batch {bs}, {args.im_height}^2 x 3, "
+        f"bf16, batch norm, --device_cache, noise {args.noise_scale}, loss "
+        f"weights {args.loss_weight_type}, {args.optimizer}; launches in "
+        f"the warm-up {launches}",
+        "ms/step over 3 windows of 16 steps: "
+        + ", ".join(f"{w * 1e3:.3f}" for w in walls)
+        + f" -> median {wall * 1e3:.3f} ms/step, {sps:.1f} slices/s "
+        f"(best {bs / min(walls):.1f})",
+        f"analytic {gflop:.2f} GFLOP/slice (forward x 3) -> "
+        f"{sps * gflop / 1e3:.1f} TFLOP/s, "
+        f"{sps * gflop * 1e9 / BF16_FLOPS_PER_S:.1%} of the bf16 peak "
+        f"({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound "
+        f"{gflop * 1e9 / BF16_FLOPS_PER_S * 1e3:.4f} ms/slice)",
+        f"profiled window of 8 steps: {prof_wall * 1e3:.3f} ms/step; kernel "
+        f"launches per step {sum(e.count for e in kern) / 8:.0f}; kernel "
+        f"time {busy_ms:.3f} ms/step -> busy {busy_ms / 1e3 / prof_wall:.1%}"
+        f" of the profiled wall, {busy_ms / 1e3 / wall:.1%} of the "
+        f"unprofiled median",
+        ""] + [f"{k:50s} {v / 1e3 / 8:9.3f} ms/step {v / 1e3 / 8 / share:7.1%}"
+               for k, v in groups.items()] + [
+        "",
+        f"{'kernel':90s} {'calls':>7s} {'ms/step':>9s} {'share':>7s}"]
+    for e in kern[:15]:
+        lines.append(f"{e.key[:90]:90s} {e.count:7d} "
+                     f"{self_us(e) / 1e3 / 8:9.3f} "
+                     f"{self_us(e) / 1e3 / 8 / share:7.1%}")
+    print("\n".join("  " + ln for ln in lines))
+
+
+def unet_bench_phase(tmp, seed):
+    """The UNet train step in steady state at the 001_unet.sh flags (batch
+    8, the smoke's dataset) and at the bench.py flags (batch 128, its data
+    geometry: 4 cases of 24 x 512 x 512, k_folds 4)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    unet_steady(cli.get_args(UNET_TRAIN_FLAGS + smoke_data(
+        tmp, Path(tmp) / "unet_b8_md", "--device_cache")), Path(tmp) / "ds",
+        "001_unet.sh train step")
+
+    ds = Path(tmp) / "bench_ds"
+    t0 = time.perf_counter()
+    make_synthetic_dataset(ds, n_cases=4, shape=(24, 512, 512), k_split=4,
+                           seed=seed, with_features=False)
+    print(f"  bench dataset 4 x (24, 512, 512) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # bench.py product_args
+    unet_steady(cli.get_args([
+        "liver", "--mode", "train", "--tag", "bench", "--model", "UNet",
+        "--classes", "Liver", "Tumor", "--batch_size", "128",
+        "--im_channel", "3", "--noise_scale", "0.1", "--random_flip", "3",
+        "--test_fold", "0", "--k_folds", "4", "--num_of_total_steps",
+        "1000000", "--model_dir", str(Path(tmp) / "bench_md"),
+        "--host_workers", "1", "--log_step", "1000000", "--device_cache",
+        "--opt_moment_dtype", "float32", "--steps_per_dispatch", "1",
+        "--metrics_train_steps", "0", "--data_root", str(tmp), "--dataset",
+        "bench_ds"]), ds, "bench.py step on the port")
+
+
+def unet_eval_phase(tmp, ds, dev, md):
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+    from boxsegliver_torch.evaluators.eval_loader import (EvalCase,
+                                                          parse_case_eval)
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    argv = UNET_EVAL_FLAGS + smoke_data(tmp, md)
+    results, seconds, launches = no_kernel_run(lambda: cli.main(argv),
+                                               "UNet eval")
+    want = {"Liver/Dice", "Liver/VOE", "Liver/RVD", "Tumor/Dice",
+            "GLiverDice", "GTumorDice"}
+    if not want <= set(results) or not all(math.isfinite(v)
+                                           for v in results.values()):
+        raise AssertionError(f"UNet eval results {results}")
+    args = cli.get_args(argv)
+    metas = cli._test_metas(args, ds)
+    slices = sum(parse_case_eval(m, ds, parse_label=False).depth
+                 for m in metas)
+    model = cli.build_model_from_args(args, dev)
+    evaluator = EvaluateVolume(args, ds, ["Background"] + list(args.classes))
+    pred = DeviceSlicePredictor(model, args, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    evaluator.run(pred, metas)
+    warm = time.perf_counter() - t0
+    print("  UNet eval results: " + json.dumps(results))
+    print(f"  UNet eval (001_unet eval flags, restored {args.restored_from}):"
+          f" {len(metas)} cases, {slices} slices; through the CLI "
+          f"{seconds / len(metas):.3f} s/case, {slices / seconds:.2f} "
+          f"slices/s; warm {warm / len(metas):.3f} s/case, "
+          f"{slices / warm:.2f} slices/s; launches {launches}; {smi()}")
+
+    # device_case on the card against the CPU, float32, 8 slices of a case
+    args32 = cli.get_args(argv + ["--compute_dtype", "float32"])
+    case = parse_case_eval(metas[0], ds, parse_label=False)
+    z1 = case.crop[0]
+    cut = EvalCase(pid=case.pid, volume=case.volume[:8 + case.lhc + case.rhc],
+                   segmentation=None, crop=(z1, z1 + 8) + case.crop[2:],
+                   oshape=case.oshape, spacing=case.spacing, lhc=case.lhc,
+                   rhc=case.rhc)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        m = cli.build_model_from_args(args32, d)
+        out.append(DeviceSlicePredictor(m, args32, device=d).device_case(cut))
+    err = float(np.abs(out[0] - out[1]).max())
+    print(f"  UNet device_case card vs CPU (float32, case {case.pid}, 8 "
+          f"slices of 256^2): max abs err {err:.2e}")
+    if not err <= 1e-4:
+        raise AssertionError("device_case on the card disagrees with the CPU")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     opts = ap.parse_args(argv)
 
-    print("[1/9] device")
+    print("[1/12] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1167,7 +1528,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/9] build")
+    print("[2/12] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -1177,7 +1538,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/9] kernel B1 vs plain")
+    print("[3/12] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1187,20 +1548,27 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/9] labeling vs scipy")
+        print("[4/12] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/9] flagship guided eval (run_g) through the CLI")
+        print("[5/12] flagship guided eval (run_g) through the CLI")
         slice_phase(tmp, ds, dev, opts.seed)
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/9] profile of one case's sweep (steady state)")
+        print("[6/12] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/9] kernel B2 vs plain")
+        print("[7/12] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        print("[8/9] flagship G-Net training through the CLI")
+        print("[8/12] flagship G-Net training through the CLI")
         launches = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/9] profile of the flagship train step (steady state)")
+        print("[9/12] profile of the flagship train step (steady state)")
         profile_train(tmp)
+        print("[10/12] UNet training (001_unet.sh train) through the CLI")
+        unet_md = unet_train_phase(tmp)
+        unet_train_card_vs_cpu(tmp, dev, opts.seed)
+        print("[11/12] UNet train step in steady state (batch 8, bench.py batch 128)")
+        unet_bench_phase(tmp, opts.seed)
+        print("[12/12] UNet eval (001_unet.sh eval) through the CLI")
+        unet_eval_phase(tmp, ds, dev, unet_md)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

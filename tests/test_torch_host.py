@@ -130,10 +130,10 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    # the default normalizer is batch_norm, whose training is not ported
-    (["--mode", "train"], "--mode train"),
+    # multi-GPU training and eval (DDP with sync batch norm) are not ported
+    (["--mode", "train", "--num_replicas", "2"], "--mode train"),
     (["--mode", "export"], "--mode export"),
-    (["--mode", "eval", "--eval_no_sp"], "unguided"),
+    (["--mode", "eval", "--eval_no_sp", "--num_replicas", "2"], "unguided"),
     (["--mode", "eval", "--device_sweep", "off"], "host loop"),
     # eval restores from --model_dir now; an empty one names --ckpt_path
     (["--mode", "eval"], "--ckpt_path"),

@@ -141,8 +141,21 @@ def test_conv_norm_act_runs_b2_in_train_and_eval():
 
 
 def test_batch_norm_train_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Norm("batch_norm", 4)(torch.zeros(1, 4, 2, 2), train=True)
+    """Train-mode batch norm is ported (held against flax in
+    tests/test_torch_unet.py) and stays out of kernel B2; what still raises
+    is a normalizer the JAX package does not know."""
+    x = torch.randn(3, 4, 5, 5, generator=torch.Generator().manual_seed(0))
+    norm = Norm("batch_norm", 4)
+    fwd = kernels.in_relu_fwd.launches
+    y = norm(x, train=True)
+    torch.testing.assert_close(
+        y, (x - x.mean(dim=(0, 2, 3), keepdim=True))
+        * torch.rsqrt(x.var(dim=(0, 2, 3), unbiased=False, keepdim=True)
+                      + 1e-3).view(1, -1, 1, 1), atol=1e-5, rtol=1e-5)
+    assert not torch.equal(norm.running_mean, torch.zeros(4))
+    assert kernels.in_relu_fwd.launches == fwd
+    with pytest.raises(ValueError, match="group_norm"):
+        Norm("group_norm", 4)
 
 
 @pytest.mark.parametrize("rate", [0.5, 0.25])
