@@ -33,8 +33,9 @@ epoch, or with ``--eval_3d`` the whole-volume eval of the held-out cases,
 and writes checkpoints under ``--model_dir`` (train/checkpoint.py).
 ``--mode eval`` scores the test fold and ``--mode infer`` saves
 predictions: with the guided sweep (``run_g``) for ``--use_spatial``
-models, else (or with ``--eval_no_sp``) with the unguided whole-volume
-eval (``run`` with a DeviceSlicePredictor).  Their weights come from
+models — the device double sweep, or the per-slice host loop under
+``--device_sweep off`` —, else (or with ``--eval_no_sp``) with the
+unguided whole-volume eval (``run`` with a DeviceSlicePredictor).  Their weights come from
 ``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
 flattened flax variables), else from ``--model_dir``: the best checkpoint,
 or the latest periodic one under ``--eval_final`` or when there is no best.
@@ -272,9 +273,6 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
         _not_ported(f"{'guided' if guided else 'unguided'} eval over "
                     f"--num_replicas {args.num_replicas} devices",
                     "queue A, DDP with sync batch norm")
-    if guided and getattr(args, "device_sweep", "on") != "on":
-        _not_ported("--device_sweep off (the per-slice host loop)",
-                    "queue A, host-loop overflow fallback")
 
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
@@ -283,14 +281,17 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
     evaluator = EvaluateVolume(args, dataset_dir,
                                ["Background"] + list(args.classes))
     save = args.save_predict or not do_eval
+    # the whole-case device predictor: one upload per case, 2.5D gather +
+    # mirror TTA + averaging on the device; its plain per-batch forward
+    # serves run_g's per-slice host loop under --device_sweep off
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+    predictor = DeviceSlicePredictor(model, args, device=device)
     if not guided:
-        # the whole-case device predictor: one upload per case, 2.5D
-        # gather + mirror TTA + averaging on the device
-        from boxsegliver_torch.evaluators.device_eval import \
-            DeviceSlicePredictor
-        predictor = DeviceSlicePredictor(model, args, device=device)
         return evaluator.run(predictor, eval_metas, save=save,
                              do_eval=do_eval)
+    if getattr(args, "device_sweep", "on") != "on":
+        return evaluator.run_g(predictor, eval_metas, save=save,
+                               do_eval=do_eval)
 
     from boxsegliver_torch.interactive.device_sweep import GuidedSweepPredictor
 

@@ -75,14 +75,14 @@ def add_arguments(parser: argparse.ArgumentParser):
                             "every N steps so the device pipeline never "
                             "stalls on a host round trip")
     group.add_argument("--steps_per_dispatch", type=int, default=1,
-                       help="Fuse K train steps into one compiled dispatch "
-                            "(lax.scan over K stacked raw batches — the "
-                            "standard TPU host-loop pattern; hides per-step "
-                            "dispatch latency).  Requires the fused-"
-                            "preprocess train path; K>1 uses a different "
-                            "(equally deterministic) RNG stream than K=1. "
-                            "Host hooks see metrics with <=K extra steps of "
-                            "lag; epoch-eval cadence is quantized to K.")
+                       help="Run K train steps per dispatch: K raw "
+                            "batches staged at once and, on the GPU, the "
+                            "train step captured in a CUDA graph and "
+                            "replayed K times (the JAX package's lax.scan "
+                            "over K stacked batches).  Requires the device "
+                            "preprocess.  Host hooks see metrics with <=K "
+                            "extra steps of lag; epoch-eval cadence is "
+                            "quantized to K.")
     group.add_argument("--fix", action="store_true",
                        help="Remove norm+relu in spatial guide module")
     group.add_argument("--device", type=str, default="cuda",
@@ -118,7 +118,9 @@ def add_model_arguments(parser: argparse.ArgumentParser, model_choices):
     group.add_argument("--load_weights_version", type=str, default="checkpoint",
                        help="Used for latest_filename")
     group.add_argument("--weights_scope", type=str,
-                       help="Param-tree scope remap prefix for --load_weights")
+                       help="'old=new[,old2=new2]': rename top-level scopes "
+                            "of the --load_weights source before the "
+                            "partial restore")
     group.add_argument("--without_norm", action="store_true",
                        help="Conv without normalization")
     group.add_argument("--batches_per_epoch", type=int, default=2000,

@@ -8,16 +8,17 @@ DeviceSlicePredictor's whole-case ``device_case`` (evaluators/device_eval.py)
 or, for a plain ``predict_fn`` such as ``Trainer.predict`` (the inline
 ``--eval_3d`` eval), the host slice batches of eval_loader.slice_batches
 with their mirror variants; ``run_g`` takes the device sweep
-(interactive/device_sweep.py).  Everything after it — argmax, nearest
-resize back to the crop, postprocess (tumor→liver merge, largest liver
-component, tumor masked by liver), 3D metrics, global-Dice accumulation and
-NIfTI save — is host numpy as in the JAX package, with the port's
-cv2-equivalent resizes.
+(interactive/device_sweep.py), or the per-slice host propagation loop
+(interactive/propagation.py) where the sweep overflows its caps, guides are
+dumped (``--save_sp_guide``) or the predictor has no sweep
+(``--device_sweep off``).  Everything after it — argmax, nearest resize
+back to the crop, postprocess (tumor→liver merge, largest liver component,
+tumor masked by liver), 3D metrics, global-Dice accumulation and NIfTI save
+— is host numpy as in the JAX package, with the port's cv2-equivalent
+resizes.
 
-Not ported yet (each raises, naming its roadmap item): the per-slice host
-propagation loop that the JAX evaluator falls back to when a case overflows
-the sweep's caps or guides are dumped (``--save_sp_guide``), and the
-sp-point / patch evaluations ``run_sp``, ``run_patch`` of the NF tasks.
+Not ported yet: the sp-point / patch evaluations ``run_sp``, ``run_patch``
+of the NF tasks (ROADMAP queue A, NF tasks).
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ from boxsegliver_torch.evaluators.eval_loader import (EvalCase,
                                                       load_eval_context,
                                                       parse_case_eval,
                                                       slice_batches)
-from boxsegliver_torch.interactive.propagation import mirror_variants
+from boxsegliver_torch.interactive.propagation import (GuidePropagationLoader,
+                                                      mirror_variants)
 from boxsegliver_torch.ops import array_kits
 from boxsegliver_torch.ops.image_ops import resize_nearest
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
@@ -46,8 +48,6 @@ from boxsegliver_torch.ops.metrics3d import metric_3d
 
 logger = logging.getLogger("boxsegliver")
 
-_HOST_LOOP = ("the per-slice host propagation loop is not ported yet "
-              "(ROADMAP queue A, host-loop overflow fallback)")
 _FLIPS = {1: (2,), 2: (1,), 3: (1, 2)}
 
 
@@ -333,10 +333,12 @@ class EvaluateVolume(EvaluateBase):
 
     def predict_case_g(self, predict_fn, meta: Dict, prior_case: Dict,
                        parse_label: bool = True):
-        """One case of the run_g protocol: parse → device double
+        """One case of the run_g protocol: parse → (device | host) double
         guide-propagation sweep → merged probability volume.  Returns
         ``(case, probs3d)`` with probs3d of shape [cz, ph, pw, nc]."""
         args = self.args
+        tumor_id = (self.classes.index("Tumor") + 1 if "Tumor" in self.classes
+                    else len(self.classes))
         case = parse_case_eval(meta, self.dataset_dir,
                                im_channel=args.im_channel,
                                parse_label=parse_label, norm=self.norm,
@@ -345,22 +347,49 @@ class EvaluateVolume(EvaluateBase):
         if self.context_list is not None:
             context = load_eval_context(self.dataset_dir, case.pid,
                                         self.context_list, args.hist_scale)
+        # the device double sweep (interactive/device_sweep.py) unless the
+        # predictor has none or guides are dumped; None => host loop
         sweep_dev: Optional[Callable] = getattr(predict_fn, "sweep_case", None)
+        probs3d = None
         if sweep_dev is None:
-            raise NotImplementedError("run_g needs a predictor with "
-                                      ".sweep_case; " + _HOST_LOOP)
-        if getattr(args, "save_sp_guide", False):
-            raise NotImplementedError("--save_sp_guide dumps the host loop's "
-                                      "guides; " + _HOST_LOOP)
-        probs3d, n_objs = sweep_dev(case, prior_case, context)
+            logger.info("  case %s: the predictor has no device sweep; host "
+                        "loop", case.pid)
+        elif getattr(args, "save_sp_guide", False):
+            logger.info("  case %s: --save_sp_guide dumps the host loop's "
+                        "guides; host loop", case.pid)
+        else:
+            probs3d, n_objs = sweep_dev(case, prior_case, context)
+            if probs3d is None:
+                logger.info("  case %s: %d objects overflow the device sweep "
+                            "caps; host loop", case.pid, n_objs)
         if probs3d is None:
-            raise RuntimeError(
-                f"case {case.pid}: {n_objs} objects overflow the device "
-                f"sweep's caps (--sweep_max_objects "
-                f"{getattr(args, 'sweep_max_objects', 16)}, or more than 32 "
-                f"user-prior objects on a slice); raise the cap — "
-                + _HOST_LOOP)
+            probs3d = self._sweep_case_host(predict_fn, case, prior_case,
+                                            context, tumor_id)
         return case, probs3d
+
+    def _sweep_case_host(self, predict_fn: Callable, case: EvalCase,
+                         prior_case: Dict, context, tumor_id: int
+                         ) -> np.ndarray:
+        """Reference-shaped per-slice propagation loop (one predictor call
+        per slice and direction, on the predictor's device); the parity
+        oracle for the device sweep."""
+        args = self.args
+        loader = GuidePropagationLoader(
+            case, prior_case, args, context=context,
+            device=getattr(predict_fn, "device", "cpu"))
+        volumes = {}
+        for direction in ("Forward", "Backward"):
+            chunks = []
+            for idx in loader.sweep(direction):
+                feats = loader.slice_features(idx)
+                merged = loader.merge_mirrors(predict_fn(feats))
+                chunks.append(merged)
+                loader.set_last_pred(
+                    (merged.argmax(-1) == tumor_id).astype(np.uint8))
+            volumes[direction] = np.stack(chunks, axis=0)
+            if getattr(args, "save_sp_guide", False):
+                loader.save_guides(Path(args.model_dir) / "sp_guide")
+        return np.maximum(volumes["Forward"], volumes["Backward"][::-1])
 
     def _finish_case(self, case: EvalCase, probs: np.ndarray, accumulator,
                      save: bool, save_path, do_eval: bool, n: int,

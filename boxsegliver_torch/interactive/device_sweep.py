@@ -16,9 +16,10 @@ The case uploads once and the merged probability volume comes back once.
 Same semantics as the JAX sweep, including its two documented tie-breaks
 (candidate guides at exactly equal distance are tried in slot order; the
 Wu-line pixel chain is evaluated in closed-form float32).  Slices with more
-than ``max_objects`` predicted components report an overflow; the JAX
-evaluator then falls back to its host loop, which is not ported yet, so
-the port's evaluator raises instead (evaluators/volume.py).
+than ``max_objects`` predicted components report an overflow; the
+evaluator then falls back to the per-slice host loop
+(interactive/propagation.py), which calls the predictor itself
+(``__call__``) on each slice's mirror stack.
 """
 
 from __future__ import annotations
@@ -65,6 +66,15 @@ class GuidedSweepPredictor:
             int(getattr(args, "random_flip", 3)),
             bool(getattr(args, "eval_mirror", False))))
         self.steps = 0      # sweep steps run (each renders one guide batch)
+
+    @torch.inference_mode()
+    def __call__(self, feats) -> torch.Tensor:
+        """Softmax probabilities [n, ph, pw, nc] (float32, on the device) of
+        one feature batch: the host loop's per-slice mirror stack (JAX
+        device_sweep.py:90); host arrays are uploaded first."""
+        feats = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in feats.items()}
+        return torch.softmax(self.model(feats).float(), dim=-1)
 
     # ------------------------------------------------------------------
     # host-side per-case precompute

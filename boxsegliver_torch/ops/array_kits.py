@@ -3,13 +3,19 @@ boxsegliver_tpu/ops/array_kits.py that metadata extraction and volume eval
 need; semantics of reference utils/array_kits.py).
 
 Citations are reference utils/array_kits.py lines:
-- bbox_from_mask            :85-232
-- extract_region            :263-329
-- get_largest_component     :357-384
-- compute_robust_moments    :387-440
+- bbox_from_mask                   :85-232
+- extract_region                   :263-329
+- get_largest_component            :357-384
+- compute_robust_moments           :387-440
+- create_gaussian_distribution_v2  :452-486 (the numpy render that kernel
+  B1 replaces in the host propagation loop; the tests hold B1's plain
+  version against it)
+- xiaolinwu_line, ascent_line      :1078-1139 (the host loop's FP filter)
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 from scipy import ndimage as ndi
@@ -119,6 +125,82 @@ def compute_robust_moments(binary_image: np.ndarray, isotropic: bool = False,
     return center[::-1], std[::-1]                           # xy order
 
 
+def _index_grid(shape, indexing: str = "ij") -> np.ndarray:
+    """[*shape, ndim] stack of per-axis indices (float32)."""
+    axes = [np.arange(s, dtype=np.float32) for s in shape]
+    return np.stack(np.meshgrid(*axes, indexing=indexing), axis=-1)
+
+
+def create_gaussian_distribution_v2(shape, centers, stddevs, indexing="ij"):
+    """Multi-object map: max-over-objects Gaussian (semantics of reference
+    :452-486; its Euclidean-distance variant has no caller here).
+    centers/stddevs: [n, ndim] in `indexing` order."""
+    centers = np.asarray(centers, np.float32)
+    assert centers.ndim == 2, centers.shape
+    n, ndim = centers.shape
+    grid = _index_grid(shape, indexing)[None]                # [1, *shape, ndim]
+    per_obj = (n,) + (1,) * ndim + (ndim,)
+    diff = grid - centers.reshape(per_obj)                   # [n, *shape, ndim]
+    stddevs = np.asarray(stddevs, np.float32).reshape(per_obj)
+    expo = (0.5 * (diff / stddevs) ** 2).sum(axis=-1)
+    return np.exp(-expo).max(axis=0)
+
+
 # ---------------------------------------------------------------------------
 # Guide-aware false-positive filtering (reference utils/array_kits.py:987-1139)
 # ---------------------------------------------------------------------------
+
+def xiaolinwu_line(x0: int, y0: int, x1: int, y1: int):
+    """Integer pixel chain of Xiaolin Wu's line between two points
+    (reference utils/array_kits.py:1078-1139; used by the guide-propagation
+    monotone-ascent test).  Returns (xs, ys, forward)."""
+    if x0 == x1 and y0 == y1:
+        raise ValueError(f"Must be different points, got ({x0},{y0}) twice")
+    steep = abs(y1 - y0) > abs(x1 - x0)
+    if steep:
+        x0, y0, x1, y1 = y0, x0, y1, x1
+    forward = True
+    if x0 > x1:
+        forward = False
+        x0, x1 = x1, x0
+        y0, y1 = y1, y0
+    dx, dy = x1 - x0, y1 - y0
+    gradient = dy / dx if dx else 1.0
+
+    xs, ys = [], []
+
+    def emit(px, py):
+        if steep:
+            xs.append(py)
+            ys.append(px)
+        else:
+            xs.append(px)
+            ys.append(py)
+
+    xend = round(x0)
+    yend = y0 + gradient * (xend - x0)
+    emit(xend, math.floor(yend))
+    intery = yend + gradient
+    xend2 = round(x1)
+    yend2 = y1 + gradient * (xend2 - x1)
+    for x in range(round(x0) + 1, xend2):
+        emit(x, math.floor(intery))
+        intery += gradient
+    emit(xend2, math.floor(yend2))
+    return xs, ys, forward
+
+
+def ascent_line(img: np.ndarray, x0: int, y0: int, x1: int, y1: int) -> bool:
+    """True when img values along the line (x0,y0)→(x1,y1) are monotonically
+    non-decreasing (reference EvalImage3DLoader.ascent_line,
+    input_pipeline_g.py:1498-1513)."""
+    xs, ys, forward = xiaolinwu_line(x0, y0, x1, y1)
+    if not forward:
+        xs, ys = xs[::-1], ys[::-1]
+    pre = img[ys[0], xs[0]]
+    for x, y in zip(xs[1:], ys[1:]):
+        cur = img[y, x]
+        if cur < pre:
+            return False
+        pre = cur
+    return True

@@ -150,3 +150,53 @@ def draw_augment(generator: torch.Generator, shape: Sequence[int],
         out["noise"] = torch.rand(tuple(shape), generator=generator,
                                   device=device) * 2.0 - 1.0
     return out
+
+
+# ---------------------------------------------------------------------------
+# Boundary loss weights (port of boxsegliver_tpu/ops/image_ops.py:218-288)
+# ---------------------------------------------------------------------------
+
+def binary_dilation2d(x: torch.Tensor, connection: int = 1,
+                      iterations: int = 1) -> torch.Tensor:
+    """Binary dilation of non-negative [..., h, w] float arrays with zero
+    padding (reference image_ops.py:357-393): connection=1 → cross
+    structuring element, connection=2 → full 3x3.  The 3x3 case is a
+    stride-1 max pool: its -inf padding equals zero padding on values >= 0,
+    the centre being in every window."""
+    lead, (h, w) = x.shape[:-2], x.shape[-2:]
+    flat = x.reshape((-1, 1, h, w))
+    for _ in range(iterations):
+        if connection == 2:
+            flat = F.max_pool2d(flat, 3, stride=1, padding=1)
+        else:
+            pad = F.pad(flat, (1, 1, 1, 1))
+            flat = torch.stack([flat, pad[..., :-2, 1:-1], pad[..., 2:, 1:-1],
+                                pad[..., 1:-1, :-2],
+                                pad[..., 1:-1, 2:]]).amax(dim=0)
+    return flat.reshape(lead + (h, w))
+
+
+def _minplus_scan(dist: torch.Tensor, axis: int) -> torch.Tensor:
+    """d[i] = min_k d0[k] + |i − k| along ``axis``: JAX's forward and
+    backward lax.scan of min(row, carry + 1) in closed form, a forward
+    cummin(d0 − i) + i, then the same on the flipped result.  Exact in
+    float32 while the distances stay below 2**24."""
+    dist = dist.movedim(axis, -1)
+    idx = torch.arange(dist.shape[-1], dtype=dist.dtype, device=dist.device)
+    fwd = torch.cummin(dist - idx, dim=-1).values + idx
+    bwd = torch.cummin((fwd + idx).flip(-1), dim=-1).values.flip(-1) - idx
+    return bwd.movedim(-1, axis)
+
+
+def distance_transform_cityblock(mask: torch.Tensor,
+                                 axes: Optional[Sequence[int]] = None
+                                 ) -> torch.Tensor:
+    """City-block (L1) distance to the nearest zero of ``mask`` over
+    ``axes`` (default: all), float32; with no zero the distance is the
+    mask's element count over those axes (JAX's ``big``)."""
+    axes = list(range(mask.ndim) if axes is None else axes)
+    big = float(np.prod([mask.shape[a] for a in axes]))
+    dist = torch.where(mask > 0, big, 0.0).float()
+    for ax in axes:
+        dist = _minplus_scan(dist, ax)
+    return dist

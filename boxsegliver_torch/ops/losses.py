@@ -1,53 +1,108 @@
 """Segmentation losses of the train step (port of
-boxsegliver_tpu/ops/losses.py:81-127,161-179,204-251; reference
+boxsegliver_tpu/ops/losses.py:26-179,204-251; reference
 loss_metrics.py:115-231, NetworksV2/base.py:128-135).
 
-- weighted_sparse_softmax_cross_entropy for ``none`` / ``numerical`` pixel
-  weights: per-sample weights normalized to sum to the image area, then
-  TF1's SUM_BY_NONZERO_WEIGHTS reduction, sum(w·ce) / count_nonzero(w).
-  The math is ported, not the JAX package's channel-unrolled TPU lowering.
+- compute_weights: the pixel-weight schemes none / numerical / proportion /
+  boundary / examples, each sample's weights normalized to sum to its area.
+- weighted_sparse_softmax_cross_entropy: TF1's SUM_BY_NONZERO_WEIGHTS
+  reduction, sum(w·ce) / count_nonzero(w).  The math is ported, not the
+  JAX package's channel-unrolled TPU lowering.
 - sparse_dice_loss: generalized dice on softmax probabilities, background
   excluded.
 - l2_regularization: slim's 0.5·wd·Σw² over the tensors the JAX package
   decays, chosen from their flax names (models/weights.flax_names).
-The other weight types (proportion, boundary, examples) are not ported yet.
+Nothing here makes a host number from a device tensor or uploads one, so
+the loss runs inside a captured CUDA graph (train/trainer.py).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from typing import Iterable, List, Optional
 
 import torch
 import torch.nn.functional as F
 
-_WEIGHTS = ("loss weight type {!r} is not ported yet (ROADMAP queue A, "
-            "other loss weight types)")
+from boxsegliver_torch.ops.image_ops import (binary_dilation2d,
+                                             distance_transform_cityblock)
+
+W_TYPES = ("none", "numerical", "proportion", "boundary", "examples")
+
+
+def _host_constant(values, like: torch.Tensor, cache: dict) -> torch.Tensor:
+    """``values`` as a float32 tensor on ``like``'s device, uploaded once
+    per device into ``cache`` (an upload inside a graph capture would
+    synchronize)."""
+    t = cache.get(like.device)
+    if t is None:
+        t = cache[like.device] = torch.tensor(
+            [float(v) for v in values], dtype=torch.float32,
+            device=like.device)
+    return t
+
+
+def compute_weights(w_type: str, labels: torch.Tensor, num_classes: int, *,
+                    numeric_w: Optional[torch.Tensor] = None,
+                    proportion_decay: Optional[float] = None,
+                    examples_w: Optional[torch.Tensor] = None):
+    """Pixel weights for class-imbalance compensation (JAX
+    losses.compute_weights, reference loss_metrics.py:115-165) of labels
+    [bs, ...]: normalized so each sample's weights sum to its pixel count,
+    or the scalar 1.0 for ``none``.  ``numeric_w`` [C] and ``examples_w``
+    [bs] are float32 tensors on the labels' device.  ``boundary``:
+    exp(−d/25) + 1 with d the city-block distance to the class boundary
+    band (dilate(class) − class over the classes)."""
+    w_type = w_type.lower()
+    lbl = labels.long()
+    axes = tuple(range(1, lbl.ndim))
+    area = 1.0
+    for ax in axes:
+        area = area * lbl.shape[ax]
+    if w_type == "none":
+        return 1.0
+    if w_type == "numerical":
+        if numeric_w is None:
+            raise KeyError("w_type `numerical` needs keyword argument "
+                           "`numeric_w`")
+        w = numeric_w[lbl]
+    elif w_type == "proportion":
+        one_hot = F.one_hot(lbl, num_classes).float()
+        num_labels = one_hot.sum(dim=axes)                     # [bs, C]
+        if proportion_decay is not None:
+            num_labels = num_labels + proportion_decay
+        proportions = 1.0 / num_labels
+        wc = proportions / proportions.sum(dim=1, keepdim=True)
+        w = torch.gather(wc, 1, lbl.reshape(lbl.shape[0], -1)).reshape(
+            lbl.shape)
+    elif w_type == "examples":
+        if examples_w is None:
+            raise KeyError("w_type `examples` needs keyword argument "
+                           "`examples_w`")
+        w = examples_w.reshape((-1,) + (1,) * len(axes)).expand(lbl.shape)
+    elif w_type == "boundary":
+        one_hot = F.one_hot(lbl, num_classes).float().movedim(-1, 1)
+        band = torch.clamp(binary_dilation2d(one_hot, connection=2), 0, 1) \
+            - one_hot
+        not_boundary = (band.sum(dim=1) == 0).float()          # [bs, h, w]
+        dist = distance_transform_cityblock(not_boundary, axes=(1, 2))
+        w = torch.exp(-dist / 25.0) + 1.0
+    else:
+        raise ValueError("Not supported weight type: " + w_type)
+    return w / w.sum(dim=axes, keepdim=True) * area
 
 
 def weighted_sparse_softmax_cross_entropy(logits: torch.Tensor,
                                           labels: torch.Tensor,
                                           w_type: str = "none",
-                                          numeric_w=None) -> torch.Tensor:
-    """Weighted softmax CE over logits [bs, ..., C] and labels [bs, ...]."""
-    w_type = w_type.lower()
-    if w_type not in ("none", "numerical"):
-        raise NotImplementedError(_WEIGHTS.format(w_type))
+                                          **w_params) -> torch.Tensor:
+    """Weighted softmax CE over logits [bs, ..., C] and labels [bs, ...];
+    ``w_params`` as compute_weights takes them."""
     logits = logits.float()
     lbl = labels.long()
     ce = (torch.logsumexp(logits, dim=-1)
           - torch.gather(logits, -1, lbl[..., None])[..., 0])
-    if w_type == "none":
-        return ce.mean()
-    if numeric_w is None:
-        raise KeyError("w_type `numerical` needs keyword argument `numeric_w`")
-    nw = torch.tensor([float(v) for v in numeric_w], dtype=torch.float32,
-                      device=ce.device)
-    w = nw[lbl]
-    axes = tuple(range(1, ce.ndim))
-    area = 1.0
-    for ax in axes:
-        area = area * ce.shape[ax]
-    w = w / w.sum(dim=axes, keepdim=True) * area
+    w = compute_weights(w_type, lbl, logits.shape[-1], **w_params)
+    if not isinstance(w, torch.Tensor):
+        return ce.mean() * w
     nonzero = torch.clamp_min((w != 0).float().sum(), 1.0)
     return (w * ce).sum() / nonzero
 
@@ -68,19 +123,30 @@ def sparse_dice_loss(probs: torch.Tensor, labels: torch.Tensor,
     return 1.0 - (2.0 * intersection / (union + eps)).mean()
 
 
-def make_loss_fn(loss_type: str, loss_weight_type: str = "none", **w_params):
+def make_loss_fn(loss_type: str, loss_weight_type: str = "none", *,
+                 numeric_w=None, proportion_decay: Optional[float] = None,
+                 examples_w=None):
     """Data loss from ``--loss_type``: "xentropy", "dice" or "xentropy+dice"
-    (both terms added when both substrings are present)."""
+    (both terms added when both substrings are present), the CE weighted by
+    ``loss_weight_type``.  The weight vectors are uploaded once per
+    device."""
     use_xent = "xentropy" in loss_type
     use_dice = "dice" in loss_type
     if not (use_xent or use_dice):
         raise ValueError(f"Not supported loss_type: {loss_type}")
-    if loss_weight_type.lower() not in ("none", "numerical"):
-        raise NotImplementedError(_WEIGHTS.format(loss_weight_type))
+    if loss_weight_type.lower() not in W_TYPES:
+        raise ValueError("Not supported weight type: " + loss_weight_type)
+    uploads = {"numeric_w": {}, "examples_w": {}}
 
     def loss_fn(logits, labels):
         total = 0.0
         if use_xent:
+            w_params = {"proportion_decay": proportion_decay}
+            for name, values in (("numeric_w", numeric_w),
+                                 ("examples_w", examples_w)):
+                if values is not None:
+                    w_params[name] = _host_constant(values, logits,
+                                                    uploads[name])
             total = total + weighted_sparse_softmax_cross_entropy(
                 logits, labels, loss_weight_type, **w_params)
         if use_dice:

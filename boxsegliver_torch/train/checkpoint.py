@@ -97,11 +97,30 @@ def model_state(path) -> Dict[str, torch.Tensor]:
     return state["model"] if "model" in state else state
 
 
-def warm_start(model: torch.nn.Module, path) -> int:
-    """Copy the matching-shaped tensors of ``path`` (see model_state) into
-    ``model``; the others keep their fresh init (the reference's partial
-    restore).  Returns the number of tensors copied."""
-    src = model_state(path)
+def remap_scopes(state: Dict[str, torch.Tensor],
+                 scope_map: Optional[Dict[str, str]] = None
+                 ) -> Dict[str, torch.Tensor]:
+    """Rename top-level scopes ``old`` → ``new`` (JAX remap_params,
+    checkpoint.py:78-86).  A state_dict key's first component is the flax
+    top-level scope of the tensor: the bridge names each top-level module
+    as flax does (models/weights.flax_names), so one ``--weights_scope``
+    string renames the same tensors in both packages."""
+    if not scope_map:
+        return state
+    out = {}
+    for key, v in state.items():
+        top, _, rest = key.partition(".")
+        out[".".join([scope_map.get(top, top)] + ([rest] if rest else []))] = v
+    return out
+
+
+def warm_start(model: torch.nn.Module, path,
+               scope_map: Optional[Dict[str, str]] = None) -> int:
+    """Copy the matching-shaped tensors of ``path`` (see model_state), its
+    top-level scopes renamed by ``scope_map``, into ``model``; the others
+    keep their fresh init (the reference's partial restore).  Returns the
+    number of tensors copied."""
+    src = remap_scopes(model_state(path), scope_map)
     n = 0
     with torch.no_grad():
         for k, v in model.state_dict().items():

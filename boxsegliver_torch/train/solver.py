@@ -17,7 +17,16 @@ Optimizers (reference _get_model_optimizer, solver.py:204-218): Adam
 decoupled weight decay), each a descent direction at unit rate that the
 step scales by lr(step), as the JAX package's transform chain does.  The
 per-tensor arithmetic runs as multi-tensor ``torch._foreach_*`` calls.
-``--opt_moment_dtype bfloat16`` is not ported yet.
+``--opt_moment_dtype bfloat16`` stores Adam's μ and ν in bfloat16 and does
+the arithmetic in float32 (JAX ``scale_by_adam_lowp``, solver.py:29-74);
+AdamW goes through the same moments, and checkpoints keep them in bf16.
+
+The step's scalars — lr(step) and Adam's bias corrections c1 = 1 − β1^t,
+c2 = 1 − β2^t — are computed on the host in float32 (``schedule``) and
+reach the update as a device tensor [lr, c1, c2] (``apply``), never as
+Python numbers: a CUDA graph of the train step (train/trainer.py) replays
+the update with the values its buffer holds at replay time, and the eager
+step reads the same buffer.
 """
 
 from __future__ import annotations
@@ -78,16 +87,18 @@ def make_lr_fn(args) -> Callable[[int, float], float]:
     return lr_fn
 
 
+MOMENT_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class Optimizer:
     """Adam / Momentum / AdamW over a list of float32 parameters, applied
-    in place as p ← p − lr · direction."""
+    in place as p ← p + direction·(−lr)."""
 
     def __init__(self, args, params: List[torch.Tensor]):
         self.kind = args.optimizer.lower()
-        if getattr(args, "opt_moment_dtype", "float32") == "bfloat16":
-            raise NotImplementedError(
-                "--opt_moment_dtype bfloat16 is not ported yet (ROADMAP "
-                "queue A, bf16-moment Adam)")
+        moment = getattr(args, "opt_moment_dtype", "float32")
+        if moment not in MOMENT_DTYPES:
+            raise ValueError("Not supported --opt_moment_dtype: " + moment)
         if self.kind not in ("adam", "momentum", "adamw"):
             raise ValueError("Not supported optimizer: " + args.optimizer)
         self.b1, self.b2, self.eps = 0.9, 0.99, 1e-8
@@ -95,47 +106,79 @@ class Optimizer:
         self.weight_decay = float(args.weight_decay_rate)
         self.params = list(params)
         self.count = 0
-        zeros = [torch.zeros_like(p) for p in self.params]
         if self.kind == "momentum":
-            self.state = {"trace": zeros}
+            self.state = {"trace": [torch.zeros_like(p) for p in self.params]}
         else:
-            self.state = {"mu": zeros,
-                          "nu": [torch.zeros_like(p) for p in self.params]}
+            dt = MOMENT_DTYPES[moment]
+            self.state = {k: [torch.zeros_like(p, dtype=dt)
+                              for p in self.params] for k in ("mu", "nu")}
+        self.lowp = (self.kind != "momentum"
+                     and self.state["mu"][0].dtype != torch.float32)
 
-    def _adam_direction(self, grads):
+    def schedule(self, lr: float) -> np.ndarray:
+        """[lr, c1, c2] float32 of the next step, which advances ``count``
+        (c1, c2: Adam's bias corrections 1 − β^count, as optax computes
+        them in float32)."""
         f32 = np.float32
         self.count += 1
+        c1 = f32(1.0) - f32(self.b1) ** f32(self.count)
+        c2 = f32(1.0) - f32(self.b2) ** f32(self.count)
+        return np.array([lr, c1, c2], np.float32)
+
+    def _adam_direction(self, grads, c1, c2):
         mu, nu = self.state["mu"], self.state["nu"]
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
-        c1 = float(f32(1.0) - f32(self.b1) ** f32(self.count))
-        c2 = float(f32(1.0) - f32(self.b2) ** f32(self.count))
-        denom = torch._foreach_div(nu, c2)
+        if self.lowp:
+            # the moments at rest in bf16, the arithmetic in float32, in
+            # scale_by_adam_lowp's order: b·m + (1 − b)·g, then round
+            m32 = torch._foreach_mul([m.float() for m in mu], self.b1)
+            torch._foreach_add_(m32, torch._foreach_mul(grads, 1.0 - self.b1))
+            v32 = torch._foreach_mul([v.float() for v in nu], self.b2)
+            torch._foreach_add_(v32, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1.0 - self.b2))
+            for dst, src in ((mu, m32), (nu, v32)):
+                torch._foreach_copy_(dst, src)
+        else:
+            m32, v32 = mu, nu
+            torch._foreach_mul_(mu, self.b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - self.b1)
+            torch._foreach_mul_(nu, self.b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_div(v32, c2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
-        direction = torch._foreach_div(mu, c1)
+        direction = torch._foreach_div(m32, c1)
         torch._foreach_div_(direction, denom)
         return direction
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor], lr: float):
+    def direction(self, grads: List[torch.Tensor], sched: torch.Tensor):
+        """The descent direction at unit rate (moments updated in place);
+        sched: the device tensor [lr, c1, c2] of this step."""
         if self.kind == "momentum":
             trace = self.state["trace"]
             torch._foreach_mul_(trace, self.momentum)
             torch._foreach_add_(trace, grads)
-            direction = trace
             if self.nesterov:
-                direction = torch._foreach_add(
+                return torch._foreach_add(
                     torch._foreach_mul(trace, self.momentum), grads)
-            self.count += 1
-        else:
-            direction = self._adam_direction(grads)
-            if self.kind == "adamw":
-                torch._foreach_add_(direction, self.params,
-                                    alpha=self.weight_decay)
-        torch._foreach_add_(self.params, direction, alpha=-lr)
+            return trace
+        direction = self._adam_direction(grads, sched[1], sched[2])
+        if self.kind == "adamw":
+            torch._foreach_add_(direction, self.params,
+                                alpha=self.weight_decay)
+        return direction
+
+    @torch.no_grad()
+    def apply(self, grads: List[torch.Tensor], sched: torch.Tensor):
+        """p ← p + direction·(−lr), all on the device (no host number)."""
+        torch._foreach_add_(self.params, torch._foreach_mul(
+            self.direction(grads, sched), -sched[0]))
+
+    def step(self, grads: List[torch.Tensor], lr: float):
+        """One eager step at ``lr``: schedule() into a tensor, then
+        apply()."""
+        sched = torch.from_numpy(self.schedule(lr)).to(self.params[0].device)
+        self.apply(grads, sched)
 
     def state_dict(self) -> Dict:
         return {"kind": self.kind, "count": self.count,

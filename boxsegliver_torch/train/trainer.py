@@ -1,30 +1,49 @@
 """Training loop of the port on one GPU (port of
-boxsegliver_tpu/train/trainer.py:76-176,215-521; reference
+boxsegliver_tpu/train/trainer.py:76-198,215-521; reference
 core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
 
-- One train step: upload the raw host batch → device augmentation
-  (data/pipeline.make_preprocess_fn, guide render = kernel B1) → forward in
-  the compute dtype (every full-affine instance-norm + ReLU pair = kernel
-  B2; batch norm moves its running statistics once per train-mode forward,
-  as flax's ``mutable=["batch_stats"]`` does) → loss (ops/losses.py) →
-  backward → L2 term → optimizer update at lr(step) (train/solver.py).
+- One train step: raw host batch in the staging buffers → device
+  augmentation (data/pipeline.make_preprocess_fn, guide render = kernel B1)
+  → forward in the compute dtype (every full-affine instance-norm + ReLU
+  pair = kernel B2; batch norm moves its running statistics once per
+  train-mode forward, as flax's ``mutable=["batch_stats"]`` does) → loss
+  (ops/losses.py) → backward → L2 term → optimizer update (train/solver.py).
   The running statistics are module buffers: they ride the model's
   state_dict into the checkpoints, resume and warm start.
+- A dispatch runs K = ``--steps_per_dispatch`` steps (JAX: a lax.scan over K
+  stacked batches, trainer.py:179-198).  Its K raw batches and its K rows
+  [lr, c1, c2] (computed on the host in float32, train/solver.py) are
+  copied into device buffers — through pinned memory, non-blocking, on the
+  card — and each step reads row ``ctr`` of them, a device counter it
+  advances.  On CUDA with K > 1 the step is captured once per metric
+  variant into a CUDA graph (after warm-up steps on a side stream) and a
+  dispatch replays it K times: B1 and B2 run inside the graph.  The
+  trainer's generator is registered with each graph, so every replay draws
+  fresh noise, flips and dropout masks.  A failed capture or replay
+  raises; nothing falls back to eager steps.  On the CPU, and for K = 1,
+  the same step runs eagerly.
+- The kernels' launch counters count on the host; a replay adds what its
+  capture recorded (and the capture itself counts nothing).
 - The L2 term 0.5·wd·Σw² is added to the loss value, and its gradient wd·w
   to the decayed tensors' gradients, without going through autograd.
 - Metric tensors stay on the device; every ``fetch_every`` steps (and at an
   epoch boundary or the end) one bulk copy brings the window to the host,
   whose hooks (loss mean, plateau LR, NaN/Inf abort, speed log, summaries)
-  replay it in order, as the JAX package's drain does.
+  replay it step by step in order, as the JAX package's drain does.  Under
+  K > 1 the epoch eval is quantized to K, the plateau lr_scale changes
+  only between dispatches, and the last steps short of K run as
+  single-step dispatches.
 - Train metrics (<Class>/<Metric>) are computed on the logging cadence only
-  (--metrics_train_steps, 0 = --log_step), zeros otherwise.
-- The plateau controller's lr_scale is read on the host between steps.
+  (--metrics_train_steps, 0 = --log_step), zeros otherwise: two captured
+  variants of the step, as the JAX package's lax.cond.
 - Randomness (augmentation draws, dropout masks) comes from one
   torch.Generator on the device, seeded from --seed and saved in the
   checkpoints.
+- ``--load_weights`` with ``--weights_scope "old=new[,…]"`` renames the
+  source's top-level scopes before the partial restore (JAX
+  trainer.py:335-343).
 
-Not ported yet (they raise): --num_replicas > 1 (DDP with sync batch norm)
-and --steps_per_dispatch > 1 (a CUDA graph of K steps).
+Not ported yet (it raises): --num_replicas > 1 (DDP with sync batch norm).
 """
 
 from __future__ import annotations
@@ -36,7 +55,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from boxsegliver_torch.data.pipeline import batch_to_device
 from boxsegliver_torch.ops import losses as losses_mod
 from boxsegliver_torch.ops import metrics as metrics_mod
 from boxsegliver_torch.train.checkpoint import (CheckpointManager, load_state,
@@ -49,6 +67,11 @@ from boxsegliver_torch.utils.summary import SummaryWriter
 
 logger = logging.getLogger("boxsegliver")
 
+# eager steps before the first capture of a graphed trainer (PyTorch's
+# whole-network capture recipe: lazy library set-up and the staged B2-fwd's
+# shared-memory attribute happen outside any capture)
+WARMUP_STEPS = 3
+
 
 def make_loss_fn(args):
     """Data loss of --loss_type / --loss_weight_type (reference _build_loss,
@@ -56,6 +79,8 @@ def make_loss_fn(args):
     w_params = {}
     if args.loss_weight_type == "numerical":
         w_params["numeric_w"] = args.loss_numeric_w
+    elif args.loss_weight_type == "proportion":
+        w_params["proportion_decay"] = args.loss_proportion_decay
     return losses_mod.make_loss_fn(args.loss_type, args.loss_weight_type,
                                    **w_params)
 
@@ -70,10 +95,11 @@ class Trainer:
             raise NotImplementedError(
                 "--mode train with --num_replicas > 1 is not ported yet "
                 "(ROADMAP queue A, DDP with sync batch norm)")
-        if int(getattr(args, "steps_per_dispatch", 1)) > 1:
-            raise NotImplementedError(
-                "--steps_per_dispatch > 1 is not ported yet (ROADMAP queue "
-                "A, --steps_per_dispatch as a CUDA graph)")
+        self.steps_per_dispatch = max(1, int(getattr(args,
+                                                     "steps_per_dispatch", 1)))
+        if self.steps_per_dispatch > 1 and preprocess_fn is None:
+            raise ValueError("--steps_per_dispatch > 1 requires the device "
+                             "preprocess (preprocess_fn)")
         self.args = args
         self.classes = list(classes)
         self.device = torch.device(device)
@@ -106,6 +132,13 @@ class Trainer:
                             for m in self.metric_names]
         self._zeros = torch.zeros(len(self.metric_keys), device=self.device)
         self._host_step = 0
+        # staging buffers of a dispatch (made at the first one, see _stage)
+        # and the captured step variants {metrics: (graph, launches)}
+        self._spec = None
+        self._graphs: Dict[bool, tuple] = {}
+        self._graphed = self.device.type == "cuda" and \
+            self.steps_per_dispatch > 1
+        self._warm = 0
 
         self.ckpt = CheckpointManager(args.model_dir,
                                       save_interval_steps=save_ckpt_steps)
@@ -158,18 +191,23 @@ class Trainer:
             self.generator.set_state(state["generator"])
             self._host_step = int(state["step"])
             return self._host_step
-        src = (getattr(self.args, "warm_start_from", None)
-               or getattr(self.args, "load_weights", None))
-        if src:
-            if getattr(self.args, "weights_scope", None) or src.endswith(".h5"):
+        src = getattr(self.args, "warm_start_from", None)
+        scope_map = None
+        if not src and getattr(self.args, "load_weights", None):
+            src = self.args.load_weights
+            if src.endswith(".h5"):
                 raise NotImplementedError(
-                    "--weights_scope is not ported yet (ROADMAP queue A, "
-                    "--weights_scope partial restore); .h5 imports come with "
-                    "the DenseNet-161 import (ROADMAP queue A, rest of the "
-                    "2D zoo)")
+                    ".h5 imports come with the DenseNet-161 import (ROADMAP "
+                    "queue A, rest of the 2D zoo)")
+            raw = getattr(self.args, "weights_scope", None)
+            if raw:  # "old=new[,old2=new2]" top-level scope renames
+                scope_map = dict(pair.split("=", 1)
+                                 for pair in raw.split(",") if "=" in pair)
+        if src:
             src = self._resolve_load_weights(src)
-            n = warm_start(self.model, src)
-            logger.info("Warm started %d tensors from %s", n, src)
+            n = warm_start(self.model, src, scope_map=scope_map)
+            logger.info("Warm started %d tensors from %s (scope_map=%s)", n,
+                        src, scope_map)
         self._host_step = 0
         return 0
 
@@ -215,17 +253,82 @@ class Trainer:
                                     alpha=self.weight_decay)
         return grads, total, data_loss.detach(), logits.detach()
 
-    def train_step(self, raw_batch: Dict[str, np.ndarray]):
-        """One step on a raw host batch; returns ([total, data, *metrics]
-        as one device tensor, lr)."""
-        batch = batch_to_device(raw_batch, self.device)
+    # -- dispatch ----------------------------------------------------------
+    def _stage(self, batches: Sequence[Dict[str, np.ndarray]]) -> List[float]:
+        """Copy the raw host batches and their schedule rows [lr, c1, c2]
+        into the device buffers (on the card through pinned memory,
+        non-blocking; two pinned sets in turn, each reused once its last copy
+        has completed); returns the steps' learning rates.  Advances the
+        optimizer's step count."""
+        first = {k: v.view(np.int16) if v.dtype == np.uint16 else v
+                 for k, v in batches[0].items()}
+        spec = {k: (v.shape, v.dtype) for k, v in first.items()}
+        if spec != self._spec:
+            if self._graphs:
+                raise ValueError("the raw batch layout changed after the "
+                                 "train step was captured")
+            self._alloc(spec)
+        host, ready = self._host[self._turn], self._ready[self._turn]
+        if ready is not None:
+            ready.synchronize()
+        lrs = []
+        for i, batch in enumerate(batches):
+            for k, buf in host["batch"].items():
+                v = batch[k]
+                buf[i].copy_(torch.from_numpy(
+                    v.view(np.int16) if v.dtype == np.uint16 else v))
+            lr = self.lr_fn(self._host_step + i, self.lr_scale)
+            host["sched"][i].copy_(torch.from_numpy(
+                self.optimizer.schedule(lr)))
+            lrs.append(lr)
+        if self.device.type == "cuda":
+            n = len(batches)
+            for k, buf in self._batch.items():
+                buf[:n].copy_(host["batch"][k][:n], non_blocking=True)
+            self._sched[:n].copy_(host["sched"][:n], non_blocking=True)
+            self._ready[self._turn] = torch.cuda.Event()
+            self._ready[self._turn].record()
+            self._turn ^= 1
+        return lrs
+
+    def _alloc(self, spec):
+        """Device buffers of K batches of layout ``spec`` (key -> (shape,
+        numpy dtype)), K schedule rows and K value rows, the row counter,
+        and their host sides (pinned on the card; on the CPU the device
+        buffers themselves)."""
+        k, dev = self.steps_per_dispatch, self.device
+        dtypes = {key: torch.from_numpy(np.empty(0, dt)).dtype
+                  for key, (_, dt) in spec.items()}
+        self._spec = spec
+        self._batch = {key: torch.empty((k,) + shape, dtype=dtypes[key],
+                                        device=dev)
+                       for key, (shape, _) in spec.items()}
+        self._sched = torch.empty((k, 3), dtype=torch.float32, device=dev)
+        self._out = torch.empty((k, 2 + len(self.metric_keys)),
+                                dtype=torch.float32, device=dev)
+        self._ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+        if dev.type == "cuda":
+            self._host = [{"batch": {key: torch.empty(
+                (k,) + shape, dtype=dtypes[key], pin_memory=True)
+                for key, (shape, _) in spec.items()},
+                "sched": torch.empty((k, 3), dtype=torch.float32,
+                                     pin_memory=True)} for _ in range(2)]
+        else:
+            self._host = [{"batch": self._batch, "sched": self._sched}] * 2
+        self._ready = [None, None]
+        self._turn = 0
+
+    def _step(self, metrics: bool):
+        """One train step on the staged row ``ctr`` (device tensors only:
+        this is what a CUDA graph captures); writes [total, data,
+        *metrics] into row ``ctr`` of the value buffer and advances
+        ``ctr``."""
+        i = self._ctr
+        batch = {k: v.index_select(0, i)[0] for k, v in self._batch.items()}
         features, labels = self.preprocess_fn(batch, self.generator)
         grads, total, data_loss, logits = self.gradients(features, labels)
-        lr = self.lr_fn(self._host_step, self.lr_scale)
-        self.optimizer.step(grads, lr)
-        self._host_step += 1
-        step = self._host_step
-        if self.metric_keys and (step % self.metrics_every == 0 or step == 1):
+        self.optimizer.apply(grads, self._sched.index_select(0, i)[0])
+        if metrics:
             with torch.no_grad():
                 probs = torch.softmax(logits, dim=-1)
                 tm = metrics_mod.build_train_metrics(
@@ -234,12 +337,78 @@ class Trainer:
         else:
             mvals = self._zeros
         vals = torch.cat([torch.stack([total, data_loss]), mvals])
+        self._out.index_copy_(0, i, vals[None])
+        self._ctr.add_(1)
+
+    def _capture(self, metrics: bool):
+        """Capture one step variant into a CUDA graph (the variants share
+        one memory pool: they never run at once) with the trainer's
+        generator registered; returns (graph, launches per replay)."""
+        from boxsegliver_torch.ops.kernels import KERNELS
+
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        pool = (next(iter(self._graphs.values()))[0].pool()
+                if self._graphs else None)
+        before = {n: fn.launches for n, fn in KERNELS.items()}
+        with torch.cuda.graph(graph, pool=pool):
+            self._step(metrics)
+        counts = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
+        for n, fn in KERNELS.items():
+            fn.launches = before[n]          # capturing launches nothing
+        self._graphs[metrics] = (graph, counts)
+        logger.info("Captured the train step (metrics %s) in a CUDA graph: "
+                    "kernel launches per replay %s", metrics, counts)
+        return self._graphs[metrics]
+
+    def _graph_step(self, metrics: bool):
+        """The first WARMUP_STEPS steps run eagerly on a side stream (lazy
+        library and kernel set-up happens outside any capture), then each
+        step replays its captured variant."""
+        from boxsegliver_torch.ops.kernels import KERNELS
+
+        if self._warm < WARMUP_STEPS:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._step(metrics)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._warm += 1
+            return
+        graph, counts = self._graphs.get(metrics) or self._capture(metrics)
+        graph.replay()
+        for n, c in counts.items():
+            KERNELS[n].launches += c
+
+    def train_multi_step(self, raw_batches: Sequence[Dict[str, np.ndarray]]):
+        """One dispatch of len(raw_batches) <= K steps; returns
+        [(step, device values [total, data, *metrics], lr)] per step."""
+        lrs = self._stage(raw_batches)
+        self._ctr.zero_()
+        first = self._host_step
+        for j in range(len(raw_batches)):
+            step = first + j + 1
+            metrics = bool(self.metric_keys) and (
+                step % self.metrics_every == 0 or step == 1)
+            if self._graphed:
+                self._graph_step(metrics)
+            else:
+                self._step(metrics)
+        self._host_step += len(raw_batches)
+        out = self._out[:len(raw_batches)].clone()
+        return [(first + j + 1, out[j], lr) for j, lr in enumerate(lrs)]
+
+    def train_step(self, raw_batch: Dict[str, np.ndarray]):
+        """One step on a raw host batch; returns ([total, data, *metrics]
+        as one device tensor, lr)."""
+        (_, vals, lr), = self.train_multi_step([raw_batch])
         return vals, lr
 
     def train(self, dataset, max_steps: int, eval_fn=None,
               batches_per_epoch: Optional[int] = None):
         """Main loop; eval_fn(trainer) -> metrics dict runs every
-        batches_per_epoch steps (the reference's EvaluatorHook)."""
+        batches_per_epoch steps (the reference's EvaluatorHook), quantized
+        to the dispatch."""
         start = self.global_step
         if start >= max_steps:
             logger.info("Skipping training since max_steps has already saved.")
@@ -248,11 +417,20 @@ class Trainer:
         fetch_every = max(1, min(int(self.args.log_step),
                                  int(getattr(self.args, "metrics_fetch_steps",
                                              0) or 16)))
+        k = self.steps_per_dispatch
         step = start
         pending: List = []  # [(step, device values, lr)] awaiting one fetch
+        stack: List = []    # raw batches awaiting a K-step dispatch
         for batch in iter(dataset):
-            vals, lr = self.train_step(batch)
-            pending.append((self.global_step, vals, lr))
+            stack.append(batch)
+            if len(stack) < min(k, max_steps - self.global_step):
+                continue
+            if len(stack) == k:
+                pending += self.train_multi_step(stack)
+            else:  # < K steps left: single-step remainders (exact stop)
+                for b in stack:
+                    pending += self.train_multi_step([b])
+            stack = []
             prev, step = step, self.global_step
             at_epoch = eval_fn is not None and step // bpe > prev // bpe
             done = step >= max_steps

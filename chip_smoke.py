@@ -87,11 +87,34 @@ result line):
    test fold; s/case and slices/s (the CLI call, then the same run warm);
    then device_case on the card against the CPU in float32 on an 8-slice
    cut of one case (probabilities within 1e-4).
+13. host loop — run_g's per-slice host propagation loop at full width
+   through the CLI: a seeded random init overflows the sweep's cap of 16
+   objects and each case finishes through the host loop (B1 at least once
+   per slice and direction); the liver-margin weights with --device_sweep
+   on, off and --save_sp_guide (metrics within 1e-3, s/case of each, the
+   guide volumes written); the host loop against the device sweep on the
+   card at 64^2 in float32 with the fitted small GUNet (probabilities
+   within 1e-4, equal tumor component counts).
+14. K = 16 — ``--steps_per_dispatch 16`` (the train step captured in a
+   CUDA graph, B1 and B2 inside) with the 002_gnet_sp.sh and 001_unet.sh
+   train flags through the CLI, 32 steps and a resume to 48; 32 graphed
+   flagship steps against 32 eager ones (noise, flips and dropout 0: loss
+   per step within 1e-4 relative, all parameters together within 1e-4 in
+   relative L2 norm; with them on: whether the draws are equal); K = 1 and
+   K = 16 in steady state at batch 8 for both models (ms/step over 3
+   windows, slices/s, busy share, host launches per step, B1 / B2 launches
+   per replay).
+15. bench knobs — the bench.py step with bf16 Adam moments, with K = 16 and
+   with both.
+16. loss weights — phase 8's card-vs-CPU train step with the boundary and
+   the proportion loss weights (1e-4).
 Then one JSON line with every kernel's numbers (launches: the train run of
-phase 8; ``ms``: wrapper time, per call for B1 and summed over one train
-step's calls for B2; ``device_ms``: device time per launch, for B2 averaged
-over one train step's launches; ``wrapper_ms``: wrapper time per call), the
-card's name and power limit, and as the last line
+phase 8, and per path in ``launches_by_path``: the device sweep of phase 5,
+the train run of phase 8, the overflow run of phase 13 and the K = 16 train
+run of phase 14; ``ms``: wrapper time, per call for B1 and summed over one
+train step's calls for B2; ``device_ms``: device time per launch, for B2
+averaged over one train step's launches; ``wrapper_ms``: wrapper time per
+call), the card's name and power limit, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 
@@ -1044,7 +1067,7 @@ def train_phase(tmp):
     return launches
 
 
-def train_card_vs_cpu(tmp, dev, seed):
+def train_card_vs_cpu(tmp, dev, seed, *extra):
     """One train step of a small GUNet (GUNet_TINY: init_channels 8, 2
     down-samples) at 64^2 in float32, TF32 off, on the card and on the CPU
     from the same weights and the same processed batch (side dropout 0: the
@@ -1062,7 +1085,7 @@ def train_card_vs_cpu(tmp, dev, seed):
                             "--compute_dtype", "float32", "--side_dropout",
                             "0", "--model_config", "GUNet_TINY.yml",
                             "--optimizer", "Momentum", "--batch_size", "4",
-                            "--model_dir", str(Path(tmp) / "cmp_md"))
+                            "--model_dir", str(Path(tmp) / "cmp_md"), *extra)
     args = cli.get_args(argv)
     sampler = TrainSampler(Path(tmp) / "ds", args, seed=seed)
     raw = sampler.sample_batch(4)
@@ -1348,19 +1371,39 @@ def unet_gflop_per_slice(model, h, w):
     return 2 * sum(macs) / 1e9
 
 
-def unet_steady(args, ds, what):
-    """Steady-state UNet train steps of ``args`` on the dataset ``ds`` with
-    the device cache, as bench.py times them: 3 warm-up steps, 3 windows of
-    16 steps, each closed by one fetch of the window's metrics (the train
-    loop's drain), then one profiled window of 8 steps."""
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                     "cudaMemcpy", "cudaMemset")
+
+
+def host_launches(prof) -> int:
+    """Launches the host issued in a profiled window: CUDA runtime and
+    driver calls that enqueue a kernel, a graph or a copy."""
+    from torch.autograd import DeviceType
+
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CPU
+               and e.key.startswith(HOST_LAUNCH_CALLS))
+
+
+def steady(args, ds, what, kernels_used: bool = False, prof_steps: int = 8,
+           top: int = 15):
+    """Steady-state train steps of ``args`` on the dataset ``ds`` with the
+    device cache, as bench.py times them, in dispatches of
+    --steps_per_dispatch K: a warm-up (3 steps, or 2K under K > 1: the eager
+    warm-up steps and both captures), 3 windows of 16 steps, each closed by
+    one fetch of the window's metrics (the train loop's drain), then one
+    profiled window.  The launch counters are zeroed before the warm-up: a
+    path without hand-written kernels must launch none, one with them every
+    one.  Returns (median s/step, launches, captured launches per replay)."""
     from torch.profiler import ProfilerActivity, profile
 
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.data.device_cache import DeviceVolumeCache
     from boxsegliver_torch.data.pipeline import TrainDataset
     from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.ops import kernels
 
-    bs = int(args.batch_size)
+    bs, k = int(args.batch_size), int(args.steps_per_dispatch)
     train_pids, _ = cli._split_pids(args, ds)
     cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda",
                               budget_gb=args.device_cache_gb)
@@ -1368,62 +1411,93 @@ def unet_steady(args, ds, what):
     data = TrainDataset(TrainSampler(ds, args, mode="train", seed=1,
                                      zbase=cache.zbase), args,
                         seed=args.seed, workers=1, prefetch=4)
-    gflop = 3 * unet_gflop_per_slice(trainer.model, args.im_height,
-                                     args.im_width)
+    gflop = (3 * unet_gflop_per_slice(trainer.model, args.im_height,
+                                      args.im_width)
+             if args.model == "UNet" else None)
+
+    waits = []                  # host seconds per step spent on next(data)
 
     def window(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vals = [trainer.train_step(next(data))[0] for _ in range(n)]
+        vals, wait = [], 0.0
+        for i in range(0, n, k):
+            t1 = time.perf_counter()
+            batches = [next(data) for _ in range(min(k, n - i))]
+            wait += time.perf_counter() - t1
+            vals += [v for _, v, _ in trainer.train_multi_step(batches)]
         host = torch.stack(vals).cpu()             # the drain's one fetch
         seconds = time.perf_counter() - t0
         if not torch.isfinite(host).all():
             raise AssertionError(f"non-finite train step values {host}")
+        waits.append(wait / n)
         return seconds / n
 
     try:
-        (_, _, launches) = no_kernel_run(lambda: window(3), what)
+        kernels.reset_launch_counts()
+        window(3 if k == 1 else 2 * k)
+        torch.cuda.synchronize()
+        launches = {n: f.launches for n, f in kernels.KERNELS.items()}
+        if not (all(launches.values()) if kernels_used
+                else not any(launches.values())):
+            raise AssertionError(f"{what}: kernel launches {launches}")
         walls = [window(16) for _ in range(3)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            prof_wall = window(8)
+            prof_wall = window(prof_steps)
+        replay = {("metrics" if m else "no metrics"): c
+                  for m, (_, c) in trainer._graphs.items()}
     finally:
         data.close()
         trainer.summary.close()
     kern, groups, self_us = kernel_groups(prof)
-    busy_ms = sum(groups.values()) / 1e3 / 8
+    busy_ms = sum(groups.values()) / 1e3 / prof_steps
     share = max(busy_ms, 1e-9)
     wall = statistics.median(walls)
     sps = bs / wall
+    model = "UNet.yml" if args.model == "UNet" else "GUNet.yml"
     lines = [
         f"card: {smi()}",
-        f"{what}: UNet.yml full width, batch {bs}, {args.im_height}^2 x 3, "
-        f"bf16, batch norm, --device_cache, noise {args.noise_scale}, loss "
-        f"weights {args.loss_weight_type}, {args.optimizer}; launches in "
-        f"the warm-up {launches}",
+        f"{what}: {model} full width, batch {bs}, {args.im_height}^2 x 3, "
+        f"bf16, {args.normalizer or 'batch_norm'}, --device_cache, noise "
+        f"{args.noise_scale}, loss weights {args.loss_weight_type}, "
+        f"{args.optimizer}, {args.opt_moment_dtype} moments, "
+        f"--steps_per_dispatch {k}; launches in the warm-up {launches}",
         "ms/step over 3 windows of 16 steps: "
         + ", ".join(f"{w * 1e3:.3f}" for w in walls)
         + f" -> median {wall * 1e3:.3f} ms/step, {sps:.1f} slices/s "
-        f"(best {bs / min(walls):.1f})",
-        f"analytic {gflop:.2f} GFLOP/slice (forward x 3) -> "
-        f"{sps * gflop / 1e3:.1f} TFLOP/s, "
-        f"{sps * gflop * 1e9 / BF16_FLOPS_PER_S:.1%} of the bf16 peak "
-        f"({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound "
-        f"{gflop * 1e9 / BF16_FLOPS_PER_S * 1e3:.4f} ms/slice)",
-        f"profiled window of 8 steps: {prof_wall * 1e3:.3f} ms/step; kernel "
-        f"launches per step {sum(e.count for e in kern) / 8:.0f}; kernel "
-        f"time {busy_ms:.3f} ms/step -> busy {busy_ms / 1e3 / prof_wall:.1%}"
-        f" of the profiled wall, {busy_ms / 1e3 / wall:.1%} of the "
-        f"unprofiled median",
-        ""] + [f"{k:50s} {v / 1e3 / 8:9.3f} ms/step {v / 1e3 / 8 / share:7.1%}"
-               for k, v in groups.items()] + [
+        f"(best {bs / min(walls):.1f}); host waiting for the sampler "
+        + ", ".join(f"{w * 1e3:.3f}" for w in waits[1:4]) + " ms/step"]
+    if gflop is not None:
+        lines.append(
+            f"analytic {gflop:.2f} GFLOP/slice (forward x 3) -> "
+            f"{sps * gflop / 1e3:.1f} TFLOP/s, "
+            f"{sps * gflop * 1e9 / BF16_FLOPS_PER_S:.1%} of the bf16 peak "
+            f"({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound "
+            f"{gflop * 1e9 / BF16_FLOPS_PER_S * 1e3:.4f} ms/slice)")
+    lines += [
+        f"profiled window of {prof_steps} steps: {prof_wall * 1e3:.3f} "
+        f"ms/step; host launches per step "
+        f"{host_launches(prof) / prof_steps:.1f}; kernel launches per step "
+        f"{sum(e.count for e in kern) / prof_steps:.0f}; kernel time "
+        f"{busy_ms:.3f} ms/step -> busy {busy_ms / 1e3 / prof_wall:.1%} of "
+        f"the profiled wall, {busy_ms / 1e3 / wall:.1%} of the unprofiled "
+        f"median",
+        f"hand-written kernel launches captured per replay: "
+        f"{replay or 'no graph (eager steps)'}",
+        ""] + [f"{n:50s} {v / 1e3 / prof_steps:9.3f} ms/step "
+               f"{v / 1e3 / prof_steps / share:7.1%}"
+               for n, v in groups.items()] + [
         "",
         f"{'kernel':90s} {'calls':>7s} {'ms/step':>9s} {'share':>7s}"]
-    for e in kern[:15]:
+    for e in kern[:top]:
         lines.append(f"{e.key[:90]:90s} {e.count:7d} "
-                     f"{self_us(e) / 1e3 / 8:9.3f} "
-                     f"{self_us(e) / 1e3 / 8 / share:7.1%}")
+                     f"{self_us(e) / 1e3 / prof_steps:9.3f} "
+                     f"{self_us(e) / 1e3 / prof_steps / share:7.1%}")
     print("\n".join("  " + ln for ln in lines))
+    del trainer, cache
+    torch.cuda.empty_cache()
+    return wall, launches, replay
 
 
 def unet_bench_phase(tmp, seed):
@@ -1433,7 +1507,7 @@ def unet_bench_phase(tmp, seed):
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.data.synthetic import make_synthetic_dataset
 
-    unet_steady(cli.get_args(UNET_TRAIN_FLAGS + smoke_data(
+    steady(cli.get_args(UNET_TRAIN_FLAGS + smoke_data(
         tmp, Path(tmp) / "unet_b8_md", "--device_cache")), Path(tmp) / "ds",
         "001_unet.sh train step")
 
@@ -1443,17 +1517,38 @@ def unet_bench_phase(tmp, seed):
                            seed=seed, with_features=False)
     print(f"  bench dataset 4 x (24, 512, 512) in "
           f"{time.perf_counter() - t0:.1f} s")
-    # bench.py product_args
-    unet_steady(cli.get_args([
+    steady(cli.get_args(bench_argv(tmp)), ds, "bench.py step on the port")
+
+
+def bench_knobs_phase(tmp):
+    """The bench.py step with its two A/B knobs: bf16 Adam moments, and
+    K = 16 steps a dispatch (a CUDA graph), alone and together; phase 11
+    printed the step with neither."""
+    from boxsegliver_torch.cli import main as cli
+
+    walls = {}
+    for moments, k in (("bfloat16", 1), ("float32", 16), ("bfloat16", 16)):
+        walls[moments, k], _, _ = steady(
+            cli.get_args(bench_argv(tmp, moments, k)), Path(tmp) / "bench_ds",
+            f"bench.py step, {moments} moments, K={k}", prof_steps=16,
+            top=8)
+    print("  bench.py step ms/step (median of 3 windows of 16): " + "; ".join(
+        f"{m} moments K={k} {w * 1e3:.3f}" for (m, k), w in walls.items())
+        + f"; {smi()}")
+
+
+def bench_argv(tmp, moments="float32", k=1):
+    """bench.py's product_args on the port, with its two A/B knobs."""
+    return [
         "liver", "--mode", "train", "--tag", "bench", "--model", "UNet",
         "--classes", "Liver", "Tumor", "--batch_size", "128",
         "--im_channel", "3", "--noise_scale", "0.1", "--random_flip", "3",
         "--test_fold", "0", "--k_folds", "4", "--num_of_total_steps",
         "1000000", "--model_dir", str(Path(tmp) / "bench_md"),
         "--host_workers", "1", "--log_step", "1000000", "--device_cache",
-        "--opt_moment_dtype", "float32", "--steps_per_dispatch", "1",
+        "--opt_moment_dtype", moments, "--steps_per_dispatch", str(k),
         "--metrics_train_steps", "0", "--data_root", str(tmp), "--dataset",
-        "bench_ds"]), ds, "bench.py step on the port")
+        "bench_ds"]
 
 
 def unet_eval_phase(tmp, ds, dev, md):
@@ -1508,12 +1603,291 @@ def unet_eval_phase(tmp, ds, dev, md):
         raise AssertionError("device_case on the card disagrees with the CPU")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: run_g's per-slice host loop (the overflow fallback, --device_sweep
+# off, --save_sp_guide)
+# ---------------------------------------------------------------------------
+
+def cli_eval(argv, what):
+    """One CLI eval run with the launch counters zeroed right before it;
+    returns (results, seconds, launches)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = cli.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not results or not all(math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"{what}: results {results}")
+    return results, seconds, {n: fn.launches
+                              for n, fn in kernels.KERNELS.items()}
+
+
+def host_loop_phase(tmp, ds, dev, seed):
+    """(a) A seeded random init at full width speckles more tumor components
+    than the sweep's cap of 16: the sweep reports the overflow and run_g
+    finishes each case through the host loop (B1 once per slice and
+    direction).  (b) The liver-margin weights of phase 5 through the CLI
+    with --device_sweep on and off (metrics within 1e-3) and with
+    --save_sp_guide (the guide volumes are written).  (c) The fitted small
+    GUNet of phase 5 at 64^2 in float32: the host loop against the device
+    sweep on the card, merged probabilities within 1e-4 and equal tumor
+    component counts per slice."""
+    from scipy import ndimage as ndi
+
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.eval_loader import (load_eval_context,
+                                                          parse_case_eval)
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+    from boxsegliver_torch.interactive.device_sweep import GuidedSweepPredictor
+    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
+
+    base = FLAGS + ["--data_root", str(tmp), "--dataset", "ds",
+                    "--k_folds", "2", "--test_fold", "0"]
+    args = cli.get_args(base + ["--model_dir", str(Path(tmp) / "hl_md")])
+    metas = cli._test_metas(args, ds)
+    slices = sum(parse_case_eval(m, ds, parse_label=False).depth
+                 for m in metas)
+    prior = json.loads((Path(ds) / "prior.json").read_text())
+
+    model = build_model("GUNet", args=args,
+                        model_kwargs=MODEL_CONFIGS["GUNet.yml"])
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    random_w = Path(tmp) / "gunet_random.pt"
+    torch.save(model.state_dict(), random_w)
+    case = parse_case_eval(metas[0], ds)
+    ctx = load_eval_context(ds, case.pid, [("hist", 200)], 20.0)
+    pred = GuidedSweepPredictor(model.to(dev).eval(), args, num_classes=3,
+                                tumor_id=2, device=dev)
+    probs, n_objs = pred.sweep_case(case, prior[str(case.pid)], ctx)
+    if probs is not None:
+        raise AssertionError(f"the random init did not overflow the sweep "
+                             f"({n_objs} objects)")
+    del pred, model
+    res, sec, launches = cli_eval(base + [
+        "--model_dir", str(Path(tmp) / "hl_random"), "--ckpt_path",
+        str(random_w)], "run_g overflow")
+    if launches["gaussian_guide_batch"] < 2 * slices:
+        raise AssertionError(f"B1 launched {launches['gaussian_guide_batch']}"
+                             f" times for {slices} slices x 2 directions")
+    print(f"  run_g, random init (overflow: {n_objs} objects on a slice of "
+          f"case {case.pid}, cap 16): {len(metas)} cases, {slices} slices "
+          f"through the sweep and then the host loop in "
+          f"{sec / len(metas):.3f} s/case; launches {launches}; results "
+          + json.dumps(res))
+
+    margin = ["--ckpt_path", str(Path(tmp) / "gunet_seed.pt")]
+    runs = {}
+    for name, extra in (("on", []), ("off", ["--device_sweep", "off"]),
+                        ("save_sp_guide", ["--save_sp_guide"])):
+        md = Path(tmp) / f"hl_{name}"
+        runs[name] = cli_eval(base + margin + ["--model_dir", str(md)] + extra,
+                              f"run_g {name}")
+        print(f"  run_g liver-margin weights, --device_sweep "
+              f"{'off' if name == 'off' else 'on'}"
+              f"{' --save_sp_guide' if name == 'save_sp_guide' else ''}: "
+              f"{runs[name][1] / len(metas):.3f} s/case, "
+              f"{slices / runs[name][1]:.2f} slices/s, launches "
+              f"{runs[name][2]}; {smi()}")
+    for k, v in runs["on"][0].items():
+        for name in ("off", "save_sp_guide"):
+            if abs(runs[name][0][k] - v) > 1e-3:
+                raise AssertionError(f"run_g {name} {k} {runs[name][0][k]} "
+                                     f"vs the device sweep's {v}")
+    if runs["off"][2]["gaussian_guide_batch"] < 2 * slices:
+        raise AssertionError("--device_sweep off: B1 launched "
+                             f"{runs['off'][2]['gaussian_guide_batch']} times")
+    for m in metas:
+        for d in "FB":
+            f = (Path(tmp) / "hl_save_sp_guide" / "sp_guide"
+                 / f"guide-{d}-{m['PID']}.nii.gz")
+            if not f.exists():
+                raise AssertionError(f"--save_sp_guide did not write {f}")
+
+    no_context = (FLAGS[:FLAGS.index("--use_context")]
+                  + FLAGS[FLAGS.index("--use_spatial"):])
+    args64 = cli.get_args(no_context + [
+        "--im_height", "64", "--im_width", "64", "--compute_dtype", "float32",
+        "--sweep_max_objects", "64", "--model_dir", str(Path(tmp) / "hl64")])
+    cases = [parse_case_eval(m, ds, im_channel=3) for m in metas]
+    small, _ = fit_tiny_gunet(args64, cases[0], dev, seed)
+    pred = GuidedSweepPredictor(small, args64, num_classes=3, tumor_id=2,
+                                device=dev)
+    ev = EvaluateVolume(args64, ds, ["Liver", "Tumor"])
+    for c in cases:
+        pc = prior[str(c.pid)]
+        t0 = time.perf_counter()
+        dev_probs, n_max = pred.sweep_case(c, pc, None)
+        t1 = time.perf_counter()
+        host = ev._sweep_case_host(pred, c, pc, None, tumor_id=2)
+        t2 = time.perf_counter()
+        if dev_probs is None:
+            raise AssertionError(f"sweep overflow at 64^2: {n_max}")
+        err = float(np.abs(host - dev_probs).max())
+        counts = [[ndi.label(sl == 2)[1] for sl in v.argmax(-1)]
+                  for v in (host, dev_probs)]
+        print(f"  host loop vs device sweep on the card (case {c.pid}, 64^2 "
+              f"float32, fitted GUNet): max abs err {err:.2e}, tumor "
+              f"components {sum(counts[0])} / {sum(counts[1])}; sweep "
+              f"{t1 - t0:.3f} s, host loop {t2 - t1:.3f} s")
+        if not err <= 1e-4 or counts[0] != counts[1]:
+            raise AssertionError("the host loop disagrees with the sweep")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: --steps_per_dispatch 16 (the train step as a CUDA graph)
+# ---------------------------------------------------------------------------
+
+def graph_vs_eager(tmp, dev, noisy: bool):
+    """2K = 32 flagship train steps (full width, batch 8, bf16, the
+    streaming sampler's batches) as two dispatches of a captured step
+    against 32 eager K = 1 steps from the same weights and batches.  Quiet
+    (noise 0, flips 0, side dropout 0): per-step loss within 1e-4 relative
+    and all parameters together within 1e-4 in relative L2 norm (a float32
+    reduction may sum in another order from run to run, and Adam turns a
+    gradient within round-off of 0 into ±lr: a small tensor alone can
+    differ by more); the worst single tensor is printed beside it.  Noisy:
+    whether the graph's draws equal the eager steps' is printed."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.sampler import TrainSampler
+
+    quiet = [] if noisy else ["--noise_scale", "0", "--random_flip", "0",
+                              "--side_dropout", "0"]
+    out = {}
+    for k in (16, 1):
+        args = cli.get_args(smoke_train_argv(
+            tmp, 32, "--steps_per_dispatch", str(k), "--model_dir",
+            str(Path(tmp) / f"gve{k}"), *quiet))
+        sampler = TrainSampler(Path(tmp) / "ds", args, seed=5)
+        rng = np.random.RandomState(5)
+        batches = [sampler.sample_batch(8, rng=rng) for _ in range(32)]
+        trainer = cli.build_trainer(args, dev)
+        vals = []
+        for i in range(0, 32, k):
+            vals += [v for _, v, _ in trainer.train_multi_step(
+                batches[i:i + k])]
+        out[k] = (torch.stack(vals).cpu(),
+                  {n: v.detach().float().cpu()
+                   for n, v in trainer.model.state_dict().items()})
+        trainer.summary.close()
+        del trainer
+        torch.cuda.empty_cache()
+    loss_err = float(((out[16][0][:, 0] - out[1][0][:, 0]).abs()
+                      / out[1][0][:, 0].abs()).max())
+    graphed, eager = out[16][1], out[1][1]
+    p_err = float(torch.cat([(graphed[n] - v).flatten()
+                             for n, v in eager.items()]).norm()
+                  / torch.cat([v.flatten() for v in eager.values()]).norm())
+    worst = max(float((graphed[n] - v).norm() / max(float(v.norm()), 1e-12))
+                for n, v in eager.items())
+    same = torch.equal(out[16][0][:, :2], out[1][0][:, :2])
+    what = "noise, flips, dropout on" if noisy else "noise, flips, dropout 0"
+    print(f"  graph (K=16) vs eager (K=1), 32 flagship steps, {what}: loss "
+          f"per step max rel err {loss_err:.2e}, parameters relative L2 "
+          f"err {p_err:.2e} (worst tensor {worst:.2e}), losses bit-equal: "
+          f"{same}")
+    if not noisy and not (loss_err <= 1e-4 and p_err <= 1e-4):
+        raise AssertionError("the graphed train step disagrees with the "
+                             "eager one")
+    return same
+
+
+def dispatch_phase(tmp, dev):
+    """The 002_gnet_sp.sh and 001_unet.sh train flags with
+    --steps_per_dispatch 16 through the CLI (32 steps with --device_cache,
+    a resume to 48 on the streaming sampler); the graph against eager
+    steps; K = 1 against K = 16 in steady state at batch 8."""
+    from boxsegliver_torch.cli import main as cli
+
+    md = Path(tmp) / "train16_md"
+    k16 = ["--steps_per_dispatch", "16", "--model_dir", str(md)]
+    trainer, launches, seconds = train_run(
+        smoke_train_argv(tmp, 32, "--device_cache", *k16), 32)
+    replay = {("metrics" if m else "no metrics"): c
+              for m, (_, c) in trainer._graphs.items()}
+    if trainer.global_step != 32 or len(trainer._graphs) != 2:
+        raise AssertionError(f"K=16 train: step {trainer.global_step}, "
+                             f"{len(trainer._graphs)} captured variants")
+    lines = [json.loads(ln) for ln in
+             (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
+    loss = {ln["step"]: ln["value"] for ln in lines
+            if ln["tag"] == "chip_smoke_train/loss"}
+    evals = sorted({ln["step"] for ln in lines
+                    if ln["tag"].startswith("chip_smoke_train/eval/")})
+    if not all(math.isfinite(v) for v in loss.values()) or evals != [16, 32]:
+        raise AssertionError(f"K=16 train: loss {loss}, evals at {evals}")
+    print(f"  G-Net train, --steps_per_dispatch 16 (--device_cache): 32 "
+          f"steps in {seconds:.2f} s with set-up, 3 eager warm-up steps, two "
+          f"captures and two online evals (at {evals}); launches {launches};"
+          f" per replay {replay}; loss "
+          + ", ".join(f"{s}: {loss[s]:.4f}" for s in sorted(loss)))
+    del trainer
+    again, launches2, seconds2 = train_run(smoke_train_argv(tmp, 48, *k16),
+                                           16)
+    if again.global_step != 48 or not (md / "ckpt" / "48" / "state.pt").exists():
+        raise AssertionError(f"K=16 resume ended at {again.global_step}")
+    print(f"  K=16 resume on the streaming sampler: steps 33-48 in "
+          f"{seconds2:.2f} s, launches {launches2}")
+    del again
+
+    umd = Path(tmp) / "unet16_md"
+    uargv = UNET_TRAIN_FLAGS + smoke_data(
+        tmp, umd, "--batches_per_epoch", "12", "--eval_3d", "--eval_num",
+        "1", "--log_step", "4", "--steps_per_dispatch", "16")
+    utrainer, useconds, _ = no_kernel_run(
+        lambda: cli.main(uargv + ["--num_of_steps", "32", "--device_cache"]),
+        "UNet K=16 train")
+    if utrainer.global_step != 32 or not utrainer._graphs:
+        raise AssertionError(f"UNet K=16 train ended at "
+                             f"{utrainer.global_step}")
+    del utrainer
+    uagain, useconds2, _ = no_kernel_run(
+        lambda: cli.main(uargv + ["--num_of_steps", "48"]), "UNet K=16 resume")
+    if uagain.global_step != 48:
+        raise AssertionError(f"UNet K=16 resume ended at "
+                             f"{uagain.global_step}")
+    del uagain
+    print(f"  UNet train, --steps_per_dispatch 16: 32 steps in "
+          f"{useconds:.2f} s (--device_cache, inline volume evals), resume "
+          f"to 48 in {useconds2:.2f} s; launches 0")
+
+    graph_vs_eager(tmp, dev, noisy=False)
+    graph_vs_eager(tmp, dev, noisy=True)
+
+    ds = Path(tmp) / "ds"
+    walls = {}
+    for name, flags in (("G-Net", TRAIN_FLAGS), ("UNet", UNET_TRAIN_FLAGS)):
+        for k in (1, 16):
+            args = cli.get_args(flags + smoke_data(
+                tmp, Path(tmp) / f"steady_{name}_{k}", "--device_cache",
+                "--steps_per_dispatch", str(k)))
+            walls[name, k], _, _ = steady(
+                args, ds, f"{name} train step, K={k}",
+                kernels_used=name == "G-Net", prof_steps=16, top=8)
+    print("  ms/step (median of 3 windows of 16), K=1 -> K=16: " + "; ".join(
+        f"{n} {walls[n, 1] * 1e3:.3f} -> {walls[n, 16] * 1e3:.3f}"
+        for n in ("G-Net", "UNet")) + f"; {smi()}")
+    return launches
+
+
+def weights_card_vs_cpu(tmp, dev, seed):
+    """Phase 8's card-against-CPU train step with the boundary and the
+    proportion loss weights."""
+    for w_type in ("boundary", "proportion"):
+        print(f"  --loss_weight_type {w_type}:")
+        train_card_vs_cpu(tmp, dev, seed, "--loss_weight_type", w_type)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     opts = ap.parse_args(argv)
 
-    print("[1/12] device")
+    print("[1/16] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1528,7 +1902,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/12] build")
+    print("[2/16] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -1538,7 +1912,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/12] kernel B1 vs plain")
+    print("[3/16] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1548,27 +1922,39 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/12] labeling vs scipy")
+        print("[4/16] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/12] flagship guided eval (run_g) through the CLI")
-        slice_phase(tmp, ds, dev, opts.seed)
+        print("[5/16] flagship guided eval (run_g) through the CLI")
+        paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/12] profile of one case's sweep (steady state)")
+        print("[6/16] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/12] kernel B2 vs plain")
+        print("[7/16] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        print("[8/12] flagship G-Net training through the CLI")
-        launches = train_phase(tmp)
+        print("[8/16] flagship G-Net training through the CLI")
+        launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/12] profile of the flagship train step (steady state)")
+        print("[9/16] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/12] UNet training (001_unet.sh train) through the CLI")
+        print("[10/16] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/12] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/16] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/12] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/16] UNet eval (001_unet.sh eval) through the CLI")
         unet_eval_phase(tmp, ds, dev, unet_md)
+        print("[13/16] run_g's host loop: overflow fallback, --device_sweep "
+              "off, --save_sp_guide")
+        paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
+                                                              opts.seed)
+        print("[14/16] --steps_per_dispatch 16: the train step as a CUDA "
+              "graph (G-Net, UNet)")
+        paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
+        print("[15/16] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        bench_knobs_phase(tmp)
+        print("[16/16] train step card vs CPU: boundary and proportion "
+              "loss weights")
+        weights_card_vs_cpu(tmp, dev, opts.seed)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -1576,6 +1962,8 @@ def main(argv=None):
     recs = [rec] + [b2[n] for n in B2_KERNELS]
     for r in recs:
         r["launches"] = launches[r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+    keys += ("launches_by_path",)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -217,3 +217,90 @@ def test_b2_rejects_what_it_does_not_take(dev):
         kernels.in_relu_fwd(x, w.cpu(), b)
     with pytest.raises(ValueError):
         kernels.in_relu_bwd_stats(g, x.bfloat16(), w, b)
+
+
+# ---------------------------------------------------------------------------
+# --steps_per_dispatch K > 1: the train step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+def _graph_trainers(tmp_path, k, *extra):
+    """A tiny G-Net trainer on a synthetic set at 64^2, float32 (TF32 off),
+    batch 2, and its raw batches; ``k`` steps a dispatch."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.config import resolve_device
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    ds = tmp_path / "ds"
+    if not (ds / "meta.json").exists():
+        make_synthetic_dataset(ds, n_cases=4, shape=(8, 64, 64), k_split=2,
+                               seed=1)
+    argv = ["liver", "--mode", "train", "--tag", "t", "--model", "GUNet",
+            "--model_config", "GUNet_TINY.yml", "--classes", "Liver",
+            "Tumor", "--k_folds", "2", "--test_fold", "0", "--im_height",
+            "64", "--im_width", "64", "--normalizer", "instance_norm",
+            "--use_context", "--context_list", "hist", "200",
+            "--use_spatial", "--min_std", "2", "--batch_size", "2",
+            "--compute_dtype", "float32", "--log_step", "2",
+            "--data_root", str(tmp_path), "--dataset", "ds",
+            "--model_dir", str(tmp_path / f"md{k}"),
+            "--steps_per_dispatch", str(k)] + list(extra)
+    args = cli.get_args(argv)
+    trainer = cli.build_trainer(args, resolve_device("cuda"))
+    sampler = TrainSampler(ds, args, seed=3)
+    rng = np.random.RandomState(3)
+    return trainer, [sampler.sample_batch(2, rng=rng) for _ in range(12)]
+
+
+def _run(trainer, batches, k):
+    out = []
+    for i in range(0, len(batches), k):
+        out += trainer.train_multi_step(batches[i:i + k])
+    return torch.stack([v for _, v, _ in out]).cpu()
+
+
+def test_graphed_steps_match_eager_steps(dev, tmp_path):
+    """Noise, flips and dropout off: 12 steps as 3 dispatches of 4 (3 eager
+    warm-up steps, then replays of the two captured variants) against 12
+    eager K = 1 steps; loss per step within 1e-4 relative, the parameters
+    within 1e-4 in relative L2 norm over all tensors together.  Two eager
+    float32 runs of this model on the card are not bit-equal either (its
+    float32 reductions may sum in another order from run to run, and Adam
+    turns a gradient within round-off of 0 into ±lr): small bias vectors
+    differ by up to 2e-3 of their own norm between two eager runs, and by
+    as much between a graphed and an eager run.  Each replay adds its
+    captured launches of B1 and B2 to their counters."""
+    quiet = ("--noise_scale", "0", "--random_flip", "0", "--side_dropout",
+             "0")
+    graphed, batches = _graph_trainers(tmp_path, 4, *quiet)
+    eager, _ = _graph_trainers(tmp_path, 1, *quiet)
+    kernels.reset_launch_counts()
+    vals_g = _run(graphed, batches, 4)
+    counts = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+    vals_e = _run(eager, batches, 1)
+    assert len(graphed._graphs) == 2            # metric / no-metric variant
+    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd_stats",
+              "in_relu_bwd_apply"):
+        assert counts[n] > 0 and counts[n] * 2 == kernels.KERNELS[n].launches
+        per = {m: c[n] for m, (_, c) in graphed._graphs.items()}
+        assert per[True] == per[False] > 0
+    torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
+                               atol=0)
+    pe = eager.model.state_dict()
+    pg = graphed.model.state_dict()
+    err = torch.cat([(pg[k] - v).flatten() for k, v in pe.items()]).norm()
+    ref = torch.cat([v.flatten() for v in pe.values()]).norm()
+    assert float(err) <= 1e-4 * float(ref), (float(err), float(ref))
+
+
+def test_graphed_generator_advances(dev, tmp_path):
+    """With noise, flips and dropout on, each replay draws new numbers from
+    the registered generator: its state moves with every dispatch, and the
+    checkpointed state is the one a resume continues from."""
+    graphed, batches = _graph_trainers(tmp_path, 4)
+    _run(graphed, batches[:8], 4)               # warm-up, capture, replays
+    s0 = graphed.generator.get_state().clone()
+    _run(graphed, batches[8:], 4)
+    s1 = graphed.generator.get_state()
+    assert not torch.equal(s0, s1)
+    assert torch.equal(graphed.state()["generator"], s1)

@@ -149,8 +149,10 @@ def test_run_g_matches_jax(ds, tmp_path, fitted):
 
 
 def test_sweep_overflow_raises(ds, tmp_path, fitted):
-    """Where the JAX evaluator falls back to its (unported) host loop, the
-    port raises instead of truncating the object state."""
+    """The sweep reports an overflow (None) instead of truncating the object
+    state; the evaluator then finishes the case through the host loop, as
+    the JAX evaluator does (tests/test_torch_host_loop.py holds the two
+    against each other)."""
     _, t_model = fitted
     args = _args(tmp_path / "o", sweep_max_objects=1)
     t_pred = t_sweep.GuidedSweepPredictor(t_model, args, num_classes=3,
@@ -160,8 +162,6 @@ def test_sweep_overflow_raises(ds, tmp_path, fitted):
     prior = json.loads((ds / "prior.json").read_text())
     t_case = t_loader.parse_case_eval(meta, ds, im_channel=3)
     probs, n_max = t_pred.sweep_case(t_case, prior[str(meta["PID"])], None)
-    if probs is None:
-        with pytest.raises(RuntimeError, match="overflow"):
-            ev.run_g(t_pred, [meta], prior=prior)
-    else:
-        assert n_max <= 1
+    assert probs is None and n_max > 1
+    res = ev.run_g(t_pred, [meta], prior=prior)
+    assert res and all(np.isfinite(v) for v in res.values())

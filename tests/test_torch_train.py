@@ -95,8 +95,19 @@ def test_losses_match_jax(loss_type, w_type):
 
 @pytest.mark.parametrize("w_type", ["proportion", "boundary"])
 def test_other_weight_types_raise(w_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlosses.make_loss_fn("xentropy", w_type)
+    """The other weight types are ported (their loss matches JAX within
+    1e-6 relative); an unknown one raises, as in the JAX package."""
+    rng = np.random.default_rng(1)
+    logits = rng.normal(0, 2, (3, 16, 12, 3)).astype(np.float32)
+    labels = rng.integers(0, 3, (3, 16, 12)).astype(np.int32)
+    kw = {"proportion_decay": 1000.0} if w_type == "proportion" else {}
+    want = float(jlosses.make_loss_fn("xentropy", w_type, **kw)(
+        jnp.asarray(logits), jnp.asarray(labels)))
+    got = float(tlosses.make_loss_fn("xentropy", w_type, **kw)(
+        torch.from_numpy(logits), torch.from_numpy(labels)))
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    with pytest.raises(ValueError, match="weight type"):
+        tlosses.make_loss_fn("xentropy", w_type + "_unknown")
 
 
 @pytest.mark.parametrize("bias_decay", [False, True])
@@ -194,8 +205,15 @@ def test_optimizer_and_plateau_lr_match_optax(opt):
 
 
 def test_unported_optimizer_options_raise():
+    """--opt_moment_dtype bfloat16 is ported (its moments rest in bf16,
+    tests/test_torch_train_flags.py holds it against JAX); a moment dtype
+    the JAX package does not take raises."""
     _, ta = _args(["--opt_moment_dtype", "bfloat16"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    optim = Optimizer(ta, [torch.zeros(2)])
+    assert optim.state["mu"][0].dtype == optim.state["nu"][0].dtype == \
+        torch.bfloat16
+    ta.opt_moment_dtype = "float16"
+    with pytest.raises(ValueError, match="opt_moment_dtype"):
         Optimizer(ta, [torch.zeros(2)])
 
 
@@ -285,9 +303,14 @@ def test_train_step_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra", [["--num_replicas", "2"],
                                    ["--steps_per_dispatch", "2"]])
 def test_unported_trainer_flags_raise(tmp_path, extra):
+    """DDP is not ported; K > 1 is, but needs the device preprocess (the
+    JAX trainer raises the same way without its fused preprocess)."""
     _, ta = _args(extra, model_dir=tmp_path)
     model = tbuild("GUNet", args=ta, model_kwargs=TINY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    error, match = ((NotImplementedError, "ROADMAP")
+                    if "--num_replicas" in extra else (ValueError,
+                                                       "preprocess"))
+    with pytest.raises(error, match=match):
         Trainer(model, ta, CLASSES, "cpu")
 
 

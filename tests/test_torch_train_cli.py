@@ -175,5 +175,5 @@ def test_train_cli_writes_resumes_and_eval_restores(root):
 
 def test_train_cli_refuses_unported_paths(root):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(_argv(root, "--steps_per_dispatch", "2",
+        cli.main(_argv(root, "--num_replicas", "2",
                        "--num_of_total_steps", "1"))
