@@ -1,7 +1,7 @@
-"""Main CLI of the port: training, unguided eval / infer of the UNet family
-and guided eval / infer of the G-Net family (port of
+"""Main CLI of the port: training, unguided eval / infer of the UNet family,
+guided eval / infer of the G-Net family and the serving export (port of
 boxsegliver_tpu/cli/main.py:33-66,186-337,340-377,390-543; reference
-entry/main.py, entry/main_g.py).
+entry/main.py, entry/main_g.py, entry/main_export.py).
 
     python -m boxsegliver_torch.cli.main liver --mode train --tag 001_unet \
         --model UNet --classes Liver Tumor --test_fold 2 --im_height 256 \
@@ -38,7 +38,10 @@ models — the device double sweep, or the per-slice host loop under
 unguided whole-volume eval (``run`` with a DeviceSlicePredictor).  Their weights come from
 ``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
 flattened flax variables), else from ``--model_dir``: the best checkpoint,
-or the latest periodic one under ``--eval_final`` or when there is no best.
+or the latest periodic one under ``--eval_final`` or when there is no best,
+else a warm start from ``--warm_start_from`` / ``--load_weights``.
+``--mode export`` writes the serving bundle of cli/export.py (weights as
+eval's, the seeded init where there are none), which cli/serve.py serves.
 Every other branch of the JAX CLI raises NotImplementedError naming its
 roadmap item.
 """
@@ -47,6 +50,7 @@ from __future__ import annotations
 
 import sys
 from pathlib import Path
+from typing import Optional
 
 from boxsegliver_torch import config as config_mod
 from boxsegliver_torch.utils.logger import setup_logger
@@ -102,32 +106,70 @@ def _build_model(args):
                        model_kwargs=params["model_kwargs"], dtype=dtype)
 
 
-def eval_checkpoint(args) -> Path:
-    """The weights eval restores (JAX evaluate's selection): --ckpt_path,
-    else model_dir's best checkpoint, else — under --eval_final or when
-    there is no best — its latest periodic checkpoint."""
+def checkpoint_path(args, eval_final: bool = False) -> Optional[Path]:
+    """--ckpt_path, else model_dir's best checkpoint, else — under
+    ``eval_final`` or when there is no best — its latest periodic one; None
+    when model_dir holds no checkpoint."""
     from boxsegliver_torch.train.checkpoint import CheckpointManager
 
     if getattr(args, "ckpt_path", None):
         return Path(args.ckpt_path)
     ckpt = CheckpointManager(args.model_dir)
-    if not getattr(args, "eval_final", False) and ckpt.has_best():
+    if not eval_final and ckpt.has_best():
         return ckpt.best_path()
-    latest = ckpt.latest_path()
-    if latest is None:
-        raise FileNotFoundError(f"no checkpoint under {ckpt.model_dir}; "
-                                "train first or pass --ckpt_path")
-    return latest
+    return ckpt.latest_path()
+
+
+def eval_checkpoint(args) -> Path:
+    """The checkpoint eval restores (JAX evaluate's selection,
+    cli/main.py:395-410, with --eval_final); FileNotFoundError when
+    model_dir holds none."""
+    path = checkpoint_path(args, getattr(args, "eval_final", False))
+    if path is None:
+        raise _no_checkpoint(args)
+    return path
+
+
+def _no_checkpoint(args) -> FileNotFoundError:
+    return FileNotFoundError(f"no checkpoint under {args.model_dir}; train "
+                             "first or pass --ckpt_path, --warm_start_from "
+                             "or --load_weights")
+
+
+def restore_weights(args, model, export: bool = False) -> str:
+    """Load into ``model`` the weights eval (or, with ``export``, export)
+    restores and return where they came from.  A checkpoint first (eval:
+    eval_checkpoint's; export: --ckpt_path, else the best, else the latest,
+    as JAX cli/export.py:28-36).  With none under --model_dir, JAX's
+    trainer.restore at step 0 (train/trainer.py:315-343): the seeded init,
+    warm started from --warm_start_from / --load_weights.  With neither
+    flag, export takes the seeded init as JAX does; eval raises
+    FileNotFoundError (JAX would score the seeded init)."""
+    import torch
+
+    from boxsegliver_torch.train.checkpoint import model_state, warm_start
+    from boxsegliver_torch.train.trainer import warm_start_source
+
+    path = checkpoint_path(args, not export
+                           and getattr(args, "eval_final", False))
+    if path is not None:
+        model.load_state_dict(model_state(path), strict=True)
+        return str(path)
+    src, scope_map = warm_start_source(args)
+    if src is None and not export:
+        raise _no_checkpoint(args)
+    model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
+    if src is None:
+        return f"the seeded init (--seed {args.seed})"
+    warm_start(model, src, scope_map=scope_map)
+    return f"a warm start from {src}"
 
 
 def build_model_from_args(args, device):
     """The flagged model on ``device`` in eval mode, weights from
-    eval_checkpoint(args)."""
-    from boxsegliver_torch.train.checkpoint import model_state
-
+    restore_weights(args)."""
     model = _build_model(args)
-    args.restored_from = str(eval_checkpoint(args))
-    model.load_state_dict(model_state(args.restored_from), strict=True)
+    args.restored_from = restore_weights(args, model)
     return model.to(device).eval()
 
 
@@ -136,10 +178,11 @@ def main(argv=None):
     logger = setup_logger(args.model_dir, args.mode, args.tag, args.out_file)
     logger.info("Task %s, mode %s, model_dir %s", args.task, args.mode,
                 args.model_dir)
-    if args.mode == "export":
-        _not_ported("--mode export", "queue A, serving")
     device = config_mod.resolve_device(args.device)
     dataset_dir = resolve_dataset_dir(args)
+    if args.mode == "export":
+        from boxsegliver_torch.cli.export import export_model
+        return export_model(args, dataset_dir, device=device)
     if args.mode == "train":
         return train(args, dataset_dir, logger, device)
     return evaluate(args, dataset_dir, logger, device,

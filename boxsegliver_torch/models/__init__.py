@@ -5,7 +5,7 @@ The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
 configs of ported models are carried: the UNet ones and the GUNet ones whose
-context model is ported.
+context model is ported; ``UNPORTED_CONFIGS`` names the others.
 """
 
 from __future__ import annotations
@@ -50,6 +50,22 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
                            norm_with_center=True, norm_with_scale=False),
 }
 
+# configs/models of the JAX package that the port does not carry yet, with
+# the ROADMAP queue item that ports them
+UNPORTED_CONFIGS: Dict[str, str] = {
+    "DenseUNet.yml": "queue A, rest of the 2D zoo",
+    "DenseUNet_tiny.yml": "queue A, rest of the 2D zoo",
+    "InterUNet.yml": "queue A, interactive click path",
+    "LGNet.yml": "queue A, interactive click path",
+    "LGNet_v3.yml": "queue A, interactive click path",
+    "SmallUNet.yml": "queue A, interactive click path",
+    "UNetInter.yml": "queue A, interactive click path",
+    "UNetInter_TINY.yml": "queue A, interactive click path",
+    "UNet3D.yml": "queue A, 3D tower",
+    "GUNet_IIN.yml": "queue A, nf2 / IIN",
+    "GUNet_IIN_TINY.yml": "queue A, nf2 / IIN",
+}
+
 # Which constructor fields each model pulls from the flag namespace.
 _ARG_FIELDS = {
     "UNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
@@ -64,8 +80,13 @@ _RUNTIME_KEYS = ("ret_prob", "ret_pred", "build_metrics", "build_summaries")
 
 def load_model_config(model: str, model_config: Optional[str] = None) -> Dict:
     """Model hyperparams by config file name (``--model_config`` or
-    ``<model>.yml``); unknown names give {} as in the JAX package."""
+    ``<model>.yml``).  A config of the JAX package that the port lacks
+    raises NotImplementedError naming its queue item; a name the JAX
+    package lacks too gives {}, as there."""
     name = model_config or (model + ".yml")
+    if name in UNPORTED_CONFIGS:
+        raise NotImplementedError(f"model config {name} is not ported yet "
+                                  f"(ROADMAP {UNPORTED_CONFIGS[name]})")
     return dict(MODEL_CONFIGS.get(name, {}))
 
 

@@ -26,7 +26,11 @@ Kernels:
   bounds them (source note).  The forward takes one of three paths (warp,
   staged on a thread-block cluster, general), chosen from the shape by
   ``in_relu_fwd_plan``.  The nearest PyTorch yardstick is two calls,
-  ``F.relu(F.instance_norm(...))``.
+  ``F.relu(F.instance_norm(...))``.  B2-fwd is the registered operator
+  ``torch.ops.boxseg.in_relu_fwd`` (torch.library: CPU implementation the
+  plain version; CUDA the kernel, which counts its launches; a fake
+  implementation for tracing), so torch.export keeps it as one node of an
+  exported model and a loaded program launches the kernel on the card.
 """
 
 from __future__ import annotations
@@ -295,8 +299,8 @@ def in_relu_fwd_plan(planes: int, hw: int, dtype: torch.dtype,
 def _fwd_launch(x, weight, bias, eps, plan=None):
     """Launch B2-fwd on checked CUDA operands under ``plan`` (by default
     in_relu_fwd_plan's for x's shape and alignment); the C launcher refuses
-    a plan that does not fit the operands.  Counts nothing: in_relu_fwd
-    does."""
+    a plan that does not fit the operands.  Counts nothing: the operator's
+    CUDA implementation does."""
     n, c, h, w = x.shape
     y = torch.empty_like(x)
     xhat = torch.empty_like(x)
@@ -310,18 +314,54 @@ def _fwd_launch(x, weight, bias, eps, plan=None):
     return y, xhat, rstd
 
 
-def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                eps: float = IN_EPS):
-    """Kernel B2-fwd: (y, x̂, rstd) of relu(instance_norm(x)·γ + β).
+# B2-fwd is the operator boxseg::in_relu_fwd, so torch.export traces it as
+# one node (its fake implementation gives the output shapes) and a loaded
+# program dispatches it by device: the plain version on the CPU, the kernel
+# on the card.  It is registered through torch.library.Library rather than
+# the torch.library.custom_op decorator, which wraps each device
+# implementation in torch._disable_dynamo: that wrapper imports
+# torch._dynamo at the first call (seconds, once a process) and adds host
+# time to every call (PERF.md, "The decorator's cost").
+_LIB = torch.library.Library("boxseg", "DEF")
+_LIB.define("in_relu_fwd(Tensor x, Tensor weight, Tensor bias, float eps) "
+            "-> (Tensor, Tensor, Tensor)")
 
-    x: [N, C, H, W] float32 or bfloat16, contiguous; weight, bias: [C]
-    float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32."""
-    if x.device.type == "cpu":
-        return in_relu_fwd_plain(x, weight, bias, eps)
+
+def _in_relu_fwd_cuda(x, weight, bias, eps):
+    # an exported graph hands over x in the layout the card produced, which
+    # need not be the tracer's: cuDNN returns a channels-last conv output
+    # where the traced strides said contiguous, and the trace dropped the
+    # caller's .contiguous()
+    x = x.contiguous()
     _check_in_relu("in_relu_fwd", x, (), weight, bias)
     out = _fwd_launch(x, weight, bias, eps)
     in_relu_fwd.launches += 1
     return out
+
+
+_LIB.impl("in_relu_fwd", in_relu_fwd_plain, "CPU")
+_LIB.impl("in_relu_fwd", _in_relu_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("boxseg::in_relu_fwd", lib=_LIB)
+def _in_relu_fwd_fake(x, weight, bias, eps):
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    return y, torch.empty_like(y), x.new_empty(x.shape[:2],
+                                               dtype=torch.float32)
+
+
+def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                eps: float = IN_EPS):
+    """Kernel B2-fwd: (y, x̂, rstd) of relu(instance_norm(x)·γ + β), through
+    the operator ``torch.ops.boxseg.in_relu_fwd``.
+
+    x: [N, C, H, W] float32 or bfloat16, contiguous; weight, bias: [C]
+    float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32."""
+    # the wrapper keeps the kernel's contract; the operator also takes the
+    # channels-last x an exported graph may hand it
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("in_relu_fwd: operands must be contiguous")
+    return torch.ops.boxseg.in_relu_fwd.default(x, weight, bias, float(eps))
 
 
 def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import logging
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +83,45 @@ def make_loss_fn(args):
         w_params["proportion_decay"] = args.loss_proportion_decay
     return losses_mod.make_loss_fn(args.loss_type, args.loss_weight_type,
                                    **w_params)
+
+
+def warm_start_source(args) -> Tuple[Optional[str], Optional[Dict]]:
+    """What a run with no periodic checkpoint starts from (reference
+    core/estimator.py:249-253, core/models.py:160-185): (path, scope_map)
+    of --warm_start_from, else of --load_weights with the renames of
+    --weights_scope "old=new[,…]"; (None, None) when neither is given."""
+    src = getattr(args, "warm_start_from", None)
+    scope_map = None
+    if not src and getattr(args, "load_weights", None):
+        src = args.load_weights
+        if src.endswith(".h5"):
+            raise NotImplementedError(
+                ".h5 imports come with the DenseNet-161 import (ROADMAP "
+                "queue A, rest of the 2D zoo)")
+        raw = getattr(args, "weights_scope", None)
+        if raw:  # "old=new[,old2=new2]" top-level scope renames
+            scope_map = dict(pair.split("=", 1)
+                             for pair in raw.split(",") if "=" in pair)
+    if not src:
+        return None, None
+    return _resolve_load_weights(args, src), scope_map
+
+
+def _resolve_load_weights(args, spec: str) -> str:
+    """An explicit path, or a sibling experiment tag under model_dir's
+    parent: its best checkpoint, else its latest periodic one."""
+    p = Path(spec)
+    if p.exists():
+        return str(p)
+    sibling = CheckpointManager(Path(args.model_dir).parent / spec)
+    version = getattr(args, "load_weights_version", "checkpoint")
+    tag = "best" if version == "checkpoint" else version
+    if sibling.has_best(tag):
+        return str(sibling.best_path(tag))
+    if sibling.latest_path() is not None:
+        return str(sibling.latest_path())
+    raise FileNotFoundError(f"--load_weights {spec!r}: no checkpoint at "
+                            f"{p} or {sibling.model_dir}")
 
 
 class Trainer:
@@ -191,41 +230,13 @@ class Trainer:
             self.generator.set_state(state["generator"])
             self._host_step = int(state["step"])
             return self._host_step
-        src = getattr(self.args, "warm_start_from", None)
-        scope_map = None
-        if not src and getattr(self.args, "load_weights", None):
-            src = self.args.load_weights
-            if src.endswith(".h5"):
-                raise NotImplementedError(
-                    ".h5 imports come with the DenseNet-161 import (ROADMAP "
-                    "queue A, rest of the 2D zoo)")
-            raw = getattr(self.args, "weights_scope", None)
-            if raw:  # "old=new[,old2=new2]" top-level scope renames
-                scope_map = dict(pair.split("=", 1)
-                                 for pair in raw.split(",") if "=" in pair)
+        src, scope_map = warm_start_source(self.args)
         if src:
-            src = self._resolve_load_weights(src)
             n = warm_start(self.model, src, scope_map=scope_map)
             logger.info("Warm started %d tensors from %s (scope_map=%s)", n,
                         src, scope_map)
         self._host_step = 0
         return 0
-
-    def _resolve_load_weights(self, spec: str) -> str:
-        """An explicit path, or a sibling experiment tag under model_dir's
-        parent: its best checkpoint, else its latest periodic one."""
-        p = Path(spec)
-        if p.exists():
-            return str(p)
-        sibling = CheckpointManager(Path(self.args.model_dir).parent / spec)
-        version = getattr(self.args, "load_weights_version", "checkpoint")
-        tag = "best" if version == "checkpoint" else version
-        if sibling.has_best(tag):
-            return str(sibling.best_path(tag))
-        if sibling.latest_path() is not None:
-            return str(sibling.latest_path())
-        raise FileNotFoundError(f"--load_weights {spec!r}: no checkpoint at "
-                                f"{p} or {sibling.model_dir}")
 
     @property
     def global_step(self) -> int:

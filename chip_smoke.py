@@ -48,7 +48,9 @@ result line):
    B2-fwd plan of each flagship shape; per shape and per train step each
    kernel's device time per launch (``graph_ms``), wrapper time per call,
    plain and library ("two calls", F.relu(F.instance_norm(...)), forward
-   and backward) times, and the card's bound for the same work.
+   and backward) times, and the card's bound for the same work; B2-fwd's
+   wrapper time through the registered operator boxseg::in_relu_fwd
+   beside its CUDA implementation called without the dispatcher.
 8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
@@ -107,11 +109,30 @@ result line):
 15. bench knobs — the bench.py step with bf16 Adam moments, with K = 16 and
    with both.
 16. loss weights — phase 8's card-vs-CPU train step with the boundary and
-   the proportion loss weights (1e-4).
+   the proportion loss weights (1e-4); then, in a child process started
+   with CUBLAS_WORKSPACE_CONFIG=:4096:8, the tiny float32 G-Net of
+   tests/test_torch_cuda.py trained twice for 6 eager steps from one
+   --seed under deterministic algorithms (and twice without): whether the
+   runs are bit-equal, the first parameter that differs, and the ops that
+   have no deterministic CUDA version (printed, not gated).
+17. serving — ``--mode export`` through ``boxsegliver_torch.cli.main.main``
+   on the card: GUNet.yml at the ``002_gnet_sp.sh`` eval flags (batch 8,
+   256^2 x 3, instance norm, histogram context 200, spatial guide, bf16)
+   from phase 5's seeded init by --ckpt_path, and UNet.yml at the
+   ``001_unet.sh`` eval flags from phase 10's best checkpoint.  Each bundle
+   is served on the card by cli/serve.make_server in a thread: 20 npz
+   requests of 8 slices (launch counters zeroed right before them), one of
+   20 slices (chunked and padded), one JSON request; ms/request (median,
+   min, max), slices/s, the forward alone (CUDA events) and launches per
+   request: B2-fwd at least 10 per GUNet request, every kernel 0 for the
+   UNet.  The GUNet response against the eager model + softmax on the card
+   within one bf16 rounding step; a GUNet_TINY bundle (64^2, float32)
+   exported on the card and served on the card and on the CPU (1e-4).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8, and per path in ``launches_by_path``: the device sweep of phase 5,
-the train run of phase 8, the overflow run of phase 13 and the K = 16 train
-run of phase 14; ``ms``: wrapper time, per call for B1 and summed over one
+the train run of phase 8, the overflow run of phase 13, the K = 16 train
+run of phase 14 and the 20 GUNet requests of phase 17; ``ms``: wrapper
+time, per call for B1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
 call), the card's name and power limit, and as the last line
@@ -807,7 +828,8 @@ def b2_times(shape, dev):
     plain, library ("two calls") for the forward and for the backward (the
     library's backward is the whole backward of F.relu(F.instance_norm(...)),
     B2a + B2b + dγ, dβ); B2-fwd's device time under the other plans of
-    ``fwd_alternatives`` ("fwd <plan>")."""
+    ``fwd_alternatives`` ("fwd <plan>"); B2-fwd's CUDA implementation
+    called without the operator's dispatcher ("in_relu_fwd direct")."""
     import torch.nn.functional as F
 
     from boxsegliver_torch.ops import kernels
@@ -849,6 +871,10 @@ def b2_times(shape, dev):
             t["fwd " + alt] = min(ms, t.get("fwd " + alt, ms))
         for name, fn in (
                 ("in_relu_fwd", lambda: kernels.in_relu_fwd(x, w, b)),
+                # the CUDA implementation without the dispatcher: the
+                # wrapper's path before B2-fwd became a registered operator
+                ("in_relu_fwd direct", lambda: kernels._in_relu_fwd_cuda(
+                    x, w, b, kernels.IN_EPS)),
                 ("in_relu_bwd_stats",
                  lambda: kernels.in_relu_bwd_stats(g, xh, w, b)),
                 ("in_relu_bwd_apply",
@@ -934,6 +960,7 @@ def b2_phase(dev):
           f"{'wrapper':>8s} {'plain':>8s} {'library':>8s} {'bound':>8s} "
           f"{'of bound':>8s}")
     calls = sum(B2_STEP_SHAPES.values())
+    direct_ms = 0.0
     for shape, count in B2_STEP_SHAPES.items():
         plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
                                         shape[2] * shape[3], bf16)
@@ -952,6 +979,8 @@ def b2_phase(dev):
             r["ms"] += count * t[n]
             r["device_ms"] += count * t["device " + n] / calls
             r["wrapper_ms"] += count * t[n] / calls
+            if n == "in_relu_fwd":
+                direct_ms += count * t["in_relu_fwd direct"] / calls
             r["plain_ms"] += count * t["plain " + n]
             r["library_ms"] += count * lib
             r["bound_ms"] += count * bound
@@ -968,6 +997,10 @@ def b2_phase(dev):
               f"{r['library_ms']:.4f} ms (two calls; the backward row is the "
               f"whole backward), bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), {r['bound_ms'] / step:.1%} of bound")
+    print(f"  B2-fwd wrapper per call through the operator "
+          f"boxseg::in_relu_fwd {recs['in_relu_fwd']['wrapper_ms']:.4f} ms, "
+          f"its CUDA implementation called directly (the wrapper before the "
+          f"registration) {direct_ms:.4f} ms; {smi()}")
     return recs
 
 
@@ -1882,12 +1915,351 @@ def weights_card_vs_cpu(tmp, dev, seed):
         train_card_vs_cpu(tmp, dev, seed, "--loss_weight_type", w_type)
 
 
+def determinism_run(tmp: str, seed: int):
+    """Run in a child process whose CUBLAS_WORKSPACE_CONFIG was set before
+    CUDA started: the tiny float32 G-Net of tests/test_torch_cuda.py
+    (GUNet_TINY, 64^2, batch 2, TF32 off) trained twice for 6 eager steps
+    from the same --seed and batches, under deterministic algorithms
+    (cuDNN deterministic, warn_only, so an op without a deterministic CUDA
+    version is named, not fatal), then twice without them; prints whether
+    each pair is bit-equal and, where not, the first parameter that
+    differs."""
+    import warnings
+
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.config import resolve_device
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    dev = resolve_device("cuda")
+    ds = Path(tmp) / "det_ds"
+    make_synthetic_dataset(ds, n_cases=4, shape=(8, 64, 64), k_split=2,
+                           seed=1)
+    argv = ["liver", "--mode", "train", "--tag", "t", "--model", "GUNet",
+            "--model_config", "GUNet_TINY.yml", "--classes", "Liver",
+            "Tumor", "--k_folds", "2", "--test_fold", "0", "--im_height",
+            "64", "--im_width", "64", "--normalizer", "instance_norm",
+            "--use_context", "--context_list", "hist", "200",
+            "--use_spatial", "--min_std", "2", "--batch_size", "2",
+            "--compute_dtype", "float32", "--log_step", "2", "--seed",
+            str(seed), "--data_root", str(tmp), "--dataset", "det_ds"]
+
+    def run(i):
+        args = cli.get_args(argv + ["--model_dir", str(Path(tmp) / f"det{i}")])
+        sampler = TrainSampler(ds, args, seed=3)
+        rng = np.random.RandomState(3)
+        batches = [sampler.sample_batch(2, rng=rng) for _ in range(6)]
+        trainer = cli.build_trainer(args, dev)
+        losses = [float(v[0]) for _, v, _ in
+                  (trainer.train_multi_step([b])[0] for b in batches)]
+        params = {k: v.detach().cpu().clone()
+                  for k, v in trainer.model.state_dict().items()}
+        trainer.summary.close()
+        return losses, params
+
+    for mode in ("deterministic", "default"):
+        on = mode == "deterministic"
+        torch.use_deterministic_algorithms(on, warn_only=True)
+        torch.backends.cudnn.deterministic = on
+        torch.backends.cudnn.benchmark = False
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (l1, p1), (l2, p2) = run(f"{mode}_a"), run(f"{mode}_b")
+        ops = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught if "deterministic" in str(w.message)})
+        differ = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+        first = ""
+        if differ:
+            k = differ[0]
+            err = float((p1[k] - p2[k]).norm() / max(float(p1[k].norm()),
+                                                     1e-30))
+            first = (f"; first differing parameter {k} (relative L2 "
+                     f"{err:.2e}), {len(differ)} of {len(p1)} differ")
+        print(f"  --seed {seed} twice, 6 eager float32 steps, {mode} "
+              f"algorithms: losses bit-equal {l1 == l2}, parameters "
+              f"bit-equal {not differ}{first}; ops without a deterministic "
+              f"CUDA version: {ops or 'none'}; {smi()}")
+        if mode == "deterministic":
+            print(json.dumps({"determinism": {"seed_reproduces_float32_run":
+                                              not differ and l1 == l2,
+                                              "first_differing": differ[:1],
+                                              "nondeterministic_ops": ops}}))
+
+
+def determinism_phase(tmp, seed):
+    """determinism_run in a child process with CUBLAS_WORKSPACE_CONFIG
+    set before CUDA starts there."""
+    import os
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--determinism", str(tmp), "--seed", str(seed)],
+                         env=env, capture_output=True, text=True,
+                         timeout=600)
+    print(res.stdout, end="")
+    if res.returncode != 0:
+        raise RuntimeError(f"the determinism run failed: {res.stderr[-3000:]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: serving — --mode export and the REST server over the bundle
+# ---------------------------------------------------------------------------
+
+# full-affine instance-norm + ReLU pairs of one GUNet.yml forward (kernel
+# B2-fwd): the two of the unmodulated first level and the eight of the
+# decoder
+GUNET_B2_PAIRS = 10
+
+
+def serve_features(sig, n, seed):
+    """n slices of seeded features at the signature's shapes: images in
+    [0, 1), guides in [0.25, 0.75), context in [0, 1)."""
+    rng = np.random.default_rng(seed)
+    feats = {}
+    for key, (shape, dtype) in sig["inputs"].items():
+        arr = rng.random((n,) + tuple(shape[1:]), dtype=np.float32)
+        feats[key] = (arr * 0.5 + 0.25 if key == "sp_guide" else arr).astype(
+            dtype)
+    return feats
+
+
+def _post(url, body, ctype):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        if r.status != 200:
+            raise AssertionError(f"{url}: HTTP {r.status}")
+        return r.read()
+
+
+def _post_timed(port, path, body, ctype):
+    """One POST on a fresh connection, as a simple client sends it; returns
+    (response body, seconds to send the request, seconds from the last
+    byte sent to the response's headers, seconds to read the body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body, headers={"Content-Type": ctype})
+        t1 = time.perf_counter()
+        resp = conn.getresponse()
+        t2 = time.perf_counter()
+        raw = resp.read()
+        t3 = time.perf_counter()
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{path}: HTTP {resp.status}")
+    return raw, t1 - t0, t2 - t1, t3 - t2
+
+
+def _npz(**arrays) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def serve_bundle(bundle, what, requests=20, seed=0):
+    """Serve ``bundle`` on the card with make_server(port=0) in a thread:
+    ``requests`` npz requests of one exported batch (launch counters zeroed
+    right before them), one of 2.5 batches (chunked and padded), one JSON
+    request of one slice.  Returns (the first batch's features, its
+    response, the launches of the ``requests`` requests, per request)."""
+    import io
+    import logging
+    import threading
+
+    from boxsegliver_torch.cli.serve import make_server
+    from boxsegliver_torch.ops import kernels
+
+    logging.getLogger("boxsegliver.serve").setLevel(logging.WARNING)
+    threads = sorted(t.name for t in threading.enumerate())
+    t0 = time.perf_counter()
+    srv = make_server(bundle, host="127.0.0.1", port=0, device="cuda")
+    load_s = time.perf_counter() - t0
+    runner = srv.RequestHandlerClass.runner
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = (f"http://127.0.0.1:{srv.server_address[1]}/v1/models/"
+               f"{runner.name}:predict")
+        bs = runner.batch
+        feats = serve_features(runner.signature, bs, seed)
+        body = _npz(**feats)
+        path = f"/v1/models/{runner.name}:predict"
+        port = srv.server_address[1]
+        for _ in range(2):                        # warm-up
+            _post(url, body, "application/x-npz")
+        kernels.reset_launch_counts()
+        walls, legs = [], []
+        for _ in range(requests):
+            t0 = time.perf_counter()
+            raw, *leg = _post_timed(port, path, body, "application/x-npz")
+            walls.append(time.perf_counter() - t0)
+            legs.append(leg)
+        launches = {n: fn.launches for n, fn in kernels.KERNELS.items()}
+        with np.load(io.BytesIO(raw)) as z:
+            probs = z["predictions"]
+        n_big = 5 * bs // 2
+        big = serve_features(runner.signature, n_big, seed + 1)
+        kernels.reset_launch_counts()
+        with np.load(io.BytesIO(_post(url, _npz(**big),
+                                      "application/x-npz"))) as z:
+            big_probs = z["predictions"]
+        big_fwd = kernels.in_relu_fwd.launches
+        one = {k: v[:1].tolist() for k, v in feats.items()}
+        js = json.loads(_post(url, json.dumps({"inputs": one}).encode(),
+                              "application/json"))
+        js_probs = np.asarray(js["predictions"], np.float32)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    shape = tuple(runner.signature["inputs"]["images"][0][1:3])
+    if (probs.shape != (bs,) + shape + (3,)
+            or big_probs.shape != (n_big,) + shape + (3,)
+            or js_probs.shape != (1,) + shape + (3,)
+            or not all(np.isfinite(a).all()
+                       for a in (probs, big_probs, js_probs))):
+        raise AssertionError(f"{what}: responses {probs.shape}, "
+                             f"{big_probs.shape}, {js_probs.shape}")
+    # the JSON slice is padded with copies of itself: each row depends only
+    # on its own inputs, so it gives the first slice's probabilities within
+    # one bf16 rounding step (b2_check's bound)
+    err_pad = np.abs(js_probs[0] - probs[0])
+    if not (np.abs(probs.sum(-1) - 1.0).max() <= 1e-3
+            and (err_pad <= 2.0 ** -7 * np.abs(probs[0]) + 1e-5).all()):
+        raise AssertionError(f"{what}: probabilities do not sum to 1 or the "
+                             f"padded JSON slice differs by "
+                             f"{float(err_pad.max()):.2e}")
+    dev_feats = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
+    fwd_ms = cuda_ms(lambda: runner.serve(dev_feats), iters=20, warmup=3)
+    walls.sort()
+    med = statistics.median(walls)
+    # one request's host layers, each the median of 5: the client's npz
+    # encode, the runner (validate, copy in, forward, copy out), the
+    # response's npz encode and the client's decode; the rest is HTTP and
+    # the server's decode
+    resp = _npz(predictions=probs)
+    parts = {}
+    for name, fn in (("client encode", lambda: _npz(**feats)),
+                     ("predict", lambda: runner.predict(feats)),
+                     ("response encode", lambda: _npz(predictions=probs)),
+                     ("client decode", lambda: np.load(io.BytesIO(resp))[
+                         "predictions"])):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        parts[name] = statistics.median(times) * 1e3
+    parts["rest (HTTP, server decode)"] = med * 1e3 - sum(parts.values())
+    leg_ms = [statistics.median(leg[i] for leg in legs) * 1e3
+              for i in range(3)]
+    per_req = {n: c / requests for n, c in launches.items()}
+    print(f"  {what}: bundle loaded in {load_s:.2f} s; {requests} npz "
+          f"requests of {bs} slices: {med * 1e3:.3f} ms/request median "
+          f"(min {walls[0] * 1e3:.3f}, max {walls[-1] * 1e3:.3f}), "
+          f"{requests * bs / sum(walls):.2f} slices/s; forward alone "
+          f"{fwd_ms:.3f} ms ({bs / fwd_ms * 1e3:.2f} slices/s); launches per "
+          f"request {per_req}; {n_big} slices in one request ({-(-n_big // bs)}"
+          f" chunks): B2-fwd {big_fwd}; JSON request of 1 slice ok; {smi()}")
+    print(f"  {what}: one request's host layers (ms, medians of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; bytes in {len(body)}, out {len(resp)}; client side (medians "
+          f"of the {requests}): send {leg_ms[0]:.3f}, wait for the response "
+          f"{leg_ms[1]:.3f}, read it {leg_ms[2]:.3f}; "
+          f"threads before the server started: {threads}")
+    return feats, probs, launches, per_req
+
+
+def serve_phase(tmp, dev, seed, unet_md):
+    """Export the flagship GUNet (002_gnet_sp.sh eval flags, phase 5's
+    seeded init) and the headline UNet (001_unet.sh eval flags, phase 10's
+    best checkpoint) through the CLI on the card; serve each; hold the
+    GUNet's response against the eager model on the card; a small float32
+    bundle exported on the card, served on the CPU and on the card."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.cli.export import load_exported
+
+    gmd = Path(tmp) / "serve_gunet_md"
+    model = cli._build_model(cli.get_args(FLAGS + ["--model_dir", str(gmd)]))
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    weights = Path(tmp) / "gunet_init.pt"
+    torch.save(model.state_dict(), weights)
+    export_flags = ["export" if a == "eval" else a for a in FLAGS]
+    t0 = time.perf_counter()
+    gbundle = cli.main(export_flags + ["--model_dir", str(gmd),
+                                       "--ckpt_path", str(weights)])
+    g_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    uargv = ["export" if a == "eval" else a for a in UNET_EVAL_FLAGS]
+    ubundle = cli.main(uargv + smoke_data(tmp, unet_md))
+    u_s = time.perf_counter() - t0
+    sizes = {b.parent.name: sum(f.stat().st_size for f in b.iterdir())
+             for b in (gbundle, ubundle)}
+    print(f"  exported GUNet.yml (002_gnet_sp eval flags, batch 8, 256^2, "
+          f"bf16) in {g_s:.2f} s and UNet.yml (001_unet eval flags, "
+          f"{json.loads((ubundle / 'signature.json').read_text())['inputs']})"
+          f" in {u_s:.2f} s on the card; bundle bytes {sizes}")
+
+    feats, probs, glaunch, gper = serve_bundle(gbundle, "serve GUNet",
+                                               seed=seed)
+    if gper["in_relu_fwd"] < GUNET_B2_PAIRS:
+        raise AssertionError(f"GUNet serving launched B2-fwd "
+                             f"{gper['in_relu_fwd']} times per 8-slice "
+                             f"request ({GUNET_B2_PAIRS} pairs per forward)")
+    _, _, ulaunch, _ = serve_bundle(ubundle, "serve UNet", seed=seed)
+    if any(ulaunch.values()):
+        raise AssertionError(f"the batch-norm UNet bundle launched {ulaunch}")
+
+    live = cli.build_model_from_args(cli.get_args(
+        FLAGS + ["--model_dir", str(gmd), "--ckpt_path", str(weights)]), dev)
+    with torch.no_grad():
+        want = torch.softmax(live({k: torch.from_numpy(v).to(dev)
+                                   for k, v in feats.items()}), -1).cpu()
+    err = (torch.from_numpy(probs) - want).abs()
+    bad = err > 2.0 ** -7 * want.abs() + 1e-5        # b2_check's bf16 bound
+    print(f"  GUNet response vs the eager model + softmax on the card "
+          f"(bf16): max abs err {float(err.max()):.3e}, {int(bad.sum())} "
+          f"elements beyond one bf16 rounding step")
+    if bool(bad.any()):
+        raise AssertionError("the served GUNet disagrees with the eager "
+                             "model")
+    del live
+
+    small = cli.main(["export" if a == "eval" else a for a in FLAGS] + [
+        "--model_dir", str(Path(tmp) / "serve_small_md"), "--im_height",
+        "64", "--im_width", "64", "--model_config", "GUNet_TINY.yml",
+        "--compute_dtype", "float32", "--batch_size", "2"])
+    sfeats = serve_features(json.loads((small / "signature.json")
+                                       .read_text()), 2, seed + 2)
+    on_cpu, _ = load_exported(small, "cpu")
+    on_card, _ = load_exported(small, "cuda")
+    err = float((on_card(sfeats).cpu() - on_cpu(sfeats)).abs().max())
+    print(f"  one bundle (GUNet_TINY, 64^2, float32, exported on the card) "
+          f"served on the card vs the CPU: max abs err {err:.2e}; {smi()}")
+    if not err <= 1e-4:
+        raise AssertionError("the bundle served on the card disagrees with "
+                             "the CPU")
+    return glaunch
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--determinism", metavar="TMP",
+                    help=argparse.SUPPRESS)   # the child of phase 16
     opts = ap.parse_args(argv)
+    if opts.determinism:
+        determinism_run(opts.determinism, opts.seed)
+        return 0
 
-    print("[1/16] device")
+    print("[1/17] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -1902,7 +2274,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/16] build")
+    print("[2/17] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -1912,7 +2284,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/16] kernel B1 vs plain")
+    print("[3/17] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -1922,39 +2294,44 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/16] labeling vs scipy")
+        print("[4/17] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/16] flagship guided eval (run_g) through the CLI")
+        print("[5/17] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/16] profile of one case's sweep (steady state)")
+        print("[6/17] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/16] kernel B2 vs plain")
+        print("[7/17] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        print("[8/16] flagship G-Net training through the CLI")
+        print("[8/17] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/16] profile of the flagship train step (steady state)")
+        print("[9/17] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/16] UNet training (001_unet.sh train) through the CLI")
+        print("[10/17] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/16] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/17] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/16] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/17] UNet eval (001_unet.sh eval) through the CLI")
         unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/16] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/17] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/16] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/17] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/16] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/17] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/16] train step card vs CPU: boundary and proportion "
-              "loss weights")
+        print("[16/17] train step card vs CPU: boundary and proportion "
+              "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
+        determinism_phase(tmp, opts.seed)
+        print("[17/17] serving: --mode export and the REST server on the "
+              "card (GUNet, UNet)")
+        paths["serve (GUNet export)"] = serve_phase(tmp, dev, opts.seed,
+                                                    unet_md)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

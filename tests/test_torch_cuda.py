@@ -304,3 +304,59 @@ def test_graphed_generator_advances(dev, tmp_path):
     s1 = graphed.generator.get_state()
     assert not torch.equal(s0, s1)
     assert torch.equal(graphed.state()["generator"], s1)
+
+
+# ---------------------------------------------------------------------------
+# serving: B2-fwd as the registered operator, the export bundle on the card
+# ---------------------------------------------------------------------------
+
+def test_b2_fwd_operator_launches_the_kernel(dev):
+    """torch.ops.boxseg.in_relu_fwd on CUDA tensors is the kernel (counted)
+    and agrees with the plain version; on CPU tensors it is the plain
+    version (not counted)."""
+    x, _, w, b = _in_relu_inputs((2, 8, 32, 32), torch.bfloat16, dev, seed=9)
+    n0 = kernels.in_relu_fwd.launches
+    got = torch.ops.boxseg.in_relu_fwd(x, w, b, kernels.IN_EPS)
+    ref = kernels.in_relu_fwd_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kernels.in_relu_fwd.launches == n0 + 1
+    for g, r in zip(got, ref):
+        tol = (_TOL[torch.bfloat16] if g.dtype == torch.bfloat16
+               else dict(rtol=1e-5, atol=0))
+        torch.testing.assert_close(g.float(), r.float(), **tol)
+    cpu = torch.ops.boxseg.in_relu_fwd(x.cpu(), w.cpu(), b.cpu(),
+                                       kernels.IN_EPS)
+    assert kernels.in_relu_fwd.launches == n0 + 1
+    torch.testing.assert_close(cpu[0].float(), ref[0].float().cpu(),
+                               **_TOL[torch.bfloat16])
+
+
+def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
+    """A GUNet_TINY bundle exported on the card (64^2, float32, TF32 off)
+    serves on the CPU and on the card within 1e-4; on the card each request
+    launches B2-fwd once per full-affine pair of the forward (6)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.cli.export import load_exported
+
+    argv = ["liver", "--mode", "export", "--tag", "t", "--model", "GUNet",
+            "--model_config", "GUNet_TINY.yml", "--classes", "Liver",
+            "Tumor", "--im_height", "64", "--im_width", "64",
+            "--normalizer", "instance_norm", "--use_context",
+            "--context_list", "hist", "200", "--use_spatial",
+            "--batch_size", "2", "--compute_dtype", "float32",
+            "--model_dir", str(tmp_path / "md")]
+    bundle = cli.main(argv)
+    rng = np.random.default_rng(0)
+    feats = {"images": rng.random((2, 64, 64, 3), dtype=np.float32),
+             "sp_guide": rng.uniform(0.25, 0.75, (2, 64, 64, 1)).astype(
+                 np.float32),
+             "context": rng.random((2, 200), dtype=np.float32)}
+    on_cpu, _ = load_exported(bundle, "cpu")
+    on_card, sig = load_exported(bundle, "cuda")
+    assert sig["model"] == "GUNet"
+    n0 = kernels.in_relu_fwd.launches
+    card = on_card(feats)
+    torch.cuda.synchronize()
+    assert card.device.type == "cuda"
+    assert kernels.in_relu_fwd.launches == n0 + 6
+    torch.testing.assert_close(card.cpu(), on_cpu(feats), atol=1e-4, rtol=0)
