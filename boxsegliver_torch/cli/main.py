@@ -145,9 +145,7 @@ def restore_weights(args, model, export: bool = False) -> str:
     warm started from --warm_start_from / --load_weights.  With neither
     flag, export takes the seeded init as JAX does; eval raises
     FileNotFoundError (JAX would score the seeded init)."""
-    import torch
-
-    from boxsegliver_torch.train.checkpoint import model_state, warm_start
+    from boxsegliver_torch.train.checkpoint import model_state
     from boxsegliver_torch.train.trainer import warm_start_source
 
     path = checkpoint_path(args, not export
@@ -155,9 +153,21 @@ def restore_weights(args, model, export: bool = False) -> str:
     if path is not None:
         model.load_state_dict(model_state(path), strict=True)
         return str(path)
-    src, scope_map = warm_start_source(args)
-    if src is None and not export:
+    if not export and warm_start_source(args)[0] is None:
         raise _no_checkpoint(args)
+    return initial_weights(args, model)
+
+
+def initial_weights(args, model) -> str:
+    """JAX's trainer.restore at step 0 (train/trainer.py:315-343): the
+    seeded init of --seed, warm started from --warm_start_from /
+    --load_weights when given; returns where the weights came from."""
+    import torch
+
+    from boxsegliver_torch.train.checkpoint import warm_start
+    from boxsegliver_torch.train.trainer import warm_start_source
+
+    src, scope_map = warm_start_source(args)
     model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
     if src is None:
         return f"the seeded init (--seed {args.seed})"

@@ -1,12 +1,11 @@
-"""Dataset metadata, histogram context features and the simulated user
-prior (own copy of the subset of boxsegliver_tpu/data/meta.py that the
-guided eval slice needs; semantics of reference DataLoader/Liver/
-extract.py:61-374, 664-717).
+"""Offline preprocessing: NIfTI volumes → npy cache + meta.json + context
+features (own copy of boxsegliver_tpu/data/meta.py; semantics of reference
+DataLoader/Liver/extract.py:61-374, 377-661, 664-717, 742-793).
 
 Each case is cached as ``<case>/volume.npy`` (uint16, window-clipped,
 x IM_SCALE) and ``<case>/segmentation.npy`` (uint8 class ids) beside a
-meta.json whose schema matches the reference's.  Converting NIfTI volumes
-into this cache (``cli/prepare``) is not ported yet.
+meta.json whose schema matches the reference's.  ``cli/prepare`` drives the
+functions here; NIfTI files are read with the port's own data/nii.py.
 """
 
 from __future__ import annotations
@@ -18,6 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 from scipy import ndimage as ndi
 
+from boxsegliver_torch.data import nii as nii_kits
 from boxsegliver_torch.ops import array_kits
 
 # LiTS constants (reference extract.py:40-44)
@@ -123,6 +123,53 @@ MODALITIES = {
 }
 
 
+def extract_case(vol_path, dst_root: Path, only_meta: bool = False,
+                 lits_quirk: bool = True, modality: str = "liver") -> Dict:
+    """One NIfTI case → npy cache + meta dict.  With the LiTS quirk the
+    y axis of volumes 28-47 and of labels 28-51 is flipped on read (the two
+    ranges differ, reference extract.py:190-196)."""
+    preset = MODALITIES[modality]
+    vol_path = Path(vol_path)
+    pid = int(vol_path.stem.split(".")[0].split("-")[-1])
+    lab_path = vol_path.parent / vol_path.name.replace("volume", "segmentation")
+    if lits_quirk and modality == "liver":
+        vh, volume = nii_kits.read_nii(vol_path, out_dtype=np.int16,
+                                       special=28 <= pid < 48)
+        _, labels = nii_kits.read_nii(lab_path, out_dtype=np.uint8,
+                                      special=28 <= pid < 52)
+    else:
+        vh, volume = nii_kits.read_nii(vol_path, out_dtype=np.int16)
+        _, labels = nii_kits.read_nii(lab_path, out_dtype=np.uint8)
+    spacing = list(vh.get_zooms()[::-1])[-3:]
+    meta = process_case(volume, labels, spacing, pid, str(vol_path),
+                        str(lab_path), tumor_value=preset["tumor_value"])
+    if not only_meta:
+        case_dir = Path(dst_root) / vol_path.stem.split(".")[0]
+        case_dir.mkdir(parents=True, exist_ok=True)
+        np.save(case_dir / "volume.npy",
+                window_clip_uint16(volume, preset["gray_min"],
+                                   preset["gray_max"]))
+        np.save(case_dir / "segmentation.npy", labels)
+    return meta
+
+
+def extract_dataset(src_dir, dst_dir, only_meta: bool = False,
+                    pattern: str = "volume-*.nii*", lits_quirk: bool = True,
+                    modality: str = "liver") -> List[Dict]:
+    """All cases → dst_dir/<case>/*.npy + dst_dir/meta.json
+    (reference nii_3d_to_png, extract.py:190-213; NF/extract.py:36-710)."""
+    src, dst = Path(src_dir), Path(dst_dir)
+    dst.mkdir(parents=True, exist_ok=True)
+    cases = sorted(src.glob(pattern),
+                   key=lambda x: int(x.stem.split(".")[0].split("-")[-1]))
+    metas = [extract_case(c, dst, only_meta, lits_quirk, modality)
+             for c in cases]
+    metas.sort(key=lambda m: m["PID"])
+    with (dst / "meta.json").open("w") as f:
+        json.dump(metas, f)
+    return metas
+
+
 def load_meta(dataset_dir) -> List[Dict]:
     with (Path(dataset_dir) / "meta.json").open() as f:
         return json.load(f)
@@ -216,6 +263,63 @@ def dump_hist_features(dataset_dir, out_dir=None, modes=("train", "eval"),
     return out
 
 
+def gen_infer_context(dataset_dir, guide_file, bins: int = 100,
+                      xrng: Tuple[float, float] = (GRAY_MIN + 50, GRAY_MAX - 50),
+                      out_dir=None) -> List[str]:
+    """Infer-time histogram context from REAL user interactions
+    (reference gen_infer_context, Liver/extract.py:742-793): the user marks
+    each tumor with an ellipse (center/stddev, z-range) in guide_file
+    ({pid: {sid: [{center, stddev, z}]}}); pixels inside the ellipse
+    (stddev scaled by the 0.7413 MAD factor) are tiled over the z-range and
+    histogrammed like the eval-time guide features.  Writes
+    feat/hist/infer/<PID>.npy."""
+    root = Path(dataset_dir)
+    with Path(guide_file).open() as f:
+        guide_list = json.load(f)
+    metas = {int(m["PID"]): m for m in load_meta(root)}
+    out = Path(out_dir) if out_dir else root / "feat" / "hist" / "infer"
+    out.mkdir(parents=True, exist_ok=True)
+
+    written = []
+    for pid_str, guide in guide_list.items():
+        pid = int(pid_str)
+        case = metas[pid]
+        d, hgt, wid = case["size"]
+        gpl: List[List[List[int]]] = [[[], [], []] for _ in range(d)]
+        yy, xx = np.meshgrid(np.arange(hgt), np.arange(wid), indexing="ij")
+        coords = np.stack([yy, xx], axis=-1)
+        for sid_str, objs in guide.items():
+            sid = int(sid_str)  # annotated slice: its pixels are tiled over z
+            for t in objs:
+                radii = np.asarray(t["stddev"], np.float64) / 0.7413
+                inside = np.sum(((coords - np.asarray(t["center"])) / radii) ** 2,
+                                axis=-1) <= 1
+                pi, pj = np.where(inside)
+                for m in range(t["z"][0], t["z"][1]):
+                    if 0 <= m < d:
+                        gpl[m][0].extend([sid] * len(pi))
+                        gpl[m][1].extend(pi.tolist())
+                        gpl[m][2].extend(pj.tolist())
+
+        case_dir = root / f"volume-{pid}"
+        volume = np.load(case_dir / "volume.npy").astype(np.float32) / IM_SCALE \
+            + GRAY_MIN
+        labels = np.load(case_dir / "segmentation.npy")
+        hists = np.zeros((d, bins * 2), np.float32)
+        for n in range(d):
+            with np.errstate(invalid="ignore"):
+                v1, _ = np.histogram(volume[n][labels[n] >= 1], bins=bins,
+                                     range=xrng, density=True)
+                v2, _ = np.histogram(volume[gpl[n][0], gpl[n][1], gpl[n][2]],
+                                     bins=bins, range=xrng, density=True)
+            hists[n, :bins] = np.nan_to_num(v1.astype(np.float32))
+            hists[n, bins:] = np.nan_to_num(v2.astype(np.float32))
+        path = out / ("%03d.npy" % pid)
+        np.save(path, hists)
+        written.append(str(path))
+    return written
+
+
 # ---------------------------------------------------------------------------
 # Simulated user prior (reference extract.py:664-717)
 # ---------------------------------------------------------------------------
@@ -247,3 +351,23 @@ def simulate_user_prior(metas: List[Dict], out_file=None) -> Dict:
         with out_file.open("w") as f:
             json.dump(all_prior, f)
     return all_prior
+
+
+def dump_glcm_features(dataset_dir, out_dir=None, modes=("train", "eval"),
+                       **glcm_kwargs):
+    """feat/glcm/{train,eval}/<PID>.npy GLCM context features
+    (reference dump_glcm_feature_for_train/_eval, extract.py:377-661)."""
+    from boxsegliver_torch.ops.glcm import case_glcm_features
+
+    root = Path(dataset_dir)
+    out = Path(out_dir) if out_dir else root / "feat" / "glcm"
+    metas = load_meta(root)
+    for mode in modes:
+        (out / mode).mkdir(parents=True, exist_ok=True)
+    for m in metas:
+        case_dir = root / f"volume-{m['PID']}"
+        volume = np.load(case_dir / "volume.npy").astype(np.float32) / IM_SCALE + GRAY_MIN
+        for mode in modes:
+            feats = case_glcm_features(volume, m, mode, **glcm_kwargs)
+            np.save(out / mode / ("%03d.npy" % m["PID"]), feats)
+    return out

@@ -13,7 +13,14 @@ OpenCV dependency and resizes on the tensor's device instead:
   precision.  ``F.interpolate(mode="nearest")`` does the same product in
   float32 and so picks another source pixel at some sizes; the index vectors
   here are computed in float64 exactly as cv2 does and applied with a gather,
-  so nearest resizes are bit-identical to cv2.
+  so nearest resizes are bit-identical to cv2;
+- area (downscale only): cv2.INTER_AREA's weights, the fractional overlap
+  of each destination pixel's footprint with the source pixels, computed in
+  float64 as cv2 computes them and applied as one matrix per axis; uint8
+  results are rounded half to even as cv2's saturate_cast rounds, and half
+  up at a factor of exactly 2 as cv2's integer 2x2 path does.  cv2 sums in
+  float32, so a pixel may differ from it by one level
+  (tests/test_torch_viewer.py counts them).
 
 It also carries the train-time crop-and-resize, noise and flips of the JAX
 package's device pipeline (below).
@@ -54,6 +61,43 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     iy = torch.from_numpy(_cv2_nearest_index(h, size[0])).to(x.device)
     ix = torch.from_numpy(_cv2_nearest_index(w, size[1])).to(x.device)
     return x.index_select(-2, iy).index_select(-1, ix)
+
+
+def _area_weights(src: int, dst: int) -> np.ndarray:
+    """[dst, src] INTER_AREA weights (cv2 computeResizeAreaTab): pixel d
+    covers [d·s, (d+1)·s) with s = src / dst, each source pixel weighted by
+    its overlap over the footprint's width."""
+    scale = src / dst
+    w = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, src - f1)
+        s2 = min(int(np.floor(f2)), src - 1)
+        s1 = min(int(np.ceil(f1)), s2)
+        if s1 - f1 > 1e-3:
+            w[d, s1 - 1] = (s1 - f1) / cell
+        w[d, s1:s2] = 1.0 / cell
+        if f2 - s2 > 1e-3:
+            w[d, s2] = min(min(f2 - s2, 1.0), cell) / cell
+    return w
+
+
+def resize_area(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
+    """[..., h, w] -> [..., H, W] with H <= h and W <= w, cv2.INTER_AREA
+    semantics; uint8 in, uint8 out (rounded), else float32."""
+    size = (int(size[0]), int(size[1]))
+    h, w = x.shape[-2:]
+    if size[0] > h or size[1] > w:
+        raise ValueError(f"resize_area shrinks only: {(h, w)} -> {size}")
+    wy = torch.from_numpy(_area_weights(h, size[0])).to(x.device)
+    wx = torch.from_numpy(_area_weights(w, size[1])).to(x.device)
+    out = wy @ x.double() @ wx.T
+    if x.dtype != torch.uint8:
+        return out.float()
+    if (h, w) == (2 * size[0], 2 * size[1]):
+        out = torch.floor(out + 0.5)     # cv2's 2x2 path: (sum + 2) >> 2
+    return torch.round(out).clamp(0, 255).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ result line):
    At the sweep's and the train preprocess's shapes: device time per
    launch (``graph_ms``: launches captured in a CUDA graph), wrapper time
    per call and plain time (CUDA events), and the card's bound for the same
-   work (bytes, f32 operations, or exponentials at the SFU rate).
+   work (bytes, or the least f32 operations beside one exponential per
+   pixel at the SFU rate: b1_bound_ms).
 4. labeling — label_components / ordered_seeds / object_moments on the
    card against scipy.ndimage.label and the numpy
    compute_robust_moments, on the synthetic dataset's GT tumor masks
@@ -55,7 +56,8 @@ result line):
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
    online 2D eval every 12, a best checkpoint; then a resume run on the
-   streaming (device-resize) sampler to step 30.  The launch counters are
+   streaming (device-resize) sampler to step 30, whose checkpoint is phase
+   18's weights; both on one host worker (ONE_WORKER).  The launch counters are
    zeroed right before each run: B1 must launch at least once per step and
    each B2 kernel at least ten times per step.  The loss must be finite and
    fall; checkpoints and sidecars must exist.  Then one train step of a
@@ -66,9 +68,10 @@ result line):
 10. UNet train — the headline UNet training (``001_unet.sh train`` flags:
    UNet.yml at full width, init_channels 64, 4 down-samples, batch norm,
    batch 8, 256^2 x 3, bf16, numerical loss weights, plateau Adam) through
-   ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, the
-   inline whole-volume eval (--eval_per_epoch --eval_3d --eval_num 1)
-   every 12, a best checkpoint; the loss must fall and the running
+   ``boxsegliver_torch.cli.main.main`` with --device_cache and one host
+   worker (ONE_WORKER): 24 steps, the inline whole-volume eval
+   (--eval_per_epoch --eval_3d --eval_num 1) every 12, a best checkpoint
+   (phase 12's weights); the loss must fall and the running
    statistics move; then a resume on the streaming sampler to step 30.
    The launch counters are zeroed before each run: the batch-norm path
    runs none of the hand-written kernels and must launch none.  Then one
@@ -88,7 +91,8 @@ result line):
    checkpoint: EvaluateVolume.run with a DeviceSlicePredictor over the
    test fold; s/case and slices/s (the CLI call, then the same run warm);
    then device_case on the card against the CPU in float32 on an 8-slice
-   cut of one case (probabilities within 1e-4).
+   cut of one case (probabilities within 1e-4); the warm run's predictions
+   are saved for phase 18's viewer.
 13. host loop — run_g's per-slice host propagation loop at full width
    through the CLI: a seeded random init overflows the sweep's cap of 16
    objects and each case finishes through the host loop (B1 at least once
@@ -128,10 +132,31 @@ result line):
    UNet.  The GUNet response against the eager model + softmax on the card
    within one bf16 rounding step; a GUNet_TINY bundle (64^2, float32)
    exported on the card and served on the card and on the CPU (1e-4).
+18. prepare -> annotate -> viewers — two LiTS-like NIfTI cases of 64 x
+   512 x 512 int16 with labels (pid 49 inside the LiTS quirk's label range)
+   through the port's ``prepare`` CLI: extract, hist, glcm, prior, kfold,
+   infer_context (s/case each; the cache holds the arrays written).  The
+   cache served by ``cli/annotate.make_server(port=0)`` in a thread, on the
+   card by default, with the ``002_gnet_sp.sh`` eval flags at GUNet.yml
+   full width and phase 8's trained weights after ``--``: /api/state,
+   /api/slice
+   for z, y and x (ms per payload), an interaction for the prior's first
+   tumor and its z slice with the guide preview (B1 launches exactly once),
+   /api/save, two /api/predict (s each; B1 and B2-fwd launch in each).  The
+   live class map equals ``cli.main liver --mode infer --real_sp`` of the
+   saved interactions on the same weights and card (max abs diff 0), and
+   changes when the interaction is popped and the case predicted again;
+   ``compare_preds --min_dice 1.0`` passes them; the preview drawn by B1 on
+   the card against the plain version on the CPU (float 1e-6, uint8 one
+   level); B1's device time per launch at the preview's shape; encode_png's
+   ms per 512^2 payload at zlib levels 1, 6, 9.  Then ``cli/viewer`` over
+   phase 12's predictions, ``cli/vis`` over phase 17's UNet bundle on the
+   card (overlays written) and ``ckpt_tools list`` on phase 10's checkpoint.
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8, and per path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
-run of phase 14 and the 20 GUNet requests of phase 17; ``ms``: wrapper
+run of phase 14, the 20 GUNet requests of phase 17 and the annotator's
+preview and two Predicts of phase 18; ``ms``: wrapper
 time, per call for B1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
@@ -161,9 +186,14 @@ FP32_OPS_PER_S = 67e12
 # dense bf16 tensor-core peak of the H100 SXM (NVIDIA data sheet), for the
 # share of peak of the UNet train step (phase 11)
 BF16_FLOPS_PER_S = 989e12
-# float operations per (pixel, valid object) of B1: 2 sub, 2 squares,
-# 2 scale mul, 1 add, 1 negate, 1 exp, 1 max
-B1_OPS_PER_TERM = 10
+# the least float work of B1's function: max_k exp(-e_k) = exp(-min_k e_k)
+# takes one exp per pixel; e_k = ey_k(row) + ex_k(col) is separable, so each
+# (row or column, valid object) costs 3 ops (sub, square, scale) and each
+# (pixel, valid object) 2 (add, min); each pixel adds 5 (negate, clip low
+# and high, scale, offset) to its exp
+B1_OPS_PER_TERM = 2
+B1_OPS_PER_LINE = 3
+B1_OPS_PER_PIXEL = 5
 # special-function units (MUFU: ex2 of expf) per SM per clock on Hopper; with
 # the SM count and nvidia-smi's clocks.max.sm they give B1's exp rate
 SFU_PER_SM_PER_CLOCK = 16
@@ -260,6 +290,26 @@ def guide_inputs(rng, bs, k, h, w, dev, n_valid=None, off_image=False):
             torch.from_numpy(valid).to(dev))
 
 
+def b1_bound_ms(c, s, v, h, w, sfu):
+    """(bound ms, "bytes" | "operations", how) of B1 on these inputs: the
+    inputs read and the [bs, h, w] float32 output written once against
+    HBM_BYTES_PER_S, and the least float work (B1_OPS_*, over the valid
+    objects of this run) against FP32_OPS_PER_S beside one exp per pixel
+    against the SFU rate."""
+    bs = c.shape[0]
+    n_valid = int(v.sum())
+    bytes_moved = (c.numel() + s.numel()) * 4 + v.numel() + bs * h * w * 4
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    n_exp = bs * h * w
+    ops = (B1_OPS_PER_TERM * h * w * n_valid
+           + B1_OPS_PER_LINE * (h + w) * n_valid + B1_OPS_PER_PIXEL * n_exp)
+    t_ops = max(ops / FP32_OPS_PER_S, n_exp / sfu) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    why = (f"{bytes_moved} B -> {t_bytes:.6f} ms; {n_exp} exp at "
+           f"{sfu:.4g}/s, {ops} f32 ops -> {t_ops:.6f} ms")
+    return max(t_bytes, t_ops), by, why
+
+
 def kernel_phase(dev, seed):
     from boxsegliver_torch.ops import kernels
 
@@ -327,25 +377,18 @@ def kernel_phase(dev, seed):
         k2 = cuda_ms(run_kernel)
         p2 = cuda_ms(run_plain)
         bs, k = c.shape[:2]
-        n_exp = h * w * int(v.sum())
-        bytes_moved = (c.numel() + s.numel()) * 4 + v.numel() + bs * h * w * 4
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = max(B1_OPS_PER_TERM * n_exp / FP32_OPS_PER_S, n_exp / sfu) * 1e3
+        bound, by, why = b1_bound_ms(c, s, v, h, w, sfu)
         row = {"name": "gaussian_guide_batch", "route": "cuda",
                "source": "boxsegliver_torch/csrc/guide_render.cu",
                "replaces": "boxsegliver_tpu/ops/pallas_kernels.py:263",
                "max_abs_err": worst, "ms": min(k1, k2),
                "device_ms": min(d1, d2), "wrapper_ms": min(k1, k2),
-               "plain_ms": min(p1, p2), "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": by,
                "library_ms": None}
         print(f"  B1 {shape_name} bs={bs} K={k} {h}x{w} ({int(v.sum())} "
               f"valid objects): device {d1:.5f}/{d2:.5f} ms per launch, "
               f"wrapper {k1:.4f}/{k2:.4f} ms per call, plain "
-              f"{p1:.4f}/{p2:.4f} ms, bound {row['bound_ms']:.6f} ms "
-              f"({row['bound_by']}: {bytes_moved} B -> {t_bytes:.6f} ms; "
-              f"{n_exp} exp at {sfu:.4g}/s, {B1_OPS_PER_TERM * n_exp} f32 ops"
-              f" -> {t_ops:.6f} ms)")
+              f"{p1:.4f}/{p2:.4f} ms, bound {bound:.6f} ms ({by}: {why})")
         rec = rec or row                          # the sweep's row is kept
     return rec
 
@@ -1027,6 +1070,14 @@ TRAIN_FLAGS = [
     "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
     "0.2", "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
 B2_KERNELS = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+# the train runs whose checkpoints later phases check (phase 8's resume to
+# step 30 for the annotator of phase 18, phase 10's best for phase 12's
+# card-vs-CPU device_case) and the runs before them draw their batches from
+# one host worker: with several, the workers race to fill the batch queue,
+# so the batch order, the trained weights and with them the scale of the
+# logits that float32 rounding is measured against change from run to run
+# and from machine to machine
+ONE_WORKER = ("--host_workers", "1")
 
 
 def smoke_train_argv(tmp, steps, *extra):
@@ -1064,7 +1115,7 @@ def train_run(argv, steps_expected):
 def train_phase(tmp):
     md = Path(tmp) / "train_md"
     trainer, launches, seconds = train_run(
-        smoke_train_argv(tmp, 24, "--device_cache"), 24)
+        smoke_train_argv(tmp, 24, "--device_cache", *ONE_WORKER), 24)
     if trainer.global_step != 24:
         raise AssertionError(f"train stopped at step {trainer.global_step}")
     for rel in ("ckpt/24/state.pt", "ckpt_best/best/state.pt", "best_result",
@@ -1092,7 +1143,8 @@ def train_phase(tmp):
                                                for s in steps))
     print(f"  train launches {launches}; best {best}")
 
-    again, launches2, seconds2 = train_run(smoke_train_argv(tmp, 30), 6)
+    again, launches2, seconds2 = train_run(
+        smoke_train_argv(tmp, 30, *ONE_WORKER), 6)
     if again.global_step != 30 or not (md / "ckpt" / "30" / "state.pt").exists():
         raise AssertionError(f"resume ended at step {again.global_step}")
     print(f"  resume on the streaming sampler: steps 25-30 in {seconds2:.2f} s,"
@@ -1291,7 +1343,7 @@ def unet_train_phase(tmp):
     md = Path(tmp) / "unet_md"
     argv = UNET_TRAIN_FLAGS + smoke_data(
         tmp, md, "--num_of_steps", "24", "--batches_per_epoch", "12",
-        "--eval_3d", "--eval_num", "1", "--log_step", "4")
+        "--eval_3d", "--eval_num", "1", "--log_step", "4", *ONE_WORKER)
     trainer, seconds, launches = no_kernel_run(
         lambda: cli.main(argv + ["--device_cache"]), "UNet train")
     if trainer.global_step != 24:
@@ -1610,6 +1662,8 @@ def unet_eval_phase(tmp, ds, dev, md):
     t0 = time.perf_counter()
     evaluator.run(pred, metas)
     warm = time.perf_counter() - t0
+    preds = Path(tmp) / "unet_pred"                 # for phase 18's viewer
+    evaluator.run(pred, metas, save=True, save_path=preds, do_eval=False)
     print("  UNet eval results: " + json.dumps(results))
     print(f"  UNet eval (001_unet eval flags, restored {args.restored_from}):"
           f" {len(metas)} cases, {slices} slices; through the CLI "
@@ -1625,15 +1679,20 @@ def unet_eval_phase(tmp, ds, dev, md):
                    segmentation=None, crop=(z1, z1 + 8) + case.crop[2:],
                    oshape=case.oshape, spacing=case.spacing, lhc=case.lhc,
                    rhc=case.rhc)
-    out = []
+    out, logit = [], []
     for d in (dev, torch.device("cpu")):
         m = cli.build_model_from_args(args32, d)
+        hook = m.AdjustChannels.register_forward_hook(
+            lambda mod, i, o: logit.append(float(o.abs().max())))
         out.append(DeviceSlicePredictor(m, args32, device=d).device_case(cut))
+        hook.remove()
     err = float(np.abs(out[0] - out[1]).max())
     print(f"  UNet device_case card vs CPU (float32, case {case.pid}, 8 "
-          f"slices of 256^2): max abs err {err:.2e}")
+          f"slices of 256^2, max |logit| {max(logit):.1f}): max abs err "
+          f"{err:.2e}")
     if not err <= 1e-4:
         raise AssertionError("device_case on the card disagrees with the CPU")
+    return preds
 
 
 # ---------------------------------------------------------------------------
@@ -2246,7 +2305,324 @@ def serve_phase(tmp, dev, seed, unet_md):
     if not err <= 1e-4:
         raise AssertionError("the bundle served on the card disagrees with "
                              "the CPU")
-    return glaunch
+    return glaunch, ubundle
+
+
+# ---------------------------------------------------------------------------
+# phase 18: prepare -> annotate -> viewers on the card
+# ---------------------------------------------------------------------------
+
+# two LiTS-like cases at the LiTS plane size; pid 49 is inside the quirk's
+# label range (28-51) and outside its volume range (28-47)
+LITS_SHAPE = (64, 512, 512)
+LITS_PIDS = (7, 49)
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def _timed_get(url, n=5):
+    """(the payload, the median of n GETs in ms)."""
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        out = _get(url)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(walls)
+
+
+def prepare_phase(tmp, seed):
+    """Write LITS_PIDS as NIfTI (int16 volumes, uint8 labels, stored in the
+    LiTS orientation) and run the port's prepare CLI over them: extract,
+    hist, glcm, prior, kfold, infer_context; s/case for each; the cache
+    holds the arrays the right way up."""
+    import contextlib
+
+    from boxsegliver_torch.cli import prepare
+    from boxsegliver_torch.data import nii
+    from boxsegliver_torch.data.meta import load_meta, window_clip_uint16
+    from boxsegliver_torch.data.synthetic import make_case
+
+    src, dst = Path(tmp) / "lits_nii", Path(tmp) / "lits"
+    src.mkdir()
+    rng = np.random.default_rng(seed)
+    cases = {}
+    t0 = time.perf_counter()
+    for pid in LITS_PIDS:
+        vol, lab, spacing = make_case(rng, LITS_SHAPE)
+        nii.write_nii(vol, src / f"volume-{pid}.nii", zooms=spacing,
+                      special=28 <= pid < 48)
+        nii.write_nii(lab, src / f"segmentation-{pid}.nii", zooms=spacing,
+                      special=28 <= pid < 52)
+        cases[pid] = (vol, lab)
+    print(f"  wrote {len(LITS_PIDS)} NIfTI cases of {LITS_SHAPE} int16 "
+          f"(pids {LITS_PIDS}) in {time.perf_counter() - t0:.2f} s")
+    per_case = {}
+    for argv in (["extract", "--src", str(src)], ["hist"], ["glcm"],
+                 ["prior"], ["kfold", "--k", "2"],
+                 ["infer_context", "--guide_file", str(dst / "prior.json")]):
+        t0 = time.perf_counter()
+        with open(Path(tmp) / "prepare.log", "a") as log, \
+                contextlib.redirect_stdout(log):
+            prepare.main(argv[:1] + ["--dst", str(dst)] + argv[1:])
+        per_case[argv[0]] = (time.perf_counter() - t0) / len(LITS_PIDS)
+    print("  prepare s/case at " + "x".join(map(str, LITS_SHAPE)) + ": "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_case.items())
+          + f"; {smi()}")
+    if [m["PID"] for m in load_meta(dst)] != list(LITS_PIDS):
+        raise AssertionError("prepare extract: meta.json lists "
+                             f"{[m['PID'] for m in load_meta(dst)]}")
+    for pid, (vol, lab) in cases.items():
+        d = dst / f"volume-{pid}"
+        if not (np.array_equal(np.load(d / "segmentation.npy"), lab) and
+                np.array_equal(np.load(d / "volume.npy"),
+                               window_clip_uint16(vol))):
+            raise AssertionError(f"prepare extract: case {pid}'s cache is "
+                                 "not the volume written (LiTS quirk)")
+    for rel in ("feat/hist/eval", "feat/glcm/eval", "feat/hist/infer"):
+        if len(list((dst / rel).glob("*.npy"))) != len(LITS_PIDS):
+            raise AssertionError(f"prepare: {rel} incomplete")
+    return dst
+
+
+def annotate_phase(tmp, dev, seed, lits, ds, unet_preds, unet_bundle,
+                   unet_md):
+    """Serve ``lits`` with cli/annotate.make_server(port=0) on the card, the
+    002_gnet_sp eval flags at GUNet.yml full width after ``--`` with phase
+    8's trained weights (its output depends on the guide): state, slice
+    payloads (ms), an interaction and its preview (one B1 launch), save,
+    two Predicts (s, launches), then the interaction popped and a third
+    Predict, whose map must differ; the guided map against ``cli.main
+    --mode infer --real_sp`` (equal) and compare_preds (--min_dice 1.0);
+    the preview drawn by B1 against the plain version;
+    then the viewer over phase 12's predictions, vis over phase 17's UNet
+    bundle and ckpt_tools list on phase 10's checkpoint.  Returns the
+    launches of the annotate path (the preview GET and the two Predicts)."""
+    import contextlib
+    import io
+    import logging
+    import threading
+
+    from boxsegliver_torch.cli import annotate, compare_preds, viewer, vis
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data import nii
+    from boxsegliver_torch.data.kfold import (read_or_create_k_folds,
+                                              train_test_split)
+    from boxsegliver_torch.data.meta import load_meta
+    from boxsegliver_torch.ops import kernels
+    from boxsegliver_torch.utils import ckpt_tools
+
+    logging.getLogger("boxsegliver.annotate").setLevel(logging.WARNING)
+    # phase 8's G-Net after 30 steps: unlike phase 5's liver-margin weights
+    # its class map depends on the guide
+    weights = Path(tmp) / "train_md" / "ckpt" / "30" / "state.pt"
+    folds = read_or_create_k_folds(lits / "k_folds.txt", [])
+    pid = int(train_test_split(folds, 0)[1][0])
+    meta = next(m for m in load_meta(lits) if m["PID"] == pid)
+    data = ["--data_root", str(lits.parent), "--dataset", lits.name,
+            "--k_folds", "2", "--test_fold", "0", "--ckpt_path", str(weights)]
+    app = annotate.AnnotateApp(
+        lits, interactions_file=Path(tmp) / "annotate" / "interactions.json",
+        model_argv=FLAGS + data + ["--model_dir",
+                                   str(Path(tmp) / "annotate_md")])
+    if app.device.type != "cuda":
+        raise AssertionError(f"the annotator defaults to {app.device}")
+    srv = annotate.make_server(app, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        state = _get(base + "/api/state")
+        if [c["pid"] for c in state["cases"]] != list(LITS_PIDS) or \
+                not state["has_model"]:
+            raise AssertionError(f"annotate state: {state['cases']}")
+        ms = {}
+        for axis, n in zip("zyx", meta["size"]):
+            s, ms[axis] = _timed_get(
+                f"{base}/api/slice?pid={pid}&axis={axis}&i={n // 2}")
+            if not {"img", "gt"} <= set(s) or s["n"] != n:
+                raise AssertionError(f"annotate slice {axis}: {sorted(s)}")
+        prior = json.loads((lits / "prior.json").read_text())[str(pid)]
+        sid, objs = next(iter(prior.items()))
+        o = objs[0]
+        _post(base + "/api/interaction", json.dumps({
+            "pid": pid, "sid": int(sid), "center": o["center"],
+            "radius": [v / annotate.ELLIPSE_TO_STD for v in o["stddev"]],
+            "z": o["z"]}).encode(), "application/json")
+        url = f"{base}/api/slice?pid={pid}&axis=z&i={sid}"
+        _, ms["z + preview"] = _timed_get(url)
+
+        # the annotate path: one preview GET, then two Predicts
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        s = _get(url)
+        torch.cuda.synchronize()
+        b1 = kernels.gaussian_guide_batch.launches
+        if "guide" not in s or b1 != 1:
+            raise AssertionError(f"the preview launched B1 {b1} times "
+                                 f"(guide in payload: {'guide' in s})")
+        saved = json.loads(_post(base + "/api/save", b"{}",
+                                 "application/json"))["path"]
+        per_predict, walls = [], []
+        for _ in range(2):
+            before = {n: f.launches for n, f in kernels.KERNELS.items()}
+            t0 = time.perf_counter()
+            r = json.loads(_post(base + "/api/predict", json.dumps(
+                {"pid": pid}).encode(), "application/json"))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_predict.append({n: f.launches - before[n]
+                                for n, f in kernels.KERNELS.items()})
+        launches = {n: f.launches for n, f in kernels.KERNELS.items()}
+        live = app._live[pid]
+        objs = [dict(x) for x in app.interactions[str(pid)][str(sid)]]
+
+        # without the interaction the map must change
+        popped = json.loads(_post(base + "/api/interaction/pop", json.dumps(
+            {"pid": pid, "sid": int(sid)}).encode(), "application/json"))
+        _post(base + "/api/predict", json.dumps({"pid": pid}).encode(),
+              "application/json")
+        unguided = app._live[pid]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    print(f"  annotate (case {pid}, {'x'.join(map(str, meta['size']))}, "
+          f"GUNet.yml 002_gnet_sp eval flags on {app.device}): ms per slice "
+          "payload (median of 5) " + ", ".join(f"{k} {v:.3f}"
+                                               for k, v in ms.items()))
+    print(f"  annotate Predict: first {walls[0]:.3f} s, second "
+          f"{walls[1]:.3f} s; launches per Predict {per_predict}; metrics "
+          f"{r['metrics']}, {r['guides']} guide(s); {smi()}")
+    for p in per_predict:
+        if not (p["gaussian_guide_batch"] > 0 and p["in_relu_fwd"] > 0):
+            raise AssertionError(f"a Predict launched {p}")
+
+    # the live map against the CLI's --real_sp infer on the same weights
+    infer_md = Path(tmp) / "annotate_infer_md"
+    cli.main(["infer" if a == "eval" else a for a in FLAGS] + data
+             + ["--model_dir", str(infer_md), "--real_sp", saved])
+    _, cli_map = nii.read_nii(infer_md / "prediction" /
+                              f"predict-{pid}.nii.gz", out_dtype=np.uint8)
+    err = int(np.abs(cli_map.astype(np.int32) - live).max())
+    print(f"  annotate live map vs cli.main --mode infer --real_sp: max abs "
+          f"diff {err} over {live.size} voxels, "
+          f"{int(np.count_nonzero(live))} labeled")
+    if err != 0 or cli_map.shape != live.shape:
+        raise AssertionError("the annotator's live map differs from the "
+                             "CLI's infer")
+    n_moved = int(np.count_nonzero(unguided != live))
+    print(f"  annotate without the interaction (popped: {popped['popped']}):"
+          f" {n_moved} voxels change class, "
+          f"{int(np.count_nonzero(unguided == 2))} tumor voxels against "
+          f"{int(np.count_nonzero(live == 2))} with it")
+    if not popped["popped"] or n_moved == 0:
+        raise AssertionError("the live map does not depend on the "
+                             "interaction")
+    live_dir = Path(tmp) / "annotate_live"
+    live_dir.mkdir()
+    nii.write_nii(live, live_dir / f"predict-{pid}.nii.gz",
+                  zooms=meta["spacing"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = compare_preds.main([str(live_dir), str(infer_md / "prediction"),
+                                 "--min_dice", "1.0", "--json"])
+    print(f"  compare_preds live vs infer (--min_dice 1.0): rc {rc}, "
+          f"{json.loads(out.getvalue())['aggregate']}")
+    if rc != 0:
+        raise AssertionError("compare_preds failed the live map")
+
+    # the preview: B1 on the card against the plain version on the CPU
+    guide, guide8 = annotate.guide_preview(objs, meta["size"][1:], dev)
+    plain, plain8 = annotate.guide_preview(objs, meta["size"][1:], "cpu")
+    ferr = float(np.abs(guide - plain).max())
+    uerr = int(np.abs(guide8.astype(np.int32) - plain8).max())
+    print(f"  preview B1 (card) vs plain (CPU) at {meta['size'][1:]}: float "
+          f"max abs err {ferr:.3e}, uint8 {uerr} level(s)")
+    if not (ferr <= 1e-6 and uerr <= 1):
+        raise AssertionError("the preview drawn by B1 disagrees with plain")
+    preview_timing(dev, meta["size"][1:], seed)
+    png_timing(lits, meta)
+
+    # the viewers over the outputs of phases 10, 12 and 17
+    t0 = time.perf_counter()
+    html = viewer.build_viewer(unet_preds, ds, Path(tmp) / "viewer.html",
+                               axes="zyx")
+    print(f"  viewer over phase 12's predictions: {html.stat().st_size} B "
+          f"in {time.perf_counter() - t0:.2f} s")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pid0 = int(load_meta(ds)[0]["PID"])
+    vis_out = vis.main(["--export_dir", str(unet_bundle), "--dataset_dir",
+                        str(ds), "--pid", str(pid0), "--out",
+                        str(Path(tmp) / "vis")])
+    n_png = len(list(vis_out.glob("slice_*.png")))
+    print(f"  vis over phase 17's UNet bundle on the card: {n_png} overlays "
+          f"+ sheet in {time.perf_counter() - t0:.2f} s, launches "
+          f"{ {n: f.launches for n, f in kernels.KERNELS.items()} }")
+    if not n_png or not (vis_out / "sheet.png").exists():
+        raise AssertionError("vis wrote no overlay")
+    ckpt = ckpt_tools.find_checkpoint(unet_md)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ckpt_tools.main(["list", str(ckpt)])
+    lines = out.getvalue().splitlines()
+    print(f"  ckpt_tools list {ckpt}: {len(lines)} "
+          f"variables, first {lines[0]!r}")
+    if len(lines) != len(ckpt_tools.list_vars(ckpt)) or not lines:
+        raise AssertionError("ckpt_tools list")
+    return launches
+
+
+def preview_timing(dev, shape, seed):
+    """B1 at the preview's shape (bs 1, the plane): device time per launch
+    for 1 and 40 objects, beside the plain version and the bound."""
+    from boxsegliver_torch.ops import kernels
+
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    sfu = sfu_per_s()
+    for k in (1, 40):
+        c, s, v = guide_inputs(rng, 1, k, h, w, dev, n_valid=[k])
+
+        def run_kernel(i=0, c=c, s=s, v=v):
+            return kernels.gaussian_guide_batch(c, s, v, height=h, width=w)
+
+        def run_plain(c=c, s=s, v=v):
+            kernels.gaussian_guide_batch_plain(c, s, v, height=h, width=w)
+
+        d = graph_ms(run_kernel, 1, iters=200)
+        plain = cuda_ms(run_plain, iters=50)
+        bound, by, why = b1_bound_ms(c, s, v, h, w, sfu)
+        print(f"  B1 preview {h}x{w} K={k}: device {d:.5f} ms per launch, "
+              f"plain {plain:.4f} ms, bound {bound:.6f} ms ({by}: {why}), "
+              f"{bound / d:.1%} of bound")
+
+
+def png_timing(lits, meta):
+    """cli/viewer.encode_png on one 512^2 display slice and its label map:
+    ms per payload (median of 10) and bytes at zlib levels 1, 6 and 9."""
+    from boxsegliver_torch.cli import viewer
+
+    pid, n = meta["PID"], meta["size"][0] // 2
+    img = viewer._display_window(
+        np.load(lits / f"volume-{pid}" / "volume.npy")[n:n + 1],
+        False)[0].astype(np.uint8)
+    lab = np.load(lits / f"volume-{pid}" / "segmentation.npy")[n]
+    parts = []
+    for name, arr in (("image", img), ("labels", lab)):
+        for level in (1, 6, 9):
+            walls = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                png = viewer.encode_png(arr, level=level)
+                walls.append((time.perf_counter() - t0) * 1e3)
+            parts.append(f"{name} L{level} {statistics.median(walls):.3f} ms "
+                         f"{len(png)} B")
+    print(f"  encode_png {img.shape[0]}x{img.shape[1]} (ZLIB_LEVEL "
+          f"{viewer.ZLIB_LEVEL}): " + "; ".join(parts))
 
 
 def main(argv=None):
@@ -2259,7 +2635,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/17] device")
+    print("[1/18] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -2274,7 +2650,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/17] build")
+    print("[2/18] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -2284,7 +2660,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/17] kernel B1 vs plain")
+    print("[3/18] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2294,44 +2670,48 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/17] labeling vs scipy")
+        print("[4/18] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/17] flagship guided eval (run_g) through the CLI")
+        print("[5/18] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/17] profile of one case's sweep (steady state)")
+        print("[6/18] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/17] kernel B2 vs plain")
+        print("[7/18] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        print("[8/17] flagship G-Net training through the CLI")
+        print("[8/18] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/17] profile of the flagship train step (steady state)")
+        print("[9/18] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/17] UNet training (001_unet.sh train) through the CLI")
+        print("[10/18] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/17] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/18] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/17] UNet eval (001_unet.sh eval) through the CLI")
-        unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/17] run_g's host loop: overflow fallback, --device_sweep "
+        print("[12/18] UNet eval (001_unet.sh eval) through the CLI")
+        unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
+        print("[13/18] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/17] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/18] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/17] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/18] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/17] train step card vs CPU: boundary and proportion "
+        print("[16/18] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/17] serving: --mode export and the REST server on the "
+        print("[17/18] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
-        paths["serve (GUNet export)"] = serve_phase(tmp, dev, opts.seed,
-                                                    unet_md)
+        paths["serve (GUNet export)"], unet_bundle = serve_phase(
+            tmp, dev, opts.seed, unet_md)
+        print("[18/18] prepare -> annotate -> viewers on the card")
+        lits = prepare_phase(tmp, opts.seed)
+        paths["annotate (preview + Predict)"] = annotate_phase(
+            tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

@@ -360,3 +360,76 @@ def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
     assert card.device.type == "cuda"
     assert kernels.in_relu_fwd.launches == n0 + 6
     torch.testing.assert_close(card.cpu(), on_cpu(feats), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("k", [1, 40])
+def test_annotate_preview_on_the_card_matches_plain(dev, k):
+    """The annotator's guide preview at 512^2 is one B1 launch on the card;
+    it agrees with the plain version on the CPU (float 1e-6, uint8 within
+    one level)."""
+    from boxsegliver_torch.cli.annotate import guide_preview
+
+    rng = np.random.default_rng(k)
+    objs = [{"center": rng.uniform(0, 512, 2).round(3).tolist(),
+             "stddev": rng.uniform(0.5, 30, 2).round(3).tolist()}
+            for _ in range(k)]
+    n0 = kernels.gaussian_guide_batch.launches
+    guide, preview = guide_preview(objs, (512, 512), dev)
+    assert kernels.gaussian_guide_batch.launches == n0 + 1
+    plain, plain8 = guide_preview(objs, (512, 512), "cpu")
+    assert guide.shape == (512, 512) and preview.dtype == np.uint8
+    assert np.abs(guide - plain).max() <= 1e-6
+    assert np.abs(preview.astype(np.int32) - plain8).max() <= 1
+
+
+def test_annotate_predict_on_the_card_matches_cpu(dev, tmp_path):
+    """The annotator's live Predict (GUNet_TINY, 64^2, float32, TF32 off,
+    the dataset's prior as the user's interactions) on the card launches B1
+    and B2-fwd and agrees with the same app on the CPU: probabilities within
+    1e-4, equal class maps and metrics.  The head's bias gives Liver a
+    margin, so no tumor is predicted and no argmax tie steers the sweep."""
+    import json
+
+    from boxsegliver_torch.cli import annotate
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.meta import load_meta
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    ds = tmp_path / "ds"
+    make_synthetic_dataset(ds, n_cases=2, shape=(8, 64, 64), k_split=2,
+                           seed=1)
+    argv = ["liver", "--mode", "eval", "--tag", "t", "--model", "GUNet",
+            "--model_config", "GUNet_TINY.yml", "--classes", "Liver",
+            "Tumor", "--im_height", "64", "--im_width", "64",
+            "--normalizer", "instance_norm", "--use_spatial",
+            "--compute_dtype", "float32", "--eval_mirror", "--random_flip",
+            "3", "--model_dir", str(tmp_path / "md")]
+    model = cli._build_model(cli.get_args(argv + ["--device", "cpu"]))
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.AdjustChannels.weight.mul_(1e-3)
+        model.AdjustChannels.bias.copy_(torch.tensor([0.0, 8.0, 0.0]))
+    torch.save(model.state_dict(), tmp_path / "w.pt")
+    argv += ["--ckpt_path", str(tmp_path / "w.pt")]
+    meta = load_meta(ds)[0]
+    pid = int(meta["PID"])
+    prior = json.loads((ds / "prior.json").read_text())[str(pid)]
+    assert prior
+    out = {}
+    for d in ("cuda", "cpu"):
+        app = annotate.AnnotateApp(ds, interactions_file=tmp_path / f"{d}.j",
+                                   device=d, model_argv=argv)
+        app.interactions = {str(pid): prior}
+        n1 = kernels.gaussian_guide_batch.launches
+        n2 = kernels.in_relu_fwd.launches
+        metrics = app.predict_case(pid)["metrics"]
+        if d == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.gaussian_guide_batch.launches > n1
+            assert kernels.in_relu_fwd.launches > n2
+        evaluator, predictor = app._predictor
+        _, probs = evaluator.predict_case_g(predictor, meta, prior)
+        out[d] = (probs, app._live[pid], metrics)
+    assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 1e-4
+    np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
+    assert out["cuda"][2] == out["cpu"][2]

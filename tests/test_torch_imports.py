@@ -1,6 +1,7 @@
 """The port stands alone: no file of boxsegliver_torch/ nor chip_smoke.py
-imports JAX, flax, optax, orbax, the JAX package, OpenCV or PyYAML (the
-GPU machine has none of them), and every module imports without them."""
+imports JAX, flax, optax, orbax, the JAX package, OpenCV, PyYAML or
+matplotlib (the GPU machine has none of them), and every module imports
+without them."""
 
 import ast
 import importlib
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "boxsegliver_tpu",
-             "cv2", "yaml"}
+             "cv2", "yaml", "matplotlib"}
 PORT_FILES = sorted((ROOT / "boxsegliver_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -52,6 +53,18 @@ def test_train_slice_modules_are_checked(rel):
     path = ROOT / "boxsegliver_torch" / rel
     assert path.exists()
     assert path.suffix == ".cu" or path in PORT_FILES
+
+
+HOST_TOOLS = ["cli/prepare.py", "cli/viewer.py", "cli/vis.py",
+              "cli/compare_preds.py", "cli/annotate.py", "utils/viewer.py",
+              "utils/ckpt_tools.py", "ops/glcm.py"]
+
+
+@pytest.mark.parametrize("rel", HOST_TOOLS)
+def test_host_tool_modules_are_checked(rel):
+    """The data-preparation CLI, the viewers and the annotator exist and
+    fall under the checks above."""
+    assert ROOT / "boxsegliver_torch" / rel in PORT_FILES
 
 
 def test_port_imports_without_the_jax_stack():
