@@ -1,6 +1,6 @@
 """Main CLI of the port: training, unguided eval / infer of the UNet family,
-guided eval / infer of the G-Net family and the serving export (port of
-boxsegliver_tpu/cli/main.py:33-66,186-337,340-377,390-543; reference
+guided eval / infer of the G-Net family, the NF tasks and the serving
+export (port of boxsegliver_tpu/cli/main.py:33-95,186-547; reference
 entry/main.py, entry/main_g.py, entry/main_export.py).
 
     python -m boxsegliver_torch.cli.main liver --mode train --tag 001_unet \
@@ -26,16 +26,29 @@ entry/main.py, entry/main_g.py, entry/main_export.py).
         --batch_size 8 --learning_policy plateau --eval_per_epoch \
         --evaluator Volume --save_best          # + 002_gnet_sp.sh's others
     python -m boxsegliver_torch.cli.main liver --mode eval ... --eval_mirror
+    python -m boxsegliver_torch.cli.main nf --mode train --tag 101_unet_v2 \
+        --model UNet --classes NF --normalizer instance_norm \
+        --batch_size 16 ...                     # run_scripts/nf/101_unet_v2.sh
+    python -m boxsegliver_torch.cli.main nf_inter --mode train \
+        --tag 101_unetinter_v10 --model UNetInter --use_spatial \
+        --local_enhance --stddev 5. ...         # 101_unetinter_v10.sh
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--mode train`` trains
 a 2D UNet or G-Net (batch or instance norm) with the online 2D eval per
 epoch, or with ``--eval_3d`` the whole-volume eval of the held-out cases,
-and writes checkpoints under ``--model_dir`` (train/checkpoint.py).
-``--mode eval`` scores the test fold and ``--mode infer`` saves
-predictions: with the guided sweep (``run_g``) for ``--use_spatial``
-models — the device double sweep, or the per-slice host loop under
-``--device_sweep off`` —, else (or with ``--eval_no_sp``) with the
-unguided whole-volume eval (``run`` with a DeviceSlicePredictor).  Their weights come from
+and writes checkpoints under ``--model_dir`` (train/checkpoint.py); the
+``nf`` task trains on the NF data (clip window or ``--zscore``,
+``--gamma``), ``nf_inter`` the click-simulation training of UNetInter or
+GUNet (data/sampler_inter.py, data/pipeline_inter.py; no
+``--device_cache``, as in JAX).  ``--mode eval`` scores the test fold and
+``--mode infer`` saves predictions: with the guided sweep (``run_g``) for
+``--use_spatial`` models of the liver tasks — the device double sweep, or
+the per-slice host loop under ``--device_sweep off`` —, with the NF
+sp-point guides (``run_sp``) for ``nf --use_spatial``, else (or with
+``--eval_no_sp``) with the unguided whole-volume eval (``run`` with a
+DeviceSlicePredictor); ``nf_inter --mode eval`` runs the online 2D eval
+over the fixed eval batches and appends its metrics to
+``model_dir/eval_results_2d.txt``.  Their weights come from
 ``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
 flattened flax variables), else from ``--model_dir``: the best checkpoint,
 or the latest periodic one under ``--eval_final`` or when there is no best,
@@ -84,15 +97,22 @@ def get_args(argv=None):
 
 def resolve_dataset_dir(args) -> Path:
     if args.task == "synthetic" or args.dataset == "synthetic":
-        if args.task.startswith("nf"):
-            _not_ported("the synthetic NF dataset", "queue A, NF tasks")
-        root = Path(args.data_root) / "synthetic"
+        nf_like = args.task.startswith("nf")
+        root = Path(args.data_root) / ("synthetic_nf" if nf_like
+                                       else "synthetic")
         if not (root / "meta.json").exists():
             from boxsegliver_torch.data.synthetic import make_synthetic_dataset
             make_synthetic_dataset(root, n_cases=4, shape=(24, 256, 256),
-                                   k_split=args.k_folds)
+                                   k_split=args.k_folds,
+                                   modality="nf" if nf_like else "liver")
         return root
     return Path(args.data_root) / args.dataset
+
+
+def is_inter(args) -> bool:
+    """nf_inter: the click-simulation training task (reference
+    entry/main_g.py nf_inter + DataLoader/NF/input_pipeline_g_simply.py)."""
+    return getattr(args, "task", "") == "nf_inter"
 
 
 def _build_model(args):
@@ -202,22 +222,29 @@ def main(argv=None):
 def _check_train_path(args):
     if args.model == "UNet3D" or args.task == "nf_3d":
         _not_ported("3D training", "queue A, 3D tower")
-    if args.task.startswith("nf"):
-        _not_ported(f"task {args.task} training", "queue A, NF tasks")
+    if args.task == "nf2":
+        _not_ported("task nf2 training", "queue A, nf2 / IIN")
 
 
 def build_trainer(args, device, cache=None):
     """Trainer of the flagged model, seeded from --seed, with the device
-    augmentation (cache: a DeviceVolumeCache for the index layout)."""
+    augmentation of its task (cache: a DeviceVolumeCache for the index
+    layout)."""
     import torch
 
-    from boxsegliver_torch.data.pipeline import make_preprocess_fn
     from boxsegliver_torch.train.trainer import Trainer
 
+    if is_inter(args):
+        from boxsegliver_torch.data.pipeline_inter import \
+            make_inter_preprocess_fn
+        preprocess_fn = make_inter_preprocess_fn(args, train=True)
+    else:
+        from boxsegliver_torch.data.pipeline import make_preprocess_fn
+        preprocess_fn = make_preprocess_fn(args, cache=cache)
     model = _build_model(args)
     model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
     return Trainer(model, args, ["Background"] + list(args.classes), device,
-                   preprocess_fn=make_preprocess_fn(args, cache=cache),
+                   preprocess_fn=preprocess_fn,
                    save_ckpt_steps=int(getattr(args, "save_ckpt_steps", 5000)))
 
 
@@ -248,7 +275,7 @@ def train(args, dataset_dir, logger, device):
 
     _check_train_path(args)
     cache = None
-    if getattr(args, "device_cache", False):
+    if getattr(args, "device_cache", False) and not is_inter(args):
         from boxsegliver_torch.data.device_cache import DeviceVolumeCache
         train_pids, _ = _split_pids(args, dataset_dir)
         try:
@@ -261,11 +288,17 @@ def train(args, dataset_dir, logger, device):
     trainer = build_trainer(args, device, cache=cache)
     start = trainer.restore()
     logger.info("Starting at global step %d on %s", start, device)
-    sampler = TrainSampler(dataset_dir, args, mode="train", seed=args.seed,
-                           zbase=cache.zbase if cache else None)
+    if is_inter(args):
+        from boxsegliver_torch.data.sampler_inter import InterSampler
+        sampler = InterSampler(dataset_dir, args, mode="train",
+                               seed=args.seed, max_clicks=args.max_clicks)
+    else:
+        sampler = TrainSampler(dataset_dir, args, mode="train",
+                               seed=args.seed,
+                               zbase=cache.zbase if cache else None)
     dataset = TrainDataset(sampler, args, seed=args.seed)
     eval_fn = None
-    if args.eval_per_epoch and args.eval_3d:
+    if args.eval_per_epoch and args.eval_3d and not is_inter(args):
         # the whole-volume eval of the held-out cases (reference --eval_3d)
         from boxsegliver_torch.evaluators.volume import (EvaluateVolume,
                                                          make_inline_eval_fn)
@@ -288,22 +321,33 @@ def train(args, dataset_dir, logger, device):
 
 def _make_online_eval(args, dataset_dir, num_batches: int = 0):
     """OnlineEval2D over the eval split with the deterministic eval-mode
-    device processing (no noise, no flips; reference 2D batch-metric
-    averaging)."""
+    device processing: the inter pipeline on InterSampler's fixed eval
+    batches (EVAL_ZOOM, EVAL_SEED; reference get_val_loader) for nf_inter,
+    else the plain pipeline without noise, flips or gamma (reference 2D
+    batch-metric averaging)."""
     import functools
 
-    from boxsegliver_torch.data.pipeline import _process_batch, norm_statics
-    from boxsegliver_torch.data.sampler import TrainSampler
     from boxsegliver_torch.evaluators.online2d import OnlineEval2D
 
-    sampler = TrainSampler(dataset_dir, args, mode="eval")
-    statics = norm_statics(args)
-    statics["use_gamma"] = False  # deterministic eval processing
-    process_fn = functools.partial(
-        _process_batch, im_h=args.im_height, im_w=args.im_width,
-        noise_scale=0.0, random_flip=0,
-        use_spatial=bool(getattr(args, "use_spatial", False)),
-        min_std=float(getattr(args, "min_std", 2.0)), **statics)
+    if is_inter(args):
+        from boxsegliver_torch.data.pipeline_inter import \
+            make_inter_preprocess_fn
+        from boxsegliver_torch.data.sampler_inter import InterSampler
+        sampler = InterSampler(dataset_dir, args, mode="eval",
+                               max_clicks=args.max_clicks)
+        process_fn = make_inter_preprocess_fn(args, train=False)
+    else:
+        from boxsegliver_torch.data.pipeline import (_process_batch,
+                                                     norm_statics)
+        from boxsegliver_torch.data.sampler import TrainSampler
+        sampler = TrainSampler(dataset_dir, args, mode="eval")
+        statics = norm_statics(args)
+        statics["use_gamma"] = False  # deterministic eval processing
+        process_fn = functools.partial(
+            _process_batch, im_h=args.im_height, im_w=args.im_width,
+            noise_scale=0.0, random_flip=0,
+            use_spatial=bool(getattr(args, "use_spatial", False)),
+            min_std=float(getattr(args, "min_std", 2.0)), **statics)
     return OnlineEval2D(sampler, args, process_fn,
                         ["Background"] + list(args.classes),
                         num_batches=num_batches,
@@ -311,17 +355,45 @@ def _make_online_eval(args, dataset_dir, num_batches: int = 0):
                                                      False)))
 
 
+def _inter_eval(args, dataset_dir, logger, device):
+    """nf_inter --mode eval: batch-averaged metrics over the fixed
+    validation batches (reference get_val_loader, NF/input_pipeline_g_simply
+    .py:668-686), appended as one JSON line to model_dir/eval_results_2d.txt
+    (JAX cli/main.py:412-426)."""
+    import json
+    import types
+
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+
+    model = build_model_from_args(args, device)
+    logger.info("Restored %s from %s on %s", args.model, args.restored_from,
+                device)
+    runner = types.SimpleNamespace(
+        device=device, global_step=0, summary=None,
+        predict=DeviceSlicePredictor(model, args, device=device))
+    results = _make_online_eval(args, dataset_dir)(runner)
+    out = Path(args.model_dir) / "eval_results_2d.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with out.open("a") as f:
+        json.dump({"results": results}, f)
+        f.write("\n")
+    logger.info("Online eval: %s", results)
+    return results
+
+
 def evaluate(args, dataset_dir, logger, device, do_eval=True):
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
     if args.model == "UNet3D" or args.task == "nf_3d":
         _not_ported("3D eval", "queue A, 3D tower")
-    if args.task in ("nf_inter", "nf2"):
-        _not_ported(f"task {args.task}", "queue A, interactive click path")
+    if args.task == "nf2":
+        _not_ported("task nf2 (the per-lesion patch eval run_patch)",
+                    "queue A, nf2 / IIN")
+    if is_inter(args):
+        return _inter_eval(args, dataset_dir, logger, device)
     spatial = bool(getattr(args, "use_spatial", False))
+    sp_point = spatial and args.task == "nf"
     guided = spatial and not getattr(args, "eval_no_sp", False)
-    if spatial and args.task == "nf":
-        _not_ported("NF sp-point eval (run_sp)", "queue A, NF tasks")
     if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
         _not_ported(f"{'guided' if guided else 'unguided'} eval over "
                     f"--num_replicas {args.num_replicas} devices",
@@ -339,6 +411,10 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
     # serves run_g's per-slice host loop under --device_sweep off
     from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
     predictor = DeviceSlicePredictor(model, args, device=device)
+    if sp_point:
+        # NF: the fixed sp-point guides (reference get_dataset_for_sp_point)
+        return evaluator.run_sp(predictor, eval_metas, save=save,
+                                do_eval=do_eval)
     if not guided:
         return evaluator.run(predictor, eval_metas, save=save,
                              do_eval=do_eval)

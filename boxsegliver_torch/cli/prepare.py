@@ -8,13 +8,16 @@ npy cache, meta.json and context features every ported path reads.
     python -m boxsegliver_torch.cli.prepare glcm     --dst <cache dir>
     python -m boxsegliver_torch.cli.prepare prior    --dst <cache dir>
     python -m boxsegliver_torch.cli.prepare kfold    --dst <cache dir> --k 5
-    python -m boxsegliver_torch.cli.prepare synthetic --dst <cache dir> [--cases N]
+    python -m boxsegliver_torch.cli.prepare synthetic --dst <cache dir> \\
+        [--cases N] [--modality nf] [--variant hard]
     python -m boxsegliver_torch.cli.prepare infer_context --dst <cache dir> \\
         --guide_file <interactions json>
+    python -m boxsegliver_torch.cli.prepare negcache --dst <cache dir> \\
+        --pred_dir <predictions dir> [<predictions dir> ...]
 
-Not ported yet, raising NotImplementedError: ``negcache`` (the nf_inter
-false-positive cache) and ``synthetic`` with ``--modality nf`` or
-``--variant hard``.
+``negcache`` writes the nf_inter false-positive cache (``--fp_sample``)
+from saved predictions (``--mode eval --save_predict``): one directory
+gives ``neg/``, several their union in ``neg_v2/`` (``--fp_version 2``).
 """
 
 from __future__ import annotations
@@ -71,8 +74,9 @@ def main(argv=None):
     p.add_argument("--bins", type=int, default=100)
 
     p = sub.add_parser("negcache", help="False-positive negatives cache from "
-                       "saved predictions (nf_inter --fp_sample); not "
-                       "ported yet")
+                       "saved predictions (nf_inter --fp_sample); several "
+                       "--pred_dir values build the union cache (reference "
+                       "--fp_version 2, load_neg_v2)")
     p.add_argument("--dst", required=True)
     p.add_argument("--pred_dir", required=True, nargs="+")
     p.add_argument("--min_size", type=int, default=5)
@@ -109,22 +113,20 @@ def main(argv=None):
             print(f"Fold {i}: {' '.join(f)}")
     elif args.cmd == "synthetic":
         from boxsegliver_torch.data.synthetic import make_synthetic_dataset
-        if args.modality != "liver" or args.variant != "easy":
-            from boxsegliver_torch.cli.main import _not_ported
-            _not_ported(f"the synthetic {args.modality} {args.variant} "
-                        "dataset", "queue A, NF tasks")
         root = make_synthetic_dataset(args.dst, n_cases=args.cases,
                                       shape=(args.depth, args.size, args.size),
-                                      seed=args.seed)
+                                      modality=args.modality,
+                                      variant=args.variant, seed=args.seed)
         print(f"Synthetic dataset → {root}")
     elif args.cmd == "infer_context":
         from boxsegliver_torch.data.meta import gen_infer_context
         written = gen_infer_context(args.dst, args.guide_file, bins=args.bins)
         print("\n".join(written))
     elif args.cmd == "negcache":
-        from boxsegliver_torch.cli.main import _not_ported
-        _not_ported("prepare negcache (data/sampler_inter.build_neg_cache)",
-                    "queue A, interactive click path")
+        from boxsegliver_torch.data.sampler_inter import build_neg_cache
+        written = build_neg_cache(args.pred_dir, args.dst,
+                                  min_size=args.min_size)
+        print(f"Negatives cache: {len(written)} cases → {args.dst}/neg")
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ DataLoader/Liver/input_pipeline_g.py:347-412 ``data_processing_train`` and
 The host sampler (data/sampler.py) emits fixed-shape uint16 windows (or
 slice indices into a data/device_cache.DeviceVolumeCache) and scalars; one
 batched function does crop-resize / window-normalize / Gaussian-guide render
-/ noise / joint flips on the device.  JAX's per-sample ``vmap`` is a written
+/ noise / joint flips (and, for the NF pipelines, the nonzero z-score and
+gamma) on the device.  JAX's per-sample ``vmap`` is a written
 out batch dimension here, and the guide render is kernel B1
 (ops/kernels.gaussian_guide_batch), one launch per batch.  A background
 thread pool keeps a prefetch queue of raw host batches.
@@ -28,10 +29,6 @@ import torch
 from boxsegliver_torch.data.device_cache import widen
 from boxsegliver_torch.ops import image_ops
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
-
-_NF = ("z-score and gamma augmentation (the NF pipelines) are not ported yet "
-       "(ROADMAP queue A, NF tasks)")
-
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
@@ -75,22 +72,26 @@ def _augment_tail(img, lab, clip, pad_mask, draws, centers, stddevs, n_objs,
                   zscore: bool = False, use_gamma: bool = False,
                   gamma_range: tuple = (0.7, 1.5), guide_bg: float = 0.5,
                   label_mode: str = "none"):
-    """Shared augmentation: window-level clip-normalize, guide render (B1),
-    noise, joint flips of image and guide (reference data_processing_train,
-    input_pipeline_g.py:347-412).  guide_bg is the guide's background (0.5,
-    the Liver remap to [0.5, 1]); label_mode 'liver01' merges tumor into
-    liver (only_liver), 'tumor' keeps the tumor class only."""
-    if zscore or use_gamma:
-        raise NotImplementedError(_NF)
+    """Shared augmentation: normalize (window-level clip, or the nonzero
+    z-score of the NF pipelines), guide render (B1), gamma, noise, joint
+    flips of image and guide (reference data_processing_train,
+    input_pipeline_g.py:347-412; NF z-score / gamma options
+    NF/input_pipeline_g.py:295-373).  guide_bg is the guide's background
+    (0.5, the Liver remap to [0.5, 1]; 0 for NF's raw Gaussians);
+    label_mode 'liver01' merges tumor into liver (only_liver), 'tumor' keeps
+    the tumor class only."""
     lab = lab.long()
     if label_mode == "liver01":
         lab = torch.clamp(lab, 0, 1)
     elif label_mode == "tumor":
         lab = (lab == 2).long()
 
-    lo = clip[:, 0, None, None, None]
-    hi = clip[:, 1, None, None, None]
-    img = (torch.clamp(img, lo, hi) - lo) / (hi - lo)
+    if zscore:
+        img = image_ops.zscore(img)
+    else:
+        lo = clip[:, 0, None, None, None]
+        hi = clip[:, 1, None, None, None]
+        img = (torch.clamp(img, lo, hi) - lo) / (hi - lo)
 
     feats = {}
     if use_spatial:
@@ -104,6 +105,9 @@ def _augment_tail(img, lab, clip, pad_mask, draws, centers, stddevs, n_objs,
     if context is not None:
         feats["context"] = context
 
+    if use_gamma:
+        img = image_ops.augment_gamma(img, gamma_range, draws["gamma"],
+                                      retain_stats=True, p_per_sample=0.3)
     if noise_scale > 0:
         img = image_ops.random_noise(img, noise_scale, draws["noise"])
         img = img * pad_mask[:, None, None, :]  # no noise in padded z slices
@@ -131,7 +135,7 @@ def _process_batch(batch: Dict[str, torch.Tensor], draws: Optional[Dict],
     Two input layouts (data/sampler.TrainSampler): device-resize pixel
     windows, or slice indices into ``cache``.  ``draws`` holds the
     augmentation's random draws (ops/image_ops.draw_augment); it may be None
-    when noise and flips are off."""
+    when noise, gamma and flips are off."""
     bs = batch["names"].shape[0]
     dev = batch["names"].device
     centers = batch.get("centers", torch.full((bs, 1, 2), -1.0, device=dev))
@@ -184,7 +188,8 @@ def make_preprocess_fn(args, cache=None):
         bs = batch["names"].shape[0]
         draws = image_ops.draw_augment(
             generator, (bs, kw["im_h"], kw["im_w"], args.im_channel),
-            noise=kw["noise_scale"] > 0, device=batch["names"].device)
+            noise=kw["noise_scale"] > 0, device=batch["names"].device,
+            gamma=statics["use_gamma"])
         return _process_batch(batch, draws, cache=cache, **kw, **statics)
     return fn
 

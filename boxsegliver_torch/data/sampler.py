@@ -1,5 +1,6 @@
 """Host-side training sampler: class-balanced case/slice/crop selection
-(own numpy copy of boxsegliver_tpu/data/sampler.py:55-446; reference
+(own numpy copy of boxsegliver_tpu/data/sampler.py:55-446, with the
+``-ds`` view DownsampledVolumes / ds_size of :99-114; reference
 DataLoader/Liver/input_pipeline_g.py:415-599 ``gen_train_batch``):
 tumor%/liver% forced sampling, random zoom crop windows, object-aware crop
 offsets, 2.5D slice stacks with zero padding, random window-level, histogram
@@ -95,6 +96,24 @@ class CaseVolumes:
             self._labs[pid] = np.load(
                 self.root / f"volume-{pid}" / "segmentation.npy", mmap_mode="r")
         return self._labs[pid]
+
+
+class DownsampledVolumes(CaseVolumes):
+    """2x spatial downsampling view over the npy cache (-ds/--downsampling,
+    reference load_data_ds, NF/input_pipeline_g_simply.py:161-204: volumes
+    and labels strided [:, ::2, ::2] for fast experiments)."""
+
+    def volume(self, pid: int) -> np.ndarray:
+        return super().volume(pid)[:, ::2, ::2]
+
+    def label(self, pid: int) -> np.ndarray:
+        return super().label(pid)[:, ::2, ::2]
+
+
+def ds_size(size, downsampling: bool):
+    """Case (depth, height, width) under the optional 2x spatial stride."""
+    d, h, w = size
+    return (d, (h + 1) // 2, (w + 1) // 2) if downsampling else (d, h, w)
 
 
 def _randint(rng: np.random.RandomState, a: int, b: int) -> int:

@@ -15,6 +15,13 @@ depth does not retrace its jit; the port has nothing to retrace and does
 not pad.  Rows of the last batch past the case's depth gather the clipped
 last slice instead of padding zeros; they are cut off, and eval-mode norms
 are per sample, so the kept rows equal the JAX ones.
+
+A per-slice guide (``sp_guide``, [cz, h, w]: a host array, or a tensor that
+run_sp's B1 launch left on the device) is fed as the fg channel; a model
+that takes a two-channel click guide (models.guide_channels: UNetInter, or
+any model of the nf_inter task) gets a zero bg channel beside it, the
+[fg, bg] layout it was trained on.  JAX feeds the one channel only, which
+its flax model refuses when it was built for two.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from boxsegliver_torch.evaluators.eval_loader import EvalCase
 from boxsegliver_torch.interactive.propagation import mirror_variants
+from boxsegliver_torch.models import guide_channels
 from boxsegliver_torch.ops.image_ops import resize_bilinear
 
 
@@ -50,6 +58,7 @@ class DeviceSlicePredictor:
         self.flips = tuple(mirror_variants(
             int(getattr(args, "random_flip", 3)),
             bool(getattr(args, "eval_mirror", False))))
+        self.guide_channels = guide_channels(args)
 
     @torch.inference_mode()
     def __call__(self, feats) -> torch.Tensor:
@@ -69,8 +78,11 @@ class DeviceSlicePredictor:
         idx = zs[:, None] + torch.arange(c, device=self.device)[None]
         feats = {"images": vol[idx].permute(0, 2, 3, 1)}   # [bs, ph, pw, c]
         if guide is not None:
-            feats["sp_guide"] = guide[torch.clamp(
-                rows, max=guide.shape[0] - 1)][..., None]
+            g = guide[torch.clamp(rows, max=guide.shape[0] - 1)][..., None]
+            if self.guide_channels > 1:
+                g = torch.cat([g, g.new_zeros(g.shape[:-1] + (
+                    self.guide_channels - 1,))], dim=-1)
+            feats["sp_guide"] = g
         if ctx is not None:
             feats["context"] = ctx[torch.clamp(rows, max=ctx.shape[0] - 1)]
         big = {}
@@ -90,14 +102,17 @@ class DeviceSlicePredictor:
     @torch.inference_mode()
     def device_case(self, case: EvalCase,
                     context: Optional[np.ndarray] = None,
-                    sp_guide: Optional[np.ndarray] = None) -> np.ndarray:
+                    sp_guide=None) -> np.ndarray:
         """Mirror-averaged softmax volume [cz, ph, pw, nc] for one case —
         the device-resident equivalent of EvaluateVolume.predict_case."""
         c = case.lhc + case.rhc + 1
         cz = case.depth
         vol = _resize_stack(np.asarray(case.volume), self.pshape, self.device)
         guide = ctx = None
-        if sp_guide is not None:
+        if isinstance(sp_guide, torch.Tensor):
+            guide = resize_bilinear(sp_guide.to(self.device),
+                                    self.pshape).contiguous()
+        elif sp_guide is not None:
             guide = _resize_stack(np.asarray(sp_guide), self.pshape,
                                   self.device)
         if context is not None:

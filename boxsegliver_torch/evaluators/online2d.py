@@ -28,8 +28,9 @@ EVAL_SEED = 1234
 class OnlineEval2D:
     """eval_fn(trainer) -> {'<Class>/<Metric>': float} over fixed batches.
 
-    sampler: a TrainSampler on the eval split; process_fn(batch, draws) ->
-    (features, labels) must be the deterministic eval-mode processing.
+    sampler: a TrainSampler or an InterSampler on the eval split;
+    process_fn(batch, draws) -> (features, labels) must be the
+    deterministic eval-mode processing (it is called with draws None).
     ``trainer`` needs ``predict``, ``device``, ``global_step`` and
     ``summary`` (or None)."""
 

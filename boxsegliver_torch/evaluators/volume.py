@@ -1,7 +1,8 @@
-"""Volume evaluator of the port: the unguided whole-volume eval ``run``
-and the interactive guided eval ``run_g`` (port of
-boxsegliver_tpu/evaluators/volume.py:77-147,153-324,453-538; reference
-EvaluateVolume, evaluators/evaluator_liver.py:524-586, 616-904, 998-1026).
+"""Volume evaluator of the port: the unguided whole-volume eval ``run``,
+the interactive guided eval ``run_g`` and the NF sp-point eval ``run_sp``
+(port of boxsegliver_tpu/evaluators/volume.py:77-147,153-410,453-538;
+reference EvaluateVolume, evaluators/evaluator_liver.py:524-586, 616-904,
+998-1026, and NF/input_pipeline_g.py:721-830).
 
 A case's probability volume comes from the device: ``run`` takes a
 DeviceSlicePredictor's whole-case ``device_case`` (evaluators/device_eval.py)
@@ -11,14 +12,16 @@ with their mirror variants; ``run_g`` takes the device sweep
 (interactive/device_sweep.py), or the per-slice host propagation loop
 (interactive/propagation.py) where the sweep overflows its caps, guides are
 dumped (``--save_sp_guide``) or the predictor has no sweep
-(``--device_sweep off``).  Everything after it — argmax, nearest resize
+(``--device_sweep off``); ``run_sp`` draws each case's fixed sp-point
+guides with kernel B1, one launch per case, on the predictor's device and
+then predicts like ``run``.  Everything after it — argmax, nearest resize
 back to the crop, postprocess (tumor→liver merge, largest liver component,
 tumor masked by liver), 3D metrics, global-Dice accumulation and NIfTI save
 — is host numpy as in the JAX package, with the port's cv2-equivalent
 resizes.
 
-Not ported yet: the sp-point / patch evaluations ``run_sp``, ``run_patch``
-of the NF tasks (ROADMAP queue A, NF tasks).
+Not ported yet: the per-lesion patch evaluation ``run_patch`` of the nf2
+task (ROADMAP queue A, nf2 / IIN).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from boxsegliver_torch.interactive.propagation import (GuidePropagationLoader,
                                                       mirror_variants)
 from boxsegliver_torch.ops import array_kits
 from boxsegliver_torch.ops.image_ops import resize_nearest
+from boxsegliver_torch.ops.kernels import gaussian_guide_batch
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
 from boxsegliver_torch.ops.metrics3d import metric_3d
 
@@ -330,6 +334,94 @@ class EvaluateVolume(EvaluateBase):
             self._finish_case(case, probs, accumulator, save, save_path,
                               do_eval, n, t0)
         return self._finish_run(accumulator, n)
+
+    def run_sp(self, predict_fn: Callable, case_metas: Iterable[Dict],
+               save: bool = False, save_path=None, do_eval: bool = True
+               ) -> Dict[str, float]:
+        """NF sp-point guided evaluation (reference get_dataset_for_sp_point,
+        NF/input_pipeline_g.py:721-830): whole-frame volume, per-slice FIXED
+        Gaussian guides at the GT tumor centers with constant base stddev
+        --guide_scale (both scaled from original to target resolution),
+        times --eval_discount, zero background, no propagation.  --real_sp
+        substitutes real user interactions; --eval_no_sp zeros all guides.
+        The guides of a case are one launch of kernel B1 (sp_point_guides)
+        on the predictor's device."""
+        args = self.args
+        real_meta = None
+        rsp = getattr(args, "real_sp", None)
+        if rsp and Path(rsp).exists():
+            real_meta = json.loads(Path(rsp).read_text())
+        device = getattr(predict_fn, "device", "cpu")
+
+        self.clear_metrics()
+        accumulator: Dict[str, int] = defaultdict(int)
+        n = 0
+        skip = getattr(args, "eval_skip_num", 0)
+        limit = getattr(args, "eval_num", -1)
+        for meta in list(case_metas)[skip:]:
+            if 0 < limit <= n:
+                break
+            t0 = time.time()
+            case = parse_case_eval(meta, self.dataset_dir,
+                                   im_channel=args.im_channel,
+                                   parse_label=do_eval, norm=self.norm,
+                                   whole_frame=True)
+            guide = self.sp_point_guides(meta, case, real_meta, device)
+            if not hasattr(predict_fn, "device_case"):
+                guide = guide.cpu().numpy()
+            probs = self.predict_case(predict_fn, case, sp_guide=guide)
+            n += 1
+            self._finish_case(case, probs, accumulator, save, save_path,
+                              do_eval, n, t0)
+        return self._finish_run(accumulator, n)
+
+    def sp_point_guides(self, meta: Dict, case: EvalCase,
+                        real_meta: Optional[Dict] = None,
+                        device="cpu") -> torch.Tensor:
+        """[depth, ph, pw] float32 guide volume of one case on ``device``:
+        on each guided slice the max of Gaussians at its centers (the
+        case's --real_sp interactions, else its GT tumor centers with
+        stddev --guide_scale), scaled to the target size, times
+        --eval_discount; zero elsewhere.  All guided slices are one B1
+        launch (rows = slices, K = the most centers on a slice, scale =
+        eval_discount, offset 0)."""
+        args = self.args
+        pshape = (int(args.im_height), int(args.im_width))
+        scale = (np.asarray(pshape, np.float32)
+                 / np.asarray(case.oshape[1:], np.float32))
+        rows = []                              # (slice, centers, stddevs)
+        spid = str(case.pid)
+        if real_meta is not None and spid in real_meta:
+            for ssid, g in real_meta[spid].items():
+                rows.append((int(ssid),
+                             np.asarray(g["centers"], np.float32) * scale,
+                             np.asarray(g["stddevs"], np.float32) * scale))
+        elif not getattr(args, "eval_no_sp", False):
+            ft = meta["tumor_slices_from_to"]
+            for k, sid in enumerate(meta["tumor_slices_index"]):
+                centers = np.asarray(
+                    meta["tumor_slices_centers"][ft[k]:ft[k + 1]],
+                    np.float32) * scale
+                stddevs = np.full(centers.shape, args.guide_scale,
+                                  np.float32) * scale
+                rows.append((int(sid), centers, stddevs))
+        guide = torch.zeros((case.depth,) + pshape, dtype=torch.float32,
+                            device=device)
+        if not rows:
+            return guide
+        k = max(len(c) for _, c, _ in rows)
+        c = np.zeros((len(rows), k, 2), np.float32)
+        s = np.ones((len(rows), k, 2), np.float32)
+        valid = np.zeros((len(rows), k), bool)
+        for r, (_, cr, sr) in enumerate(rows):
+            c[r, :len(cr)], s[r, :len(sr)], valid[r, :len(cr)] = cr, sr, True
+        out = gaussian_guide_batch(
+            torch.from_numpy(c).to(device), torch.from_numpy(s).to(device),
+            torch.from_numpy(valid).to(device), height=pshape[0],
+            width=pshape[1], scale=float(args.eval_discount), offset=0.0)
+        sids = torch.tensor([sid for sid, _, _ in rows], device=device)
+        guide[sids] = out[..., 0]
+        return guide
 
     def predict_case_g(self, predict_fn, meta: Dict, prior_case: Dict,
                        parse_label: bool = True):

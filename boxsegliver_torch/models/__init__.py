@@ -4,8 +4,14 @@
 The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
-configs of ported models are carried: the UNet ones and the GUNet ones whose
-context model is ported; ``UNPORTED_CONFIGS`` names the others.
+configs of ported models are carried: the UNet and UNetInter ones and the
+GUNet ones whose context model is ported; ``UNPORTED_CONFIGS`` names the
+others.
+
+Flax infers a model's input widths at init from a feature template (JAX
+cli/main.build_feature_template); the port's constructors take them from
+the flags: ``--im_channel``, the summed ``--context_list`` lengths and the
+guide's channels (``guide_channels``).
 """
 
 from __future__ import annotations
@@ -17,10 +23,12 @@ import torch
 
 from boxsegliver_torch.models.gunet import GUNet
 from boxsegliver_torch.models.unet import UNet
+from boxsegliver_torch.models.unet_inter import UNetInter
 
 MODEL_ZOO = {
     "UNet": UNet,
     "GUNet": GUNet,
+    "UNetInter": UNetInter,
 }
 
 _GUNET_BASE = {
@@ -34,6 +42,9 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
     "UNet.yml": {"init_channels": 64, "num_down_samples": 4,
                  "ret_prob": False, "ret_pred": True},
     "UNet_TINY.yml": {"init_channels": 8, "num_down_samples": 2},
+    "UNetInter.yml": {"init_channels": 64, "num_down_samples": 4,
+                      "ret_prob": False, "ret_pred": True},
+    "UNetInter_TINY.yml": {"init_channels": 4, "num_down_samples": 2},
     "GUNet.yml": dict(_GUNET_BASE, context_fc_channels=[256, 256],
                       norm_with_center=True, norm_with_scale=False),
     "GUNet_SP.yml": dict(_GUNET_BASE, context_fc_channels=[200, 200],
@@ -59,8 +70,6 @@ UNPORTED_CONFIGS: Dict[str, str] = {
     "LGNet.yml": "queue A, interactive click path",
     "LGNet_v3.yml": "queue A, interactive click path",
     "SmallUNet.yml": "queue A, interactive click path",
-    "UNetInter.yml": "queue A, interactive click path",
-    "UNetInter_TINY.yml": "queue A, interactive click path",
     "UNet3D.yml": "queue A, 3D tower",
     "GUNet_IIN.yml": "queue A, nf2 / IIN",
     "GUNet_IIN_TINY.yml": "queue A, nf2 / IIN",
@@ -72,6 +81,8 @@ _ARG_FIELDS = {
     "GUNet": ("normalizer", "without_norm", "img_grad", "weight_init",
               "use_context", "use_spatial", "use_se", "guide_channel",
               "side_dropout", "dropout", "fix"),
+    "UNetInter": ("normalizer", "without_norm", "img_grad", "weight_init",
+                  "mid_cat"),
 }
 
 # config keys consumed by the runtime rather than the model constructor
@@ -98,6 +109,17 @@ def get_model_params(args) -> Dict[str, Any]:
     return {"model": args.model, "model_kwargs": kwargs}
 
 
+def guide_channels(args, model: Optional[str] = None) -> int:
+    """Channels of the guide ``model`` (default --model) takes (JAX
+    build_feature_template, cli/main.py:98-121): ``--guide_channel`` for
+    the click-guided UNetInter and for every model of the nf_inter task,
+    else 1."""
+    if ((model or getattr(args, "model", None)) == "UNetInter"
+            or getattr(args, "task", "") == "nf_inter"):
+        return int(getattr(args, "guide_channel", 2))
+    return 1
+
+
 def context_length(args) -> int:
     raw = getattr(args, "context_list", None) or ["hist", "200"]
     return sum(int(raw[i + 1]) for i in range(0, len(raw), 2))
@@ -111,7 +133,8 @@ def build_model(model_name: str, args=None,
     float32, ``dtype`` the compute dtype).  num_classes defaults to
     len(args.classes) + 1 (Background prepended, reference
     NetworksV2/base.py:44).  Input widths that flax infers at init come from
-    the flags: ``--im_channel`` and the summed ``--context_list`` lengths.
+    the flags: ``--im_channel``, the summed ``--context_list`` lengths and
+    the guide's channels (guide_channels).
     Keys the model's constructor does not take are dropped, as the JAX
     package drops the fields a flax module lacks."""
     cls = MODEL_ZOO[model_name]
@@ -124,6 +147,8 @@ def build_model(model_name: str, args=None,
                 kwargs.setdefault(field, getattr(args, field))
         kwargs.setdefault("in_channels", int(args.im_channel))
         kwargs.setdefault("context_length", context_length(args))
+        kwargs.setdefault("guide_channels", guide_channels(args, model_name))
+        kwargs.setdefault("sp_channels", guide_channels(args, model_name))
         if num_classes is None:
             num_classes = len(args.classes) + 1
     if num_classes is not None:

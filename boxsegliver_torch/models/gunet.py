@@ -19,8 +19,9 @@ after the first norm of each encoder level and ``side_dropout`` on the
 context MLP's hidden layers draw their masks from ``g``.  Every
 instance-norm + ReLU pair with a full affine (the decoder, and the
 unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
-Not ported yet (the constructor raises): ``use_se``, the ``vgg16*`` and
-``conv`` context models, ``img_grad``.
+``img_grad`` concatenates the image gradients to the images (JAX
+gunet.py:135-137).  Not ported yet (the constructor raises): ``use_se``,
+the ``vgg16*`` and ``conv`` context models.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ from boxsegliver_torch.models.layers import (MLP, ChannelAffine, Conv,
                                              ConvNormAct, Dense, Norm, UpConv,
                                              avg_pool2x2_same, dropout,
                                              fused_pair, he_normal_,
-                                             init_kernel_, max_pool2x2)
+                                             image_gradients, init_kernel_,
+                                             max_pool2x2)
 from boxsegliver_torch.ops.kernels import instance_norm_relu
 
 
@@ -66,9 +68,6 @@ class GUNet(nn.Module):
             raise NotImplementedError(
                 f"GUNet context_model {context_model!r} is not ported yet "
                 "(ROADMAP queue A, GUNet variants)")
-        if img_grad:
-            raise NotImplementedError("GUNet --img_grad is not ported yet "
-                                      "(ROADMAP queue A, GUNet variants)")
         self.num_classes = num_classes
         self.init_channels = init_channels
         self.num_down_samples = num_down_samples
@@ -78,6 +77,7 @@ class GUNet(nn.Module):
         self.after_affine = after_affine
         self.without_norm = without_norm
         self.weight_init = weight_init
+        self.img_grad = img_grad
         self.dtype = dtype
         self.dropout = float(dropout or 0.0)
 
@@ -103,7 +103,7 @@ class GUNet(nn.Module):
                     layer = Conv(sp_channels, feats, kernel=1)
                 self.add_module(f"spatial_conv{i + 1}", layer)
 
-        cin = in_channels
+        cin = in_channels * (3 if img_grad else 1)
         for i in levels:
             ch = init_channels * 2 ** i
             modulated = (use_context or use_spatial) and i in self.mod_layers
@@ -184,7 +184,11 @@ class GUNet(nn.Module):
                 if i < n:
                     gs = avg_pool2x2_same(gs)
 
-        x = inputs["images"].to(dt).permute(0, 3, 1, 2)
+        images = inputs["images"]
+        if self.img_grad:
+            dy, dx = image_gradients(images)
+            images = torch.cat([images, dy, dx], dim=-1)
+        x = images.to(dt).permute(0, 3, 1, 2)
         density_mod_id = 0
         skips = []
         for i in range(n + 1):

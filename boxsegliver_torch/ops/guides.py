@@ -1,5 +1,5 @@
 """Spatial-guide rendering in plain torch (port of
-boxsegliver_tpu/ops/guides.py:19-56,97-99; reference utils/image_ops.py:
+boxsegliver_tpu/ops/guides.py:19-86,97-99; reference utils/image_ops.py:
 396-434).
 
 Ragged per-slice object lists are padded to a static count and masked;
@@ -55,6 +55,38 @@ def gaussian_guide(shape: Sequence[int], centers: torch.Tensor,
         d = torch.where(mask.reshape((-1,) + (1,) * ndim).to(d.device), d, 0.0)
         out = d.amax(dim=0)
     out = torch.clamp(out, 0.0, 1.0)
+    return out[..., None] if keepdims else out
+
+
+def euclidean_guide(shape: Sequence[int], centers: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None, keepdims: bool = True,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Min-over-objects Euclidean distance map (reference
+    image_ops.py:427-429), batched over the leading axes of ``centers``.
+
+    centers: [*B, n, ndim] (ij); mask: [*B, n] bool of valid objects,
+    default center[..., 0] >= 0; weights: optional [*B, ndim] per-axis
+    multipliers of the coordinate differences (the click guides' crop /
+    target rescale: the distances come out in crop pixels, as the reference
+    renders them at crop resolution).  Returns [*B, *shape, 1] (keepdims) or
+    [*B, *shape]; where no object is valid, sum(s² for s in shape)."""
+    centers = torch.as_tensor(centers, dtype=torch.float32)
+    if mask is None:
+        mask = centers[..., 0] >= 0.0
+    ndim = len(shape)
+    lead = centers.shape[:-1]                            # [*B, n]
+    d2 = 0.0
+    for ax, size in enumerate(shape):
+        coord = torch.arange(size, dtype=torch.float32, device=centers.device)
+        diff = coord - centers[..., ax, None]            # [*B, n, size]
+        if weights is not None:
+            diff = diff * weights[..., None, ax, None].to(diff)
+        view = lead + tuple(size if a == ax else 1 for a in range(ndim))
+        d2 = d2 + (diff * diff).reshape(view)
+    d = torch.sqrt(d2)
+    big = float(sum(s ** 2 for s in shape))
+    d = torch.where(mask.reshape(lead + (1,) * ndim).to(d.device), d, big)
+    out = d.amin(dim=len(lead) - 1)
     return out[..., None] if keepdims else out
 
 

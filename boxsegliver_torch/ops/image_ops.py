@@ -63,6 +63,47 @@ def resize_nearest(x: torch.Tensor, size: Sequence[int]) -> torch.Tensor:
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
+def _linear_taps(src: int, dst: int):
+    """cv2.INTER_LINEAR's taps along one axis: f = (d + 0.5)·(src / dst) −
+    0.5 in double, s = floor(f), weight (float)(f − s).  Returns (s, weight
+    float32); taps outside [0, src − 1] are the caller's to clamp."""
+    scale = 1.0 / (dst / src)
+    f = (np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5
+    s = np.floor(f)
+    return s.astype(np.int64), (f - s).astype(np.float32)
+
+
+def resize_linear_u16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR) of a uint16
+    [h, w] or [h, w, c] image, in numpy: OpenCV's 16U path computes in
+    float32 — a horizontal pass (taps clamped to the first and last column,
+    weight 0 at the clamp), then a vertical pass (rows clamped, weights
+    kept) — and rounds half to even with saturation.  An unchanged size is
+    a copy.  OpenCV's vector code may sum a pixel on a rounding tie in
+    another order, so such a pixel can land one level off its result."""
+    H, W = int(size[0]), int(size[1])
+    h, w = img.shape[:2]
+    if (h, w) == (H, W):
+        return img.copy()
+    x = img.astype(np.float32)
+    sx, fx = _linear_taps(w, W)
+    lo = sx < 0
+    hi = sx >= w - 1
+    fx = np.where(lo | hi, np.float32(0), fx).astype(np.float32)
+    sx = np.clip(sx, 0, w - 1)
+    ax1 = np.minimum(sx + 1, w - 1)
+    ax0 = (np.float32(1) - fx).astype(np.float32)
+    shp = (1, W) + (1,) * (img.ndim - 2)
+    rows = (x[:, sx] * ax0.reshape(shp) + x[:, ax1] * fx.reshape(shp))
+    sy, fy = _linear_taps(h, H)
+    y0 = np.clip(sy, 0, h - 1)
+    y1 = np.clip(sy + 1, 0, h - 1)
+    by0 = (np.float32(1) - fy).astype(np.float32)
+    shp = (H,) + (1,) * (img.ndim - 1)
+    out = rows[y0] * by0.reshape(shp) + rows[y1] * fy.reshape(shp)
+    return np.clip(np.rint(out), 0, 65535).astype(np.uint16)
+
+
 def _area_weights(src: int, dst: int) -> np.ndarray:
     """[dst, src] INTER_AREA weights (cv2 computeResizeAreaTab): pixel d
     covers [d·s, (d+1)·s) with s = src / dst, each source pixel weighted by
@@ -183,16 +224,64 @@ def random_flip(image: torch.Tensor, label: torch.Tensor, coins: torch.Tensor,
     return image, label
 
 
+def zscore(img: torch.Tensor) -> torch.Tensor:
+    """Per-sample z-score over the non-zero region of img [bs, ...]
+    (reference image_ops.py:25-32): (x − region·mean) / (region·std +
+    1e-8), so pixels outside the region stay exactly 0."""
+    dims = tuple(range(1, img.ndim))
+    region = (img > 0).float()
+    cnt = torch.clamp_min(region.sum(dim=dims, keepdim=True), 1.0)
+    mean = (img * region).sum(dim=dims, keepdim=True) / cnt
+    var = (torch.square(img - mean) * region).sum(dim=dims, keepdim=True) / cnt
+    return (img - region * mean) / (region * torch.sqrt(var) + 1e-8)
+
+
+def augment_gamma(image: torch.Tensor, gamma_range: Sequence[float],
+                  draws: torch.Tensor, retain_stats: bool = False,
+                  p_per_sample: float = 1.0,
+                  epsilon: float = 1e-7) -> torch.Tensor:
+    """Per-sample gamma augmentation of image [bs, ...] (reference
+    image_ops.py:339-354).  draws [bs, 3] in [0, 1): where draws[:, 0] <
+    p_per_sample, gamma = lo + draws[:, 1]·(1 − lo), else 1 + draws[:, 2]·
+    (hi − 1).  retain_stats restores each sample's mean and (population)
+    standard deviation."""
+    dims = tuple(range(1, image.ndim))
+    shape = (-1,) + (1,) * (image.ndim - 1)
+    # the spans in float32 on the host, as jax.random.uniform forms them;
+    # no tensor is made here, so the function runs inside a CUDA graph
+    lo, hi, one = (np.float32(v) for v in tuple(gamma_range) + (1.0,))
+    draws = draws.float()
+    g_lo = torch.clamp_min(draws[:, 1] * float(one - lo) + float(lo),
+                           float(lo))
+    g_hi = torch.clamp_min(draws[:, 2] * float(hi - one) + 1.0, 1.0)
+    gamma = torch.where(draws[:, 0] < p_per_sample, g_lo, g_hi).view(shape)
+    if retain_stats:
+        mn = image.mean(dim=dims, keepdim=True)
+        sd = image.std(dim=dims, keepdim=True, unbiased=False)
+    minm = image.amin(dim=dims, keepdim=True)
+    rnge = image.amax(dim=dims, keepdim=True) - minm
+    out = torch.pow((image - minm) / (rnge + epsilon), gamma) * rnge + minm
+    if retain_stats:
+        new_mn = out.mean(dim=dims, keepdim=True)
+        new_sd = out.std(dim=dims, keepdim=True, unbiased=False)
+        out = (out - new_mn + mn) / (new_sd + 1e-8) * sd
+    return out
+
+
 def draw_augment(generator: torch.Generator, shape: Sequence[int],
-                 noise: bool, device) -> dict:
+                 noise: bool, device, gamma: bool = False) -> dict:
     """The draws of one batch's augmentation from ``generator`` (on
     ``device``): ``noise`` uniform in [-1, 1) of the image shape
-    [bs, h, w, c] (when noise is on) and ``flip`` coins [bs, 3] in [0, 1)."""
+    [bs, h, w, c] (when noise is on), ``flip`` coins [bs, 3] in [0, 1) and,
+    with ``gamma``, augment_gamma's [bs, 3] uniforms in [0, 1)."""
     out = {"flip": torch.rand((shape[0], 3), generator=generator,
                               device=device)}
     if noise:
         out["noise"] = torch.rand(tuple(shape), generator=generator,
                                   device=device) * 2.0 - 1.0
+    if gamma:
+        out["gamma"] = torch.rand((shape[0], 3), generator=generator,
+                                  device=device)
     return out
 
 

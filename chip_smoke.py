@@ -13,7 +13,8 @@ result line):
 3. kernels — kernel B1 (gaussian_guide_batch) against its plain PyTorch
    version on the card at the guided sweep's shapes and at edge cases (W
    not a multiple of 4, one row, K = 0, 1, 150); max abs error <= 1e-6.
-   At the sweep's and the train preprocess's shapes: device time per
+   At the sweep's, the train preprocess's and the nf_inter click guides'
+   (32 rows = fg and bg of batch 16, K = 8) shapes: device time per
    launch (``graph_ms``: launches captured in a CUDA graph), wrapper time
    per call and plain time (CUDA events), and the card's bound for the same
    work (bytes, or the least f32 operations beside one exponential per
@@ -51,7 +52,10 @@ result line):
    plain and library ("two calls", F.relu(F.instance_norm(...)), forward
    and backward) times, and the card's bound for the same work; B2-fwd's
    wrapper time through the registered operator boxseg::in_relu_fwd
-   beside its CUDA implementation called without the dispatcher.
+   beside its CUDA implementation called without the dispatcher.  Then the
+   five levels of the NF UNet / UNetInter at batch 16 (b2_nf_levels): each
+   against its plain version, its plan, device time per launch, plain,
+   library and bound, and the sums over one NF train step (18 calls).
 8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
@@ -152,11 +156,32 @@ result line):
    ms per 512^2 payload at zlib levels 1, 6, 9.  Then ``cli/viewer`` over
    phase 12's predictions, ``cli/vis`` over phase 17's UNet bundle on the
    card (overlays written) and ``ckpt_tools list`` on phase 10's checkpoint.
+19. NF — on the CLI's own ``synthetic_nf`` set (4 NF cases of 24 x 256^2,
+   written by cli/main.resolve_dataset_dir), every train run on one host
+   worker: (a) ``101_unet_v2.sh train`` flags through the CLI (UNet.yml
+   full width, instance norm, batch 16, 256^2 x 3): 24 steps with the
+   online eval every 12 (4 batches) and a resume to 30; exactly 18 B2-fwd,
+   B2a and B2b launches a step (B2-fwd 18 more per eval batch, B1 none);
+   the step in steady state at K = 1 and K = 16 (ms/step, slices/s, busy
+   share, device time by kernel group from a profiled window).  (b)
+   ``101_unet_v2.sh eval`` with --save_predict on (a)'s best (s/case, 18
+   B2-fwd a forward) and --mode infer of the other fold; device_case card
+   vs CPU in float32 (1e-4).  (c) ``prepare negcache`` from (b)'s
+   predictions, then ``101_unetinter_v10.sh train`` flags with --fp_sample
+   (UNetInter.yml full width, batch 16): 24 steps, exactly one B1 launch
+   (the fg and bg click guides) and 18 of each B2 kernel a step; the step
+   in steady state (K = 1); a UNetInter_TINY float32 train step card vs CPU
+   (loss, gradients, parameters after 3 Momentum steps: 1e-4).  (d)
+   ``101_unetinter_v10.sh eval`` (the online eval, 8 fixed batches: one B1
+   launch each) and ``nf --mode eval --use_spatial`` (run_sp: one B1
+   launch per case with tumor slices) on (c)'s best; run_sp's
+   probabilities card vs CPU on 8 slices around a lesion (1e-4).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8, and per path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
-run of phase 14, the 20 GUNet requests of phase 17 and the annotator's
-preview and two Predicts of phase 18; ``ms``: wrapper
+run of phase 14, the 20 GUNet requests of phase 17, the annotator's
+preview and two Predicts of phase 18, and phase 19's nf_train, nf_eval,
+nf_inter_train, nf_inter_eval and run_sp; ``ms``: wrapper
 time, per call for B1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
@@ -210,6 +235,12 @@ B2_OPS = {"in_relu_fwd": 8, "in_relu_bwd_stats": 6, "in_relu_bwd_apply": 7}
 # up_conv{2,3,4}_{1,2} below
 B2_STEP_SHAPES = {(8, 64, 256, 256): 4, (8, 128, 128, 128): 2,
                   (8, 256, 64, 64): 2, (8, 512, 32, 32): 2}
+# the pairs of one nf / nf_inter train step (UNet.yml and UNetInter.yml at
+# batch 16, 256^2, init_channels 64, 4 down-samples): at each level l < 4
+# two encoder and two decoder convs, at l = 4 the two bridge / deepest ones
+NF_B2_STEP_SHAPES = {(16, 64, 256, 256): 4, (16, 128, 128, 128): 4,
+                     (16, 256, 64, 64): 4, (16, 512, 32, 32): 4,
+                     (16, 1024, 16, 16): 2}
 
 
 def smi() -> str:
@@ -352,22 +383,45 @@ def kernel_phase(dev, seed):
                 raise AssertionError("B1: an all-invalid sample must render "
                                      "the flat offset")
 
+    # the nf_inter step's one launch (phase 19): fg and bg click guides of
+    # a batch of 16 as 32 rows, K = --max_clicks 8, a valid prefix, stddev
+    # --stddev 5 / rescale (crop / target in [1, 1.4]), no epilogue
+    clicks = guide_inputs(rng, 32, 8, h, w, dev,
+                          n_valid=rng.integers(0, 9, 32))
+    rescale = rng.uniform(1.0, 1.4, (32, 1, 2)).astype(np.float32)
+    clicks = (clicks[0], torch.from_numpy(np.broadcast_to(
+        5.0 / rescale, (32, 8, 2)).copy()).to(dev), clicks[2])
+    out = kernels.gaussian_guide_batch(*clicks, height=h, width=w)
+    ref = kernels.gaussian_guide_batch_plain(*clicks, height=h, width=w)
+    err = float((out - ref).abs().max())
+    worst = max(worst, err)
+    print(f"  B1 {'clicks 32x8 (nf_inter)':20s} scale=1.0    "
+          f"max_abs_err={err:.3e}")
+    if not err <= 1e-6:
+        raise AssertionError(f"B1 disagrees with plain on the click "
+                             f"guides: {err}")
+
     # timing at the main path's shapes: the sweep's (bs 2 directions, 256^2,
-    # K = 20: 4 user-prior slots + 16 propagated slots, sweep epilogue) and
-    # the train preprocess's (batch 8, max_objs 8, a valid prefix)
+    # K = 20: 4 user-prior slots + 16 propagated slots, sweep epilogue), the
+    # train preprocess's (batch 8, max_objs 8, a valid prefix) and the
+    # nf_inter click guides'
     shapes = {"sweep": cases["sweep K=20"],
               "train": guide_inputs(rng, 8, 8, h, w, dev,
-                                    n_valid=rng.integers(0, 9, 8))}
+                                    n_valid=rng.integers(0, 9, 8)),
+              "clicks (nf_inter)": clicks}
     sfu = sfu_per_s()
     rec = None
     for shape_name, (c, s, v) in shapes.items():
-        def run_kernel(i=0, c=c, s=s, v=v):
-            return kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
-                                                scale=0.425, offset=0.5)
+        ep = ((1.0, 0.0) if shape_name.startswith("clicks")
+              else (0.425, 0.5))
 
-        def run_plain(c=c, s=s, v=v):
+        def run_kernel(i=0, c=c, s=s, v=v, ep=ep):
+            return kernels.gaussian_guide_batch(c, s, v, height=h, width=w,
+                                                scale=ep[0], offset=ep[1])
+
+        def run_plain(c=c, s=s, v=v, ep=ep):
             kernels.gaussian_guide_batch_plain(c, s, v, height=h, width=w,
-                                               scale=0.425, offset=0.5)
+                                               scale=ep[0], offset=ep[1])
 
         # plain, kernel, kernel, plain: compare within one call, in turns
         p1 = cuda_ms(run_plain)
@@ -388,7 +442,8 @@ def kernel_phase(dev, seed):
         print(f"  B1 {shape_name} bs={bs} K={k} {h}x{w} ({int(v.sum())} "
               f"valid objects): device {d1:.5f}/{d2:.5f} ms per launch, "
               f"wrapper {k1:.4f}/{k2:.4f} ms per call, plain "
-              f"{p1:.4f}/{p2:.4f} ms, bound {bound:.6f} ms ({by}: {why})")
+              f"{p1:.4f}/{p2:.4f} ms, bound {bound:.6f} ms ({by}: {why}; "
+              f"{bound / min(d1, d2):.1%} of bound); {smi()}")
         rec = rec or row                          # the sweep's row is kept
     return rec
 
@@ -1047,6 +1102,47 @@ def b2_phase(dev):
     return recs
 
 
+def b2_nf_levels(dev):
+    """B2 at the five levels of the NF UNet / UNetInter at batch 16 (bf16):
+    each level against its plain version (b2_check's tolerances) with its
+    B2-fwd plan, then per level and per train step (18 calls of each
+    kernel) the device time per launch, plain and library times and the
+    bound.  Returns {kernel: {"device_ms", "bound_ms", "plain_ms",
+    "library_ms"} per NF train step}."""
+    from boxsegliver_torch.ops import kernels
+
+    names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+    step = {n: dict.fromkeys(("device_ms", "bound_ms", "plain_ms",
+                              "library_ms"), 0.0) for n in names}
+    for i, (shape, count) in enumerate(NF_B2_STEP_SHAPES.items()):
+        errs = b2_check(shape, torch.bfloat16, dev, seed=100 + i)
+        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
+                                        shape[2] * shape[3], torch.bfloat16)
+        t = b2_times(shape, dev)
+        print(f"  NF {str(shape):20s} x{count} fwd {B2_FWD_PATHS[plan.path]}"
+              f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}; max abs "
+              "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        for n in names:
+            bound, by = b2_bound_ms(n, shape)
+            lib = t["library fwd" if n == "in_relu_fwd" else "library bwd"]
+            d = t["device " + n]
+            for key, v in (("device_ms", d), ("bound_ms", bound),
+                           ("plain_ms", t["plain " + n]),
+                           ("library_ms", lib)):
+                step[n][key] += count * v
+            print(f"  NF {str(shape):20s} {n:>18s} device {d:.4f} ms per "
+                  f"launch, plain {t['plain ' + n]:.4f}, library {lib:.4f},"
+                  f" bound {bound:.4f} ({by}), {bound / d:.1%} of bound")
+    calls = sum(NF_B2_STEP_SHAPES.values())
+    for n, r in step.items():
+        print(f"  NF B2 {n} per train step ({calls} calls, batch 16): device "
+              f"{r['device_ms']:.4f} ms ({r['device_ms'] / calls:.5f} per "
+              f"launch), plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms, "
+              f"{r['bound_ms'] / r['device_ms']:.1%} of bound; {smi()}")
+    return step
+
+
 # ---------------------------------------------------------------------------
 # phase 8: the flagship G-Net training through the CLI
 # ---------------------------------------------------------------------------
@@ -1319,8 +1415,18 @@ def smoke_data(tmp, md, *extra):
 
 
 def no_kernel_run(fn, what):
-    """fn() with the launch counters zeroed right before it; the batch-norm
-    UNet path runs no hand-written kernel, so every count must stay 0."""
+    """counted_run(fn) on the batch-norm UNet path, which runs no
+    hand-written kernel: every count must stay 0."""
+    out, seconds, launches = counted_run(fn)
+    if any(launches.values()):
+        raise AssertionError(f"{what}: the batch-norm UNet path launched "
+                             f"{launches}")
+    return out, seconds, launches
+
+
+def counted_run(fn):
+    """fn() with the launch counters zeroed right before it; returns
+    (result, seconds, launches)."""
     from boxsegliver_torch.ops import kernels
 
     kernels.reset_launch_counts()
@@ -1329,11 +1435,20 @@ def no_kernel_run(fn, what):
     out = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {n: f.launches for n, f in kernels.KERNELS.items()}
-    if any(launches.values()):
-        raise AssertionError(f"{what}: the batch-norm UNet path launched "
-                             f"{launches}")
-    return out, seconds, launches
+    return out, seconds, {n: f.launches for n, f in kernels.KERNELS.items()}
+
+
+def cut_case(case, z0, n=8):
+    """The n slices z0 .. z0 + n - 1 of an EvalCase's crop, with their
+    halo."""
+    from boxsegliver_torch.evaluators.eval_loader import EvalCase
+
+    z1 = case.crop[0] + z0
+    return EvalCase(pid=case.pid,
+                    volume=case.volume[z0:z0 + n + case.lhc + case.rhc],
+                    segmentation=None, crop=(z1, z1 + n) + case.crop[2:],
+                    oshape=case.oshape, spacing=case.spacing, lhc=case.lhc,
+                    rhc=case.rhc)
 
 
 def unet_train_phase(tmp):
@@ -1470,32 +1585,41 @@ def host_launches(prof) -> int:
                and e.key.startswith(HOST_LAUNCH_CALLS))
 
 
-def steady(args, ds, what, kernels_used: bool = False, prof_steps: int = 8,
+def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
            top: int = 15):
     """Steady-state train steps of ``args`` on the dataset ``ds`` with the
-    device cache, as bench.py times them, in dispatches of
-    --steps_per_dispatch K: a warm-up (3 steps, or 2K under K > 1: the eager
-    warm-up steps and both captures), 3 windows of 16 steps, each closed by
-    one fetch of the window's metrics (the train loop's drain), then one
-    profiled window.  The launch counters are zeroed before the warm-up: a
-    path without hand-written kernels must launch none, one with them every
-    one.  Returns (median s/step, launches, captured launches per replay)."""
+    device cache (nf_inter: its InterSampler, which has none), as bench.py
+    times them, in dispatches of --steps_per_dispatch K: a warm-up (3
+    steps, or 2K under K > 1: the eager warm-up steps and both captures),
+    3 windows of 16 steps, each closed by one fetch of the window's metrics
+    (the train loop's drain), then one profiled window.
+    The launch counters are zeroed before the warm-up: a path without
+    hand-written kernels must launch none, one with them every one;
+    ``kernels_used`` may instead name the kernels that must launch (the
+    others must not).  Returns (median s/step, launches, captured launches
+    per replay)."""
     from torch.profiler import ProfilerActivity, profile
 
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.data.device_cache import DeviceVolumeCache
     from boxsegliver_torch.data.pipeline import TrainDataset
     from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.data.sampler_inter import InterSampler
     from boxsegliver_torch.ops import kernels
 
     bs, k = int(args.batch_size), int(args.steps_per_dispatch)
-    train_pids, _ = cli._split_pids(args, ds)
-    cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda",
-                              budget_gb=args.device_cache_gb)
+    if cli.is_inter(args):
+        cache = None
+        sampler = InterSampler(ds, args, mode="train", seed=1,
+                               max_clicks=args.max_clicks)
+    else:
+        train_pids, _ = cli._split_pids(args, ds)
+        cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda",
+                                  budget_gb=args.device_cache_gb)
+        sampler = TrainSampler(ds, args, mode="train", seed=1,
+                               zbase=cache.zbase)
     trainer = cli.build_trainer(args, torch.device("cuda"), cache=cache)
-    data = TrainDataset(TrainSampler(ds, args, mode="train", seed=1,
-                                     zbase=cache.zbase), args,
-                        seed=args.seed, workers=1, prefetch=4)
+    data = TrainDataset(sampler, args, seed=args.seed, workers=1, prefetch=4)
     gflop = (3 * unet_gflop_per_slice(trainer.model, args.im_height,
                                       args.im_width)
              if args.model == "UNet" else None)
@@ -1523,8 +1647,9 @@ def steady(args, ds, what, kernels_used: bool = False, prof_steps: int = 8,
         window(3 if k == 1 else 2 * k)
         torch.cuda.synchronize()
         launches = {n: f.launches for n, f in kernels.KERNELS.items()}
-        if not (all(launches.values()) if kernels_used
-                else not any(launches.values())):
+        used = (set(kernels_used) if isinstance(kernels_used, tuple)
+                else set(launches) if kernels_used else set())
+        if not all(bool(c) == (n in used) for n, c in launches.items()):
             raise AssertionError(f"{what}: kernel launches {launches}")
         walls = [window(16) for _ in range(3)]
         with profile(activities=[ProfilerActivity.CPU,
@@ -1540,11 +1665,12 @@ def steady(args, ds, what, kernels_used: bool = False, prof_steps: int = 8,
     share = max(busy_ms, 1e-9)
     wall = statistics.median(walls)
     sps = bs / wall
-    model = "UNet.yml" if args.model == "UNet" else "GUNet.yml"
+    model = f"{args.model}.yml"
     lines = [
         f"card: {smi()}",
         f"{what}: {model} full width, batch {bs}, {args.im_height}^2 x 3, "
-        f"bf16, {args.normalizer or 'batch_norm'}, --device_cache, noise "
+        f"bf16, {args.normalizer or 'batch_norm'}, "
+        f"{'host sampler' if cache is None else '--device_cache'}, noise "
         f"{args.noise_scale}, loss weights {args.loss_weight_type}, "
         f"{args.optimizer}, {args.opt_moment_dtype} moments, "
         f"--steps_per_dispatch {k}; launches in the warm-up {launches}",
@@ -1639,8 +1765,7 @@ def bench_argv(tmp, moments="float32", k=1):
 def unet_eval_phase(tmp, ds, dev, md):
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
-    from boxsegliver_torch.evaluators.eval_loader import (EvalCase,
-                                                          parse_case_eval)
+    from boxsegliver_torch.evaluators.eval_loader import parse_case_eval
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
     argv = UNET_EVAL_FLAGS + smoke_data(tmp, md)
@@ -1674,11 +1799,7 @@ def unet_eval_phase(tmp, ds, dev, md):
     # device_case on the card against the CPU, float32, 8 slices of a case
     args32 = cli.get_args(argv + ["--compute_dtype", "float32"])
     case = parse_case_eval(metas[0], ds, parse_label=False)
-    z1 = case.crop[0]
-    cut = EvalCase(pid=case.pid, volume=case.volume[:8 + case.lhc + case.rhc],
-                   segmentation=None, crop=(z1, z1 + 8) + case.crop[2:],
-                   oshape=case.oshape, spacing=case.spacing, lhc=case.lhc,
-                   rhc=case.rhc)
+    cut = cut_case(case, 0)
     out, logit = [], []
     for d in (dev, torch.device("cpu")):
         m = cli.build_model_from_args(args32, d)
@@ -2625,6 +2746,378 @@ def png_timing(lits, meta):
           f"{viewer.ZLIB_LEVEL}): " + "; ".join(parts))
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the NF task — 101_unet_v2.sh, prepare negcache,
+# 101_unetinter_v10.sh and run_sp
+# ---------------------------------------------------------------------------
+
+# run_scripts/nf/_lib.sh NF_BASE_FLAGS; the dataset (the CLI's own
+# synthetic_nf), k_folds, the epoch length, the eval batch count and the
+# step counts are the smoke's own, appended in nf_argv
+NF_BASE = [
+    "--classes", "NF", "--test_fold", "0", "--im_height", "256",
+    "--im_width", "256", "--im_channel", "3", "--noise_scale", "0",
+    "--random_flip", "3", "--primary_metric", "NF/Dice",
+    "--loss_weight_type", "numerical", "--batches_per_epoch", "1200",
+    "--batch_size", "16", "--learning_policy", "plateau",
+    "--learning_rate", "0.0003", "--lr_end", "0.0000005",
+    "--lr_decay_rate", "0.2", "--normalizer", "instance_norm",
+    "--eval_num_batches_per_epoch", "120", "--evaluator", "Volume",
+    "--summary_prefix", "nf", "--dataset", "NF", "--num_replicas", "0"]
+# run_scripts/nf/101_unet_v2.sh train / eval and 101_unetinter_v10.sh
+UNET_V2_TRAIN = ["--model", "UNet", "--filter_size", "10",
+                 "--loss_numeric_w", "1", "10", "--weight_decay_rate",
+                 "0.00001", "--num_of_total_steps", "999999",
+                 "--eval_per_epoch", "--save_best"]
+UNET_V2_EVAL = ["--model", "UNet", "--loss_numeric_w", "1", "10"]
+INTER_MODEL = ["--model", "UNetInter", "--loss_numeric_w", "1", "1",
+               "--use_spatial", "--local_enhance", "--stddev", "5."]
+INTER_TRAIN = INTER_MODEL + [
+    "--weight_decay_rate", "0.00003", "--num_of_total_steps", "250000",
+    "--eval_per_epoch", "--save_best", "--save_interval", "50000"]
+NF_EVAL_BATCHES = 4          # online eval batches of the smoke's train runs
+NF_BLOCKS = 18               # full-affine IN + ReLU blocks of both models
+B2_ALL = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+
+
+def nf_argv(task, mode, tag, tmp, md, *extra):
+    """The flags of one phase-19 CLI run: NF_BASE, the smoke's data and
+    sizes, then ``extra`` (the launcher's flags; the last of a repeated
+    flag wins)."""
+    return [task, "--mode", mode, "--tag", tag] + NF_BASE + [
+        "--data_root", str(tmp), "--dataset", "synthetic_nf", "--k_folds",
+        "2", "--model_dir", str(md), "--batches_per_epoch", "12",
+        "--eval_num_batches_per_epoch", str(NF_EVAL_BATCHES), "--log_step",
+        "4", *ONE_WORKER] + list(extra)
+
+
+def expect_launches(what, launches, want):
+    if launches != want:
+        raise AssertionError(f"{what}: kernel launches {launches}, "
+                             f"expected {want}")
+
+
+def nf_dataset(tmp):
+    """The CLI's own synthetic_nf set (cli.main.resolve_dataset_dir: 4 NF
+    cases of 24 x 256^2) under ``tmp``."""
+    from boxsegliver_torch.cli import main as cli
+
+    args = cli.get_args(["nf", "--mode", "train", "--tag", "t", "--model",
+                         "UNet", "--classes", "NF", "--k_folds", "2",
+                         "--data_root", str(tmp), "--model_dir",
+                         str(Path(tmp) / "nf_ds_md")])
+    args.dataset = "synthetic"          # get_args maps it to NF for nf tasks
+    t0 = time.perf_counter()
+    root = cli.resolve_dataset_dir(args)
+    print(f"  synthetic_nf 4 x (24, 256, 256) in "
+          f"{time.perf_counter() - t0:.1f} s -> {root}")
+    return root
+
+
+def _train_log(md, prefix="nf"):
+    lines = [json.loads(ln) for ln in
+             (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
+    loss = {ln["step"]: ln["value"] for ln in lines
+            if ln["tag"] == f"{prefix}/loss"}
+    evals = {ln["step"]: ln["value"] for ln in lines
+             if ln["tag"] == f"{prefix}/eval/NF/Dice"}
+    if not loss or not all(math.isfinite(v) for v in loss.values()):
+        raise AssertionError(f"non-finite train loss {loss}")
+    if sorted(evals) != [12, 24]:
+        raise AssertionError(f"online evals at {sorted(evals)}, not 12, 24")
+    return loss, evals
+
+
+def nf_train_phase(tmp, ds):
+    """(a) 101_unet_v2.sh train through the CLI: UNet.yml full width,
+    instance norm, batch 16, 256^2 x 3; 24 steps with the online eval every
+    12 (4 batches), then a resume to 30; then the step in steady state at
+    K = 1 and K = 16."""
+    from boxsegliver_torch.cli import main as cli
+
+    md = Path(tmp) / "nf_md"
+    trainer, seconds, launches = counted_run(lambda: cli.main(nf_argv(
+        "nf", "train", "chip_smoke_nf", tmp, md, *UNET_V2_TRAIN,
+        "--num_of_steps", "24")))
+    if trainer.global_step != 24 or not (md / "ckpt_best" / "best" /
+                                         "state.pt").exists():
+        raise AssertionError(f"nf train stopped at {trainer.global_step}")
+    steps, evals = 24, 2 * NF_EVAL_BATCHES
+    expect_launches("nf train", launches, {
+        "gaussian_guide_batch": 0,
+        "in_relu_fwd": NF_BLOCKS * (steps + evals),
+        "in_relu_bwd_stats": NF_BLOCKS * steps,
+        "in_relu_bwd_apply": NF_BLOCKS * steps})
+    loss, dice = _train_log(md)
+    s0 = sorted(loss)
+    if not np.mean([loss[k] for k in s0[-3:]]) < loss[s0[0]]:
+        raise AssertionError(f"nf train loss did not fall: {loss}")
+    print(f"  nf train (101_unet_v2.sh flags): 24 steps of 16 x 256^2 in "
+          f"{seconds:.2f} s ({seconds / 24 * 1e3:.1f} ms/step with set-up and"
+          f" two online evals of {NF_EVAL_BATCHES} batches); per train step "
+          f"B2-fwd {NF_BLOCKS} (+{NF_BLOCKS} per eval batch), B2a "
+          f"{launches['in_relu_bwd_stats'] // steps}, B2b "
+          f"{launches['in_relu_bwd_apply'] // steps}, B1 0; loss "
+          + ", ".join(f"{k}: {loss[k]:.4f}" for k in s0)
+          + f"; eval NF/Dice {dice}; {smi()}")
+    again, seconds2, _ = counted_run(lambda: cli.main(nf_argv(
+        "nf", "train", "chip_smoke_nf", tmp, md, *UNET_V2_TRAIN,
+        "--num_of_steps", "30")))
+    if again.global_step != 30:
+        raise AssertionError(f"nf resume ended at {again.global_step}")
+    print(f"  nf resume: steps 25-30 in {seconds2:.2f} s")
+
+    walls = {}
+    for k in (1, 16):
+        args = cli.get_args(nf_argv(
+            "nf", "train", "chip_smoke_nf_b", tmp, Path(tmp) / f"nf_b{k}",
+            *UNET_V2_TRAIN, "--steps_per_dispatch", str(k)))
+        walls[k], warm, replay = steady(
+            args, ds, f"101_unet_v2.sh train step, K={k}",
+            kernels_used=B2_ALL, prof_steps=8 if k == 1 else 16, top=10)
+        if k == 1:
+            expect_launches("nf steady warm-up", warm, {
+                "gaussian_guide_batch": 0, "in_relu_fwd": 3 * NF_BLOCKS,
+                "in_relu_bwd_stats": 3 * NF_BLOCKS,
+                "in_relu_bwd_apply": 3 * NF_BLOCKS})
+        elif any(c["in_relu_fwd"] != NF_BLOCKS for c in replay.values()):
+            raise AssertionError(f"nf K=16 replay launches {replay}")
+    print(f"  nf train step ms/step (median of 3 windows of 16): K=1 "
+          f"{walls[1] * 1e3:.3f}, K=16 {walls[16] * 1e3:.3f}; slices/s "
+          f"{16 / walls[1]:.1f} / {16 / walls[16]:.1f}; {smi()}")
+    return md, launches
+
+
+def nf_card_vs_cpu(argv, ds, dev, what, sp_point=False):
+    """device_case of 8 slices of the first test case in float32 on the
+    card and on the CPU from the same weights (with the sp-point guides,
+    drawn by B1 on the card and by its plain version on the CPU, under
+    ``sp_point``): max abs error of the probabilities, held at 1e-4."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+    from boxsegliver_torch.evaluators.eval_loader import parse_case_eval
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    args = cli.get_args(argv + ["--compute_dtype", "float32"])
+    meta = cli._test_metas(args, ds)[0]
+    ev = EvaluateVolume(args, ds, ["Background"] + list(args.classes))
+    case = parse_case_eval(meta, ds, im_channel=3, parse_label=False,
+                           norm=ev.norm, whole_frame=True)
+    sids = meta["tumor_slices_index"]
+    z0 = min(sids[0], case.depth - 8) if sids else 0
+    cut = cut_case(case, z0)
+    out, logit = [], []
+    for d in (dev, torch.device("cpu")):
+        m = cli.build_model_from_args(args, d)
+        hook = m.AdjustChannels.register_forward_hook(
+            lambda mod, i, o: logit.append(float(o.abs().max())))
+        guide = (ev.sp_point_guides(meta, case, device=d)[z0:z0 + 8]
+                 if sp_point else None)
+        out.append(DeviceSlicePredictor(m, args, device=d).device_case(
+            cut, sp_guide=guide))
+        hook.remove()
+    err = float(np.abs(out[0] - out[1]).max())
+    print(f"  {what} card vs CPU (float32, case {case.pid}, slices "
+          f"{z0}-{z0 + 7} of 256^2, max |logit| {max(logit):.1f}): max abs "
+          f"err {err:.2e}")
+    if not err <= 1e-4:
+        raise AssertionError(f"{what} on the card disagrees with the CPU")
+
+
+def nf_eval_phase(tmp, ds, dev, md):
+    """(b) 101_unet_v2.sh eval (--save_predict) through the CLI on (a)'s
+    best checkpoint: s/case and B2-fwd launches; --mode infer of the other
+    fold into the same predictions (the negatives cache of (c) then covers
+    the training cases); device_case card vs CPU."""
+    from boxsegliver_torch.cli import main as cli
+
+    argv = nf_argv("nf", "eval", "chip_smoke_nf", tmp, md, *UNET_V2_EVAL,
+                   "--save_predict")
+    results, seconds, launches = counted_run(lambda: cli.main(argv))
+    metas = cli._test_metas(cli.get_args(argv), ds)
+    depth = [m["size"][0] for m in metas]
+    expect_launches("nf eval", launches, {
+        "gaussian_guide_batch": 0, "in_relu_bwd_stats": 0,
+        "in_relu_bwd_apply": 0,
+        "in_relu_fwd": NF_BLOCKS * sum(-(-z // 16) for z in depth)})
+    if "NF/Dice" not in results or not all(math.isfinite(v)
+                                           for v in results.values()):
+        raise AssertionError(f"nf eval results {results}")
+    _, seconds_i, _ = counted_run(lambda: cli.main(nf_argv(
+        "nf", "infer", "chip_smoke_nf", tmp, md, *UNET_V2_EVAL,
+        "--test_fold", "1")))
+    preds = sorted((md / "prediction").glob("predict-*.nii.gz"))
+    if len(preds) != 4:
+        raise AssertionError(f"predictions written: {preds}")
+    print(f"  nf eval (101_unet_v2.sh eval flags): {json.dumps(results)}; "
+          f"{len(metas)} cases of {depth} slices in {seconds:.2f} s "
+          f"({seconds / len(metas):.3f} s/case); infer of fold 1 "
+          f"{seconds_i / 2:.3f} s/case; launches {launches}; {smi()}")
+    nf_card_vs_cpu(argv, ds, dev, "nf device_case")
+    return launches, md / "prediction"
+
+
+def inter_card_vs_cpu(tmp, ds, dev, seed):
+    """A UNetInter_TINY nf_inter train step at 64^2 in float32, TF32 off,
+    on the card and on the CPU from the same weights (norm offsets and
+    transpose-conv biases at 3, away from the ReLUs' kinks) and the same
+    processed batch: loss, gradients and, after 3 Momentum steps, the
+    parameters within 1e-4."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import batch_to_device
+    from boxsegliver_torch.data.pipeline_inter import make_inter_preprocess_fn
+    from boxsegliver_torch.data.sampler_inter import InterSampler
+
+    args = cli.get_args(nf_argv(
+        "nf_inter", "train", "chip_smoke_nf_cmp", tmp,
+        Path(tmp) / "nf_inter_cmp", *INTER_TRAIN, "--fp_sample",
+        "--im_height", "64", "--im_width", "64", "--compute_dtype",
+        "float32", "--model_config", "UNetInter_TINY.yml", "--optimizer",
+        "Momentum", "--batch_size", "4"))
+    raw = InterSampler(ds, args, seed=seed).sample_batch(4)
+    feats, labels = make_inter_preprocess_fn(args, train=False)(
+        batch_to_device(raw, "cpu"), None)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        ft = {k: v.to(d) for k, v in feats.items()}
+        trainer = cli.build_trainer(args, d)
+        with torch.no_grad():
+            for name, p in trainer.model.named_parameters():
+                if name.endswith("norm.bias") or (
+                        name.startswith("up") and name.count(".") == 1
+                        and name.endswith("bias")):
+                    p.fill_(3.0)
+        trainer.preprocess_fn = (lambda batch, gen, ft=ft, d=d:
+                                 (ft, labels.to(d)))
+        grads = [g.detach().cpu() for g in
+                 trainer.gradients(ft, labels.to(d))[0]]
+        losses = [float(trainer.train_step({"names": raw["names"]})[0][0])
+                  for _ in range(3)]
+        out.append((losses, grads, {k: v.detach().cpu() for k, v in
+                                    trainer.model.state_dict().items()}))
+        trainer.summary.close()
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(out[0][0],
+                                                       out[1][0]))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(out[0][1],
+                                                           out[1][1]))
+    p_err = max(float((out[0][2][k] - v).abs().max())
+                for k, v in out[1][2].items())
+    print(f"  nf_inter train step card vs CPU (UNetInter_TINY, 64^2, "
+          f"float32): losses {out[0][0]} / {out[1][0]} (rel err "
+          f"{loss_err:.2e}), gradients max abs err {g_err:.2e}, parameters "
+          f"after 3 steps max abs err {p_err:.2e}")
+    if not (loss_err <= 1e-4 and g_err <= 1e-4 and p_err <= 1e-4):
+        raise AssertionError("the nf_inter train step on the card "
+                             "disagrees with the CPU")
+
+
+def nf_inter_train_phase(tmp, ds, dev, seed, preds):
+    """(c) prepare negcache from (b)'s predictions, then 101_unetinter_v10.sh
+    train with --fp_sample through the CLI: UNetInter.yml full width,
+    instance norm, batch 16, 24 steps with the online eval every 12; the
+    step in steady state (K = 1); UNetInter_TINY card vs CPU."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.cli import prepare
+
+    _, seconds, _ = counted_run(lambda: prepare.main([
+        "negcache", "--dst", str(ds), "--pred_dir", str(preds)]))
+    neg = sorted((ds / "neg").glob("volume-*.npy"))
+    n_fp = sum(int(np.load(p).sum()) for p in neg)
+    print(f"  prepare negcache: {len(neg)} cases, {n_fp} false-positive "
+          f"voxels, in {seconds:.2f} s")
+    if len(neg) != 4:
+        raise AssertionError(f"negatives cache {neg}")
+    md = Path(tmp) / "nf_inter_md"
+    trainer, seconds, launches = counted_run(lambda: cli.main(nf_argv(
+        "nf_inter", "train", "chip_smoke_nf_inter", tmp, md, *INTER_TRAIN,
+        "--fp_sample", "--num_of_steps", "24")))
+    if trainer.global_step != 24 or not (md / "ckpt_best" / "best" /
+                                         "state.pt").exists():
+        raise AssertionError(f"nf_inter train stopped at "
+                             f"{trainer.global_step}")
+    steps, evals = 24, 2 * NF_EVAL_BATCHES
+    expect_launches("nf_inter train", launches, {
+        "gaussian_guide_batch": steps + evals,
+        "in_relu_fwd": NF_BLOCKS * (steps + evals),
+        "in_relu_bwd_stats": NF_BLOCKS * steps,
+        "in_relu_bwd_apply": NF_BLOCKS * steps})
+    loss, dice = _train_log(md)
+    print(f"  nf_inter train (101_unetinter_v10.sh flags, --fp_sample): 24 "
+          f"steps of 16 x 256^2 in {seconds:.2f} s ({seconds / 24 * 1e3:.1f}"
+          f" ms/step with set-up and two online evals); per train step B1 1,"
+          f" B2-fwd / B2a / B2b {NF_BLOCKS} (each eval batch: B1 1, B2-fwd "
+          f"{NF_BLOCKS}); loss " + ", ".join(
+              f"{k}: {loss[k]:.4f}" for k in sorted(loss))
+          + f"; eval NF/Dice {dice}; {smi()}")
+    args = cli.get_args(nf_argv(
+        "nf_inter", "train", "chip_smoke_nf_inter_b", tmp,
+        Path(tmp) / "nf_inter_b", *INTER_TRAIN, "--fp_sample"))
+    _, warm, _ = steady(args, ds, "101_unetinter_v10.sh train step, K=1",
+                        kernels_used=True, top=10)
+    expect_launches("nf_inter steady warm-up", warm, {
+        "gaussian_guide_batch": 3, "in_relu_fwd": 3 * NF_BLOCKS,
+        "in_relu_bwd_stats": 3 * NF_BLOCKS,
+        "in_relu_bwd_apply": 3 * NF_BLOCKS})
+    inter_card_vs_cpu(tmp, ds, dev, seed)
+    return md, launches
+
+
+def nf_inter_eval_phase(tmp, ds, dev, md):
+    """(d) 101_unetinter_v10.sh eval (the online eval over fixed batches)
+    and ``nf --mode eval --use_spatial`` (run_sp, its guides one B1 launch
+    per case) through the CLI on (c)'s best checkpoint; run_sp card vs
+    CPU."""
+    from boxsegliver_torch.cli import main as cli
+
+    n_batches = 8
+    results, seconds, launches = counted_run(lambda: cli.main(nf_argv(
+        "nf_inter", "eval", "chip_smoke_nf_inter", tmp, md, *INTER_MODEL,
+        "--eval_num_batches_per_epoch", str(n_batches))))
+    expect_launches("nf_inter eval", launches, {
+        "gaussian_guide_batch": n_batches, "in_relu_bwd_stats": 0,
+        "in_relu_bwd_apply": 0, "in_relu_fwd": NF_BLOCKS * n_batches})
+    rows = (md / "eval_results_2d.txt").read_text().splitlines()
+    if json.loads(rows[-1]) != {"results": results}:
+        raise AssertionError("eval_results_2d.txt does not hold the run")
+    print(f"  nf_inter eval (online, {n_batches} fixed batches of 16): "
+          f"{json.dumps(results)} in {seconds:.2f} s "
+          f"({seconds / n_batches:.3f} s/batch with the sampling); launches "
+          f"{launches}")
+    argv = nf_argv("nf", "eval", "chip_smoke_nf_inter", tmp, md,
+                   *INTER_MODEL)
+    results_sp, seconds_sp, launches_sp = counted_run(
+        lambda: cli.main(argv))
+    metas = cli._test_metas(cli.get_args(argv), ds)
+    guided = sum(1 for m in metas if m["tumor_slices_index"])
+    depth = [m["size"][0] for m in metas]
+    expect_launches("run_sp", launches_sp, {
+        "gaussian_guide_batch": guided, "in_relu_bwd_stats": 0,
+        "in_relu_bwd_apply": 0,
+        "in_relu_fwd": NF_BLOCKS * sum(-(-z // 16) for z in depth)})
+    if not all(math.isfinite(v) for v in results_sp.values()):
+        raise AssertionError(f"run_sp results {results_sp}")
+    print(f"  run_sp (nf --mode eval --use_spatial, UNetInter.yml): "
+          f"{json.dumps(results_sp)}; {len(metas)} cases in "
+          f"{seconds_sp:.2f} s ({seconds_sp / len(metas):.3f} s/case), B1 "
+          f"{launches_sp['gaussian_guide_batch'] / len(metas):.0f} per case;"
+          f" launches {launches_sp}; {smi()}")
+    nf_card_vs_cpu(argv, ds, dev, "run_sp device_case", sp_point=True)
+    return launches, launches_sp
+
+
+def nf_phase(tmp, dev, seed):
+    """Phase 19: (a)-(d) on the CLI's synthetic_nf set; returns the launch
+    counts of each path for the kernels line."""
+    ds = nf_dataset(tmp)
+    md, train_l = nf_train_phase(tmp, ds)
+    eval_l, preds = nf_eval_phase(tmp, ds, dev, md)
+    md_i, inter_l = nf_inter_train_phase(tmp, ds, dev, seed, preds)
+    inter_eval_l, sp_l = nf_inter_eval_phase(tmp, ds, dev, md_i)
+    return {"nf_train": train_l, "nf_eval": eval_l,
+            "nf_inter_train": inter_l, "nf_inter_eval": inter_eval_l,
+            "run_sp": sp_l}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2635,7 +3128,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/18] device")
+    print("[1/19] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -2650,7 +3143,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/18] build")
+    print("[2/19] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -2660,7 +3153,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/18] kernel B1 vs plain")
+    print("[3/19] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2670,48 +3163,52 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/18] labeling vs scipy")
+        print("[4/19] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/18] flagship guided eval (run_g) through the CLI")
+        print("[5/19] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/18] profile of one case's sweep (steady state)")
+        print("[6/19] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/18] kernel B2 vs plain")
+        print("[7/19] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        print("[8/18] flagship G-Net training through the CLI")
+        b2_nf_levels(dev)
+        print("[8/19] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/18] profile of the flagship train step (steady state)")
+        print("[9/19] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/18] UNet training (001_unet.sh train) through the CLI")
+        print("[10/19] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/18] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/19] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/18] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/19] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/18] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/19] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/18] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/19] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/18] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/19] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/18] train step card vs CPU: boundary and proportion "
+        print("[16/19] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/18] serving: --mode export and the REST server on the "
+        print("[17/19] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/18] prepare -> annotate -> viewers on the card")
+        print("[18/19] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
+        print("[19/19] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+              "101_unetinter_v10.sh train and eval, run_sp")
+        paths.update(nf_phase(tmp, dev, opts.seed))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

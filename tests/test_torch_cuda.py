@@ -307,6 +307,104 @@ def test_graphed_generator_advances(dev, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the NF slice: B1 and B2 at the nf / nf_inter shapes, the inter step graphed
+# ---------------------------------------------------------------------------
+
+def test_b1_at_the_click_guide_shape_matches_plain(dev):
+    """The nf_inter train step's one launch: fg and bg click guides of a
+    batch of 16 as 32 rows, K = --max_clicks 8, a valid prefix, stddev
+    --stddev / rescale per row and axis, no epilogue."""
+    rng = np.random.default_rng(19)
+    n = rng.integers(0, 9, 32)
+    c = torch.from_numpy(rng.uniform(0, 256, (32, 8, 2)).astype(np.float32))
+    rescale = rng.uniform(1.0, 1.4, (32, 1, 2)).astype(np.float32)
+    s = torch.from_numpy(np.broadcast_to(5.0 / rescale, (32, 8, 2)).copy())
+    v = torch.from_numpy(np.arange(8)[None] < n[:, None])
+    c, s, v = c.to(dev), s.to(dev), v.to(dev)
+    before = kernels.gaussian_guide_batch.launches
+    out = kernels.gaussian_guide_batch(c, s, v, height=256, width=256)
+    ref = kernels.gaussian_guide_batch_plain(c, s, v, height=256, width=256)
+    torch.cuda.synchronize()
+    assert kernels.gaussian_guide_batch.launches == before + 1
+    torch.testing.assert_close(out, ref, atol=1e-6, rtol=0)
+    assert bool((out[torch.from_numpy(n == 0).to(dev)] == 0).all())
+
+
+# the five levels of UNet.yml / UNetInter.yml at batch 16 (bf16)
+NF_B2_SHAPES = [(16, 64, 256, 256), (16, 128, 128, 128), (16, 256, 64, 64),
+                (16, 512, 32, 32), (16, 1024, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", NF_B2_SHAPES)
+def test_b2_at_the_nf_levels_matches_plain(dev, shape):
+    x, g, w, b = _in_relu_inputs(shape, torch.bfloat16, dev)
+    y, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
+    s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
+    s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
+    dx = kernels.in_relu_bwd_apply(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    dx_p = kernels.in_relu_bwd_apply_plain(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    torch.cuda.synchronize()
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    torch.testing.assert_close(xh.float(), xh_p.float(), **tol)
+    hw = shape[2] * shape[3]
+    torch.testing.assert_close(s1, s1_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(s2, s2_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+
+
+def test_inter_steps_graphed_match_eager(dev, tmp_path):
+    """nf_inter (UNetInter_TINY, --local_enhance, float32, TF32 off,
+    flips, noise and gamma off): 8 steps as 2 dispatches of 4 against 8
+    eager steps; each replay launches B1 once (the click guides) and B2 per
+    block, and the losses agree within 1e-4 relative.  With gamma, noise
+    and flips on (the 101_unetinter_v10.sh pipeline) the graphed steps run
+    and stay finite."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.config import resolve_device
+    from boxsegliver_torch.data.sampler_inter import InterSampler
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    ds = tmp_path / "nf"
+    make_synthetic_dataset(ds, n_cases=4, shape=(8, 64, 64), k_split=2,
+                           modality="nf", seed=1)
+
+    def trainer(k, *extra):
+        args = cli.get_args([
+            "nf_inter", "--mode", "train", "--tag", "t", "--model",
+            "UNetInter", "--model_config", "UNetInter_TINY.yml",
+            "--classes", "NF", "--k_folds", "2", "--test_fold", "0",
+            "--im_height", "64", "--im_width", "64", "--normalizer",
+            "instance_norm", "--use_spatial", "--local_enhance", "--stddev",
+            "5", "--batch_size", "2", "--compute_dtype", "float32",
+            "--loss_weight_type", "numerical", "--loss_numeric_w", "1", "1",
+            "--log_step", "2", "--data_root", str(tmp_path), "--dataset",
+            "nf", "--model_dir", str(tmp_path / f"md{k}{len(extra)}"),
+            "--steps_per_dispatch", str(k)] + list(extra))
+        return args, cli.build_trainer(args, resolve_device("cuda"))
+
+    quiet = ("--noise_scale", "0", "--random_flip", "0", "--no_gamma")
+    args, graphed = trainer(4, *quiet)
+    _, eager = trainer(1, *quiet)
+    sampler = InterSampler(ds, args, seed=3)
+    rng = np.random.RandomState(3)
+    batches = [sampler.sample_batch(2, rng=rng) for _ in range(8)]
+    kernels.reset_launch_counts()
+    vals_g = _run(graphed, batches, 4)
+    vals_e = _run(eager, batches, 1)
+    per = {m: c for m, (_, c) in graphed._graphs.items()}
+    assert per and all(c["gaussian_guide_batch"] == 1
+                       and c["in_relu_fwd"] == c["in_relu_bwd_stats"]
+                       == c["in_relu_bwd_apply"] == 10 for c in per.values())
+    torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
+                               atol=0)
+    _, noisy = trainer(4, "--noise_scale", "0.05", "--random_flip", "3")
+    assert bool(torch.isfinite(_run(noisy, batches, 4)).all())
+
+
+# ---------------------------------------------------------------------------
 # serving: B2-fwd as the registered operator, the export bundle on the card
 # ---------------------------------------------------------------------------
 

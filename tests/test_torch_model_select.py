@@ -38,6 +38,22 @@ def test_every_jax_config_is_carried_or_refused(name):
             load_model_config("GUNet", name)
 
 
+def test_unetinter_configs_are_ported():
+    """UNetInter.yml and UNetInter_TINY.yml moved to the ported side with
+    the nf_inter slice: carried, and built as the port's UNetInter with the
+    guide's channels from --guide_channel."""
+    assert {"UNetInter.yml", "UNetInter_TINY.yml"} <= set(MODEL_CONFIGS)
+    assert not {"UNetInter.yml", "UNetInter_TINY.yml"} & set(UNPORTED_CONFIGS)
+    args = cli.get_args(["nf_inter", "--mode", "train", "--tag", "t",
+                         "--model", "UNetInter", "--model_config",
+                         "UNetInter_TINY.yml", "--classes", "NF",
+                         "--guide_channel", "1", "--device", "cpu",
+                         "--model_dir", "md"])
+    model = cli._build_model(args)
+    assert type(model).__name__ == "UNetInter"
+    assert model.Encode1_conv1.conv.weight.shape[1] == 3 + 1
+
+
 def test_unported_list_names_only_jax_configs():
     assert set(UNPORTED_CONFIGS) <= set(JAX_CONFIGS)
     assert set(MODEL_CONFIGS) | set(UNPORTED_CONFIGS) == set(JAX_CONFIGS)

@@ -151,9 +151,31 @@ def test_synthetic_matches_jax(tmp_path):
     ["synthetic", "--dst", "d", "--variant", "hard"]],
     ids=["negcache", "synthetic_nf", "synthetic_hard"])
 def test_unported_subcommands_raise(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_prepare.main([str(tmp_path / a) if a in ("d", "p") else a
-                        for a in argv])
+    """These subcommands raised NotImplementedError until the NF slice
+    ported them; each now writes what the JAX CLI writes (the synthetic NF
+    sets of 2 cases of 6 x 32^2; the negatives cache from one prediction
+    directory with a false-positive blob beside each case's labels)."""
+    if argv[0] == "synthetic":
+        a, b = _both(tmp_path, [x if x != "d" else "{dst}" for x in argv]
+                     + ["--cases", "2", "--depth", "6", "--size", "32"])
+        _assert_same_tree(a, b)
+        return
+    from boxsegliver_tpu.data.synthetic import make_synthetic_dataset
+
+    pred = tmp_path / "p"
+    pred.mkdir()
+    for name in ("jax", "torch"):
+        make_synthetic_dataset(tmp_path / name, n_cases=2, shape=(6, 32, 32),
+                               modality="nf", seed=1)
+    for pid in (0, 1):
+        lab = np.load(tmp_path / "jax" / f"volume-{pid}" / "segmentation.npy")
+        p = (lab > 0).astype(np.uint8)
+        p[1:4, 2:9, 2:9] = 1
+        np.savez_compressed(pred / f"predict-{pid}.npz", p)
+    for name, mod in (("jax", j_prepare), ("torch", t_prepare)):
+        mod.main([str(tmp_path / name) if a == "d" else
+                  str(pred) if a == "p" else a for a in argv])
+    _assert_same_tree(tmp_path / "jax" / "neg", tmp_path / "torch" / "neg")
 
 
 def _image(levels, seed):
