@@ -52,21 +52,23 @@ SIGNATURE_FILE = "signature.json"
 
 
 def build_feature_template(args) -> Dict[str, np.ndarray]:
-    """The serving inputs at their exported shapes (the 2-D,
-    non-interactive part of JAX cli/main.py:98-121): images
-    [bs, H, W, C]; sp_guide [bs, H, W, 1] filled with 0.5 under
+    """The serving inputs at their exported shapes (the 2-D part of JAX
+    cli/main.py:98-121): images [bs, H, W, C]; sp_guide [bs, H, W,
+    --guide_channel] of zeros for the click-guided models (the nf_inter
+    task, UNetInter, InterUNet), else [bs, H, W, 1] filled with 0.5 under
     --use_spatial; context [bs, context length] under --use_context."""
     if args.model == "UNet3D" or args.task == "nf_3d":
         _not_ported("the 3D export", "queue A, 3D tower")
-    if args.task == "nf_inter" or args.model in ("UNetInter", "InterUNet"):
-        _not_ported("the click-guided export", "queue A, interactive click "
-                    "path")
     if args.task == "nf2" and getattr(args, "use_context", False):
         _not_ported("the nf2 image-patch context export", "queue A, nf2 / "
                     "IIN")
     bs, h, w = args.batch_size, args.im_height, args.im_width
     feats = {"images": np.zeros((bs, h, w, args.im_channel), np.float32)}
-    if getattr(args, "use_spatial", False):
+    if args.task == "nf_inter" or args.model in ("UNetInter", "InterUNet"):
+        # these models consume a click guide unconditionally
+        gc = int(getattr(args, "guide_channel", 2))
+        feats["sp_guide"] = np.zeros((bs, h, w, gc), np.float32)
+    elif getattr(args, "use_spatial", False):
         feats["sp_guide"] = np.full((bs, h, w, 1), 0.5, np.float32)
     if getattr(args, "use_context", False):
         feats["context"] = np.zeros((bs, context_length(args)), np.float32)

@@ -1,0 +1,179 @@
+"""The interactive click-refinement eval, 2-D (port of
+boxsegliver_tpu/cli/interactive_eval.py:1-203; reference
+entry/main_eval.py:43-396): per lesion slice, clicks at the largest error
+until Dice clears ``--dice_thresh`` or ``--max_iters`` clicks are spent, on
+the test fold's lesion-bearing cases; per-case Dice and clicks and their
+means, which go to ``model_dir/eval_results_inter.txt``.
+
+    python -m boxsegliver_torch.cli.interactive_eval --mode eval \\
+        --tag 101_unetinter_v10 --model UNetInter --loss_numeric_w 1 1 \\
+        --use_spatial --local_enhance --stddev 5. --classes NF \\
+        --test_fold 0 --im_height 256 --im_width 256 --im_channel 3 \\
+        --normalizer instance_norm --batch_size 1 --dataset NF --dim 2 \\
+        [--device_refine on|off|auto] [--guide_kind gaussian|euclidean|
+        geodesic] [--device cpu]      # 101_unetinter_v10.sh inter
+
+Runs on the card unless ``--device cpu``.  Weights as ``--mode eval`` of
+cli/main (restore_weights: ``--ckpt_path``, else the best checkpoint, else
+the latest).  Each 2.5-D stack of ``--im_channel`` slices (edge-padded) is
+z-scored over its non-zero voxels, as the click training normalizes.  The
+refinement runs as the device refiner (interactive/device_refine.py: all
+lesion slices of a case at once, B1 or G1 drawing the guides) or the
+per-slice host loop (interactive/refine.py), by ``--device_refine``.
+``--dim 3`` and ``--num_replicas > 1`` raise, naming their ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+
+from boxsegliver_torch import config as config_mod
+from boxsegliver_torch.utils.logger import setup_logger
+
+
+def build_parser():
+    parser = config_mod.build_parser()
+    group = parser.add_argument_group(title="Interactive Eval Arguments")
+    group.add_argument("--dim", type=int, choices=[2, 3], default=2)
+    group.add_argument("--dice_thresh", type=float, default=0.85)
+    group.add_argument("--max_iters", type=int, default=10)
+    group.add_argument("--guide_stddev", type=float, default=5.0)
+    group.add_argument("--guide_kind", type=str, default="gaussian",
+                       choices=["gaussian", "euclidean", "geodesic"])
+    group.add_argument("--tta", action="store_true",
+                       help="8-way mirror TTA in the 3D loop (not ported)")
+    group.add_argument("--device_refine", choices=["on", "off", "auto"],
+                       default="auto",
+                       help="on = the device refiner (all lesion slices of a "
+                            "case together on the card); off = the per-slice "
+                            "host loop; auto = on (the faster of the two "
+                            "on the card at 128^2 and 256^2: chip_smoke.py "
+                            "phase 20d)")
+    group.add_argument("--task", type=str, default="synthetic",
+                       help="dataset pairing (as in cli.main); 'synthetic' "
+                            "auto-generates, anything else resolves "
+                            "<data_root>/<dataset>")
+    return parser
+
+
+def build_refiner(args, model, device):
+    """The device refiner, or None for the host loop (--device_refine)."""
+    if getattr(args, "device_refine", "auto") == "off":
+        return None
+    from boxsegliver_torch.interactive.device_refine import DeviceRefiner2D
+    return DeviceRefiner2D(
+        model, dice_thresh=args.dice_thresh, max_iters=args.max_iters,
+        stddev=args.guide_stddev, guide_kind=args.guide_kind,
+        guide_channel=int(args.guide_channel), device=device)
+
+
+def make_predict(model):
+    """predict_fn of the host loop: softmax of the model's logits."""
+    import torch
+
+    @torch.no_grad()
+    def predict(feats):
+        return torch.softmax(model(feats), dim=-1)
+
+    return predict
+
+
+def slice_stacks(vol: np.ndarray, channels: int) -> np.ndarray:
+    """[d, h, w] -> [d, h, w, channels] 2.5-D stacks, edge-padded, each
+    z-scored over its non-zero voxels (pipeline_inter's normalization)."""
+    from boxsegliver_torch.ops.array_kits import zscore
+
+    vol = vol.astype(np.float32)
+    lh = (channels - 1) // 2
+    rh = channels - 1 - lh
+    padded = np.concatenate([np.repeat(vol[:1], lh, 0), vol,
+                             np.repeat(vol[-1:], rh, 0)], axis=0)
+    return np.stack([zscore(np.transpose(padded[z:z + channels], (1, 2, 0)))
+                     for z in range(vol.shape[0])]).astype(np.float32)
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    config_mod.check_args(args, parser)
+    config_mod.fill_default_args(args)
+    if args.dim == 3:
+        raise NotImplementedError("--dim 3 (the 3-D click eval) is not "
+                                  "ported yet (ROADMAP queue A, item 5: the "
+                                  "3D tower)")
+    if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
+        raise NotImplementedError("the click eval over --num_replicas "
+                                  f"{args.num_replicas} devices is not "
+                                  "ported yet (ROADMAP queue A, item 8: "
+                                  "multi-GPU)")
+    logger = setup_logger(args.model_dir, "eval_inter", args.tag)
+
+    from boxsegliver_torch.cli.main import (build_model_from_args,
+                                            resolve_dataset_dir)
+    from boxsegliver_torch.data.kfold import (LITS_SEED,
+                                              read_or_create_k_folds,
+                                              train_test_split)
+    from boxsegliver_torch.data.meta import load_meta
+    from boxsegliver_torch.interactive.refine import interactive_eval_2d
+
+    device = config_mod.resolve_device(args.device)
+    dataset_dir = resolve_dataset_dir(args)
+    model = build_model_from_args(args, device)
+    logger.info("Restored %s from %s on %s", args.model, args.restored_from,
+                device)
+
+    metas = load_meta(dataset_dir)
+    folds = read_or_create_k_folds(
+        Path(dataset_dir) / "k_folds.txt", [m["PID"] for m in metas],
+        k_split=args.k_folds, seed=LITS_SEED)
+    _, test_pids = train_test_split(folds, args.test_fold)
+    test_pids = set(int(p) for p in test_pids)
+    # only lesion-bearing cases, like the reference eval's nf_set filter
+    eval_metas = [m for m in metas
+                  if int(m["PID"]) in test_pids and m["tumors"]]
+    if args.eval_num > 0:
+        eval_metas = eval_metas[:args.eval_num]
+
+    refiner = build_refiner(args, model, device)
+    logger.info("refinement path: %s",
+                type(refiner).__name__ if refiner is not None
+                else "host loop")
+    predict = make_predict(model)
+
+    all_results = []
+    for meta in eval_metas:
+        t_case = time.perf_counter()
+        pid = int(meta["PID"])
+        case = Path(dataset_dir) / f"volume-{pid}"
+        vol = np.load(case / "volume.npy")
+        lab = (np.load(case / "segmentation.npy") > 0).astype(np.uint8)
+        images = slice_stacks(vol, args.im_channel)
+        if refiner is not None:
+            res = refiner.refine_case(images, lab)
+        else:
+            res = interactive_eval_2d(
+                predict, images, lab, dice_thresh=args.dice_thresh,
+                max_iters=args.max_iters, stddev=args.guide_stddev,
+                guide_kind=args.guide_kind,
+                guide_channel=int(args.guide_channel), device=device)
+        res["sec_per_case"] = time.perf_counter() - t_case
+        logger.info("case %s: Dice=%.3f clicks=%.1f (%.2f s)", pid,
+                    res["Dice"], res["clicks"], res["sec_per_case"])
+        all_results.append(res)
+
+    means = {k: float(np.mean([r[k] for r in all_results]))
+             for k in all_results[0]} if all_results else {}
+    logger.info("---- %d cases: %s", len(all_results),
+                " ".join(f"{k}={v:.3f}" for k, v in means.items()))
+    out = Path(args.model_dir) / "eval_results_inter.txt"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(means))
+    return means
+
+
+if __name__ == "__main__":
+    main()

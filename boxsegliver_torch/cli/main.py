@@ -38,9 +38,10 @@ a 2D UNet or G-Net (batch or instance norm) with the online 2D eval per
 epoch, or with ``--eval_3d`` the whole-volume eval of the held-out cases,
 and writes checkpoints under ``--model_dir`` (train/checkpoint.py); the
 ``nf`` task trains on the NF data (clip window or ``--zscore``,
-``--gamma``), ``nf_inter`` the click-simulation training of UNetInter or
-GUNet (data/sampler_inter.py, data/pipeline_inter.py; no
-``--device_cache``, as in JAX).  ``--mode eval`` scores the test fold and
+``--gamma``), ``nf_inter`` the click-simulation training of UNetInter,
+GUNet, InterUNet, SmallUNet or LGNet (data/sampler_inter.py,
+data/pipeline_inter.py; ``--geodesic`` guides; no ``--device_cache``, as
+in JAX); the click-refinement eval is cli/interactive_eval.py.  ``--mode eval`` scores the test fold and
 ``--mode infer`` saves predictions: with the guided sweep (``run_g``) for
 ``--use_spatial`` models of the liver tasks — the device double sweep, or
 the per-slice host loop under ``--device_sweep off`` —, with the NF

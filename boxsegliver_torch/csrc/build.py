@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent
-SOURCES = ("guide_render", "in_relu")
+SOURCES = ("guide_render", "in_relu", "geodesic")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,8 @@ _ARGTYPES = {
         "in_relu_fwd": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 5 + [_P],
         "in_relu_bwd_stats": [_P] * 6 + [_I] * 4 + [_P],
         "in_relu_bwd_apply": [_P] * 8 + [_I] * 4 + [_P]},
+    "geodesic": {
+        "geodesic2d_raster": [_P] * 3 + [_I] * 3 + [_F, _I, _P]},
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

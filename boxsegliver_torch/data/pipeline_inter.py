@@ -9,6 +9,8 @@ augmentation and noise; the trainer runs it inside its train step.  Under
 kernel B1 over 2·bs rows (K = ``--max_clicks``, stddev = ``--stddev`` /
 rescale per row and axis, valid = arange(K) < n); the Euclidean guides are
 plain torch (ops/guides.euclidean_guide; JAX has no kernel for them).
+Under ``--geodesic`` the guides are the sampler's host geodesic maps
+(``fg_gd``, ``bg_gd``: data/sampler_inter.InterSampler._geodesic_maps).
 
 Host/device contract (data/sampler_inter.InterSampler): images arrive
 host-resized at target size with click coordinates pre-scaled into target
@@ -18,7 +20,6 @@ reference's crop-resolution semantics.
 Randomness: the draws come in as tensors (``draws``: ``flip`` coins [bs, 3],
 ``gamma`` [bs, 3] and ``noise`` of the image shape, as
 ops/image_ops.draw_augment makes them); the tests inject JAX's.
-``--geodesic`` raises (ROADMAP queue A, the geodesic guides).
 """
 
 from __future__ import annotations
@@ -65,20 +66,19 @@ def _process_batch_inter(batch: Dict[str, torch.Tensor],
     """(features {images, sp_guide, names}, labels [bs, h, w] int64) of a
     raw inter batch on the device; ``draws`` may be None when train is
     False."""
-    if geodesic:
-        raise NotImplementedError(
-            "--geodesic click guides are not ported yet (ROADMAP queue A, "
-            "interactive click path: the geodesic guides)")
     bs = batch["names"].shape[0]
     # the nonzero z-score (JAX nonzero_zscore; reference data_processing,
     # input_pipeline_g_simply.py:437-443): zeros stay zero
     img = image_ops.zscore(widen(batch["image"]).float())
     lab = batch["label"].long()
-    guides = click_guides(
-        (im_h, im_w), torch.cat([batch["fg_pts"], batch["bg_pts"]]),
-        torch.cat([batch["n_fg"], batch["n_bg"]]),
-        torch.cat([batch["rescale"], batch["rescale"]]),
-        local_enhance=local_enhance, stddev=stddev)
+    if geodesic:
+        guides = torch.cat([batch["fg_gd"], batch["bg_gd"]]).float()[..., None]
+    else:
+        guides = click_guides(
+            (im_h, im_w), torch.cat([batch["fg_pts"], batch["bg_pts"]]),
+            torch.cat([batch["n_fg"], batch["n_bg"]]),
+            torch.cat([batch["rescale"], batch["rescale"]]),
+            local_enhance=local_enhance, stddev=stddev)
     ch = img.shape[-1]
     joint = torch.cat([img, guides[:bs], guides[bs:]], dim=-1)
     if train and random_flip:

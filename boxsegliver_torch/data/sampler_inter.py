@@ -25,8 +25,11 @@ OpenCV's) and labels go through the bit-exact nearest resize.  Given the
 same RandomState, the batches' clicks, rescales and labels equal the JAX
 sampler's.
 
-Not ported yet: ``--geodesic`` (the host C++ raster scan; it raises naming
-its ROADMAP item).
+``--geodesic`` adds the raw geodesic distance maps of the fg and bg clicks
+(``fg_gd``, ``bg_gd``): the host C++ raster scan (csrc/native.py) on the
+2x-downsampled, non-zero z-scored middle channel, upsampled back with
+OpenCV's float32 bilinear (interactive/refine.render_geodesic_eval_guide,
+which the click eval's geodesic guides share).
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from boxsegliver_torch.data.meta import load_meta
 from boxsegliver_torch.data.sampler import (CaseVolumes, DownsampledVolumes,
                                             ds_size)
 from boxsegliver_torch.interactive.clicks import inter_simulation
+from boxsegliver_torch.interactive.refine import render_geodesic_eval_guide
 from boxsegliver_torch.ops.image_ops import resize_linear_u16, resize_nearest
 
 # Fixed simulator constants (reference gen_kernel,
@@ -94,10 +98,7 @@ class InterSampler:
         self.zoom = (tuple(args.zoom_scale) if self.train
                      else (EVAL_ZOOM, EVAL_ZOOM))
         self.max_clicks = max_clicks
-        if getattr(args, "geodesic", False):
-            raise NotImplementedError(
-                "--geodesic click guides are not ported yet (ROADMAP queue "
-                "A, interactive click path: the geodesic guides)")
+        self.geodesic = bool(getattr(args, "geodesic", False))
         self.fp_sample = bool(getattr(args, "fp_sample", False)) and self.train
         self.sample_neg = float(getattr(args, "sample_neg", 0.0) or 0.0)
 
@@ -193,6 +194,21 @@ class InterSampler:
         return img, np.ascontiguousarray(lab_out), lab_patch, pad_mask
 
     # -- batch ---------------------------------------------------------------
+    def _geodesic_maps(self, img_u16: np.ndarray, pts: np.ndarray):
+        """Geodesic guide at target resolution (reference data_processing
+        geodesic branch, input_pipeline_g_simply.py:478-496): the raster
+        scan on the 2x-downsampled z-scored middle channel from the halved
+        clicks, upsampled back; zeros without clicks."""
+        if pts.shape[0] == 0:
+            return np.zeros(self.target, np.float32)
+        img = img_u16[..., self.channel // 2].astype(np.float32)
+        nz = img > 0
+        n = max(int(nz.sum()), 1)
+        mean = float(img[nz].sum()) / n
+        sd = math.sqrt(max(float(((img - mean) ** 2)[nz].sum()) / n, 1e-12))
+        img = (img - nz * mean) / (nz * sd + 1e-8)
+        return render_geodesic_eval_guide(img, pts)
+
     def sample_batch(self, batch_size: int,
                      rng: Optional[np.random.RandomState] = None
                      ) -> Dict[str, np.ndarray]:
@@ -230,6 +246,9 @@ class InterSampler:
             "rescale": np.ones((batch_size, 2), np.float32),
             "names": np.zeros((batch_size,), np.int32),
         }
+        if self.geodesic:
+            out["fg_gd"] = np.zeros((batch_size, h, w), np.float32)
+            out["bg_gd"] = np.zeros((batch_size, h, w), np.float32)
 
         for j, (ci, flag) in enumerate(picks):
             case = self.metas[ci]
@@ -297,6 +316,9 @@ class InterSampler:
                 out["fg_pts"][j, :fg_t.shape[0]] = fg_t
             if bg_t.shape[0]:
                 out["bg_pts"][j, :bg_t.shape[0]] = bg_t
+            if self.geodesic:
+                out["fg_gd"][j] = self._geodesic_maps(img, fg_t)
+                out["bg_gd"][j] = self._geodesic_maps(img, bg_t)
         return out
 
 

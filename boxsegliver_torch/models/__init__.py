@@ -4,9 +4,9 @@
 The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
-configs of ported models are carried: the UNet and UNetInter ones and the
-GUNet ones whose context model is ported; ``UNPORTED_CONFIGS`` names the
-others.
+configs of ported models are carried: the UNet, UNetInter, InterUNet,
+SmallUNet and LGNet ones and the GUNet ones whose context model is ported;
+``UNPORTED_CONFIGS`` names the others.
 
 Flax infers a model's input widths at init from a feature template (JAX
 cli/main.build_feature_template); the port's constructors take them from
@@ -22,6 +22,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from boxsegliver_torch.models.gunet import GUNet
+from boxsegliver_torch.models.inter_unet import InterUNet
+from boxsegliver_torch.models.lgnet import LGNet
+from boxsegliver_torch.models.small_unet import SmallUNet
 from boxsegliver_torch.models.unet import UNet
 from boxsegliver_torch.models.unet_inter import UNetInter
 
@@ -29,6 +32,9 @@ MODEL_ZOO = {
     "UNet": UNet,
     "GUNet": GUNet,
     "UNetInter": UNetInter,
+    "LGNet": LGNet,
+    "SmallUNet": SmallUNet,
+    "InterUNet": InterUNet,
 }
 
 _GUNET_BASE = {
@@ -45,6 +51,14 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
     "UNetInter.yml": {"init_channels": 64, "num_down_samples": 4,
                       "ret_prob": False, "ret_pred": True},
     "UNetInter_TINY.yml": {"init_channels": 4, "num_down_samples": 2},
+    "InterUNet.yml": {"init_channel_factor": 1, "num_pool_layers": 3,
+                      "ret_prob": False, "ret_pred": True},
+    "SmallUNet.yml": {"init_channel_factor": 1, "num_pool_layers": 3,
+                      "ret_prob": False, "ret_pred": True},
+    "LGNet.yml": {"mod_layers": [[0, 1], [0, 1]], "ret_prob": False,
+                  "ret_pred": True},
+    "LGNet_v3.yml": {"mod_layers": [[1], [2]], "ret_prob": False,
+                     "ret_pred": True},
     "GUNet.yml": dict(_GUNET_BASE, context_fc_channels=[256, 256],
                       norm_with_center=True, norm_with_scale=False),
     "GUNet_SP.yml": dict(_GUNET_BASE, context_fc_channels=[200, 200],
@@ -66,10 +80,6 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
 UNPORTED_CONFIGS: Dict[str, str] = {
     "DenseUNet.yml": "queue A, rest of the 2D zoo",
     "DenseUNet_tiny.yml": "queue A, rest of the 2D zoo",
-    "InterUNet.yml": "queue A, interactive click path",
-    "LGNet.yml": "queue A, interactive click path",
-    "LGNet_v3.yml": "queue A, interactive click path",
-    "SmallUNet.yml": "queue A, interactive click path",
     "UNet3D.yml": "queue A, 3D tower",
     "GUNet_IIN.yml": "queue A, nf2 / IIN",
     "GUNet_IIN_TINY.yml": "queue A, nf2 / IIN",
@@ -83,6 +93,10 @@ _ARG_FIELDS = {
               "side_dropout", "dropout", "fix"),
     "UNetInter": ("normalizer", "without_norm", "img_grad", "weight_init",
                   "mid_cat"),
+    "LGNet": ("normalizer", "without_norm", "img_grad", "weight_init",
+              "use_spatial"),
+    "SmallUNet": ("normalizer", "without_norm", "weight_init"),
+    "InterUNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
 }
 
 # config keys consumed by the runtime rather than the model constructor
@@ -112,9 +126,9 @@ def get_model_params(args) -> Dict[str, Any]:
 def guide_channels(args, model: Optional[str] = None) -> int:
     """Channels of the guide ``model`` (default --model) takes (JAX
     build_feature_template, cli/main.py:98-121): ``--guide_channel`` for
-    the click-guided UNetInter and for every model of the nf_inter task,
-    else 1."""
-    if ((model or getattr(args, "model", None)) == "UNetInter"
+    the click-guided UNetInter and InterUNet and for every model of the
+    nf_inter task, else 1."""
+    if ((model or getattr(args, "model", None)) in ("UNetInter", "InterUNet")
             or getattr(args, "task", "") == "nf_inter"):
         return int(getattr(args, "guide_channel", 2))
     return 1

@@ -34,7 +34,7 @@ from torch import nn
 
 from boxsegliver_torch.models.layers import (MLP, ChannelAffine, Conv,
                                              ConvNormAct, Dense, Norm, UpConv,
-                                             avg_pool2x2_same, dropout,
+                                             avg_pool_same, dropout,
                                              fused_pair, he_normal_,
                                              image_gradients, init_kernel_,
                                              max_pool2x2)
@@ -182,7 +182,7 @@ class GUNet(nn.Module):
                                          if isinstance(layer, ConvNormAct)
                                          else layer(gs))
                 if i < n:
-                    gs = avg_pool2x2_same(gs)
+                    gs = avg_pool_same(gs)
 
         images = inputs["images"]
         if self.img_grad:

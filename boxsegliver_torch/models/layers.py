@@ -1,5 +1,5 @@
 """Shared building blocks of the UNet model family (port of
-boxsegliver_tpu/models/layers.py:38-84,126-164,206-267,337-346).
+boxsegliver_tpu/models/layers.py:38-84,126-164,206-267,337-362).
 
 Conventions carried over from the flax modules:
 - modules take and return NCHW tensors; the models convert from and to the
@@ -8,7 +8,9 @@ Conventions carried over from the flax modules:
   conv / dense casts its float32 parameters to the input's dtype, norm
   statistics are computed in float32 (flax ``_compute_stats``) and the
   normalized output is cast back;
-- padding is SAME: 3x3 convs pad 1, the 2x2 pools pad the ragged edge;
+- padding is SAME: a stride-1 conv pads (k - 1)·d / 2 each side; a strided
+  conv pads as XLA does (the odd pixel after the end), and the pools pad the
+  ragged edge;
 - parameters are named so that the weight bridge (models/weights.py) maps
   flax's ``params``/``batch_stats`` trees onto ``state_dict`` keys by rule.
 
@@ -67,6 +69,29 @@ def init_kernel_(weight: torch.Tensor, weight_init: str = "xavier",
     raise ValueError("Not supported weight initializer: " + weight_init)
 
 
+def flax_init_(model: nn.Module, weight_init: str = "xavier",
+               generator: Optional[torch.Generator] = None) -> nn.Module:
+    """flax's initializers over ``model``'s modules, in module order, from a
+    seeded generator: conv and transpose-conv kernels per ``weight_init``,
+    biases zero, norm scales one, batch-norm running mean zero and running
+    variance one."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (Conv, UpConv)):
+                init_kernel_(mod.weight, weight_init, generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, Norm):
+                if mod.weight is not None:
+                    mod.weight.fill_(1.0)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+                if mod.normalizer == "batch_norm":
+                    mod.running_mean.zero_()
+                    mod.running_var.fill_(1.0)
+    return model
+
+
 def he_normal_(weight: torch.Tensor, fan_in: int,
                generator: Optional[torch.Generator] = None):
     """flax he_normal: truncated normal, variance 2/fan_in."""
@@ -75,17 +100,33 @@ def he_normal_(weight: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def same_pads(size: int, kernel: int, stride: int = 1,
+              dilation: int = 1):
+    """XLA's SAME padding along one axis: (before, after)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Conv2d):
-    """Stride-1 SAME conv (odd kernels) computing in the input's dtype."""
+    """SAME conv (odd kernels, optional stride and dilation) computing in
+    the input's dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
-                 bias: bool = True):
-        super().__init__(in_channels, out_channels, kernel,
-                         padding=kernel // 2, bias=bias)
+                 bias: bool = True, stride: int = 1, dilation: int = 1):
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=(kernel // 2) * dilation if stride == 1
+                         else 0, dilation=dilation, bias=bias)
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, self.weight.to(x.dtype), b, padding=self.padding)
+        if self.stride[0] > 1:
+            k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
+            ph = same_pads(x.shape[-2], k, s, d)
+            pw = same_pads(x.shape[-1], k, s, d)
+            x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+        return F.conv2d(x, self.weight.to(x.dtype), b, stride=self.stride,
+                        padding=self.padding, dilation=self.dilation)
 
 
 class Dense(nn.Linear):
@@ -100,15 +141,16 @@ def max_pool2x2(x: torch.Tensor, padding: str = "VALID") -> torch.Tensor:
     return F.max_pool2d(x, 2, 2, ceil_mode=padding == "SAME")
 
 
-def avg_pool2x2_same(x: torch.Tensor) -> torch.Tensor:
-    """flax ``nn.avg_pool((2, 2), strides=(2, 2), padding="SAME")``: the
-    ragged edge is zero-padded and counted (count_include_pad), so every
-    window divides by 4.  torch's ceil_mode would divide edge windows by
-    their in-bounds size instead."""
-    h, w = x.shape[-2:]
-    if h % 2 or w % 2:
-        x = F.pad(x, (0, w % 2, 0, h % 2))
-    return F.avg_pool2d(x, 2, 2)
+def avg_pool_same(x: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """flax ``nn.avg_pool((k, k), strides=(k, k), padding="SAME")``: XLA's
+    SAME pads zeros (the odd one after the end), counted in every window's
+    k² divisor — torch's ceil_mode would divide edge windows by their
+    in-bounds size instead."""
+    ph = same_pads(x.shape[-2], k, k)
+    pw = same_pads(x.shape[-1], k, k)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.avg_pool2d(x, k, k)
 
 
 class Norm(nn.Module):
@@ -192,11 +234,13 @@ class ConvNormAct(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel: int = 3,
                  normalizer: Optional[str] = "batch_norm",
                  norm_bias: bool = True, norm_scale: bool = True,
-                 act: bool = True, use_bias: Optional[bool] = None):
+                 act: bool = True, use_bias: Optional[bool] = None,
+                 strides: int = 1, dilation: int = 1):
         super().__init__()
         if use_bias is None:
             use_bias = normalizer is None
-        self.conv = Conv(in_channels, features, kernel, bias=use_bias)
+        self.conv = Conv(in_channels, features, kernel, bias=use_bias,
+                         stride=strides, dilation=dilation)
         self.norm = (Norm(normalizer, features, norm_bias, norm_scale)
                      if normalizer is not None else None)
         self.act = act
@@ -212,17 +256,19 @@ class ConvNormAct(nn.Module):
 
 class UpConv(nn.Module):
     """slim.conv2d_transpose equivalent: 2x2 stride-2 transpose conv + ReLU,
-    no norm.  ``weight`` is torch's [in, out, 2, 2] layout; the bridge flips
-    flax's taps (flax output phase (p, q) uses tap (1-p, 1-q))."""
+    no norm, with or without a bias.  ``weight`` is torch's [in, out, 2, 2]
+    layout; the bridge flips flax's taps (flax output phase (p, q) uses tap
+    (1-p, 1-q))."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int,
+                 use_bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(in_channels, features, 2, 2))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
-        x = F.conv_transpose2d(x, self.weight.to(x.dtype),
-                               self.bias.to(x.dtype), stride=2)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        x = F.conv_transpose2d(x, self.weight.to(x.dtype), b, stride=2)
         return F.relu(x)
 
 
@@ -272,3 +318,13 @@ def image_gradients(images: torch.Tensor):
     dx = torch.cat([images[:, :, 1:] - images[:, :, :-1],
                     torch.zeros_like(images[:, :, :1])], dim=2)
     return dy, dx
+
+
+def sobel_edges(images: torch.Tensor) -> torch.Tensor:
+    """tf.image.sobel_edges of a one-channel NHWC batch -> [bs, h, w, 2]
+    (dy, dx), REFLECT padding as TF."""
+    ky = torch.tensor([[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]],
+                      dtype=images.dtype, device=images.device)
+    kern = torch.stack([ky, ky.T])[:, None]              # [2, 1, 3, 3]
+    x = F.pad(images.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="reflect")
+    return F.conv2d(x, kern).permute(0, 2, 3, 1)

@@ -24,8 +24,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from boxsegliver_torch.models.layers import (Conv, ConvNormAct, Norm, UpConv,
-                                             image_gradients, init_kernel_,
+from boxsegliver_torch.models.layers import (Conv, ConvNormAct, UpConv,
+                                             flax_init_, image_gradients,
                                              max_pool2x2)
 
 
@@ -66,24 +66,8 @@ class UNet(nn.Module):
         self.AdjustChannels = Conv(cin, num_classes, 1)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """flax's initializers from a seeded generator: kernels per
-        ``weight_init``, biases zero, norm scales one, running mean zero and
-        running variance one."""
-        with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, (Conv, UpConv)):
-                    init_kernel_(mod.weight, self.weight_init, generator)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
-                elif isinstance(mod, Norm):
-                    if mod.weight is not None:
-                        mod.weight.fill_(1.0)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
-                    if mod.normalizer == "batch_norm":
-                        mod.running_mean.zero_()
-                        mod.running_var.fill_(1.0)
-        return self
+        """flax's initializers from a seeded generator (layers.flax_init_)."""
+        return flax_init_(self, self.weight_init, generator)
 
     def forward(self, inputs, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

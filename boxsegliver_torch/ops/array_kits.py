@@ -3,6 +3,7 @@ boxsegliver_tpu/ops/array_kits.py that metadata extraction and volume eval
 need; semantics of reference utils/array_kits.py).
 
 Citations are reference utils/array_kits.py lines:
+- zscore                           :31-40 (the click eval's per-stack norm)
 - bbox_from_mask                   :85-232
 - extract_region                   :263-329
 - get_largest_component            :357-384
@@ -19,6 +20,17 @@ import math
 
 import numpy as np
 from scipy import ndimage as ndi
+
+
+def zscore(img: np.ndarray) -> np.ndarray:
+    """Z-score over the non-zero region (reference array_kits.py:31-40)."""
+    mask = img > 0
+    if not np.any(mask):
+        return img.astype(np.float32)
+    vals = img[mask]
+    mean, std = vals.mean(), vals.std()
+    out = (img - mask * mean) / (mask * std + 1e-8)
+    return out.astype(np.float32)
 
 
 def bbox_from_mask(mask: np.ndarray, mask_values, min_shape=None, padding=None):

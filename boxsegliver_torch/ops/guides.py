@@ -1,6 +1,6 @@
 """Spatial-guide rendering in plain torch (port of
-boxsegliver_tpu/ops/guides.py:19-86,97-99; reference utils/image_ops.py:
-396-434).
+boxsegliver_tpu/ops/guides.py:19-86,97-99,111-142; reference
+utils/image_ops.py:396-434, utils/array_kits.py:387-440).
 
 Ragged per-slice object lists are padded to a static count and masked;
 padding rows use center = stddev = -1 as in the reference.  The batched,
@@ -93,3 +93,28 @@ def euclidean_guide(shape: Sequence[int], centers: torch.Tensor,
 def to_guided_range(guide: torch.Tensor, background: float = GUIDE_BG):
     """Remap a [0,1] guide to [background, 1] (reference input_pipeline_g.py:382-394)."""
     return guide * (1.0 - background) + background
+
+
+def moments_from_mask(binary: torch.Tensor, min_std: float = 0.0):
+    """Robust moments of one binary object of any rank: median center and
+    1.4826 * MAD stddev per axis (ij), (-1, ...) vectors when empty (JAX
+    ops/guides.moments_from_mask: medians by sorting the masked
+    coordinates, the unselected pushed to 1e9)."""
+    ndim = binary.ndim
+    coords = _coord_grid(binary.shape, binary.device).reshape(-1, ndim)
+    mask = binary.reshape(-1) > 0
+    n = int(mask.sum())
+    lo, hi = max((n - 1) // 2, 0), n // 2
+
+    def masked_median(vals):
+        v = torch.sort(torch.where(mask, vals, 1e9)).values
+        return (v[lo] + v[hi]) / 2.0
+
+    center = torch.stack([masked_median(coords[:, d]) for d in range(ndim)])
+    diff = torch.abs(coords - center)
+    mad = torch.stack([masked_median(diff[:, d]) for d in range(ndim)])
+    std = torch.clamp_min(1.4826 * mad, float(min_std))
+    if n == 0:
+        center = -torch.ones(ndim, device=binary.device)
+        std = -torch.ones(ndim, device=binary.device)
+    return center, std

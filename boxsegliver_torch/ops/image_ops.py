@@ -73,19 +73,18 @@ def _linear_taps(src: int, dst: int):
     return s.astype(np.int64), (f - s).astype(np.float32)
 
 
-def resize_linear_u16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
-    """cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR) of a uint16
-    [h, w] or [h, w, c] image, in numpy: OpenCV's 16U path computes in
-    float32 — a horizontal pass (taps clamped to the first and last column,
-    weight 0 at the clamp), then a vertical pass (rows clamped, weights
-    kept) — and rounds half to even with saturation.  An unchanged size is
-    a copy.  OpenCV's vector code may sum a pixel on a rounding tie in
-    another order, so such a pixel can land one level off its result."""
+def resize_linear_f32(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR) of a [h, w]
+    or [h, w, c] image in float32, in numpy: a horizontal pass (taps clamped
+    to the first and last column, weight 0 at the clamp), then a vertical
+    pass (rows clamped, weights kept), as OpenCV's float path computes it
+    (its vector code may contract a product into an FMA: a few ulp).  An
+    unchanged size is a float32 copy."""
     H, W = int(size[0]), int(size[1])
     h, w = img.shape[:2]
+    x = np.array(img, np.float32)
     if (h, w) == (H, W):
-        return img.copy()
-    x = img.astype(np.float32)
+        return x
     sx, fx = _linear_taps(w, W)
     lo = sx < 0
     hi = sx >= w - 1
@@ -100,7 +99,19 @@ def resize_linear_u16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
     y1 = np.clip(sy + 1, 0, h - 1)
     by0 = (np.float32(1) - fy).astype(np.float32)
     shp = (H,) + (1,) * (img.ndim - 1)
-    out = rows[y0] * by0.reshape(shp) + rows[y1] * fy.reshape(shp)
+    return rows[y0] * by0.reshape(shp) + rows[y1] * fy.reshape(shp)
+
+
+def resize_linear_u16(img: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """cv2.resize(img, (W, H), interpolation=cv2.INTER_LINEAR) of a uint16
+    [h, w] or [h, w, c] image, in numpy: OpenCV's 16U path computes in
+    float32 (resize_linear_f32's two passes) and rounds half to even with
+    saturation.  An unchanged size is a copy.  OpenCV's vector code may sum
+    a pixel on a rounding tie in another order, so such a pixel can land one
+    level off its result."""
+    if tuple(img.shape[:2]) == (int(size[0]), int(size[1])):
+        return img.copy()
+    out = resize_linear_f32(img, size)
     return np.clip(np.rint(out), 0, 65535).astype(np.uint16)
 
 

@@ -31,6 +31,11 @@ Kernels:
   plain version; CUDA the kernel, which counts its launches; a fake
   implementation for tracing), so torch.export keeps it as one node of an
   exported model and a loaded program launches the kernel on the card.
+- G1 ``geodesic2d_batch`` — csrc/geodesic.cu: the 2-D geodesic raster scan
+  of N fields at once (one CTA a field), the device refiner's geodesic
+  click guides.  Not a TPU kernel: JAX computes it with XLA
+  (boxsegliver_tpu/ops/geodesic.py:93); its plain version is
+  ops/geodesic.geodesic2d.  No single PyTorch call computes it.
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ _MAX_BATCH = 65535         # grid.z
 
 # the C functions of each csrc/ source, bound on first use
 _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
-            "in_relu_bwd_stats": "in_relu", "in_relu_bwd_apply": "in_relu"}
+            "in_relu_bwd_stats": "in_relu", "in_relu_bwd_apply": "in_relu",
+            "geodesic2d_raster": "geodesic"}
 _BOUND = {}
 
 
@@ -158,6 +164,49 @@ def gaussian_guide_batch(centers: torch.Tensor, stddevs: torch.Tensor,
 
 
 gaussian_guide_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# G1: batched 2-D geodesic raster scan
+# ---------------------------------------------------------------------------
+
+_MAX_GEO_WIDTH = 1024      # one thread a column
+
+
+def geodesic2d_batch(img: torch.Tensor, seeds: torch.Tensor,
+                     lamb: float = 1.0, iterations: int = 4) -> torch.Tensor:
+    """Kernel G1: geodesic distance of N fields from the nonzero pixels of
+    ``seeds`` (img [N, h, w] float32, seeds [N, h, w] bool or uint8, both
+    contiguous, w <= 1024) by ``iterations`` forward + backward raster
+    passes.  Returns [N, h, w] float32, +inf where no seed is reached.  On
+    the CPU: the plain version, ops/geodesic.geodesic2d."""
+    if img.device.type == "cpu":
+        from boxsegliver_torch.ops.geodesic import geodesic2d
+        return geodesic2d(img, seeds, lamb, iterations)
+    if img.device.type != "cuda" or seeds.device != img.device:
+        raise ValueError(f"geodesic2d_batch: img on {img.device}, seeds on "
+                         f"{seeds.device}")
+    if img.dtype != torch.float32:
+        raise TypeError("geodesic2d_batch: img must be float32")
+    if seeds.dtype not in (torch.bool, torch.uint8):
+        raise TypeError("geodesic2d_batch: seeds must be bool or uint8")
+    if img.ndim != 3 or seeds.shape != img.shape:
+        raise ValueError("geodesic2d_batch: expected img and seeds [N, h, w], "
+                         f"got {tuple(img.shape)}, {tuple(seeds.shape)}")
+    n, h, w = img.shape
+    if w > _MAX_GEO_WIDTH or n * h * w >= 2 ** 31:
+        raise ValueError(f"geodesic2d_batch: [{n}, {h}, {w}] exceeds the "
+                         "kernel's limits (w <= 1024)")
+    if not (img.is_contiguous() and seeds.is_contiguous()):
+        raise ValueError("geodesic2d_batch: img and seeds must be contiguous")
+    out = torch.empty_like(img)
+    _launch("geodesic2d_raster", img, img.data_ptr(), seeds.data_ptr(),
+            out.data_ptr(), n, h, w, float(lamb), int(iterations))
+    geodesic2d_batch.launches += 1
+    return out
+
+
+geodesic2d_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +492,8 @@ def instance_norm_relu(x: torch.Tensor, weight: torch.Tensor,
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
            "in_relu_bwd_stats": in_relu_bwd_stats,
-           "in_relu_bwd_apply": in_relu_bwd_apply}
+           "in_relu_bwd_apply": in_relu_bwd_apply,
+           "geodesic2d_batch": geodesic2d_batch}
 
 
 def reset_launch_counts():

@@ -1,6 +1,7 @@
-"""Connected-component labeling, per-object robust moments and the Wu-line
-ascent test on tensors (port of boxsegliver_tpu/ops/labeling.py:66-112,
-206-299), batched over leading dims so both sweep directions run together.
+"""Connected-component labeling, the interactive eval's click placement,
+per-object robust moments and the Wu-line ascent test on tensors (port of
+boxsegliver_tpu/ops/labeling.py:66-177,206-299), batched over leading dims
+so both sweep directions, or all slices of a case, run together.
 
 The math is the JAX package's; the lowering is not (its forms were chosen
 for the TPU):
@@ -16,6 +17,11 @@ for the TPU):
   half-integers.
 - ``wu_ascent``: the Wu-line pixel values come from a gather instead of the
   one-hot contraction.
+- ``largest_error_click``: the terminal core of the cross erosion (JAX's
+  data-dependent ``while_loop``) is read off the city-block distance to the
+  component's complement, outside the image included: k erosions keep the
+  pixels farther than k, so the last non-empty one keeps those at the
+  largest distance.  No loop, no host read.
 Integer results equal the JAX package's (tests/test_torch_labeling.py).
 """
 
@@ -23,6 +29,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from boxsegliver_torch.ops.image_ops import distance_transform_cityblock
 
 _MAD_TO_STD = 1.4826  # array_kits._MAD_TO_STD (reference utils/array_kits.py)
 
@@ -83,6 +91,55 @@ def ordered_seeds(labels: torch.Tensor, max_objects: int):
     seeds = torch.topk(vals, max_objects, dim=-1, largest=False,
                        sorted=True).values
     return seeds.to(torch.int32), is_seed.sum(dim=-1).to(torch.int32)
+
+
+def largest_error_click(pred: torch.Tensor, label: torch.Tensor):
+    """``interactive.clicks.next_click_from_error`` for slices [..., h, w]
+    at once (JAX ops/labeling.largest_error_click, 2-D).
+
+    pred / label: bool.  Returns (coords [..., 2] int64, is_fg [...] bool,
+    has_error [...] bool); coords mean something only where has_error.
+    The largest 4-connected error component (the first in raster order on a
+    tie), eroded with a cross and a zero border to its terminal non-empty
+    core, its float32 center of mass rounded half to even — or, when that
+    misses the component, the core's middle raster pixel."""
+    lead, (h, w) = pred.shape[:-2], pred.shape[-2:]
+    p = pred.reshape(-1, h, w).bool()
+    lab = label.reshape(-1, h, w).bool()
+    b = p.shape[0]
+    error = p ^ lab
+    has_error = error.reshape(b, -1).any(dim=1)
+    labels = label_components(error).reshape(b, -1).long()
+    sizes = torch.zeros((b, h * w + 1), dtype=torch.int64, device=p.device)
+    sizes.scatter_add_(1, labels, torch.ones_like(labels))
+    largest = torch.argmax(sizes[:, :-1], dim=1)
+    comp = (labels == largest[:, None]).reshape(b, h, w)
+    # terminal erosion core = the pixels at the largest city-block distance
+    # to the complement (outside the image counts as complement)
+    dist = distance_transform_cityblock(F.pad(comp, (1, 1, 1, 1)),
+                                        axes=(1, 2))[:, 1:-1, 1:-1]
+    dist = torch.where(comp, dist, 0.0)
+    core = comp & (dist == dist.reshape(b, -1).amax(dim=1)[:, None, None])
+    cf = core.float()
+    n_core = core.reshape(b, -1).sum(dim=1)
+    n = torch.clamp_min(n_core, 1).float()
+    iy = torch.arange(h, dtype=torch.float32, device=p.device)
+    ix = torch.arange(w, dtype=torch.float32, device=p.device)
+    cy = torch.round((cf * iy[:, None]).sum(dim=(1, 2)) / n).long()
+    cx = torch.round((cf * ix[None, :]).sum(dim=(1, 2)) / n).long()
+    cy = cy.clamp(0, h - 1)
+    cx = cx.clamp(0, w - 1)
+    flat = comp.reshape(b, -1)
+    on_comp = torch.gather(flat, 1, (cy * w + cx)[:, None])[:, 0]
+    # fallback: the core's middle raster pixel (host: pts[len(pts) // 2])
+    cum = torch.cumsum(core.reshape(b, -1).to(torch.int32), dim=1)
+    mid = torch.argmax((cum > (n_core // 2)[:, None]).to(torch.uint8), dim=1)
+    cy = torch.where(on_comp, cy, mid // w)
+    cx = torch.where(on_comp, cx, mid % w)
+    is_fg = torch.gather(lab.reshape(b, -1), 1, (cy * w + cx)[:, None])[:, 0]
+    coords = torch.stack([cy, cx], dim=-1)
+    return (coords.reshape(lead + (2,)), is_fg.reshape(lead),
+            has_error.reshape(lead))
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,9 @@ Phases, each raising on failure (the script exits non-zero and prints no
 result line):
 1. device  — a CUDA device is required; prints ``nvidia-smi`` name and
    power limit.
-2. build   — builds every CUDA kernel of the port from csrc/ (nvcc, one
-   process per source, in parallel) and prints the build time and ptxas
-   report.
+2. build   — builds every CUDA kernel of the port from csrc/ (B1, B2,
+   G1: nvcc, one process per source, in parallel) and prints the build
+   time and ptxas report.
 3. kernels — kernel B1 (gaussian_guide_batch) against its plain PyTorch
    version on the card at the guided sweep's shapes and at edge cases (W
    not a multiple of 4, one row, K = 0, 1, 150); max abs error <= 1e-6.
@@ -176,13 +176,36 @@ result line):
    launch each) and ``nf --mode eval --use_spatial`` (run_sp: one B1
    launch per case with tumor slices) on (c)'s best; run_sp's
    probabilities card vs CPU on 8 slices around a lesion (1e-4).
+20. click eval — (a) kernel G1 (geodesic2d_batch, csrc/geodesic.cu)
+   against its plain version on the card at the device refiner's shape
+   [64, 128, 128] and at edge cases (127 x 129, one row, one column, no
+   seed, corner seeds, w = 1024): relative 1e-5 of the finite field, +inf
+   at the same pixels; against the host C++ scan; device time per launch,
+   wrapper, plain and bound (g1_bound_ms); B1 at the refiner's [64 rows,
+   K 10, 256^2].  (b) ``101_unetinter_v10.sh inter`` through
+   ``boxsegliver_torch.cli.interactive_eval`` on phase 19c's best
+   (UNetInter.yml full width, bf16, the NF test fold), --device_refine off
+   and on, each with gaussian and geodesic guides: s/case, Dice, clicks,
+   and exact launches (B1 one a click or a round, G1 one a refiner round,
+   18 B2-fwd a forward).  (c) the host loop against the device refiner in
+   float32 on a small UNetInter fit on the card (every guide kind: equal
+   clicks, Dice 1e-4); the refiner's first round of the full-width model
+   card vs CPU (1e-4).  (d) the --device_refine auto crossover: both
+   paths at 128^2 and 256^2.  (e) nf_inter train at the flags of
+   105_interunet_v1.sh, 104_small_v3.sh, 103_lgnet_v3.sh (full width,
+   batch 16) and 101_unetinter_v13's --geodesic: 8 steps each with exact
+   launches a step, the three models' step in steady state.  (f) --mode
+   export of (b)'s UNetInter (zero click guides), 5 requests served on the
+   card, the response against the eager model within one bf16 step.
 Then one JSON line with every kernel's numbers (launches: the train run of
-phase 8, and per path in ``launches_by_path``: the device sweep of phase 5,
+phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
+G1, and per path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
-preview and two Predicts of phase 18, and phase 19's nf_train, nf_eval,
-nf_inter_train, nf_inter_eval and run_sp; ``ms``: wrapper
-time, per call for B1 and summed over one
+preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
+nf_inter_train, nf_inter_eval and run_sp, and phase 20's click evals, new
+models' training and click serving; ``ms``: wrapper
+time, per call for B1 and G1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
 call), the card's name and power limit, and as the last line
@@ -1166,6 +1189,8 @@ TRAIN_FLAGS = [
     "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
     "0.2", "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
 B2_KERNELS = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+# the kernels a train step can run (G1 draws only the click eval's guides)
+TRAIN_KERNELS = ("gaussian_guide_batch",) + B2_KERNELS
 # the train runs whose checkpoints later phases check (phase 8's resume to
 # step 30 for the annotator of phase 18, phase 10's best for phase 12's
 # card-vs-CPU device_case) and the runs before them draw their batches from
@@ -1594,9 +1619,9 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     3 windows of 16 steps, each closed by one fetch of the window's metrics
     (the train loop's drain), then one profiled window.
     The launch counters are zeroed before the warm-up: a path without
-    hand-written kernels must launch none, one with them every one;
-    ``kernels_used`` may instead name the kernels that must launch (the
-    others must not).  Returns (median s/step, launches, captured launches
+    hand-written kernels must launch none, one with them every train kernel
+    (TRAIN_KERNELS); ``kernels_used`` may instead name the kernels that
+    must launch (the others must not).  Returns (median s/step, launches, captured launches
     per replay)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1648,7 +1673,7 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         torch.cuda.synchronize()
         launches = {n: f.launches for n, f in kernels.KERNELS.items()}
         used = (set(kernels_used) if isinstance(kernels_used, tuple)
-                else set(launches) if kernels_used else set())
+                else set(TRAIN_KERNELS) if kernels_used else set())
         if not all(bool(c) == (n in used) for n, c in launches.items()):
             raise AssertionError(f"{what}: kernel launches {launches}")
         walls = [window(16) for _ in range(3)]
@@ -1665,7 +1690,7 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     share = max(busy_ms, 1e-9)
     wall = statistics.median(walls)
     sps = bs / wall
-    model = f"{args.model}.yml"
+    model = args.model_config or f"{args.model}.yml"
     lines = [
         f"card: {smi()}",
         f"{what}: {model} full width, batch {bs}, {args.im_height}^2 x 3, "
@@ -2300,9 +2325,10 @@ def serve_bundle(bundle, what, requests=20, seed=0):
         srv.shutdown()
         srv.server_close()
     shape = tuple(runner.signature["inputs"]["images"][0][1:3])
-    if (probs.shape != (bs,) + shape + (3,)
-            or big_probs.shape != (n_big,) + shape + (3,)
-            or js_probs.shape != (1,) + shape + (3,)
+    shape += (len(runner.signature["classes"]),)
+    if (probs.shape != (bs,) + shape
+            or big_probs.shape != (n_big,) + shape
+            or js_probs.shape != (1,) + shape
             or not all(np.isfinite(a).all()
                        for a in (probs, big_probs, js_probs))):
         raise AssertionError(f"{what}: responses {probs.shape}, "
@@ -2792,7 +2818,9 @@ def nf_argv(task, mode, tag, tmp, md, *extra):
 
 
 def expect_launches(what, launches, want):
-    if launches != want:
+    """Exact launch counts; a kernel ``want`` does not name must read 0."""
+    if set(want) - set(launches) or launches != {
+            n: want.get(n, 0) for n in launches}:
         raise AssertionError(f"{what}: kernel launches {launches}, "
                              f"expected {want}")
 
@@ -3107,7 +3135,7 @@ def nf_inter_eval_phase(tmp, ds, dev, md):
 
 def nf_phase(tmp, dev, seed):
     """Phase 19: (a)-(d) on the CLI's synthetic_nf set; returns the launch
-    counts of each path for the kernels line."""
+    counts of each path for the kernels line and (c)'s model_dir."""
     ds = nf_dataset(tmp)
     md, train_l = nf_train_phase(tmp, ds)
     eval_l, preds = nf_eval_phase(tmp, ds, dev, md)
@@ -3115,7 +3143,468 @@ def nf_phase(tmp, dev, seed):
     inter_eval_l, sp_l = nf_inter_eval_phase(tmp, ds, dev, md_i)
     return {"nf_train": train_l, "nf_eval": eval_l,
             "nf_inter_train": inter_l, "nf_inter_eval": inter_eval_l,
-            "run_sp": sp_l}
+            "run_sp": sp_l}, md_i
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the click eval (interactive_eval --dim 2), kernel G1 and the new
+# click models
+# ---------------------------------------------------------------------------
+
+# the least float work of G1 per pixel: its four undirected edge weights
+# sqrt((1-λ)·l² + λ·ΔI²) (difference, square, scaling, add, sqrt) once, as
+# the image does not change between passes; then per raster pass three
+# candidate adds, the min of them and the field (3), and the row fold's
+# add and min
+G1_WEIGHT_OPS_PER_PIXEL = 4 * 5
+G1_OPS_PER_PIXEL_PASS = 3 + 3 + 2
+G1_ITERATIONS = 4
+# 101_unetinter_v10.sh inter (run_scripts/nf/101_unetinter_v10.sh:20-28)
+INTER_EVAL = ["--mode", "eval", "--tag", "chip_smoke_inter"] + INTER_MODEL + [
+    "--classes", "NF", "--test_fold", "0", "--im_height", "256",
+    "--im_width", "256", "--im_channel", "3", "--normalizer",
+    "instance_norm", "--batch_size", "1", "--dataset", "NF", "--dim", "2"]
+# the model flags of 105_interunet_v1.sh, 104_small_v3.sh, 103_lgnet_v3.sh
+# and 101_unetinter_v13's deltas on 101_unetinter_v10.sh
+NEW_MODEL_TRAIN = {   # path: (flags, IN + ReLU blocks, B1 a step, steady)
+    "InterUNet train (105_interunet_v1)": (
+        ["--model", "InterUNet", "--loss_numeric_w", "1", "1", "--use_spatial",
+         "--local_enhance", "--stddev", "5.", "--img_grad",
+         "--weight_decay_rate", "0.00003"], 25, True, True),
+    "SmallUNet train (104_small_v3)": (
+        ["--model", "SmallUNet", "--loss_numeric_w", "1", "1",
+         "--use_spatial", "--local_enhance", "--stddev", "5.",
+         "--weight_decay_rate", "0.00003", "--fp_sample"], 19, True, True),
+    "LGNet_v3 train (103_lgnet_v3)": (
+        ["--model", "LGNet", "--model_config", "LGNet_v3.yml",
+         "--loss_numeric_w", "1", "1", "--use_spatial",
+         "--weight_decay_rate", "0.00001"], 9, False, True),
+    "UNetInter --geodesic train (101_unetinter_v13)": (
+        ["--model", "UNetInter", "--loss_numeric_w", "1", "1",
+         "--use_spatial", "--weight_decay_rate", "0.00003", "--fp_sample",
+         "--geodesic"], NF_BLOCKS, False, False),
+}
+
+
+def g1_bound_ms(img):
+    """(bound ms, "bytes" | "operations", how) of G1 on [n, h, w] fields:
+    the image (4 B), the seed mask (1 B) read and the field (4 B) written
+    once per pixel against HBM_BYTES_PER_S; the least float work (the edge
+    weights once, G1_OPS_PER_PIXEL_PASS per pixel and pass, 2 passes an
+    iteration) against FP32_OPS_PER_S."""
+    n, h, w = img.shape
+    bytes_moved = n * h * w * 9
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops = n * h * w * (G1_WEIGHT_OPS_PER_PIXEL
+                       + 2 * G1_ITERATIONS * G1_OPS_PER_PIXEL_PASS)
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    why = (f"{bytes_moved} B -> {t_bytes:.6f} ms; {ops} f32 ops -> "
+           f"{t_ops:.6f} ms; serial chain {2 * G1_ITERATIONS * h} row steps")
+    return max(t_bytes, t_ops), by, why
+
+
+def g1_inputs(rng, n, h, w, dev, seeds_per_field=1, corners=False,
+              none=False):
+    img = torch.from_numpy((rng.normal(size=(n, h, w)) * 2.0).astype(
+        np.float32)).to(dev)
+    seeds = torch.zeros((n, h, w), dtype=torch.bool)
+    for i in range(n):
+        for _ in range(seeds_per_field):
+            seeds[i, rng.integers(h), rng.integers(w)] = True
+    if corners:
+        seeds[:] = False
+        seeds[:, 0, 0] = seeds[:, -1, -1] = True
+    if none:
+        seeds[0] = False
+    return img, seeds.to(dev)
+
+
+def g1_err(out, ref, what):
+    """(max abs error, the same relative to the field's largest finite
+    value) of G1 against ``ref``; the relative one must stay within 1e-5,
+    and inf (or FLT_MAX) must sit at the same pixels."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(out), fin):
+        raise AssertionError(f"G1 {what}: unreached pixels differ")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    err = float((out[fin] - ref[fin]).abs().max())
+    rel = err / max(1.0, float(ref[fin].abs().max()))
+    if not rel <= 1e-5:
+        raise AssertionError(f"G1 {what}: relative error {rel:.3e}")
+    return err, rel
+
+
+def g1_phase(dev, seed):
+    """(a) G1 against its plain version on the card (refiner shape and edge
+    cases) and against the host C++ scan; its device time per launch,
+    wrapper, plain and bound; B1 at the refiner's [2·sb, 256^2, K 10]."""
+    from boxsegliver_torch.csrc import native
+    from boxsegliver_torch.ops import kernels
+    from boxsegliver_torch.ops.geodesic import geodesic2d
+
+    rng = np.random.default_rng(seed)
+    cases = {
+        "refiner [64,128,128]": g1_inputs(rng, 64, 128, 128, dev),
+        "odd [3,127,129]": g1_inputs(rng, 3, 127, 129, dev, 3),
+        "one row [4,1,200]": g1_inputs(rng, 4, 1, 200, dev),
+        "one column [4,200,1]": g1_inputs(rng, 4, 200, 1, dev),
+        "no seeds [2,64,64]": g1_inputs(rng, 2, 64, 64, dev, none=True),
+        "corner seeds [2,96,80]": g1_inputs(rng, 2, 96, 80, dev,
+                                            corners=True),
+        "wide [2,16,1024]": g1_inputs(rng, 2, 16, 1024, dev, 4),
+    }
+    worst = 0.0
+    for name, (img, seeds) in cases.items():
+        out = kernels.geodesic2d_batch(img, seeds)
+        err, rel = g1_err(out, geodesic2d(img, seeds), name)
+        worst = max(worst, err)
+        extra = ""
+        if name.startswith(("refiner", "odd")):
+            cpp = torch.stack([torch.from_numpy(native.geodesic2d(
+                img[i].cpu().numpy(), seeds[i].cpu().numpy()))
+                for i in range(min(4, len(img)))])
+            cpp = torch.where(cpp == native.FLT_MAX, float("inf"), cpp)
+            c_err, c_rel = g1_err(out[:len(cpp)].cpu(), cpp, name + " C++")
+            extra = f", vs the C++ scan {c_err:.3e} ({c_rel:.3e} rel)"
+        print(f"  G1 {name:24s} max abs err vs plain {err:.3e} ({rel:.3e} "
+              f"rel){extra}")
+        if name.startswith("no seeds") and bool(torch.isfinite(out[0]).any()):
+            raise AssertionError("G1: a seedless field must stay +inf")
+
+    img, seeds = cases["refiner [64,128,128]"]
+    n_sets = max(1, COLD_BYTES // (img.numel() * 5))
+    sets = [g1_inputs(rng, 64, 128, 128, dev) for _ in range(n_sets)]
+
+    def run_kernel(i=0):
+        return kernels.geodesic2d_batch(*sets[i])
+
+    p1 = cuda_ms(lambda: geodesic2d(img, seeds), iters=2, warmup=1)
+    k1 = cuda_ms(run_kernel, iters=20, warmup=2)
+    d1 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
+    d2 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
+    k2 = cuda_ms(run_kernel, iters=20, warmup=2)
+    p2 = cuda_ms(lambda: geodesic2d(img, seeds), iters=2, warmup=1)
+    bound, by, why = g1_bound_ms(img)
+    dev_ms = min(d1, d2)
+    print(f"  G1 [64, 128, 128] (2 x 32 fields of the refiner at 256^2, "
+          f"{G1_ITERATIONS} iterations): device {d1:.4f}/{d2:.4f} ms per "
+          f"launch, wrapper {k1:.4f}/{k2:.4f} ms per call, plain "
+          f"{p1:.2f}/{p2:.2f} ms, bound {bound:.6f} ms ({by}: {why}; "
+          f"{bound / dev_ms:.2%} of bound; per row step "
+          f"{dev_ms * 1e3 / (2 * G1_ITERATIONS * 128):.3f} us); {smi()}")
+    rec = {"name": "geodesic2d_batch", "route": "cuda",
+           "source": "boxsegliver_torch/csrc/geodesic.cu",
+           "replaces": "boxsegliver_tpu/ops/geodesic.py:93",
+           "max_abs_err": worst, "ms": min(k1, k2), "device_ms": dev_ms,
+           "wrapper_ms": min(k1, k2), "plain_ms": min(p1, p2),
+           "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+    # B1 at the device refiner's shape: fg and bg of 32 slices as 64 rows,
+    # K = --max_iters 10 click slots, a valid prefix
+    c, s, v = guide_inputs(rng, 64, 10, 256, 256, dev,
+                           n_valid=rng.integers(0, 11, 64))
+    s = torch.full_like(s, 5.0)
+    out = kernels.gaussian_guide_batch(c, s, v, height=256, width=256)
+    ref = kernels.gaussian_guide_batch_plain(c, s, v, height=256, width=256)
+    err = float((out - ref).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"B1 at the refiner's shape: {err}")
+    dm = graph_ms(lambda i=0: kernels.gaussian_guide_batch(
+        c, s, v, height=256, width=256), 1, iters=100)
+    bound_b1, by_b1, why_b1 = b1_bound_ms(c, s, v, 256, 256, sfu_per_s())
+    print(f"  B1 at the refiner's shape [64, K 10, 256^2]: max abs err "
+          f"{err:.1e}, device {dm:.5f} ms per launch, bound {bound_b1:.6f} "
+          f"ms ({by_b1}: {why_b1}; {bound_b1 / dm:.1%} of bound)")
+    return rec
+
+
+class CaseRecorder:
+    """Records each case of a click-eval CLI run: the host loop's and the
+    device refiner's result dicts, and the refiner's click rounds."""
+
+    def __enter__(self):
+        from boxsegliver_torch.interactive import device_refine, refine
+
+        self.cases, self.rounds = [], []
+        self._host = refine.interactive_eval_2d
+        self._dev = device_refine.DeviceRefiner2D.refine_case
+
+        def host(*a, **k):
+            out = self._host(*a, **k)
+            self.cases.append(dict(out))
+            return out
+
+        def dev(refiner, *a, **k):
+            out = self._dev(refiner, *a, **k)
+            self.cases.append(dict(out))
+            self.rounds.append(refiner.rounds)
+            return out
+
+        refine.interactive_eval_2d = host
+        device_refine.DeviceRefiner2D.refine_case = dev
+        return self
+
+    def __exit__(self, *exc):
+        from boxsegliver_torch.interactive import device_refine, refine
+
+        refine.interactive_eval_2d = self._host
+        device_refine.DeviceRefiner2D.refine_case = self._dev
+
+
+def click_eval(tmp, md, refine, kind, *extra, data_root=None):
+    """One ``101_unetinter_v10.sh inter`` run through
+    boxsegliver_torch.cli.interactive_eval on the synthetic NF test fold
+    with ``md``'s best checkpoint; exact launch counts: one B1 launch a
+    click (host loop) or a round (refiner) for gaussian guides, one G1
+    launch a round for the refiner's geodesic guides, 18 B2-fwd a
+    forward."""
+    from boxsegliver_torch.cli import interactive_eval as icli
+
+    argv = INTER_EVAL + [
+        "--task", "nf_inter", "--dataset", "synthetic", "--data_root",
+        str(data_root or tmp), "--k_folds", "2", "--model_dir", str(md),
+        "--guide_channel", "2", "--dice_thresh", "0.85", "--max_iters", "10",
+        "--device_refine", refine, "--guide_kind", kind, *extra]
+    with CaseRecorder() as rec:
+        means, seconds, launches = counted_run(lambda: icli.main(argv))
+    if refine == "on":
+        forwards = sum(rec.rounds)
+    else:
+        forwards = sum(round(c["clicks"] * c["slices"]) for c in rec.cases)
+    expect_launches(f"click eval {refine} {kind}", launches, {
+        "gaussian_guide_batch": forwards if kind == "gaussian" else 0,
+        "geodesic2d_batch": forwards if (kind == "geodesic"
+                                         and refine == "on") else 0,
+        "in_relu_fwd": NF_BLOCKS * forwards})
+    if not rec.cases or not all(math.isfinite(c["Dice"]) for c in rec.cases):
+        raise AssertionError(f"click eval results {rec.cases}")
+    return means, seconds, launches, rec.cases
+
+
+def fit_tiny_unetinter(dev, seed, steps=150):
+    """A small float32 UNetInter (UNetInter_TINY.yml, 64^2) fit on the card
+    to blob slices with a click guide at each blob's center, so that it
+    answers its guides with clear margins (the host loop and the refiner
+    then see no near-tie pixel)."""
+    from boxsegliver_torch.interactive.refine import render_click_guides
+    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:64, :64]
+    labs = np.stack([(yy - 16 - 5 * i) ** 2 + (xx - 18 - 4 * i) ** 2
+                     < (5 + i % 3) ** 2 for i in range(6)])
+    ims = (labs[..., None] * 1.5 + rng.normal(size=(6, 64, 64, 3)) * 0.35
+           ).astype(np.float32)
+    guides = torch.stack([render_click_guides(
+        (64, 64), [tuple(int(v) for v in np.argwhere(lab).mean(0))], [],
+        5.0, device=dev) for lab in labs]).permute(0, 2, 3, 1)
+    model = build_model("UNetInter", model_kwargs=dict(
+        MODEL_CONFIGS["UNetInter_TINY.yml"], normalizer="instance_norm"),
+        num_classes=2, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(seed)).to(dev)
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    feats = {"images": torch.from_numpy(ims).to(dev), "sp_guide": guides}
+    target = torch.from_numpy(labs).long().to(dev)
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = torch.nn.functional.cross_entropy(
+            model(feats).permute(0, 3, 1, 2), target)
+        loss.backward()
+        opt.step()
+    return model.eval(), ims, labs, float(loss.detach())
+
+
+def refine_agreement(dev, seed, md, args_argv):
+    """(c) The host loop and the device refiner in float32 on the card
+    (every guide kind, a small UNetInter fit on the card): equal clicks per
+    slice set, Dice within 1e-4; the first round's probabilities of the
+    full-width model (md's best) on the card against the CPU (1e-4)."""
+    from boxsegliver_torch.cli import interactive_eval as icli
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.interactive.device_refine import DeviceRefiner2D
+    from boxsegliver_torch.interactive.refine import interactive_eval_2d
+    from boxsegliver_torch.ops.labeling import largest_error_click
+
+    model, ims, labs, loss = fit_tiny_unetinter(dev, seed)
+    for kind in ("gaussian", "euclidean", "geodesic"):
+        kw = dict(dice_thresh=0.97, max_iters=6, stddev=5.0,
+                  guide_kind=kind, guide_channel=2)
+        host = interactive_eval_2d(icli.make_predict(model), ims, labs,
+                                   device=dev, **kw)
+        ref = DeviceRefiner2D(model, device=dev, **kw).refine_case(ims, labs)
+        print(f"  host loop vs device refiner, {kind}, float32 (UNetInter "
+              f"fit to loss {loss:.4f}): host {host}, refiner {ref}")
+        if not (host["clicks"] == ref["clicks"]
+                and abs(host["Dice"] - ref["Dice"]) <= 1e-4):
+            raise AssertionError(f"the device refiner ({kind}) disagrees "
+                                 f"with the host loop")
+
+    args = icli.build_parser().parse_args(args_argv + [
+        "--compute_dtype", "float32"])
+    from boxsegliver_torch import config as config_mod
+    config_mod.fill_default_args(args)
+    ds = cli.resolve_dataset_dir(args)
+    meta = next(m for m in cli._test_metas(args, ds) if m["tumors"])
+    case = ds / f"volume-{meta['PID']}"
+    lab = np.load(case / "segmentation.npy") > 0
+    z = [i for i in range(len(lab)) if lab[i].any()][:2]
+    images = icli.slice_stacks(np.load(case / "volume.npy"), 3)[z]
+    probs = []
+    for d in (dev, torch.device("cpu")):
+        m = cli.build_model_from_args(args, d)
+        refiner = DeviceRefiner2D(m, device=d)
+        labs_t = torch.from_numpy(lab[z]).to(d)
+        coords, fg, has = largest_error_click(
+            torch.zeros_like(labs_t), labs_t)
+        g = refiner._render(coords[:, None], (fg & has)[:, None],
+                            (~fg & has)[:, None], *lab.shape[1:])
+        with torch.no_grad():
+            p = torch.softmax(m({"images": torch.from_numpy(images).to(d),
+                                 "sp_guide": torch.stack(list(g), -1)}), -1)
+        probs.append(p.cpu())
+        del m, refiner
+    err = float((probs[0] - probs[1]).abs().max())
+    print(f"  first round of the refiner, {args.model_config or 'UNetInter.yml'}"
+          f" (phase 19c's best, float32), 2 slices of case {meta['PID']}: "
+          f"card vs CPU max abs err {err:.2e}")
+    if not err <= 1e-4:
+        raise AssertionError("the refiner's first round on the card "
+                             "disagrees with the CPU")
+
+
+def new_models_phase(tmp, ds):
+    """(e) nf_inter train at the flags of 105_interunet_v1.sh,
+    104_small_v3.sh, 103_lgnet_v3.sh (full width, batch 16) and
+    101_unetinter_v13's deltas: 8 steps each through the CLI with exact
+    launches a step (B2-fwd / B2a / B2b: the model's IN + ReLU blocks; B1
+    one a step under --local_enhance), then the three models' step in
+    steady state (K = 1)."""
+    from boxsegliver_torch.cli import main as cli
+
+    paths, walls = {}, {}
+    for i, (what, (flags, blocks, b1, timed)) in enumerate(
+            NEW_MODEL_TRAIN.items()):
+        md = Path(tmp) / f"new_model_{i}"
+        trainer, seconds, launches = counted_run(lambda: cli.main(nf_argv(
+            "nf_inter", "train", "chip_smoke_new", tmp, md, *flags,
+            "--num_of_steps", "8")))
+        if trainer.global_step != 8:
+            raise AssertionError(f"{what} stopped at {trainer.global_step}")
+        expect_launches(what, launches, {
+            "gaussian_guide_batch": 8 if b1 else 0,
+            "in_relu_fwd": 8 * blocks, "in_relu_bwd_stats": 8 * blocks,
+            "in_relu_bwd_apply": 8 * blocks})
+        lines = [json.loads(ln) for ln in (md / "summaries" / "metrics.jsonl")
+                 .read_text().splitlines()]
+        loss = {ln["step"]: ln["value"] for ln in lines
+                if ln["tag"] == "nf/loss"}
+        if not loss or not all(math.isfinite(v) for v in loss.values()):
+            raise AssertionError(f"{what}: train loss {loss}")
+        print(f"  {what}: 8 steps of 16 x 256^2 in {seconds:.2f} s; per "
+              f"step B2-fwd / B2a / B2b {blocks}, B1 {int(b1)}; loss "
+              + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(loss.items())))
+        paths[what] = launches
+        if timed:
+            args = cli.get_args(nf_argv(
+                "nf_inter", "train", "chip_smoke_new_b", tmp,
+                Path(tmp) / f"new_model_b{i}", *flags))
+            walls[what], _, _ = steady(
+                args, ds, f"{what} step, K=1",
+                kernels_used=TRAIN_KERNELS if b1 else B2_ALL, top=6)
+    print("  new click models, ms/step at batch 16 (median of 3 windows of "
+          "16): " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in walls.items())
+          + f"; {smi()}")
+    return paths
+
+
+def click_export_phase(tmp, dev, seed, md):
+    """(f) --mode export of phase 19c's UNetInter (nf_inter, zero click
+    guides of --guide_channel 2), 5 requests through cli/serve.py on the
+    card, the response against the eager model within one bf16 step."""
+    from boxsegliver_torch.cli import main as cli
+
+    argv = nf_argv("nf_inter", "export", "chip_smoke_nf_inter", tmp, md,
+                   *INTER_MODEL)
+    t0 = time.perf_counter()
+    bundle = cli.main(argv)
+    sig = json.loads((bundle / "signature.json").read_text())
+    print(f"  exported UNetInter.yml (nf_inter, 101_unetinter_v10 flags, "
+          f"batch 16, bf16) in {time.perf_counter() - t0:.2f} s: inputs "
+          f"{sig['inputs']}")
+    if sig["inputs"]["sp_guide"][0] != [16, 256, 256, 2]:
+        raise AssertionError(f"click export signature {sig['inputs']}")
+    feats, probs, launches, per_req = serve_bundle(
+        bundle, "serve UNetInter (click export)", requests=5, seed=seed)
+    if per_req["in_relu_fwd"] != NF_BLOCKS:
+        raise AssertionError(f"click serving B2-fwd per request {per_req}")
+    live = cli.build_model_from_args(cli.get_args(
+        ["eval" if a == "export" else a for a in argv]), dev)
+    with torch.no_grad():
+        want = torch.softmax(live({k: torch.from_numpy(v).to(dev)
+                                   for k, v in feats.items()}), -1).cpu()
+    err = (torch.from_numpy(probs) - want).abs()
+    bad = err > 2.0 ** -7 * want.abs() + 1e-5        # b2_check's bf16 bound
+    print(f"  UNetInter response vs the eager model + softmax on the card: "
+          f"max abs err {float(err.max()):.3e}, {int(bad.sum())} elements "
+          f"beyond one bf16 rounding step")
+    if bool(bad.any()):
+        raise AssertionError("the served UNetInter disagrees with the eager "
+                             "model")
+    return launches
+
+
+def click_eval_phase(tmp, dev, seed, nf_md):
+    """Phase 20: (a) G1; (b) the click eval through the CLI, host loop and
+    device refiner, gaussian and geodesic guides; (c) host loop vs refiner
+    and card vs CPU; (d) the auto crossover at 128^2 and 256^2; (e) the new
+    click models' training; (f) the click export served."""
+    from boxsegliver_torch.data.synthetic import make_synthetic_dataset
+
+    rec = g1_phase(dev, seed)
+    ds = Path(tmp) / "synthetic_nf"
+    paths, secs = {}, {}
+    for refine in ("off", "on"):
+        for kind in ("gaussian", "geodesic"):
+            means, seconds, launches, cases = click_eval(tmp, nf_md, refine,
+                                                         kind)
+            paths[f"click eval {refine} {kind}"] = launches
+            secs[refine, kind, 256] = means["sec_per_case"]
+            print(f"  click eval (101_unetinter_v10.sh inter, UNetInter.yml "
+                  f"full width, bf16) --device_refine {refine} --guide_kind "
+                  f"{kind}: {means['sec_per_case']:.3f} s/case, Dice "
+                  f"{means['Dice']:.4f}, clicks {means['clicks']:.3f}, "
+                  f"slices {means['slices']:.0f}/case ({len(cases)} cases, "
+                  f"{seconds:.2f} s); launches {launches}; {smi()}")
+    refine_agreement(dev, seed, nf_md, INTER_EVAL + [
+        "--task", "nf_inter", "--dataset", "synthetic", "--data_root",
+        str(tmp), "--k_folds", "2", "--model_dir", str(nf_md)])
+
+    small = Path(tmp) / "nf128"
+    make_synthetic_dataset(small / "synthetic_nf", n_cases=4,
+                           shape=(24, 128, 128), k_split=2, modality="nf",
+                           seed=seed)
+    for refine in ("off", "on"):
+        means, _, _, _ = click_eval(tmp, nf_md, refine, "gaussian",
+                                    "--im_height", "128", "--im_width",
+                                    "128", data_root=small)
+        secs[refine, "gaussian", 128] = means["sec_per_case"]
+    rule = {size: ("device refiner" if secs["on", "gaussian", size]
+                   < secs["off", "gaussian", size] else "host loop")
+            for size in (128, 256)}
+    print("  auto crossover (gaussian, bf16, s/case host loop / refiner): "
+          + ", ".join(f"{size}^2 {secs['off', 'gaussian', size]:.3f} / "
+                      f"{secs['on', 'gaussian', size]:.3f} -> {rule[size]}"
+                      for size in (128, 256))
+          + "; the port's rule: auto = the device refiner; " + smi())
+    if set(rule.values()) != {"device refiner"}:
+        raise AssertionError(f"--device_refine auto takes the device refiner,"
+                             f" but the host loop was faster: {rule}")
+    paths.update(new_models_phase(tmp, ds))
+    paths["serve (UNetInter click export)"] = click_export_phase(
+        tmp, dev, seed, nf_md)
+    return rec, paths
 
 
 def main(argv=None):
@@ -3128,7 +3617,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/19] device")
+    print("[1/20] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -3143,7 +3632,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/19] build")
+    print("[2/20] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -3153,7 +3642,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/19] kernel B1 vs plain")
+    print("[3/20] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3163,52 +3652,58 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/19] labeling vs scipy")
+        print("[4/20] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/19] flagship guided eval (run_g) through the CLI")
+        print("[5/20] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/19] profile of one case's sweep (steady state)")
+        print("[6/20] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/19] kernel B2 vs plain")
+        print("[7/20] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/19] flagship G-Net training through the CLI")
+        print("[8/20] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/19] profile of the flagship train step (steady state)")
+        print("[9/20] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/19] UNet training (001_unet.sh train) through the CLI")
+        print("[10/20] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/19] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/20] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/19] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/20] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/19] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/20] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/19] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/20] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/19] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/20] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/19] train step card vs CPU: boundary and proportion "
+        print("[16/20] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/19] serving: --mode export and the REST server on the "
+        print("[17/20] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/19] prepare -> annotate -> viewers on the card")
+        print("[18/20] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/19] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        print("[19/20] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
-        paths.update(nf_phase(tmp, dev, opts.seed))
+        nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
+        paths.update(nf_paths)
+        print("[20/20] click eval (interactive_eval --dim 2): kernel G1, "
+              "host loop and device refiner, the new click models, the "
+              "click export")
+        g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
+        paths.update(click_paths)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -3216,6 +3711,10 @@ def main(argv=None):
     recs = [rec] + [b2[n] for n in B2_KERNELS]
     for r in recs:
         r["launches"] = launches[r["name"]]
+    # G1's main path is the device refiner with geodesic guides
+    g1["launches"] = paths["click eval on geodesic"][g1["name"]]
+    recs.append(g1)
+    for r in recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     keys += ("launches_by_path",)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))

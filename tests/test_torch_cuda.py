@@ -531,3 +531,106 @@ def test_annotate_predict_on_the_card_matches_cpu(dev, tmp_path):
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 1e-4
     np.testing.assert_array_equal(out["cuda"][1], out["cpu"][1])
     assert out["cuda"][2] == out["cpu"][2]
+
+
+# ---------------------------------------------------------------------------
+# G1: the geodesic raster scan
+# ---------------------------------------------------------------------------
+
+def _geo_inputs(n, h, w, seed, corners=False, none=False):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy((rng.normal(size=(n, h, w)) * 2.0).astype(
+        np.float32))
+    seeds = torch.from_numpy(rng.random((n, h, w)) > 0.995)
+    seeds[:, (h - 1) // 2, (w - 1) // 2] = True
+    if corners:
+        seeds[:] = False
+        seeds[:, 0, 0] = seeds[:, -1, -1] = True
+    if none:
+        seeds[0] = False
+    return img, seeds
+
+
+@pytest.mark.parametrize("n,h,w,corners,none", [
+    (64, 128, 128, False, True), (3, 127, 129, False, False),
+    (2, 1, 77, False, False), (2, 77, 1, False, False),
+    (2, 40, 300, True, False), (2, 16, 1024, False, False)],
+    ids=["refiner", "odd", "one_row", "one_column", "corners", "wide"])
+def test_g1_matches_plain_and_counts(dev, n, h, w, corners, none):
+    """Relative 1e-5 of the finite field (the min-plus scan's
+    reassociation), +inf at the same pixels, one count a launch."""
+    from boxsegliver_torch.ops.geodesic import geodesic2d
+
+    img, seeds = _geo_inputs(n, h, w, h + w, corners, none)
+    before = kernels.geodesic2d_batch.launches
+    out = kernels.geodesic2d_batch(img.to(dev), seeds.to(dev)).cpu()
+    assert kernels.geodesic2d_batch.launches == before + 1
+    ref = geodesic2d(img, seeds)
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(out), fin)
+    if none:
+        assert not fin[0].any()
+    scale = max(1.0, float(ref[fin].abs().max()))
+    torch.testing.assert_close(out[fin], ref[fin], rtol=0, atol=1e-5 * scale)
+
+
+def test_g1_rejects_what_it_does_not_take(dev):
+    img = torch.zeros((2, 8, 8), device=dev)
+    seeds = torch.ones((2, 8, 8), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        kernels.geodesic2d_batch(img.double(), seeds)
+    with pytest.raises(ValueError):
+        kernels.geodesic2d_batch(img, seeds[:1])
+    with pytest.raises(ValueError):
+        kernels.geodesic2d_batch(torch.zeros((1, 4, 1025), device=dev),
+                                 torch.ones((1, 4, 1025), dtype=torch.bool,
+                                            device=dev))
+    with pytest.raises(ValueError):
+        kernels.geodesic2d_batch(img.transpose(1, 2), seeds)
+
+
+def test_device_refiner_on_the_card_matches_cpu(dev):
+    """DeviceRefiner2D in float32 on the card against the CPU, every guide
+    kind, on a small UNetInter fit (on the CPU) to blob slices so that its
+    margins are clear: equal clicks, Dice within 1e-4; one B1 (gaussian)
+    or G1 (geodesic) launch a round."""
+    from boxsegliver_torch.interactive.device_refine import DeviceRefiner2D
+    from boxsegliver_torch.interactive.refine import render_click_guides
+    from boxsegliver_torch.models import build_model
+
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[:64, :64]
+    labs = np.stack([(yy - 20 - 3 * i) ** 2 + (xx - 30 + 2 * i) ** 2
+                     < 40 + 10 * i for i in range(5)])
+    ims = (labs[..., None] * 1.5 + rng.normal(size=(5, 64, 64, 3)) * 0.3
+           ).astype(np.float32)
+    model = build_model("UNetInter", model_kwargs={
+        "init_channels": 4, "num_down_samples": 2,
+        "normalizer": "instance_norm"}, num_classes=2, dtype=torch.float32)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    guides = torch.stack([render_click_guides(
+        (64, 64), [tuple(int(v) for v in np.argwhere(lab).mean(0))], [])
+        for lab in labs]).permute(0, 2, 3, 1)
+    feats = {"images": torch.from_numpy(ims), "sp_guide": guides}
+    opt = torch.optim.Adam(model.parameters(), lr=3e-3)
+    for _ in range(100):
+        opt.zero_grad()
+        torch.nn.functional.cross_entropy(
+            model(feats).permute(0, 3, 1, 2),
+            torch.from_numpy(labs).long()).backward()
+        opt.step()
+    model.eval()
+    for kind in ("gaussian", "euclidean", "geodesic"):
+        kw = dict(max_iters=4, guide_kind=kind, dice_thresh=0.97)
+        cpu = DeviceRefiner2D(model, device="cpu", **kw).refine_case(ims,
+                                                                     labs)
+        kernels.reset_launch_counts()
+        refiner = DeviceRefiner2D(model, device=dev, **kw)
+        gpu = refiner.refine_case(ims, labs)
+        rounds = {"gaussian": kernels.gaussian_guide_batch.launches,
+                  "geodesic": kernels.geodesic2d_batch.launches}
+        if kind in rounds:
+            assert rounds[kind] == refiner.rounds >= 1
+        assert gpu["clicks"] == cpu["clicks"]
+        assert abs(gpu["Dice"] - cpu["Dice"]) <= 1e-4
+        model.cpu()

@@ -184,8 +184,17 @@ def test_sampler_batches_match_jax(nf_root, tmp_path, capsys, extra):
 
 
 def test_geodesic_raises_naming_its_item(nf_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsi.InterSampler(nf_root, _args(nf_root, tmp_path, "--geodesic"))
+    """--geodesic raised NotImplementedError naming its ROADMAP item until
+    the click-eval slice ported it; now the sampler's batches carry the fg
+    and bg geodesic maps (held against JAX's in
+    tests/test_torch_inter_models.py)."""
+    args = _args(nf_root, tmp_path, "--geodesic")
+    batch = tsi.InterSampler(nf_root, args, seed=1).sample_batch(BS)
+    for k in ("fg_gd", "bg_gd"):
+        assert batch[k].shape == (BS, 48, 40) and batch[k].dtype == np.float32
+        assert np.isfinite(batch[k]).all() and batch[k].min() >= 0
+    assert (batch["fg_gd"].reshape(BS, -1).any(axis=1)
+            == (batch["n_fg"] > 0)).all()
 
 
 @pytest.mark.parametrize("n_dirs", [1, 2])
