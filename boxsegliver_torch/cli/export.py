@@ -52,17 +52,26 @@ SIGNATURE_FILE = "signature.json"
 
 
 def build_feature_template(args) -> Dict[str, np.ndarray]:
-    """The serving inputs at their exported shapes (the 2-D part of JAX
-    cli/main.py:98-121): images [bs, H, W, C]; sp_guide [bs, H, W,
-    --guide_channel] of zeros for the click-guided models (the nf_inter
-    task, UNetInter, InterUNet), else [bs, H, W, 1] filled with 0.5 under
-    --use_spatial; context [bs, context length] under --use_context."""
-    if args.model == "UNet3D" or args.task == "nf_3d":
-        _not_ported("the 3D export", "queue A, 3D tower")
+    """The serving inputs at their exported shapes (JAX cli/main.py:
+    86-121).  UNet3D: images [bs, D, H, W, 1] (2 channels with
+    --use_cascade), D = --im_depth or 8 where it is -1, and sp_guide [bs,
+    D, H, W, --guide_channel] of zeros under --use_spatial.  2-D models:
+    images [bs, H, W, C]; sp_guide [bs, H, W, --guide_channel] of zeros for
+    the click-guided models (the nf_inter task, UNetInter, InterUNet), else
+    [bs, H, W, 1] filled with 0.5 under --use_spatial; context [bs, context
+    length] under --use_context."""
+    bs, h, w = args.batch_size, args.im_height, args.im_width
+    if args.model == "UNet3D":
+        depth = args.im_depth if args.im_depth > 0 else 8
+        ch = 2 if getattr(args, "use_cascade", False) else 1
+        feats = {"images": np.zeros((bs, depth, h, w, ch), np.float32)}
+        if getattr(args, "use_spatial", False):
+            gc = int(getattr(args, "guide_channel", 2))
+            feats["sp_guide"] = np.zeros((bs, depth, h, w, gc), np.float32)
+        return feats
     if args.task == "nf2" and getattr(args, "use_context", False):
         _not_ported("the nf2 image-patch context export", "queue A, nf2 / "
                     "IIN")
-    bs, h, w = args.batch_size, args.im_height, args.im_width
     feats = {"images": np.zeros((bs, h, w, args.im_channel), np.float32)}
     if args.task == "nf_inter" or args.model in ("UNetInter", "InterUNet"):
         # these models consume a click guide unconditionally
@@ -79,7 +88,9 @@ class Serve(nn.Module):
     """The exported function (JAX cli/export.py:47-58): images to float32,
     resized to ``size`` (bilinear with antialiasing, as jax.image.resize's
     "linear"; the identity at the exported shape), the model, softmax over
-    the last axis."""
+    the last axis.  A volume [bs, D, H, W, C] (UNet3D) must come at
+    ``size``: JAX's resize takes a 4-D target shape and refuses rank-5
+    images, so its UNet3D export fails where this one traces the identity."""
 
     def __init__(self, model: nn.Module, size):
         super().__init__()
@@ -88,7 +99,10 @@ class Serve(nn.Module):
 
     def forward(self, features: Dict[str, torch.Tensor]) -> torch.Tensor:
         images = features["images"].float()
-        if tuple(images.shape[1:3]) != self.size:
+        if images.ndim == 5 and tuple(images.shape[2:4]) != self.size:
+            raise ValueError(f"volume {tuple(images.shape)}: H x W must be "
+                             f"{self.size}")
+        if images.ndim == 4 and tuple(images.shape[1:3]) != self.size:
             images = F.interpolate(images.permute(0, 3, 1, 2), size=self.size,
                                    mode="bilinear", align_corners=False,
                                    antialias=True).permute(0, 2, 3, 1)

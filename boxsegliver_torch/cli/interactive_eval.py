@@ -1,9 +1,10 @@
-"""The interactive click-refinement eval, 2-D (port of
+"""The interactive click-refinement eval (port of
 boxsegliver_tpu/cli/interactive_eval.py:1-203; reference
-entry/main_eval.py:43-396): per lesion slice, clicks at the largest error
-until Dice clears ``--dice_thresh`` or ``--max_iters`` clicks are spent, on
-the test fold's lesion-bearing cases; per-case Dice and clicks and their
-means, which go to ``model_dir/eval_results_inter.txt``.
+entry/main_eval.py:43-396, entry/main_eval_3d.py:152-420): per lesion slice
+(``--dim 2``) or per whole volume (``--dim 3``, UNet3D), clicks at the
+largest error until Dice clears ``--dice_thresh`` or ``--max_iters`` clicks
+are spent, on the test fold's lesion-bearing cases; per-case Dice and
+clicks and their means, which go to ``model_dir/eval_results_inter.txt``.
 
     python -m boxsegliver_torch.cli.interactive_eval --mode eval \\
         --tag 101_unetinter_v10 --model UNetInter --loss_numeric_w 1 1 \\
@@ -12,6 +13,11 @@ means, which go to ``model_dir/eval_results_inter.txt``.
         --normalizer instance_norm --batch_size 1 --dataset NF --dim 2 \\
         [--device_refine on|off|auto] [--guide_kind gaussian|euclidean|
         geodesic] [--device cpu]      # 101_unetinter_v10.sh inter
+    python -m boxsegliver_torch.cli.interactive_eval --mode eval \
+        --tag 202_unetinter_v2 --model UNet3D --use_spatial \
+        --local_enhance --classes NF --im_height 256 --im_width 256 \
+        --normalizer instance_norm --dataset NF --dim 3 [--tta] \
+        [--device_refine on|off]      # the 3-D click eval
 
 Runs on the card unless ``--device cpu``.  Weights as ``--mode eval`` of
 cli/main (restore_weights: ``--ckpt_path``, else the best checkpoint, else
@@ -20,7 +26,11 @@ z-scored over its non-zero voxels, as the click training normalizes.  The
 refinement runs as the device refiner (interactive/device_refine.py: all
 lesion slices of a case at once, B1 or G1 drawing the guides) or the
 per-slice host loop (interactive/refine.py), by ``--device_refine``.
-``--dim 3`` and ``--num_replicas > 1`` raise, naming their ROADMAP items.
+``--dim 3`` z-scores the whole volume over its non-zero voxels, pads it to
+(2, 16, 16) multiples and refines with ``DeviceRefiner3D`` (unless
+``--device_refine off``) or the host loop, which also carries
+``--use_cascade`` (the GT-oracle channel), as in JAX.
+``--num_replicas > 1`` raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -45,14 +55,15 @@ def build_parser():
     group.add_argument("--guide_kind", type=str, default="gaussian",
                        choices=["gaussian", "euclidean", "geodesic"])
     group.add_argument("--tta", action="store_true",
-                       help="8-way mirror TTA in the 3D loop (not ported)")
+                       help="8-way mirror TTA in the 3D loop")
     group.add_argument("--device_refine", choices=["on", "off", "auto"],
                        default="auto",
                        help="on = the device refiner (all lesion slices of a "
-                            "case together on the card); off = the per-slice "
-                            "host loop; auto = on (the faster of the two "
-                            "on the card at 128^2 and 256^2: chip_smoke.py "
-                            "phase 20d)")
+                            "case together on the card; --dim 3: the whole "
+                            "volume); off = the host loop; auto = on (the "
+                            "faster of the two on the card at 128^2 and "
+                            "256^2: chip_smoke.py phase 20d); --dim 3 "
+                            "--use_cascade takes the host loop")
     group.add_argument("--task", type=str, default="synthetic",
                        help="dataset pairing (as in cli.main); 'synthetic' "
                             "auto-generates, anything else resolves "
@@ -61,9 +72,20 @@ def build_parser():
 
 
 def build_refiner(args, model, device):
-    """The device refiner, or None for the host loop (--device_refine)."""
+    """The device refiner, or None for the host loop (--device_refine; the
+    3-D cascade channel keeps the host loop)."""
     if getattr(args, "device_refine", "auto") == "off":
         return None
+    if args.dim == 3:
+        if getattr(args, "use_cascade", False):
+            return None
+        from boxsegliver_torch.interactive.device_refine import \
+            DeviceRefiner3D
+        return DeviceRefiner3D(
+            model, dice_thresh=args.dice_thresh, max_iters=args.max_iters,
+            stddev=args.guide_stddev, tta=bool(args.tta),
+            guide_channel=int(getattr(args, "guide_channel", 1)),
+            device=device)
     from boxsegliver_torch.interactive.device_refine import DeviceRefiner2D
     return DeviceRefiner2D(
         model, dice_thresh=args.dice_thresh, max_iters=args.max_iters,
@@ -101,10 +123,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     config_mod.check_args(args, parser)
     config_mod.fill_default_args(args)
-    if args.dim == 3:
-        raise NotImplementedError("--dim 3 (the 3-D click eval) is not "
-                                  "ported yet (ROADMAP queue A, item 5: the "
-                                  "3D tower)")
     if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
         raise NotImplementedError("the click eval over --num_replicas "
                                   f"{args.num_replicas} devices is not "
@@ -118,7 +136,10 @@ def main(argv=None):
                                               read_or_create_k_folds,
                                               train_test_split)
     from boxsegliver_torch.data.meta import load_meta
-    from boxsegliver_torch.interactive.refine import interactive_eval_2d
+    from boxsegliver_torch.evaluators.volume3d import pad_to_multiple
+    from boxsegliver_torch.interactive.refine import (interactive_eval_2d,
+                                                      interactive_eval_3d)
+    from boxsegliver_torch.ops.array_kits import zscore
 
     device = config_mod.resolve_device(args.device)
     dataset_dir = resolve_dataset_dir(args)
@@ -151,15 +172,35 @@ def main(argv=None):
         case = Path(dataset_dir) / f"volume-{pid}"
         vol = np.load(case / "volume.npy")
         lab = (np.load(case / "segmentation.npy") > 0).astype(np.uint8)
-        images = slice_stacks(vol, args.im_channel)
-        if refiner is not None:
-            res = refiner.refine_case(images, lab)
+        if args.dim == 3:
+            # the whole volume z-scored at once (3-D convolutions), padded
+            # to the model's alignment; Dice and clicks see the valid part
+            vol = zscore(vol.astype(np.float32))
+            pvol, pads = pad_to_multiple(vol[..., None], (2, 16, 16))
+            plab = np.pad(lab, [(0, p) for p in pads]) if any(pads) else lab
+            if refiner is not None:
+                res = refiner.refine_case(pvol[..., 0], plab,
+                                          valid_shape=vol.shape)
+            else:
+                res = interactive_eval_3d(
+                    predict, pvol[..., 0], plab,
+                    dice_thresh=args.dice_thresh, max_iters=args.max_iters,
+                    stddev=args.guide_stddev, tta=args.tta,
+                    use_cascade=bool(getattr(args, "use_cascade", False)),
+                    cascade_binary=bool(getattr(args, "cascade_binary",
+                                                False)),
+                    guide_channel=int(getattr(args, "guide_channel", 1)),
+                    valid_shape=vol.shape, device=device)
         else:
-            res = interactive_eval_2d(
-                predict, images, lab, dice_thresh=args.dice_thresh,
-                max_iters=args.max_iters, stddev=args.guide_stddev,
-                guide_kind=args.guide_kind,
-                guide_channel=int(args.guide_channel), device=device)
+            images = slice_stacks(vol, args.im_channel)
+            if refiner is not None:
+                res = refiner.refine_case(images, lab)
+            else:
+                res = interactive_eval_2d(
+                    predict, images, lab, dice_thresh=args.dice_thresh,
+                    max_iters=args.max_iters, stddev=args.guide_stddev,
+                    guide_kind=args.guide_kind,
+                    guide_channel=int(args.guide_channel), device=device)
         res["sec_per_case"] = time.perf_counter() - t_case
         logger.info("case %s: Dice=%.3f clicks=%.1f (%.2f s)", pid,
                     res["Dice"], res["clicks"], res["sec_per_case"])

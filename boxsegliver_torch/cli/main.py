@@ -32,6 +32,9 @@ entry/main.py, entry/main_g.py, entry/main_export.py).
     python -m boxsegliver_torch.cli.main nf_inter --mode train \
         --tag 101_unetinter_v10 --model UNetInter --use_spatial \
         --local_enhance --stddev 5. ...         # 101_unetinter_v10.sh
+    python -m boxsegliver_torch.cli.main nf_3d --mode train --tag \
+        201_unet_v1 --model UNet3D --classes NF --im_depth 10 \
+        --batch_size 4 ...                      # threed/201_unet_v1.sh
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--mode train`` trains
 a 2D UNet or G-Net (batch or instance norm) with the online 2D eval per
@@ -49,8 +52,13 @@ sp-point guides (``run_sp``) for ``nf --use_spatial``, else (or with
 ``--eval_no_sp``) with the unguided whole-volume eval (``run`` with a
 DeviceSlicePredictor); ``nf_inter --mode eval`` runs the online 2D eval
 over the fixed eval batches and appends its metrics to
-``model_dir/eval_results_2d.txt``.  Their weights come from
-``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
+``model_dir/eval_results_2d.txt``.  ``nf_3d`` (``--model UNet3D``)
+trains on 3-D patches (data/sampler3d.py, data/pipeline3d.py; the
+``--eval_per_epoch`` eval is evaluators/volume3d.EvaluateVolume3D) and
+evaluates whole volumes (``--im_depth -1``), with the device sliding window
+(``--im_depth > 0``), or with the frozen-2-D cascade channel
+(``--use_cascade --ckpt_2d``, interactive/cascade.py).  Their weights come
+from ``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
 flattened flax variables), else from ``--model_dir``: the best checkpoint,
 or the latest periodic one under ``--eval_final`` or when there is no best,
 else a warm start from ``--warm_start_from`` / ``--load_weights``.
@@ -89,6 +97,10 @@ def get_args(argv=None):
     config_mod.check_args(args, parser)
     config_mod.fill_default_args(args)
     args.task = task
+    if task == "nf_3d":  # reference entry/main.py nf_3d: the 3D NF pipeline
+        args.task = "nf"
+        if args.model != "UNet3D":
+            parser.error("task nf_3d requires --model UNet3D")
     if args.dataset == "synthetic" and task != "synthetic":
         args.dataset = {"liver": "LiTS", "only_liver": "LiTS", "tumor": "LiTS",
                         "nf": "NF", "nf2": "NF", "nf_inter": "NF",
@@ -108,6 +120,10 @@ def resolve_dataset_dir(args) -> Path:
                                    modality="nf" if nf_like else "liver")
         return root
     return Path(args.data_root) / args.dataset
+
+
+def is_3d(args) -> bool:
+    return args.model == "UNet3D"
 
 
 def is_inter(args) -> bool:
@@ -221,8 +237,6 @@ def main(argv=None):
 
 
 def _check_train_path(args):
-    if args.model == "UNet3D" or args.task == "nf_3d":
-        _not_ported("3D training", "queue A, 3D tower")
     if args.task == "nf2":
         _not_ported("task nf2 training", "queue A, nf2 / IIN")
 
@@ -235,7 +249,10 @@ def build_trainer(args, device, cache=None):
 
     from boxsegliver_torch.train.trainer import Trainer
 
-    if is_inter(args):
+    if is_3d(args):
+        from boxsegliver_torch.data.pipeline3d import make_preprocess_fn_3d
+        preprocess_fn = make_preprocess_fn_3d(args)
+    elif is_inter(args):
         from boxsegliver_torch.data.pipeline_inter import \
             make_inter_preprocess_fn
         preprocess_fn = make_inter_preprocess_fn(args, train=True)
@@ -276,7 +293,8 @@ def train(args, dataset_dir, logger, device):
 
     _check_train_path(args)
     cache = None
-    if getattr(args, "device_cache", False) and not is_inter(args):
+    if getattr(args, "device_cache", False) and not is_inter(args) \
+            and not is_3d(args):
         from boxsegliver_torch.data.device_cache import DeviceVolumeCache
         train_pids, _ = _split_pids(args, dataset_dir)
         try:
@@ -289,7 +307,17 @@ def train(args, dataset_dir, logger, device):
     trainer = build_trainer(args, device, cache=cache)
     start = trainer.restore()
     logger.info("Starting at global step %d on %s", start, device)
-    if is_inter(args):
+    if is_3d(args):
+        from boxsegliver_torch.data.sampler3d import Sampler3D
+        cascade2d = None
+        if getattr(args, "use_cascade", False) and getattr(args, "use_2d",
+                                                           False):
+            if not getattr(args, "ckpt_2d", None):
+                raise SystemExit("--use_cascade --use_2d needs --ckpt_2d")
+            cascade2d = build_cascade2d(args, device)
+        sampler = Sampler3D(dataset_dir, args, mode="train", seed=args.seed,
+                            cascade2d=cascade2d)
+    elif is_inter(args):
         from boxsegliver_torch.data.sampler_inter import InterSampler
         sampler = InterSampler(dataset_dir, args, mode="train",
                                seed=args.seed, max_clicks=args.max_clicks)
@@ -299,7 +327,17 @@ def train(args, dataset_dir, logger, device):
                                zbase=cache.zbase if cache else None)
     dataset = TrainDataset(sampler, args, seed=args.seed)
     eval_fn = None
-    if args.eval_per_epoch and args.eval_3d and not is_inter(args):
+    if args.eval_per_epoch and is_3d(args):
+        from boxsegliver_torch.evaluators.volume3d import EvaluateVolume3D
+        ev3 = EvaluateVolume3D(args, dataset_dir,
+                               ["Background"] + list(args.classes))
+        metas = _test_metas(args, dataset_dir)
+        metas = metas if args.eval_num <= 0 else metas[:args.eval_num]
+
+        def eval_fn(trainer):
+            return ev3.run(
+                lambda f: trainer.predict(_with_blank_guide(args, f)), metas)
+    elif args.eval_per_epoch and args.eval_3d and not is_inter(args):
         # the whole-volume eval of the held-out cases (reference --eval_3d)
         from boxsegliver_torch.evaluators.volume import (EvaluateVolume,
                                                          make_inline_eval_fn)
@@ -382,11 +420,121 @@ def _inter_eval(args, dataset_dir, logger, device):
     return results
 
 
+def _with_blank_guide(args, feats):
+    """UNet3D eval without interactions: zero click guides (reference
+    threed_script eval defaults)."""
+    import numpy as np
+
+    if getattr(args, "use_spatial", False) and "sp_guide" not in feats:
+        shape = feats["images"].shape[:-1] + (int(args.guide_channel),)
+        feats = dict(feats, sp_guide=np.zeros(shape, np.float32))
+    return feats
+
+
+def build_frozen_2d_predict(args, device):
+    """The frozen click-guided 2-D model of --model_2d with --ckpt_2d's
+    weights (reference entry/infer_2d.py:32-80 InferenceWithGuide2D; JAX
+    cli/main.py:124-151): a predict function of device tensors
+    {"images" [n, H, W, --im_channel], "sp_guide" [n, H, W, 2]} →
+    probabilities."""
+    import torch
+
+    from boxsegliver_torch.models import build_model, load_model_config
+    from boxsegliver_torch.train.checkpoint import warm_start
+
+    dtype = (torch.bfloat16 if args.compute_dtype == "bfloat16"
+             else torch.float32)
+    kw = dict(load_model_config(args.model_2d), guide_channels=2,
+              sp_channels=2, in_channels=int(args.im_channel))
+    model = build_model(args.model_2d, args=args, model_kwargs=kw,
+                        num_classes=len(args.classes) + 1, dtype=dtype)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    warm_start(model, args.ckpt_2d)
+    model = model.to(device).eval()
+
+    @torch.no_grad()
+    def predict(feats):
+        return torch.softmax(model(feats), dim=-1)
+
+    return predict
+
+
+def build_cascade2d(args, device):
+    """CascadeClick2D for the training-time frozen-2-D cascade channel."""
+    from boxsegliver_torch.interactive.cascade import CascadeClick2D
+
+    return CascadeClick2D(build_frozen_2d_predict(args, device),
+                          im_height=args.im_height, im_width=args.im_width,
+                          im_channel=args.im_channel, device=device)
+
+
+def build_eval_cascade(args, device):
+    """Whole-volume Cascade2D of the eval paths, or None without
+    --use_cascade and --ckpt_2d (the frozen 2-D model runs click-less, with
+    blank guides)."""
+    if not (getattr(args, "use_cascade", False)
+            and getattr(args, "ckpt_2d", None)):
+        return None
+    import torch
+
+    from boxsegliver_torch.interactive.cascade import Cascade2D
+
+    p2d = build_frozen_2d_predict(args, device)
+
+    def p2d_blank(feats):
+        if "sp_guide" not in feats:
+            x = feats["images"]
+            feats = dict(feats, sp_guide=torch.zeros(
+                x.shape[:-1] + (2,), device=x.device))
+        return p2d(feats)
+
+    return Cascade2D(p2d_blank, batch_size=args.batch_size,
+                     im_channel=args.im_channel,
+                     channel_mode="binary" if args.cascade_binary else "edt",
+                     tau=25.0, device=device)
+
+
+def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
+    """UNet3D eval (JAX cli/main.py:436-474): the whole-volume fast path
+    (z-score and argmax on the device, blank guides there), the device
+    sliding window at ``--im_depth > 0``, or the host-normalized
+    whole-volume forward when a cascade channel is set."""
+    from boxsegliver_torch.evaluators.volume3d import (EvaluateVolume3D,
+                                                       make_sliding_predict,
+                                                       make_volume_predict)
+
+    if getattr(args, "z_shards", 0) and args.z_shards > 1:
+        _not_ported(f"the 3D eval over --z_shards {args.z_shards} devices",
+                    "queue A, item 8: multi-GPU")
+    model = build_model_from_args(args, device)
+    logger.info("Restored %s from %s on %s", args.model, args.restored_from,
+                device)
+    ev3 = EvaluateVolume3D(args, dataset_dir,
+                           ["Background"] + list(args.classes))
+    cascade = build_eval_cascade(args, device)
+    gc = int(args.guide_channel) if getattr(args, "use_spatial",
+                                            False) else 0
+    whole = args.im_depth <= 0
+    no_cascade = cascade is None and not getattr(args, "use_cascade", False)
+    if not whole:
+        predict = make_sliding_predict(
+            model, device, (args.im_depth, args.im_height, args.im_width),
+            num_classes=len(args.classes) + 1, ret="pred",
+            in_zscore=no_cascade, blank_guide_channels=gc)
+    else:
+        fast = no_cascade
+        predict = make_volume_predict(
+            model, device, ret="pred" if fast else "prob", in_zscore=fast,
+            blank_guide_channels=gc)
+    return ev3.run(predict, _test_metas(args, dataset_dir), do_eval=do_eval,
+                   cascade=cascade)
+
+
 def evaluate(args, dataset_dir, logger, device, do_eval=True):
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
-    if args.model == "UNet3D" or args.task == "nf_3d":
-        _not_ported("3D eval", "queue A, 3D tower")
+    if is_3d(args):
+        return _evaluate_3d(args, dataset_dir, logger, device, do_eval)
     if args.task == "nf2":
         _not_ported("task nf2 (the per-lesion patch eval run_patch)",
                     "queue A, nf2 / IIN")

@@ -1,7 +1,8 @@
-"""Device-resident click refinement, 2-D: all lesion slices of a case refine
-together on the card (port of
-boxsegliver_tpu/interactive/device_refine.py:33-226; host loop:
-interactive/refine.interactive_eval_2d).
+"""Device-resident click refinement on the card (port of
+boxsegliver_tpu/interactive/device_refine.py:33-361; host loops:
+interactive/refine.py).  2-D: all lesion slices of a case refine together
+(``DeviceRefiner2D``); 3-D: the whole volume of a UNet3D
+(``DeviceRefiner3D``, below).
 
 JAX compiles the loop into one ``lax.while_loop``; here it is a Python loop
 of at most ``max_iters`` click rounds with one host read (``done``) a
@@ -31,9 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from boxsegliver_torch.interactive.refine import click_guide_maps
+from boxsegliver_torch.interactive.refine import (TTA_FLIPS, click_guide_3d,
+                                                  click_guide_maps)
 from boxsegliver_torch.ops.kernels import geodesic2d_batch
-from boxsegliver_torch.ops.labeling import largest_error_click
+from boxsegliver_torch.ops.labeling import (largest_error_click,
+                                            largest_error_click_3d)
 
 _S_BUCKETS = (8, 16, 32, 64, 128, 256)
 
@@ -164,8 +167,79 @@ class DeviceRefiner2D:
 
 
 class DeviceRefiner3D:
-    """The whole-volume device refiner needs UNet3D."""
+    """Whole-volume click refinement on the card (port of JAX
+    device_refine.py:228-361; host loop: interactive/refine.
+    interactive_eval_3d).  JAX's ``lax.while_loop`` is an eager loop of at
+    most ``max_iters`` rounds with one host read a round (the stop flag).
+    Each round, on the device: the next click at the largest 3-D error
+    component (ops/labeling.largest_error_click_3d), its Gaussian max-folded
+    into the fg or bg guide, one forward (eight with ``tta``: the mean of
+    the mirrored forwards' probabilities), the prediction masked to the
+    valid region, and the Dice.  The cascade channel stays on the host
+    loop, as in JAX.  ``rounds`` holds the rounds of the last case."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the 3-D device refiner is not ported yet "
-                                  "(ROADMAP queue A, item 5: the 3D tower)")
+    def __init__(self, model: torch.nn.Module, *, dice_thresh: float = 0.85,
+                 max_iters: int = 20, stddev: float = 5.0, tta: bool = False,
+                 guide_channel: int = 1, device="cuda"):
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.dice_thresh = float(dice_thresh)
+        self.max_iters = int(max_iters)
+        self.stddev = float(stddev)
+        self.flips = TTA_FLIPS if tta else [()]
+        self.guide_channel = int(guide_channel)
+        self.rounds = 0
+
+    @torch.no_grad()
+    def refine_case(self, volume: np.ndarray, label: np.ndarray, *,
+                    valid_shape=None) -> Dict[str, float]:
+        """volume [d, h, w] or [d, h, w, c] float32 (padded and normalized,
+        as the host loop's), label [d, h, w] (nonzero = lesion)."""
+        dev = self.device
+        vol = np.asarray(volume, np.float32)
+        if vol.ndim == 3:
+            vol = vol[..., None]
+        image = torch.from_numpy(np.ascontiguousarray(vol))[None].to(dev)
+        labs = torch.from_numpy(np.asarray(label) > 0).to(dev)
+        shape = tuple(labs.shape)
+        vd, vh, vw = valid_shape if valid_shape is not None else shape
+        valid = torch.zeros(shape, dtype=torch.bool, device=dev)
+        valid[:vd, :vh, :vw] = True
+        pred = torch.zeros(shape, dtype=torch.bool, device=dev)
+        fg_g = torch.zeros(shape, device=dev)
+        bg_g = torch.zeros(shape, device=dev)
+        dice = torch.zeros((), device=dev)
+        clicks = torch.zeros((), dtype=torch.int64, device=dev)
+        self.rounds = 0
+        for t in range(self.max_iters):
+            coords, fg, has_err = largest_error_click_3d(pred, labs)
+            g_new = click_guide_3d(shape, [coords], self.stddev, dev)
+            fg_g = torch.where(has_err & fg, torch.maximum(fg_g, g_new),
+                               fg_g)
+            bg_g = torch.where(has_err & ~fg, torch.maximum(bg_g, g_new),
+                               bg_g)
+            clicks += has_err
+            guide = (torch.stack([fg_g, bg_g], dim=-1)
+                     if self.guide_channel == 2
+                     else (fg_g - bg_g)[..., None])[None]
+            acc = None
+            for axes in self.flips:
+                logits = self.model({
+                    "images": image.flip(axes) if axes else image,
+                    "sp_guide": guide.flip(axes) if axes else guide})
+                probs = torch.softmax(logits, dim=-1)
+                probs = probs.flip(axes) if axes else probs
+                acc = probs if acc is None else acc + probs
+            new_pred = (acc[0].argmax(dim=-1) > 0) & valid
+            tp = (new_pred & labs).sum()
+            fp = (new_pred & ~labs).sum()
+            fn = (~new_pred & labs).sum()
+            denom = (2 * tp + fp + fn).float()
+            new_dice = torch.where(denom > 0, 2.0 * tp.float()
+                                   / denom.clamp_min(1.0), 0.0)
+            pred = torch.where(has_err, new_pred, pred)
+            dice = torch.where(has_err, new_dice, dice)
+            self.rounds = t + 1
+            if bool(~has_err | (new_dice > self.dice_thresh)):
+                break
+        return {"Dice": float(dice), "clicks": float(clicks)}

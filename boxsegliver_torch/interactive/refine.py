@@ -1,6 +1,6 @@
-"""The interactive click-refinement eval's host loop, 2-D (port of
-boxsegliver_tpu/interactive/refine.py:27-149; reference
-entry/main_eval.py:43-396).
+"""The interactive click-refinement eval's host loops, 2-D and 3-D (port of
+boxsegliver_tpu/interactive/refine.py:27-228; reference
+entry/main_eval.py:43-396, entry/main_eval_3d.py:152-420).
 
 Per lesion slice: place the next click at the largest error component
 (interactive/clicks.next_click_from_error, host scipy), render the fg / bg
@@ -16,8 +16,10 @@ budget runs out.  Guides:
   then OpenCV's float32 bilinear upsample (ops/image_ops.resize_linear_f32,
   a numpy copy: the GPU machine has no OpenCV).
 
-A slice without clicks of a kind renders zeros.  The 3-D loop waits for the
-3D tower (ROADMAP queue A, item 5).
+A slice without clicks of a kind renders zeros.  The 3-D loop
+(``interactive_eval_3d``, port of refine.py:151-228) clicks in the whole
+volume of a UNet3D, its Gaussian guides rendered in plain torch on the
+device, with optional 8-way mirror TTA.
 """
 
 from __future__ import annotations
@@ -170,7 +172,99 @@ def interactive_eval_2d(predict_fn: Callable, images: np.ndarray,
             "slices": float(len(total_dice))}
 
 
-def interactive_eval_3d(*args, **kwargs):
-    """The whole-volume loop needs UNet3D."""
-    raise NotImplementedError("the 3-D interactive eval is not ported yet "
-                              "(ROADMAP queue A, item 5: the 3D tower)")
+def click_guide_3d(shape, clicks, stddev: float = 5.0,
+                   device="cpu") -> torch.Tensor:
+    """Max-over-clicks Gaussian ``exp(-d² / 2σ²)`` [d, h, w] float32 on
+    ``device`` (JAX render_click_guide at rank 3), zeros without a click;
+    plain torch, one click at a time.  A click is a tuple of ints or a [3]
+    tensor on ``device`` (read without a host sync)."""
+    out = torch.zeros(tuple(shape), dtype=torch.float32, device=device)
+    axes = [torch.arange(n, dtype=torch.float32, device=device)
+            for n in shape]
+    for c in clicks:
+        if isinstance(c, torch.Tensor):
+            c = c.float()
+        else:
+            c = [float(v) for v in c]
+        d2 = ((axes[0] - c[0]) ** 2)[:, None, None] + (
+            (axes[1] - c[1]) ** 2)[None, :, None] + (
+            (axes[2] - c[2]) ** 2)[None, None, :]
+        out = torch.maximum(out, torch.exp(-d2 / (2.0 * stddev ** 2)))
+    return out
+
+
+# 8-way mirror TTA over [1, d, h, w, *] (reference main_eval_3d.py TTA)
+TTA_FLIPS = [(), (1,), (2,), (3,), (1, 2), (1, 3), (2, 3), (1, 2, 3)]
+
+
+def interactive_eval_3d(predict_fn: Callable, volume: np.ndarray,
+                        label: np.ndarray, *, dice_thresh: float = 0.85,
+                        max_iters: int = 20, stddev: float = 5.0,
+                        tta: bool = False, use_cascade: bool = False,
+                        cascade_binary: bool = False,
+                        guide_channel: int = 1, valid_shape=None,
+                        device="cpu") -> Dict[str, float]:
+    """Whole-volume interactive loop (reference entry/main_eval_3d.py:
+    326-420): a click at the largest error component's core (host scipy),
+    the 3-D Gaussian guides of all clicks, a forward (with ``tta``, the mean
+    of the 8 mirrored forwards' probabilities), until Dice clears the
+    threshold or the budget runs out.
+
+    volume [d, h, w] or [d, h, w, c] float32 (padded, normalized), label
+    [d, h, w]; ``predict_fn({"images": [1, d, h, w, c], "sp_guide": [1, d,
+    h, w, gc]})`` takes tensors on ``device`` and returns probabilities
+    (guide_channel 1 = fg − bg, 2 = stacked).  ``use_cascade`` adds the
+    GT-oracle image channel of the first positive click's slice once it
+    exists; voxels beyond ``valid_shape`` (the alignment padding) are
+    predicted background.  Returns the final Dice and the clicks used."""
+    from boxsegliver_torch.interactive.cascade import gt_cascade_channel
+
+    shape = label.shape
+    fg_clicks: List[Tuple] = []
+    bg_clicks: List[Tuple] = []
+    pred = np.zeros(shape, np.uint8)
+    dice = 0.0
+    clicks_used = 0
+    vol = volume[..., None] if volume.ndim == 3 else volume
+    image = torch.from_numpy(np.ascontiguousarray(vol, np.float32))[None]
+    image = image.to(device)
+    cascade_ch = (torch.zeros((1,) + shape + (1,), device=device)
+                  if use_cascade else None)
+    cascade_set = False
+    flips = TTA_FLIPS if tta else [()]
+    valid = None
+    if valid_shape is not None:
+        valid = np.zeros(shape, np.uint8)
+        valid[:valid_shape[0], :valid_shape[1], :valid_shape[2]] = 1
+    for _ in range(max_iters):
+        coords, is_fg = next_click_from_error(pred, label)
+        if coords is None:
+            break
+        (fg_clicks if is_fg else bg_clicks).append(coords)
+        clicks_used += 1
+        if use_cascade and not cascade_set and fg_clicks:
+            cascade_ch = torch.from_numpy(gt_cascade_channel(
+                (label > 0).astype(np.uint8),
+                np.asarray(fg_clicks, np.float32),
+                binary=cascade_binary))[None, ..., None].to(device)
+            cascade_set = True
+        fg_g = click_guide_3d(shape, fg_clicks, stddev, device)
+        bg_g = click_guide_3d(shape, bg_clicks, stddev, device)
+        guide = (torch.stack([fg_g, bg_g], dim=-1) if guide_channel == 2
+                 else (fg_g - bg_g)[..., None])[None]
+        x = torch.cat([image, cascade_ch], dim=-1) if use_cascade else image
+        acc = None
+        for axes in flips:
+            probs = predict_fn({"images": x.flip(axes) if axes else x,
+                                "sp_guide": guide.flip(axes) if axes
+                                else guide})
+            probs = probs.flip(axes) if axes else probs
+            acc = probs if acc is None else acc + probs
+        probs = acc[0] / len(flips)
+        pred = (probs.argmax(dim=-1) > 0).to(torch.uint8).cpu().numpy()
+        if valid is not None:
+            pred *= valid
+        dice = ConfusionMatrix(pred, label.astype(int)).global_dice
+        if dice > dice_thresh:
+            break
+    return {"Dice": float(dice), "clicks": float(clicks_used)}

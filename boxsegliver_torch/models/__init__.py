@@ -5,13 +5,15 @@ The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
 configs of ported models are carried: the UNet, UNetInter, InterUNet,
-SmallUNet and LGNet ones and the GUNet ones whose context model is ported;
-``UNPORTED_CONFIGS`` names the others.
+SmallUNet, LGNet and UNet3D ones and the GUNet ones whose context model is
+ported; ``UNPORTED_CONFIGS`` names the others.
 
 Flax infers a model's input widths at init from a feature template (JAX
 cli/main.build_feature_template); the port's constructors take them from
 the flags: ``--im_channel``, the summed ``--context_list`` lengths and the
-guide's channels (``guide_channels``).
+guide's channels (``guide_channels``); UNet3D's from JAX's 3-D template:
+one image channel, two with ``--use_cascade``, and ``--guide_channel``
+guide channels under ``--use_spatial``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from boxsegliver_torch.models.inter_unet import InterUNet
 from boxsegliver_torch.models.lgnet import LGNet
 from boxsegliver_torch.models.small_unet import SmallUNet
 from boxsegliver_torch.models.unet import UNet
+from boxsegliver_torch.models.unet3d import UNet3D
 from boxsegliver_torch.models.unet_inter import UNetInter
 
 MODEL_ZOO = {
@@ -35,6 +38,7 @@ MODEL_ZOO = {
     "LGNet": LGNet,
     "SmallUNet": SmallUNet,
     "InterUNet": InterUNet,
+    "UNet3D": UNet3D,
 }
 
 _GUNET_BASE = {
@@ -48,6 +52,9 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
     "UNet.yml": {"init_channels": 64, "num_down_samples": 4,
                  "ret_prob": False, "ret_pred": True},
     "UNet_TINY.yml": {"init_channels": 8, "num_down_samples": 2},
+    "UNet3D.yml": {"init_channels": 30, "max_channels": 320,
+                   "num_pool_layers": 4, "ret_prob": False,
+                   "ret_pred": True},
     "UNetInter.yml": {"init_channels": 64, "num_down_samples": 4,
                       "ret_prob": False, "ret_pred": True},
     "UNetInter_TINY.yml": {"init_channels": 4, "num_down_samples": 2},
@@ -80,7 +87,6 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
 UNPORTED_CONFIGS: Dict[str, str] = {
     "DenseUNet.yml": "queue A, rest of the 2D zoo",
     "DenseUNet_tiny.yml": "queue A, rest of the 2D zoo",
-    "UNet3D.yml": "queue A, 3D tower",
     "GUNet_IIN.yml": "queue A, nf2 / IIN",
     "GUNet_IIN_TINY.yml": "queue A, nf2 / IIN",
 }
@@ -97,6 +103,8 @@ _ARG_FIELDS = {
               "use_spatial"),
     "SmallUNet": ("normalizer", "without_norm", "weight_init"),
     "InterUNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
+    "UNet3D": ("normalizer", "without_norm", "img_grad", "weight_init",
+               "use_spatial"),
 }
 
 # config keys consumed by the runtime rather than the model constructor
@@ -159,6 +167,12 @@ def build_model(model_name: str, args=None,
         for field in _ARG_FIELDS.get(model_name, ()):
             if hasattr(args, field):
                 kwargs.setdefault(field, getattr(args, field))
+        if model_name == "UNet3D":
+            # JAX cli/main.build_feature_template's 3-D branch
+            kwargs.setdefault("in_channels", 2 if getattr(
+                args, "use_cascade", False) else 1)
+            kwargs.setdefault("sp_channels", int(getattr(
+                args, "guide_channel", 2)))
         kwargs.setdefault("in_channels", int(args.im_channel))
         kwargs.setdefault("context_length", context_length(args))
         kwargs.setdefault("guide_channels", guide_channels(args, model_name))

@@ -2,8 +2,9 @@
 boxsegliver_tpu/models/layers.py:38-84,126-164,206-267,337-362).
 
 Conventions carried over from the flax modules:
-- modules take and return NCHW tensors; the models convert from and to the
-  NHWC layout of the public boundary;
+- modules take and return NCHW tensors (NCDHW for the 3-D forms ``Conv3``
+  and ``UpConv3`` of UNet3D); the models convert from and to the NHWC
+  (NDHWC) layout of the public boundary;
 - compute dtype: the model casts its inputs to the compute dtype once, every
   conv / dense casts its float32 parameters to the input's dtype, norm
   statistics are computed in float32 (flax ``_compute_stats``) and the
@@ -77,7 +78,7 @@ def flax_init_(model: nn.Module, weight_init: str = "xavier",
     variance one."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (Conv, UpConv)):
+            if isinstance(mod, (Conv, Conv3, UpConv)):
                 init_kernel_(mod.weight, weight_init, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
@@ -129,6 +130,26 @@ class Conv(nn.Conv2d):
                         padding=self.padding, dilation=self.dilation)
 
 
+class Conv3(nn.Conv3d):
+    """SAME 3-D conv with per-axis kernel and stride tuples (flax ``nn.Conv``
+    on NDHWC, here on NCDHW), computing in the input's dtype; a strided
+    axis pads as XLA does (the odd voxel after the end)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Sequence[int] = (3, 3, 3), bias: bool = True,
+                 stride: Sequence[int] = (1, 1, 1)):
+        super().__init__(in_channels, out_channels, tuple(kernel),
+                         stride=tuple(stride), padding=0, bias=bias)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        pads = [same_pads(x.shape[2 + a], k, s) for a, (k, s) in
+                enumerate(zip(self.kernel_size, self.stride))]
+        if any(p for pair in pads for p in pair):
+            x = F.pad(x, [p for pair in reversed(pads) for p in pair])
+        return F.conv3d(x, self.weight.to(x.dtype), b, stride=self.stride)
+
+
 class Dense(nn.Linear):
     """nn.Dense: a linear layer computing in the input's dtype."""
 
@@ -156,15 +177,16 @@ def avg_pool_same(x: torch.Tensor, k: int = 2) -> torch.Tensor:
 class Norm(nn.Module):
     """Normalizer selected by name with optional affine params.
 
-    batch_norm: eps 1e-3 (slim defaults).  Eval mode normalizes with the
-    running statistics; train mode with the batch's statistics over
-    (N, H, W), computed in float32 from the input's dtype, and then moves
-    the running statistics once per forward as flax does: ra ← 0.99·ra +
-    0.01·batch, with the BIASED batch variance (torch's own running update
-    would store the unbiased one, so the batch norm itself runs without
-    running statistics and the update is made here, outside autograd).
-    instance_norm: per-(sample, channel) statistics over H, W, eps 1e-6,
-    variance E[x²] − E[x]² clipped at 0 (flax's fast variance).  Both
+    Works on NCHW and NCDHW alike.  batch_norm: eps 1e-3 (slim defaults).
+    Eval mode normalizes with the running statistics; train mode with the
+    batch's statistics over (N, *spatial), computed in float32 from the
+    input's dtype, and then moves the running statistics once per forward
+    as flax does: ra ← 0.99·ra + 0.01·batch, with the BIASED batch variance
+    (torch's own running update would store the unbiased one, so the batch
+    norm itself runs without running statistics and the update is made
+    here, outside autograd).  instance_norm: per-(sample, channel)
+    statistics over the spatial axes, eps 1e-6, variance E[x²] − E[x]²
+    clipped at 0 (flax's fast variance).  Both
     normalize in float32, ``(x − mean)·rsqrt(var + eps)·scale + bias``, and
     cast back to the input's dtype.  A norm without scale or bias has no
     such parameter.
@@ -188,19 +210,21 @@ class Norm(nn.Module):
         if self.normalizer == "batch_norm" and train:
             return self._batch_norm_train(x)
         xf = x.float()
+        view = (1, -1) + (1,) * (x.ndim - 2)
         if self.normalizer == "instance_norm":
-            mean = xf.mean(dim=(2, 3), keepdim=True)
+            dims = tuple(range(2, x.ndim))
+            mean = xf.mean(dim=dims, keepdim=True)
             var = torch.clamp_min(
-                (xf * xf).mean(dim=(2, 3), keepdim=True) - mean * mean, 0.0)
+                (xf * xf).mean(dim=dims, keepdim=True) - mean * mean, 0.0)
         else:
-            mean = self.running_mean.view(1, -1, 1, 1)
-            var = self.running_var.view(1, -1, 1, 1)
+            mean = self.running_mean.view(view)
+            var = self.running_var.view(view)
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
-            mul = mul * self.weight.view(1, -1, 1, 1)
+            mul = mul * self.weight.view(view)
         y = (xf - mean) * mul
         if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1)
+            y = y + self.bias.view(view)
         return y.to(x.dtype)
 
     def _batch_norm_train(self, x):
@@ -229,9 +253,10 @@ def fused_pair(norm: Optional["Norm"], act: bool) -> bool:
 class ConvNormAct(nn.Module):
     """slim.conv2d equivalent: conv + (norm) + ReLU; the conv has a bias
     iff there is no normalizer.  A full-affine instance norm + ReLU runs
-    through kernel B2."""
+    through kernel B2.  A kernel tuple of three makes the 3-D form (Conv3,
+    with ``strides`` a tuple too), whose B2 planes are D·H·W."""
 
-    def __init__(self, in_channels: int, features: int, kernel: int = 3,
+    def __init__(self, in_channels: int, features: int, kernel=3,
                  normalizer: Optional[str] = "batch_norm",
                  norm_bias: bool = True, norm_scale: bool = True,
                  act: bool = True, use_bias: Optional[bool] = None,
@@ -239,8 +264,12 @@ class ConvNormAct(nn.Module):
         super().__init__()
         if use_bias is None:
             use_bias = normalizer is None
-        self.conv = Conv(in_channels, features, kernel, bias=use_bias,
-                         stride=strides, dilation=dilation)
+        if isinstance(kernel, (tuple, list)):
+            self.conv = Conv3(in_channels, features, kernel, bias=use_bias,
+                              stride=strides)
+        else:
+            self.conv = Conv(in_channels, features, kernel, bias=use_bias,
+                             stride=strides, dilation=dilation)
         self.norm = (Norm(normalizer, features, norm_bias, norm_scale)
                      if normalizer is not None else None)
         self.act = act
@@ -269,6 +298,26 @@ class UpConv(nn.Module):
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
         x = F.conv_transpose2d(x, self.weight.to(x.dtype), b, stride=2)
+        return F.relu(x)
+
+
+class UpConv3(UpConv):
+    """The 3-D transpose conv of UNet3D: ``kernel`` = ``strides`` per axis
+    ((2, 2, 2) or (1, 2, 2)), bias-free in UNet3D, + ReLU.  ``weight`` is
+    torch's [in, out, kd, kh, kw]; the bridge flips flax's taps along every
+    spatial axis (a size-1 axis flips to itself)."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel: Sequence[int] = (2, 2, 2), use_bias: bool = False):
+        nn.Module.__init__(self)
+        self.weight = nn.Parameter(torch.empty(in_channels, features,
+                                               *kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        x = F.conv_transpose3d(x, self.weight.to(x.dtype), b,
+                               stride=self.weight.shape[2:])
         return F.relu(x)
 
 

@@ -13,10 +13,12 @@ the flax tree (models/layers.py), so keys map by rule:
 - leaves: ``kernel`` → ``weight``, ``scale`` → ``weight``, ``bias`` → ``bias``,
   batch-norm ``mean`` / ``var`` → ``running_mean`` / ``running_var``,
   ChannelAffine ``gamma`` / ``beta`` unchanged;
-- layouts: conv kernels HWIO → OIHW; dense kernels [in, out] → [out, in];
-  transpose-conv kernels [kh, kw, in, out] → [in, out, kh, kw] with BOTH
-  spatial axes flipped (flax's output phase (p, q) uses tap (1-p, 1-q),
-  boxsegliver_tpu/models/layers.py:172-176; torch's uses tap (p, q)).
+- layouts: conv kernels HWIO → OIHW and DHWIO → OIDHW; dense kernels
+  [in, out] → [out, in]; transpose-conv kernels [kh, kw, in, out] → [in,
+  out, kh, kw] (and [kd, kh, kw, in, out] → [in, out, kd, kh, kw]) with
+  EVERY spatial axis flipped (flax's output phase (p, q) uses tap (1-p,
+  1-q), boxsegliver_tpu/models/layers.py:172-176; torch's uses tap (p, q);
+  UNet3D's (1, 2, 2) taps flip their depth axis of one onto itself).
 
 The inverse, ``state_dict_to_flax`` (with ``flax_names``, torch key → flax
 name), reads the module types to rebuild the names flax gives; the train
@@ -51,10 +53,12 @@ def flax_key_to_torch(key: str) -> str:
 def _to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
     if not key.endswith("/kernel"):
         return arr
+    nd = arr.ndim - 2                       # spatial axes
     if "/ConvTranspose_0/" in key:
-        return np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
-    if arr.ndim == 4:
-        return np.transpose(arr, (3, 2, 0, 1))
+        flipped = arr[(slice(None, None, -1),) * nd]
+        return np.transpose(flipped, (nd, nd + 1) + tuple(range(nd)))
+    if arr.ndim in (4, 5):
+        return np.transpose(arr, (nd + 1, nd) + tuple(range(nd)))
     if arr.ndim == 2:
         return arr.T
     raise ValueError(f"Unexpected kernel rank {arr.ndim} for {key}")
@@ -107,10 +111,12 @@ def flax_names(model: torch.nn.Module) -> Dict[str, str]:
 def _to_flax_layout(name: str, arr: np.ndarray) -> np.ndarray:
     if not name.endswith("/kernel"):
         return arr
+    nd = arr.ndim - 2
     if "/ConvTranspose_0/" in name:
-        return np.transpose(arr, (2, 3, 0, 1))[::-1, ::-1]
-    if arr.ndim == 4:
-        return np.transpose(arr, (2, 3, 1, 0))
+        return np.transpose(arr, tuple(range(2, arr.ndim)) + (0, 1))[
+            (slice(None, None, -1),) * nd]
+    if arr.ndim in (4, 5):
+        return np.transpose(arr, tuple(range(2, arr.ndim)) + (1, 0))
     return arr.T
 
 

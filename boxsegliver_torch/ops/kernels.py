@@ -41,6 +41,7 @@ Kernels:
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -210,52 +211,70 @@ geodesic2d_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# B2: fused instance-norm + ReLU (NCHW; statistics over H, W per (n, c))
+# B2: fused instance-norm + ReLU over [N, C, *S] (NCHW, NCDHW, ...):
+# statistics over each (n, c) plane of hw = prod(S) elements
 # ---------------------------------------------------------------------------
 
 IN_EPS = 1e-6                  # tf.contrib instance_norm default
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The accumulation dtype of the plain versions: float32, float64 for
+    float64 operands."""
+    return t.double() if t.dtype == torch.float64 else t.float()
+
+
+def _plane_view(t: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
+    """``per`` ([C] or [N, C]) shaped to broadcast over the plane axes of
+    ``t`` ([N, C, *S])."""
+    lead = (1, -1) if per.ndim == 1 else tuple(per.shape)
+    return per.reshape(lead + (1,) * (t.ndim - 2))
+
+
 def in_relu_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, eps: float = IN_EPS):
     """Plain PyTorch version of B2-fwd, operation for operation: f32
-    statistics (variance E[x²] − E[x]² clipped at 0, flax's), rstd =
-    rsqrt(var + eps), x̂ = (x − mean)·rstd, y = relu(x̂·γ + β).  Returns y
-    and x̂ in x's dtype and rstd [N, C] f32."""
-    xf = x.float()
-    inv_hw = 1.0 / (x.shape[2] * x.shape[3])
-    mean = xf.sum(dim=(2, 3), keepdim=True) * inv_hw
-    var = torch.clamp_min((xf * xf).sum(dim=(2, 3), keepdim=True) * inv_hw
+    statistics over each (n, c) plane of x [N, C, *S] (variance E[x²] −
+    E[x]² clipped at 0, flax's), rstd = rsqrt(var + eps), x̂ = (x − mean)·
+    rstd, y = relu(x̂·γ + β).  Returns y and x̂ in x's dtype and rstd
+    [N, C] f32 (float64 throughout for a float64 x, which only the CPU
+    takes: torch.autograd.gradcheck)."""
+    xf = _acc(x)
+    dims = tuple(range(2, x.ndim))
+    inv_hw = 1.0 / math.prod(x.shape[2:])
+    mean = xf.sum(dim=dims, keepdim=True) * inv_hw
+    var = torch.clamp_min((xf * xf).sum(dim=dims, keepdim=True) * inv_hw
                           - mean * mean, 0.0)
     rstd = torch.rsqrt(var + eps)
     xhat = (xf - mean) * rstd
-    z = xhat * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
+    z = xhat * _plane_view(x, _acc(weight)) + _plane_view(x, _acc(bias))
     return (torch.clamp_min(z, 0.0).to(x.dtype), xhat.to(x.dtype),
-            rstd[:, :, 0, 0])
+            rstd.reshape(x.shape[:2]))
 
 
 def _relu_grad(g, xhat, weight, bias):
-    xh = xhat.float()
-    z = xh * weight.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
-    return torch.where(z > 0.0, g.float(), 0.0), xh
+    xh = _acc(xhat)
+    z = xh * _plane_view(xh, _acc(weight)) + _plane_view(xh, _acc(bias))
+    return torch.where(z > 0.0, _acc(g), 0.0), xh
 
 
 def in_relu_bwd_stats_plain(g, xhat, weight, bias):
-    """Plain version of B2a: gz = g·[x̂·γ + β > 0]; s1 = Σ_hw gz,
-    s2 = Σ_hw gz·x̂, each [N, C] f32."""
+    """Plain version of B2a: gz = g·[x̂·γ + β > 0]; s1 = Σ_plane gz,
+    s2 = Σ_plane gz·x̂, each [N, C] f32."""
     gz, xh = _relu_grad(g, xhat, weight, bias)
-    return gz.sum(dim=(2, 3)), (gz * xh).sum(dim=(2, 3))
+    dims = tuple(range(2, g.ndim))
+    return gz.sum(dim=dims), (gz * xh).sum(dim=dims)
 
 
 def in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2):
-    """Plain version of B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW), in g's
-    dtype."""
+    """Plain version of B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW), HW
+    the plane's element count, in g's dtype."""
     gz, xh = _relu_grad(g, xhat, weight, bias)
-    inv_hw = 1.0 / (g.shape[2] * g.shape[3])
-    m1 = (s1 * inv_hw)[..., None, None]
-    m2 = (s2 * inv_hw)[..., None, None]
-    coef = (weight.float().view(1, -1) * rstd)[..., None, None]
+    inv_hw = 1.0 / math.prod(g.shape[2:])
+    m1 = _plane_view(g, s1 * inv_hw)
+    m2 = _plane_view(g, s2 * inv_hw)
+    coef = _plane_view(g, _acc(weight).view(1, -1) * rstd)
     return (coef * ((gz - m1) - xh * m2)).to(g.dtype)
 
 
@@ -267,14 +286,21 @@ def in_relu_bwd_plain(g, xhat, rstd, weight, bias):
     return dx, s2.sum(dim=0), s1.sum(dim=0)
 
 
+def _planes(t: torch.Tensor):
+    """(N, C, elements a plane) of t [N, C, *S]."""
+    n, c = t.shape[:2]
+    return n, c, math.prod(t.shape[2:])
+
+
 def _check_in_relu(name, act, others, weight, bias):
     if act.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {act.dtype} is not float32 or "
                         "bfloat16")
-    if act.ndim != 4:
-        raise ValueError(f"{name}: expected NCHW, got {tuple(act.shape)}")
-    n, c, h, w = act.shape
-    if n * c >= 2 ** 31 or h * w >= 2 ** 31:
+    if act.ndim < 3:
+        raise ValueError(f"{name}: expected [N, C, *S], got "
+                         f"{tuple(act.shape)}")
+    n, c, hw = _planes(act)
+    if n * c >= 2 ** 31 or hw >= 2 ** 31:
         raise ValueError(f"{name}: {tuple(act.shape)} exceeds the kernel's "
                          "limits")
     for t in others:
@@ -350,15 +376,15 @@ def _fwd_launch(x, weight, bias, eps, plan=None):
     in_relu_fwd_plan's for x's shape and alignment); the C launcher refuses
     a plan that does not fit the operands.  Counts nothing: the operator's
     CUDA implementation does."""
-    n, c, h, w = x.shape
+    n, c, hw = _planes(x)
     y = torch.empty_like(x)
     xhat = torch.empty_like(x)
     rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
     px, py, ph = x.data_ptr(), y.data_ptr(), xhat.data_ptr()
     if plan is None:
-        plan = in_relu_fwd_plan(n * c, h * w, x.dtype, (px | py | ph) % 16 == 0)
+        plan = in_relu_fwd_plan(n * c, hw, x.dtype, (px | py | ph) % 16 == 0)
     _launch("in_relu_fwd", x, px, weight.data_ptr(), bias.data_ptr(), py, ph,
-            rstd.data_ptr(), n * c, c, h * w, float(eps), _DTYPES[x.dtype],
+            rstd.data_ptr(), n * c, c, hw, float(eps), _DTYPES[x.dtype],
             plan.path, plan.packs, plan.cluster, plan.smem_bytes)
     return y, xhat, rstd
 
@@ -404,7 +430,8 @@ def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Kernel B2-fwd: (y, x̂, rstd) of relu(instance_norm(x)·γ + β), through
     the operator ``torch.ops.boxseg.in_relu_fwd``.
 
-    x: [N, C, H, W] float32 or bfloat16, contiguous; weight, bias: [C]
+    x: [N, C, *S] (NCHW, NCDHW, ...) float32 or bfloat16, contiguous;
+    each (n, c) plane of prod(S) elements is normalized; weight, bias: [C]
     float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32."""
     # the wrapper keeps the kernel's contract; the operator also takes the
     # channels-last x an exported graph may hand it
@@ -419,12 +446,12 @@ def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,
     if g.device.type == "cpu":
         return in_relu_bwd_stats_plain(g, xhat, weight, bias)
     _check_in_relu("in_relu_bwd_stats", g, (xhat,), weight, bias)
-    n, c, h, w = g.shape
+    n, c, hw = _planes(g)
     s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
     s2 = torch.empty_like(s1)
     _launch("in_relu_bwd_stats", g, g.data_ptr(), xhat.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            n * c, c, h * w, _DTYPES[g.dtype])
+            n * c, c, hw, _DTYPES[g.dtype])
     in_relu_bwd_stats.launches += 1
     return s1, s2
 
@@ -436,7 +463,7 @@ def in_relu_bwd_apply(g: torch.Tensor, xhat: torch.Tensor,
     if g.device.type == "cpu":
         return in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2)
     _check_in_relu("in_relu_bwd_apply", g, (xhat,), weight, bias)
-    n, c, h, w = g.shape
+    n, c, hw = _planes(g)
     for name, t in (("rstd", rstd), ("s1", s1), ("s2", s2)):
         if (t.dtype != torch.float32 or tuple(t.shape) != (n, c)
                 or t.device != g.device or not t.is_contiguous()):
@@ -445,7 +472,7 @@ def in_relu_bwd_apply(g: torch.Tensor, xhat: torch.Tensor,
     dx = torch.empty_like(g)
     _launch("in_relu_bwd_apply", g, g.data_ptr(), xhat.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), rstd.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n * c, c, h * w,
+            s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n * c, c, hw,
             _DTYPES[g.dtype])
     in_relu_bwd_apply.launches += 1
     return dx
@@ -457,7 +484,8 @@ in_relu_bwd_apply.launches = 0
 
 
 class InstanceNormReLU(torch.autograd.Function):
-    """relu(instance_norm(x)·γ + β) over NCHW with eps 1e-6: B2-fwd in
+    """relu(instance_norm(x)·γ + β) over [N, C, *S] planes with eps 1e-6
+    (NCHW for the 2-D models, NCDHW for UNet3D): B2-fwd in
     ``forward``; B2a, B2b, then dγ = Σ_n s2 and dβ = Σ_n s1 in ``backward``.
     Saves x̂ in x's dtype and rstd in float32, and casts the incoming
     gradient to x̂'s dtype, as the JAX custom VJP does
@@ -465,8 +493,9 @@ class InstanceNormReLU(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias):
-        weight32 = weight.float().contiguous()
-        bias32 = bias.float().contiguous()
+        pdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+        weight32 = weight.to(pdt).contiguous()
+        bias32 = bias.to(pdt).contiguous()
         y, xhat, rstd = in_relu_fwd(x.contiguous(), weight32, bias32)
         ctx.save_for_backward(xhat, rstd, weight32, bias32)
         ctx.param_dtypes = (weight.dtype, bias.dtype)
@@ -484,7 +513,8 @@ class InstanceNormReLU(torch.autograd.Function):
 
 def instance_norm_relu(x: torch.Tensor, weight: torch.Tensor,
                        bias: torch.Tensor) -> torch.Tensor:
-    """relu(instance_norm(x)·γ + β) through kernel B2 (NCHW, eps 1e-6)."""
+    """relu(instance_norm(x)·γ + β) through kernel B2 ([N, C, *S], eps
+    1e-6)."""
     return InstanceNormReLU.apply(x, weight, bias)
 
 

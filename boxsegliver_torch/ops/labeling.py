@@ -21,7 +21,9 @@ for the TPU):
   data-dependent ``while_loop``) is read off the city-block distance to the
   component's complement, outside the image included: k erosions keep the
   pixels farther than k, so the last non-empty one keeps those at the
-  largest distance.  No loop, no host read.
+  largest distance.  No loop, no host read.  The volume forms
+  ``label_components_3d`` and ``largest_error_click_3d`` add the run
+  minimum along the depth axis and the 3-D city-block core.
 Integer results equal the JAX package's (tests/test_torch_labeling.py).
 """
 
@@ -139,6 +141,86 @@ def largest_error_click(pred: torch.Tensor, label: torch.Tensor):
     is_fg = torch.gather(lab.reshape(b, -1), 1, (cy * w + cx)[:, None])[:, 0]
     coords = torch.stack([cy, cx], dim=-1)
     return (coords.reshape(lead + (2,)), is_fg.reshape(lead),
+            has_error.reshape(lead))
+
+
+def label_components_3d(mask: torch.Tensor) -> torch.Tensor:
+    """6-connectivity (ndi connectivity=1) components of bool volumes
+    [..., d, h, w]: each pass takes the run minimum along the width, the
+    height and the depth axis, until nothing changes (the fixpoint, however
+    twisted the component; one host read a pass).  Returns int32 labels:
+    the raster index (within each volume) of the component's first voxel,
+    d*h*w on background."""
+    shape = mask.shape[-3:]
+    size = shape[0] * shape[1] * shape[2]
+    m = mask.reshape((-1,) + shape)
+    lin = torch.arange(size, device=mask.device).reshape((1,) + shape)
+    labels = torch.where(m, lin, size).to(torch.int64)
+    # each axis moved last and its runs flattened to rows, once
+    masks = [m.movedim(ax, -1).reshape(-1, shape[ax - 1])
+             for ax in (3, 2, 1)]
+    while True:
+        new = labels
+        for ax, mt in zip((3, 2, 1), masks):
+            moved = new.movedim(ax, -1)
+            new = _run_min(moved.reshape(-1, shape[ax - 1]), mt).reshape(
+                moved.shape).movedim(-1, ax)
+        if torch.equal(new, labels):
+            break
+        labels = new
+    return labels.to(torch.int32).reshape(mask.shape)
+
+
+def largest_error_click_3d(pred: torch.Tensor, label: torch.Tensor):
+    """``interactive.clicks.next_click_from_error`` for volumes [..., d, h,
+    w] (JAX ops/labeling.largest_error_click at rank 3).
+
+    pred / label: bool.  Returns (coords [..., 3] int64 (z, y, x), is_fg
+    [...] bool, has_error [...] bool); coords mean something only where
+    has_error.  The largest 6-connected error component (the first in
+    raster order on a tie), eroded with the 3-D cross and a zero border to
+    its terminal non-empty core — the voxels at the largest city-block
+    distance to the complement, outside the volume included —, its float32
+    center of mass rounded half to even, or, when that misses the
+    component, the core's middle raster voxel."""
+    lead, shape = pred.shape[:-3], tuple(pred.shape[-3:])
+    size = shape[0] * shape[1] * shape[2]
+    p = pred.reshape((-1,) + shape).bool()
+    lab = label.reshape((-1,) + shape).bool()
+    b = p.shape[0]
+    error = p ^ lab
+    has_error = error.reshape(b, -1).any(dim=1)
+    labels = label_components_3d(error).reshape(b, -1).long()
+    sizes = torch.zeros((b, size + 1), dtype=torch.int64, device=p.device)
+    sizes.scatter_add_(1, labels, torch.ones_like(labels))
+    largest = torch.argmax(sizes[:, :-1], dim=1)
+    comp = (labels == largest[:, None]).reshape((b,) + shape)
+    dist = distance_transform_cityblock(F.pad(comp, (1, 1, 1, 1, 1, 1)),
+                                        axes=(1, 2, 3))[:, 1:-1, 1:-1, 1:-1]
+    dist = torch.where(comp, dist, 0.0)
+    core = comp & (dist == dist.reshape(b, -1).amax(dim=1).view(b, 1, 1, 1))
+    cf = core.float()
+    n_core = core.reshape(b, -1).sum(dim=1)
+    n = torch.clamp_min(n_core, 1).float()
+    com = []
+    for ax in range(3):
+        iota = torch.arange(shape[ax], dtype=torch.float32,
+                            device=p.device).reshape(
+            tuple(shape[ax] if a == ax else 1 for a in range(3)))
+        c = torch.round((cf * iota).sum(dim=(1, 2, 3)) / n).long()
+        com.append(c.clamp(0, shape[ax] - 1))
+    strides = (shape[1] * shape[2], shape[2], 1)
+    flat_idx = sum(c * st for c, st in zip(com, strides))
+    on_comp = torch.gather(comp.reshape(b, -1), 1, flat_idx[:, None])[:, 0]
+    # fallback: the core's middle raster voxel (host: pts[len(pts) // 2])
+    cum = torch.cumsum(core.reshape(b, -1).to(torch.int32), dim=1)
+    mid = torch.argmax((cum > (n_core // 2)[:, None]).to(torch.uint8), dim=1)
+    mid_c = (mid // strides[0], mid // strides[1] % shape[1], mid % shape[2])
+    coords = torch.stack([torch.where(on_comp, c, m)
+                          for c, m in zip(com, mid_c)], dim=-1)
+    idx = (coords * torch.tensor(strides, device=p.device)).sum(dim=-1)
+    is_fg = torch.gather(lab.reshape(b, -1), 1, idx[:, None])[:, 0]
+    return (coords.reshape(lead + (3,)), is_fg.reshape(lead),
             has_error.reshape(lead))
 
 

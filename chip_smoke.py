@@ -197,14 +197,44 @@ result line):
    launches a step, the three models' step in steady state.  (f) --mode
    export of (b)'s UNetInter (zero click guides), 5 requests served on the
    card, the response against the eager model within one bf16 step.
+21. 3D tower — nf_3d with UNet3D.yml at full width (init_channels 30,
+   max 320, 4 pools) on phase 19's synthetic_nf set (4 cases of 24 x
+   256^2).  (a) B2-fwd / B2a / B2b at every level of the 201_unet_v1.sh
+   train step ([4,30,10,256^2] ... [4,320,5,16^2], planes of D·H·W) and at
+   the whole-volume eval's [1,30,24,256^2], each against its plain version
+   (b2_check's tolerances): plan, device time per launch, plain, library
+   (F.relu(F.instance_norm), forward and backward) and bound, summed over
+   the step's 18 calls.  (b) ``201_unet_v1.sh train`` through the CLI (batch
+   4, 10 x 256^2, --random_flip 7, --tumor_percent 0.75, one host worker),
+   16 steps with the --eval_per_epoch volume eval every 8: exactly 18
+   B2-fwd, B2a and B2b a step (18 B2-fwd more a forward of the eval); the
+   step in steady state at K = 1 and 4 (ms/step, patches/s, busy share,
+   device time by kernel group, GFLOP/patch, share of the bf16 peak).
+   (c) ``201_unet_v1.sh eval`` (whole volume) and the sliding window
+   (--im_depth 10) on (b)'s best: s/case, 18 B2-fwd a forward;
+   make_volume_predict card vs CPU in float32 on 8 slices (1e-4).  (d) 8
+   steps of 202_unetinter_v2 training (the click guides), then
+   ``interactive_eval --dim 3``: the host loop and DeviceRefiner3D, TTA off
+   and on (s/case, clicks, 18 B2-fwd a forward); the two in float32 on the
+   card: equal clicks, Dice within 1e-6.  (e) --use_cascade --use_2d with
+   phase 19c's UNetInter as the frozen 2-D model: 4 train steps, exactly
+   one B1 launch a predicted slice (fg and bg click guides) and 18 B2-fwd
+   a 2-D forward; ``cli/hybrid_eval`` with the cascade channel (s/case).
+   (f) --mode export of (b)'s UNet3D (10 x 256^2, batch 1) served on the
+   card: ms/request, 18 B2-fwd a request, the response against the eager
+   model within one bf16 step.  (g) a small UNet3D train step card vs CPU
+   in float32: loss, gradients, Adam moments and the Adam update, and the
+   parameters after 3 Momentum steps, within 1e-4.
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
 G1, and per path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
 preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
-nf_inter_train, nf_inter_eval and run_sp, and phase 20's click evals, new
-models' training and click serving; ``ms``: wrapper
+nf_inter_train, nf_inter_eval and run_sp, phase 20's click evals, new
+models' training and click serving, and phase 21's UNet3D paths; B2's
+``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
+level 0; ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
@@ -873,7 +903,7 @@ def b2_check(shape, dtype, dev, seed, unaligned=False):
     from boxsegliver_torch.ops import kernels
 
     x, g, w, b = b2_inputs(shape, dtype, dev, seed)
-    hw = shape[2] * shape[3]
+    hw = math.prod(shape[2:])
 
     def close(name, got, ref, rel, abs_):
         err = (got.float() - ref.float()).abs()
@@ -962,7 +992,7 @@ def b2_times(shape, dev):
     wr = w.clone().requires_grad_(True)
     br = b.clone().requires_grad_(True)
     lib_y = F.relu(F.instance_norm(xr, weight=wr, bias=br, eps=1e-6))
-    iters = 20 if shape[2] >= 128 else 50
+    iters = 20 if math.prod(shape[2:]) >= 128 * 128 else 50
     # input sets for the device-time loops: COLD_BYTES of x / g in all
     n_sets = max(1, min(iters, math.ceil(COLD_BYTES / (x.numel() * 2))))
     sets = [(x, g, xh, rstd, s1, s2)]
@@ -986,7 +1016,7 @@ def b2_times(shape, dev):
             ms = graph_ms(call, n_sets, iters)
             t["device " + name] = min(ms, t.get("device " + name, ms))
         for alt, plan in fwd_alternatives(shape[0] * shape[1],
-                                          shape[2] * shape[3]).items():
+                                          math.prod(shape[2:])).items():
             ms = graph_ms(lambda i, plan=plan: kernels._fwd_launch(
                 sets[i][0], w, b, kernels.IN_EPS, plan), n_sets, iters)
             t["fwd " + alt] = min(ms, t.get("fwd " + alt, ms))
@@ -1020,9 +1050,9 @@ def b2_times(shape, dev):
 def b2_bound_ms(name, shape):
     """(bound ms, bound_by) of one call: each input read once, each output
     written once, and B2_OPS float operations per element at the float32
-    non-tensor peak."""
-    n, c, h, w = shape
-    elems = n * c * h * w
+    non-tensor peak.  ``shape``: [N, C, *S] (NCHW or NCDHW)."""
+    n, c = shape[:2]
+    elems = math.prod(shape)
     planes, params = n * c * 4, c * 4 * 2            # f32 per-plane, γ and β
     io = {"in_relu_fwd": 3 * elems * 2 + planes,     # x in; y, x̂ out; rstd
           "in_relu_bwd_stats": 2 * elems * 2 + 2 * planes,
@@ -1125,24 +1155,28 @@ def b2_phase(dev):
     return recs
 
 
-def b2_nf_levels(dev):
-    """B2 at the five levels of the NF UNet / UNetInter at batch 16 (bf16):
-    each level against its plain version (b2_check's tolerances) with its
-    B2-fwd plan, then per level and per train step (18 calls of each
-    kernel) the device time per launch, plain and library times and the
-    bound.  Returns {kernel: {"device_ms", "bound_ms", "plain_ms",
-    "library_ms"} per NF train step}."""
+def b2_nf_levels(dev, shapes=None, label="NF", seed=100):
+    """B2 at the five levels of the NF UNet / UNetInter at batch 16 (bf16;
+    or at ``shapes``, {shape: calls a train step}): each level against its
+    plain version (b2_check's tolerances) with its B2-fwd plan, then per
+    level and per train step (18 calls of each kernel) the device time per
+    launch, plain and library times and the bound.  Returns {kernel:
+    {"device_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err"} per
+    train step}."""
     from boxsegliver_torch.ops import kernels
 
+    shapes = shapes or NF_B2_STEP_SHAPES
     names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
     step = {n: dict.fromkeys(("device_ms", "bound_ms", "plain_ms",
-                              "library_ms"), 0.0) for n in names}
-    for i, (shape, count) in enumerate(NF_B2_STEP_SHAPES.items()):
-        errs = b2_check(shape, torch.bfloat16, dev, seed=100 + i)
+                              "library_ms", "max_abs_err"), 0.0)
+            for n in names}
+    for i, (shape, count) in enumerate(shapes.items()):
+        errs = b2_check(shape, torch.bfloat16, dev, seed=seed + i)
         plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
-                                        shape[2] * shape[3], torch.bfloat16)
+                                        math.prod(shape[2:]), torch.bfloat16)
         t = b2_times(shape, dev)
-        print(f"  NF {str(shape):20s} x{count} fwd {B2_FWD_PATHS[plan.path]}"
+        print(f"  {label} {str(shape):20s} x{count} fwd "
+              f"{B2_FWD_PATHS[plan.path]}"
               f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}; max abs "
               "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
         for n in names:
@@ -1153,12 +1187,13 @@ def b2_nf_levels(dev):
                            ("plain_ms", t["plain " + n]),
                            ("library_ms", lib)):
                 step[n][key] += count * v
-            print(f"  NF {str(shape):20s} {n:>18s} device {d:.4f} ms per "
+            step[n]["max_abs_err"] = max(step[n]["max_abs_err"], errs[n])
+            print(f"  {label} {str(shape):20s} {n:>18s} device {d:.4f} ms per "
                   f"launch, plain {t['plain ' + n]:.4f}, library {lib:.4f},"
                   f" bound {bound:.4f} ({by}), {bound / d:.1%} of bound")
-    calls = sum(NF_B2_STEP_SHAPES.values())
+    calls = sum(shapes.values())
     for n, r in step.items():
-        print(f"  NF B2 {n} per train step ({calls} calls, batch 16): device "
+        print(f"  {label} B2 {n} per train step ({calls} calls): device "
               f"{r['device_ms']:.4f} ms ({r['device_ms'] / calls:.5f} per "
               f"launch), plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms, "
@@ -1596,6 +1631,30 @@ def unet_gflop_per_slice(model, h, w):
     return 2 * sum(macs) / 1e9
 
 
+def unet3d_gflop_per_patch(model, patch):
+    """Analytic forward GFLOP of one UNet3D patch (d, h, w), 2 per MAC: a
+    conv makes Cin·kd·kh·kw MACs per output element, a transpose conv
+    (stride = kernel) Cin (each output voxel takes one tap)."""
+    from boxsegliver_torch.models.layers import Conv3, UpConv3
+
+    macs = []
+
+    def hook(mod, inp, out):
+        per = inp[0].shape[1] * (math.prod(mod.weight.shape[2:])
+                                 if isinstance(mod, Conv3) else 1)
+        macs.append(out[0].numel() * per)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (Conv3, UpConv3))]
+    x = torch.zeros((1,) + tuple(patch) + (
+        model.conv_e0_conv1.conv.weight.shape[1],), device="cuda")
+    with torch.inference_mode():
+        model({"images": x})
+    for hk in hooks:
+        hk.remove()
+    return 2 * sum(macs) / 1e9
+
+
 HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
                      "cudaMemcpy", "cudaMemset")
 
@@ -1633,7 +1692,13 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     from boxsegliver_torch.ops import kernels
 
     bs, k = int(args.batch_size), int(args.steps_per_dispatch)
-    if cli.is_inter(args):
+    unit, units, size = "slice", "slices", f"{args.im_height}^2 x 3"
+    if cli.is_3d(args):
+        from boxsegliver_torch.data.sampler3d import Sampler3D
+        cache, unit, units = None, "patch", "patches"
+        size = f"{args.im_depth} x {args.im_height}^2"
+        sampler = Sampler3D(ds, args, mode="train", seed=1)
+    elif cli.is_inter(args):
         cache = None
         sampler = InterSampler(ds, args, mode="train", seed=1,
                                max_clicks=args.max_clicks)
@@ -1647,7 +1712,10 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     data = TrainDataset(sampler, args, seed=args.seed, workers=1, prefetch=4)
     gflop = (3 * unet_gflop_per_slice(trainer.model, args.im_height,
                                       args.im_width)
-             if args.model == "UNet" else None)
+             if args.model == "UNet" else 3 * unet3d_gflop_per_patch(
+                 trainer.model, (args.im_depth, args.im_height,
+                                 args.im_width))
+             if args.model == "UNet3D" else None)
 
     waits = []                  # host seconds per step spent on next(data)
 
@@ -1693,7 +1761,7 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     model = args.model_config or f"{args.model}.yml"
     lines = [
         f"card: {smi()}",
-        f"{what}: {model} full width, batch {bs}, {args.im_height}^2 x 3, "
+        f"{what}: {model} full width, batch {bs}, {size}, "
         f"bf16, {args.normalizer or 'batch_norm'}, "
         f"{'host sampler' if cache is None else '--device_cache'}, noise "
         f"{args.noise_scale}, loss weights {args.loss_weight_type}, "
@@ -1701,16 +1769,16 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         f"--steps_per_dispatch {k}; launches in the warm-up {launches}",
         "ms/step over 3 windows of 16 steps: "
         + ", ".join(f"{w * 1e3:.3f}" for w in walls)
-        + f" -> median {wall * 1e3:.3f} ms/step, {sps:.1f} slices/s "
+        + f" -> median {wall * 1e3:.3f} ms/step, {sps:.1f} {units}/s "
         f"(best {bs / min(walls):.1f}); host waiting for the sampler "
         + ", ".join(f"{w * 1e3:.3f}" for w in waits[1:4]) + " ms/step"]
     if gflop is not None:
         lines.append(
-            f"analytic {gflop:.2f} GFLOP/slice (forward x 3) -> "
+            f"analytic {gflop:.2f} GFLOP/{unit} (forward x 3) -> "
             f"{sps * gflop / 1e3:.1f} TFLOP/s, "
             f"{sps * gflop * 1e9 / BF16_FLOPS_PER_S:.1%} of the bf16 peak "
             f"({BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bound "
-            f"{gflop * 1e9 / BF16_FLOPS_PER_S * 1e3:.4f} ms/slice)")
+            f"{gflop * 1e9 / BF16_FLOPS_PER_S * 1e3:.4f} ms/{unit})")
     lines += [
         f"profiled window of {prof_steps} steps: {prof_wall * 1e3:.3f} "
         f"ms/step; host launches per step "
@@ -2324,7 +2392,7 @@ def serve_bundle(bundle, what, requests=20, seed=0):
     finally:
         srv.shutdown()
         srv.server_close()
-    shape = tuple(runner.signature["inputs"]["images"][0][1:3])
+    shape = tuple(runner.signature["inputs"]["images"][0][1:-1])
     shape += (len(runner.signature["classes"]),)
     if (probs.shape != (bs,) + shape
             or big_probs.shape != (n_big,) + shape
@@ -2842,7 +2910,7 @@ def nf_dataset(tmp):
     return root
 
 
-def _train_log(md, prefix="nf"):
+def _train_log(md, prefix="nf", eval_steps=(12, 24)):
     lines = [json.loads(ln) for ln in
              (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
     loss = {ln["step"]: ln["value"] for ln in lines
@@ -2851,8 +2919,9 @@ def _train_log(md, prefix="nf"):
              if ln["tag"] == f"{prefix}/eval/NF/Dice"}
     if not loss or not all(math.isfinite(v) for v in loss.values()):
         raise AssertionError(f"non-finite train loss {loss}")
-    if sorted(evals) != [12, 24]:
-        raise AssertionError(f"online evals at {sorted(evals)}, not 12, 24")
+    if sorted(evals) != list(eval_steps):
+        raise AssertionError(f"online evals at {sorted(evals)}, not "
+                             f"{eval_steps}")
     return loss, evals
 
 
@@ -3321,15 +3390,21 @@ def g1_phase(dev, seed):
 
 
 class CaseRecorder:
-    """Records each case of a click-eval CLI run: the host loop's and the
-    device refiner's result dicts, and the refiner's click rounds."""
+    """Records each case of a click-eval CLI run (``dim`` 2 or 3): the host
+    loop's and the device refiner's result dicts, and the refiner's click
+    rounds."""
+
+    def __init__(self, dim: int = 2):
+        self.dim = dim
 
     def __enter__(self):
         from boxsegliver_torch.interactive import device_refine, refine
 
         self.cases, self.rounds = [], []
-        self._host = refine.interactive_eval_2d
-        self._dev = device_refine.DeviceRefiner2D.refine_case
+        self._loop = f"interactive_eval_{self.dim}d"
+        self._cls = getattr(device_refine, f"DeviceRefiner{self.dim}D")
+        self._host = getattr(refine, self._loop)
+        self._dev = self._cls.refine_case
 
         def host(*a, **k):
             out = self._host(*a, **k)
@@ -3342,15 +3417,15 @@ class CaseRecorder:
             self.rounds.append(refiner.rounds)
             return out
 
-        refine.interactive_eval_2d = host
-        device_refine.DeviceRefiner2D.refine_case = dev
+        setattr(refine, self._loop, host)
+        self._cls.refine_case = dev
         return self
 
     def __exit__(self, *exc):
-        from boxsegliver_torch.interactive import device_refine, refine
+        from boxsegliver_torch.interactive import refine
 
-        refine.interactive_eval_2d = self._host
-        device_refine.DeviceRefiner2D.refine_case = self._dev
+        setattr(refine, self._loop, self._host)
+        self._cls.refine_case = self._dev
 
 
 def click_eval(tmp, md, refine, kind, *extra, data_root=None):
@@ -3607,6 +3682,483 @@ def click_eval_phase(tmp, dev, seed, nf_md):
     return rec, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the 3D tower — UNet3D (201_unet_v1.sh) on the card
+# ---------------------------------------------------------------------------
+
+# the instance-norm + ReLU pairs of one 201_unet_v1.sh train step (UNet3D.yml
+# at batch 4, 10 x 256^2 patches): two encoder and two decoder convs at each
+# of the four levels above the bridge, the bridge's two at 5 x 16^2
+UNET3D_B2_STEP_SHAPES = {(4, 30, 10, 256, 256): 4, (4, 60, 10, 128, 128): 4,
+                         (4, 120, 10, 64, 64): 4, (4, 240, 10, 32, 32): 4,
+                         (4, 320, 5, 16, 16): 2}
+# level 0 of the batch-1 whole-volume eval of a 24 x 256^2 case
+UNET3D_EVAL_SHAPE = (1, 30, 24, 256, 256)
+UNET3D_BLOCKS = 18
+# run_scripts/threed/201_unet_v1.sh COMMON, train and eval flags; the
+# dataset (the CLI's own synthetic_nf), k_folds and the step counts are the
+# smoke's own, appended in nf3d_argv and by each run
+NF3D_COMMON = [
+    "--model", "UNet3D", "--classes", "NF", "--test_fold", "0",
+    "--im_height", "256", "--im_width", "256", "--im_channel", "1",
+    "--primary_metric", "NF/Dice", "--loss_weight_type", "numerical",
+    "--loss_numeric_w", "1", "1", "--weight_decay_rate", "0.00003",
+    "--learning_policy", "plateau", "--learning_rate", "0.0003",
+    "--lr_end", "0.0000005", "--lr_decay_rate", "0.2", "--normalizer",
+    "instance_norm", "--evaluator", "Volume", "--summary_prefix", "nf",
+    "--num_replicas", "0"]
+NF3D_TRAIN = [
+    "--im_depth", "10", "--random_flip", "7", "--num_of_total_steps",
+    "999999", "--batches_per_epoch", "300", "--batch_size", "4",
+    "--eval_num_batches_per_epoch", "30", "--eval_per_epoch", "--save_best",
+    "--tumor_percent", "0.75", "--log_step", "125"]
+NF3D_EVAL = ["--im_depth", "-1", "--batch_size", "1"]
+# 202_unetinter_v2.sh beyond 201_unet_v1.sh: the click guides (its
+# "--stddev 1. 5. 5." is a per-axis list the flag registry of both packages
+# refuses, so the default 3 stands)
+INTER3D = ["--use_spatial", "--local_enhance"]
+NF3D_STEPS = 16           # the smoke's 201_unet_v1.sh run: an eval every 8
+SMALL3D = {"init_channels": 8, "max_channels": 32, "num_pool_layers": 4}
+
+
+def nf3d_argv(mode, tag, tmp, md, *extra):
+    """The flags of one phase-21 CLI run: 201_unet_v1.sh's COMMON, the
+    smoke's data, then ``extra`` (the last of a repeated flag wins)."""
+    return ["nf_3d", "--mode", mode, "--tag", tag] + NF3D_COMMON + [
+        "--data_root", str(tmp), "--dataset", "synthetic_nf", "--k_folds",
+        "2", "--model_dir", str(md)] + list(extra)
+
+
+def eval_forwards_3d(ds, args):
+    """UNet3D forwards of one EvaluateVolume3D pass over the test fold:
+    one a case for the whole volume, one a tile for a sliding window (the
+    device one at --im_depth > 0 through the CLI, the host one in the train
+    loop's eval when the padded depth exceeds --im_depth)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.volume3d import tile_starts
+
+    n = 0
+    for meta in cli._test_metas(args, ds):
+        shape = np.load(ds / f"volume-{meta['PID']}" / "volume.npy",
+                        mmap_mode="r").shape
+        padded = [s + (-s) % m for s, m in zip(shape, (2, 16, 16))]
+        if args.im_depth > 0 and padded[0] > args.im_depth:
+            n += len(tile_starts(padded, (args.im_depth, args.im_height,
+                                          args.im_width))[1])
+        else:
+            n += 1
+    return n
+
+
+def b2_3d_phase(dev):
+    """(a) B2 at every UNet3D level of the 201_unet_v1.sh train step (18
+    calls of each kernel) and at the whole-volume eval's level 0, each
+    against its plain version, with its plan, device time per launch,
+    plain, library (F.relu(F.instance_norm), forward and backward) and
+    bound."""
+    step = b2_nf_levels(dev, UNET3D_B2_STEP_SHAPES, "UNet3D", seed=200)
+    ev = b2_nf_levels(dev, {UNET3D_EVAL_SHAPE: 1}, "UNet3D eval", seed=300)
+    for n in B2_ALL:
+        for what, r in (("train step", step[n]), ("eval level 0", ev[n])):
+            share = r["bound_ms"] / r["device_ms"]
+            slower = r["device_ms"] > r["library_ms"]
+            print(f"  UNet3D B2 {n} ({what}): {share:.1%} of its bound, "
+                  f"{r['device_ms']:.4f} ms against the library's "
+                  f"{r['library_ms']:.4f}"
+                  + (" — under half its bound" if share < 0.5 else "")
+                  + (" — slower than the library call" if slower else ""))
+    return step, ev
+
+
+def nf3d_train_phase(tmp, ds):
+    """(b) 201_unet_v1.sh train through the CLI: UNet3D.yml full width,
+    instance norm, batch 4, 10 x 256^2 patches, one host worker; 16 steps
+    with the --eval_per_epoch volume eval every 8 (the host sliding window
+    over the test fold); exact launches; then the step in steady state at
+    K = 1 and K = 4."""
+    from boxsegliver_torch.cli import main as cli
+
+    md = Path(tmp) / "nf3d_md"
+    argv = nf3d_argv("train", "chip_smoke_nf3d", tmp, md, *NF3D_TRAIN,
+                     "--batches_per_epoch", "8", "--log_step", "4",
+                     "--num_of_steps", str(NF3D_STEPS), *ONE_WORKER)
+    trainer, seconds, launches = counted_run(lambda: cli.main(argv))
+    if trainer.global_step != NF3D_STEPS or not (
+            md / "ckpt_best" / "best" / "state.pt").exists():
+        raise AssertionError(f"nf_3d train stopped at {trainer.global_step}")
+    fwd = 2 * eval_forwards_3d(ds, cli.get_args(argv))
+    expect_launches("nf_3d train", launches, {
+        "in_relu_fwd": UNET3D_BLOCKS * (NF3D_STEPS + fwd),
+        "in_relu_bwd_stats": UNET3D_BLOCKS * NF3D_STEPS,
+        "in_relu_bwd_apply": UNET3D_BLOCKS * NF3D_STEPS})
+    loss, dice = _train_log(md, eval_steps=(8, 16))
+    print(f"  nf_3d train (201_unet_v1.sh flags): {NF3D_STEPS} steps of 4 x "
+          f"10 x 256^2 in {seconds:.2f} s (with set-up and two volume evals "
+          f"of {fwd // 2} forwards); per train step B2-fwd / B2a / B2b "
+          f"{UNET3D_BLOCKS} each (+{UNET3D_BLOCKS} B2-fwd a forward of the "
+          f"eval), B1 0; loss " + ", ".join(
+              f"{k}: {loss[k]:.4f}" for k in sorted(loss))
+          + f"; eval NF/Dice {dice}; {smi()}")
+    walls = {}
+    for k in (1, 4):
+        args = cli.get_args(nf3d_argv(
+            "train", "chip_smoke_nf3d_b", tmp, Path(tmp) / f"nf3d_b{k}",
+            *NF3D_TRAIN, "--steps_per_dispatch", str(k)))
+        walls[k], warm, replay = steady(
+            args, ds, f"201_unet_v1.sh train step, K={k}",
+            kernels_used=B2_ALL, prof_steps=8, top=12)
+        if k == 1:
+            expect_launches("nf_3d steady warm-up", warm, {
+                n: 3 * UNET3D_BLOCKS for n in B2_ALL})
+        elif any(c[n] != UNET3D_BLOCKS for c in replay.values()
+                 for n in B2_ALL):
+            raise AssertionError(f"nf_3d K=4 replay launches {replay}")
+    print(f"  nf_3d train step ms/step (median of 3 windows of 16): K=1 "
+          f"{walls[1] * 1e3:.3f}, K=4 {walls[4] * 1e3:.3f}; patches/s "
+          f"{4 / walls[1]:.2f} / {4 / walls[4]:.2f}; {smi()}")
+    return md, launches
+
+
+class CaseTimer3D:
+    """Times each EvaluateVolume3D.predict_case of a run (its predict
+    functions return host arrays, so the card has finished)."""
+
+    def __enter__(self):
+        from boxsegliver_torch.evaluators import volume3d
+
+        self.seconds = []
+        self._orig = volume3d.EvaluateVolume3D.predict_case
+
+        def timed(ev, *a, **k):
+            t0 = time.perf_counter()
+            out = self._orig(ev, *a, **k)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        volume3d.EvaluateVolume3D.predict_case = timed
+        return self
+
+    def __exit__(self, *exc):
+        from boxsegliver_torch.evaluators import volume3d
+
+        volume3d.EvaluateVolume3D.predict_case = self._orig
+
+
+def nf3d_eval_phase(tmp, ds, dev, md):
+    """(c) 201_unet_v1.sh eval (the whole volume: z-score and argmax on the
+    card) and the sliding-window eval (--im_depth 10) through the CLI on
+    (b)'s best: s/case, exact launches; make_volume_predict card vs CPU in
+    float32 on 8 slices of the first test case (1e-4)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.volume3d import make_volume_predict
+
+    paths = {}
+    for name, depth in (("whole volume", "-1"), ("sliding window", "10")):
+        argv = nf3d_argv("eval", "chip_smoke_nf3d", tmp, md, *NF3D_EVAL,
+                         "--im_depth", depth)
+        with CaseTimer3D() as timer:
+            res, seconds, launches = counted_run(lambda: cli.main(argv))
+        fwd = eval_forwards_3d(ds, cli.get_args(argv))
+        expect_launches(f"nf_3d eval ({name})", launches,
+                        {"in_relu_fwd": UNET3D_BLOCKS * fwd})
+        if not math.isfinite(res["NF/Dice"]):
+            raise AssertionError(f"nf_3d eval ({name}): {res}")
+        print(f"  nf_3d eval, {name} (201_unet_v1.sh eval flags, --im_depth "
+              f"{depth}, bf16): s/case " + ", ".join(
+                  f"{t:.3f}" for t in timer.seconds)
+              + f" ({seconds:.2f} s with set-up); {fwd} forwards, B2-fwd "
+              f"{launches['in_relu_fwd']}; NF/Dice {res['NF/Dice']:.4f}, "
+              f"GNFDice {res.get('GNFDice', float('nan')):.4f}; {smi()}")
+        paths[f"UNet3D eval ({name})"] = launches
+    args = cli.get_args(nf3d_argv("eval", "chip_smoke_nf3d", tmp, md,
+                                  *NF3D_EVAL, "--compute_dtype", "float32"))
+    meta = cli._test_metas(args, ds)[0]
+    vol = np.load(ds / f"volume-{meta['PID']}" / "volume.npy")
+    z0 = min(meta["tumor_slices_index"][0], vol.shape[0] - 8) \
+        if meta["tumor_slices_index"] else 0
+    vol = np.ascontiguousarray(vol[z0:z0 + 8])
+    out = []
+    for d in (dev, torch.device("cpu")):
+        model = cli.build_model_from_args(args, d)
+        predict = make_volume_predict(model, d, ret="prob", in_zscore=True)
+        out.append(predict({"images": vol[None, ..., None]}))
+    err = float(np.abs(out[0] - out[1]).max())
+    print(f"  make_volume_predict card vs CPU (float32, case {meta['PID']}, "
+          f"slices {z0}-{z0 + 7} of 256^2, the raw volume z-scored on each "
+          f"device): max abs err of the probabilities {err:.2e}")
+    if not err <= 1e-4:
+        raise AssertionError("the 3-D volume predict on the card disagrees "
+                             "with the CPU")
+    return paths
+
+
+def click_eval_3d(tmp, md, refine, tta, *extra):
+    """One 3-D click eval (interactive_eval --dim 3 at 202_unetinter_v2's
+    flags) on the synthetic NF test fold with ``md``'s best; exact
+    launches: 18 B2-fwd a forward, a forward a click (host loop) or a
+    round (refiner), eight with TTA; no B1 (the 3-D guides are plain
+    torch)."""
+    from boxsegliver_torch.cli import interactive_eval as icli
+
+    argv = ["--mode", "eval", "--tag", "chip_smoke_nf3d_inter"] + \
+        NF3D_COMMON + INTER3D + [
+            "--dim", "3", "--task", "nf", "--dataset", "synthetic_nf",
+            "--data_root", str(tmp), "--k_folds", "2", "--model_dir",
+            str(md), "--batch_size", "1", "--dice_thresh", "0.85",
+            "--max_iters", "5", "--device_refine", refine,
+            *(["--tta"] if tta else []), *extra]
+    with CaseRecorder(3) as rec:
+        means, seconds, launches = counted_run(lambda: icli.main(argv))
+    flips = 8 if tta else 1
+    forwards = flips * (sum(rec.rounds) if refine == "on" else
+                        sum(round(c["clicks"]) for c in rec.cases))
+    expect_launches(f"3-D click eval {refine} tta={tta}", launches,
+                    {"in_relu_fwd": UNET3D_BLOCKS * forwards})
+    if not rec.cases or not all(math.isfinite(c["Dice"]) for c in rec.cases):
+        raise AssertionError(f"3-D click eval results {rec.cases}")
+    return means, seconds, launches, rec.cases
+
+
+def nf3d_click_phase(tmp, ds):
+    """(d) 8 steps of 202_unetinter_v2.sh training (201_unet_v1.sh with the
+    click guides: UNet3D.yml full width) through the CLI with its volume
+    eval at step 8 (blank guides), then interactive_eval --dim 3 on it:
+    the host loop and DeviceRefiner3D, TTA off and on (s/case, clicks,
+    exact launches); in float32 on the card the two give equal clicks and
+    Dice within 1e-6."""
+    from boxsegliver_torch.cli import main as cli
+
+    md = Path(tmp) / "nf3d_inter_md"
+    argv = nf3d_argv("train", "chip_smoke_nf3d_inter", tmp, md, *NF3D_TRAIN,
+                     *INTER3D, "--batches_per_epoch", "8", "--log_step", "4",
+                     "--num_of_steps", "8", *ONE_WORKER)
+    trainer, seconds, launches = counted_run(lambda: cli.main(argv))
+    fwd = eval_forwards_3d(ds, cli.get_args(argv))
+    expect_launches("202_unetinter_v2 train", launches, {
+        "in_relu_fwd": UNET3D_BLOCKS * (8 + fwd),
+        "in_relu_bwd_stats": UNET3D_BLOCKS * 8,
+        "in_relu_bwd_apply": UNET3D_BLOCKS * 8})
+    print(f"  202_unetinter_v2 train: 8 steps of 4 x 10 x 256^2 with 2 "
+          f"guide channels in {seconds:.2f} s (set-up and one volume eval "
+          f"included); launches {launches}")
+    paths = {"UNet3D click train (202_unetinter_v2)": launches}
+    for refine in ("off", "on"):
+        for tta in (False, True):
+            means, seconds, launches, cases = click_eval_3d(tmp, md, refine,
+                                                            tta)
+            paths[f"3-D click eval {refine}{' tta' if tta else ''}"] = \
+                launches
+            print(f"  3-D click eval (--dim 3, UNet3D.yml full width, bf16) "
+                  f"--device_refine {refine}{' --tta' if tta else ''}: "
+                  f"{means['sec_per_case']:.3f} s/case, Dice "
+                  f"{means['Dice']:.4f}, clicks {means['clicks']:.2f} "
+                  f"({len(cases)} cases, {seconds:.2f} s); launches "
+                  f"{launches}; {smi()}")
+    both = [click_eval_3d(tmp, md, refine, False, "--compute_dtype",
+                          "float32")[3] for refine in ("off", "on")]
+    for host, dev in zip(*both):
+        if host["clicks"] != dev["clicks"] or not abs(
+                host["Dice"] - dev["Dice"]) <= 1e-6:
+            raise AssertionError(f"3-D host loop {both[0]} and device "
+                                 f"refiner {both[1]} disagree in float32")
+    print(f"  3-D host loop vs DeviceRefiner3D in float32 on the card: "
+          f"clicks {[c['clicks'] for c in both[0]]} both, Dice "
+          f"{[round(c['Dice'], 7) for c in both[0]]} / "
+          f"{[round(c['Dice'], 7) for c in both[1]]}")
+    return paths
+
+
+def nf3d_cascade_phase(tmp, ds, inter_md):
+    """(e) --use_cascade --use_2d with phase 19c's UNetInter as the frozen
+    2-D model (--ckpt_2d, --im_channel 3): 4 train steps through the CLI,
+    whose sampler runs the 2-D model on every clicked slice of a patch (one
+    B1 launch a slice draws its fg and bg click guides, four mirrored
+    forwards); exact launches.  Then cli/hybrid_eval on that UNet3D with
+    the frozen-2-D cascade channel (Cascade2D, blank guides) and 8-way TTA:
+    s/case."""
+    from boxsegliver_torch.cli import hybrid_eval
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.interactive import cascade
+    from boxsegliver_torch.train.checkpoint import CheckpointManager
+
+    md = Path(tmp) / "nf3d_cascade_md"
+    ckpt_2d = str(CheckpointManager(inter_md).best_path())
+    c2d = ["--use_cascade", "--ckpt_2d", ckpt_2d, "--model_2d", "UNetInter",
+           "--im_channel", "3"]
+    argv = nf3d_argv("train", "chip_smoke_nf3d_cascade", tmp, md,
+                     *NF3D_TRAIN, *c2d, "--use_2d", "--num_of_steps", "4",
+                     "--log_step", "2", *ONE_WORKER)
+    orig = cascade.CascadeClick2D._slice_pred
+    slices = []
+
+    def counted(self, *a, **k):
+        out = orig(self, *a, **k)
+        slices.append(1)
+        return out
+
+    cascade.CascadeClick2D._slice_pred = counted
+    try:
+        trainer, seconds, launches = counted_run(lambda: cli.main(argv))
+    finally:
+        cascade.CascadeClick2D._slice_pred = orig
+    n = len(slices)
+    expect_launches("cascade train", launches, {
+        "gaussian_guide_batch": n,
+        "in_relu_fwd": UNET3D_BLOCKS * 4 + NF_BLOCKS * 4 * n,
+        "in_relu_bwd_stats": UNET3D_BLOCKS * 4,
+        "in_relu_bwd_apply": UNET3D_BLOCKS * 4})
+    if not n:
+        raise AssertionError("the cascade train run predicted no slice")
+    print(f"  cascade train (--use_cascade --use_2d, frozen UNetInter.yml of "
+          f"phase 19c): 4 steps in {seconds:.2f} s; the sampler predicted {n}"
+          f" clicked slices (prefetched batches included): B1 {n}, 2-D "
+          f"B2-fwd {NF_BLOCKS * 4 * n}; launches {launches}; {smi()}")
+    paths = {"UNet3D cascade train": launches}
+
+    hargv = nf3d_argv("eval", "chip_smoke_nf3d_cascade", tmp, md, *NF3D_EVAL,
+                      *c2d, "--eval_mirror")
+    args = cli.get_args(hargv)
+    metas = cli._test_metas(args, ds)
+    per_case = []
+    for meta in metas:
+        d = np.load(ds / f"volume-{meta['PID']}" / "volume.npy",
+                    mmap_mode="r").shape[0]
+        d += d % 2
+        per_case.append(4 * -(-d // args.batch_size) + 8)
+    res, seconds, launches = counted_run(lambda: hybrid_eval.main(hargv))
+    expect_launches("hybrid eval", launches,
+                    {"in_relu_fwd": UNET3D_BLOCKS * sum(per_case)})
+    if "GlobalDice" not in res and "Dice" not in res:
+        raise AssertionError(f"hybrid eval results {res}")
+    print(f"  cli/hybrid_eval (frozen-2-D cascade, 8-way TTA, slim labels):"
+          f" {seconds / len(metas):.3f} s/case over {len(metas)} cases (set-"
+          f"up included; {per_case} forwards a case); {res}; {smi()}")
+    paths["hybrid eval (cascade)"] = launches
+    return paths
+
+
+def nf3d_serve_phase(tmp, dev, seed, md):
+    """(f) --mode export of (b)'s UNet3D (10 x 256^2 volumes, batch 1) and
+    cli/serve.make_server(port=0) on the card: ms/request; the response
+    against the eager model within one bf16 step."""
+    from boxsegliver_torch.cli import main as cli
+
+    argv = nf3d_argv("export", "chip_smoke_nf3d", tmp, md, "--im_depth", "10",
+                     "--batch_size", "1")
+    t0 = time.perf_counter()
+    bundle = cli.main(argv)
+    sig = json.loads((bundle / "signature.json").read_text())
+    print(f"  exported UNet3D.yml (201_unet_v1.sh, batch 1, bf16) in "
+          f"{time.perf_counter() - t0:.2f} s: inputs {sig['inputs']}")
+    if sig["inputs"]["images"][0] != [1, 10, 256, 256, 1]:
+        raise AssertionError(f"UNet3D export signature {sig['inputs']}")
+    feats, probs, launches, per_req = serve_bundle(
+        bundle, "serve UNet3D", requests=10, seed=seed)
+    if per_req["in_relu_fwd"] != UNET3D_BLOCKS:
+        raise AssertionError(f"UNet3D serving B2-fwd per request {per_req}")
+    live = cli.build_model_from_args(cli.get_args(
+        ["eval" if a == "export" else a for a in argv]), dev)
+    with torch.no_grad():
+        want = torch.softmax(live({k: torch.from_numpy(v).to(dev)
+                                   for k, v in feats.items()}), -1).cpu()
+    err = (torch.from_numpy(probs) - want).abs()
+    bad = err > 2.0 ** -7 * want.abs() + 1e-5        # b2_check's bf16 bound
+    print(f"  UNet3D response vs the eager model + softmax on the card: max "
+          f"abs err {float(err.max()):.3e}, {int(bad.sum())} elements beyond"
+          f" one bf16 rounding step")
+    if bool(bad.any()):
+        raise AssertionError("the served UNet3D disagrees with the eager "
+                             "model")
+    return launches
+
+
+def unet3d_card_vs_cpu(tmp, ds, dev, seed):
+    """(g) A UNet3D train step at small width (init_channels 8, max 32,
+    4 pools) on 2 x 4 x 64^2 patches of the smoke's data in float32, TF32
+    off, on the card and on the CPU from the same weights (norm offsets at
+    3, away from the ReLUs' kinks) and the same processed batch: the loss,
+    the gradients, the Adam moments and the parameters after one Adam step,
+    and the parameters after 3 Momentum steps, each within 1e-4.  (An Adam
+    step is lr·g/(|g| + eps): a gradient within round-off of zero would
+    move by ±lr on either device, and the Momentum steps hold the update's
+    arithmetic apart from that.)"""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import batch_to_device
+    from boxsegliver_torch.data.pipeline3d import (process_batch_3d,
+                                                   statics_3d)
+    from boxsegliver_torch.data.sampler3d import Sampler3D
+    from boxsegliver_torch.models import build_model
+    from boxsegliver_torch.train.trainer import Trainer
+
+    out = {}
+    for opt in ("Adam", "Momentum"):
+        args = cli.get_args(nf3d_argv(
+            "train", "chip_smoke_nf3d_cmp", tmp, Path(tmp) / f"nf3d_cmp_{opt}",
+            *NF3D_TRAIN, "--im_depth", "4", "--im_height", "64",
+            "--im_width", "64", "--batch_size", "2", "--compute_dtype",
+            "float32", "--optimizer", opt, "--random_flip", "0"))
+        raw = Sampler3D(ds, args, seed=seed).sample_batch(
+            2, rng=np.random.RandomState(seed))
+        feats, labels = process_batch_3d(batch_to_device(raw, "cpu"), None,
+                                         **statics_3d(args))
+        for d in (dev, torch.device("cpu")):
+            model = build_model("UNet3D", args=args, model_kwargs=SMALL3D,
+                                dtype=torch.float32)
+            model.reset_parameters(torch.Generator().manual_seed(seed))
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.endswith("norm.bias"):
+                        p.fill_(3.0)
+            ft = {k: v.to(d) for k, v in feats.items()}
+            trainer = Trainer(model, args, ["Background", "NF"], d,
+                              preprocess_fn=lambda b, g, ft=ft, d=d:
+                              (ft, labels.to(d)))
+            grads = [g.detach().cpu() for g in
+                     trainer.gradients(ft, labels.to(d))[0]]
+            steps = 1 if opt == "Adam" else 3
+            losses = [float(trainer.train_step({"names": raw["names"]})[0][0])
+                      for _ in range(steps)]
+            moments = [t.detach().cpu() for k in ("mu", "nu")
+                       for t in trainer.optimizer.state.get(k, [])]
+            out[opt, d.type] = (losses, grads, moments, [
+                p.detach().cpu() for p in trainer.model.parameters()])
+            trainer.summary.close()
+
+    def worst(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    (la, ga, ma, pa), (lb, gb, mb, pb) = out["Adam", "cuda"], out["Adam",
+                                                                  "cpu"]
+    (lm, _, _, pm), (ln, _, _, pn) = out["Momentum", "cuda"], out["Momentum",
+                                                                  "cpu"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(la + lm, lb + ln))
+    errs = {"gradients": worst(ga, gb), "Adam moments": worst(ma, mb),
+            "parameters after the Adam step": worst(pa, pb),
+            "parameters after 3 Momentum steps": worst(pm, pn)}
+    print(f"  UNet3D train step card vs CPU (init 8, max 32, 2 x 4 x 64^2, "
+          f"float32): losses {la + lm} / {lb + ln} (rel err {loss_err:.2e}), "
+          + ", ".join(f"{k} max abs err {v:.2e}" for k, v in errs.items()))
+    if not (loss_err <= 1e-4 and all(v <= 1e-4 for v in errs.values())):
+        raise AssertionError("the UNet3D train step on the card disagrees "
+                             "with the CPU")
+
+
+def nf3d_phase(tmp, dev, seed, inter_md):
+    """Phase 21: (a) B2 at the 3-D shapes; (b) 201_unet_v1.sh train; (c)
+    its evals; (d) the 3-D click eval; (e) the cascade and hybrid eval;
+    (f) the UNet3D export served; (g) a UNet3D step card vs CPU."""
+    ds = Path(tmp) / "synthetic_nf"
+    step, ev = b2_3d_phase(dev)
+    md, launches = nf3d_train_phase(tmp, ds)
+    paths = {"UNet3D train (201_unet_v1)": launches}
+    paths.update(nf3d_eval_phase(tmp, ds, dev, md))
+    paths.update(nf3d_click_phase(tmp, ds))
+    paths.update(nf3d_cascade_phase(tmp, ds, inter_md))
+    paths["serve (UNet3D export)"] = nf3d_serve_phase(tmp, dev, seed, md)
+    unet3d_card_vs_cpu(tmp, ds, dev, seed)
+    return {"step": step, "eval": ev}, paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3617,7 +4169,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/20] device")
+    print("[1/21] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -3632,7 +4184,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/20] build")
+    print("[2/21] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -3642,7 +4194,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/20] kernel B1 vs plain")
+    print("[3/21] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3652,63 +4204,75 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/20] labeling vs scipy")
+        print("[4/21] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/20] flagship guided eval (run_g) through the CLI")
+        print("[5/21] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/20] profile of one case's sweep (steady state)")
+        print("[6/21] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/20] kernel B2 vs plain")
+        print("[7/21] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/20] flagship G-Net training through the CLI")
+        print("[8/21] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/20] profile of the flagship train step (steady state)")
+        print("[9/21] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/20] UNet training (001_unet.sh train) through the CLI")
+        print("[10/21] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/20] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/21] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/20] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/21] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/20] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/21] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/20] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/21] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/20] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/21] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/20] train step card vs CPU: boundary and proportion "
+        print("[16/21] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/20] serving: --mode export and the REST server on the "
+        print("[17/21] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/20] prepare -> annotate -> viewers on the card")
+        print("[18/21] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/20] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        print("[19/21] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
         nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
         paths.update(nf_paths)
-        print("[20/20] click eval (interactive_eval --dim 2): kernel G1, "
+        print("[20/21] click eval (interactive_eval --dim 2): kernel G1, "
               "host loop and device refiner, the new click models, the "
               "click export")
         g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
         paths.update(click_paths)
+        print("[21/21] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
+              "201_unet_v1.sh train and eval, the 3-D click eval, the "
+              "cascade and hybrid eval, the UNet3D export served")
+        b2_3d, nf3d_paths = nf3d_phase(tmp, dev, opts.seed, inter_md)
+        paths.update(nf3d_paths)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")
     recs = [rec] + [b2[n] for n in B2_KERNELS]
+    for n in B2_KERNELS:             # UNet3D: per train step, eval level 0
+        b2[n]["unet3d"] = {k: {m: v[n][m] for m in (
+            "device_ms", "bound_ms", "plain_ms", "library_ms",
+            "max_abs_err")} for k, v in b2_3d.items()}
+        b2[n]["max_abs_err"] = max(b2[n]["max_abs_err"],
+                                   b2_3d["step"][n]["max_abs_err"],
+                                   b2_3d["eval"][n]["max_abs_err"])
     for r in recs:
         r["launches"] = launches[r["name"]]
     # G1's main path is the device refiner with geodesic guides
@@ -3717,7 +4281,8 @@ def main(argv=None):
     for r in recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     keys += ("launches_by_path",)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + (
+        ("unet3d",) if "unet3d" in r else ())} for r in recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

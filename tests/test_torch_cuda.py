@@ -634,3 +634,37 @@ def test_device_refiner_on_the_card_matches_cpu(dev):
         assert gpu["clicks"] == cpu["clicks"]
         assert abs(gpu["Dice"] - cpu["Dice"]) <= 1e-4
         model.cpu()
+
+
+# B2 over NCDHW planes of D·H·W (UNet3D): the train step's level 2 at
+# batch 4 (staged plan: 5·64² bf16 = 40 KiB) and the whole-volume eval's
+# level 0 (general plan: one CTA a plane of 24·256² elements)
+B2_3D_SHAPES = [((4, 120, 5, 64, 64), kernels.FWD_STAGED),
+                ((1, 30, 24, 256, 256), kernels.FWD_GENERAL)]
+
+
+@pytest.mark.parametrize("shape,path", B2_3D_SHAPES)
+def test_b2_at_ncdhw_planes_matches_plain(dev, shape, path):
+    n, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    assert kernels.in_relu_fwd_plan(n * c, hw, torch.bfloat16).path == path
+    x, g, w, b = _in_relu_inputs(shape, torch.bfloat16, dev, seed=c)
+    n0 = [kernels.in_relu_fwd.launches, kernels.in_relu_bwd_stats.launches,
+          kernels.in_relu_bwd_apply.launches]
+    y, xh, rstd = kernels.in_relu_fwd(x, w, b)
+    y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
+    s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
+    s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
+    dx = kernels.in_relu_bwd_apply(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    dx_p = kernels.in_relu_bwd_apply_plain(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    torch.cuda.synchronize()
+    assert [kernels.in_relu_fwd.launches, kernels.in_relu_bwd_stats.launches,
+            kernels.in_relu_bwd_apply.launches] == [k + 1 for k in n0]
+    assert y.shape == dx.shape == shape and rstd.shape == (n, c)
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    torch.testing.assert_close(xh.float(), xh_p.float(), **tol)
+    torch.testing.assert_close(s1, s1_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(s2, s2_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(dx.float(), dx_p.float(), **tol)

@@ -246,8 +246,6 @@ def test_device_refiner_without_lesions_and_guards(fitted):
         DeviceRefiner2D(tmodel, device="cpu", guide_kind="nope")
     with pytest.raises(NotImplementedError, match="item 8"):
         DeviceRefiner2D(tmodel, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        trefine.interactive_eval_3d(None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +307,10 @@ def test_cli_matches_jax(nf_set, tmp_path, extra):
 
 
 def test_cli_refuses_3d_and_replicas(nf_set, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    """--dim 3 is ported (tests/test_torch_inter3d.py): it now gets as far
+    as the weights, and the empty model_dir names --ckpt_path; more than
+    one replica still raises, naming its item."""
+    with pytest.raises(FileNotFoundError, match="--ckpt_path"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu", "--dim", "3"))
     with pytest.raises(NotImplementedError, match="item 8"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu",
