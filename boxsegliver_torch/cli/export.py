@@ -28,6 +28,9 @@ does.
         --im_channel 3 --normalizer instance_norm --use_context \\
         --context_list hist 200 --use_spatial --batch_size 8 \\
         --model_dir <dir> [--ckpt_path <ckpt>] [--device cpu]
+    python -m boxsegliver_torch.cli.main nf2 --mode export --model GUNet \
+        --model_config GUNet_IIN.yml --classes NF --use_context \
+        --ct_base 32 --use_spatial ...          # 004_gnet_iin.sh flags
 """
 
 from __future__ import annotations
@@ -42,9 +45,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxsegliver_torch import config as config_mod
-from boxsegliver_torch.cli.main import (_build_model, _not_ported,
-                                        restore_weights)
-from boxsegliver_torch.models import context_length
+from boxsegliver_torch.cli.main import _build_model, restore_weights
+from boxsegliver_torch.models import context_channels, context_length
+from boxsegliver_torch.models.layers import CT_PATCH
 
 PROGRAM_FILE = "model.pt2"
 STATE_FILE = "state.pt"
@@ -59,7 +62,8 @@ def build_feature_template(args) -> Dict[str, np.ndarray]:
     images [bs, H, W, C]; sp_guide [bs, H, W, --guide_channel] of zeros for
     the click-guided models (the nf_inter task, UNetInter, InterUNet), else
     [bs, H, W, 1] filled with 0.5 under --use_spatial; context [bs, context
-    length] under --use_context."""
+    length] under --use_context, for nf2 the pyramid [bs, 32, 32,
+    n_scales]."""
     bs, h, w = args.batch_size, args.im_height, args.im_width
     if args.model == "UNet3D":
         depth = args.im_depth if args.im_depth > 0 else 8
@@ -69,9 +73,6 @@ def build_feature_template(args) -> Dict[str, np.ndarray]:
             gc = int(getattr(args, "guide_channel", 2))
             feats["sp_guide"] = np.zeros((bs, depth, h, w, gc), np.float32)
         return feats
-    if args.task == "nf2" and getattr(args, "use_context", False):
-        _not_ported("the nf2 image-patch context export", "queue A, nf2 / "
-                    "IIN")
     feats = {"images": np.zeros((bs, h, w, args.im_channel), np.float32)}
     if args.task == "nf_inter" or args.model in ("UNetInter", "InterUNet"):
         # these models consume a click guide unconditionally
@@ -79,7 +80,11 @@ def build_feature_template(args) -> Dict[str, np.ndarray]:
         feats["sp_guide"] = np.zeros((bs, h, w, gc), np.float32)
     elif getattr(args, "use_spatial", False):
         feats["sp_guide"] = np.full((bs, h, w, 1), 0.5, np.float32)
-    if getattr(args, "use_context", False):
+    if getattr(args, "use_context", False) and args.task == "nf2":
+        # the nf2 image-patch pyramid (models/layers.PatchCNN's input)
+        feats["context"] = np.zeros((bs, CT_PATCH, CT_PATCH,
+                                     context_channels(args)), np.float32)
+    elif getattr(args, "use_context", False):
         feats["context"] = np.zeros((bs, context_length(args)), np.float32)
     return feats
 

@@ -35,6 +35,12 @@ entry/main.py, entry/main_g.py, entry/main_export.py).
     python -m boxsegliver_torch.cli.main nf_3d --mode train --tag \
         201_unet_v1 --model UNet3D --classes NF --im_depth 10 \
         --batch_size 4 ...                      # threed/201_unet_v1.sh
+    python -m boxsegliver_torch.cli.main nf2 --mode train --tag \
+        004_gnet_iin --model GUNet --model_config GUNet_IIN.yml \
+        --classes NF --use_context --ct_base 32 --use_spatial --zscore \
+        --gamma --batch_size 8 ...              # template/004_gnet_iin.sh
+    python -m boxsegliver_torch.cli.main nf2 --mode infer ... \
+        --case_id 3 --pos 12 140 96             # one patch -> model_dir/infer
 
 Runs on the GPU unless ``--device cpu`` is given.  ``--mode train`` trains
 a 2D UNet or G-Net (batch or instance norm) with the online 2D eval per
@@ -57,7 +63,11 @@ trains on 3-D patches (data/sampler3d.py, data/pipeline3d.py; the
 ``--eval_per_epoch`` eval is evaluators/volume3d.EvaluateVolume3D) and
 evaluates whole volumes (``--im_depth -1``), with the device sliding window
 (``--im_depth > 0``), or with the frozen-2-D cascade channel
-(``--use_cascade --ckpt_2d``, interactive/cascade.py).  Their weights come
+(``--use_cascade --ckpt_2d``, interactive/cascade.py).  ``nf2`` trains
+the click-instance GUNet with the image-patch context (data/sampler_iin.py,
+data/pipeline_iin.py: kernel B1 draws the one-click guide) and evaluates
+per lesion patch (``EvaluateVolume.run_patch``, evaluators/iin_eval.py);
+``--mode infer --case_id --pos`` predicts one patch.  Their weights come
 from ``--ckpt_path`` (a checkpoint, a ``.pt`` state_dict or a ``.npz`` of
 flattened flax variables), else from ``--model_dir``: the best checkpoint,
 or the latest periodic one under ``--eval_final`` or when there is no best,
@@ -130,6 +140,12 @@ def is_inter(args) -> bool:
     """nf_inter: the click-simulation training task (reference
     entry/main_g.py nf_inter + DataLoader/NF/input_pipeline_g_simply.py)."""
     return getattr(args, "task", "") == "nf_inter"
+
+
+def is_iin(args) -> bool:
+    """nf2: click-instance training + the per-lesion patch eval (reference
+    entry/main_g.py:64-66 nf2 -> DataLoader/NF/input_pipeline_iin.py)."""
+    return getattr(args, "task", "") == "nf2"
 
 
 def _build_model(args):
@@ -236,11 +252,6 @@ def main(argv=None):
                     do_eval=args.mode == "eval")
 
 
-def _check_train_path(args):
-    if args.task == "nf2":
-        _not_ported("task nf2 training", "queue A, nf2 / IIN")
-
-
 def build_trainer(args, device, cache=None):
     """Trainer of the flagged model, seeded from --seed, with the device
     augmentation of its task (cache: a DeviceVolumeCache for the index
@@ -256,6 +267,9 @@ def build_trainer(args, device, cache=None):
         from boxsegliver_torch.data.pipeline_inter import \
             make_inter_preprocess_fn
         preprocess_fn = make_inter_preprocess_fn(args, train=True)
+    elif is_iin(args):
+        from boxsegliver_torch.data.pipeline_iin import make_iin_preprocess_fn
+        preprocess_fn = make_iin_preprocess_fn(args, train=True)
     else:
         from boxsegliver_torch.data.pipeline import make_preprocess_fn
         preprocess_fn = make_preprocess_fn(args, cache=cache)
@@ -291,10 +305,9 @@ def train(args, dataset_dir, logger, device):
     from boxsegliver_torch.data.pipeline import TrainDataset
     from boxsegliver_torch.data.sampler import TrainSampler
 
-    _check_train_path(args)
     cache = None
     if getattr(args, "device_cache", False) and not is_inter(args) \
-            and not is_3d(args):
+            and not is_3d(args) and not is_iin(args):
         from boxsegliver_torch.data.device_cache import DeviceVolumeCache
         train_pids, _ = _split_pids(args, dataset_dir)
         try:
@@ -321,6 +334,9 @@ def train(args, dataset_dir, logger, device):
         from boxsegliver_torch.data.sampler_inter import InterSampler
         sampler = InterSampler(dataset_dir, args, mode="train",
                                seed=args.seed, max_clicks=args.max_clicks)
+    elif is_iin(args):
+        from boxsegliver_torch.data.sampler_iin import IinSampler
+        sampler = IinSampler(dataset_dir, args, mode="train", seed=args.seed)
     else:
         sampler = TrainSampler(dataset_dir, args, mode="train",
                                seed=args.seed,
@@ -362,7 +378,10 @@ def _make_online_eval(args, dataset_dir, num_batches: int = 0):
     """OnlineEval2D over the eval split with the deterministic eval-mode
     device processing: the inter pipeline on InterSampler's fixed eval
     batches (EVAL_ZOOM, EVAL_SEED; reference get_val_loader) for nf_inter,
-    else the plain pipeline without noise, flips or gamma (reference 2D
+    the IIN pipeline on IinSampler(tumor_percent=0, spatial_random=1) for
+    nf2 (reference get_dataset_for_eval_online, input_pipeline_iin.py:
+    658-672), else the plain pipeline without noise, flips or gamma on
+    TrainSampler's host layout, the one JAX's CLI evaluates (reference 2D
     batch-metric averaging)."""
     import functools
 
@@ -375,11 +394,18 @@ def _make_online_eval(args, dataset_dir, num_batches: int = 0):
         sampler = InterSampler(dataset_dir, args, mode="eval",
                                max_clicks=args.max_clicks)
         process_fn = make_inter_preprocess_fn(args, train=False)
+    elif is_iin(args):
+        from boxsegliver_torch.data.pipeline_iin import make_iin_preprocess_fn
+        from boxsegliver_torch.data.sampler_iin import IinSampler
+        sampler = IinSampler(dataset_dir, args, mode="eval",
+                             tumor_percent=0.0, spatial_random=1.0)
+        process_fn = make_iin_preprocess_fn(args, train=False)
     else:
         from boxsegliver_torch.data.pipeline import (_process_batch,
                                                      norm_statics)
         from boxsegliver_torch.data.sampler import TrainSampler
-        sampler = TrainSampler(dataset_dir, args, mode="eval")
+        sampler = TrainSampler(dataset_dir, args, mode="eval",
+                               resize_on_host=True)
         statics = norm_statics(args)
         statics["use_gamma"] = False  # deterministic eval processing
         process_fn = functools.partial(
@@ -418,6 +444,38 @@ def _inter_eval(args, dataset_dir, logger, device):
         f.write("\n")
     logger.info("Online eval: %s", results)
     return results
+
+
+def _iin_eval(args, dataset_dir, logger, device, do_eval=True):
+    """nf2 eval / infer (JAX cli/main.py:476-500): ``--mode infer --case_id
+    --pos z y x`` predicts the one patch at --pos and writes its npz under
+    model_dir/infer/; else the per-lesion patch eval run_patch over the
+    test fold (``--eval_mirror``: the mirror variants in one forward a
+    batch), scoring (eval) or saving (infer) each case."""
+    from boxsegliver_torch.evaluators.iin_eval import (make_patch_predict,
+                                                       run_patch_infer)
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    model = build_model_from_args(args, device)
+    logger.info("Restored %s from %s on %s", args.model, args.restored_from,
+                device)
+    mirror = bool(getattr(args, "eval_mirror", False))
+    if not do_eval and getattr(args, "case_id", None) is not None:
+        if not getattr(args, "pos", None):
+            raise SystemExit("nf2 --mode infer needs --pos z y x")
+        from boxsegliver_torch.data.meta import load_meta
+        meta = {int(m["PID"]): m
+                for m in load_meta(dataset_dir)}[int(args.case_id)]
+        out = run_patch_infer(make_patch_predict(model, device), meta,
+                              dataset_dir, args)
+        return {"infer_path": str(out)}
+    predict = make_patch_predict(model, device, int(args.random_flip),
+                                 mirror=mirror)
+    evaluator = EvaluateVolume(args, dataset_dir,
+                               ["Background"] + list(args.classes))
+    return evaluator.run_patch(predict, _test_metas(args, dataset_dir),
+                               save=args.save_predict or not do_eval,
+                               do_eval=do_eval)
 
 
 def _with_blank_guide(args, feats):
@@ -535,9 +593,8 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
 
     if is_3d(args):
         return _evaluate_3d(args, dataset_dir, logger, device, do_eval)
-    if args.task == "nf2":
-        _not_ported("task nf2 (the per-lesion patch eval run_patch)",
-                    "queue A, nf2 / IIN")
+    if is_iin(args):
+        return _iin_eval(args, dataset_dir, logger, device, do_eval)
     if is_inter(args):
         return _inter_eval(args, dataset_dir, logger, device)
     spatial = bool(getattr(args, "use_spatial", False))

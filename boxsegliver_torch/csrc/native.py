@@ -8,6 +8,7 @@ build raises: there is no fallback.
 
     from boxsegliver_torch.csrc import native
     dist = native.geodesic2d(image, seeds)     # float32 [h, w], FLT_MAX unreached
+    dist = native.geodesic3d(volume, seeds, spacing=(2.0, 1.0, 1.0))
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -71,6 +72,9 @@ def load() -> ctypes.CDLL:
         c, cf = ctypes.c_int, ctypes.c_float
         lib.geodesic2d_raster_scan.argtypes = [f32p, u8p, f32p, c, c, cf, c]
         lib.geodesic2d_raster_scan.restype = None
+        lib.geodesic3d_raster_scan.argtypes = [f32p, u8p, f32p, c, c, c,
+                                               cf, cf, cf, cf, c]
+        lib.geodesic3d_raster_scan.restype = None
         _LIB = lib
     return _LIB
 
@@ -88,5 +92,24 @@ def geodesic2d(image: np.ndarray, seeds: np.ndarray, lamb: float = 1.0,
     dist = np.empty(image.shape, np.float32)
     load().geodesic2d_raster_scan(image, seeds, dist, image.shape[0],
                                   image.shape[1], float(lamb),
+                                  int(iterations))
+    return dist
+
+
+def geodesic3d(image: np.ndarray, seeds: np.ndarray, lamb: float = 1.0,
+               iterations: int = 4,
+               spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+               ) -> np.ndarray:
+    """geodesic2d over a [d, h, w] volume: 26-neighbour raster passes whose
+    spatial steps are scaled by ``spacing`` (z, y, x), as JAX's
+    ``csrc.geodesic_distance``."""
+    image = np.ascontiguousarray(image, np.float32)
+    seeds = np.ascontiguousarray(seeds, np.uint8)
+    if image.ndim != 3 or seeds.shape != image.shape:
+        raise ValueError(f"geodesic3d: image {image.shape} and seeds "
+                         f"{seeds.shape} must be one [d, h, w] shape")
+    dist = np.empty(image.shape, np.float32)
+    load().geodesic3d_raster_scan(image, seeds, dist, *image.shape,
+                                  *(float(s) for s in spacing), float(lamb),
                                   int(iterations))
     return dist

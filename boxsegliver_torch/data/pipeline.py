@@ -132,10 +132,11 @@ def _process_batch(batch: Dict[str, torch.Tensor], draws: Optional[Dict],
                    cache=None, **norm_kw):
     """Whole-batch processing: (features dict, labels [bs, h, w] int64).
 
-    Two input layouts (data/sampler.TrainSampler): device-resize pixel
-    windows, or slice indices into ``cache``.  ``draws`` holds the
-    augmentation's random draws (ops/image_ops.draw_augment); it may be None
-    when noise, gamma and flips are off."""
+    Three input layouts (data/sampler.TrainSampler): host-resized images,
+    device-resize pixel windows, or slice indices into ``cache``.
+    ``draws`` holds the augmentation's random draws
+    (ops/image_ops.draw_augment); it may be None when noise, gamma and
+    flips are off."""
     bs = batch["names"].shape[0]
     dev = batch["names"].device
     centers = batch.get("centers", torch.full((bs, 1, 2), -1.0, device=dev))
@@ -147,6 +148,8 @@ def _process_batch(batch: Dict[str, torch.Tensor], draws: Optional[Dict],
             batch["zidx"], batch["lab_z"], batch["offset"], batch["crop_hw"],
             batch["pad_mask"], cache.volume, cache.label, im_h=im_h,
             im_w=im_w)
+    elif "image" in batch:          # host layout: resized on the host
+        img, lab = widen(batch["image"]).float(), batch["label"]
     else:
         img, lab = _process_one(batch["window"], batch["label"],
                                 batch["crop_hw"], im_h=im_h, im_w=im_w)

@@ -12,12 +12,16 @@ a memory-mapped volume; the pixel math runs on the device
 (data/pipeline._process_batch).  Ragged per-slice tumor lists become
 (max_objs)-padded arrays + counts.
 
-Deviation from the JAX package: its default ``resize_on_host=True`` layout
-resizes on the host with OpenCV, which the port does not carry.  The port
-has the device-resize layout (``window`` + ``crop_hw``) and the index layout
-(``zidx``, with a data/device_cache.DeviceVolumeCache); ``resize_on_host=
-True`` raises.  Given the same RandomState, both layouts draw exactly what
-the JAX sampler draws.
+Three layouts, as in the JAX package: the host layout (``resize_on_host=
+True``: each zoom window resized on the host to the target, the image with
+ops/image_ops.resize_linear_u16 — OpenCV's uint16 INTER_LINEAR without
+OpenCV — and the label with cv2's nearest index), the device-resize layout
+(``window`` + ``crop_hw``) and the index layout (``zidx``, with a
+data/device_cache.DeviceVolumeCache).  JAX defaults to the host layout; the
+port's training takes the device layout (the default here) and its online
+2-D eval the host layout, as JAX's CLI builds it (cli/main.py:366).  Given
+the same RandomState, every layout draws exactly what the JAX sampler
+draws.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from boxsegliver_torch.data.kfold import (LITS_SEED, read_or_create_k_folds,
                                           train_test_split)
 from boxsegliver_torch.data.meta import IM_SCALE, load_meta
+from boxsegliver_torch.ops.image_ops import resize_linear_u16, resize_nearest
 
 # Fixed window-level clip in stored uint16 units (reference gen_train_batch:
 # input_pipeline_g.py:519-523; stored = (HU + 250) * IM_SCALE)
@@ -137,12 +143,50 @@ def _crop_offset(rng, obj_bb, crop, size_ax) -> int:
     return _randint(rng, min(a, b), max(a, b)) if b >= a else max(b, 0)
 
 
+def stack_slices(vol: np.ndarray, sid: int, off: Tuple[int, int],
+                 crop: Tuple[int, int], out: np.ndarray) -> np.ndarray:
+    """Copy the 2.5D stack around slice ``sid`` (slices sid - (C - 1) // 2
+    ..., each cut to the ``crop`` window at ``off``) into ``out`` [C, >=
+    crop_h, >= crop_w]; slices beyond the z range stay as they are (zero).
+    Returns the z pad mask [C] (input_pipeline_g.py:498-515)."""
+    ch = out.shape[0]
+    lh = (ch - 1) // 2
+    pad_mask = np.zeros((ch,), np.float32)
+    for k in range(ch):
+        z = sid - lh + k
+        if 0 <= z < vol.shape[0]:
+            out[k, :crop[0], :crop[1]] = vol[z, off[0]:off[0] + crop[0],
+                                             off[1]:off[1] + crop[1]]
+            pad_mask[k] = 1.0
+    return pad_mask
+
+
+def host_window(vol: np.ndarray, lab_plane: Optional[np.ndarray], sid: int,
+                off: Tuple[int, int], crop: Tuple[int, int], ch: int,
+                target: Tuple[int, int]):
+    """JAX's host layout of one zoom window (data/sampler.py:273-297):
+    the [H, W, C] uint16 2.5D stack resized to ``target`` by
+    resize_linear_u16 (cv2's INTER_LINEAR), the ``lab_plane`` window by
+    cv2's nearest index ([H, W] zeros where it is None), and the z pad mask
+    [C]."""
+    win = np.zeros((crop[0], crop[1], ch), np.uint16)
+    pad_mask = stack_slices(vol, sid, off, crop, np.moveaxis(win, -1, 0))
+    img = resize_linear_u16(win, target)
+    if lab_plane is None:
+        return img, np.zeros(target, np.uint8), pad_mask
+    lab = torch.from_numpy(np.array(
+        lab_plane[off[0]:off[0] + crop[0], off[1]:off[1] + crop[1]]))
+    return img, resize_nearest(lab, target).numpy(), pad_mask
+
+
 class TrainSampler:
     """Infinite class-balanced batch sampler over prepared cases.
 
     Ships the fixed max-zoom window + crop scalars for the device-side
-    crop_and_resize_2d (or, with ``zbase``, slice indices only).
-    ``resize_on_host=True`` (the JAX package's OpenCV layout) raises.
+    crop_and_resize_2d (or, with ``zbase``, slice indices only); with
+    ``resize_on_host=True`` (eval only) the zoom window resized on the
+    host to [H, W, C] uint16 and its label to [H, W] (the JAX package's
+    default).
     """
 
     def __init__(self, dataset_dir, args, mode: str = "train",
@@ -153,11 +197,11 @@ class TrainSampler:
         given, the sampler runs in INDEX mode: batches carry only per-sample
         slice indices + crop scalars (no pixels); the device pipeline
         gathers from the cache (pipeline.make_preprocess_fn(cache=...))."""
-        if resize_on_host:
+        if resize_on_host and mode == "train":
             raise NotImplementedError(
-                "resize_on_host=True resizes with OpenCV, which the port "
-                "does not carry: use the device-resize layout (default) or "
-                "--device_cache")
+                "resize_on_host=True (JAX's OpenCV layout, resized here by "
+                "ops/image_ops) serves the online eval (mode='eval'); "
+                "training keeps the device-resize layout or --device_cache")
         self.root = Path(dataset_dir)
         self.args = args
         metas = load_meta(self.root)
@@ -180,6 +224,7 @@ class TrainSampler:
         self.max_crop = (int(math.ceil(self.target[0] * self.zoom[1])),
                          int(math.ceil(self.target[1] * self.zoom[1])))
         self.zbase = zbase
+        self.resize_on_host = resize_on_host
         self.use_context = bool(getattr(args, "use_context", False))
         self.use_spatial = bool(getattr(args, "use_spatial", False))
         self.max_objs = int(getattr(args, "max_objs", 8))
@@ -254,22 +299,12 @@ class TrainSampler:
         """2.5D channel stack copied into a fixed [C, Hmax, Wmax] buffer
         (zero-padded beyond crop and beyond the z range,
         input_pipeline_g.py:498-515)."""
-        vol = self.vols.volume(pid)
-        lab = self.vols.label(pid)
-        depth = vol.shape[0]
-        ch = self.channel
-        lh = (ch - 1) // 2
-        win = np.zeros((ch, self.max_crop[0], self.max_crop[1]), np.uint16)
-        pad_mask = np.zeros((ch,), np.float32)
-        for k in range(ch):
-            z = sid - lh + k
-            if 0 <= z < depth:
-                win[k, :crop[0], :crop[1]] = vol[z, off_y:off_y + crop[0],
-                                                 off_x:off_x + crop[1]]
-                pad_mask[k] = 1.0
-        lab_win = np.zeros((self.max_crop[0], self.max_crop[1]), np.uint8)
-        lab_win[:crop[0], :crop[1]] = lab[sid, off_y:off_y + crop[0],
-                                          off_x:off_x + crop[1]]
+        win = np.zeros((self.channel,) + self.max_crop, np.uint16)
+        pad_mask = stack_slices(self.vols.volume(pid), sid, (off_y, off_x),
+                                crop, win)
+        lab_win = np.zeros(self.max_crop, np.uint8)
+        lab_win[:crop[0], :crop[1]] = self.vols.label(pid)[
+            sid, off_y:off_y + crop[0], off_x:off_x + crop[1]]
         return win, lab_win, pad_mask
 
     def sample_batch(self, batch_size: int,
@@ -294,6 +329,12 @@ class TrainSampler:
                 "lab_z": np.zeros((batch_size,), np.int32),
                 "offset": np.zeros((batch_size, 2), np.float32),
                 "crop_hw": np.zeros((batch_size, 2), np.float32),
+            }
+        elif self.resize_on_host:
+            out = {
+                "image": np.zeros((batch_size,) + self.target
+                                  + (self.channel,), np.uint16),
+                "label": np.zeros((batch_size,) + self.target, np.uint8),
             }
         else:
             out = {
@@ -361,6 +402,12 @@ class TrainSampler:
                 out["lab_z"][j] = base + sid
                 out["offset"][j] = (off_y, off_x)
                 out["crop_hw"][j] = crop
+            elif self.resize_on_host:
+                img, lab, pad = host_window(
+                    self.vols.volume(pid), self.vols.label(pid)[sid], sid,
+                    (off_y, off_x), crop, self.channel, self.target)
+                out["image"][j] = img
+                out["label"][j] = lab
             else:
                 win, lab, pad = self._stack_window(pid, sid, off_y, off_x, crop)
                 out["window"][j] = win

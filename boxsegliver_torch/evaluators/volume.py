@@ -1,6 +1,7 @@
 """Volume evaluator of the port: the unguided whole-volume eval ``run``,
-the interactive guided eval ``run_g`` and the NF sp-point eval ``run_sp``
-(port of boxsegliver_tpu/evaluators/volume.py:77-147,153-410,453-538;
+the interactive guided eval ``run_g``, the NF sp-point eval ``run_sp`` and
+the nf2 patch eval ``run_patch``
+(port of boxsegliver_tpu/evaluators/volume.py:77-538;
 reference EvaluateVolume, evaluators/evaluator_liver.py:524-586, 616-904,
 998-1026, and NF/input_pipeline_g.py:721-830).
 
@@ -20,8 +21,10 @@ tumor masked by liver), 3D metrics, global-Dice accumulation and NIfTI save
 — is host numpy as in the JAX package, with the port's cv2-equivalent
 resizes.
 
-Not ported yet: the per-lesion patch evaluation ``run_patch`` of the nf2
-task (ROADMAP queue A, nf2 / IIN).
+``run_patch`` is the nf2 per-lesion patch eval (evaluators/iin_eval.py):
+each lesion's patch batch is one forward (mirror TTA inside it) and one B1
+launch for its guides, the patch probabilities max / min-merged into the
+full frame on the host.
 """
 
 from __future__ import annotations
@@ -422,6 +425,49 @@ class EvaluateVolume(EvaluateBase):
         sids = torch.tensor([sid for sid, _, _ in rows], device=device)
         guide[sids] = out[..., 0]
         return guide
+
+    def run_patch(self, predict_fn: Callable, case_metas: Iterable[Dict],
+                  save: bool = False, save_path=None, do_eval: bool = True
+                  ) -> Dict[str, float]:
+        """nf2 / IIN per-lesion patch evaluation (JAX volume.py:412-447;
+        reference evaluator_nf.run with the nf2 pipeline ->
+        _predict_case_v2, evaluator_nf.py:336-575): every lesion's
+        expanded-bbox patch is predicted and max / min-merged into a
+        full-frame volume whose background starts at 1, so unvisited voxels
+        stay background.  ``predict_fn``: iin_eval.make_patch_predict (the
+        mirror TTA inside it); the guides are drawn on its device."""
+        from boxsegliver_torch.evaluators.iin_eval import (IinPatchLoader,
+                                                           merge_patch_probs)
+
+        args = self.args
+        device = getattr(predict_fn, "device", "cpu")
+        self.clear_metrics()
+        accumulator: Dict[str, int] = defaultdict(int)
+        n = 0
+        skip = getattr(args, "eval_skip_num", 0)
+        limit = getattr(args, "eval_num", -1)
+        nc = len(self.classes) + 1
+        for meta in list(case_metas)[skip:]:
+            if 0 < limit <= n:
+                break
+            t0 = time.time()
+            loader = IinPatchLoader(meta, self.dataset_dir, args,
+                                    device=device)
+            d, h, w = loader.volume.shape
+            logits3d = np.zeros((d, h, w, nc), np.float32)
+            logits3d[..., 0] = 1.0  # evaluator_nf.py:541-542
+            for batch in loader.batches(args.batch_size):
+                probs = _host(predict_fn(batch))
+                merge_patch_probs(logits3d, probs, batch["sid"], batch["bb"],
+                                  batch["pads"])
+            case = EvalCase(pid=int(meta["PID"]), volume=None,
+                            segmentation=loader.lab3d,
+                            crop=(0, d, 0, h, 0, w), oshape=(d, h, w),
+                            spacing=tuple(meta["spacing"]), lhc=0, rhc=0)
+            n += 1
+            self._finish_case(case, logits3d, accumulator, save, save_path,
+                              do_eval, n, t0)
+        return self._finish_run(accumulator, n)
 
     def predict_case_g(self, predict_fn, meta: Dict, prior_case: Dict,
                        parse_label: bool = True):

@@ -86,13 +86,20 @@ def render_click_guide(shape, clicks: List[Tuple], stddev: float = 5.0,
 
 def render_geodesic_guide(image: np.ndarray, clicks: List[Tuple],
                           lamb: float = 1.0, iterations: int = 4,
-                          scale: float = 10.0) -> np.ndarray:
-    """exp(-geodesic distance / scale) at full resolution (reference
-    GeodisTK usage, DataLoader/NF/input_pipeline_g_simply.py:476-489)."""
+                          scale: float = 10.0,
+                          spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+                          ) -> np.ndarray:
+    """exp(-geodesic distance / scale) at full resolution over a [h, w]
+    slice or a [d, h, w] volume (``spacing`` scales a volume's steps;
+    reference GeodisTK usage, DataLoader/NF/input_pipeline_g_simply.py:
+    476-489)."""
     seeds = np.zeros(image.shape, np.uint8)
     for c in clicks:
         seeds[tuple(int(x) for x in c)] = 1
-    dist = native.geodesic2d(image, seeds, lamb, iterations)
+    if image.ndim == 3:
+        dist = native.geodesic3d(image, seeds, lamb, iterations, spacing)
+    else:
+        dist = native.geodesic2d(image, seeds, lamb, iterations)
     return np.exp(-dist / max(scale, 1e-6)).astype(np.float32)
 
 

@@ -5,8 +5,8 @@ The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
 configs of ported models are carried: the UNet, UNetInter, InterUNet,
-SmallUNet, LGNet and UNet3D ones and the GUNet ones whose context model is
-ported; ``UNPORTED_CONFIGS`` names the others.
+SmallUNet, LGNet and UNet3D ones and the GUNet ones (fc and, for nf2, conv
+contexts); ``UNPORTED_CONFIGS`` names the others.
 
 Flax infers a model's input widths at init from a feature template (JAX
 cli/main.build_feature_template); the port's constructors take them from
@@ -25,6 +25,7 @@ import torch
 
 from boxsegliver_torch.models.gunet import GUNet
 from boxsegliver_torch.models.inter_unet import InterUNet
+from boxsegliver_torch.models.layers import ct_sizes
 from boxsegliver_torch.models.lgnet import LGNet
 from boxsegliver_torch.models.small_unet import SmallUNet
 from boxsegliver_torch.models.unet import UNet
@@ -80,6 +81,15 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
     "GUNet_TINY.yml": dict(_GUNET_BASE, init_channels=8, num_down_samples=2,
                            mod_layers=[1, 2], context_fc_channels=[16, 16],
                            norm_with_center=True, norm_with_scale=False),
+    "GUNet_IIN.yml": dict(_GUNET_BASE, context_fc_channels=[256, 256],
+                          context_model="conv", context_conv_init_channels=16,
+                          norm_with_center=True, norm_with_scale=False),
+    "GUNet_IIN_TINY.yml": dict(_GUNET_BASE, init_channels=8,
+                               num_down_samples=2, mod_layers=[1, 2],
+                               context_fc_channels=[16, 16],
+                               context_model="conv",
+                               context_conv_init_channels=4,
+                               norm_with_center=True, norm_with_scale=False),
 }
 
 # configs/models of the JAX package that the port does not carry yet, with
@@ -87,8 +97,6 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
 UNPORTED_CONFIGS: Dict[str, str] = {
     "DenseUNet.yml": "queue A, rest of the 2D zoo",
     "DenseUNet_tiny.yml": "queue A, rest of the 2D zoo",
-    "GUNet_IIN.yml": "queue A, nf2 / IIN",
-    "GUNet_IIN_TINY.yml": "queue A, nf2 / IIN",
 }
 
 # Which constructor fields each model pulls from the flag namespace.
@@ -147,6 +155,11 @@ def context_length(args) -> int:
     return sum(int(raw[i + 1]) for i in range(0, len(raw), 2))
 
 
+def context_channels(args) -> int:
+    """Scales of the nf2 context pyramid (``--ct_base``: 1 or 3 sizes)."""
+    return len(ct_sizes(getattr(args, "ct_base", None) or [32]))
+
+
 def build_model(model_name: str, args=None,
                 model_kwargs: Optional[Dict] = None,
                 num_classes: Optional[int] = None,
@@ -175,6 +188,7 @@ def build_model(model_name: str, args=None,
                 args, "guide_channel", 2)))
         kwargs.setdefault("in_channels", int(args.im_channel))
         kwargs.setdefault("context_length", context_length(args))
+        kwargs.setdefault("context_channels", context_channels(args))
         kwargs.setdefault("guide_channels", guide_channels(args, model_name))
         kwargs.setdefault("sp_channels", guide_channels(args, model_name))
         if num_classes is None:

@@ -20,8 +20,10 @@ context MLP's hidden layers draw their masks from ``g``.  Every
 instance-norm + ReLU pair with a full affine (the decoder, and the
 unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
 ``img_grad`` concatenates the image gradients to the images (JAX
-gunet.py:135-137).  Not ported yet (the constructor raises): ``use_se``,
-the ``vgg16*`` and ``conv`` context models.
+gunet.py:135-137).  ``context_model="conv"`` (nf2 / IIN) reads a rank-4
+context, the image-patch pyramid [bs, 32, 32, context_channels], with
+layers.PatchCNN.  Not ported yet (the constructor raises): ``use_se`` and
+the ``vgg16*`` context models.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxsegliver_torch.models.layers import (MLP, ChannelAffine, Conv,
-                                             ConvNormAct, Dense, Norm, UpConv,
+                                             ConvNormAct, Dense, Norm,
+                                             PatchCNN, UpConv,
                                              avg_pool_same, dropout,
                                              fused_pair, he_normal_,
                                              image_gradients, init_kernel_,
@@ -59,12 +62,12 @@ class GUNet(nn.Module):
                  weight_init: str = "xavier",
                  dtype: Optional[torch.dtype] = None,
                  in_channels: int = 3, context_length: int = 200,
-                 sp_channels: int = 1):
+                 context_channels: int = 3, sp_channels: int = 1):
         super().__init__()
         if use_se:
             raise NotImplementedError("GUNet --use_se is not ported yet "
                                       "(ROADMAP queue A, GUNet variants)")
-        if use_context and context_model != "fc":
+        if use_context and context_model not in ("fc", "conv"):
             raise NotImplementedError(
                 f"GUNet context_model {context_model!r} is not ported yet "
                 "(ROADMAP queue A, GUNet variants)")
@@ -86,10 +89,16 @@ class GUNet(nn.Module):
         if use_context:
             n_mod = init_channels * sum(2 ** i for i in levels
                                         if i in self.mod_layers) * 2
-            self.context = MLP(context_length,
-                               list(context_fc_channels) + [n_mod],
-                               use_dropout=side_dropout > 0,
-                               keep_prob=1.0 - side_dropout)
+            channels = list(context_fc_channels) + [n_mod]
+            if context_model == "conv":
+                self.context = PatchCNN(context_channels,
+                                        context_conv_init_channels, channels,
+                                        use_dropout=side_dropout > 0,
+                                        keep_prob=1.0 - side_dropout)
+            else:
+                self.context = MLP(context_length, channels,
+                                   use_dropout=side_dropout > 0,
+                                   keep_prob=1.0 - side_dropout)
         if use_spatial:
             for i in levels:
                 if i not in self.mod_layers:
@@ -154,8 +163,8 @@ class GUNet(nn.Module):
                     mod.gamma.fill_(1.0)
                     mod.beta.zero_()
             if self.use_context:
-                last = self.context._modules[
-                    f"Dense_{self.context.n_layers - 1}"]
+                mlp = getattr(self.context, "MLP_0", self.context)
+                last = mlp._modules[f"Dense_{mlp.n_layers - 1}"]
                 he_normal_(last.weight, last.in_features, generator)
         return self
 

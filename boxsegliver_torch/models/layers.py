@@ -27,7 +27,7 @@ train and eval mode alike.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -356,6 +356,52 @@ class MLP(nn.Module):
             if k < self.n_layers - 1:
                 x = dropout(F.relu(x), self.rate, train, generator)
         return x
+
+
+# the nf2 context pyramid: CT_PATCH x CT_PATCH patches of the ct_sizes
+# scales around the click (reference input_pipeline_iin.py:273, 597-598)
+CT_PATCH = 32
+
+
+def ct_sizes(ct_base: Sequence[int]) -> Tuple[int, int, int]:
+    """--ct_base: one value s -> (s, 2s, 4s), or three explicit sizes
+    (reference input_pipeline_iin.py:597-598)."""
+    cb = list(ct_base)
+    if len(cb) == 3:
+        return tuple(int(s) for s in cb)
+    if len(cb) != 1:
+        raise ValueError(f"--ct_base takes 1 or 3 values, got {cb}")
+    return int(cb[0]), int(cb[0]) * 2, int(cb[0]) * 4
+
+
+class PatchCNN(nn.Module):
+    """2-D conv encoder over the nf2 context pyramids [bs, 32, 32, n_scales]
+    (NHWC, port of boxsegliver_tpu/models/layers.py:308-333): three
+    conv-conv-pool stages (SAME 3x3 convs with bias and ReLU, flax's SAME
+    2x2 max pool; 32 -> 4), the global mean, then the MLP of the fc context
+    (he_normal final init).  Modules are named as flax auto-names them:
+    ``Conv_0`` .. ``Conv_5`` and ``MLP_0``."""
+
+    def __init__(self, in_channels: int, first_layer_channel: int,
+                 out_channels: Sequence[int], use_dropout: bool = False,
+                 keep_prob: float = 0.5):
+        super().__init__()
+        cin = in_channels
+        for k in range(6):
+            ch = first_layer_channel * (1, 2, 4)[k // 2]
+            self.add_module(f"Conv_{k}", Conv(cin, ch, 3))
+            cin = ch
+        self.MLP_0 = MLP(cin, out_channels, use_dropout, keep_prob)
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x.permute(0, 3, 1, 2)
+        for k in range(6):
+            x = F.relu(self._modules[f"Conv_{k}"](x))
+            if k % 2:
+                x = max_pool2x2(x, padding="SAME")
+        return self.MLP_0(x.mean(dim=(2, 3)), train=train,
+                          generator=generator)
 
 
 def image_gradients(images: torch.Tensor):

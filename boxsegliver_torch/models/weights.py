@@ -9,7 +9,9 @@ the flax tree (models/layers.py), so keys map by rule:
 
 - module path: flax's auto-named wrappers ``InstanceNorm_0``, ``BatchNorm_0``
   and ``ConvTranspose_0`` disappear (the torch module holds the leaves
-  itself); ``Conv_0`` → ``conv`` and ``Norm_0`` → ``norm`` (ConvNormAct);
+  itself); ``Conv_0`` → ``conv`` and ``Norm_0`` → ``norm`` (ConvNormAct),
+  except under ``context``, where GUNet's PatchCNN keeps flax's
+  ``Conv_0`` .. ``Conv_5`` and ``MLP_0``;
 - leaves: ``kernel`` → ``weight``, ``scale`` → ``weight``, ``bias`` → ``bias``,
   batch-norm ``mean`` / ``var`` → ``running_mean`` / ``running_var``,
   ChannelAffine ``gamma`` / ``beta`` unchanged;
@@ -46,7 +48,9 @@ def flax_key_to_torch(key: str) -> str:
     if parts[0] in ("params", "batch_stats"):
         parts = parts[1:]
     *path, leaf = parts
-    path = [_RENAMED.get(p, p) for p in path if p not in _DROPPED]
+    path = [p if p == "Conv_0" and i and path[i - 1] == "context"
+            else _RENAMED.get(p, p)
+            for i, p in enumerate(path) if p not in _DROPPED]
     return ".".join(path + [_LEAVES[leaf]])
 
 

@@ -224,7 +224,31 @@ result line):
    card: ms/request, 18 B2-fwd a request, the response against the eager
    model within one bf16 step.  (g) a small UNet3D train step card vs CPU
    in float32: loss, gradients, Adam moments and the Adam update, and the
-   parameters after 3 Momentum steps, within 1e-4.
+   parameters after 3 Momentum steps, within 1e-4.  (h) cli/eval_all_ckpt
+   over (b)'s ckpt_best/<tag>: EvaluateVolume3D whole volumes per tag,
+   exactly 18 B2-fwd a forward, s/checkpoint.
+22. nf2 / IIN — ``004_gnet_iin.sh`` flags (GUNet_IIN.yml full width:
+   GUNet.yml's encoder / decoder with the PatchCNN context over the 3 x
+   32^2 patch pyramid; instance norm, --zscore --gamma, batch 8, 256^2 x 3,
+   bf16) on phase 19's synthetic_nf set, one host worker.  (a) 12 train
+   steps through the CLI with the online eval (IinSampler, 4 batches) every
+   6: exactly one B1 launch (the one-click guides, K = 1) and 10 B2-fwd,
+   B2a and B2b a step (B1 1 and B2-fwd 10 an eval batch); the step in
+   steady state at K = 1 and K = 16 (ms/step, slices/s, busy share, device
+   time by kernel group, B1 and B2 device ms per step against b1_bound_ms
+   and b2_bound_ms).  (b) ``004_gnet_iin.sh eval`` (run_patch) with and
+   without --eval_mirror: s/case, exactly one B1 launch (the patches'
+   guides) and one forward (10 B2-fwd) a patch batch.  (c) --mode infer
+   --case_id --pos at a lesion: the npz, B1 1, B2-fwd 10.  (d) --mode
+   export served once on the card: 10 B2-fwd a request.  (e) card vs CPU
+   in float32 within 1e-4: the full-width forward at 2 x 128^2, a
+   GUNet_IIN_TINY train step (loss, gradients, parameters after 3 Momentum
+   steps) and run_patch's per-case metrics of a seeded GUNet_IIN_TINY.
+   (f) B1 at nf2's shapes, card vs the plain version on the CPU within
+   1e-6: the train preprocess of one full-width raw IinSampler batch (8 x
+   256^2, K = 1, the same draws on both sides) with three sp_on = 0 rows,
+   all zeros on the card; and render_guides of a 64^2 run_patch batch whose
+   boxes differ in size.  B1's ``max_abs_err`` covers (f).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
 G1, and per path in ``launches_by_path``: the device sweep of phase 5,
@@ -232,7 +256,9 @@ the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
 preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
 nf_inter_train, nf_inter_eval and run_sp, phase 20's click evals, new
-models' training and click serving, and phase 21's UNet3D paths; B2's
+models' training and click serving, phase 21's UNet3D paths with the
+checkpoint sweep, and phase 22's nf2 train, run_patch (mirror TTA and
+plain), infer --pos and serving; B2's
 ``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
 level 0; ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
@@ -1670,7 +1696,7 @@ def host_launches(prof) -> int:
 
 
 def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
-           top: int = 15):
+           top: int = 15, groups_out=None):
     """Steady-state train steps of ``args`` on the dataset ``ds`` with the
     device cache (nf_inter: its InterSampler, which has none), as bench.py
     times them, in dispatches of --steps_per_dispatch K: a warm-up (3
@@ -1680,8 +1706,9 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     The launch counters are zeroed before the warm-up: a path without
     hand-written kernels must launch none, one with them every train kernel
     (TRAIN_KERNELS); ``kernels_used`` may instead name the kernels that
-    must launch (the others must not).  Returns (median s/step, launches, captured launches
-    per replay)."""
+    must launch (the others must not).  ``groups_out`` (a dict) receives
+    the profiled window's device ms per step by kernel group.  Returns
+    (median s/step, launches, captured launches per replay)."""
     from torch.profiler import ProfilerActivity, profile
 
     from boxsegliver_torch.cli import main as cli
@@ -1702,6 +1729,10 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         cache = None
         sampler = InterSampler(ds, args, mode="train", seed=1,
                                max_clicks=args.max_clicks)
+    elif cli.is_iin(args):
+        from boxsegliver_torch.data.sampler_iin import IinSampler
+        cache = None
+        sampler = IinSampler(ds, args, mode="train", seed=1)
     else:
         train_pids, _ = cli._split_pids(args, ds)
         cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], "cuda",
@@ -1754,6 +1785,9 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         data.close()
         trainer.summary.close()
     kern, groups, self_us = kernel_groups(prof)
+    if groups_out is not None:
+        groups_out.update({n: v / 1e3 / prof_steps
+                           for n, v in groups.items()})
     busy_ms = sum(groups.values()) / 1e3 / prof_steps
     share = max(busy_ms, 1e-9)
     wall = statistics.median(walls)
@@ -3892,6 +3926,32 @@ def nf3d_eval_phase(tmp, ds, dev, md):
     return paths
 
 
+def nf3d_sweep_phase(tmp, ds, md):
+    """(h) cli/eval_all_ckpt over (b)'s ``ckpt_best/<tag>``: the whole
+    volume of each test case a forward per tag (EvaluateVolume3D.run,
+    blank click guides), exactly 18 B2-fwd a forward, s/tag, the rows."""
+    from boxsegliver_torch.cli import eval_all_ckpt
+    from boxsegliver_torch.cli import main as cli
+
+    argv = nf3d_argv("eval", "chip_smoke_nf3d", tmp, md, *NF3D_EVAL)
+    tags = sorted(p.name for p in (md / "ckpt_best").iterdir()
+                  if p.is_dir())
+    rows, seconds, launches = counted_run(lambda: eval_all_ckpt.main(argv))
+    fwd = eval_forwards_3d(ds, cli.get_args(argv)) * len(tags)
+    expect_launches("UNet3D checkpoint sweep", launches,
+                    {"in_relu_fwd": UNET3D_BLOCKS * fwd})
+    if [r["ckpt"] for r in rows] != tags or not all(
+            math.isfinite(r["NF/Dice"]) for r in rows):
+        raise AssertionError(f"UNet3D checkpoint sweep rows {rows}")
+    print(f"  UNet3D checkpoint sweep (eval_all_ckpt, whole volume): "
+          f"{len(tags)} checkpoints {tags} in {seconds:.2f} s "
+          f"({seconds / len(tags):.3f} s/checkpoint); {fwd} forwards, "
+          f"B2-fwd {launches['in_relu_fwd']}; NF/Dice "
+          + ", ".join(f"{r['ckpt']} {r['NF/Dice']:.4f}" for r in rows)
+          + f"; {smi()}")
+    return launches
+
+
 def click_eval_3d(tmp, md, refine, tta, *extra):
     """One 3-D click eval (interactive_eval --dim 3 at 202_unetinter_v2's
     flags) on the synthetic NF test fold with ``md``'s best; exact
@@ -4145,18 +4205,392 @@ def unet3d_card_vs_cpu(tmp, ds, dev, seed):
 
 def nf3d_phase(tmp, dev, seed, inter_md):
     """Phase 21: (a) B2 at the 3-D shapes; (b) 201_unet_v1.sh train; (c)
-    its evals; (d) the 3-D click eval; (e) the cascade and hybrid eval;
-    (f) the UNet3D export served; (g) a UNet3D step card vs CPU."""
+    its evals; (h) the checkpoint sweep over its bests; (d) the 3-D click
+    eval; (e) the cascade and hybrid eval; (f) the UNet3D export served;
+    (g) a UNet3D step card vs CPU."""
     ds = Path(tmp) / "synthetic_nf"
     step, ev = b2_3d_phase(dev)
     md, launches = nf3d_train_phase(tmp, ds)
     paths = {"UNet3D train (201_unet_v1)": launches}
     paths.update(nf3d_eval_phase(tmp, ds, dev, md))
+    paths["UNet3D checkpoint sweep"] = nf3d_sweep_phase(tmp, ds, md)
     paths.update(nf3d_click_phase(tmp, ds))
     paths.update(nf3d_cascade_phase(tmp, ds, inter_md))
     paths["serve (UNet3D export)"] = nf3d_serve_phase(tmp, dev, seed, md)
     unet3d_card_vs_cpu(tmp, ds, dev, seed)
     return {"step": step, "eval": ev}, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 22: nf2 / IIN (004_gnet_iin.sh) train, eval, infer and export
+# ---------------------------------------------------------------------------
+
+# run_scripts/template/004_gnet_iin.sh COMMON_FLAGS, with the smoke's data
+# (phase 19's synthetic_nf set, 2 folds) in place of NF's test fold 2
+IIN_COMMON = [
+    "--model", "GUNet", "--model_config", "GUNet_IIN.yml", "--classes",
+    "NF", "--test_fold", "0", "--im_height", "256", "--im_width", "256",
+    "--im_channel", "3", "--random_flip", "3", "--num_replicas", "0",
+    "--normalizer", "instance_norm", "--use_context", "--ct_base", "32",
+    "--use_spatial", "--spatial_random", "1.0", "--guide_scale", "5",
+    "--min_std", "2", "--zscore", "--gamma", "--zoom_scale", "1.0", "1.25"]
+IIN_TRAIN = [
+    "--noise_scale", "0.1", "--num_of_total_steps", "300000",
+    "--primary_metric", "NF/Dice", "--batch_size", "8",
+    "--weight_decay_rate", "0.000001", "--learning_policy", "plateau",
+    "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
+    "0.2", "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
+IIN_EVAL = ["--metrics_eval", "Dice", "VOE", "RVD", "--primary_metric",
+            "NF/Dice", "--batch_size", "8", "--evaluator", "Volume"]
+IIN_STEPS = 12               # the smoke's nf2 run: an online eval every 6
+IIN_BLOCKS = 10              # B2 pairs of GUNet_IIN: level 0 and the decoder
+# the B2 pairs of one nf2 train step (batch 8, 256^2, init_channels 64):
+# those of the flagship step
+IIN_B2_STEP_SHAPES = B2_STEP_SHAPES
+
+
+def iin_argv(mode, tag, tmp, md, *extra):
+    """The flags of one phase-22 CLI run: 004_gnet_iin.sh's COMMON, the
+    smoke's data, then ``extra`` (the last of a repeated flag wins)."""
+    return ["nf2", "--mode", mode, "--tag", tag] + IIN_COMMON + [
+        "--data_root", str(tmp), "--dataset", "synthetic_nf", "--k_folds",
+        "2", "--model_dir", str(md), "--summary_prefix", "nf"] + list(extra)
+
+
+def iin_patch_batches(args, ds):
+    """Patch batches of one run_patch pass over the test fold: each batch
+    is one forward and one B1 launch (its guides)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.iin_eval import IinPatchLoader
+
+    return [-(-len(IinPatchLoader(m, ds, args).items) // args.batch_size)
+            for m in cli._test_metas(args, ds)]
+
+
+def iin_train_phase(tmp, ds):
+    """(a) 004_gnet_iin.sh train through the CLI: GUNet_IIN.yml full width,
+    instance norm, PatchCNN context, batch 8, 256^2 x 3, bf16, one host
+    worker; 12 steps with the online eval (IinSampler, 4 batches) every 6;
+    exact launches; then the step in steady state at K = 1 and K = 16 with
+    B1 / B2 device ms per step against their bounds."""
+    from boxsegliver_torch.cli import main as cli
+
+    md = Path(tmp) / "iin_md"
+    argv = iin_argv("train", "chip_smoke_iin", tmp, md, *IIN_TRAIN,
+                    "--batches_per_epoch", "6", "--log_step", "3",
+                    "--eval_num_batches_per_epoch", str(NF_EVAL_BATCHES),
+                    "--num_of_steps", str(IIN_STEPS), *ONE_WORKER)
+    trainer, seconds, launches = counted_run(lambda: cli.main(argv))
+    if trainer.global_step != IIN_STEPS or not (
+            md / "ckpt_best" / "best" / "state.pt").exists():
+        raise AssertionError(f"nf2 train stopped at {trainer.global_step}")
+    evals = 2 * NF_EVAL_BATCHES
+    expect_launches("nf2 train", launches, {
+        "gaussian_guide_batch": IIN_STEPS + evals,
+        "in_relu_fwd": IIN_BLOCKS * (IIN_STEPS + evals),
+        "in_relu_bwd_stats": IIN_BLOCKS * IIN_STEPS,
+        "in_relu_bwd_apply": IIN_BLOCKS * IIN_STEPS})
+    loss, dice = _train_log(md, eval_steps=(6, 12))
+    print(f"  nf2 train (004_gnet_iin.sh flags): {IIN_STEPS} steps of 8 x "
+          f"256^2 in {seconds:.2f} s (with set-up and two online evals of "
+          f"{NF_EVAL_BATCHES} batches); per train step B1 1 (K = 1), B2-fwd "
+          f"/ B2a / B2b {IIN_BLOCKS} (each eval batch: B1 1, B2-fwd "
+          f"{IIN_BLOCKS}); loss " + ", ".join(
+              f"{k}: {loss[k]:.4f}" for k in sorted(loss))
+          + f"; eval NF/Dice {dice}; {smi()}")
+
+    rng = np.random.default_rng(0)
+    c, sd, v = guide_inputs(rng, 8, 1, 256, 256, "cuda", n_valid=[1] * 8)
+    b1_bound = b1_bound_ms(c, sd, v, 256, 256, sfu_per_s())[0]
+    b2_bound = sum(b2_bound_ms(n, shape)[0] * k for n in B2_ALL
+                   for shape, k in IIN_B2_STEP_SHAPES.items())
+    walls, groups = {}, {}
+    for k in (1, 16):
+        args = cli.get_args(iin_argv(
+            "train", "chip_smoke_iin_b", tmp, Path(tmp) / f"iin_b{k}",
+            *IIN_TRAIN, "--steps_per_dispatch", str(k)))
+        groups[k] = {}
+        walls[k], warm, replay = steady(
+            args, ds, f"004_gnet_iin.sh train step, K={k}",
+            kernels_used=True, prof_steps=8 if k == 1 else 16, top=10,
+            groups_out=groups[k])
+        if k == 1:
+            expect_launches("nf2 steady warm-up", warm, {
+                "gaussian_guide_batch": 3, "in_relu_fwd": 3 * IIN_BLOCKS,
+                "in_relu_bwd_stats": 3 * IIN_BLOCKS,
+                "in_relu_bwd_apply": 3 * IIN_BLOCKS})
+        elif any(cnt["gaussian_guide_batch"] != 1
+                 or any(cnt[n] != IIN_BLOCKS for n in B2_ALL)
+                 for cnt in replay.values()):
+            raise AssertionError(f"nf2 K=16 replay launches {replay}")
+    for k in (1, 16):
+        b1 = groups[k]["B1 guide_render"]
+        b2 = groups[k]["B2 in_relu (fwd, bwd_stats, bwd_apply)"]
+        print(f"  nf2 step K={k}: B1 {b1:.5f} ms/step device (bound "
+              f"{b1_bound:.6f} ms, {b1_bound / max(b1, 1e-12):.1%}), B2 "
+              f"{b2:.4f} ms/step device (bound {b2_bound:.4f} ms, "
+              f"{b2_bound / max(b2, 1e-12):.1%})")
+    print(f"  nf2 train step ms/step (median of 3 windows of 16): K=1 "
+          f"{walls[1] * 1e3:.3f}, K=16 {walls[16] * 1e3:.3f}; slices/s "
+          f"{8 / walls[1]:.1f} / {8 / walls[16]:.1f}; {smi()}")
+    return md, launches
+
+
+def iin_eval_phase(tmp, ds, md):
+    """(b) 004_gnet_iin.sh eval (run_patch) through the CLI on (a)'s best,
+    with and without --eval_mirror: s/case, exactly one B1 launch and one
+    forward (10 B2-fwd) a patch batch; (c) one --mode infer --case_id
+    --pos at a lesion: the npz, one B1 launch, one forward."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    paths = {}
+    for name, extra in (("mirror TTA", ["--eval_mirror"]), ("plain", [])):
+        argv = iin_argv("eval", "chip_smoke_iin", tmp, md, *IIN_EVAL,
+                        *extra)
+        batches = iin_patch_batches(cli.get_args(argv), ds)
+        timer = []
+        orig = EvaluateVolume._finish_case
+
+        def timed(ev, case, *a, **k):
+            timer.append(time.perf_counter())
+            return orig(ev, case, *a, **k)
+
+        EvaluateVolume._finish_case = timed
+        try:
+            t0 = time.perf_counter()
+            res, seconds, launches = counted_run(lambda: cli.main(argv))
+        finally:
+            EvaluateVolume._finish_case = orig
+        expect_launches(f"nf2 eval ({name})", launches, {
+            "gaussian_guide_batch": sum(batches),
+            "in_relu_fwd": IIN_BLOCKS * sum(batches)})
+        if not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"nf2 eval ({name}): {res}")
+        per_case = np.diff([t0] + timer)
+        print(f"  nf2 eval, run_patch ({name}, 004_gnet_iin.sh eval flags, "
+              f"bf16): patch batches per case {batches}; s/case "
+              + ", ".join(f"{t:.3f}" for t in per_case)
+              + f" (the first with set-up; {seconds:.2f} s in all); "
+              f"launches {launches}; {json.dumps(res)}; {smi()}")
+        paths[f"nf2 eval (run_patch, {name})"] = launches
+    meta = cli._test_metas(cli.get_args(argv), ds)[0]
+    ft = meta["tumor_slices_from_to"]
+    sid = meta["tumor_slices_index"][0]
+    y, x = (int(round(v)) for v in meta["tumor_slices_centers"][ft[0]])
+    out, seconds, launches = counted_run(lambda: cli.main(iin_argv(
+        "infer", "chip_smoke_iin", tmp, md, *IIN_EVAL, "--case_id",
+        str(meta["PID"]), "--pos", str(sid), str(y), str(x))))
+    expect_launches("nf2 infer --pos", launches, {
+        "gaussian_guide_batch": 1, "in_relu_fwd": IIN_BLOCKS})
+    with np.load(out["infer_path"]) as z:
+        if z["prob"].shape != (256, 256, 2) or not np.isfinite(
+                z["prob"]).all():
+            raise AssertionError(f"nf2 infer npz {z['prob'].shape}")
+        keys = sorted(z.files)
+    print(f"  nf2 infer --case_id {meta['PID']} --pos {sid} {y} {x}: "
+          f"{seconds:.3f} s with set-up, npz {keys}; launches {launches}")
+    paths["nf2 infer --pos"] = launches
+    return paths
+
+
+def iin_card_vs_cpu(tmp, ds, dev, seed):
+    """(e) card vs CPU in float32, TF32 off, 1e-4: the full-width
+    GUNet_IIN forward on one nf2 batch at 128^2; a GUNet_IIN_TINY train
+    step at 64^2 (loss, gradients, parameters after 3 Momentum steps; norm
+    offsets and transpose-conv biases at 3, away from the ReLUs' kinks);
+    run_patch's per-case metrics of a seeded GUNet_IIN_TINY."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import batch_to_device
+    from boxsegliver_torch.data.pipeline_iin import make_iin_preprocess_fn
+    from boxsegliver_torch.data.sampler_iin import IinSampler
+    from boxsegliver_torch.evaluators.iin_eval import make_patch_predict
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    big = cli.get_args(iin_argv(
+        "train", "chip_smoke_iin_cmp", tmp, Path(tmp) / "iin_cmp_big",
+        *IIN_TRAIN, "--im_height", "128", "--im_width", "128",
+        "--compute_dtype", "float32", "--side_dropout", "0"))
+    raw = IinSampler(ds, big, seed=seed, tumor_percent=1.0).sample_batch(2)
+    feats, _ = make_iin_preprocess_fn(big, train=False)(
+        batch_to_device(raw, "cpu"), None)
+    feats.pop("names")
+    model = cli._build_model(big)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        m = model.to(d).eval()
+        with torch.no_grad():
+            out.append(torch.softmax(m({k: v.to(d) for k, v in
+                                        feats.items()}), -1).cpu())
+    fwd_err = float((out[0] - out[1]).abs().max())
+
+    args = cli.get_args(iin_argv(
+        "train", "chip_smoke_iin_cmp", tmp, Path(tmp) / "iin_cmp",
+        *IIN_TRAIN, "--im_height", "64", "--im_width", "64",
+        "--compute_dtype", "float32", "--model_config",
+        "GUNet_IIN_TINY.yml", "--optimizer", "Momentum", "--batch_size", "4",
+        "--side_dropout", "0"))
+    raw = IinSampler(ds, args, seed=seed, tumor_percent=1.0).sample_batch(4)
+    feats, labels = make_iin_preprocess_fn(args, train=False)(
+        batch_to_device(raw, "cpu"), None)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        ft = {k: v.to(d) for k, v in feats.items()}
+        trainer = cli.build_trainer(args, d)
+        with torch.no_grad():
+            for name, p in trainer.model.named_parameters():
+                if name.endswith("norm.bias") or (
+                        name.startswith("up") and name.count(".") == 1
+                        and name.endswith("bias")):
+                    p.fill_(3.0)
+        trainer.preprocess_fn = (lambda batch, gen, ft=ft, d=d:
+                                 (ft, labels.to(d)))
+        grads = [g.detach().cpu() for g in
+                 trainer.gradients(ft, labels.to(d))[0]]
+        losses = [float(trainer.train_step({"names": raw["names"]})[0][0])
+                  for _ in range(3)]
+        res.append((losses, grads, {k: v.detach().cpu() for k, v in
+                                    trainer.model.state_dict().items()}))
+        trainer.summary.close()
+    ev_args = cli.get_args(iin_argv(
+        "eval", "chip_smoke_iin_cmp", tmp, Path(tmp) / "iin_cmp", *IIN_EVAL,
+        "--im_height", "64", "--im_width", "64", "--compute_dtype",
+        "float32", "--model_config", "GUNet_IIN_TINY.yml", "--eval_mirror"))
+    model = cli._build_model(ev_args)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    metrics = []
+    for d in (dev, torch.device("cpu")):
+        ev = EvaluateVolume(ev_args, ds, ["Background", "NF"])
+        ev.run_patch(make_patch_predict(model, d, 3, mirror=True),
+                     cli._test_metas(ev_args, ds))
+        metrics.append({k: list(v) for k, v in ev._metric_values.items()})
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(res[0][0],
+                                                       res[1][0]))
+    g_err = max(float((a - b).abs().max()) for a, b in zip(res[0][1],
+                                                           res[1][1]))
+    p_err = max(float((res[0][2][k] - v).abs().max())
+                for k, v in res[1][2].items())
+    m_err = max(abs(a - b) for k, v in metrics[1].items()
+                for a, b in zip(metrics[0][k], v))
+    if sorted(metrics[0]) != sorted(metrics[1]) or any(
+            len(metrics[0][k]) != len(v) for k, v in metrics[1].items()):
+        raise AssertionError(f"nf2 run_patch rows {metrics}")
+    print(f"  nf2 card vs CPU (float32): GUNet_IIN full-width forward at "
+          f"2 x 128^2 max abs err {fwd_err:.2e}; GUNet_IIN_TINY step at "
+          f"64^2: losses {res[0][0]} / {res[1][0]} (rel err {loss_err:.2e}),"
+          f" gradients {g_err:.2e}, parameters after 3 steps {p_err:.2e}; "
+          f"run_patch (mirror TTA, a seeded GUNet_IIN_TINY) per-case "
+          f"metrics {m_err:.2e} ({json.dumps(metrics[0])})")
+    if not (fwd_err <= 1e-4 and loss_err <= 1e-4 and g_err <= 1e-4
+            and p_err <= 1e-4 and m_err <= 1e-4):
+        raise AssertionError("nf2 on the card disagrees with the CPU")
+    return ev_args
+
+
+def iin_guides_card_vs_cpu(tmp, ds, dev, seed, ev_args):
+    """(f) kernel B1 at nf2's shapes on the card against its plain version
+    on the CPU, 1e-6 (phase 3's bar): the train preprocess of one raw
+    IinSampler batch at full width (8 x 256^2, K = 1, one set of draws on
+    both sides) with sp_on = 0 at rows 1, 4 and 6, which must come out all
+    zeros, its other features at 1e-4 and its labels equal; and
+    render_guides of a 64^2 run_patch batch whose boxes differ in size
+    (one launch over the largest box, each row cropped to its own).
+    Returns the larger B1 error."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data import pipeline_iin
+    from boxsegliver_torch.data.pipeline import batch_to_device
+    from boxsegliver_torch.data.sampler_iin import IinSampler
+    from boxsegliver_torch.evaluators.iin_eval import (IinPatchLoader,
+                                                        render_guides)
+
+    args = cli.get_args(iin_argv("train", "chip_smoke_iin_b1", tmp,
+                                 Path(tmp) / "iin_b1", *IIN_TRAIN))
+    raw = IinSampler(ds, args, seed=seed, tumor_percent=1.0).sample_batch(8)
+    off = [1, 4, 6]
+    raw["sp_on"][off] = 0.0
+    if not raw["sp_on"].sum() == 5:
+        raise AssertionError(f"nf2 B1 check: sp_on {raw['sp_on']}")
+    draws = pipeline_iin.draw_iin(
+        torch.Generator().manual_seed(seed),
+        (8, args.im_height, args.im_width, args.im_channel), noise=True,
+        gamma=True, device="cpu")
+    orig = pipeline_iin.draw_iin
+    pipeline_iin.draw_iin = lambda *a, device, **k: {
+        n: v.to(device) for n, v in draws.items()}
+    try:
+        fn = pipeline_iin.make_iin_preprocess_fn(args, train=True)
+        (card, card_lab), _, launches = counted_run(
+            lambda: fn(batch_to_device(raw, dev), None))
+        cpu, cpu_lab = fn(batch_to_device(raw, "cpu"), None)
+    finally:
+        pipeline_iin.draw_iin = orig
+    expect_launches("nf2 preprocess (B1 check)", launches,
+                    {"gaussian_guide_batch": 1})
+    guide = card["sp_guide"].cpu()
+    g_err = float((guide - cpu["sp_guide"]).abs().max())
+    f_err = max(float((card[k].cpu() - cpu[k]).abs().max())
+                for k in ("images", "context"))
+    on = [i for i in range(8) if i not in off]
+    if not (g_err <= 1e-6 and f_err <= 1e-4
+            and torch.equal(card_lab.cpu(), cpu_lab)
+            and float(guide[off].abs().max()) == 0.0
+            and float(guide[on].amax(dim=(1, 2, 3)).min()) > 0.5):
+        raise AssertionError(f"nf2 preprocess on the card disagrees with "
+                             f"the CPU: sp_guide {g_err}, features {f_err}")
+
+    sizes = []
+    for meta in cli._test_metas(ev_args, ds):
+        loader = IinPatchLoader(meta, ds, ev_args)
+        for i in range(0, len(loader.items), ev_args.batch_size):
+            rows = [loader._patch_features(*it) for it in
+                    loader.items[i:i + ev_args.batch_size]]
+            sizes = [(b[2] - b[0], b[3] - b[1]) for _, _, b in rows]
+            if len(set(sizes)) > 1:
+                break
+        if len(set(sizes)) > 1:
+            break
+    else:
+        raise AssertionError("nf2 B1 check: no run_patch batch with boxes "
+                             "of different sizes")
+    centers = [c for _, c, _ in rows]
+    out, _, launches = counted_run(lambda: render_guides(
+        centers, sizes, loader.guide_scale, loader.target, dev))
+    expect_launches("nf2 render_guides (B1 check)", launches,
+                    {"gaussian_guide_batch": 1})
+    ref = render_guides(centers, sizes, loader.guide_scale, loader.target)
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(out, ref))
+    print(f"  nf2 B1 card vs CPU: train preprocess 8 x 256^2, K = 1, sp_on "
+          f"0 at rows {off}: sp_guide max abs err {g_err:.2e} (the sp_on = 0"
+          f" rows all zeros), images and context {f_err:.2e}, labels equal; "
+          f"render_guides of {len(rows)} patches, boxes {sorted(set(sizes))}"
+          f" -> 64^2: max abs err {worst:.2e}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"nf2 render_guides on the card disagrees with "
+                             f"the CPU: {worst}")
+    return max(g_err, worst)
+
+
+def iin_phase(tmp, dev, seed):
+    """Phase 22: (a) 004_gnet_iin.sh train and its steady state; (b)
+    run_patch with and without mirror TTA; (c) --mode infer --pos; (d) the
+    nf2 export served; (e) card vs CPU; (f) B1 at nf2's shapes, card vs
+    CPU.  Returns the launches of each path and (f)'s B1 error."""
+    from boxsegliver_torch.cli import main as cli
+
+    ds = Path(tmp) / "synthetic_nf"
+    md, launches = iin_train_phase(tmp, ds)
+    paths = {"nf2 train (004_gnet_iin)": launches}
+    paths.update(iin_eval_phase(tmp, ds, md))
+    bundle = cli.main(iin_argv("export", "chip_smoke_iin", tmp, md,
+                               *IIN_EVAL))
+    *_, per_req = serve_bundle(bundle, "nf2 bundle (GUNet_IIN.yml)",
+                               requests=1, seed=seed)
+    expect_launches("nf2 serving", per_req, {"in_relu_fwd": IIN_BLOCKS})
+    paths["serve (nf2 export)"] = {n: int(v) for n, v in per_req.items()}
+    ev_args = iin_card_vs_cpu(tmp, ds, dev, seed)
+    b1_err = iin_guides_card_vs_cpu(tmp, ds, dev, seed, ev_args)
+    return paths, b1_err
 
 
 def main(argv=None):
@@ -4169,7 +4603,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/21] device")
+    print("[1/22] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -4184,7 +4618,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/21] build")
+    print("[2/22] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -4194,7 +4628,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/21] kernel B1 vs plain")
+    print("[3/22] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4204,63 +4638,68 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/21] labeling vs scipy")
+        print("[4/22] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/21] flagship guided eval (run_g) through the CLI")
+        print("[5/22] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/21] profile of one case's sweep (steady state)")
+        print("[6/22] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/21] kernel B2 vs plain")
+        print("[7/22] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/21] flagship G-Net training through the CLI")
+        print("[8/22] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/21] profile of the flagship train step (steady state)")
+        print("[9/22] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/21] UNet training (001_unet.sh train) through the CLI")
+        print("[10/22] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/21] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/22] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/21] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/22] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/21] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/22] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/21] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/22] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/21] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/22] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/21] train step card vs CPU: boundary and proportion "
+        print("[16/22] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/21] serving: --mode export and the REST server on the "
+        print("[17/22] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/21] prepare -> annotate -> viewers on the card")
+        print("[18/22] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/21] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        print("[19/22] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
         nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
         paths.update(nf_paths)
-        print("[20/21] click eval (interactive_eval --dim 2): kernel G1, "
+        print("[20/22] click eval (interactive_eval --dim 2): kernel G1, "
               "host loop and device refiner, the new click models, the "
               "click export")
         g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
         paths.update(click_paths)
-        print("[21/21] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
+        print("[21/22] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
               "201_unet_v1.sh train and eval, the 3-D click eval, the "
               "cascade and hybrid eval, the UNet3D export served")
         b2_3d, nf3d_paths = nf3d_phase(tmp, dev, opts.seed, inter_md)
         paths.update(nf3d_paths)
+        print("[22/22] nf2 (004_gnet_iin.sh) train, eval, infer and export "
+              "on the card")
+        iin_paths, b1_err = iin_phase(tmp, dev, opts.seed)
+        paths.update(iin_paths)
+        rec["max_abs_err"] = max(rec["max_abs_err"], b1_err)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

@@ -193,13 +193,19 @@ def test_build_model_from_flags():
                                 {"use_context": True, "context_model": "conv"},
                                 {"img_grad": True}])
 def test_unported_variants_raise(kw):
-    """use_se and the conv context still raise; img_grad raised until the
-    NF slice ported it, and now builds a model whose first conv takes the
-    images and their two gradients (its forward is held against JAX in
-    tests/test_torch_inter.py)."""
+    """use_se still raises; img_grad raised until the NF slice ported it,
+    and now builds a model whose first conv takes the images and their two
+    gradients (its forward is held against JAX in tests/test_torch_inter.py);
+    the conv context raised until the nf2 slice ported it, and now builds
+    the PatchCNN context over a 3-scale pyramid (held against JAX in
+    tests/test_torch_iin_model.py)."""
     if kw == {"img_grad": True}:
         model = tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)
         assert model.img_grad and model.Encode1_conv1.weight.shape[1] == 9
+        return
+    if kw.get("context_model") == "conv":
+        model = tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)
+        assert model.context.Conv_0.weight.shape[1] == 3
         return
     with pytest.raises(NotImplementedError):
         tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)

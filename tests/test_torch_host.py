@@ -132,7 +132,7 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 @pytest.mark.parametrize("extra,what", [
     # multi-GPU training and eval (DDP with sync batch norm) are not ported
     (["--mode", "train", "--num_replicas", "2"], "--mode train"),
-    (["--mode", "export", "--model_config", "GUNet_IIN.yml"],
+    (["--mode", "export", "--model_config", "DenseUNet.yml"],
      "--mode export"),
     (["--mode", "eval", "--eval_no_sp", "--num_replicas", "2"], "unguided"),
     (["--mode", "eval", "--device_sweep", "off"], "host loop"),
@@ -151,8 +151,8 @@ def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
         what = "--ckpt_path"
     if what == "--mode export":
         # export is ported: an export of a config the port does not carry
-        # yet raises naming it
-        what = "GUNet_IIN"
+        # yet raises naming it (GUNet_IIN.yml until the nf2 slice)
+        what = "DenseUNet"
     error = FileNotFoundError if what == "--ckpt_path" else NotImplementedError
     with pytest.raises(error, match=what):
         t_cli.main(argv)
