@@ -126,7 +126,7 @@ def main(argv=None):
     if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
         raise NotImplementedError("the click eval over --num_replicas "
                                   f"{args.num_replicas} devices is not "
-                                  "ported yet (ROADMAP queue A, item 8: "
+                                  "ported yet (ROADMAP item 4: "
                                   "multi-GPU)")
     logger = setup_logger(args.model_dir, "eval_inter", args.tag)
 

@@ -26,6 +26,9 @@ entry/main.py, entry/main_g.py, entry/main_export.py).
         --batch_size 8 --learning_policy plateau --eval_per_epoch \
         --evaluator Volume --save_best          # + 002_gnet_sp.sh's others
     python -m boxsegliver_torch.cli.main liver --mode eval ... --eval_mirror
+    python -m boxsegliver_torch.cli.main liver --mode train --tag \
+        003_denseunet --model DenseUNet --dropout 0.2 ... \
+        [--load_weights densenet161_weights_tf.h5]  # 003_denseunet.sh
     python -m boxsegliver_torch.cli.main nf --mode train --tag 101_unet_v2 \
         --model UNet --classes NF --normalizer instance_norm \
         --batch_size 16 ...                     # run_scripts/nf/101_unet_v2.sh
@@ -563,7 +566,7 @@ def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
 
     if getattr(args, "z_shards", 0) and args.z_shards > 1:
         _not_ported(f"the 3D eval over --z_shards {args.z_shards} devices",
-                    "queue A, item 8: multi-GPU")
+                    "item 4: multi-GPU")
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
@@ -603,7 +606,7 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
     if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
         _not_ported(f"{'guided' if guided else 'unguided'} eval over "
                     f"--num_replicas {args.num_replicas} devices",
-                    "queue A, DDP with sync batch norm")
+                    "item 4: multi-GPU")
 
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,

@@ -55,7 +55,7 @@ class DeviceRefiner2D:
             raise ValueError(f"unknown guide kind {guide_kind!r}")
         if mesh is not None:
             raise NotImplementedError("the refiner over a device mesh is not "
-                                      "ported yet (ROADMAP queue A, item 8: "
+                                      "ported yet (ROADMAP item 4: "
                                       "multi-GPU)")
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()

@@ -3,10 +3,9 @@
 
 The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
-tests/test_torch_gunet.py holds them equal to the ``.yml`` files).  Only the
-configs of ported models are carried: the UNet, UNetInter, InterUNet,
-SmallUNet, LGNet and UNet3D ones and the GUNet ones (fc and, for nf2, conv
-contexts); ``UNPORTED_CONFIGS`` names the others.
+tests/test_torch_gunet.py holds them equal to the ``.yml`` files): every
+config of the JAX package is carried; ``UNPORTED_CONFIGS`` would name one
+that is not.
 
 Flax infers a model's input widths at init from a feature template (JAX
 cli/main.build_feature_template); the port's constructors take them from
@@ -23,6 +22,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from boxsegliver_torch.models.dense_unet import DenseUNet
 from boxsegliver_torch.models.gunet import GUNet
 from boxsegliver_torch.models.inter_unet import InterUNet
 from boxsegliver_torch.models.layers import ct_sizes
@@ -40,6 +40,7 @@ MODEL_ZOO = {
     "SmallUNet": SmallUNet,
     "InterUNet": InterUNet,
     "UNet3D": UNet3D,
+    "DenseUNet": DenseUNet,
 }
 
 _GUNET_BASE = {
@@ -90,14 +91,17 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
                                context_model="conv",
                                context_conv_init_channels=4,
                                norm_with_center=True, norm_with_scale=False),
+    "DenseUNet.yml": {"stem_channels": 96, "growth_rate": 48,
+                      "nb_layers": [6, 12, 36, 24], "compression": 0.5,
+                      "ret_prob": False, "ret_pred": True},
+    "DenseUNet_tiny.yml": {"stem_channels": 8, "growth_rate": 4,
+                           "nb_layers": [2, 2, 2, 2], "compression": 0.5,
+                           "ret_prob": False, "ret_pred": True},
 }
 
 # configs/models of the JAX package that the port does not carry yet, with
-# the ROADMAP queue item that ports them
-UNPORTED_CONFIGS: Dict[str, str] = {
-    "DenseUNet.yml": "queue A, rest of the 2D zoo",
-    "DenseUNet_tiny.yml": "queue A, rest of the 2D zoo",
-}
+# the ROADMAP item that ports them (none since the DenseUNet slice)
+UNPORTED_CONFIGS: Dict[str, str] = {}
 
 # Which constructor fields each model pulls from the flag namespace.
 _ARG_FIELDS = {
@@ -113,6 +117,7 @@ _ARG_FIELDS = {
     "InterUNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
     "UNet3D": ("normalizer", "without_norm", "img_grad", "weight_init",
                "use_spatial"),
+    "DenseUNet": ("weight_init", "dropout"),
 }
 
 # config keys consumed by the runtime rather than the model constructor

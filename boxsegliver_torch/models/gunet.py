@@ -3,8 +3,13 @@
 reference NetworksV2/GUNet.py:31-488).
 
 - context subnet: MLP [*context_fc_channels, n_modulator_param] over the
-  histogram vector; its output holds the per-channel gammas of every
-  modulated encoder conv.
+  histogram vector, or a 1-D VGG (``context_model`` vgg16B / C / D,
+  layers.VGG1D); its output holds the per-channel gammas of every
+  modulated encoder conv, or with ``use_se`` a context_fc_channels[-1]
+  feature per modulated conv for its squeeze-excitation (JAX
+  gunet.py:200-213): the spatial mean of the conv's normalized output and
+  that feature through Dense((ch + cfl) // 4) + ReLU and Dense(ch) +
+  sigmoid (``{name}_se1`` / ``{name}_se2``) give the gammas.
 - spatial subnet: per-scale 1x1 convs over a SAME avg-pooled guide pyramid
   (count-include-pad); emits additive per-pixel params.
 - encoder: modulated block = conv3x3 → norm (affine set by the
@@ -22,8 +27,7 @@ unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
 ``img_grad`` concatenates the image gradients to the images (JAX
 gunet.py:135-137).  ``context_model="conv"`` (nf2 / IIN) reads a rank-4
 context, the image-patch pyramid [bs, 32, 32, context_channels], with
-layers.PatchCNN.  Not ported yet (the constructor raises): ``use_se`` and
-the ``vgg16*`` context models.
+layers.PatchCNN.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from boxsegliver_torch.models.layers import (MLP, ChannelAffine, Conv,
+from boxsegliver_torch.models.layers import (MLP, VGG_REPS, VGG1D,
+                                             ChannelAffine, Conv, Conv1,
                                              ConvNormAct, Dense, Norm,
                                              PatchCNN, UpConv,
                                              avg_pool_same, dropout,
@@ -64,13 +69,8 @@ class GUNet(nn.Module):
                  in_channels: int = 3, context_length: int = 200,
                  context_channels: int = 3, sp_channels: int = 1):
         super().__init__()
-        if use_se:
-            raise NotImplementedError("GUNet --use_se is not ported yet "
-                                      "(ROADMAP queue A, GUNet variants)")
-        if use_context and context_model not in ("fc", "conv"):
-            raise NotImplementedError(
-                f"GUNet context_model {context_model!r} is not ported yet "
-                "(ROADMAP queue A, GUNet variants)")
+        if use_context and context_model not in ("fc", "conv", *VGG_REPS):
+            raise ValueError("Not supported context model")
         self.num_classes = num_classes
         self.init_channels = init_channels
         self.num_down_samples = num_down_samples
@@ -83,18 +83,30 @@ class GUNet(nn.Module):
         self.img_grad = img_grad
         self.dtype = dtype
         self.dropout = float(dropout or 0.0)
+        self.use_se = use_se
+        self.se_features = int(context_fc_channels[-1])
 
         n = num_down_samples
         levels = range(n + 1)
         if use_context:
-            n_mod = init_channels * sum(2 ** i for i in levels
-                                        if i in self.mod_layers) * 2
+            if use_se:
+                n_mod = self.se_features * sum(
+                    1 for i in levels if i in self.mod_layers) * 2
+            else:
+                n_mod = init_channels * sum(2 ** i for i in levels
+                                            if i in self.mod_layers) * 2
             channels = list(context_fc_channels) + [n_mod]
             if context_model == "conv":
                 self.context = PatchCNN(context_channels,
                                         context_conv_init_channels, channels,
                                         use_dropout=side_dropout > 0,
                                         keep_prob=1.0 - side_dropout)
+            elif context_model in VGG_REPS:
+                self.context = VGG1D(context_model,
+                                     context_conv_init_channels,
+                                     context_length, channels,
+                                     use_dropout=side_dropout > 0,
+                                     keep_prob=1.0 - side_dropout)
             else:
                 self.context = MLP(context_length, channels,
                                    use_dropout=side_dropout > 0,
@@ -128,6 +140,11 @@ class GUNet(nn.Module):
                     self.add_module(name + "_norm",
                                     Norm(normalizer, ch, use_bias=nb,
                                          use_scale=ns))
+                if use_context and use_se and modulated:
+                    hidden = (ch + self.se_features) // 4
+                    self.add_module(name + "_se1",
+                                    Dense(ch + self.se_features, hidden))
+                    self.add_module(name + "_se2", Dense(hidden, ch))
                 if after_affine:
                     self.add_module(name + "_affine", ChannelAffine(ch))
                 cin = ch
@@ -146,11 +163,12 @@ class GUNet(nn.Module):
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax's initializers from a seeded generator: kernels per
-        ``weight_init``, the context subnet's last layer he_normal, biases
-        zero, norm scales / affine gammas one."""
+        ``weight_init``, the context subnet's last layer he_normal (the VGG
+        contexts': zeros kernel, ones bias), biases zero, norm scales /
+        affine gammas one."""
         with torch.no_grad():
             for mod in self.modules():
-                if isinstance(mod, (Conv, Dense, UpConv)):
+                if isinstance(mod, (Conv, Conv1, Dense, UpConv)):
                     init_kernel_(mod.weight, self.weight_init, generator)
                     if mod.bias is not None:
                         mod.bias.zero_()
@@ -162,7 +180,9 @@ class GUNet(nn.Module):
                 elif isinstance(mod, ChannelAffine):
                     mod.gamma.fill_(1.0)
                     mod.beta.zero_()
-            if self.use_context:
+            if self.use_context and isinstance(self.context, VGG1D):
+                self.context.reset_final_()
+            elif self.use_context:
                 mlp = getattr(self.context, "MLP_0", self.context)
                 last = mlp._modules[f"Dense_{mlp.n_layers - 1}"]
                 he_normal_(last.weight, last.in_features, generator)
@@ -220,7 +240,16 @@ class GUNet(nn.Module):
                     x = norm(x, train=train)
                 if j == 0:
                     x = dropout(x, self.dropout, train, generator)
-                if self.use_context and modulated:
+                if self.use_context and modulated and self.use_se:
+                    cfl = self.se_features
+                    feat = context_params[:, density_mod_id:
+                                          density_mod_id + cfl]
+                    se = torch.cat([x.mean(dim=(2, 3)), feat], dim=1)
+                    se = F.relu(self._layer(name + "_se1")(se))
+                    gamma = torch.sigmoid(self._layer(name + "_se2")(se))
+                    x = x * gamma[:, :, None, None]
+                    density_mod_id += cfl
+                elif self.use_context and modulated:
                     gamma = context_params[:, density_mod_id:density_mod_id + ch]
                     x = x * gamma[:, :, None, None]
                     density_mod_id += ch

@@ -1,5 +1,5 @@
 """Shared building blocks of the UNet model family (port of
-boxsegliver_tpu/models/layers.py:38-84,126-164,206-267,337-362).
+boxsegliver_tpu/models/layers.py:38-84,126-164,206-305,337-362).
 
 Conventions carried over from the flax modules:
 - modules take and return NCHW tensors (NCDHW for the 3-D forms ``Conv3``
@@ -37,6 +37,9 @@ from boxsegliver_torch.ops.kernels import instance_norm_relu
 
 # flax nn.BatchNorm(momentum=0.99): ra <- 0.99 * ra + 0.01 * batch statistic
 BN_MOMENTUM = 0.99
+# slim's batch-norm eps of the Norm wrapper; instance norm's (tf.contrib)
+BN_EPS = 1e-3
+IN_EPS = 1e-6
 
 
 def dropout_apply(x: torch.Tensor, keep: torch.Tensor,
@@ -150,6 +153,20 @@ class Conv3(nn.Conv3d):
         return F.conv3d(x, self.weight.to(x.dtype), b, stride=self.stride)
 
 
+class Conv1(nn.Conv1d):
+    """SAME 1-D conv (odd kernel, stride 1) with a bias, computing in the
+    input's dtype (flax ``nn.Conv(ch, (k,))`` on [N, L, C], here on
+    [N, C, L])."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int = 3):
+        super().__init__(in_channels, out_channels, kernel,
+                         padding=kernel // 2)
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        padding=self.padding)
+
+
 class Dense(nn.Linear):
     """nn.Dense: a linear layer computing in the input's dtype."""
 
@@ -160,6 +177,21 @@ class Dense(nn.Linear):
 def max_pool2x2(x: torch.Tensor, padding: str = "VALID") -> torch.Tensor:
     """2x2 stride-2 max pool; SAME keeps the ragged last row/column."""
     return F.max_pool2d(x, 2, 2, ceil_mode=padding == "SAME")
+
+
+def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.max_pool((3, 3), strides=(2, 2), padding="SAME")``: XLA
+    pads with −inf as ``same_pads`` says ((0, 1) at an even size, (1, 1) at
+    an odd one)."""
+    ph, pw = same_pads(x.shape[-2], 3, 2), same_pads(x.shape[-1], 3, 2)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, 3, 2)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsampling of NCHW by exact pixel duplication (JAX
+    dense_unet._upsample2x, two ``jnp.repeat``)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
 def avg_pool_same(x: torch.Tensor, k: int = 2) -> torch.Tensor:
@@ -177,14 +209,15 @@ def avg_pool_same(x: torch.Tensor, k: int = 2) -> torch.Tensor:
 class Norm(nn.Module):
     """Normalizer selected by name with optional affine params.
 
-    Works on NCHW and NCDHW alike.  batch_norm: eps 1e-3 (slim defaults).
-    Eval mode normalizes with the running statistics; train mode with the
-    batch's statistics over (N, *spatial), computed in float32 from the
-    input's dtype, and then moves the running statistics once per forward
-    as flax does: ra ← 0.99·ra + 0.01·batch, with the BIASED batch variance
-    (torch's own running update would store the unbiased one, so the batch
-    norm itself runs without running statistics and the update is made
-    here, outside autograd).  instance_norm: per-(sample, channel)
+    Works on NCHW and NCDHW alike.  batch_norm: eps 1e-3 and momentum
+    0.99 (slim defaults; ``eps`` and ``momentum`` set others, as DenseUNet's
+    encoder does).  Eval mode normalizes with the running statistics; train
+    mode with the batch's statistics over (N, *spatial), computed in float32
+    from the input's dtype, and then moves the running statistics once per
+    forward as flax does: ra ← m·ra + (1 − m)·batch, with the BIASED batch
+    variance (torch's own running update would store the unbiased one, so
+    the batch norm itself runs without running statistics and the update is
+    made here, outside autograd).  instance_norm: per-(sample, channel)
     statistics over the spatial axes, eps 1e-6, variance E[x²] − E[x]²
     clipped at 0 (flax's fast variance).  Both
     normalize in float32, ``(x − mean)·rsqrt(var + eps)·scale + bias``, and
@@ -193,13 +226,17 @@ class Norm(nn.Module):
     """
 
     def __init__(self, normalizer: str, channels: int, use_bias: bool = True,
-                 use_scale: bool = True):
+                 use_scale: bool = True, momentum: float = BN_MOMENTUM,
+                 eps: Optional[float] = None):
         super().__init__()
         if normalizer not in ("batch_norm", "instance_norm"):
             raise ValueError("Not supported normalization function: "
                              + normalizer)
         self.normalizer = normalizer
-        self.eps = 1e-3 if normalizer == "batch_norm" else 1e-6
+        if eps is None:
+            eps = BN_EPS if normalizer == "batch_norm" else IN_EPS
+        self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
         if normalizer == "batch_norm":
@@ -236,11 +273,21 @@ class Norm(nn.Module):
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
             var = (invstd.double().pow(-2) - self.eps).clamp_min(0.0).float()
-            self.running_mean.copy_(BN_MOMENTUM * self.running_mean
-                                    + (1.0 - BN_MOMENTUM) * mean)
-            self.running_var.copy_(BN_MOMENTUM * self.running_var
-                                   + (1.0 - BN_MOMENTUM) * var)
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return y
+
+
+class BatchNorm(Norm):
+    """flax ``nn.BatchNorm`` called directly by a model under its own name
+    (DenseUNet's ``conv1_bn``, ``bn_up0``, ...): a batch ``Norm`` with a
+    full affine whose flax leaves sit at that name, with no ``Norm``
+    wrapper's ``BatchNorm_0`` level (models/weights.flax_names)."""
+
+    def __init__(self, channels: int, momentum: float = BN_MOMENTUM,
+                 eps: float = BN_EPS):
+        super().__init__("batch_norm", channels, momentum=momentum, eps=eps)
 
 
 def fused_pair(norm: Optional["Norm"], act: bool) -> bool:
@@ -356,6 +403,61 @@ class MLP(nn.Module):
             if k < self.n_layers - 1:
                 x = dropout(F.relu(x), self.rate, train, generator)
         return x
+
+
+# convs per stage of the 1-D VGG contexts (reference slim_nets.py:60-149);
+# vgg16C adds a 1x1 conv to each of its last three stages
+VGG_REPS = {"vgg16B": (2, 2, 2, 2, 2), "vgg16C": (2, 2, 2, 2, 2),
+            "vgg16D": (2, 2, 3, 3, 3)}
+VGG_MULTS = (1, 2, 4, 8, 8)
+
+
+class VGG1D(nn.Module):
+    """1-D VGG16-{B,C,D} over a context vector (port of
+    boxsegliver_tpu/models/layers.py:270-305): five stages of SAME k = 3
+    convs with bias and ReLU (vgg16C: one k = 1 conv more in each of the
+    last three), each closed by flax's SAME 1-D max pool 2 (the odd last
+    element pooled alone, as −inf padding gives); the features flattened in
+    flax's (length, channel) order; then the MLP, whose final Dense starts
+    at zeros kernel and ones bias (reference GUNet.py:73-74).  Input
+    [bs, L] (flax's [bs, L, 1]); modules named as flax auto-names them:
+    ``Conv_0`` .. ``Conv_k`` and ``MLP_0``."""
+
+    def __init__(self, variant: str, first_layer_channel: int, length: int,
+                 out_channels: Sequence[int], use_dropout: bool = False,
+                 keep_prob: float = 0.5):
+        super().__init__()
+        self.plan = []                       # (conv name, pool after it)
+        cin = 1
+        for stage, (rep, mult) in enumerate(zip(VGG_REPS[variant],
+                                                VGG_MULTS)):
+            ch = first_layer_channel * mult
+            kernels = [3] * rep + ([1] if variant == "vgg16C" and stage >= 2
+                                   else [])
+            for j, k in enumerate(kernels):
+                name = f"Conv_{len(self.plan)}"
+                self.add_module(name, Conv1(cin, ch, k))
+                self.plan.append((name, j == len(kernels) - 1))
+                cin = ch
+            length = -(-length // 2)
+        self.MLP_0 = MLP(length * cin, out_channels, use_dropout, keep_prob)
+
+    def reset_final_(self):
+        """The final Dense's flax init: zeros kernel, ones bias."""
+        last = self.MLP_0._modules[f"Dense_{self.MLP_0.n_layers - 1}"]
+        with torch.no_grad():
+            last.weight.zero_()
+            last.bias.fill_(1.0)
+
+    def forward(self, x, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        x = x[:, None, :]
+        for name, pool in self.plan:
+            x = F.relu(self._modules[name](x))
+            if pool:
+                x = F.max_pool1d(x, 2, 2, ceil_mode=True)
+        x = x.permute(0, 2, 1).reshape(x.shape[0], -1)
+        return self.MLP_0(x, train=train, generator=generator)
 
 
 # the nf2 context pyramid: CT_PATCH x CT_PATCH patches of the ct_sizes

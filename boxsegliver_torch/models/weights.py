@@ -10,14 +10,16 @@ the flax tree (models/layers.py), so keys map by rule:
 - module path: flax's auto-named wrappers ``InstanceNorm_0``, ``BatchNorm_0``
   and ``ConvTranspose_0`` disappear (the torch module holds the leaves
   itself); ``Conv_0`` → ``conv`` and ``Norm_0`` → ``norm`` (ConvNormAct),
-  except under ``context``, where GUNet's PatchCNN keeps flax's
-  ``Conv_0`` .. ``Conv_5`` and ``MLP_0``;
+  except under ``context``, where GUNet's PatchCNN and VGG1D keep flax's
+  ``Conv_k`` and ``MLP_0``; a flax ``nn.BatchNorm`` a model names itself
+  (DenseUNet's flat ``conv1_bn``, ``bn_up0``, ...: layers.BatchNorm) has
+  no wrapper level on either side;
 - leaves: ``kernel`` → ``weight``, ``scale`` → ``weight``, ``bias`` → ``bias``,
   batch-norm ``mean`` / ``var`` → ``running_mean`` / ``running_var``,
   ChannelAffine ``gamma`` / ``beta`` unchanged;
-- layouts: conv kernels HWIO → OIHW and DHWIO → OIDHW; dense kernels
-  [in, out] → [out, in]; transpose-conv kernels [kh, kw, in, out] → [in,
-  out, kh, kw] (and [kd, kh, kw, in, out] → [in, out, kd, kh, kw]) with
+- layouts: conv kernels WIO → OIW, HWIO → OIHW and DHWIO → OIDHW; dense
+  kernels [in, out] → [out, in]; transpose-conv kernels [kh, kw, in, out]
+  → [in, out, kh, kw] (and [kd, kh, kw, in, out] → [in, out, kd, kh, kw]) with
   EVERY spatial axis flipped (flax's output phase (p, q) uses tap (1-p,
   1-q), boxsegliver_tpu/models/layers.py:172-176; torch's uses tap (p, q);
   UNet3D's (1, 2, 2) taps flip their depth axis of one onto itself).
@@ -61,7 +63,7 @@ def _to_torch_layout(key: str, arr: np.ndarray) -> np.ndarray:
     if "/ConvTranspose_0/" in key:
         flipped = arr[(slice(None, None, -1),) * nd]
         return np.transpose(flipped, (nd, nd + 1) + tuple(range(nd)))
-    if arr.ndim in (4, 5):
+    if arr.ndim in (3, 4, 5):
         return np.transpose(arr, (nd + 1, nd) + tuple(range(nd)))
     if arr.ndim == 2:
         return arr.T
@@ -81,7 +83,8 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
 def flax_names(model: torch.nn.Module) -> Dict[str, str]:
     """state_dict key → flattened flax name ('params/...' for parameters,
     'batch_stats/...' for running statistics) of every tensor of ``model``."""
-    from boxsegliver_torch.models.layers import ConvNormAct, Norm, UpConv
+    from boxsegliver_torch.models.layers import (BatchNorm, ConvNormAct,
+                                                 Norm, UpConv)
 
     modules = dict(model.named_modules())
     out = {}
@@ -94,8 +97,10 @@ def flax_names(model: torch.nn.Module) -> Dict[str, str]:
                 part = {"conv": "Conv_0", "norm": "Norm_0"}[part]
             path.append(part)
         if isinstance(mod, Norm):
-            path.append("InstanceNorm_0" if mod.normalizer == "instance_norm"
-                        else "BatchNorm_0")
+            if not isinstance(mod, BatchNorm):
+                path.append("InstanceNorm_0"
+                            if mod.normalizer == "instance_norm"
+                            else "BatchNorm_0")
             leaves = {"weight": "scale"}
         elif isinstance(mod, UpConv):
             path.append("ConvTranspose_0")
@@ -119,7 +124,7 @@ def _to_flax_layout(name: str, arr: np.ndarray) -> np.ndarray:
     if "/ConvTranspose_0/" in name:
         return np.transpose(arr, tuple(range(2, arr.ndim)) + (0, 1))[
             (slice(None, None, -1),) * nd]
-    if arr.ndim in (4, 5):
+    if arr.ndim in (3, 4, 5):
         return np.transpose(arr, tuple(range(2, arr.ndim)) + (1, 0))
     return arr.T
 

@@ -17,11 +17,14 @@ checkpoints are not interchangeable (weights cross over through the
 
 from __future__ import annotations
 
+import logging
 import shutil
 from pathlib import Path
 from typing import Dict, Optional
 
 import torch
+
+logger = logging.getLogger("boxsegliver")
 
 STATE_FILE = "state.pt"
 
@@ -119,7 +122,12 @@ def warm_start(model: torch.nn.Module, path,
     """Copy the matching-shaped tensors of ``path`` (see model_state), its
     top-level scopes renamed by ``scope_map``, into ``model``; the others
     keep their fresh init (the reference's partial restore).  Returns the
-    number of tensors copied."""
+    number of tensors copied.  A ``.h5`` path is the DenseNet-161 ImageNet
+    import (utils/h5_import.py; JAX trainer.py:319-333), which returns the
+    flax leaves it restored."""
+    if str(path).endswith(".h5"):
+        from boxsegliver_torch.utils.h5_import import load_densenet161_h5
+        return load_densenet161_h5(model, path, log=logger)
     src = remap_scopes(model_state(path), scope_map)
     n = 0
     with torch.no_grad():

@@ -43,7 +43,8 @@ core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
   source's top-level scopes before the partial restore (JAX
   trainer.py:335-343).
 
-Not ported yet (it raises): --num_replicas > 1 (DDP with sync batch norm).
+Not ported yet (it raises, naming ROADMAP item 4: multi-GPU):
+--num_replicas > 1 (DDP with sync batch norm).
 """
 
 from __future__ import annotations
@@ -89,15 +90,16 @@ def warm_start_source(args) -> Tuple[Optional[str], Optional[Dict]]:
     """What a run with no periodic checkpoint starts from (reference
     core/estimator.py:249-253, core/models.py:160-185): (path, scope_map)
     of --warm_start_from, else of --load_weights with the renames of
-    --weights_scope "old=new[,…]"; (None, None) when neither is given."""
+    --weights_scope "old=new[,…]"; a ``.h5`` --load_weights is the
+    DenseNet-161 ImageNet file, taken as it is (checkpoint.warm_start
+    imports it; JAX trainer.py:319-333); (None, None) when neither is
+    given."""
     src = getattr(args, "warm_start_from", None)
     scope_map = None
     if not src and getattr(args, "load_weights", None):
         src = args.load_weights
         if src.endswith(".h5"):
-            raise NotImplementedError(
-                ".h5 imports come with the DenseNet-161 import (ROADMAP "
-                "queue A, rest of the 2D zoo)")
+            return src, None
         raw = getattr(args, "weights_scope", None)
         if raw:  # "old=new[,old2=new2]" top-level scope renames
             scope_map = dict(pair.split("=", 1)
@@ -133,7 +135,7 @@ class Trainer:
         if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
             raise NotImplementedError(
                 "--mode train with --num_replicas > 1 is not ported yet "
-                "(ROADMAP queue A, DDP with sync batch norm)")
+                "(ROADMAP item 4: multi-GPU)")
         self.steps_per_dispatch = max(1, int(getattr(args,
                                                      "steps_per_dispatch", 1)))
         if self.steps_per_dispatch > 1 and preprocess_fn is None:

@@ -249,6 +249,26 @@ result line):
    256^2, K = 1, the same draws on both sides) with three sp_on = 0 rows,
    all zeros on the card; and render_guides of a 64^2 run_patch batch whose
    boxes differ in size.  B1's ``max_abs_err`` covers (f).
+23. DenseUNet and GUNet's --use_se / VGG contexts — (a) ``003_denseunet.sh
+   train`` through the CLI at full width (DenseUNet.yml: DenseNet-161
+   encoder, batch norm only; batch 8, 256^2 x 3, bf16, one host worker):
+   16 steps with the online eval at 8 and 16, a resume to 32 at
+   --steps_per_dispatch 16, every kernel count 0; the step in steady state
+   at K = 1 and 16 (ms/step, slices/s, busy share, host launches a step,
+   the share of the bf16 peak) with the peak device memory.  (b) One
+   train-mode forward and backward at full width (2 x 128^2) in float32 on
+   the card and the CPU, in float64 on the CPU, the CPU's keep masks
+   replayed: loss and running statistics within 1e-4 of the CPU's, the
+   card's gradients at most twice as far from the float64 ones as the CPU
+   float32 gradients.  (c) ``003_denseunet.sh eval`` (s/case), per-case
+   metrics card vs CPU (1e-3) and device_case probabilities (1e-4) in
+   float32, cli/eval_all_ckpt (s/checkpoint), the export served (3
+   requests) against the eager model (one bf16 step); no kernel launches.  (d)
+   ``002_gnet_sp.sh train --use_se`` (GUNet.yml): 8 steps with exactly one
+   B1 and 10 B2-fwd / B2a / B2b launches a step, the step in steady state
+   with B1 / B2 device ms per step against their bounds, a GUNet_TINY
+   --use_se step card vs CPU (1e-4).  (e) GUNet.yml with each 1-D VGG
+   context: one forward at 2 x 128^2 in float32, card vs CPU within 1e-4.
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
 G1, and per path in ``launches_by_path``: the device sweep of phase 5,
@@ -257,8 +277,9 @@ run of phase 14, the 20 GUNet requests of phase 17, the annotator's
 preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
 nf_inter_train, nf_inter_eval and run_sp, phase 20's click evals, new
 models' training and click serving, phase 21's UNet3D paths with the
-checkpoint sweep, and phase 22's nf2 train, run_patch (mirror TTA and
-plain), infer --pos and serving; B2's
+checkpoint sweep, phase 22's nf2 train, run_patch (mirror TTA and
+plain), infer --pos and serving, and phase 23's DenseUNet train, eval,
+checkpoint sweep and serving and the --use_se train; B2's
 ``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
 level 0; ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
@@ -1743,7 +1764,8 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     data = TrainDataset(sampler, args, seed=args.seed, workers=1, prefetch=4)
     gflop = (3 * unet_gflop_per_slice(trainer.model, args.im_height,
                                       args.im_width)
-             if args.model == "UNet" else 3 * unet3d_gflop_per_patch(
+             if args.model in ("UNet", "DenseUNet")
+             else 3 * unet3d_gflop_per_patch(
                  trainer.model, (args.im_depth, args.im_height,
                                  args.im_width))
              if args.model == "UNet3D" else None)
@@ -4593,6 +4615,395 @@ def iin_phase(tmp, dev, seed):
     return paths, b1_err
 
 
+# ---------------------------------------------------------------------------
+# phase 23: DenseUNet (003_denseunet.sh), GUNet's --use_se and VGG contexts
+# ---------------------------------------------------------------------------
+
+# run_scripts/template/003_denseunet.sh COMMON, train and eval flags (the
+# dataset, the fold and the step counts are the smoke's own, appended below)
+DENSE_COMMON = ["--tag", "chip_smoke_dense", "--model", "DenseUNet",
+                "--classes", "Liver", "Tumor", "--test_fold", "2",
+                "--im_height", "256", "--im_width", "256", "--im_channel",
+                "3", "--random_flip", "3", "--num_replicas", "0",
+                "--dataset", "LiTS"]
+DENSE_TRAIN_FLAGS = ["liver", "--mode", "train"] + DENSE_COMMON + [
+    "--noise_scale", "0.05", "--num_of_total_steps", "600000",
+    "--primary_metric", "Tumor/Dice", "--secondary_metric", "Liver/Dice",
+    "--loss_weight_type", "numerical", "--loss_numeric_w", "0.2", "0.4",
+    "4.4", "--batches_per_epoch", "2000", "--batch_size", "8", "--dropout",
+    "0.2", "--weight_decay_rate", "0.000001", "--learning_policy",
+    "plateau", "--learning_rate", "0.001", "--lr_end", "0.0000005",
+    "--lr_decay_rate", "0.2", "--eval_num_batches_per_epoch", "200",
+    "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
+DENSE_EVAL_FLAGS = ["liver", "--mode", "eval"] + DENSE_COMMON + [
+    "--metrics_eval", "Dice", "VOE", "RVD", "--primary_metric", "Tumor/Dice",
+    "--batch_size", "8", "--evaluator", "Volume"]
+DENSE_STEPS = 16
+
+
+class KeepMasks:
+    """``layers.dropout_apply`` that records the keep masks of one run and,
+    after ``replay()``, gives them again in the same order on the caller's
+    device to each later run: the card's and the CPU's generators draw
+    different masks."""
+
+    def __init__(self, real):
+        self.real, self.masks, self.next = real, [], None
+
+    def replay(self):
+        self.next = 0
+
+    def __call__(self, x, keep, keep_prob):
+        if self.next is None:
+            self.masks.append(keep.cpu())
+        else:
+            keep = self.masks[self.next].to(x.device)
+            self.next += 1
+        return self.real(x, keep, keep_prob)
+
+
+def grad_rel_err(grads, ref) -> float:
+    """‖grads − ref‖ / ‖ref‖ over all the tensors together."""
+    num = sum(float((g.double() - r.double()).pow(2).sum())
+              for g, r in zip(grads, ref))
+    return math.sqrt(num / sum(float(r.double().pow(2).sum()) for r in ref))
+
+
+def dense_train_phase(tmp, ds):
+    """(a) 003_denseunet.sh train through the CLI at full width
+    (DenseUNet.yml: DenseNet-161, stem 96, growth 48, blocks 6/12/36/24),
+    batch 8, 256^2 x 3, bf16, one host worker: 16 steps with the online
+    eval every 8, then a resume to 32 at --steps_per_dispatch 16 (one CUDA
+    graph replay a step); batch norm only, so every kernel count stays 0.
+    Then the step in steady state at K = 1 and K = 16: ms/step, slices/s,
+    busy share, host launches a step, the share of the bf16 peak and the
+    peak device memory."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.train.checkpoint import load_state
+
+    md = Path(tmp) / "dense_md"
+    argv = DENSE_TRAIN_FLAGS + smoke_data(
+        tmp, md, "--batches_per_epoch", "8", "--eval_num_batches_per_epoch",
+        "4", "--log_step", "4", *ONE_WORKER)
+    trainer, seconds, launches = no_kernel_run(
+        lambda: cli.main(argv + ["--num_of_steps", str(DENSE_STEPS)]),
+        "DenseUNet train")
+    if trainer.global_step != DENSE_STEPS:
+        raise AssertionError(f"DenseUNet train stopped at "
+                             f"{trainer.global_step}")
+    lines = [json.loads(ln) for ln in
+             (md / "summaries" / "metrics.jsonl").read_text().splitlines()]
+    loss = {ln["step"]: ln["value"] for ln in lines
+            if ln["tag"] == "chip_smoke_dense/loss"}
+    evals = {ln["step"]: ln["value"] for ln in lines
+             if ln["tag"] == "chip_smoke_dense/eval/Liver/Dice"}
+    if not loss or not all(math.isfinite(v) for v in loss.values()):
+        raise AssertionError(f"non-finite DenseUNet train loss: {loss}")
+    if sorted(evals) != [8, 16]:
+        raise AssertionError(f"DenseUNet online evals at {sorted(evals)}")
+    rv = load_state(md / "ckpt" / "16" / "state.pt")["model"][
+        "conv1_bn.running_var"]
+    if bool(torch.equal(rv, torch.ones_like(rv))):
+        raise AssertionError("DenseUNet's running statistics did not move")
+    del trainer
+    again, seconds2, _ = no_kernel_run(
+        lambda: cli.main(argv + ["--num_of_steps", "32",
+                                 "--steps_per_dispatch", "16"]),
+        "DenseUNet train, K=16")
+    if again.global_step != 32 or not (md / "ckpt" / "32" /
+                                       "state.pt").exists():
+        raise AssertionError(f"DenseUNet K=16 resume ended at "
+                             f"{again.global_step}")
+    del again
+    print(f"  DenseUNet train (003_denseunet.sh flags, DenseUNet.yml full "
+          f"width): {DENSE_STEPS} steps of 8 x 256^2 in {seconds:.2f} s "
+          f"(with set-up and two online evals of 4 batches); loss "
+          + ", ".join(f"{s}: {loss[s]:.4f}" for s in sorted(loss))
+          + f"; eval Liver/Dice {evals}; resume 17-32 at K = 16 in "
+          f"{seconds2:.2f} s (graph captures included); launches "
+          f"{launches}; {smi()}")
+
+    walls = {}
+    for k in (1, 16):
+        args = cli.get_args(DENSE_TRAIN_FLAGS + smoke_data(
+            tmp, Path(tmp) / f"dense_b{k}", "--steps_per_dispatch", str(k)))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        walls[k], _, _ = steady(args, ds, f"003_denseunet.sh train step, "
+                                f"K={k}", prof_steps=2 if k == 1 else 16,
+                                top=10)
+        print(f"  DenseUNet steady state K={k} in "
+              f"{time.perf_counter() - t0:.1f} s")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        print(f"  DenseUNet K={k}: peak device memory allocated {peak:.2f} "
+              f"GiB of {total:.1f} GiB, {peak - base:.2f} GiB above the "
+              f"{base:.2f} GiB held before the run")
+    print(f"  DenseUNet train step ms/step (median of 3 windows of 16): K=1 "
+          f"{walls[1] * 1e3:.3f}, K=16 {walls[16] * 1e3:.3f}; slices/s "
+          f"{8 / walls[1]:.1f} / {8 / walls[16]:.1f}; {smi()}")
+    return md, launches
+
+
+def dense_card_vs_cpu(tmp, dev, seed):
+    """(b) one train-mode forward and backward of DenseUNet.yml at full
+    width (batch 2, 128^2, TF32 off) from the same seeded weights and
+    processed batch, with the keep masks of --dropout 0.2 and of the
+    decoder's 0.3 drawn once on the CPU and replayed: in float32 on the CPU
+    and on the card, and in float64 on the CPU (the parameters, the inputs
+    and the forward up to the float32 logits).  The card's loss and moved
+    running statistics within 1e-4 of the CPU's.  Float32 gradients of this
+    160-layer batch-norm network are ill-conditioned: the CPU's own float32
+    gradients are about as far from the float64 ones as the card's are from
+    the CPU's (PERF.md, PR 12), so the card's float32 gradients are held
+    against the float64 ones: their error, over all tensors together, at
+    most twice the CPU float32 gradients' error."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.pipeline import (_process_batch,
+                                                 batch_to_device, norm_statics)
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.models import layers
+    from boxsegliver_torch.ops.image_ops import draw_augment
+
+    t0 = time.perf_counter()
+    argv = DENSE_TRAIN_FLAGS + smoke_data(
+        tmp, Path(tmp) / "dense_cmp_md", "--im_height", "128", "--im_width",
+        "128", "--compute_dtype", "float32", "--batch_size", "2")
+    args = cli.get_args(argv)
+    raw = TrainSampler(Path(tmp) / "ds", args, seed=seed).sample_batch(2)
+    draws = draw_augment(torch.Generator().manual_seed(seed),
+                         (2, 128, 128, 3), noise=True, device="cpu")
+    feats, labels = _process_batch(
+        batch_to_device(raw, "cpu"), draws, im_h=128, im_w=128,
+        noise_scale=0.05, random_flip=3, use_spatial=False, min_std=2.0,
+        **norm_statics(args))
+    masks = KeepMasks(layers.dropout_apply)
+    out = []
+    layers.dropout_apply = masks
+    try:
+        for d, dt in ((torch.device("cpu"), torch.float32),
+                      (torch.device("cpu"), torch.float64),
+                      (dev, torch.float32)):
+            trainer = cli.build_trainer(args, d)
+            trainer.model.to(dt).dtype = dt
+            ft = {k: v.to(d, dt) for k, v in feats.items()}
+            grads, total, _, _ = trainer.gradients(ft, labels.to(d))
+            out.append((float(total), [g.cpu() for g in grads], {
+                k: v.cpu() for k, v in trainer.model.state_dict().items()
+                if "running" in k}))
+            trainer.summary.close()
+            if masks.next not in (None, len(masks.masks)):
+                raise AssertionError(f"{masks.next} of {len(masks.masks)} "
+                                     "keep masks replayed")
+            masks.replay()
+    finally:
+        layers.dropout_apply = masks.real
+    (lc, gc, sc), (_, g64, _), (lg, gg, sg) = out
+    loss_err = abs(lg - lc) / abs(lc)
+    s_err = max(float((sg[k] - v).abs().max()) for k, v in sc.items())
+    g_abs = max(float((a - b).abs().max()) for a, b in zip(gg, gc))
+    e_card, e_cpu = grad_rel_err(gg, g64), grad_rel_err(gc, g64)
+    print(f"  DenseUNet train step card vs CPU (DenseUNet.yml full width, 2 "
+          f"x 128^2, float32, {len(masks.masks)} keep masks replayed): loss "
+          f"{lg:.6f} / {lc:.6f} (rel err {loss_err:.2e}); running "
+          f"statistics max abs err {s_err:.2e}; gradients card vs CPU max "
+          f"abs err {g_abs:.2e} (largest |gradient| "
+          f"{max(float(g.abs().max()) for g in gc):.3e}); against the "
+          f"float64 CPU gradients (norm over all tensors): card "
+          f"{e_card:.3e}, CPU float32 {e_cpu:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    if not (loss_err <= 1e-4 and s_err <= 1e-4 and e_card <= 2 * e_cpu):
+        raise AssertionError("the DenseUNet train step on the card disagrees "
+                             "with the CPU")
+
+
+def dense_eval_phase(tmp, ds, dev, md, seed):
+    """(c) 003_denseunet.sh eval through the CLI on (a)'s best (s/case);
+    the first test case's per-case metrics on the card against the CPU in
+    float32 (1e-3: a voxel whose classes' probabilities differ by less than
+    the two devices' ~1e-5 may take either argmax) and device_case's
+    probabilities over 8 slices of it (1e-4); cli/eval_all_ckpt over
+    ckpt_best/<tag> (s/checkpoint); --mode export served on the card (3
+    requests after the warm-up, ms/request) against the eager model within
+    one bf16 step.  Every kernel count stays 0."""
+    from boxsegliver_torch.cli import eval_all_ckpt
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+    from boxsegliver_torch.evaluators.eval_loader import parse_case_eval
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    paths = {}
+    argv = DENSE_EVAL_FLAGS + smoke_data(tmp, md)
+    results, seconds, paths["DenseUNet eval (003_denseunet)"] = \
+        no_kernel_run(lambda: cli.main(argv), "DenseUNet eval")
+    if not {"Liver/Dice", "Liver/VOE", "Liver/RVD", "Tumor/Dice",
+            "GLiverDice"} <= set(results) or not all(
+                math.isfinite(v) for v in results.values()):
+        raise AssertionError(f"DenseUNet eval results {results}")
+    args = cli.get_args(argv)
+    metas = cli._test_metas(args, ds)
+    slices = sum(parse_case_eval(m, ds, parse_label=False).depth
+                 for m in metas)
+    print(f"  DenseUNet eval (003_denseunet eval flags, (a)'s best "
+          f"checkpoint): {len(metas)} cases, {slices} slices; "
+          f"{seconds / len(metas):.3f} s/case, {slices / seconds:.2f} "
+          f"slices/s through the CLI; results " + json.dumps(results))
+
+    args32 = cli.get_args(argv + ["--compute_dtype", "float32"])
+    per_case, probs = [], []
+    cut = cut_case(parse_case_eval(metas[0], ds, parse_label=False), 0)
+    for d in (dev, torch.device("cpu")):
+        model = cli.build_model_from_args(args32, d)
+        ev = EvaluateVolume(args32, ds, ["Background"] + list(args.classes))
+        pred = DeviceSlicePredictor(model, args32, device=d)
+        ev.run(pred, metas[:1])
+        per_case.append({k: v[0] for k, v in ev._metric_values.items()})
+        probs.append(pred.device_case(cut))
+    m_err = max(abs(per_case[0][k] - v) for k, v in per_case[1].items())
+    p_err = float(np.abs(probs[0] - probs[1]).max())
+    print(f"  DenseUNet eval card vs CPU (float32, case {metas[0]['PID']}): "
+          f"per-case metrics max abs err {m_err:.2e} ({per_case[0]}); "
+          f"device_case over 8 slices max abs err {p_err:.2e}")
+    if not (m_err <= 1e-3 and p_err <= 1e-4):
+        raise AssertionError("the DenseUNet eval on the card disagrees with "
+                             "the CPU")
+
+    rows, seconds, paths["DenseUNet checkpoint sweep"] = no_kernel_run(
+        lambda: eval_all_ckpt.main(argv), "DenseUNet eval_all_ckpt")
+    if not rows or not all(math.isfinite(r["Liver/Dice"]) for r in rows):
+        raise AssertionError(f"DenseUNet eval_all_ckpt rows {rows}")
+    print(f"  DenseUNet eval_all_ckpt over {[r['ckpt'] for r in rows]}: "
+          f"{seconds / len(rows):.3f} s/checkpoint")
+
+    t0 = time.perf_counter()
+    bundle = cli.main(["export" if a == "eval" else a for a in argv])
+    print(f"  DenseUNet export (003_denseunet eval flags, batch 8, 256^2, "
+          f"bf16) in {time.perf_counter() - t0:.2f} s")
+    feats, served, _, per_req = serve_bundle(bundle, "serve DenseUNet",
+                                             requests=3, seed=seed)
+    expect_launches("DenseUNet serving", per_req, {})
+    paths["serve (DenseUNet export)"] = {n: int(v)
+                                         for n, v in per_req.items()}
+    live = cli.build_model_from_args(args, dev)
+    with torch.no_grad():
+        want = torch.softmax(live({k: torch.from_numpy(v).to(dev)
+                                   for k, v in feats.items()}), -1).cpu()
+    err = (torch.from_numpy(served) - want).abs()
+    bad = err > 2.0 ** -7 * want.abs() + 1e-5        # b2_check's bf16 bound
+    print(f"  DenseUNet response vs the eager model + softmax on the card "
+          f"(bf16): max abs err {float(err.max()):.3e}, {int(bad.sum())} "
+          f"elements beyond one bf16 rounding step")
+    if bool(bad.any()):
+        raise AssertionError("the served DenseUNet disagrees with the eager "
+                             "model")
+    return paths
+
+
+def se_phase(tmp, dev, seed, ds):
+    """(d) GUNet --use_se with the 002_gnet_sp.sh train flags (GUNet.yml
+    full width, the flagship's dataset, one host worker): 8 steps through
+    the CLI with exactly one B1 launch (the train guide) and 10 B2-fwd /
+    B2a / B2b a step; the step in steady state at K = 1 with B1 and B2
+    device ms per step against their bounds; a GUNet_TINY --use_se train
+    step card vs CPU (train_card_vs_cpu).  (e) A full-width GUNet.yml
+    forward with each 1-D VGG context (2 x 128^2, float32, the context's
+    final Dense drawn away from its zeros / ones init) on the card against
+    the CPU within 1e-4.  Returns the launches of the --use_se run."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
+    from boxsegliver_torch.models.layers import VGG_REPS
+
+    steps = 8
+    trainer, launches, seconds = train_run(smoke_train_argv(
+        tmp, steps, "--use_se", "--model_dir", str(Path(tmp) / "se_md"),
+        *ONE_WORKER), steps)
+    if trainer.global_step != steps:
+        raise AssertionError(f"--use_se train stopped at "
+                             f"{trainer.global_step}")
+    del trainer
+    expect_launches("GUNet --use_se train", launches, {
+        "gaussian_guide_batch": steps,
+        **{n: GUNET_B2_PAIRS * steps for n in B2_KERNELS}})
+    print(f"  GUNet --use_se train (002_gnet_sp.sh flags, GUNet.yml): "
+          f"{steps} steps of 8 x 256^2 in {seconds:.2f} s; launches "
+          f"{launches}: B1 1 and B2-fwd / B2a / B2b {GUNET_B2_PAIRS} a step")
+
+    rng = np.random.default_rng(seed)
+    c, sd, v = guide_inputs(rng, 8, 8, 256, 256, "cuda",
+                            n_valid=rng.integers(0, 9, 8))
+    b1_bound = b1_bound_ms(c, sd, v, 256, 256, sfu_per_s())[0]
+    # --use_se leaves the modulated levels on the plain norm: B2 runs on
+    # the flagship step's pairs
+    b2_bound = sum(b2_bound_ms(n, shape)[0] * k for n in B2_KERNELS
+                   for shape, k in B2_STEP_SHAPES.items())
+    args = cli.get_args(smoke_train_argv(
+        tmp, 10 ** 6, "--use_se", "--model_dir", str(Path(tmp) / "se_b1")))
+    groups = {}
+    wall, _, _ = steady(args, ds, "GUNet --use_se train step, K=1",
+                        kernels_used=True, top=10, groups_out=groups)
+    b1 = groups["B1 guide_render"]
+    b2 = groups["B2 in_relu (fwd, bwd_stats, bwd_apply)"]
+    print(f"  GUNet --use_se step K=1: {wall * 1e3:.3f} ms/step; B1 "
+          f"{b1:.5f} ms/step device (bound {b1_bound:.6f} ms, "
+          f"{b1_bound / max(b1, 1e-12):.1%}), B2 {b2:.4f} ms/step device "
+          f"(bound {b2_bound:.4f} ms, {b2_bound / max(b2, 1e-12):.1%}); "
+          f"{smi()}")
+    train_card_vs_cpu(tmp, dev, seed, "--use_se")
+
+    kw = MODEL_CONFIGS["GUNet.yml"]
+    x = {"images": torch.rand(2, 128, 128, 3,
+                              generator=torch.Generator().manual_seed(seed)),
+         "sp_guide": torch.full((2, 128, 128, 1), 0.5),
+         "context": torch.rand(2, 200,
+                               generator=torch.Generator().manual_seed(1))}
+    for variant in VGG_REPS:
+        targs = cli.get_args(FLAGS + ["--model_dir", str(Path(tmp) / "vgg"),
+                                      "--compute_dtype", "float32"])
+        model = build_model("GUNet", args=targs, model_kwargs=dict(
+            kw, context_model=variant), dtype=torch.float32)
+        gen = torch.Generator().manual_seed(seed)
+        model.reset_parameters(gen)
+        last = model.context.MLP_0._modules[
+            f"Dense_{model.context.MLP_0.n_layers - 1}"]
+        with torch.no_grad():
+            last.weight.normal_(0.0, 0.05, generator=gen)
+        out = []
+        for d in (dev, torch.device("cpu")):
+            model = model.to(d).eval()
+            with torch.no_grad():
+                out.append(model({k: t.to(d) for k, t in x.items()}).cpu())
+        err = float((out[0] - out[1]).abs().max())
+        print(f"  GUNet.yml {variant} context ({len(model.context.plan)} "
+              f"convs over 200 bins) forward card vs CPU (2 x 128^2, "
+              f"float32): max abs err {err:.2e}, max |logit| "
+              f"{float(out[1].abs().max()):.2f}")
+        if not err <= 1e-4:
+            raise AssertionError(f"the {variant} GUNet forward on the card "
+                                 "disagrees with the CPU")
+    return launches
+
+
+def dense_phase(tmp, dev, seed):
+    """Phase 23: (a)-(c) DenseUNet on the flagship's dataset, (d)-(e)
+    GUNet --use_se and the VGG contexts.  Returns the launches of each
+    path."""
+    ds = Path(tmp) / "ds"
+    t0 = time.perf_counter()
+    md, launches = dense_train_phase(tmp, ds)
+    paths = {"DenseUNet train (003_denseunet)": launches}
+    t1 = time.perf_counter()
+    dense_card_vs_cpu(tmp, dev, seed)
+    t2 = time.perf_counter()
+    paths.update(dense_eval_phase(tmp, ds, dev, md, seed))
+    t3 = time.perf_counter()
+    paths["GUNet --use_se train"] = se_phase(tmp, dev, seed, ds)
+    print(f"  phase 23 seconds: train {t1 - t0:.1f}, card vs CPU "
+          f"{t2 - t1:.1f}, eval / sweep / serving {t3 - t2:.1f}, --use_se "
+          f"and VGG {time.perf_counter() - t3:.1f}")
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4603,7 +5014,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/22] device")
+    print("[1/23] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -4618,7 +5029,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/22] build")
+    print("[2/23] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -4628,7 +5039,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/22] kernel B1 vs plain")
+    print("[3/23] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4638,68 +5049,71 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/22] labeling vs scipy")
+        print("[4/23] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/22] flagship guided eval (run_g) through the CLI")
+        print("[5/23] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/22] profile of one case's sweep (steady state)")
+        print("[6/23] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/22] kernel B2 vs plain")
+        print("[7/23] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/22] flagship G-Net training through the CLI")
+        print("[8/23] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/22] profile of the flagship train step (steady state)")
+        print("[9/23] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/22] UNet training (001_unet.sh train) through the CLI")
+        print("[10/23] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/22] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/23] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/22] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/23] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/22] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/23] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/22] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/23] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/22] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/23] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/22] train step card vs CPU: boundary and proportion "
+        print("[16/23] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/22] serving: --mode export and the REST server on the "
+        print("[17/23] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/22] prepare -> annotate -> viewers on the card")
+        print("[18/23] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/22] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        print("[19/23] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
         nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
         paths.update(nf_paths)
-        print("[20/22] click eval (interactive_eval --dim 2): kernel G1, "
+        print("[20/23] click eval (interactive_eval --dim 2): kernel G1, "
               "host loop and device refiner, the new click models, the "
               "click export")
         g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
         paths.update(click_paths)
-        print("[21/22] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
+        print("[21/23] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
               "201_unet_v1.sh train and eval, the 3-D click eval, the "
               "cascade and hybrid eval, the UNet3D export served")
         b2_3d, nf3d_paths = nf3d_phase(tmp, dev, opts.seed, inter_md)
         paths.update(nf3d_paths)
-        print("[22/22] nf2 (004_gnet_iin.sh) train, eval, infer and export "
+        print("[22/23] nf2 (004_gnet_iin.sh) train, eval, infer and export "
               "on the card")
         iin_paths, b1_err = iin_phase(tmp, dev, opts.seed)
         paths.update(iin_paths)
         rec["max_abs_err"] = max(rec["max_abs_err"], b1_err)
+        print("[23/23] DenseUNet (003_denseunet.sh) train, eval, sweep and "
+              "export; GUNet --use_se and the VGG contexts on the card")
+        paths.update(dense_phase(tmp, dev, opts.seed))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

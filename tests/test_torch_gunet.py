@@ -193,12 +193,24 @@ def test_build_model_from_flags():
                                 {"use_context": True, "context_model": "conv"},
                                 {"img_grad": True}])
 def test_unported_variants_raise(kw):
-    """use_se still raises; img_grad raised until the NF slice ported it,
-    and now builds a model whose first conv takes the images and their two
-    gradients (its forward is held against JAX in tests/test_torch_inter.py);
-    the conv context raised until the nf2 slice ported it, and now builds
-    the PatchCNN context over a 3-scale pyramid (held against JAX in
-    tests/test_torch_iin_model.py)."""
+    """Each variant raised until its slice ported it, and now builds:
+    use_se (the DenseUNet slice) the squeeze-excitation pair of every
+    modulated conv (held against JAX in tests/test_torch_gunet_se.py);
+    img_grad (the NF slice) a first conv over the images and their two
+    gradients (held against JAX in tests/test_torch_inter.py); the conv
+    context (the nf2 slice) the PatchCNN over a 3-scale pyramid (held
+    against JAX in tests/test_torch_iin_model.py)."""
+    if kw == {"use_se": True}:
+        model = tbuild("GUNet", model_kwargs=dict(_TINY, use_context=True,
+                                                  **kw), num_classes=3)
+        # levels 1 and 2 (6 · 2 and 6 · 4 channels), 8 context features
+        assert model.context.Dense_1.weight.shape[0] == 8 * 2 * 2
+        for level, ch in ((2, 12), (3, 24)):
+            se1 = model._modules[f"Encode{level}_conv1_se1"].weight
+            se2 = model._modules[f"Encode{level}_conv1_se2"].weight
+            assert se1.shape == ((ch + 8) // 4, ch + 8)
+            assert se2.shape == (ch, (ch + 8) // 4)
+        return
     if kw == {"img_grad": True}:
         model = tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)
         assert model.img_grad and model.Encode1_conv1.weight.shape[1] == 9
@@ -206,9 +218,6 @@ def test_unported_variants_raise(kw):
     if kw.get("context_model") == "conv":
         model = tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)
         assert model.context.Conv_0.weight.shape[1] == 3
-        return
-    with pytest.raises(NotImplementedError):
-        tbuild("GUNet", model_kwargs=dict(_TINY, **kw), num_classes=3)
 
 
 def test_bf16_forward_runs_on_cpu():

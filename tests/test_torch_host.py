@@ -132,7 +132,8 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 @pytest.mark.parametrize("extra,what", [
     # multi-GPU training and eval (DDP with sync batch norm) are not ported
     (["--mode", "train", "--num_replicas", "2"], "--mode train"),
-    (["--mode", "export", "--model_config", "DenseUNet.yml"],
+    (["--mode", "export", "--model", "DenseUNet", "--model_config",
+      "DenseUNet_tiny.yml", "--im_height", "64", "--im_width", "64"],
      "--mode export"),
     (["--mode", "eval", "--eval_no_sp", "--num_replicas", "2"], "unguided"),
     (["--mode", "eval", "--device_sweep", "off"], "host loop"),
@@ -150,9 +151,13 @@ def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
         # weights, and the empty model_dir names --ckpt_path
         what = "--ckpt_path"
     if what == "--mode export":
-        # export is ported: an export of a config the port does not carry
-        # yet raises naming it (GUNet_IIN.yml until the nf2 slice)
-        what = "DenseUNet"
+        # export is ported, and since the DenseUNet slice every config is
+        # carried: DenseUNet_tiny.yml exports its seeded init
+        out = t_cli.main(argv)
+        sig = json.loads((out / "signature.json").read_text())
+        assert sig["model"] == "DenseUNet"
+        assert sig["inputs"]["images"][0][1:] == [64, 64, 3]
+        return
     error = FileNotFoundError if what == "--ckpt_path" else NotImplementedError
     with pytest.raises(error, match=what):
         t_cli.main(argv)

@@ -244,7 +244,7 @@ def test_device_refiner_without_lesions_and_guards(fitted):
     assert res == {"Dice": 1.0, "clicks": 0.0, "slices": 0.0}
     with pytest.raises(ValueError):
         DeviceRefiner2D(tmodel, device="cpu", guide_kind="nope")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         DeviceRefiner2D(tmodel, device="cpu", mesh=object())
 
 
@@ -312,7 +312,7 @@ def test_cli_refuses_3d_and_replicas(nf_set, tmp_path):
     one replica still raises, naming its item."""
     with pytest.raises(FileNotFoundError, match="--ckpt_path"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu", "--dim", "3"))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu",
                         "--num_replicas", "2"))
 
