@@ -32,10 +32,15 @@ Kernels:
   implementation for tracing), so torch.export keeps it as one node of an
   exported model and a loaded program launches the kernel on the card.
 - G1 ``geodesic2d_batch`` — csrc/geodesic.cu: the 2-D geodesic raster scan
-  of N fields at once (one CTA a field), the device refiner's geodesic
-  click guides.  Not a TPU kernel: JAX computes it with XLA
-  (boxsegliver_tpu/ops/geodesic.py:93); its plain version is
-  ops/geodesic.geodesic2d.  No single PyTorch call computes it.
+  of N fields at once, the device refiner's geodesic click guides.  The
+  edge weights are computed once a launch (scratch the wrapper allocates);
+  then a chain of 2 * iterations * h dependent row steps a field, each a
+  warp's register-resident row: the warp plan (w <= 256) runs one warp a
+  field with no block barrier, the block plan (up to w = 1024) one CTA of
+  w / 128 warps with one barrier a row, chosen by ``geodesic_plan``.  Not a
+  TPU kernel: JAX computes it with XLA (boxsegliver_tpu/ops/geodesic.py:93);
+  its plain version is ops/geodesic.geodesic2d.  No single PyTorch call
+  computes it.
 """
 
 from __future__ import annotations
@@ -171,7 +176,32 @@ gaussian_guide_batch.launches = 0
 # G1: batched 2-D geodesic raster scan
 # ---------------------------------------------------------------------------
 
-_MAX_GEO_WIDTH = 1024      # one thread a column
+GEO_WARP, GEO_BLOCK = 0, 1
+_GEO_WARP_KS = (2, 4, 8)   # columns a lane on the warp plan: w <= 256
+_GEO_BLOCK_K = 4           # columns a lane holds on the block plan
+_MAX_GEO_WIDTH = 1024      # the block plan: at most 8 warps of 128 columns
+
+
+class GeoPlan(NamedTuple):
+    """How G1 covers a row: ``path`` GEO_WARP (one warp a field) or
+    GEO_BLOCK (one CTA of ``warps`` warps a field, one barrier a row);
+    ``k`` columns a lane.  Either way one CTA a field."""
+    path: int
+    k: int
+    warps: int
+
+
+def geodesic_plan(w: int) -> GeoPlan:
+    """G1's plan for fields of width w.
+
+    warp when a row fits 32 lanes of at most 8 columns (w <= 256): k =
+    ceil(w / 32) rounded up to 2, 4 or 8 (the columns past w hold +inf).
+    block otherwise (257 <= w <= 1024): ceil(w / 128) warps of 4 columns a
+    lane."""
+    if w <= 32 * _GEO_WARP_KS[-1]:
+        k = next(k for k in _GEO_WARP_KS if 32 * k >= w)
+        return GeoPlan(GEO_WARP, k, 1)
+    return GeoPlan(GEO_BLOCK, _GEO_BLOCK_K, -(-w // (32 * _GEO_BLOCK_K)))
 
 
 def geodesic2d_batch(img: torch.Tensor, seeds: torch.Tensor,
@@ -201,8 +231,12 @@ def geodesic2d_batch(img: torch.Tensor, seeds: torch.Tensor,
     if not (img.is_contiguous() and seeds.is_contiguous()):
         raise ValueError("geodesic2d_batch: img and seeds must be contiguous")
     out = torch.empty_like(img)
+    # the four edge weights of every pixel, computed once a launch
+    edges = torch.empty((n, h, w, 4), dtype=torch.float32, device=img.device)
+    plan = geodesic_plan(w)
     _launch("geodesic2d_raster", img, img.data_ptr(), seeds.data_ptr(),
-            out.data_ptr(), n, h, w, float(lamb), int(iterations))
+            out.data_ptr(), edges.data_ptr(), n, h, w, float(lamb),
+            int(iterations), plan.path, plan.k, plan.warps)
     geodesic2d_batch.launches += 1
     return out
 

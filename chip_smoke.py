@@ -177,17 +177,22 @@ result line):
    launch per case with tumor slices) on (c)'s best; run_sp's
    probabilities card vs CPU on 8 slices around a lesion (1e-4).
 20. click eval — (a) kernel G1 (geodesic2d_batch, csrc/geodesic.cu)
-   against its plain version on the card at the device refiner's shape
-   [64, 128, 128] and at edge cases (127 x 129, one row, one column, no
-   seed, corner seeds, w = 1024): relative 1e-5 of the finite field, +inf
-   at the same pixels; against the host C++ scan; device time per launch,
-   wrapper, plain and bound (g1_bound_ms); B1 at the refiner's [64 rows,
-   K 10, 256^2].  (b) ``101_unetinter_v10.sh inter`` through
+   against its plain version on the card at the device refiner's shapes
+   [64, 128, 128] and [4, 256, 256] (512^2 slices), at the boundary of its
+   two plans (w = 257) and at edge cases (127 x 129, one row, one column,
+   no seed, corner seeds, w = 1024): relative 1e-5 of the finite field,
+   +inf at the same pixels; against the host C++ scan; at [64, 128, 128]
+   and [64, 256, 256] the plan, device time per launch, wrapper, plain,
+   bound (g1_bound_ms), time per row step and the chain floor
+   (g1_chain_floor); B1 at the refiner's [64 rows, K 10, 256^2].  (b)
+   ``101_unetinter_v10.sh inter`` through
    ``boxsegliver_torch.cli.interactive_eval`` on phase 19c's best
    (UNetInter.yml full width, bf16, the NF test fold), --device_refine off
    and on, each with gaussian and geodesic guides: s/case, Dice, clicks,
    and exact launches (B1 one a click or a round, G1 one a refiner round,
-   18 B2-fwd a forward).  (c) the host loop against the device refiner in
+   18 B2-fwd a forward); the refiner's s/case split by device time into
+   G1, the forward, the guide render and largest_error_click, with its
+   rounds (refiner_split).  (c) the host loop against the device refiner in
    float32 on a small UNetInter fit on the card (every guide kind: equal
    clicks, Dice 1e-4); the refiner's first round of the full-width model
    card vs CPU (1e-4).  (d) the --device_refine auto crossover: both
@@ -350,14 +355,18 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sfu_per_s() -> float:
+def max_sm_mhz() -> float:
+    """nvidia-smi's clocks.max.sm of card 0."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True)
-    mhz = float(out.stdout.strip().splitlines()[0])
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sfu_per_s() -> float:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return SFU_PER_SM_PER_CLOCK * sms * mhz * 1e6
+    return SFU_PER_SM_PER_CLOCK * sms * max_sm_mhz() * 1e6
 
 
 def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
@@ -3361,10 +3370,85 @@ def g1_err(out, ref, what):
     return err, rel
 
 
+def g1_chain_floor(h, k):
+    """(floor ms, SM clocks a row step, SM MHz) of G1 on fields of h rows
+    on the warp plan with k columns a lane: 2 * G1_ITERATIONS * h row steps
+    times the time one step of geodesic_chain_clocks (the row step's chain
+    alone, on inputs in registers) took, and the SM clock it ran at: its
+    clock64 count over its global-timer nanoseconds."""
+    from boxsegliver_torch.csrc import build
+
+    rng = np.random.default_rng(k)
+    vals = rng.uniform(0.5, 3.0, (32 * k, 5)).astype(np.float32)
+    vals[:, 4] = rng.uniform(0.0, 400.0, 32 * k)          # the previous d
+    vals = torch.from_numpy(vals).cuda()
+    out = torch.empty(32, device="cuda")
+    clocks = torch.zeros(2, dtype=torch.int64, device="cuda")
+    fn = build.load("geodesic").geodesic_chain_clocks
+    steps = 20000
+    for _ in range(2):                    # the second run is the one read
+        rc = fn(vals.data_ptr(), out.data_ptr(), clocks.data_ptr(), k, steps,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"geodesic_chain_clocks failed: CUDA error {rc}")
+        torch.cuda.synchronize()
+    clk, ns = clocks.tolist()
+    floor = 2 * G1_ITERATIONS * h * ns / steps * 1e-6
+    return floor, clk / steps, clk / ns * 1e3
+
+
+def g1_timed(rng, dev, n, h, w, label, kernel=None):
+    """G1's device time per launch at [n, h, w] (graph replays over inputs
+    cycling through COLD_BYTES), wrapper and plain time, bound, chain floor
+    and time per row step, printed and returned.  ``kernel``: another
+    function of (img, seeds) to time in the wrapper's place."""
+    from boxsegliver_torch.ops import kernels
+    from boxsegliver_torch.ops.geodesic import geodesic2d
+
+    n_sets = max(1, COLD_BYTES // (n * h * w * 5))
+    sets = [g1_inputs(rng, n, h, w, dev) for _ in range(n_sets)]
+    img, seeds = sets[0]
+    fn = kernel or kernels.geodesic2d_batch
+
+    def run_kernel(i=0):
+        return fn(*sets[i])
+
+    plain_iters = 2 if h * w <= 128 * 128 else 1
+    p1 = cuda_ms(lambda: geodesic2d(img, seeds), iters=plain_iters, warmup=1)
+    k1 = cuda_ms(run_kernel, iters=20, warmup=2)
+    d1 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
+    d2 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
+    # the chain floor just after the timed replays, its clock read there
+    plan = kernels.geodesic_plan(w)
+    floor, clocks, mhz = g1_chain_floor(h, plan.k)
+    k2 = cuda_ms(run_kernel, iters=20, warmup=2)
+    p2 = cuda_ms(lambda: geodesic2d(img, seeds), iters=plain_iters, warmup=1)
+    bound, by, why = g1_bound_ms(img)
+    dev_ms = min(d1, d2)
+    row_us = dev_ms * 1e3 / (2 * G1_ITERATIONS * h)
+    which = f"plan {plan}" if kernel is None else "another kernel"
+    print(f"  G1 [{n}, {h}, {w}] ({label}, {G1_ITERATIONS} iterations; "
+          f"{which}): device {d1:.4f}/{d2:.4f} ms per launch, wrapper "
+          f"{k1:.4f}/{k2:.4f} ms per call, plain {p1:.2f}/{p2:.2f} ms, "
+          f"bound {bound:.6f} ms ({by}: {why}; {bound / dev_ms:.2%} of "
+          f"bound); per row step {row_us:.4f} us = {row_us * mhz:.0f} "
+          f"clocks at {mhz:.0f} MHz (the SM clock geodesic_chain_clocks ran "
+          f"at just after the replays; clocks.max.sm {max_sm_mhz():.0f}); "
+          f"chain floor {floor:.4f} ms ({clocks:.1f} clocks a row step of "
+          f"the warp plan's k {plan.k}, geodesic_chain_clocks; "
+          f"{floor / dev_ms:.1%} of the device time); {smi()}")
+    return {"device_ms": dev_ms, "wrapper_ms": min(k1, k2),
+            "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": by,
+            "floor_ms": floor, "floor_clocks_per_row": clocks,
+            "row_step_us": row_us, "sm_mhz": mhz, "plan": plan._asdict()}
+
+
 def g1_phase(dev, seed):
-    """(a) G1 against its plain version on the card (refiner shape and edge
-    cases) and against the host C++ scan; its device time per launch,
-    wrapper, plain and bound; B1 at the refiner's [2·sb, 256^2, K 10]."""
+    """(a) G1 against its plain version on the card (refiner shapes, the
+    two plans' boundary, edge cases) and against the host C++ scan; its
+    device time per launch at the refiner's fields of 256^2 and 512^2
+    slices, wrapper, plain, bound and chain floor; B1 at the refiner's
+    [2·sb, 256^2, K 10]."""
     from boxsegliver_torch.csrc import native
     from boxsegliver_torch.ops import kernels
     from boxsegliver_torch.ops.geodesic import geodesic2d
@@ -3372,6 +3456,8 @@ def g1_phase(dev, seed):
     rng = np.random.default_rng(seed)
     cases = {
         "refiner [64,128,128]": g1_inputs(rng, 64, 128, 128, dev),
+        "512^2 [4,256,256]": g1_inputs(rng, 4, 256, 256, dev, 2),
+        "plan boundary [2,48,257]": g1_inputs(rng, 2, 48, 257, dev, 2),
         "odd [3,127,129]": g1_inputs(rng, 3, 127, 129, dev, 3),
         "one row [4,1,200]": g1_inputs(rng, 4, 1, 200, dev),
         "one column [4,200,1]": g1_inputs(rng, 4, 200, 1, dev),
@@ -3386,45 +3472,33 @@ def g1_phase(dev, seed):
         err, rel = g1_err(out, geodesic2d(img, seeds), name)
         worst = max(worst, err)
         extra = ""
-        if name.startswith(("refiner", "odd")):
+        if name.startswith(("refiner", "odd", "512")):
             cpp = torch.stack([torch.from_numpy(native.geodesic2d(
                 img[i].cpu().numpy(), seeds[i].cpu().numpy()))
                 for i in range(min(4, len(img)))])
             cpp = torch.where(cpp == native.FLT_MAX, float("inf"), cpp)
             c_err, c_rel = g1_err(out[:len(cpp)].cpu(), cpp, name + " C++")
             extra = f", vs the C++ scan {c_err:.3e} ({c_rel:.3e} rel)"
-        print(f"  G1 {name:24s} max abs err vs plain {err:.3e} ({rel:.3e} "
-              f"rel){extra}")
+        plan = kernels.geodesic_plan(img.shape[2])
+        path = "warp" if plan.path == kernels.GEO_WARP else "block"
+        print(f"  G1 {name:24s} {path} plan, k {plan.k}: max abs err vs "
+              f"plain {err:.3e} ({rel:.3e} rel){extra}")
         if name.startswith("no seeds") and bool(torch.isfinite(out[0]).any()):
             raise AssertionError("G1: a seedless field must stay +inf")
 
-    img, seeds = cases["refiner [64,128,128]"]
-    n_sets = max(1, COLD_BYTES // (img.numel() * 5))
-    sets = [g1_inputs(rng, 64, 128, 128, dev) for _ in range(n_sets)]
-
-    def run_kernel(i=0):
-        return kernels.geodesic2d_batch(*sets[i])
-
-    p1 = cuda_ms(lambda: geodesic2d(img, seeds), iters=2, warmup=1)
-    k1 = cuda_ms(run_kernel, iters=20, warmup=2)
-    d1 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
-    d2 = graph_ms(run_kernel, n_sets, iters=20, replays=3)
-    k2 = cuda_ms(run_kernel, iters=20, warmup=2)
-    p2 = cuda_ms(lambda: geodesic2d(img, seeds), iters=2, warmup=1)
-    bound, by, why = g1_bound_ms(img)
-    dev_ms = min(d1, d2)
-    print(f"  G1 [64, 128, 128] (2 x 32 fields of the refiner at 256^2, "
-          f"{G1_ITERATIONS} iterations): device {d1:.4f}/{d2:.4f} ms per "
-          f"launch, wrapper {k1:.4f}/{k2:.4f} ms per call, plain "
-          f"{p1:.2f}/{p2:.2f} ms, bound {bound:.6f} ms ({by}: {why}; "
-          f"{bound / dev_ms:.2%} of bound; per row step "
-          f"{dev_ms * 1e3 / (2 * G1_ITERATIONS * 128):.3f} us); {smi()}")
+    shapes = {"[64,128,128]": g1_timed(
+        rng, dev, 64, 128, 128, "the refiner's fields at 256^2"),
+        "[64,256,256]": g1_timed(rng, dev, 64, 256, 256,
+                                 "the refiner's fields at 512^2")}
+    top = shapes["[64,128,128]"]
     rec = {"name": "geodesic2d_batch", "route": "cuda",
            "source": "boxsegliver_torch/csrc/geodesic.cu",
            "replaces": "boxsegliver_tpu/ops/geodesic.py:93",
-           "max_abs_err": worst, "ms": min(k1, k2), "device_ms": dev_ms,
-           "wrapper_ms": min(k1, k2), "plain_ms": min(p1, p2),
-           "bound_ms": bound, "bound_by": by, "library_ms": None}
+           "max_abs_err": worst, "ms": top["wrapper_ms"],
+           "device_ms": top["device_ms"], "wrapper_ms": top["wrapper_ms"],
+           "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+           "bound_by": top["bound_by"], "library_ms": None,
+           "shapes": shapes}
 
     # B1 at the device refiner's shape: fg and bg of 32 slices as 64 rows,
     # K = --max_iters 10 click slots, a valid prefix
@@ -3484,20 +3558,25 @@ class CaseRecorder:
         self._cls.refine_case = self._dev
 
 
-def click_eval(tmp, md, refine, kind, *extra, data_root=None):
-    """One ``101_unetinter_v10.sh inter`` run through
-    boxsegliver_torch.cli.interactive_eval on the synthetic NF test fold
-    with ``md``'s best checkpoint; exact launch counts: one B1 launch a
-    click (host loop) or a round (refiner) for gaussian guides, one G1
-    launch a round for the refiner's geodesic guides, 18 B2-fwd a
-    forward."""
-    from boxsegliver_torch.cli import interactive_eval as icli
-
-    argv = INTER_EVAL + [
+def click_eval_argv(tmp, md, refine, kind, *extra, data_root=None):
+    """``101_unetinter_v10.sh inter`` on the synthetic NF test fold with
+    ``md``'s best checkpoint."""
+    return INTER_EVAL + [
         "--task", "nf_inter", "--dataset", "synthetic", "--data_root",
         str(data_root or tmp), "--k_folds", "2", "--model_dir", str(md),
         "--guide_channel", "2", "--dice_thresh", "0.85", "--max_iters", "10",
         "--device_refine", refine, "--guide_kind", kind, *extra]
+
+
+def click_eval(tmp, md, refine, kind, *extra, data_root=None):
+    """One click_eval_argv run through boxsegliver_torch.cli.
+    interactive_eval; exact launch counts: one B1 launch a click (host
+    loop) or a round (refiner) for gaussian guides, one G1 launch a round
+    for the refiner's geodesic guides, 18 B2-fwd a forward."""
+    from boxsegliver_torch.cli import interactive_eval as icli
+
+    argv = click_eval_argv(tmp, md, refine, kind, *extra,
+                           data_root=data_root)
     with CaseRecorder() as rec:
         means, seconds, launches = counted_run(lambda: icli.main(argv))
     if refine == "on":
@@ -3512,6 +3591,116 @@ def click_eval(tmp, md, refine, kind, *extra, data_root=None):
     if not rec.cases or not all(math.isfinite(c["Dice"]) for c in rec.cases):
         raise AssertionError(f"click eval results {rec.cases}")
     return means, seconds, launches, rec.cases
+
+
+def click_eval_cases(args):
+    """(images, labels) of the click eval's cases as cli/interactive_eval
+    reads them: the test fold's lesion-bearing cases as 2.5-D stacks."""
+    from boxsegliver_torch.cli import interactive_eval as icli
+    from boxsegliver_torch.cli import main as cli
+
+    ds = cli.resolve_dataset_dir(args)
+    cases = []
+    for meta in cli._test_metas(args, ds):
+        if meta["tumors"]:
+            case = Path(ds) / f"volume-{meta['PID']}"
+            cases.append((
+                icli.slice_stacks(np.load(case / "volume.npy"),
+                                  args.im_channel),
+                (np.load(case / "segmentation.npy") > 0).astype(np.uint8)))
+    return cases
+
+
+# the parts of a device-refiner round that refiner_split times apart
+SPLIT_PARTS = ("G1", "forward", "guide render", "largest_error_click")
+
+
+def refiner_split(model, args, cases, dev, g1=None):
+    """DeviceRefiner2D (``args``' guide kind, built as the CLI builds it)
+    over ``cases``: refine_case's wall s/case (a warm-up case first) and
+    rounds; then a pass with each part of a round (G1, the forward, the
+    guide render: _geo_render or _render's B1, largest_error_click) timed
+    between two synchronisations, "rest" the pass's other time (the round's
+    own elementwise work and host steps), all in ms a case; and the device
+    time a case of all kernels and of G1's kernels by name from a profiled
+    pass.  ``g1`` stands in for kernels.geodesic2d_batch where given
+    (tools/g1_ab.py: an earlier commit's kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from boxsegliver_torch.cli import interactive_eval as icli
+    from boxsegliver_torch.interactive import device_refine as drm
+
+    spent = dict.fromkeys(SPLIT_PARTS, 0.0)
+
+    def timed(fn, name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return call
+
+    def run_all():
+        for images, labels in cases:
+            refiner.refine_case(images, labels)
+        torch.cuda.synchronize()
+
+    cls = drm.DeviceRefiner2D
+    saved = (drm.geodesic2d_batch, drm.largest_error_click,
+             cls.__dict__["_geo_render"], cls.__dict__["_render"])
+    refiner = icli.build_refiner(args, model, dev)
+    drm.geodesic2d_batch = g1 or saved[0]
+    try:
+        refiner.refine_case(*cases[0])
+        torch.cuda.synchronize()
+        walls, rounds = [], []
+        for images, labels in cases:
+            t0 = time.perf_counter()
+            refiner.refine_case(images, labels)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rounds.append(refiner.rounds)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run_all()
+        forward = refiner.model
+        refiner.model = timed(forward, "forward")
+        drm.geodesic2d_batch = timed(g1 or saved[0], "G1")
+        drm.largest_error_click = timed(saved[1], "largest_error_click")
+        cls._geo_render = staticmethod(timed(saved[2].__func__,
+                                             "guide render"))
+        cls._render = timed(saved[3], "guide render")
+        t0 = time.perf_counter()
+        run_all()
+        timed_wall = time.perf_counter() - t0
+        refiner.model = forward
+    finally:
+        (drm.geodesic2d_batch, drm.largest_error_click, cls._geo_render,
+         cls._render) = saved
+    kern, _, self_us = kernel_groups(prof)
+    n = len(cases)
+    parts = {k: v * 1e3 / n for k, v in spent.items()}
+    parts["rest"] = timed_wall * 1e3 / n - sum(parts.values())
+    return {"s_per_case": sum(walls) / n, "rounds": rounds,
+            "parts_ms": parts,
+            "device_ms": sum(self_us(e) for e in kern) / 1e3 / n,
+            "g1_kernels_ms": sum(self_us(e) for e in kern
+                                 if "geodesic" in e.key) / 1e3 / n,
+            "slices": [int((np.asarray(lab) > 0).any(axis=(1, 2)).sum())
+                       for _, lab in cases]}
+
+
+def print_split(what, res, cli_s=None):
+    cli = f", the CLI {cli_s:.3f} s/case" if cli_s is not None else ""
+    print(f"  {what}: refine_case {res['s_per_case']:.4f} s/case{cli} "
+          f"({len(res['rounds'])} cases, lesion slices {res['slices']}, "
+          f"rounds {res['rounds']}); each part between synchronisations, "
+          "ms a case: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                     res["parts_ms"].items())
+          + f"; device time {res['device_ms']:.3f} ms a case, G1's kernels "
+          f"{res['g1_kernels_ms']:.3f}; {smi()}")
 
 
 def fit_tiny_unetinter(dev, seed, steps=150):
@@ -3688,9 +3877,13 @@ def click_export_phase(tmp, dev, seed, md):
 
 def click_eval_phase(tmp, dev, seed, nf_md):
     """Phase 20: (a) G1; (b) the click eval through the CLI, host loop and
-    device refiner, gaussian and geodesic guides; (c) host loop vs refiner
+    device refiner, gaussian and geodesic guides, and where the refiner's
+    time goes (refiner_split); (c) host loop vs refiner
     and card vs CPU; (d) the auto crossover at 128^2 and 256^2; (e) the new
     click models' training; (f) the click export served."""
+    from boxsegliver_torch import config as config_mod
+    from boxsegliver_torch.cli import interactive_eval as icli
+    from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.data.synthetic import make_synthetic_dataset
 
     rec = g1_phase(dev, seed)
@@ -3708,6 +3901,17 @@ def click_eval_phase(tmp, dev, seed, nf_md):
                   f"{means['Dice']:.4f}, clicks {means['clicks']:.3f}, "
                   f"slices {means['slices']:.0f}/case ({len(cases)} cases, "
                   f"{seconds:.2f} s); launches {launches}; {smi()}")
+    cases = None
+    for kind in ("gaussian", "geodesic"):
+        args = icli.build_parser().parse_args(click_eval_argv(
+            tmp, nf_md, "on", kind))
+        config_mod.fill_default_args(args)
+        cases = cases or click_eval_cases(args)
+        res = refiner_split(cli.build_model_from_args(args, dev), args,
+                            cases, dev)
+        print_split(f"where the device refiner's time goes, {kind} guides "
+                    "(UNetInter.yml full width, bf16, 256^2)", res,
+                    secs["on", kind, 256])
     refine_agreement(dev, seed, nf_md, INTER_EVAL + [
         "--task", "nf_inter", "--dataset", "synthetic", "--data_root",
         str(tmp), "--k_folds", "2", "--model_dir", str(nf_md)])
@@ -5134,8 +5338,8 @@ def main(argv=None):
     for r in recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     keys += ("launches_by_path",)
-    print(json.dumps({"kernels": [{k: r[k] for k in keys + (
-        ("unet3d",) if "unet3d" in r else ())} for r in recs]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(
+        x for x in ("unet3d", "shapes") if x in r)} for r in recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

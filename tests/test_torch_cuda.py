@@ -554,8 +554,10 @@ def _geo_inputs(n, h, w, seed, corners=False, none=False):
 @pytest.mark.parametrize("n,h,w,corners,none", [
     (64, 128, 128, False, True), (3, 127, 129, False, False),
     (2, 1, 77, False, False), (2, 77, 1, False, False),
-    (2, 40, 300, True, False), (2, 16, 1024, False, False)],
-    ids=["refiner", "odd", "one_row", "one_column", "corners", "wide"])
+    (2, 40, 300, True, False), (2, 16, 1024, False, False),
+    (4, 256, 256, False, False), (2, 48, 257, False, False)],
+    ids=["refiner", "odd", "one_row", "one_column", "corners", "wide",
+         "refiner_512", "block_plan_edge"])
 def test_g1_matches_plain_and_counts(dev, n, h, w, corners, none):
     """Relative 1e-5 of the finite field (the min-plus scan's
     reassociation), +inf at the same pixels, one count a launch."""
