@@ -30,7 +30,11 @@ per-slice host loop (interactive/refine.py), by ``--device_refine``.
 (2, 16, 16) multiples and refines with ``DeviceRefiner3D`` (unless
 ``--device_refine off``) or the host loop, which also carries
 ``--use_cascade`` (the GT-oracle channel), as in JAX.
-``--num_replicas > 1`` raises, naming its ROADMAP item.
+``--num_replicas N > 1`` with the ``--dim 2`` device refiner starts N
+spawned workers (NCCL, one GPU a rank; gloo with ``--device cpu``) that
+split each case's slice batch (JAX's refiner mesh); rank 0 writes the
+results.  The host loops and ``--dim 3`` take no mesh in JAX and run in one
+process.
 """
 
 from __future__ import annotations
@@ -71,9 +75,10 @@ def build_parser():
     return parser
 
 
-def build_refiner(args, model, device):
+def build_refiner(args, model, device, group=None):
     """The device refiner, or None for the host loop (--device_refine; the
-    3-D cascade channel keeps the host loop)."""
+    3-D cascade channel keeps the host loop); ``group``: the 2-D refiner's
+    data-parallel group."""
     if getattr(args, "device_refine", "auto") == "off":
         return None
     if args.dim == 3:
@@ -90,7 +95,7 @@ def build_refiner(args, model, device):
     return DeviceRefiner2D(
         model, dice_thresh=args.dice_thresh, max_iters=args.max_iters,
         stddev=args.guide_stddev, guide_kind=args.guide_kind,
-        guide_channel=int(args.guide_channel), device=device)
+        guide_channel=int(args.guide_channel), device=device, mesh=group)
 
 
 def make_predict(model):
@@ -123,12 +128,26 @@ def main(argv=None):
     args = parser.parse_args(argv)
     config_mod.check_args(args, parser)
     config_mod.fill_default_args(args)
-    if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
-        raise NotImplementedError("the click eval over --num_replicas "
-                                  f"{args.num_replicas} devices is not "
-                                  "ported yet (ROADMAP item 4: "
-                                  "multi-GPU)")
-    logger = setup_logger(args.model_dir, "eval_inter", args.tag)
+    device = config_mod.resolve_device(args.device)
+    n = int(getattr(args, "num_replicas", 0) or 0)
+    if n > 1 and args.dim == 2 and args.device_refine != "off":
+        from boxsegliver_torch.parallel import launch, resolve_replicas
+        return launch(_rank_main, resolve_replicas(n, device), device, args)
+    return run(args, device)
+
+
+def _rank_main(group, args):
+    return run(args, config_mod.resolve_device(args.device), group)
+
+
+def run(args, device, group=None):
+    """The click eval on this process (one rank of ``group``, if given)."""
+    import logging
+
+    if group is None or group.chief:
+        logger = setup_logger(args.model_dir, "eval_inter", args.tag)
+    else:
+        logger = setup_logger(level=logging.WARNING)
 
     from boxsegliver_torch.cli.main import (build_model_from_args,
                                             resolve_dataset_dir)
@@ -141,7 +160,6 @@ def main(argv=None):
                                                       interactive_eval_3d)
     from boxsegliver_torch.ops.array_kits import zscore
 
-    device = config_mod.resolve_device(args.device)
     dataset_dir = resolve_dataset_dir(args)
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
@@ -159,7 +177,7 @@ def main(argv=None):
     if args.eval_num > 0:
         eval_metas = eval_metas[:args.eval_num]
 
-    refiner = build_refiner(args, model, device)
+    refiner = build_refiner(args, model, device, group)
     logger.info("refinement path: %s",
                 type(refiner).__name__ if refiner is not None
                 else "host loop")
@@ -210,6 +228,8 @@ def main(argv=None):
              for k in all_results[0]} if all_results else {}
     logger.info("---- %d cases: %s", len(all_results),
                 " ".join(f"{k}={v:.3f}" for k, v in means.items()))
+    if group is not None and not group.chief:
+        return means
     out = Path(args.model_dir) / "eval_results_inter.txt"
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(means))

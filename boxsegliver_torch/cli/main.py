@@ -79,6 +79,20 @@ else a warm start from ``--warm_start_from`` / ``--load_weights``.
 eval's, the seeded init where there are none), which cli/serve.py serves.
 Every other branch of the JAX CLI raises NotImplementedError naming its
 roadmap item.
+
+Data parallel (``--num_replicas``, JAX's mesh size; parallel/mesh.py):
+training takes N = ``--num_replicas`` ranks, 0 meaning every visible GPU
+(one process with ``--device cpu``); eval and infer take N only when
+``--num_replicas > 1`` (JAX's eval mesh rule).  With N > 1 the CLI starts N
+spawned workers (NCCL, one GPU a rank; gloo with ``--device cpu``) that
+run the same command in a process group: training over the global batch
+``--batch_size`` (sync batch norm, one gradient all-reduce a step), the
+unguided ``run`` and ``run_sp`` with each slice batch split over the ranks
+and the probabilities gathered to rank 0, and the nf_inter online eval
+with each batch split and gathered.  Rank 0 writes every file and log.
+``run_g`` over N > 1 and ``--z_shards > 1`` shard one image or volume
+over the devices (ROADMAP item 4b) and raise; the nf2 and 3-D evals use
+no mesh in JAX and run in one process.
 """
 
 from __future__ import annotations
@@ -241,46 +255,109 @@ def build_model_from_args(args, device):
 
 def main(argv=None):
     args = get_args(argv)
-    logger = setup_logger(args.model_dir, args.mode, args.tag, args.out_file)
+    device = config_mod.resolve_device(args.device)
+    world = replicas(args, device)
+    if world > 1:
+        from boxsegliver_torch.parallel import launch
+        return launch(_rank_main, world, device, args)
+    return run(args, device)
+
+
+def replicas(args, device) -> int:
+    """Ranks of the run (module docstring): ValueError with JAX's text when
+    N exceeds the devices or --batch_size does not divide N;
+    NotImplementedError for the paths that shard one image or volume."""
+    from boxsegliver_torch.parallel import (per_device_batch_size,
+                                            resolve_replicas)
+
+    n = int(getattr(args, "num_replicas", 0) or 0)
+    if args.mode == "export":
+        return 1
+    if is_3d(args) and args.mode != "train":
+        if getattr(args, "z_shards", 0) and args.z_shards > 1:
+            _not_ported(f"the 3D eval over --z_shards {args.z_shards} "
+                        "devices (depth-sharded volumes)",
+                        "item 4b: spatial sharding")
+        return 1
+    if args.mode == "train":
+        world = resolve_replicas(n, device)
+    elif n > 1 and not is_iin(args):
+        world = resolve_replicas(n, device)
+        spatial = bool(getattr(args, "use_spatial", False))
+        if spatial and args.task != "nf" and not is_inter(args) \
+                and not getattr(args, "eval_no_sp", False):
+            _not_ported(f"the guided eval (run_g) over --num_replicas {n} "
+                        "devices (the height-sharded sweep)",
+                        "item 4b: spatial sharding")
+    else:
+        return 1
+    if world > 1:
+        per_device_batch_size(int(args.batch_size), world)
+    return world
+
+
+def _rank_main(group, args):
+    """One rank of a data-parallel CLI run (parallel.launch): rank 0's
+    result is the command's."""
+    device = config_mod.resolve_device(args.device)
+    out = run(args, device, group)
+    if args.mode == "train":
+        return {"global_step": out.global_step}
+    return out
+
+
+def run(args, device, group=None):
+    """The command on this process (one rank of ``group``, if given)."""
+    import logging
+
+    if group is None or group.chief:
+        logger = setup_logger(args.model_dir, args.mode, args.tag,
+                              args.out_file)
+    else:
+        logger = setup_logger(level=logging.WARNING)
     logger.info("Task %s, mode %s, model_dir %s", args.task, args.mode,
                 args.model_dir)
-    device = config_mod.resolve_device(args.device)
+    if group is not None:
+        logger.info("Rank %d of %d (%s) on %s", group.rank, group.size,
+                    group.backend, device)
     dataset_dir = resolve_dataset_dir(args)
     if args.mode == "export":
         from boxsegliver_torch.cli.export import export_model
         return export_model(args, dataset_dir, device=device)
     if args.mode == "train":
-        return train(args, dataset_dir, logger, device)
+        return train(args, dataset_dir, logger, device, group)
     return evaluate(args, dataset_dir, logger, device,
-                    do_eval=args.mode == "eval")
+                    do_eval=args.mode == "eval", group=group)
 
 
-def build_trainer(args, device, cache=None):
+def build_trainer(args, device, cache=None, group=None):
     """Trainer of the flagged model, seeded from --seed, with the device
     augmentation of its task (cache: a DeviceVolumeCache for the index
-    layout)."""
+    layout; group: the data-parallel group of this rank)."""
     import torch
 
     from boxsegliver_torch.train.trainer import Trainer
 
     if is_3d(args):
         from boxsegliver_torch.data.pipeline3d import make_preprocess_fn_3d
-        preprocess_fn = make_preprocess_fn_3d(args)
+        preprocess_fn = make_preprocess_fn_3d(args, group=group)
     elif is_inter(args):
         from boxsegliver_torch.data.pipeline_inter import \
             make_inter_preprocess_fn
-        preprocess_fn = make_inter_preprocess_fn(args, train=True)
+        preprocess_fn = make_inter_preprocess_fn(args, train=True,
+                                                 group=group)
     elif is_iin(args):
         from boxsegliver_torch.data.pipeline_iin import make_iin_preprocess_fn
-        preprocess_fn = make_iin_preprocess_fn(args, train=True)
+        preprocess_fn = make_iin_preprocess_fn(args, train=True, group=group)
     else:
         from boxsegliver_torch.data.pipeline import make_preprocess_fn
-        preprocess_fn = make_preprocess_fn(args, cache=cache)
+        preprocess_fn = make_preprocess_fn(args, cache=cache, group=group)
     model = _build_model(args)
     model.reset_parameters(torch.Generator().manual_seed(int(args.seed)))
     return Trainer(model, args, ["Background"] + list(args.classes), device,
                    preprocess_fn=preprocess_fn,
-                   save_ckpt_steps=int(getattr(args, "save_ckpt_steps", 5000)))
+                   save_ckpt_steps=int(getattr(args, "save_ckpt_steps", 5000)),
+                   group=group)
 
 
 def _test_metas(args, dataset_dir):
@@ -304,7 +381,7 @@ def _split_pids(args, dataset_dir):
     return train_test_split(folds, args.test_fold)
 
 
-def train(args, dataset_dir, logger, device):
+def train(args, dataset_dir, logger, device, group=None):
     from boxsegliver_torch.data.pipeline import TrainDataset
     from boxsegliver_torch.data.sampler import TrainSampler
 
@@ -320,7 +397,7 @@ def train(args, dataset_dir, logger, device):
             logger.warning("--device_cache disabled (%s); falling back to "
                            "the streaming host sampler", e)
 
-    trainer = build_trainer(args, device, cache=cache)
+    trainer = build_trainer(args, device, cache=cache, group=group)
     start = trainer.restore()
     logger.info("Starting at global step %d on %s", start, device)
     if is_3d(args):
@@ -344,7 +421,15 @@ def train(args, dataset_dir, logger, device):
         sampler = TrainSampler(dataset_dir, args, mode="train",
                                seed=args.seed,
                                zbase=cache.zbase if cache else None)
-    dataset = TrainDataset(sampler, args, seed=args.seed)
+    workers = None
+    if group is not None:
+        # every rank takes its rows of the same global batches: one host
+        # worker keeps the seeded stream's order
+        workers = 1
+        logger.info("One host sampler worker a rank (--host_workers %d "
+                    "would reorder the global batches between ranks)",
+                    args.host_workers)
+    dataset = TrainDataset(sampler, args, seed=args.seed, workers=workers)
     eval_fn = None
     if args.eval_per_epoch and is_3d(args):
         from boxsegliver_torch.evaluators.volume3d import EvaluateVolume3D
@@ -361,7 +446,8 @@ def train(args, dataset_dir, logger, device):
         from boxsegliver_torch.evaluators.volume import (EvaluateVolume,
                                                          make_inline_eval_fn)
         evaluator = EvaluateVolume(args, dataset_dir,
-                                   ["Background"] + list(args.classes))
+                                   ["Background"] + list(args.classes),
+                                   group=group)
         eval_fn = make_inline_eval_fn(evaluator, _test_metas(args,
                                                              dataset_dir),
                                       max_cases=args.eval_num)
@@ -372,7 +458,8 @@ def train(args, dataset_dir, logger, device):
         trainer.train(dataset, max_steps=max_steps, eval_fn=eval_fn)
     finally:
         dataset.close()
-        trainer.summary.close()
+        if trainer.summary is not None:
+            trainer.summary.close()
     logger.info("Training finished at step %d", trainer.global_step)
     return trainer
 
@@ -423,11 +510,12 @@ def _make_online_eval(args, dataset_dir, num_batches: int = 0):
                                                      False)))
 
 
-def _inter_eval(args, dataset_dir, logger, device):
+def _inter_eval(args, dataset_dir, logger, device, group=None):
     """nf_inter --mode eval: batch-averaged metrics over the fixed
     validation batches (reference get_val_loader, NF/input_pipeline_g_simply
     .py:668-686), appended as one JSON line to model_dir/eval_results_2d.txt
-    (JAX cli/main.py:412-426)."""
+    (JAX cli/main.py:412-426); under a group each batch is split over the
+    ranks and rank 0 writes the line."""
     import json
     import types
 
@@ -438,8 +526,11 @@ def _inter_eval(args, dataset_dir, logger, device):
                 device)
     runner = types.SimpleNamespace(
         device=device, global_step=0, summary=None,
-        predict=DeviceSlicePredictor(model, args, device=device))
+        predict=DeviceSlicePredictor(model, args, device=device,
+                                     group=group))
     results = _make_online_eval(args, dataset_dir)(runner)
+    if group is not None and not group.chief:
+        return results
     out = Path(args.model_dir) / "eval_results_2d.txt"
     out.parent.mkdir(parents=True, exist_ok=True)
     with out.open("a") as f:
@@ -564,9 +655,6 @@ def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
                                                        make_sliding_predict,
                                                        make_volume_predict)
 
-    if getattr(args, "z_shards", 0) and args.z_shards > 1:
-        _not_ported(f"the 3D eval over --z_shards {args.z_shards} devices",
-                    "item 4: multi-GPU")
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
@@ -591,7 +679,10 @@ def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
                    cascade=cascade)
 
 
-def evaluate(args, dataset_dir, logger, device, do_eval=True):
+def evaluate(args, dataset_dir, logger, device, do_eval=True, group=None):
+    """Eval / infer of the flagged model (cli.main's docstring); under a
+    ``group`` (replicas) the unguided ``run``, ``run_sp`` and the nf_inter
+    online eval split each batch over the ranks."""
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
     if is_3d(args):
@@ -599,27 +690,24 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True):
     if is_iin(args):
         return _iin_eval(args, dataset_dir, logger, device, do_eval)
     if is_inter(args):
-        return _inter_eval(args, dataset_dir, logger, device)
+        return _inter_eval(args, dataset_dir, logger, device, group)
     spatial = bool(getattr(args, "use_spatial", False))
     sp_point = spatial and args.task == "nf"
     guided = spatial and not getattr(args, "eval_no_sp", False)
-    if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
-        _not_ported(f"{'guided' if guided else 'unguided'} eval over "
-                    f"--num_replicas {args.num_replicas} devices",
-                    "item 4: multi-GPU")
 
     model = build_model_from_args(args, device)
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
     eval_metas = _test_metas(args, dataset_dir)
     evaluator = EvaluateVolume(args, dataset_dir,
-                               ["Background"] + list(args.classes))
+                               ["Background"] + list(args.classes),
+                               group=group)
     save = args.save_predict or not do_eval
     # the whole-case device predictor: one upload per case, 2.5D gather +
     # mirror TTA + averaging on the device; its plain per-batch forward
     # serves run_g's per-slice host loop under --device_sweep off
     from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
-    predictor = DeviceSlicePredictor(model, args, device=device)
+    predictor = DeviceSlicePredictor(model, args, device=device, group=group)
     if sp_point:
         # NF: the fixed sp-point guides (reference get_dataset_for_sp_point)
         return evaluator.run_sp(predictor, eval_metas, save=save,

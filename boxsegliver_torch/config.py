@@ -57,8 +57,10 @@ def add_arguments(parser: argparse.ArgumentParser):
     group = parser.add_argument_group(title="Device Arguments")
     group.add_argument("--num_replicas", "--num_gpus", dest="num_replicas",
                        type=int, default=0,
-                       help="Data-parallel mesh size. 0 = all visible devices. "
-                            "(TPU redesign of reference --num_gpus)")
+                       help="Data-parallel ranks, one process a device "
+                            "(parallel/mesh.py). Training: 0 = all visible "
+                            "GPUs (one process with --device cpu); eval: "
+                            "ranks only above 1")
     group.add_argument("--compute_dtype", type=str, default="bfloat16",
                        choices=["bfloat16", "float32"],
                        help="Activation compute dtype (params stay float32)")

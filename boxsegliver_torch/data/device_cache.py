@@ -14,7 +14,8 @@ uint16, so doubling it to int32 is not an option.
 
 Datasets larger than the budget raise MemoryError; the CLI then logs it and
 keeps the streaming sampler (TrainSampler's device-resize layout), as the
-JAX package does.
+JAX package does.  Under a data-parallel group every rank uploads its own
+copy to its device (JAX's replicated sharding, device_cache.py:44,74).
 """
 
 from __future__ import annotations

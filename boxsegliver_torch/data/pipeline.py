@@ -29,6 +29,7 @@ import torch
 from boxsegliver_torch.data.device_cache import widen
 from boxsegliver_torch.ops import image_ops
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
+from boxsegliver_torch.parallel.mesh import rank_draws
 
 def batch_to_device(batch: Dict[str, np.ndarray], device
                     ) -> Dict[str, torch.Tensor]:
@@ -177,9 +178,12 @@ def norm_statics(args) -> Dict:
                 label_mode=_TASK_LABEL_MODES.get(task, "none"))
 
 
-def make_preprocess_fn(args, cache=None):
+def make_preprocess_fn(args, cache=None, group=None):
     """(device batch, generator) -> (features, labels): the train step's
-    augmentation, its draws taken from ``generator``."""
+    augmentation, its draws taken from ``generator``.  Under a ``group``
+    (parallel.Group) the batch holds the rank's rows of the global batch:
+    the draws are made for the global batch, from the generator every rank
+    shares, and the rank keeps its rows (B1 renders only those)."""
     statics = norm_statics(args)
     kw = dict(im_h=args.im_height, im_w=args.im_width,
               noise_scale=float(args.noise_scale),
@@ -188,11 +192,11 @@ def make_preprocess_fn(args, cache=None):
               min_std=float(getattr(args, "min_std", 2.0)))
 
     def fn(batch, generator):
-        bs = batch["names"].shape[0]
-        draws = image_ops.draw_augment(
+        bs = batch["names"].shape[0] * (group.size if group else 1)
+        draws = rank_draws(image_ops.draw_augment(
             generator, (bs, kw["im_h"], kw["im_w"], args.im_channel),
             noise=kw["noise_scale"] > 0, device=batch["names"].device,
-            gamma=statics["use_gamma"])
+            gamma=statics["use_gamma"]), group)
         return _process_batch(batch, draws, cache=cache, **kw, **statics)
     return fn
 

@@ -24,6 +24,7 @@ import torch
 from boxsegliver_torch.data.device_cache import widen
 from boxsegliver_torch.ops import image_ops
 from boxsegliver_torch.ops.guides import euclidean_guide, gaussian_guide
+from boxsegliver_torch.parallel.mesh import rank_draws
 
 
 def draw_augment_3d(generator: torch.Generator, bs: int, device,
@@ -118,13 +119,17 @@ def statics_3d(args) -> Dict:
                 use_cascade=bool(getattr(args, "use_cascade", False)))
 
 
-def make_preprocess_fn_3d(args):
+def make_preprocess_fn_3d(args, group=None):
     """(device batch, generator) -> (features, labels): the 3-D train
-    step's augmentation, its draws taken from ``generator``."""
+    step's augmentation, its draws taken from ``generator``.  Under a
+    ``group`` the draws are the global batch's and the rank keeps its rows
+    (parallel.mesh.rank_draws)."""
     statics = statics_3d(args)
 
     def fn(batch, generator):
-        draws = draw_augment_3d(generator, batch["names"].shape[0],
-                                batch["names"].device, statics["gamma"])
+        bs = batch["names"].shape[0] * (group.size if group else 1)
+        draws = rank_draws(draw_augment_3d(generator, bs,
+                                           batch["names"].device,
+                                           statics["gamma"]), group)
         return process_batch_3d(batch, draws, **statics)
     return fn

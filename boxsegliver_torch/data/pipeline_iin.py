@@ -28,6 +28,7 @@ import torch
 from boxsegliver_torch.data.device_cache import widen
 from boxsegliver_torch.ops import image_ops
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
+from boxsegliver_torch.parallel.mesh import rank_draws
 
 
 def draw_iin(generator: torch.Generator, shape, noise: bool, gamma: bool,
@@ -115,11 +116,13 @@ def _process_batch_iin(batch: Dict[str, torch.Tensor],
     return feats, lab
 
 
-def make_iin_preprocess_fn(args, train: bool = True):
+def make_iin_preprocess_fn(args, train: bool = True, group=None):
     """(device batch, generator) -> (features, labels): the nf2 train
     step's processing with its draws from ``generator`` (train=True), or
     the deterministic processing of the online eval (train=False: no
-    noise, flips or gamma, draws None)."""
+    noise, flips or gamma, draws None).  Under a ``group`` the draws are
+    the global batch's and the rank keeps its rows
+    (parallel.mesh.rank_draws)."""
     static = dict(
         im_h=int(args.im_height), im_w=int(args.im_width),
         noise_scale=float(args.noise_scale) if train else 0.0,
@@ -134,12 +137,12 @@ def make_iin_preprocess_fn(args, train: bool = True):
     def fn(batch, generator):
         draws = None
         if train:
-            bs = batch["names"].shape[0]
-            draws = draw_iin(generator, (bs, static["im_h"], static["im_w"],
-                                         int(args.im_channel)),
-                             noise=static["noise_scale"] > 0,
-                             gamma=static["use_gamma"],
-                             device=batch["names"].device)
+            bs = batch["names"].shape[0] * (group.size if group else 1)
+            draws = rank_draws(draw_iin(
+                generator, (bs, static["im_h"], static["im_w"],
+                            int(args.im_channel)),
+                noise=static["noise_scale"] > 0, gamma=static["use_gamma"],
+                device=batch["names"].device), group)
         return _process_batch_iin(batch, draws, **static)
 
     return fn

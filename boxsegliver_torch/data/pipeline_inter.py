@@ -32,6 +32,7 @@ from boxsegliver_torch.data.device_cache import widen
 from boxsegliver_torch.ops import image_ops
 from boxsegliver_torch.ops.guides import euclidean_guide
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
+from boxsegliver_torch.parallel.mesh import rank_draws
 
 
 def click_guides(shape: Tuple[int, int], pts: torch.Tensor, n: torch.Tensor,
@@ -99,11 +100,13 @@ def _process_batch_inter(batch: Dict[str, torch.Tensor],
             "names": batch["names"]}, lab
 
 
-def make_inter_preprocess_fn(args, train: bool = True):
+def make_inter_preprocess_fn(args, train: bool = True, group=None):
     """(device batch, generator) -> (features, labels): the train step's
     processing with its draws from ``generator`` (train=True), or the
     deterministic eval processing of the online evaluator (train=False,
-    flips, gamma and noise off, draws None)."""
+    flips, gamma and noise off, draws None).  Under a ``group`` the draws
+    are the global batch's and the rank keeps its rows
+    (parallel.mesh.rank_draws)."""
     static = dict(
         im_h=int(args.im_height), im_w=int(args.im_width),
         noise_scale=float(args.noise_scale),
@@ -121,12 +124,13 @@ def make_inter_preprocess_fn(args, train: bool = True):
     def fn(batch, generator):
         draws = None
         if train:
-            bs = batch["names"].shape[0]
-            draws = image_ops.draw_augment(
+            bs = batch["names"].shape[0] * (group.size if group else 1)
+            draws = rank_draws(image_ops.draw_augment(
                 generator, (bs, static["im_h"], static["im_w"],
                             args.im_channel),
                 noise=static["noise_scale"] > 0,
-                device=batch["names"].device, gamma=static["use_gamma"])
+                device=batch["names"].device, gamma=static["use_gamma"]),
+                group)
         return _process_batch_inter(batch, draws, **static)
 
     return fn

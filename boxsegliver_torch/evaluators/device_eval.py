@@ -1,5 +1,5 @@
 """Device-resident whole-case 2D evaluation (port of
-boxsegliver_tpu/evaluators/device_eval.py:30-201, single device).
+boxsegliver_tpu/evaluators/device_eval.py:30-201).
 
 The case uploads ONCE and is resized on the device with the
 cv2.INTER_LINEAR-equivalent bilinear resize (ops/image_ops.py; the JAX
@@ -22,6 +22,14 @@ that takes a two-channel click guide (models.guide_channels: UNetInter, or
 any model of the nf_inter task) gets a zero bg channel beside it, the
 [fg, bg] layout it was trained on.  JAX feeds the one channel only, which
 its flax model refuses when it was built for two.
+
+Under a data-parallel ``group`` (JAX's ``mesh=``, device_eval.py:50-87)
+--batch_size stays the global slice batch and must divide the group: each
+rank uploads the whole case (JAX replicates it), runs its rows of every
+slice batch (all mirror variants in one forward) and rank 0 gathers the
+probabilities and returns the volume; the other ranks return None.  The
+plain per-batch forward splits the batch the same way and gives every
+rank the whole batch's probabilities.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from boxsegliver_torch.evaluators.eval_loader import EvalCase
 from boxsegliver_torch.interactive.propagation import mirror_variants
 from boxsegliver_torch.models import guide_channels
 from boxsegliver_torch.ops.image_ops import resize_bilinear
+from boxsegliver_torch.parallel.mesh import per_device_batch_size
 
 
 def _resize_stack(arr: np.ndarray, pshape, device="cpu") -> torch.Tensor:
@@ -49,12 +58,16 @@ class DeviceSlicePredictor:
     sp_guide)``, which EvaluateVolume prefers over the host slice-batch
     route, and ``__call__(features)``, the plain per-batch forward."""
 
-    def __init__(self, model: torch.nn.Module, args, device="cuda"):
+    def __init__(self, model: torch.nn.Module, args, device="cuda",
+                 group=None):
         self.args = args
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.pshape = (int(args.im_height), int(args.im_width))
         self.bs = int(args.batch_size)
+        self.group = group
+        self.local_bs = (self.bs if group is None
+                         else per_device_batch_size(self.bs, group.size))
         self.flips = tuple(mirror_variants(
             int(getattr(args, "random_flip", 3)),
             bool(getattr(args, "eval_mirror", False))))
@@ -66,13 +79,19 @@ class DeviceSlicePredictor:
         one feature batch; host arrays are uploaded first."""
         feats = {k: torch.as_tensor(v, device=self.device)
                  for k, v in feats.items() if k != "names"}
-        return torch.softmax(self.model(feats).float(), dim=-1)
+        if self.group is None:
+            return torch.softmax(self.model(feats).float(), dim=-1)
+        local = self.group.take_rows(feats)
+        probs = torch.softmax(self.model(local).float(), dim=-1)
+        return self.group.gather_rows(probs.contiguous())
 
     def _forward(self, vol: torch.Tensor, guide: Optional[torch.Tensor],
                  ctx: Optional[torch.Tensor], z0: int, c: int) -> torch.Tensor:
-        """Mirror-averaged probabilities [bs, ph, pw, nc] of the batch of
-        cropped slices z0 .. z0 + bs − 1 (vol: [cz + c − 1, ph, pw])."""
-        bs = self.bs
+        """Mirror-averaged probabilities [b, ph, pw, nc] of this rank's
+        rows z0 + r·b .. z0 + (r + 1)·b − 1 of the slice batch at z0 (b the
+        rows a rank; vol: [cz + c − 1, ph, pw])."""
+        bs = self.local_bs
+        z0 = z0 + (0 if self.group is None else self.group.rank * bs)
         rows = torch.arange(z0, z0 + bs, device=self.device)
         zs = torch.clamp(rows, max=vol.shape[0] - c)
         idx = zs[:, None] + torch.arange(c, device=self.device)[None]
@@ -102,9 +121,10 @@ class DeviceSlicePredictor:
     @torch.inference_mode()
     def device_case(self, case: EvalCase,
                     context: Optional[np.ndarray] = None,
-                    sp_guide=None) -> np.ndarray:
+                    sp_guide=None) -> Optional[np.ndarray]:
         """Mirror-averaged softmax volume [cz, ph, pw, nc] for one case —
-        the device-resident equivalent of EvaluateVolume.predict_case."""
+        the device-resident equivalent of EvaluateVolume.predict_case
+        (under a group: on rank 0, None elsewhere)."""
         c = case.lhc + case.rhc + 1
         cz = case.depth
         vol = _resize_stack(np.asarray(case.volume), self.pshape, self.device)
@@ -125,4 +145,12 @@ class DeviceSlicePredictor:
             ctx = torch.from_numpy(rows).to(self.device)
         chunks = [self._forward(vol, guide, ctx, b0, c)
                   for b0 in range(0, cz, self.bs)]
-        return torch.cat(chunks)[:cz].cpu().numpy()
+        if self.group is None:
+            return torch.cat(chunks)[:cz].cpu().numpy()
+        # [batches, b, ...] of this rank's rows, to rank 0
+        parts = self.group.gather_to_chief(torch.stack(chunks).cpu().numpy())
+        if parts is None:
+            return None
+        # batch j holds rank 0's rows, then rank 1's, ...
+        whole = np.concatenate(parts, axis=1)
+        return whole.reshape((-1,) + whole.shape[2:])[:cz]

@@ -6,7 +6,10 @@ The val batches are sampled once at construction with a fixed RNG (so every
 epoch scores the same data), kept as host arrays, and pushed through the
 deterministic eval-mode device processing and the trainer's predict each
 epoch.  The per-batch metrics stay on the device until one bulk copy at the
-end of the epoch's eval.
+end of the epoch's eval.  Under a data-parallel group every rank runs the
+same batches; ``trainer.predict`` splits each batch over the ranks and
+gives every rank the whole batch's probabilities, so every rank computes
+the same metrics (rank 0 alone writes them).
 """
 
 from __future__ import annotations

@@ -25,6 +25,12 @@ resizes.
 each lesion's patch batch is one forward (mirror TTA inside it) and one B1
 launch for its guides, the patch probabilities max / min-merged into the
 full frame on the host.
+
+Under a data-parallel ``group`` (parallel.Group; the CLI's
+``--num_replicas > 1``) every rank walks the same cases and its predictor
+splits each slice batch over the ranks (``run``, ``run_sp``); rank 0 alone
+scores, saves and persists, and the other ranks return {}.  ``run_g``
+shards one image over the devices in JAX (ROADMAP item 4b) and raises.
 """
 
 from __future__ import annotations
@@ -68,11 +74,14 @@ def _host(probs) -> np.ndarray:
 class EvaluateVolume(EvaluateBase):
 
     def __init__(self, args, dataset_dir, classes: List[str],
-                 merge_tumor_to_liver: bool = True, largest: bool = True):
+                 merge_tumor_to_liver: bool = True, largest: bool = True,
+                 group=None):
         super().__init__(classes, list(args.metrics_eval),
                          getattr(args, "primary_metric", None),
                          getattr(args, "secondary_metric", None))
         self.args = args
+        self.group = group
+        self.chief = group is None or group.chief
         self.dataset_dir = Path(dataset_dir)
         self.merge_tumor_to_liver = merge_tumor_to_liver
         self.largest = largest
@@ -284,6 +293,11 @@ class EvaluateVolume(EvaluateBase):
         (reference input_pipeline_g.py:1217-1224).
         """
         args = self.args
+        if self.group is not None and self.group.size > 1:
+            raise NotImplementedError(
+                f"run_g over {self.group.size} ranks (the height-sharded "
+                "sweep) is not ported yet (ROADMAP item 4b: spatial "
+                "sharding)")
         if prior is None:
             prior_file = Path(getattr(args, "real_sp", None) or
                               self.dataset_dir / "prior.json")
@@ -327,8 +341,8 @@ class EvaluateVolume(EvaluateBase):
             t0 = time.time()
             case = parse_case_eval(meta, self.dataset_dir,
                                    im_channel=args.im_channel,
-                                   parse_label=do_eval, norm=self.norm,
-                                   whole_frame=self.nf)
+                                   parse_label=do_eval and self.chief,
+                                   norm=self.norm, whole_frame=self.nf)
             if getattr(args, "eval_in_patches", False):
                 probs = self.predict_case_patches(predict_fn, case)
             else:
@@ -367,8 +381,8 @@ class EvaluateVolume(EvaluateBase):
             t0 = time.time()
             case = parse_case_eval(meta, self.dataset_dir,
                                    im_channel=args.im_channel,
-                                   parse_label=do_eval, norm=self.norm,
-                                   whole_frame=True)
+                                   parse_label=do_eval and self.chief,
+                                   norm=self.norm, whole_frame=True)
             guide = self.sp_point_guides(meta, case, real_meta, device)
             if not hasattr(predict_fn, "device_case"):
                 guide = guide.cpu().numpy()
@@ -533,8 +547,10 @@ class EvaluateVolume(EvaluateBase):
                      save: bool, save_path, do_eval: bool, n: int,
                      t0: float) -> Dict[str, float]:
         """Per-case tail: score + confusion accumulation, optional save,
-        per-case log line."""
+        per-case log line (rank 0's alone under a group)."""
         results = {}
+        if not self.chief:
+            return results
         if do_eval:
             results = self.evaluate_case(case, probs, accumulator)
             self.append_metrics(results)
@@ -552,7 +568,10 @@ class EvaluateVolume(EvaluateBase):
     def _finish_run(self, accumulator: Dict[str, int], n: int
                     ) -> Dict[str, float]:
         """End-of-run tail: mean metrics + global dice from the confusion
-        accumulator + summary log + JSON persist."""
+        accumulator + summary log + JSON persist (rank 0's alone under a
+        group)."""
+        if not self.chief:
+            return {}
         results = self.mean_metrics()
         if accumulator:
             for cls in self.classes:

@@ -18,7 +18,7 @@ boxsegliver_tpu/evaluators/volume3d.py:32-311; reference threed_script/
   crop, then per-class ``metric_3d`` and the confusion totals per case.
 
 JAX's z-sharded path (``mesh`` / ``z_axis_shards``) waits for the
-multi-GPU slice (ROADMAP item 4).  Predict functions take feature
+spatial-sharding slice (ROADMAP item 4b).  Predict functions take feature
 dicts of arrays or tensors and give host arrays.
 """
 

@@ -22,6 +22,12 @@ round.  Each round, on the card and for every slice of the bucket at once:
 Slices that clear the threshold or run out of error freeze through masked
 updates, so the trajectory of every slice is the host loop's.  Slices pad
 to a bucket of ``_S_BUCKETS`` (fewer distinct shapes for cuDNN's plans).
+
+``mesh``: a data-parallel parallel.Group (JAX's data mesh,
+device_refine.py:44-65,206-215).  The bucket pads to a multiple of the
+group, each rank refines its rows of it (its clicks, its B1 or G1 launch,
+its forward), the stop test sums the ranks' unfinished slices, and the
+per-slice Dice and clicks are gathered.
 """
 
 from __future__ import annotations
@@ -37,8 +43,19 @@ from boxsegliver_torch.interactive.refine import (TTA_FLIPS, click_guide_3d,
 from boxsegliver_torch.ops.kernels import geodesic2d_batch
 from boxsegliver_torch.ops.labeling import (largest_error_click,
                                             largest_error_click_3d)
+from boxsegliver_torch.parallel.mesh import Group
 
 _S_BUCKETS = (8, 16, 32, 64, 128, 256)
+
+
+def slice_bucket(s: int, ranks: int = 1) -> int:
+    """Rows of the refiner's slice batch for ``s`` lesion slices: the
+    smallest bucket that holds them (``s`` itself past the last), padded
+    to a multiple of ``ranks`` (JAX device_refine.py:205-207)."""
+    sb = next((b for b in _S_BUCKETS if s <= b), s)
+    if sb % ranks:
+        sb += ranks - sb % ranks
+    return sb
 
 
 class DeviceRefiner2D:
@@ -53,10 +70,10 @@ class DeviceRefiner2D:
                  device="cuda", mesh=None):
         if guide_kind not in ("gaussian", "euclidean", "geodesic"):
             raise ValueError(f"unknown guide kind {guide_kind!r}")
-        if mesh is not None:
-            raise NotImplementedError("the refiner over a device mesh is not "
-                                      "ported yet (ROADMAP item 4: "
-                                      "multi-GPU)")
+        if mesh is not None and not isinstance(mesh, Group):
+            raise TypeError("mesh must be a parallel.Group (one rank a "
+                            f"process), not {type(mesh).__name__}")
+        self.mesh = mesh
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.dice_thresh = float(dice_thresh)
@@ -96,12 +113,17 @@ class DeviceRefiner2D:
         lab = lab[lesion]
         s, h, w = lab.shape
         c = images.shape[-1]
-        sb = next((b for b in _S_BUCKETS if s <= b), s)
+        group = self.mesh
+        sb = slice_bucket(s, 1 if group is None else group.size)
         dev = self.device
         imgs = torch.zeros((sb, h, w, c), dtype=torch.float32, device=dev)
         imgs[:s] = torch.from_numpy(images).to(dev)
         labs = torch.zeros((sb, h, w), dtype=torch.bool, device=dev)
         labs[:s] = torch.from_numpy(lab).to(dev)
+        if group is not None:               # this rank's rows of the bucket
+            rows = group.rows(sb)
+            imgs, labs = imgs[rows].contiguous(), labs[rows].contiguous()
+            sb = imgs.shape[0]
 
         t_max = self.max_iters
         pred = torch.zeros((sb, h, w), dtype=torch.bool, device=dev)
@@ -158,8 +180,14 @@ class DeviceRefiner2D:
             dice = torch.where(clicking, new_dice, dice)
             done = done | ~has_err | (clicking & (new_dice > self.dice_thresh))
             self.rounds = t + 1
-            if bool(done.all()):
+            if group is None:
+                if bool(done.all()):
+                    break
+            elif int(group.all_reduce_((~done).sum())) == 0:
                 break
+        if group is not None:
+            dice = group.gather_rows(dice)
+            clicks = group.gather_rows(clicks)
         dice = dice[:s].cpu().numpy()
         clicks = clicks[:s].cpu().numpy()
         return {"Dice": float(dice.mean()), "clicks": float(clicks.mean()),

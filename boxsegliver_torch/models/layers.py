@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from boxsegliver_torch.ops.kernels import instance_norm_relu
+from boxsegliver_torch.parallel.mesh import RankGenerator
 
 # flax nn.BatchNorm(momentum=0.99): ra <- 0.99 * ra + 0.01 * batch statistic
 BN_MOMENTUM = 0.99
@@ -53,11 +54,16 @@ def dropout_apply(x: torch.Tensor, keep: torch.Tensor,
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """flax ``nn.Dropout(rate, deterministic=not train)``; the keep mask is
-    uniform(0, 1) < 1 − rate from ``generator`` (on x's device)."""
+    uniform(0, 1) < 1 − rate from ``generator`` (on x's device).  A
+    parallel.mesh.RankGenerator draws the global batch's uniforms and
+    keeps the rank's rows."""
     if not train or rate <= 0.0:
         return x
     keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device)
+    if isinstance(generator, RankGenerator):
+        u = generator.rand_rows(x.shape, x.device)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
     return dropout_apply(x, u < keep_prob, keep_prob)
 
 
@@ -237,6 +243,7 @@ class Norm(nn.Module):
             eps = BN_EPS if normalizer == "batch_norm" else IN_EPS
         self.eps = eps
         self.momentum = momentum
+        self.group = None          # a parallel.Group: see sync_batch_norm
         self.weight = nn.Parameter(torch.ones(channels)) if use_scale else None
         self.bias = nn.Parameter(torch.zeros(channels)) if use_bias else None
         if normalizer == "batch_norm":
@@ -268,15 +275,85 @@ class Norm(nn.Module):
         """Batch statistics in float32 (one fused pass each way, mixed
         bf16 / float32 on both devices), then the flax running update from
         the saved mean and inverse deviation: var = invstd⁻² − eps,
-        recovered in float64."""
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        recovered in float64.  Under a group of more than one rank
+        (``sync_batch_norm``) the statistics are the global batch's, as
+        JAX's over a sharded batch axis (trainer.py:12-15)."""
+        group = self.group
+        if group is not None and group.size > 1:
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, group)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
         with torch.no_grad():
-            var = (invstd.double().pow(-2) - self.eps).clamp_min(0.0).float()
+            if group is None or group.size == 1:
+                var = (invstd.double().pow(-2) - self.eps).clamp_min(
+                    0.0).float()
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         return y
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Batch norm over the global batch of a group: the per-channel sum and
+    sum of squares and the count are summed (float64) over the ranks in one
+    all-reduce, x is normalized with the global mean and biased variance in
+    float32; backward sums Σdy and Σdy·x̂ (float64) over the ranks in one
+    all-reduce.  Returns (y, mean, biased var) — the last two for the
+    running update."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = [0] + list(range(2, x.ndim))
+        view = (1, -1) + (1,) * (x.ndim - 2)
+        xd = x.double()
+        count = torch.full((1, x.shape[1]), float(x.numel() // x.shape[1]),
+                           dtype=torch.float64, device=x.device)
+        stats = torch.cat([xd.sum(dims)[None], (xd * xd).sum(dims)[None],
+                           count])
+        group.all_reduce_(stats)
+        n = stats[2]
+        mean = stats[0] / n
+        var = (stats[1] / n - mean * mean).clamp_min(0.0)
+        mean, var = mean.float(), var.float()
+        invstd = torch.rsqrt(var + eps)
+        xhat = (x.float() - mean.view(view)) * invstd.view(view)
+        y = xhat
+        if weight is not None:
+            y = y * weight.view(view)
+        if bias is not None:
+            y = y + bias.view(view)
+        ctx.save_for_backward(xhat, invstd, weight, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight, n = ctx.saved_tensors
+        dims = [0] + list(range(2, dy.ndim))
+        view = (1, -1) + (1,) * (dy.ndim - 2)
+        dyf = dy.float()
+        local = torch.stack([dyf.sum(dims, dtype=torch.float64),
+                             (dyf * xhat).sum(dims, dtype=torch.float64)])
+        dweight = local[1].float() if ctx.needs_input_grad[1] else None
+        dbias = local[0].float() if ctx.needs_input_grad[2] else None
+        sums = (ctx.group.all_reduce_(local) / n).float()
+        scale = invstd if weight is None else invstd * weight
+        dx = scale.view(view) * (dyf - sums[0].view(view)
+                                 - xhat * sums[1].view(view))
+        return dx.to(dy.dtype), dweight, dbias, None, None
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Point every batch norm of ``model`` at ``group`` (a
+    parallel.Group): in train mode its statistics become the global
+    batch's.  None restores the local statistics."""
+    for m in model.modules():
+        if isinstance(m, Norm) and m.normalizer == "batch_norm":
+            m.group = group
+    return model
 
 
 class BatchNorm(Norm):

@@ -90,27 +90,41 @@ def compute_weights(w_type: str, labels: torch.Tensor, num_classes: int, *,
     return w / w.sum(dim=axes, keepdim=True) * area
 
 
+def _split(group) -> bool:
+    return group is not None and group.size > 1
+
+
 def weighted_sparse_softmax_cross_entropy(logits: torch.Tensor,
                                           labels: torch.Tensor,
-                                          w_type: str = "none",
+                                          w_type: str = "none", group=None,
                                           **w_params) -> torch.Tensor:
     """Weighted softmax CE over logits [bs, ..., C] and labels [bs, ...];
-    ``w_params`` as compute_weights takes them."""
+    ``w_params`` as compute_weights takes them.  Under a ``group`` (a
+    parallel.Group of more than one rank) the rank's rows are its share of
+    the global batch's loss: its own sum over the global normalizer
+    (count_nonzero(w) summed over the ranks; the global pixel count)."""
     logits = logits.float()
     lbl = labels.long()
     ce = (torch.logsumexp(logits, dim=-1)
           - torch.gather(logits, -1, lbl[..., None])[..., 0])
     w = compute_weights(w_type, lbl, logits.shape[-1], **w_params)
     if not isinstance(w, torch.Tensor):
+        if _split(group):
+            return ce.sum() / (ce.numel() * group.size) * w
         return ce.mean() * w
-    nonzero = torch.clamp_min((w != 0).float().sum(), 1.0)
-    return (w * ce).sum() / nonzero
+    nonzero = (w != 0).float().sum()
+    if _split(group):
+        group.all_reduce_(nonzero)
+    return (w * ce).sum() / torch.clamp_min(nonzero, 1.0)
 
 
 def sparse_dice_loss(probs: torch.Tensor, labels: torch.Tensor,
-                     with_bg: bool = False, eps: float = 1e-8) -> torch.Tensor:
+                     with_bg: bool = False, eps: float = 1e-8,
+                     group=None) -> torch.Tensor:
     """1 − mean over the batch of 2·Σ(onehot·p) / (Σ(onehot + p) + eps),
-    pooled over all spatial axes and the (foreground) classes."""
+    pooled over all spatial axes and the (foreground) classes.  Under a
+    ``group`` of more than one rank, the rank's share of the global
+    batch's loss: 1/N − Σ its samples' dice / the global batch."""
     n_classes = probs.shape[-1]
     probs = probs.float()
     one_hot = F.one_hot(labels.long(), n_classes).float()
@@ -120,16 +134,20 @@ def sparse_dice_loss(probs: torch.Tensor, labels: torch.Tensor,
     axes = tuple(range(1, probs.ndim))
     intersection = (one_hot * probs).sum(dim=axes)
     union = (one_hot + probs).sum(dim=axes)
-    return 1.0 - (2.0 * intersection / (union + eps)).mean()
+    dice = 2.0 * intersection / (union + eps)
+    if _split(group):
+        return 1.0 / group.size - dice.sum() / (dice.numel() * group.size)
+    return 1.0 - dice.mean()
 
 
 def make_loss_fn(loss_type: str, loss_weight_type: str = "none", *,
                  numeric_w=None, proportion_decay: Optional[float] = None,
-                 examples_w=None):
+                 examples_w=None, group=None):
     """Data loss from ``--loss_type``: "xentropy", "dice" or "xentropy+dice"
     (both terms added when both substrings are present), the CE weighted by
     ``loss_weight_type``.  The weight vectors are uploaded once per
-    device."""
+    device.  Under a ``group`` the loss is the rank's share of the global
+    batch's: the ranks' shares sum to it, and so do their gradients."""
     use_xent = "xentropy" in loss_type
     use_dice = "dice" in loss_type
     if not (use_xent or use_dice):
@@ -148,10 +166,10 @@ def make_loss_fn(loss_type: str, loss_weight_type: str = "none", *,
                     w_params[name] = _host_constant(values, logits,
                                                     uploads[name])
             total = total + weighted_sparse_softmax_cross_entropy(
-                logits, labels, loss_weight_type, **w_params)
+                logits, labels, loss_weight_type, group=group, **w_params)
         if use_dice:
             probs = torch.softmax(logits.float(), dim=-1)
-            total = total + sparse_dice_loss(probs, labels)
+            total = total + sparse_dice_loss(probs, labels, group=group)
         return total
 
     return loss_fn

@@ -49,11 +49,14 @@ METRIC_FNS = {"dice": metric_dice, "voe": metric_voe, "vd": metric_vd,
               "rvd": metric_vd}
 
 
-def build_train_metrics(probs, labels, classes, metric_names):
+def build_train_metrics(probs, labels, classes, metric_names, group=None):
     """Per-foreground-class train metrics dict keyed '<Class>/<Metric>'
     (reference UNet.py:137-155).  ``classes`` includes 'Background' at index
     0; probs [bs, ..., c] are thresholded at 0.5 like the reference's
-    <Class>Pred tensors."""
+    <Class>Pred tensors.  Under a ``group`` of more than one rank each
+    metric is the mean over the global batch: the ranks' per-sample sums
+    are summed in one all-reduce."""
+    split = group is not None and group.size > 1
     out = {}
     for i in range(1, len(classes)):
         pred_i = (probs[..., i] > 0.5).float()
@@ -61,7 +64,12 @@ def build_train_metrics(probs, labels, classes, metric_names):
         for met in metric_names:
             fn = METRIC_FNS[met.lower()]
             out[f"{classes[i]}/{met}"] = fn(pred_i[..., None],
-                                            lab_i[..., None])
+                                            lab_i[..., None],
+                                            reduce=not split)
+    if split and out:
+        n = probs.shape[0] * group.size
+        sums = group.all_reduce_(torch.stack([v.sum() for v in out.values()]))
+        out = dict(zip(out, sums / n))
     return out
 
 

@@ -43,8 +43,37 @@ core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
   source's top-level scopes before the partial restore (JAX
   trainer.py:335-343).
 
-Not ported yet (it raises, naming ROADMAP item 4: multi-GPU):
---num_replicas > 1 (DDP with sync batch norm).
+Data parallel (``group``: a parallel.Group, one rank a process; JAX's
+trainer over a mesh, trainer.py:221-263).  A step of N ranks is the step of
+one process over the global batch (--batch_size, which must divide N):
+
+- every rank stages its rows [r·b, (r+1)·b) of the same global batch (the
+  same seeded sampler stream on every rank), the preprocess draws the
+  global batch's noise, flips and gamma from the generator they share and
+  keeps the rank's rows, and dropout draws its masks likewise
+  (parallel.mesh.RankGenerator);
+- batch norm normalizes with the global batch's statistics
+  (layers.sync_batch_norm); the loss is the rank's share of the global
+  loss (global normalizers, ops/losses.py), so the ranks' gradients sum
+  to the global gradient: after backward one all-reduce sums a flat
+  float32 buffer (allocated once) holding every gradient and the data
+  loss, the gradients are views of it; the L2 term and its gradient are
+  added after it, once; the train metrics are global means
+  (ops/metrics.build_train_metrics);
+- rank 0 writes checkpoints, summaries and sidecars and keeps the
+  plateau LR and the best checkpoint; the other ranks wait at a barrier
+  after each write, and the plateau's lr_scale and stop flag are
+  broadcast from rank 0 at each drain; a restore reads the same file on
+  every rank, then rank 0's weights are broadcast;
+- ``predict`` runs the rank's rows of a feature batch and gathers the
+  probabilities of the whole batch on every rank;
+- K > 1: under NCCL the all-reduces are captured in the CUDA graph; a
+  gloo collective cannot be captured, so under gloo the K steps of a
+  dispatch run eagerly (logged once).
+
+A group of one rank keeps the local batch statistics and loss and runs the
+flat all-reduce (the identity): under NCCL, the step graphed with its
+collective.
 """
 
 from __future__ import annotations
@@ -56,8 +85,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from boxsegliver_torch.models.layers import sync_batch_norm
 from boxsegliver_torch.ops import losses as losses_mod
 from boxsegliver_torch.ops import metrics as metrics_mod
+from boxsegliver_torch.parallel.mesh import (RankGenerator,
+                                             per_device_batch_size)
 from boxsegliver_torch.train.checkpoint import (CheckpointManager, load_state,
                                                 warm_start)
 from boxsegliver_torch.train.hooks import (AverageMeter, BestKeeper,
@@ -74,16 +106,17 @@ logger = logging.getLogger("boxsegliver")
 WARMUP_STEPS = 3
 
 
-def make_loss_fn(args):
+def make_loss_fn(args, group=None):
     """Data loss of --loss_type / --loss_weight_type (reference _build_loss,
-    NetworksV2/GUNet.py:394-413)."""
+    NetworksV2/GUNet.py:394-413); under a group the rank's share of the
+    global batch's."""
     w_params = {}
     if args.loss_weight_type == "numerical":
         w_params["numeric_w"] = args.loss_numeric_w
     elif args.loss_weight_type == "proportion":
         w_params["proportion_decay"] = args.loss_proportion_decay
     return losses_mod.make_loss_fn(args.loss_type, args.loss_weight_type,
-                                   **w_params)
+                                   group=group, **w_params)
 
 
 def warm_start_source(args) -> Tuple[Optional[str], Optional[Dict]]:
@@ -131,11 +164,13 @@ class Trainer:
     (the reference CustomEstimator.train loop)."""
 
     def __init__(self, model: torch.nn.Module, args, classes: Sequence[str],
-                 device, preprocess_fn=None, save_ckpt_steps: int = 5000):
-        if getattr(args, "num_replicas", 0) and args.num_replicas > 1:
-            raise NotImplementedError(
-                "--mode train with --num_replicas > 1 is not ported yet "
-                "(ROADMAP item 4: multi-GPU)")
+                 device, preprocess_fn=None, save_ckpt_steps: int = 5000,
+                 group=None):
+        self.group = group
+        self.chief = group is None or group.chief
+        if group is not None:
+            per_device_batch_size(int(args.batch_size), group.size)
+            sync_batch_norm(model, group)
         self.steps_per_dispatch = max(1, int(getattr(args,
                                                      "steps_per_dispatch", 1)))
         if self.steps_per_dispatch > 1 and preprocess_fn is None:
@@ -148,6 +183,8 @@ class Trainer:
         self.preprocess_fn = preprocess_fn
         seed = int(getattr(args, "seed", 1234))
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._model_rng = (self.generator if group is None
+                           else RankGenerator(self.generator, group))
 
         named = list(self.model.named_parameters())
         self.param_names = [n for n, _ in named]
@@ -155,7 +192,7 @@ class Trainer:
         self.optimizer = Optimizer(args, self.params)
         self.lr_fn = make_lr_fn(args)
         self.lr_scale = 1.0
-        self.data_loss_fn = make_loss_fn(args)
+        self.data_loss_fn = make_loss_fn(args, group)
         self.weight_decay = float(args.weight_decay_rate)
         self.use_reg = (args.optimizer.lower() != "adamw"
                         and self.weight_decay > 0)
@@ -179,7 +216,16 @@ class Trainer:
         self._graphs: Dict[bool, tuple] = {}
         self._graphed = self.device.type == "cuda" and \
             self.steps_per_dispatch > 1
+        if self._graphed and group is not None and group.backend != "nccl":
+            self._graphed = False
+            logger.info("--steps_per_dispatch %d under a %s group: its "
+                        "collectives cannot be captured in a CUDA graph, so "
+                        "the %d steps of a dispatch run eagerly",
+                        self.steps_per_dispatch, group.backend,
+                        self.steps_per_dispatch)
         self._warm = 0
+        self._flat = None           # the flat gradient buffer of a group
+        self._stop = False          # the plateau's stop (rank 0's, broadcast)
 
         self.ckpt = CheckpointManager(args.model_dir,
                                       save_interval_steps=save_ckpt_steps)
@@ -187,7 +233,8 @@ class Trainer:
         self.speed = SpeedLogger(log_step=args.log_step)
         self.summary = SummaryWriter(
             Path(args.model_dir) / "summaries",
-            prefix=getattr(args, "summary_prefix", "") or "")
+            prefix=getattr(args, "summary_prefix", "") or "") \
+            if self.chief else None
         self.plateau: Optional[ReduceLROnPlateau] = None
         if args.learning_policy == "plateau":
             self.plateau = ReduceLROnPlateau(
@@ -199,7 +246,8 @@ class Trainer:
                 min_lr_scale=args.lr_end / args.learning_rate)
             self.lr_scale = float(self.plateau.lr_scale)
         self.best_keeper: Optional[BestKeeper] = None
-        if getattr(args, "save_best", False) and getattr(args, "primary_metric", None):
+        if self.chief and getattr(args, "save_best", False) and \
+                getattr(args, "primary_metric", None):
             if getattr(args, "save_best_ma", False):
                 self.best_keeper = BestKeeperMA(
                     args.model_dir, args.primary_metric,
@@ -231,14 +279,16 @@ class Trainer:
             self.lr_scale = float(state["lr_scale"])
             self.generator.set_state(state["generator"])
             self._host_step = int(state["step"])
-            return self._host_step
-        src, scope_map = warm_start_source(self.args)
-        if src:
-            n = warm_start(self.model, src, scope_map=scope_map)
-            logger.info("Warm started %d tensors from %s (scope_map=%s)", n,
-                        src, scope_map)
-        self._host_step = 0
-        return 0
+        else:
+            src, scope_map = warm_start_source(self.args)
+            if src:
+                n = warm_start(self.model, src, scope_map=scope_map)
+                logger.info("Warm started %d tensors from %s (scope_map=%s)",
+                            n, src, scope_map)
+            self._host_step = 0
+        if self.group is not None:
+            self.group.broadcast_module(self.model)
+        return self._host_step
 
     @property
     def global_step(self) -> int:
@@ -249,14 +299,18 @@ class Trainer:
                   labels: torch.Tensor):
         """Forward in train mode, loss and backward: (gradients in
         ``self.params`` order, total loss, data loss, logits), the L2 term's
-        value and gradient included."""
-        logits = self.model(features, train=True, generator=self.generator)
+        value and gradient included.  Under a group the rank's rows give
+        the global batch's gradients and losses (one all-reduce)."""
+        logits = self.model(features, train=True, generator=self._model_rng)
         data_loss = self.data_loss_fn(logits, labels)
         grads = list(torch.autograd.grad(data_loss, self.params,
                                          allow_unused=True))
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, self.params)]
-        total = data_loss.detach()
+        data_loss = data_loss.detach()
+        if self.group is not None:
+            grads, data_loss = self._all_reduce(grads, data_loss)
+        total = data_loss
         if self.use_reg and self.decayed_idx:
             dec = [self.params[i] for i in self.decayed_idx]
             with torch.no_grad():
@@ -264,7 +318,25 @@ class Trainer:
                     dec, self.weight_decay)
                 torch._foreach_add_([grads[i] for i in self.decayed_idx], dec,
                                     alpha=self.weight_decay)
-        return grads, total, data_loss.detach(), logits.detach()
+        return grads, total, data_loss, logits.detach()
+
+    def _all_reduce(self, grads, data_loss):
+        """The ranks' gradients and data-loss shares summed in one
+        all-reduce of a flat float32 buffer (allocated once); returns the
+        gradients as views of it, and the global data loss."""
+        if self._flat is None:
+            n = sum(p.numel() for p in self.params)
+            self._flat = torch.empty(n + 1, dtype=torch.float32,
+                                     device=self.device)
+            views, off = [], 0
+            for p in self.params:
+                views.append(self._flat[off:off + p.numel()].view(p.shape))
+                off += p.numel()
+            self._views = views
+        torch._foreach_copy_(self._views, grads)
+        self._flat[-1].copy_(data_loss)
+        self.group.all_reduce_(self._flat)
+        return list(self._views), self._flat[-1].clone()
 
     # -- dispatch ----------------------------------------------------------
     def _stage(self, batches: Sequence[Dict[str, np.ndarray]]) -> List[float]:
@@ -345,7 +417,8 @@ class Trainer:
             with torch.no_grad():
                 probs = torch.softmax(logits, dim=-1)
                 tm = metrics_mod.build_train_metrics(
-                    probs, labels, self.classes, self.metric_names)
+                    probs, labels, self.classes, self.metric_names,
+                    group=self.group)
                 mvals = torch.stack([tm[k].float() for k in self.metric_keys])
         else:
             mvals = self._zeros
@@ -395,7 +468,11 @@ class Trainer:
 
     def train_multi_step(self, raw_batches: Sequence[Dict[str, np.ndarray]]):
         """One dispatch of len(raw_batches) <= K steps; returns
-        [(step, device values [total, data, *metrics], lr)] per step."""
+        [(step, device values [total, data, *metrics], lr)] per step.
+        Under a group each raw batch is the global one; the rank stages its
+        rows."""
+        if self.group is not None:
+            raw_batches = [self.group.take_rows(b) for b in raw_batches]
         lrs = self._stage(raw_batches)
         self._ctr.zero_()
         first = self._host_step
@@ -452,10 +529,18 @@ class Trainer:
                 pending = []
                 if at_epoch:
                     self._run_eval(eval_fn, step)
-            if done or (self.plateau and self.plateau.should_stop()):
+            if done or self._stop:
                 break
         self._drain(pending)
-        self.ckpt.save(self.global_step, self.state())
+        self._save(self.global_step)
+
+    def _save(self, step: int):
+        """A periodic checkpoint, written by rank 0; under a group the other
+        ranks wait for it."""
+        if self.chief:
+            self.ckpt.save(step, self.state())
+        if self.group is not None:
+            self.group.barrier()
 
     def _drain(self, pending):
         """One bulk device-to-host copy of the window's values, then the host
@@ -469,10 +554,14 @@ class Trainer:
                        "learning_rate": lr}
             metrics.update(zip(self.metric_keys, row[2:]))
             self._after_step(step, metrics)
+        self._stop = bool(self.plateau and self.plateau.should_stop())
+        if self.group is not None:
+            self.lr_scale, self._stop = self.group.broadcast_object(
+                (self.lr_scale, self._stop))
         first, last = pending[0][0], pending[-1][0]
         interval = self.ckpt.save_interval_steps
         if last // interval > (first - 1) // interval:
-            self.ckpt.save(last, self.state())
+            self._save(last)
 
     def _after_step(self, step: int, metrics):
         loss = float(metrics["total_loss"])
@@ -481,7 +570,7 @@ class Trainer:
                 f"NaN/Inf loss at step {step}")  # reference NanTensorHook
         self.loss_meter.update(loss)
         lr = float(metrics["learning_rate"])
-        if self.plateau is not None:
+        if self.plateau is not None and self.chief:
             new_scale = self.plateau.step(step, self.loss_meter.avg, lr)
             if new_scale is not None:
                 self.lr_scale = float(new_scale)
@@ -492,27 +581,38 @@ class Trainer:
             if "/" in k:
                 log_vals[k] = float(v)
         self.speed.maybe_log(step, log_vals)
-        if step % self.args.log_step == 0 or step == 1:
+        if self.summary is not None and (step % self.args.log_step == 0
+                                         or step == 1):
             self.summary.scalars(log_vals, step)
         if step % self.args.log_step == 0:
             self.loss_meter.reset()  # periodic reset (estimator.py:657-675)
 
     def _run_eval(self, eval_fn, step: int):
+        """The epoch-end eval on every rank (its predicts are collective);
+        rank 0 writes its summary and keeps the best checkpoint."""
         results = eval_fn(self)
-        if results:
+        if results and self.summary is not None:
             self.summary.scalars({f"eval/{k}": v for k, v in results.items()},
                                  step)
         if results and self.best_keeper is not None:
             self.best_keeper.update(
                 step, results,
                 save_cb=lambda tag: self.ckpt.save_best(self.state(), tag))
+        if self.group is not None:
+            self.group.barrier()
 
     # -- predict -----------------------------------------------------------
     @torch.no_grad()
     def predict(self, features: Dict) -> torch.Tensor:
         """Softmax probabilities of one feature batch in eval mode (batch
         norm with its running statistics), on the trainer's device; host
-        arrays are uploaded first (the volume evaluator's host batches)."""
+        arrays are uploaded first (the volume evaluator's host batches).
+        Under a group each rank runs its rows and every rank gets the whole
+        batch's probabilities."""
         features = {k: torch.as_tensor(v, device=self.device)
                     for k, v in features.items()}
-        return torch.softmax(self.model(features, train=False), dim=-1)
+        if self.group is None:
+            return torch.softmax(self.model(features, train=False), dim=-1)
+        local = self.group.take_rows(features)
+        probs = torch.softmax(self.model(local, train=False), dim=-1)
+        return self.group.gather_rows(probs.float().contiguous())

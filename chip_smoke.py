@@ -274,6 +274,29 @@ result line):
    with B1 / B2 device ms per step against their bounds, a GUNet_TINY
    --use_se step card vs CPU (1e-4).  (e) GUNet.yml with each 1-D VGG
    context: one forward at 2 x 128^2 in float32, card vs CPU within 1e-4.
+24. data parallel — two ranks of a gloo group sharing cuda:0 (spawned by
+   ``boxsegliver_torch.parallel.launch`` after the kernels were built)
+   against one process over the same global batches, every run in float32
+   with TF32 off: (a) ``001_dist.sh train`` flags (UNet.yml full width,
+   batch norm synchronized over the ranks, per-rank batch 8, global 16,
+   --device_cache, numerical weights 0.2 / 0.4 / 4.4; Momentum): the
+   global batch's gradient (relative L2 within 1e-4), 3 steps' losses
+   (1e-4 relative), parameters (1e-4) and running statistics (1e-5), every
+   rank equal to rank 0, no B1 / B2 launch; (b) the same with the
+   flagship's ``002_gnet_sp.sh`` flags (GUNet.yml, instance norm) at
+   --steps_per_dispatch 3, run eagerly under gloo, each rank's B1 / B2
+   launches equal to one process's; both print ms/step and the share of
+   the step in the collectives, labelled as a correctness run of ranks
+   sharing one card, not a scaling figure; (c) ``run`` (phase 10's UNet)
+   and ``run_sp`` (phase 19c's UNetInter) with each slice batch split over
+   the ranks: per-case metrics within 1e-6, rank 0 alone scoring; (d) the
+   click eval's DeviceRefiner2D with gaussian and geodesic guides: equal
+   clicks and rounds, Dice within 1e-5, B1 / G1 launches a rank = rounds;
+   (e) a 1-rank NCCL group on cuda:0: 32 flagship steps as two K = 16
+   graph replays with the gradient all-reduce captured, parameters within
+   1e-6 of (or bit-equal to) the groupless run, ms/step of both; (f) with
+   two or more cards, ``001_dist.sh train`` through the CLI over NCCL
+   (otherwise printed as not run).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
 G1, and per path in ``launches_by_path``: the device sweep of phase 5,
@@ -283,8 +306,10 @@ preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
 nf_inter_train, nf_inter_eval and run_sp, phase 20's click evals, new
 models' training and click serving, phase 21's UNet3D paths with the
 checkpoint sweep, phase 22's nf2 train, run_patch (mirror TTA and
-plain), infer --pos and serving, and phase 23's DenseUNet train, eval,
-checkpoint sweep and serving and the --use_se train; B2's
+plain), infer --pos and serving, phase 23's DenseUNet train, eval,
+checkpoint sweep and serving and the --use_se train, and phase 24's rank 0
+of the 001_dist and G-Net trains, run, run_sp and the two refiners, and
+the 1-rank NCCL group's K = 16 replays; B2's
 ``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
 level 0; ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
@@ -5208,6 +5233,453 @@ def dense_phase(tmp, dev, seed):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 24: data parallel (001_dist.sh) over a process group
+# ---------------------------------------------------------------------------
+
+# run_scripts/template/001_dist.sh train flags for 2 ranks (per-rank batch 8,
+# global 16); the dataset, the fold and the step counts are the smoke's own
+DIST_RANKS = 2
+DIST_TRAIN_FLAGS = ["liver", "--mode", "train", "--tag", "chip_smoke_dist",
+                    "--model", "UNet", "--classes", "Liver", "Tumor",
+                    "--im_height", "256", "--im_width", "256", "--im_channel",
+                    "3", "--random_flip", "3", "--num_replicas",
+                    str(DIST_RANKS), "--batch_size", str(8 * DIST_RANKS),
+                    "--noise_scale", "0.05", "--num_of_total_steps",
+                    "600000", "--primary_metric", "Tumor/Dice",
+                    "--secondary_metric", "Liver/Dice", "--loss_weight_type",
+                    "numerical", "--loss_numeric_w", "0.2", "0.4", "4.4",
+                    "--batches_per_epoch", "2000", "--learning_policy",
+                    "plateau", "--learning_rate", "0.001", "--lr_end", "0",
+                    "--lr_decay_rate", "0.2", "--eval_per_epoch",
+                    "--evaluator", "Volume", "--save_best", "--device_cache"]
+# the ranks against one process: float32 (TF32 off) and Momentum, whose
+# update is the gradient's arithmetic (an Adam step turns a gradient within
+# round-off of 0 into ±lr; see train_card_vs_cpu)
+DIST_EXACT = ["--compute_dtype", "float32", "--optimizer", "Momentum"]
+DIST_STEPS = 3
+DIST_TIMED = 8
+DIST_LABEL = ("N ranks sharing one card over gloo: a correctness run, not a "
+              "scaling figure")
+
+
+def dist_train_argv(tmp, md, flags, *extra):
+    return flags + smoke_data(tmp, md, *DIST_EXACT, *ONE_WORKER) + list(extra)
+
+
+def dist_train(group, tmp, argv, seed):
+    """DIST_STEPS steps of ``argv``'s trainer (a rank of ``group``, or one
+    process over the global batch with None) on the same seeded global
+    batches of the device-cache layout: the global batch's gradient at the
+    start (the state restored after it), the step values, the parameters
+    and buffers after the steps, the launches of the steps, then the step
+    in steady state (DIST_TIMED steps), and again with each collective
+    timed between synchronizations."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.device_cache import DeviceVolumeCache
+    from boxsegliver_torch.data.pipeline import batch_to_device
+    from boxsegliver_torch.data.sampler import TrainSampler
+    from boxsegliver_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    args = cli.get_args(argv)
+    ds = Path(tmp) / "ds"
+    train_pids, _ = cli._split_pids(args, ds)
+    cache = DeviceVolumeCache(ds, [int(p) for p in train_pids], dev)
+    sampler = TrainSampler(ds, args, mode="train", seed=seed,
+                           zbase=cache.zbase)
+    rng = np.random.RandomState(seed)
+    bs, k = int(args.batch_size), int(args.steps_per_dispatch)
+    batches = [sampler.sample_batch(bs, rng=rng)
+               for _ in range(DIST_STEPS + DIST_TIMED)]
+    trainer = cli.build_trainer(args, dev, cache=cache, group=group)
+    model0 = {n: v.clone() for n, v in trainer.model.state_dict().items()}
+    gen0 = trainer.generator.get_state()
+    raw = batches[0] if group is None else group.take_rows(batches[0])
+    feats, labels = trainer.preprocess_fn(batch_to_device(raw, dev),
+                                          trainer.generator)
+    grads, total, _, _ = trainer.gradients(feats, labels)
+    grad = torch.cat([g.reshape(-1) for g in grads]).cpu()
+    trainer.model.load_state_dict(model0)
+    trainer.generator.set_state(gen0)
+    del feats, labels, grads, model0
+    kernels.reset_launch_counts()
+    vals = []
+    for i in range(0, DIST_STEPS, k):
+        vals += [v for _, v, _ in trainer.train_multi_step(
+            batches[i:i + k])]
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in kernels.KERNELS.items()}
+    out = {"grad": grad, "total": float(total),
+           "values": torch.stack(vals).cpu(), "launches": launches,
+           "state": {n: v.detach().to("cpu", copy=True) for n, v in
+                     trainer.model.state_dict().items()}}
+
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(DIST_STEPS, DIST_STEPS + DIST_TIMED, k):
+            trainer.train_multi_step(batches[i:i + k])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / DIST_TIMED * 1e3
+
+    window()                                        # warm
+    out["ms"] = window()
+    if group is not None:
+        spent = [0.0, 0]
+        plain = group.all_reduce_
+
+        def timed(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain(t)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            spent[1] += 1
+            return t
+
+        group.all_reduce_ = timed
+        out["ms_timed"] = window()
+        group.all_reduce_ = plain
+        out["coll_ms"] = spent[0] / DIST_TIMED * 1e3
+        out["colls"] = spent[1] / DIST_TIMED
+    if trainer.summary is not None:
+        trainer.summary.close()
+    return out
+
+
+def train_errors(got, ref) -> dict:
+    """A run's first 3 steps against one process over the global batch:
+    loss (max relative), the gradient (relative L2 over all parameters),
+    parameters and running statistics (max abs)."""
+    stats = [n for n in ref["state"] if "running" in n]
+    params = [n for n in ref["state"] if "running" not in n]
+    return {
+        "loss": float(((got["values"][:, 0] - ref["values"][:, 0]).abs()
+                       / ref["values"][:, 0].abs()).max()),
+        "grad": float((got["grad"] - ref["grad"]).norm()
+                      / ref["grad"].norm()),
+        "params": _max_err(got["state"], ref["state"], params),
+        "stats": _max_err(got["state"], ref["state"], stats),
+        "n_stats": len(stats)}
+
+
+def rank_spread(group, state) -> float:
+    """Largest difference between this rank's tensors and rank 0's."""
+    flat = torch.cat([v.reshape(-1).float() for v in state.values()])
+    ref = group.broadcast_(flat.clone())
+    return float((flat - ref).abs().max())
+
+
+def _max_err(a: dict, b: dict, keys) -> float:
+    return max((float((a[n].float() - b[n].float()).abs().max())
+                for n in keys), default=0.0)
+
+
+def dist_evals(group, tmp, unet_md, inter_md):
+    """The unguided ``run`` (phase 10's UNet on the flagship's set) and
+    ``run_sp`` (phase 19c's UNetInter on synthetic_nf) of the eval CLI's
+    flags in float32 (TF32 off: the per-case metrics are held at 1e-6), with
+    the DeviceSlicePredictor and EvaluateVolume of ``group`` (None: one
+    process): per-case metrics, results, launches, seconds."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.device_eval import DeviceSlicePredictor
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+
+    dev = torch.device("cuda")
+    out = {}
+    for name, argv in (
+            ("run", UNET_EVAL_FLAGS + smoke_data(tmp, unet_md)),
+            ("run_sp", nf_argv("nf", "eval", "chip_smoke_nf_inter", tmp,
+                               inter_md, *INTER_MODEL))):
+        args = cli.get_args(argv + ["--compute_dtype", "float32"])
+        ds = cli.resolve_dataset_dir(args)
+        model = cli.build_model_from_args(args, dev)
+        pred = DeviceSlicePredictor(model, args, device=dev, group=group)
+        ev = EvaluateVolume(args, ds, ["Background"] + list(args.classes),
+                            group=group)
+        metas = cli._test_metas(args, ds)
+        run = ev.run if name == "run" else ev.run_sp
+        res, seconds, launches = counted_run(lambda: run(pred, metas))
+        out[name] = {"results": res, "s": seconds, "launches": launches,
+                     "cases": len(metas),
+                     "per_case": {m: list(v) for m, v in
+                                  ev._metric_values.items()}}
+    return out
+
+
+def dist_refiners(group, tmp, inter_md):
+    """Phase 20's click eval cases through the CLI's DeviceRefiner2D of
+    ``group`` (None: one process), gaussian and geodesic guides, float32:
+    per case Dice, clicks and rounds, and the launches."""
+    from boxsegliver_torch import config as config_mod
+    from boxsegliver_torch.cli import interactive_eval as icli
+    from boxsegliver_torch.cli import main as cli
+
+    dev = torch.device("cuda")
+    parser = icli.build_parser()
+    args = parser.parse_args(click_eval_argv(
+        tmp, inter_md, "on", "gaussian", "--compute_dtype", "float32"))
+    config_mod.check_args(args, parser)
+    config_mod.fill_default_args(args)
+    model = cli.build_model_from_args(args, dev)
+    cases = click_eval_cases(args)
+    out = {}
+    for kind in ("gaussian", "geodesic"):
+        args.guide_kind = kind
+        refiner = icli.build_refiner(args, model, dev, group)
+        rows, rounds = [], []
+
+        def refine_all():
+            for images, labels in cases:
+                rows.append(refiner.refine_case(images, labels))
+                rounds.append(refiner.rounds)
+
+        _, seconds, launches = counted_run(refine_all)
+        out[kind] = {"cases": rows, "rounds": rounds, "s": seconds,
+                     "launches": launches}
+    return out
+
+
+def dist_runs(group, tmp, unet_md, inter_md, seed):
+    """24a-d on this process: a rank of ``group``, or one process."""
+    suffix = "" if group is None else "_group"
+    return {"24a": dist_train(group, tmp, dist_train_argv(
+                tmp, Path(tmp) / f"dist_md{suffix}", DIST_TRAIN_FLAGS), seed),
+            "24b": dist_train(group, tmp, dist_train_argv(
+                tmp, Path(tmp) / f"dist_gnet_md{suffix}", TRAIN_FLAGS,
+                "--batch_size", str(8 * DIST_RANKS), "--device_cache",
+                *(() if group is None else
+                  ("--steps_per_dispatch", str(DIST_STEPS)))), seed),
+            "24c": dist_evals(group, tmp, unet_md, inter_md),
+            "24d": dist_refiners(group, tmp, inter_md)}
+
+
+def dist_rank(group, tmp, unet_md, inter_md, seed, ref_path):
+    """One rank of phase 24's gloo group (24a-d).  Rank 0 holds its train
+    runs against one process's (``ref_path``); every rank's spread from
+    rank 0 is measured; the small results of every rank are gathered to
+    rank 0."""
+    from boxsegliver_torch import config as config_mod
+
+    config_mod.resolve_device("cuda")                # TF32 off here too
+    out = dist_runs(group, tmp, unet_md, inter_md, seed)
+    ref = torch.load(ref_path, weights_only=False) if group.chief else None
+    for part in ("24a", "24b"):
+        r = out[part]
+        r["spread"] = rank_spread(group, r["state"])
+        if group.chief:
+            r["errors"] = train_errors(r, ref[part])
+        for big in ("state", "grad"):
+            r.pop(big)
+    return group.gather_to_chief(out)
+
+
+def dist_graph(group, tmp, seed, ref_path=None):
+    """24e: 32 flagship train steps at --steps_per_dispatch 16 (two
+    replays of the captured step), with ``group`` (a 1-rank NCCL group:
+    its gradient all-reduce captured in the graph) or without one; the
+    parameters after them (held against ``ref_path``'s when given) and the
+    launches of the 32 steps, then 3 windows of 16 steps (median ms/step)
+    and the NCCL kernels of one replay by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from boxsegliver_torch import config as config_mod
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.data.sampler import TrainSampler
+
+    dev = config_mod.resolve_device("cuda")
+    args = cli.get_args(smoke_train_argv(
+        tmp, 32, "--steps_per_dispatch", "16", "--model_dir",
+        str(Path(tmp) / ("graph_group" if group else "graph_none"))))
+    sampler = TrainSampler(Path(tmp) / "ds", args, seed=5)
+    rng = np.random.RandomState(5)
+    batches = [sampler.sample_batch(8, rng=rng) for _ in range(32)]
+    trainer = cli.build_trainer(args, dev, group=group)
+
+    def steps():
+        for i in range(0, 32, 16):
+            trainer.train_multi_step(batches[i:i + 16])
+
+    _, _, launches = counted_run(steps)
+    state = {n: v.detach().to("cpu", copy=True) for n, v in
+             trainer.model.state_dict().items()}
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_multi_step(batches[:16])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / 16 * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_multi_step(batches[:16])
+        torch.cuda.synchronize()
+    out = {"ms": statistics.median(walls), "graphs": len(trainer._graphs),
+           "launches": launches,
+           "nccl": sorted({e.key for e in prof.key_averages()
+                           if "nccl" in e.key.lower()}),
+           "replay": {("metrics" if m else "no metrics"): c
+                      for m, (_, c) in trainer._graphs.items()}}
+    if ref_path is None:
+        out["state"] = state
+    else:
+        ref = torch.load(ref_path, weights_only=True)
+        out["err"] = _max_err(state, ref, ref)
+        out["same"] = all(torch.equal(state[n], v) for n, v in ref.items())
+    trainer.summary.close()
+    return out
+
+
+def dist_phase(tmp, dev, seed, unet_md, inter_md):
+    """Phase 24: 24a-d with DIST_RANKS gloo ranks sharing the card (the
+    kernels were built before any spawn) against one process (run first,
+    its train runs kept on disk for rank 0); 24e a 1-rank NCCL group's
+    graphed steps against the groupless ones; 24f the CLI over NCCL where
+    the machine has two cards.  Returns the launch counts per path (rank
+    0's)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    one = dist_runs(None, tmp, unet_md, inter_md, seed)
+    ref_path = Path(tmp) / "dist_ref.pt"
+    torch.save({p: {"values": one[p]["values"], "grad": one[p]["grad"],
+                    "state": one[p]["state"]} for p in ("24a", "24b")},
+               ref_path)
+    t_one = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(dist_rank, DIST_RANKS, "cuda:0", tmp, unet_md, inter_md,
+                   seed, str(ref_path), backend="gloo")
+    print(f"  {DIST_RANKS} gloo ranks on cuda:0 (24a-d) in "
+          f"{time.perf_counter() - t0:.1f} s with their start; one process "
+          f"in {t_one:.1f} s; {smi()}")
+    paths = {}
+
+    for part, what in (
+            ("24a", "24a 001_dist.sh train (UNet.yml, sync batch norm)"),
+            ("24b", "24b 002_gnet_sp.sh train (GUNet.yml, K = 3 run eagerly "
+                    "under gloo)")):
+        r0, ref = ranks[0][part], one[part]
+        e = r0["errors"]
+        spread = max(r[part]["spread"] for r in ranks)
+        print(f"  {what}: {DIST_RANKS} ranks vs one process over the global "
+              f"batch of {8 * DIST_RANKS}, {DIST_STEPS} steps: loss max rel "
+              f"err {e['loss']:.2e}, gradient rel L2 err {e['grad']:.2e}, "
+              f"parameters max abs err {e['params']:.2e}, running statistics "
+              f"max abs err {e['stats']:.2e} ({e['n_stats']} tensors), ranks' "
+              f"spread {spread:.1e}")
+        if not (e["loss"] <= 1e-4 and e["grad"] <= 1e-4
+                and e["params"] <= 1e-4 and e["stats"] <= 1e-5
+                and spread == 0.0):
+            raise AssertionError(f"{part}: the ranks disagree with one "
+                                 "process")
+        print(f"  {part}, {DIST_LABEL}: {r0['ms']:.3f} ms/step with "
+              f"{DIST_RANKS} ranks (one process: {ref['ms']:.3f}); the "
+              f"collectives ({r0['colls']:.0f} a step, each between "
+              f"synchronizations) take {r0['coll_ms']:.3f} of "
+              f"{r0['ms_timed']:.3f} ms a step "
+              f"({100 * r0['coll_ms'] / r0['ms_timed']:.1f} %)")
+        want = ref["launches"]
+        for r in ranks:
+            if r[part]["launches"] != want:
+                raise AssertionError(f"{part}: a rank launched "
+                                     f"{r[part]['launches']}, one process "
+                                     f"{want}")
+        if part == "24a" and any(want.values()):
+            raise AssertionError(f"24a: the batch-norm UNet launched {want}")
+        if part == "24b" and not (want["gaussian_guide_batch"]
+                                  and want["in_relu_fwd"]):
+            raise AssertionError(f"24b: one process launched {want}")
+        print(f"  {part} launches a rank over {DIST_STEPS} steps = one "
+              f"process's (batch {8 * DIST_RANKS}): {want}")
+    paths["dist 001_dist train (rank 0 of 2)"] = ranks[0]["24a"]["launches"]
+    paths["dist G-Net train (rank 0 of 2)"] = ranks[0]["24b"]["launches"]
+
+    for name in ("run", "run_sp"):                    # 24c
+        got, ref = ranks[0]["24c"][name], one["24c"][name]
+        errs = [float(np.max(np.abs(np.asarray(got["per_case"][m])
+                                    - np.asarray(v))))
+                for m, v in ref["per_case"].items()]
+        tot = max(abs(got["results"][m] - v)
+                  for m, v in ref["results"].items())
+        print(f"  24c {name} over {DIST_RANKS} ranks: {ref['cases']} cases "
+              f"in {got['s']:.2f} s (one process {ref['s']:.2f}); per-case "
+              f"metrics max abs err {max(errs):.1e}, totals {tot:.1e}; "
+              f"launches rank 0 {got['launches']}, one process "
+              f"{ref['launches']}")
+        if set(got["per_case"]) != set(ref["per_case"]) or max(errs) > 1e-6 \
+                or tot > 1e-6 or any(r["24c"][name]["results"]
+                                     for r in ranks[1:]):
+            raise AssertionError(f"24c {name}: the ranks disagree with one "
+                                 "process")
+        if got["launches"]["gaussian_guide_batch"] != \
+                ref["launches"]["gaussian_guide_batch"]:
+            raise AssertionError(f"24c {name}: B1 launches differ")
+        paths[f"dist {name} (rank 0 of 2)"] = got["launches"]
+
+    for kind, kernel in (("gaussian", "gaussian_guide_batch"),  # 24d
+                         ("geodesic", "geodesic2d_batch")):
+        ref = one["24d"][kind]
+        for r in ranks:
+            got = r["24d"][kind]
+            clicks = [c["clicks"] for c in got["cases"]]
+            if clicks != [c["clicks"] for c in ref["cases"]] or \
+                    got["rounds"] != ref["rounds"] or \
+                    got["launches"][kernel] != sum(ref["rounds"]):
+                raise AssertionError(f"24d {kind}: clicks {clicks} rounds "
+                                     f"{got['rounds']} launches "
+                                     f"{got['launches']}; one process "
+                                     f"{ref['cases']} {ref['rounds']}")
+        got = ranks[0]["24d"][kind]
+        d_err = max(abs(a["Dice"] - b["Dice"])
+                    for a, b in zip(got["cases"], ref["cases"]))
+        print(f"  24d refiner {kind} over {DIST_RANKS} ranks: equal clicks "
+              f"and rounds {got['rounds']}, Dice max abs err {d_err:.1e}; "
+              f"{kernel} a rank {got['launches'][kernel]} (one process "
+              f"{ref['launches'][kernel]}); {got['s']:.2f} s (one process "
+              f"{ref['s']:.2f})")
+        if d_err > 1e-5:
+            raise AssertionError(f"24d {kind}: Dice off by {d_err}")
+        paths[f"dist refiner {kind} (rank 0 of 2)"] = got["launches"]
+
+    # 24e: a 1-rank NCCL group's K = 16 graph against the groupless one
+    plain = dist_graph(None, tmp, seed)
+    graph_ref = Path(tmp) / "graph_ref.pt"
+    torch.save(plain.pop("state"), graph_ref)
+    torch.cuda.empty_cache()
+    grouped = launch(dist_graph, 1, "cuda:0", tmp, seed, str(graph_ref),
+                     backend="nccl")
+    print(f"  24e K = 16 graph with a 1-rank NCCL group (its gradient "
+          f"all-reduce captured): {grouped['graphs']} captured variants, per "
+          f"replay {grouped['replay']}, launches in 32 steps "
+          f"{grouped['launches']}; parameters after 32 steps vs no "
+          f"group: bit-equal {grouped['same']}, max abs err "
+          f"{grouped['err']:.1e}; {grouped['ms']:.3f} ms/step with the "
+          f"group, {plain['ms']:.3f} without (median of 3 windows of 16); "
+          f"NCCL kernels in a replay: {grouped['nccl']}")
+    if grouped["graphs"] != 2 or grouped["err"] > 1e-6 or \
+            grouped["launches"] != plain["launches"]:
+        raise AssertionError(f"24e: the graphed group step disagrees "
+                             f"(launches {grouped['launches']}, without "
+                             f"a group {plain['launches']})")
+    paths["dist G-Net K=16 (1-rank NCCL graph)"] = grouped["launches"]
+
+    if torch.cuda.device_count() >= 2:                 # 24f
+        out, seconds, _ = counted_run(lambda: cli.main(
+            DIST_TRAIN_FLAGS + smoke_data(tmp, Path(tmp) / "dist_cli_md",
+                                          "--num_of_steps", "8",
+                                          *ONE_WORKER)))
+        print(f"  24f 001_dist.sh train through the CLI over NCCL on "
+              f"{DIST_RANKS} cards: {out} in {seconds:.1f} s")
+        if out != {"global_step": 8}:
+            raise AssertionError(f"24f: {out}")
+    else:
+        print(f"  24f not run: {torch.cuda.device_count()} card (the CLI "
+              f"over NCCL needs {DIST_RANKS})")
+    return paths
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5218,7 +5690,7 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/23] device")
+    print("[1/24] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -5233,7 +5705,7 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/23] build")
+    print("[2/24] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -5243,7 +5715,7 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/23] kernel B1 vs plain")
+    print("[3/24] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5253,71 +5725,76 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/23] labeling vs scipy")
+        print("[4/24] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/23] flagship guided eval (run_g) through the CLI")
+        print("[5/24] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/23] profile of one case's sweep (steady state)")
+        print("[6/24] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/23] kernel B2 vs plain")
+        print("[7/24] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/23] flagship G-Net training through the CLI")
+        print("[8/24] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/23] profile of the flagship train step (steady state)")
+        print("[9/24] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/23] UNet training (001_unet.sh train) through the CLI")
+        print("[10/24] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/23] UNet train step in steady state (batch 8, bench.py batch 128)")
+        print("[11/24] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/23] UNet eval (001_unet.sh eval) through the CLI")
+        print("[12/24] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/23] run_g's host loop: overflow fallback, --device_sweep "
+        print("[13/24] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/23] --steps_per_dispatch 16: the train step as a CUDA "
+        print("[14/24] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/23] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        print("[15/24] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/23] train step card vs CPU: boundary and proportion "
+        print("[16/24] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/23] serving: --mode export and the REST server on the "
+        print("[17/24] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/23] prepare -> annotate -> viewers on the card")
+        print("[18/24] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/23] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        print("[19/24] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
         nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
         paths.update(nf_paths)
-        print("[20/23] click eval (interactive_eval --dim 2): kernel G1, "
+        print("[20/24] click eval (interactive_eval --dim 2): kernel G1, "
               "host loop and device refiner, the new click models, the "
               "click export")
         g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
         paths.update(click_paths)
-        print("[21/23] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
+        print("[21/24] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
               "201_unet_v1.sh train and eval, the 3-D click eval, the "
               "cascade and hybrid eval, the UNet3D export served")
         b2_3d, nf3d_paths = nf3d_phase(tmp, dev, opts.seed, inter_md)
         paths.update(nf3d_paths)
-        print("[22/23] nf2 (004_gnet_iin.sh) train, eval, infer and export "
+        print("[22/24] nf2 (004_gnet_iin.sh) train, eval, infer and export "
               "on the card")
         iin_paths, b1_err = iin_phase(tmp, dev, opts.seed)
         paths.update(iin_paths)
         rec["max_abs_err"] = max(rec["max_abs_err"], b1_err)
-        print("[23/23] DenseUNet (003_denseunet.sh) train, eval, sweep and "
+        print("[23/24] DenseUNet (003_denseunet.sh) train, eval, sweep and "
               "export; GUNet --use_se and the VGG contexts on the card")
         paths.update(dense_phase(tmp, dev, opts.seed))
+        print("[24/24] data parallel (001_dist.sh) over a process group: "
+              "gloo ranks sharing the card against one process (train, "
+              "run, run_sp, the refiner), a 1-rank NCCL group's K = 16 "
+              "graph")
+        paths.update(dist_phase(tmp, dev, opts.seed, unet_md, inter_md))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",

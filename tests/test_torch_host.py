@@ -130,7 +130,9 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 
 
 @pytest.mark.parametrize("extra,what", [
-    # multi-GPU training and eval (DDP with sync batch norm) are not ported
+    # multi-GPU training and eval are ported (tests/test_torch_dist_*.py):
+    # the train case now meets JAX's batch contract, the unguided eval the
+    # empty model_dir inside its two ranks; run_g over replicas names 4b
     (["--mode", "train", "--num_replicas", "2"], "--mode train"),
     (["--mode", "export", "--model", "DenseUNet", "--model_config",
       "DenseUNet_tiny.yml", "--im_height", "64", "--im_width", "64"],
@@ -139,6 +141,7 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
     (["--mode", "eval", "--device_sweep", "off"], "host loop"),
     # eval restores from --model_dir now; an empty one names --ckpt_path
     (["--mode", "eval"], "--ckpt_path"),
+    (["--mode", "eval", "--num_replicas", "2"], "item 4b"),
 ])
 def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
     _, troot = two_datasets
@@ -149,6 +152,16 @@ def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
     if what == "host loop":
         # the host loop is ported: --device_sweep off now gets as far as the
         # weights, and the empty model_dir names --ckpt_path
+        what = "--ckpt_path"
+    if what == "--mode train":
+        # a global batch of 3 does not divide 2 ranks: JAX's error, raised
+        # before any rank starts
+        with pytest.raises(ValueError, match="try --batch_size=2"):
+            t_cli.main(argv + ["--batch_size", "3"])
+        return
+    if what == "unguided":
+        # the two ranks start and reach the weights: the empty model_dir
+        # names --ckpt_path, raised here as the rank raised it
         what = "--ckpt_path"
     if what == "--mode export":
         # export is ported, and since the DenseUNet slice every config is

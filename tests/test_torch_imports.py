@@ -67,6 +67,16 @@ def test_host_tool_modules_are_checked(rel):
     assert ROOT / "boxsegliver_torch" / rel in PORT_FILES
 
 
+DIST_SLICE = ["parallel/__init__.py", "parallel/mesh.py"]
+
+
+@pytest.mark.parametrize("rel", DIST_SLICE)
+def test_parallel_modules_are_checked(rel):
+    """The data-parallel modules (the ranks of a multi-GPU run import them
+    in processes of their own) exist and fall under the checks above."""
+    assert ROOT / "boxsegliver_torch" / rel in PORT_FILES
+
+
 def test_port_imports_without_the_jax_stack():
     """Import every port module in a fresh interpreter where the forbidden
     packages cannot be found."""

@@ -244,7 +244,7 @@ def test_device_refiner_without_lesions_and_guards(fitted):
     assert res == {"Dice": 1.0, "clicks": 0.0, "slices": 0.0}
     with pytest.raises(ValueError):
         DeviceRefiner2D(tmodel, device="cpu", guide_kind="nope")
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="parallel.Group"):
         DeviceRefiner2D(tmodel, device="cpu", mesh=object())
 
 
@@ -278,9 +278,10 @@ def _argv(root, model_dir, *extra):
     ["--device_refine", "on", "--guide_kind", "euclidean",
      "--guide_channel", "1"],
     ["--device_refine", "off", "--guide_kind", "geodesic"],
-    ["--device_refine", "auto"]],
+    ["--device_refine", "auto"],
+    ["--device_refine", "on", "--num_replicas", "2", "--batch_size", "2"]],
     ids=["host_gaussian", "refiner_euclidean_gc1", "host_geodesic",
-         "auto_gaussian"])
+         "auto_gaussian", "refiner_gaussian_two_ranks"])
 def test_cli_matches_jax(nf_set, tmp_path, extra):
     from boxsegliver_tpu.cli import interactive_eval as jcli
     from boxsegliver_tpu.cli.main import build_trainer
@@ -308,11 +309,12 @@ def test_cli_matches_jax(nf_set, tmp_path, extra):
 
 def test_cli_refuses_3d_and_replicas(nf_set, tmp_path):
     """--dim 3 is ported (tests/test_torch_inter3d.py): it now gets as far
-    as the weights, and the empty model_dir names --ckpt_path; more than
-    one replica still raises, naming its item."""
+    as the weights, and the empty model_dir names --ckpt_path.  So do two
+    replicas (ported: the refiner's two ranks start and reach the weights;
+    the rank's error is raised here as it was raised there)."""
     with pytest.raises(FileNotFoundError, match="--ckpt_path"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu", "--dim", "3"))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(FileNotFoundError, match="--ckpt_path"):
         tcli.main(_argv(nf_set, tmp_path, "--device", "cpu",
                         "--num_replicas", "2"))
 

@@ -303,14 +303,27 @@ def test_train_step_matches_jax(tmp_path):
 @pytest.mark.parametrize("extra", [["--num_replicas", "2"],
                                    ["--steps_per_dispatch", "2"]])
 def test_unported_trainer_flags_raise(tmp_path, extra):
-    """DDP is not ported; K > 1 is, but needs the device preprocess (the
-    JAX trainer raises the same way without its fused preprocess)."""
+    """The trainer's refusals.  Data parallelism is ported (the CLI starts
+    the ranks; tests/test_torch_dist_*.py): a trainer given a group that
+    --batch_size does not divide raises JAX's per_device_batch_size error
+    before anything else.  K > 1 needs the device preprocess (the JAX
+    trainer raises the same way without its fused preprocess)."""
+    import types
+
+    from boxsegliver_tpu.parallel.mesh import per_device_batch_size
+
     _, ta = _args(extra, model_dir=tmp_path)
     model = tbuild("GUNet", args=ta, model_kwargs=TINY)
-    error, match = ((NotImplementedError, "ROADMAP")
-                    if "--num_replicas" in extra else (ValueError,
-                                                       "preprocess"))
-    with pytest.raises(error, match=match):
+    if "--num_replicas" in extra:
+        group = types.SimpleNamespace(size=3, rank=0, chief=True,
+                                      backend="gloo")
+        with pytest.raises(ValueError) as want:
+            per_device_batch_size(ta.batch_size, group.size)
+        with pytest.raises(ValueError) as got:
+            Trainer(model, ta, CLASSES, "cpu", group=group)
+        assert str(got.value) == str(want.value)
+        return
+    with pytest.raises(ValueError, match="preprocess"):
         Trainer(model, ta, CLASSES, "cpu")
 
 

@@ -174,6 +174,17 @@ def test_train_cli_writes_resumes_and_eval_restores(root):
 
 
 def test_train_cli_refuses_unported_paths(root):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(_argv(root, "--num_replicas", "2",
-                       "--num_of_total_steps", "1"))
+    """Training over --num_replicas 2 is ported (tests/test_torch_dist_*.py
+    hold it against JAX): the flagship's train CLI starts two gloo ranks
+    that train 2 steps in one dispatch and rank 0 writes the checkpoint; a
+    global batch the ranks do not divide is refused with JAX's error before
+    any rank starts."""
+    md = root / "md_ranks"
+    out = cli.main(_argv(root, "--num_replicas", "2", "--num_of_total_steps",
+                         "2", "--steps_per_dispatch", "2", "--model_dir",
+                         str(md)))
+    assert out == {"global_step": 2}
+    assert CheckpointManager(md).steps() == [2]
+    with pytest.raises(ValueError, match="try --batch_size=2"):
+        cli.main(_argv(root, "--num_replicas", "2", "--batch_size", "3",
+                       "--model_dir", str(md)))
