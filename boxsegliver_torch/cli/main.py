@@ -77,22 +77,25 @@ or the latest periodic one under ``--eval_final`` or when there is no best,
 else a warm start from ``--warm_start_from`` / ``--load_weights``.
 ``--mode export`` writes the serving bundle of cli/export.py (weights as
 eval's, the seeded init where there are none), which cli/serve.py serves.
-Every other branch of the JAX CLI raises NotImplementedError naming its
-roadmap item.
+Every branch of the JAX CLI is ported.
 
-Data parallel (``--num_replicas``, JAX's mesh size; parallel/mesh.py):
-training takes N = ``--num_replicas`` ranks, 0 meaning every visible GPU
-(one process with ``--device cpu``); eval and infer take N only when
-``--num_replicas > 1`` (JAX's eval mesh rule).  With N > 1 the CLI starts N
-spawned workers (NCCL, one GPU a rank; gloo with ``--device cpu``) that
-run the same command in a process group: training over the global batch
-``--batch_size`` (sync batch norm, one gradient all-reduce a step), the
-unguided ``run`` and ``run_sp`` with each slice batch split over the ranks
-and the probabilities gathered to rank 0, and the nf_inter online eval
-with each batch split and gathered.  Rank 0 writes every file and log.
-``run_g`` over N > 1 and ``--z_shards > 1`` shard one image or volume
-over the devices (ROADMAP item 4b) and raise; the nf2 and 3-D evals use
-no mesh in JAX and run in one process.
+Data and spatial parallel (``--num_replicas``, JAX's mesh size;
+parallel/mesh.py, parallel/spatial.py): training takes N =
+``--num_replicas`` ranks, 0 meaning every visible GPU (one process with
+``--device cpu``); the 2-D eval and infer take N only when
+``--num_replicas > 1`` (JAX's eval mesh rule), and the whole-volume 3-D
+eval (``--im_depth -1``) takes N = ``--z_shards`` when it is above 1.  With
+N > 1 the CLI starts N spawned workers (NCCL, one GPU a rank; gloo with
+``--device cpu``) that run the same command in a process group: training
+over the global batch ``--batch_size`` (sync batch norm, one gradient
+all-reduce a step); the unguided ``run`` and ``run_sp`` with each slice
+batch split over the ranks and the probabilities gathered to rank 0; the
+nf_inter online eval with each batch split and gathered; ``run_g``'s
+device sweep with each TTA forward sharded over image height (its host
+loop, ``--device_sweep off``, splits each slice's mirror batch); and the
+3-D whole-volume eval with the volume's depth sharded.  Rank 0 writes
+every file and log.  The nf2 eval, the sliding-window 3-D eval and
+``--im_depth > 0`` use no mesh in JAX and run in one process.
 """
 
 from __future__ import annotations
@@ -106,10 +109,6 @@ from boxsegliver_torch.utils.logger import setup_logger
 
 TASKS = ("liver", "only_liver", "tumor", "nf", "nf2", "nf_inter", "nf_3d",
          "synthetic")
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 def get_args(argv=None):
@@ -265,8 +264,7 @@ def main(argv=None):
 
 def replicas(args, device) -> int:
     """Ranks of the run (module docstring): ValueError with JAX's text when
-    N exceeds the devices or --batch_size does not divide N;
-    NotImplementedError for the paths that shard one image or volume."""
+    N exceeds the devices or --batch_size does not divide N."""
     from boxsegliver_torch.parallel import (per_device_batch_size,
                                             resolve_replicas)
 
@@ -274,21 +272,14 @@ def replicas(args, device) -> int:
     if args.mode == "export":
         return 1
     if is_3d(args) and args.mode != "train":
-        if getattr(args, "z_shards", 0) and args.z_shards > 1:
-            _not_ported(f"the 3D eval over --z_shards {args.z_shards} "
-                        "devices (depth-sharded volumes)",
-                        "item 4b: spatial sharding")
-        return 1
+        # JAX cli/main.py:443-457: --z_shards shards the whole-volume eval
+        z = int(getattr(args, "z_shards", 0) or 0)
+        return resolve_replicas(z, device) if z > 1 and \
+            args.im_depth <= 0 else 1
     if args.mode == "train":
         world = resolve_replicas(n, device)
     elif n > 1 and not is_iin(args):
         world = resolve_replicas(n, device)
-        spatial = bool(getattr(args, "use_spatial", False))
-        if spatial and args.task != "nf" and not is_inter(args) \
-                and not getattr(args, "eval_no_sp", False):
-            _not_ported(f"the guided eval (run_g) over --num_replicas {n} "
-                        "devices (the height-sharded sweep)",
-                        "item 4b: spatial sharding")
     else:
         return 1
     if world > 1:
@@ -646,11 +637,13 @@ def build_eval_cascade(args, device):
                      tau=25.0, device=device)
 
 
-def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
+def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True,
+                 group=None):
     """UNet3D eval (JAX cli/main.py:436-474): the whole-volume fast path
     (z-score and argmax on the device, blank guides there), the device
     sliding window at ``--im_depth > 0``, or the host-normalized
-    whole-volume forward when a cascade channel is set."""
+    whole-volume forward when a cascade channel is set; the whole-volume
+    forward depth-sharded over ``group`` (``--z_shards``)."""
     from boxsegliver_torch.evaluators.volume3d import (EvaluateVolume3D,
                                                        make_sliding_predict,
                                                        make_volume_predict)
@@ -659,7 +652,7 @@ def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
     logger.info("Restored %s from %s on %s", args.model, args.restored_from,
                 device)
     ev3 = EvaluateVolume3D(args, dataset_dir,
-                           ["Background"] + list(args.classes))
+                           ["Background"] + list(args.classes), group=group)
     cascade = build_eval_cascade(args, device)
     gc = int(args.guide_channel) if getattr(args, "use_spatial",
                                             False) else 0
@@ -674,19 +667,22 @@ def _evaluate_3d(args, dataset_dir, logger, device, do_eval=True):
         fast = no_cascade
         predict = make_volume_predict(
             model, device, ret="pred" if fast else "prob", in_zscore=fast,
-            blank_guide_channels=gc)
+            blank_guide_channels=gc, group=group,
+            z_axis_shards=0 if group is None else group.size)
     return ev3.run(predict, _test_metas(args, dataset_dir), do_eval=do_eval,
                    cascade=cascade)
 
 
 def evaluate(args, dataset_dir, logger, device, do_eval=True, group=None):
     """Eval / infer of the flagged model (cli.main's docstring); under a
-    ``group`` (replicas) the unguided ``run``, ``run_sp`` and the nf_inter
-    online eval split each batch over the ranks."""
+    ``group`` (replicas) the unguided ``run``, ``run_sp``, ``run_g``'s host
+    loop and the nf_inter online eval split each batch over the ranks,
+    ``run_g``'s device sweep shards each image's height and the 3-D
+    whole-volume eval the volume's depth."""
     from boxsegliver_torch.evaluators.volume import EvaluateVolume
 
     if is_3d(args):
-        return _evaluate_3d(args, dataset_dir, logger, device, do_eval)
+        return _evaluate_3d(args, dataset_dir, logger, device, do_eval, group)
     if is_iin(args):
         return _iin_eval(args, dataset_dir, logger, device, do_eval)
     if is_inter(args):
@@ -725,7 +721,8 @@ def evaluate(args, dataset_dir, logger, device, do_eval=True, group=None):
     fg = [c for c in args.classes if c != "Background"]
     tumor_id = fg.index("Tumor") + 1 if "Tumor" in fg else len(fg)
     predictor = GuidedSweepPredictor(model, args, num_classes=len(fg) + 1,
-                                     tumor_id=tumor_id, device=device)
+                                     tumor_id=tumor_id, device=device,
+                                     group=group)
     return evaluator.run_g(predictor, eval_metas, save=save, do_eval=do_eval)
 
 

@@ -35,7 +35,9 @@ _ARGTYPES = {
     "in_relu": {
         "in_relu_fwd": [_P] * 6 + [_I] * 3 + [_F] + [_I] * 5 + [_P],
         "in_relu_bwd_stats": [_P] * 6 + [_I] * 4 + [_P],
-        "in_relu_bwd_apply": [_P] * 8 + [_I] * 4 + [_P]},
+        "in_relu_bwd_apply": [_P] * 8 + [_I] * 4 + [_P],
+        "in_relu_fwd_partial": [_P] * 3 + [_I] * 5 + [_P],
+        "in_relu_fwd_apply": [_P] * 6 + [_I] * 4 + [_P]},
     "geodesic": {
         "geodesic2d_raster": [_P] * 4 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
         "geodesic_chain_clocks": [_P] * 3 + [_I] * 2 + [_P]},

@@ -48,6 +48,21 @@
 // B2a and B2b run one 256-thread CTA per plane; at the flagship shapes their
 // device time is within 1.3x of the floor, so they keep that design.
 //
+// B2-fwd split around a collective, for planes whose elements lie on several
+// ranks (the spatially sharded evals; in JAX, XLA's partitioner turns the
+// forward's statistics into partial sums and an all-reduce).  Inference
+// only: no x_hat, no VJP.
+//   B2s  in_relu_fwd_partial: (sum x, sum x^2) in f32 over the rank's part of
+//        each plane.  Reads x once: |x| / 3.35 TB/s bounds it.  A plane is
+//        spread over `splits` CTAs (ops/kernels.in_relu_partial_plan: about
+//        1,024 CTAs in all, so the 3-D eval's 30 planes fill 132 SMs); each
+//        writes its partial, and a second one-thread-a-plane pass adds them
+//        in split order, so the result is the same from run to run.
+//   B2y  in_relu_fwd_apply: y = relu((x - mean) * rstd * gamma + beta) from
+//        the all-reduced mean and rstd.  Reads x once and writes y once:
+//        2 |x| / 3.35 TB/s bounds it.  CTAs tile a plane in a 2-D grid (x:
+//        chunks of the plane, y: planes), so no thread divides an index.
+//
 // Rounding: the elementwise arithmetic uses explicitly rounded intrinsics so
 // that nvcc contracts nothing into FMAs and each element follows the plain
 // PyTorch version (ops/kernels.in_relu_*_plain) operation by operation; the
@@ -403,8 +418,81 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// B2s, first pass: CTA (split, plane) sums elements [split * chunk,
+// min(hw, (split + 1) * chunk)) of the plane into part[plane][split].
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_partial_kernel(const T* __restrict__ x, float* __restrict__ part,
+                           int planes, int hw, int splits, int chunk) {
+  const int lo = blockIdx.x * chunk;
+  const int n = min(hw - lo, chunk) / N;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const Pack<T, N>* xp =
+        reinterpret_cast<const Pack<T, N>*>(x + plane * hw + lo);
+    float s = 0.0f, ss = 0.0f;
+    for (int i = threadIdx.x; i < n; i += kThreads) add_pack(xp[i], s, ss);
+    block_sum2(s, ss);
+    if (threadIdx.x == 0) {
+      float* o = part + 2 * (plane * splits + blockIdx.x);
+      o[0] = s;
+      o[1] = ss;
+    }
+    __syncthreads();                 // block_sum2's shared slots are reused
+  }
+}
+
+// B2s, second pass: the splits of each plane added in order.
+__global__ void __launch_bounds__(kThreads)
+    in_relu_partial_combine_kernel(const float* __restrict__ part,
+                                   float* __restrict__ out, int planes,
+                                   int splits) {
+  const int64_t plane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (plane >= planes) return;
+  const float* p = part + 2 * plane * splits;
+  float s = 0.0f, ss = 0.0f;
+  for (int k = 0; k < splits; ++k) {
+    s = __fadd_rn(s, p[2 * k]);
+    ss = __fadd_rn(ss, p[2 * k + 1]);
+  }
+  out[2 * plane] = s;
+  out[2 * plane + 1] = ss;
+}
+
+// B2y: CTA (x, y) normalizes packs x * kThreads + t (stride gridDim.x *
+// kThreads) of planes y, y + gridDim.y, ...
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_apply_kernel(const T* __restrict__ x,
+                         const float* __restrict__ mean,
+                         const float* __restrict__ rstd,
+                         const float* __restrict__ gamma,
+                         const float* __restrict__ beta, T* __restrict__ y,
+                         int planes, int channels, int hw) {
+  const int groups = hw / N;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const int c = (int)(plane % channels);
+    const float m = mean[plane], r = rstd[plane], gm = gamma[c],
+                bt = beta[c];
+    const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + plane * hw);
+    Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + plane * hw);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
+         i += gridDim.x * kThreads) {
+      const Pack<T, N> p = xp[i];
+      Pack<T, N> po;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float h = __fmul_rn(__fsub_rn(to_f(p.v[k]), m), r);
+        po.v[k] = from_f<T>(fmaxf(__fadd_rn(__fmul_rn(h, gm), bt), 0.0f));
+      }
+      yp[i] = po;
+    }
+  }
+}
+
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kMaxGridY = 65535;
+constexpr int kApplyPacksPerThread = 4;
 
 // 16-byte packs when every plane starts 16-byte aligned, else one element.
 template <typename T>
@@ -531,6 +619,57 @@ int launch_apply(const void* g, const void* xh, const float* gm,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_partial(const void* x, float* part, float* out, int planes, int hw,
+                   int splits, int chunk, cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const void* ptrs[] = {x};
+  if (splits < 1 || chunk < 1 || (int64_t)splits * chunk < hw ||
+      (int64_t)(splits - 1) * chunk >= hw)
+    return (int)cudaErrorInvalidValue;
+  float* dst = splits > 1 ? part : out;
+  const dim3 grid((unsigned)splits,
+                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
+  if (vec_ok<T>(hw, ptrs, 1) && chunk % N == 0)
+    in_relu_partial_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        (const T*)x, dst, planes, hw, splits, chunk);
+  else
+    in_relu_partial_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        (const T*)x, dst, planes, hw, splits, chunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  in_relu_partial_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
+                                              kThreads),
+                                   kThreads, 0, st>>>(part, out, planes,
+                                                      splits);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int N>
+void launch_apply_n(const void* x, const float* mean, const float* rstd,
+                    const float* gm, const float* bt, void* y, int planes,
+                    int channels, int hw, cudaStream_t st) {
+  const int groups = hw / N;
+  const int per_cta = kThreads * kApplyPacksPerThread;
+  const dim3 grid((unsigned)((groups + per_cta - 1) / per_cta),
+                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
+  in_relu_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
+      (const T*)x, mean, rstd, gm, bt, (T*)y, planes, channels, hw);
+}
+
+template <typename T>
+int launch_fwd_apply(const void* x, const float* mean, const float* rstd,
+                     const float* gm, const float* bt, void* y, int planes,
+                     int channels, int hw, cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const void* ptrs[] = {x, y};
+  if (vec_ok<T>(hw, ptrs, 2))
+    launch_apply_n<T, N>(x, mean, rstd, gm, bt, y, planes, channels, hw, st);
+  else
+    launch_apply_n<T, 1>(x, mean, rstd, gm, bt, y, planes, channels, hw, st);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // All tensors are contiguous NCHW; planes = N * C, hw = H * W; gamma, beta:
@@ -595,5 +734,43 @@ extern "C" int in_relu_bwd_apply(const void* g, const void* xhat,
     return launch_apply<__nv_bfloat16>(
         g, xhat, (const float*)gamma, (const float*)beta, (const float*)rstd,
         (const float*)s1, (const float*)s2, dx, planes, channels, hw, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2s: out [planes, 2] f32 = (sum x, sum x^2) over each plane of x (`hw`
+// elements in `dtype`), covered by `splits` CTAs of `chunk` elements
+// (ops/kernels.in_relu_partial_plan); with splits > 1 the CTAs write `part`
+// [planes, splits, 2] f32 scratch and a second launch adds it in order.
+extern "C" int in_relu_fwd_partial(const void* x, void* part, void* out,
+                                   int planes, int hw, int splits, int chunk,
+                                   int dtype, void* stream) {
+  if (planes == 0 || hw == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return launch_partial<float>(x, (float*)part, (float*)out, planes, hw,
+                                 splits, chunk, st);
+  if (dtype == kBF16)
+    return launch_partial<__nv_bfloat16>(x, (float*)part, (float*)out, planes,
+                                         hw, splits, chunk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2y: y = relu((x - mean) * rstd * gamma + beta) in `dtype`; mean, rstd
+// [planes] f32, gamma, beta [channels] f32.
+extern "C" int in_relu_fwd_apply(const void* x, const void* mean,
+                                 const void* rstd, const void* gamma,
+                                 const void* beta, void* y, int planes,
+                                 int channels, int hw, int dtype,
+                                 void* stream) {
+  if (planes == 0 || hw == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return launch_fwd_apply<float>(x, (const float*)mean, (const float*)rstd,
+                                   (const float*)gamma, (const float*)beta, y,
+                                   planes, channels, hw, st);
+  if (dtype == kBF16)
+    return launch_fwd_apply<__nv_bfloat16>(
+        x, (const float*)mean, (const float*)rstd, (const float*)gamma,
+        (const float*)beta, y, planes, channels, hw, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,11 +26,13 @@ each lesion's patch batch is one forward (mirror TTA inside it) and one B1
 launch for its guides, the patch probabilities max / min-merged into the
 full frame on the host.
 
-Under a data-parallel ``group`` (parallel.Group; the CLI's
-``--num_replicas > 1``) every rank walks the same cases and its predictor
-splits each slice batch over the ranks (``run``, ``run_sp``); rank 0 alone
-scores, saves and persists, and the other ranks return {}.  ``run_g``
-shards one image over the devices in JAX (ROADMAP item 4b) and raises.
+Under a ``group`` (parallel.Group; the CLI's ``--num_replicas > 1``) every
+rank walks the same cases; rank 0 alone scores, saves and persists, and the
+other ranks return {}.  The predictor splits each slice batch over the
+ranks (``run``, ``run_sp``, and ``run_g``'s host loop with a
+DeviceSlicePredictor, as JAX's batch-sharded ``trainer.predict``), or, in
+``run_g``'s device sweep, each image's rows (interactive/device_sweep.py,
+JAX's height-sharded sweep); every rank then holds the same probabilities.
 """
 
 from __future__ import annotations
@@ -293,11 +295,6 @@ class EvaluateVolume(EvaluateBase):
         (reference input_pipeline_g.py:1217-1224).
         """
         args = self.args
-        if self.group is not None and self.group.size > 1:
-            raise NotImplementedError(
-                f"run_g over {self.group.size} ranks (the height-sharded "
-                "sweep) is not ported yet (ROADMAP item 4b: spatial "
-                "sharding)")
         if prior is None:
             prior_file = Path(getattr(args, "real_sp", None) or
                               self.dataset_dir / "prior.json")
@@ -539,7 +536,7 @@ class EvaluateVolume(EvaluateBase):
                 loader.set_last_pred(
                     (merged.argmax(-1) == tumor_id).astype(np.uint8))
             volumes[direction] = np.stack(chunks, axis=0)
-            if getattr(args, "save_sp_guide", False):
+            if getattr(args, "save_sp_guide", False) and self.chief:
                 loader.save_guides(Path(args.model_dir) / "sp_guide")
         return np.maximum(volumes["Forward"], volumes["Backward"][::-1])
 

@@ -17,9 +17,14 @@ boxsegliver_tpu/evaluators/volume3d.py:32-311; reference threed_script/
 - ``EvaluateVolume3D``: z-score, alignment padding, one of the above,
   crop, then per-class ``metric_3d`` and the confusion totals per case.
 
-JAX's z-sharded path (``mesh`` / ``z_axis_shards``) waits for the
-spatial-sharding slice (ROADMAP item 4b).  Predict functions take feature
-dicts of arrays or tensors and give host arrays.
+With a ``group`` of ``z_axis_shards`` > 1 ranks (``--z_shards``, JAX's
+``mesh`` / ``z_axis_shards``: the depth axis sharded over the devices) each
+rank takes its planes of the padded volume, z-scores them with the
+whole volume's statistics, runs UNet3D on them with halo-exchanged convs
+and split instance norms (parallel/spatial.py), and the blocks of the
+argmax or the softmax are gathered back; ``EvaluateVolume3D.run`` walks the
+same cases on every rank and rank 0 alone scores.  Predict functions take
+feature dicts of arrays or tensors and give host arrays.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from boxsegliver_torch.evaluators.base import EvaluateBase
 from boxsegliver_torch.ops.image_ops import zscore
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
 from boxsegliver_torch.ops.metrics3d import metric_3d
+from boxsegliver_torch.parallel.spatial import SpatialShard, sharded
 
 logger = logging.getLogger("boxsegliver")
 
@@ -69,25 +75,52 @@ def host(x) -> np.ndarray:
 
 def make_volume_predict(model: torch.nn.Module, device, ret: str = "prob",
                         in_zscore: bool = False,
-                        blank_guide_channels: int = 0) -> Callable:
+                        blank_guide_channels: int = 0, group=None,
+                        z_axis_shards: int = 0) -> Callable:
     """Whole-volume forward {"images": [1, d, h, w, c]} → probabilities
     [1, d, h, w, nc] float32, or with ``ret="pred"`` the argmax [1, d, h,
-    w] uint8 — both as host arrays."""
+    w] uint8 — both as host arrays.
+
+    With ``z_axis_shards`` > 1 and a ``group`` of that many ranks, the
+    depth is sharded over them (module docstring): each rank computes its
+    block of planes (whole multiples of ``model.spatial_unit``) and every
+    rank returns the whole volume.  A depth that ``z_axis_shards`` does
+    not divide raises ValueError, as JAX's ``device_put`` of the volume to
+    ``P(None, "data")`` does."""
+    shards = int(z_axis_shards or 0)
+    if shards > 1 and (group is None or group.size != shards):
+        raise ValueError(f"z_axis_shards={shards} needs a group of "
+                         f"{shards} ranks, got "
+                         f"{None if group is None else group.size}")
+    if shards <= 1:
+        group = None
 
     @torch.no_grad()
     def predict(feats):
         feats = {k: to_device(v, device) for k, v in feats.items()}
+        depth = feats["images"].shape[1]
+        if group is not None:
+            if depth % shards:
+                raise ValueError(
+                    f"the padded depth {depth} of the volume is not "
+                    f"divisible by z_shards={shards}")
+            planes = group.block(depth, model.spatial_unit)
+            feats = {k: v[:, planes].contiguous() for k, v in feats.items()}
         x = feats["images"].float()
         if in_zscore:
-            x = zscore(x)
+            x = zscore(x) if group is None else SpatialShard(group).zscore(x)
         feats["images"] = x
         if blank_guide_channels and "sp_guide" not in feats:
             feats["sp_guide"] = torch.zeros(
                 x.shape[:-1] + (blank_guide_channels,), device=x.device)
-        logits = model(feats)
-        if ret == "pred":
-            return host(logits.argmax(dim=-1).to(torch.uint8))
-        return host(torch.softmax(logits, dim=-1))
+        with sharded(model, group):
+            logits = model(feats)
+        out = (logits.argmax(dim=-1).to(torch.int32) if ret == "pred"
+               else torch.softmax(logits, dim=-1))
+        if group is not None:
+            out = group.gather_blocks(out.contiguous(), 1, depth,
+                                      model.spatial_unit)
+        return host(out.to(torch.uint8) if ret == "pred" else out)
 
     predict.ret = ret
     predict.in_zscore = in_zscore
@@ -172,13 +205,16 @@ class EvaluateVolume3D(EvaluateBase):
     """Whole-volume 3-D evaluator (the UNet3D path)."""
 
     def __init__(self, args, dataset_dir, classes: List[str],
-                 align: Tuple[int, int, int] = (2, 16, 16)):
+                 align: Tuple[int, int, int] = (2, 16, 16), group=None):
         super().__init__(classes, list(args.metrics_eval),
                          getattr(args, "primary_metric", None),
                          getattr(args, "secondary_metric", None))
         self.args = args
         self.dataset_dir = Path(dataset_dir)
         self.align = align
+        # under a group (--z_shards) every rank predicts each case and
+        # rank 0 alone scores
+        self.chief = group is None or group.chief
 
     def predict_case(self, predict_fn: Callable, volume: np.ndarray,
                      cascade=None) -> np.ndarray:
@@ -248,7 +284,7 @@ class EvaluateVolume3D(EvaluateBase):
             pred = (out if out.dtype == np.uint8
                     else out.argmax(-1).astype(np.uint8))
             results = {}
-            if do_eval:
+            if do_eval and self.chief:
                 for i, cls in enumerate(self.classes):
                     p = pred == i + 1
                     r = lab == i + 1
@@ -265,6 +301,8 @@ class EvaluateVolume3D(EvaluateBase):
             msg = " ".join(f"{k}: {v:.3f}" for k, v in results.items())
             logger.info("Evaluate3D-%d case %s %s (%.3f s)", n, pid, msg,
                         time.time() - t0)
+        if not self.chief:
+            return {}
         results = self.mean_metrics()
         for cls in self.classes:
             denom = (2 * accumulator[cls + "_tp"] + accumulator[cls + "_fn"]

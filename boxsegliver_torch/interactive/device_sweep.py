@@ -20,6 +20,17 @@ than ``max_objects`` predicted components report an overflow; the
 evaluator then falls back to the per-slice host loop
 (interactive/propagation.py), which calls the predictor itself
 (``__call__``) on each slice's mirror stack.
+
+Under a ``group`` of more than one rank (JAX's ``mesh=``,
+device_sweep.py:55-67,170-177: the TTA forward sharded over image height)
+every rank runs the same sweep: B1 renders the whole guide on every rank,
+the mirrors are flipped whole, and each rank feeds its block of rows
+(``Group.block``: whole multiples of the net's total stride) to the net
+under ``parallel.spatial.sharded``; the softmax rows are gathered to every
+rank, so labeling, seeds, moments and the Wu ascent run identically
+everywhere and every rank carries the same state.  ``__call__`` (the
+overflow fallback) stays unsharded, as JAX's ``_plain`` jit is: every rank
+runs it whole.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from boxsegliver_torch.interactive.propagation import GUIDE_BG, mirror_variants
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
 from boxsegliver_torch.ops.labeling import (label_components, object_moments,
                                             ordered_seeds, wu_ascent)
+from boxsegliver_torch.parallel.spatial import sharded
 
 _STD_BUCKETS = (4, 8, 16, 32)
 _DEPTH_BUCKETS = (32, 64, 96, 128, 192, 256)
@@ -52,8 +64,9 @@ class GuidedSweepPredictor:
     double sweep on ``device``."""
 
     def __init__(self, model: torch.nn.Module, args, num_classes: int,
-                 tumor_id: int, device="cuda"):
+                 tumor_id: int, device="cuda", group=None):
         self.args = args
+        self.group = group if group is not None and group.size > 1 else None
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
         self.pshape = (int(args.im_height), int(args.im_width))
@@ -128,8 +141,20 @@ class GuidedSweepPredictor:
         feats = {"images": torch.cat(ims), "sp_guide": torch.cat(gds)[..., None]}
         if ctx is not None:
             feats["context"] = ctx.repeat(n, 1)
-        logits = self.model(feats)
+        if self.group is None:
+            logits = self.model(feats)
+        else:
+            # this rank's rows of the flipped whole images and guides
+            ph = feats["images"].shape[1]
+            unit = self.model.spatial_unit
+            rows = self.group.block(ph, unit)
+            local = {k: (v[:, rows].contiguous() if k != "context" else v)
+                     for k, v in feats.items()}
+            with sharded(self.model, self.group):
+                logits = self.model(local)
         probs = torch.softmax(logits.float(), dim=-1)
+        if self.group is not None:
+            probs = self.group.gather_blocks(probs.contiguous(), 1, ph, unit)
         probs = probs.reshape((n, images.shape[0]) + probs.shape[1:])
         acc = torch.zeros_like(probs[0])
         for i, axes in enumerate(self.flips):

@@ -28,6 +28,13 @@ unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
 gunet.py:135-137).  ``context_model="conv"`` (nf2 / IIN) reads a rank-4
 context, the image-patch pyramid [bs, 32, 32, context_channels], with
 layers.PatchCNN.
+
+Under ``parallel.spatial.sharded`` (the height-sharded sweep, inference
+only) the images and the guide hold this rank's rows (a block of whole
+multiples of ``spatial_unit`` = 2^num_down_samples rows) and the context
+stays whole: the convs exchange halos, the norms, kernel B2 and the SE mean
+sum their statistics over the ranks, ``img_grad``'s dy takes the next
+rank's first row, and the pools and transpose convs stay local.
 """
 
 from __future__ import annotations
@@ -45,11 +52,12 @@ from boxsegliver_torch.models.layers import (MLP, VGG_REPS, VGG1D,
                                              avg_pool_same, dropout,
                                              fused_pair, he_normal_,
                                              image_gradients, init_kernel_,
-                                             max_pool2x2)
-from boxsegliver_torch.ops.kernels import instance_norm_relu
+                                             max_pool2x2, norm_relu)
 
 
 class GUNet(nn.Module):
+
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
 
     def __init__(self, num_classes: int = 3, init_channels: int = 64,
                  num_down_samples: int = 4,
@@ -188,6 +196,12 @@ class GUNet(nn.Module):
                 he_normal_(last.weight, last.in_features, generator)
         return self
 
+    @property
+    def spatial_unit(self) -> int:
+        """The total stride along H (and W): a height shard's rows come in
+        whole multiples of it."""
+        return 2 ** self.num_down_samples
+
     def _layer(self, name: str) -> nn.Module:
         return self._modules[name]
 
@@ -215,7 +229,8 @@ class GUNet(nn.Module):
 
         images = inputs["images"]
         if self.img_grad:
-            dy, dx = image_gradients(images)
+            dy, dx = (image_gradients(images) if self.spatial is None
+                      else self.spatial.image_gradients(images))
             images = torch.cat([images, dy, dx], dim=-1)
         x = images.to(dt).permute(0, 3, 1, 2)
         density_mod_id = 0
@@ -234,7 +249,7 @@ class GUNet(nn.Module):
                         and fused_pair(norm, True)):
                     # an unmodulated level: norm + ReLU is kernel B2's
                     # function
-                    x = instance_norm_relu(x, norm.weight, norm.bias)
+                    x = norm_relu(x, norm, self.spatial)
                     continue
                 if norm is not None:
                     x = norm(x, train=train)
@@ -244,7 +259,9 @@ class GUNet(nn.Module):
                     cfl = self.se_features
                     feat = context_params[:, density_mod_id:
                                           density_mod_id + cfl]
-                    se = torch.cat([x.mean(dim=(2, 3)), feat], dim=1)
+                    squeeze = (x.mean(dim=(2, 3)) if self.spatial is None
+                               else self.spatial.mean(x))
+                    se = torch.cat([squeeze, feat], dim=1)
                     se = F.relu(self._layer(name + "_se1")(se))
                     gamma = torch.sigmoid(self._layer(name + "_se2")(se))
                     x = x * gamma[:, :, None, None]

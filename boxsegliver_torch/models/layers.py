@@ -15,6 +15,11 @@ Conventions carried over from the flax modules:
 - parameters are named so that the weight bridge (models/weights.py) maps
   flax's ``params``/``batch_stats`` trees onto ``state_dict`` keys by rule.
 
+Under ``parallel.spatial.sharded`` (inference only) a module's ``spatial``
+holds this rank's block of one spatial axis: ``Conv`` / ``Conv3`` exchange
+halos on it, ``Norm``'s instance norm and kernel B2 take statistics summed
+over the ranks (parallel/spatial.py).  ``spatial`` is None otherwise.
+
 Train mode (``train=True``): dropout draws its keep masks from an explicit
 ``torch.Generator`` (flax semantics: keep with probability 1 − rate, kept
 units scaled by 1 / (1 − rate)); batch norm normalizes with the batch
@@ -33,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from boxsegliver_torch.ops.kernels import instance_norm_relu
+from boxsegliver_torch.ops.kernels import (instance_norm_relu,
+                                           instance_norm_relu_split)
 from boxsegliver_torch.parallel.mesh import RankGenerator
 
 # flax nn.BatchNorm(momentum=0.99): ra <- 0.99 * ra + 0.01 * batch statistic
@@ -128,8 +134,13 @@ class Conv(nn.Conv2d):
                          padding=(kernel // 2) * dilation if stride == 1
                          else 0, dilation=dilation, bias=bias)
 
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
+
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.spatial is not None:
+            return self.spatial.conv(x, self.weight.to(x.dtype), b,
+                                     self.stride, self.dilation)
         if self.stride[0] > 1:
             k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
             ph = same_pads(x.shape[-2], k, s, d)
@@ -150,8 +161,13 @@ class Conv3(nn.Conv3d):
         super().__init__(in_channels, out_channels, tuple(kernel),
                          stride=tuple(stride), padding=0, bias=bias)
 
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
+
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.spatial is not None:
+            return self.spatial.conv(x, self.weight.to(x.dtype), b,
+                                     self.stride, self.dilation)
         pads = [same_pads(x.shape[2 + a], k, s) for a, (k, s) in
                 enumerate(zip(self.kernel_size, self.stride))]
         if any(p for pair in pads for p in pair):
@@ -250,9 +266,14 @@ class Norm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(channels))
             self.register_buffer("running_var", torch.ones(channels))
 
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
+
     def forward(self, x, train: bool = False):
         if self.normalizer == "batch_norm" and train:
             return self._batch_norm_train(x)
+        if self.normalizer == "instance_norm" and self.spatial is not None:
+            return self.spatial.instance_norm(x, self.weight, self.bias,
+                                              self.eps)
         xf = x.float()
         view = (1, -1) + (1,) * (x.ndim - 2)
         if self.normalizer == "instance_norm":
@@ -374,11 +395,23 @@ def fused_pair(norm: Optional["Norm"], act: bool) -> bool:
             and norm.weight is not None and norm.bias is not None)
 
 
+def norm_relu(x: torch.Tensor, norm: "Norm", spatial=None) -> torch.Tensor:
+    """Kernel B2's function relu(instance_norm(x)·γ + β) of a full-affine
+    ``norm`` (fused_pair): B2 on whole planes, or under a ``spatial`` shard
+    the split form (B2s, all-reduce, B2y)."""
+    if spatial is not None:
+        return instance_norm_relu_split(x, norm.weight, norm.bias,
+                                        spatial.group)
+    return instance_norm_relu(x, norm.weight, norm.bias)
+
+
 class ConvNormAct(nn.Module):
     """slim.conv2d equivalent: conv + (norm) + ReLU; the conv has a bias
     iff there is no normalizer.  A full-affine instance norm + ReLU runs
     through kernel B2.  A kernel tuple of three makes the 3-D form (Conv3,
     with ``strides`` a tuple too), whose B2 planes are D·H·W."""
+
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
 
     def __init__(self, in_channels: int, features: int, kernel=3,
                  normalizer: Optional[str] = "batch_norm",
@@ -401,7 +434,7 @@ class ConvNormAct(nn.Module):
     def forward(self, x, train: bool = False):
         x = self.conv(x)
         if fused_pair(self.norm, self.act):
-            return instance_norm_relu(x, self.norm.weight, self.norm.bias)
+            return norm_relu(x, self.norm, self.spatial)
         if self.norm is not None:
             x = self.norm(x, train=train)
         return F.relu(x) if self.act else x

@@ -17,6 +17,14 @@ maps it by rule.  Every full-affine instance norm + ReLU runs kernel B2 with
 planes of D·H·W.  ``lane_pack`` (the JAX package's width-packed TPU layout,
 models/packed3d.py: the same math and parameter tree) is accepted and
 ignored; ``img_grad`` is accepted and unused, as in the JAX module.
+
+Under ``parallel.spatial.sharded`` (the depth-sharded whole-volume eval,
+``--z_shards``; inference only) the volume holds this rank's planes, a
+block of whole multiples of ``spatial_unit`` (the product of the z
+strides: 2, the bridge's): the (3, 3, 3) convs exchange one plane with each
+neighbour, the bridge's stride-2 conv takes its pads from the global depth
+(one plane from the next rank), kernel B2 sums its plane statistics over
+the ranks, and the transpose convs stay local.
 """
 
 from __future__ import annotations
@@ -69,6 +77,8 @@ _CFG = {
 
 class UNet3D(nn.Module):
 
+    spatial = None      # a parallel.spatial.SpatialShard while sharded
+
     def __init__(self, num_classes: int = 2, init_channels: int = 30,
                  num_pool_layers: int = 4, max_channels: int = 320,
                  use_spatial: bool = False, img_grad: bool = False,
@@ -109,6 +119,17 @@ class UNet3D(nn.Module):
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """flax's initializers from a seeded generator (layers.flax_init_)."""
         return flax_init_(self, self.weight_init, generator)
+
+    @property
+    def spatial_unit(self) -> int:
+        """The product of the encoder's z strides: a depth shard's planes
+        come in whole multiples of it."""
+        unit = 1
+        for block, layers in self.cfg.items():
+            if block.startswith("conv_e") or block == "bridge":
+                for _, stride in layers:
+                    unit *= stride[0]
+        return unit
 
     def forward(self, inputs, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

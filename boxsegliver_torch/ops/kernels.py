@@ -57,6 +57,7 @@ _MAX_BATCH = 65535         # grid.z
 # the C functions of each csrc/ source, bound on first use
 _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
             "in_relu_bwd_stats": "in_relu", "in_relu_bwd_apply": "in_relu",
+            "in_relu_fwd_partial": "in_relu", "in_relu_fwd_apply": "in_relu",
             "geodesic2d_raster": "geodesic"}
 _BOUND = {}
 
@@ -552,12 +553,150 @@ def instance_norm_relu(x: torch.Tensor, weight: torch.Tensor,
     return InstanceNormReLU.apply(x, weight, bias)
 
 
+# ---------------------------------------------------------------------------
+# B2 split around a collective: B2s (partial sums), all-reduce, B2y (apply)
+# ---------------------------------------------------------------------------
+
+PARTIAL_TARGET_CTAS = 1024     # B2s: about 8 CTAs of FWD_THREADS a SM
+
+
+def in_relu_partial_plan(planes: int, hw: int, dtype: torch.dtype,
+                         aligned: bool = True):
+    """(splits, chunk): B2s covers each plane of ``hw`` elements with
+    ``splits`` CTAs of ``chunk`` elements each (the last one ragged), so
+    that about PARTIAL_TARGET_CTAS CTAs run however few the planes (30 at
+    the 3-D eval's level 0), with at least one 16-byte pack a thread; a
+    chunk is a whole number of packs when x is ``aligned`` and ``hw`` a
+    multiple of the pack."""
+    esize = torch.finfo(dtype).bits // 8
+    per = 16 // esize if aligned and hw % (16 // esize) == 0 else 1
+    groups = -(-hw // per)
+    splits = max(1, min(-(-PARTIAL_TARGET_CTAS // max(planes, 1)),
+                        -(-groups // FWD_THREADS)))
+    chunk = -(-groups // splits) * per
+    return -(-hw // chunk), chunk
+
+
+def in_relu_fwd_partial_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2s: [N, C, 2] float32 (Σx, Σx²) over each (n, c)
+    plane of x [N, C, *S] (float64 for a float64 x)."""
+    xf = _acc(x)
+    dims = tuple(range(2, x.ndim))
+    return torch.stack([xf.sum(dim=dims), (xf * xf).sum(dim=dims)], dim=-1)
+
+
+def in_relu_fwd_apply_plain(x: torch.Tensor, mean: torch.Tensor,
+                            rstd: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """Plain version of B2y, operation for operation as in_relu_fwd_plain's
+    y: relu((x − mean)·rstd·γ + β) in x's dtype; mean, rstd [N, C]."""
+    xhat = (_acc(x) - _plane_view(x, _acc(mean))) * _plane_view(x, _acc(rstd))
+    z = xhat * _plane_view(x, _acc(weight)) + _plane_view(x, _acc(bias))
+    return torch.clamp_min(z, 0.0).to(x.dtype)
+
+
+def _check_split(name, x):
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32 or "
+                        "bfloat16")
+    if x.ndim < 3:
+        raise ValueError(f"{name}: expected [N, C, *S], got "
+                         f"{tuple(x.shape)}")
+    n, c, hw = _planes(x)
+    if n * c >= 2 ** 31 or hw >= 2 ** 31:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the kernel's "
+                         "limits")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: operands must be contiguous")
+
+
+def in_relu_fwd_partial(x: torch.Tensor) -> torch.Tensor:
+    """Kernel B2s: [N, C, 2] float32 (Σx, Σx²) over each (n, c) plane of
+    this rank's part of x [N, C, *S] (float32 or bfloat16, contiguous)."""
+    if x.device.type == "cpu":
+        return in_relu_fwd_partial_plain(x)
+    _check_split("in_relu_fwd_partial", x)
+    n, c, hw = _planes(x)
+    splits, chunk = in_relu_partial_plan(n * c, hw, x.dtype,
+                                         x.data_ptr() % 16 == 0)
+    out = torch.empty((n, c, 2), dtype=torch.float32, device=x.device)
+    part = (torch.empty((n * c, splits, 2), dtype=torch.float32,
+                        device=x.device) if splits > 1 else out)
+    _launch("in_relu_fwd_partial", x, x.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n * c, hw, splits, chunk, _DTYPES[x.dtype])
+    in_relu_fwd_partial.launches += 1
+    return out
+
+
+def in_relu_fwd_apply(x: torch.Tensor, mean: torch.Tensor,
+                      rstd: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """Kernel B2y: y = relu((x − mean)·rstd·γ + β) in x's dtype from the
+    plane statistics mean, rstd ([N, C] float32) and γ, β ([C] float32);
+    no x̂ (nothing needs it at inference)."""
+    if x.device.type == "cpu":
+        return in_relu_fwd_apply_plain(x, mean, rstd, weight, bias)
+    _check_split("in_relu_fwd_apply", x)
+    n, c, _ = _planes(x)
+    for name, t, shape in (("mean", mean, (n, c)), ("rstd", rstd, (n, c)),
+                           ("gamma", weight, (c,)), ("beta", bias, (c,))):
+        if (t.dtype != torch.float32 or tuple(t.shape) != shape
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"in_relu_fwd_apply: {name} must be contiguous "
+                             f"{list(shape)} float32 on {x.device}")
+    y = torch.empty_like(x)
+    _launch("in_relu_fwd_apply", x, x.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            n * c, c, _planes(x)[2], _DTYPES[x.dtype])
+    in_relu_fwd_apply.launches += 1
+    return y
+
+
+in_relu_fwd_partial.launches = 0
+in_relu_fwd_apply.launches = 0
+
+
+def instance_norm_stats_split(x: torch.Tensor, group, eps: float = IN_EPS):
+    """Instance-norm statistics of planes split over ``group``'s ranks
+    (each holds its part of every plane of x [N, C, *S]): B2s's float32
+    partial sums and the element count all-reduced in float64 (as
+    layers._SyncBatchNorm), the variance E[x²] − E[x]² clipped at 0, as
+    in_relu_fwd_plain's.  Returns mean and rstd = rsqrt(var + eps), each
+    [N, C] float32."""
+    part = in_relu_fwd_partial(x.contiguous())
+    count = torch.full((1,), float(_planes(x)[2]), dtype=torch.float64,
+                       device=x.device)
+    buf = group.all_reduce_(torch.cat([part.double().reshape(-1), count]))
+    sums = buf[:-1].view(part.shape)
+    mean = sums[..., 0] / buf[-1]
+    var = torch.clamp_min(sums[..., 1] / buf[-1] - mean * mean, 0.0)
+    return mean.float(), torch.rsqrt(var.float() + eps)
+
+
+def instance_norm_relu_split(x: torch.Tensor, weight: torch.Tensor,
+                             bias: torch.Tensor, group) -> torch.Tensor:
+    """relu(instance_norm(x)·γ + β) of planes split over ``group``'s ranks:
+    B2s → all-reduce → B2y.  Inference only: it raises where autograd
+    would record it (JAX shards spatially only at eval; B2a and B2b stay
+    whole-plane kernels)."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        raise RuntimeError("instance_norm_relu_split is inference only: run "
+                           "it under torch.no_grad() or inference_mode()")
+    mean, rstd = instance_norm_stats_split(x, group)
+    return in_relu_fwd_apply(x.contiguous(), mean, rstd,
+                             weight.float().contiguous(),
+                             bias.float().contiguous())
+
+
 # name -> wrapper, for launch-count bookkeeping
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
            "in_relu_bwd_stats": in_relu_bwd_stats,
            "in_relu_bwd_apply": in_relu_bwd_apply,
-           "geodesic2d_batch": geodesic2d_batch}
+           "geodesic2d_batch": geodesic2d_batch,
+           "in_relu_fwd_partial": in_relu_fwd_partial,
+           "in_relu_fwd_apply": in_relu_fwd_apply}
 
 
 def reset_launch_counts():

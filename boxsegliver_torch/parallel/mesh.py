@@ -14,6 +14,14 @@ gives each rank its rows of every global batch:
   ``gather_rows``, ``broadcast_``: the ones gloo carries on CUDA tensors
   too) and, over a gloo group beside an NCCL one, host objects
   (``broadcast_object``, ``gather_to_chief``, ``barrier``).
+- Spatial sharding (JAX's height- and depth-sharded forwards, whose halos
+  XLA's partitioner inserts): ``split_blocks`` cuts one axis into a block a
+  rank of whole multiples of the network's total stride (``Group.block``);
+  ``Group.halo`` pads a rank's block with its neighbours' edge rows, zeros
+  at the global edges; ``Group.gather_blocks`` puts the blocks together on
+  every rank.  Both are one all-reduce of a zero buffer that each rank
+  fills at its own place, the one form gloo (whose send / recv takes CPU
+  tensors only) and NCCL both carry on CUDA tensors.
 - ``launch`` starts N spawned workers with a FileStore rendezvous in a
   fresh temporary directory; ``init_group`` joins one.  NCCL where each
   rank has its own GPU, gloo on the CPU and for ranks that share a card.
@@ -29,7 +37,7 @@ import pickle
 import shutil
 import tempfile
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +74,26 @@ def per_device_batch_size(batch_size: int, num_replicas: int) -> int:
                .format(num_replicas, batch_size, batch_size - remainder))
         raise ValueError(err)
     return batch_size // num_replicas
+
+
+def split_blocks(size: int, ranks: int, unit: int = 1
+                 ) -> List[Tuple[int, int]]:
+    """[start, stop) of each rank's block of an axis of ``size``: whole
+    multiples of ``unit`` (the network's total stride along the axis), as
+    equal as possible (the first ranks take one unit more), the ragged
+    remainder ``size % unit`` on the last rank.  More ranks than whole
+    units raise ValueError."""
+    units = size // unit
+    if ranks > max(units, 1):
+        raise ValueError(f"cannot split an axis of {size} over {ranks} ranks "
+                         f"in blocks of whole multiples of {unit}")
+    q, r = divmod(units, ranks)
+    blocks, start = [], 0
+    for i in range(ranks):
+        stop = size if i == ranks - 1 else start + (q + (i < r)) * unit
+        blocks.append((start, stop))
+        start = stop
+    return blocks
 
 
 class Group:
@@ -125,6 +153,61 @@ class Group:
         b = t.shape[0]
         out = t.new_zeros((self.size * b,) + tuple(t.shape[1:]))
         out[self.rank * b:(self.rank + 1) * b] = t
+        return self.all_reduce_(out)
+
+    # -- spatial blocks ----------------------------------------------------
+    def block(self, size: int, unit: int = 1) -> slice:
+        """This rank's block of an axis of ``size`` (split_blocks)."""
+        return slice(*split_blocks(size, self.size, unit)[self.rank])
+
+    def halo(self, x: torch.Tensor, dim: int, lo: int, hi: int,
+             last_hi: Optional[int] = None) -> torch.Tensor:
+        """``x`` (this rank's block along ``dim``) with the previous rank's
+        last ``lo`` rows before it and the next rank's first ``hi`` rows
+        after it; zeros at the global start, and ``last_hi`` (default
+        ``hi``) zero rows after the last rank's block.  One all-reduce of
+        every rank's edge rows, whenever ``lo`` or ``hi`` is not 0."""
+        r, n = self.rank, self.size
+        if last_hi is None:
+            last_hi = hi
+        size = x.shape[dim]
+        buf = None
+        if (lo or hi) and n > 1:
+            if size < max(lo, hi):
+                raise ValueError(f"a block of {size} rows cannot lend a halo "
+                                 f"of ({lo}, {hi})")
+            edges = torch.cat([x.narrow(dim, size - lo, lo),
+                               x.narrow(dim, 0, hi)], dim)
+            buf = edges.new_zeros((n,) + tuple(edges.shape))
+            buf[r] = edges
+            self.all_reduce_(buf)
+
+        def zeros(k):
+            shape = list(x.shape)
+            shape[dim] = k
+            return x.new_zeros(shape)
+
+        parts = []
+        if lo:
+            parts.append(buf[r - 1].narrow(dim, 0, lo) if r > 0
+                         else zeros(lo))
+        parts.append(x)
+        if r < n - 1 and hi:
+            parts.append(buf[r + 1].narrow(dim, lo, hi))
+        elif r == n - 1 and last_hi:
+            parts.append(zeros(last_hi))
+        return torch.cat(parts, dim) if len(parts) > 1 else x
+
+    def gather_blocks(self, t: torch.Tensor, dim: int, size: int,
+                      unit: int = 1) -> torch.Tensor:
+        """The whole axis ``dim`` of ``size`` on every rank, from every
+        rank's block ``t`` (split_blocks): each rank's block in a zero
+        buffer, summed (exact: the other ranks add zeros)."""
+        blk = self.block(size, unit)
+        shape = list(t.shape)
+        shape[dim] = size
+        out = t.new_zeros(shape)
+        out.narrow(dim, blk.start, blk.stop - blk.start).copy_(t)
         return self.all_reduce_(out)
 
     def broadcast_module(self, module: torch.nn.Module):
@@ -204,6 +287,10 @@ def close_group():
 def _entry(rank: int, fn: Callable, world: int, root: str, device,
            backend: Optional[str], args: Sequence):
     try:
+        if torch.device(device).type == "cpu":
+            # ranks on the CPU share its cores: more threads than cores
+            # make every rank's parallel regions wait on the others'
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
         group = init_group(rank, world, str(Path(root) / "store"), device,
                            backend)
         out = fn(group, *args)

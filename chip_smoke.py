@@ -7,9 +7,9 @@ Phases, each raising on failure (the script exits non-zero and prints no
 result line):
 1. device  — a CUDA device is required; prints ``nvidia-smi`` name and
    power limit.
-2. build   — builds every CUDA kernel of the port from csrc/ (B1, B2,
-   G1: nvcc, one process per source, in parallel) and prints the build
-   time and ptxas report.
+2. build   — builds every CUDA kernel of the port from csrc/ (B1, B2
+   with B2s / B2y, G1: nvcc, one process per source, in parallel) and
+   prints the build time and ptxas report.
 3. kernels — kernel B1 (gaussian_guide_batch) against its plain PyTorch
    version on the card at the guided sweep's shapes and at edge cases (W
    not a multiple of 4, one row, K = 0, 1, 150); max abs error <= 1e-6.
@@ -297,6 +297,26 @@ result line):
    1e-6 of (or bit-equal to) the groupless run, ms/step of both; (f) with
    two or more cards, ``001_dist.sh train`` through the CLI over NCCL
    (otherwise printed as not run).
+25. spatial sharding — (a) the split B2 forward on the card: B2s
+   (in_relu_fwd_partial, the per-plane partial sums) over the two halves of
+   a plane, their sums, then B2y (in_relu_fwd_apply) on each half, at the
+   sweep's level 0 ([8, 64, 256, 256], halves [8, 64, 128, 256]), the 3-D
+   eval's level 0 ([1, 30, 24, 256^2], halves of 12 planes) and the sweep's
+   16^2 level, bf16: each against its plain version, the halves' y against
+   B2-fwd's unsharded y (b2_check's bar), device time per launch
+   (graph_ms), wrapper, plain, torch.var_mean beside B2s, and the bytes
+   bound.  (b) run_g at the 002_gnet_sp.sh eval flags (GUNet.yml, 256^2 x
+   3, mirror TTA, --device_sweep on) in float32 on GUNet.yml's seeded init
+   with a Liver margin, two gloo ranks sharing the card (each 128 rows of
+   every image) against one process: merged probabilities within 1e-4,
+   the same objects, every rank equal, classes equal except at near-ties
+   (top two within 1e-4), per-case metrics within 1e-6 where no class
+   flipped; s/case, halo exchanges and all-reduces per forward and their
+   share of the step (timed between synchronizations), exact B1 / B2s /
+   B2y launches.  (c) the whole-volume nf_3d eval with --z_shards 2 on
+   phase 21's best in float32, ret pred and prob, held as (b); s/case.
+   (d) with two or more cards, both CLIs over NCCL (otherwise printed as
+   not run).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
 G1, and per path in ``launches_by_path``: the device sweep of phase 5,
@@ -309,7 +329,9 @@ checkpoint sweep, phase 22's nf2 train, run_patch (mirror TTA and
 plain), infer --pos and serving, phase 23's DenseUNet train, eval,
 checkpoint sweep and serving and the --use_se train, and phase 24's rank 0
 of the 001_dist and G-Net trains, run, run_sp and the two refiners, and
-the 1-rank NCCL group's K = 16 replays; B2's
+the 1-rank NCCL group's K = 16 replays, and phase 25's rank 0 of the
+sharded run_g and 3-D evals (B2s and B2y count the sharded run_g's
+launches); B2's
 ``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
 level 0; ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
@@ -5680,6 +5702,517 @@ def dist_phase(tmp, dev, seed, unet_md, inter_md):
     return paths
 
 
+
+# ---------------------------------------------------------------------------
+# phase 25: spatial sharding — B2 split around a collective (B2s, B2y),
+# run_g's height-sharded sweep, the depth-sharded 3-D eval
+# ---------------------------------------------------------------------------
+
+SPATIAL_RANKS = 2
+# whole planes on the split kernels' paths, each cut along its first
+# spatial axis into the halves that SPATIAL_RANKS ranks hold: the sweep's
+# level 0 (2 directions x 4 mirrors, 64 channels, 256^2), the 3-D eval's
+# level 0 (30 channels, 24 x 256^2) and the sweep's deepest level (16^2);
+# bf16, the dtype both paths run in by default
+SPLIT_SHAPES = {"sweep level 0": (8, 64, 256, 256),
+                "3-D eval level 0": (1, 30, 24, 256, 256),
+                "sweep level 4 (16^2)": (8, 1024, 16, 16)}
+SPLIT_KERNELS = ("in_relu_fwd_partial", "in_relu_fwd_apply")
+# float operations per element: B2s 3 (sum, square, sum); B2y 5 (x − mean,
+# · rstd, · γ, + β, max)
+SPLIT_OPS = {"in_relu_fwd_partial": 3, "in_relu_fwd_apply": 5}
+# run_g's flags for 25b: 002_gnet_sp.sh eval (FLAGS) in float32 (TF32 off)
+# to be held to one process at 1e-4, with a cap of 64 objects a slice so
+# that a briefly trained model's components stay on the device sweep
+SPATIAL_SWEEP = ["--compute_dtype", "float32", "--device_sweep", "on",
+                 "--sweep_max_objects", "64"]
+# GUNet.yml's modulated encoder levels 1-4: two plain instance norms each
+GUNET_MOD_NORMS = 8
+SPATIAL_LABEL = ("2 ranks sharing one card over gloo: a correctness run, not "
+                 "a scaling figure")
+
+
+def split_bound_ms(name, shape):
+    """(bound ms, bound_by) of one B2s / B2y call on a rank's part
+    ``shape`` in bf16: x read once (and y written once for B2y), the
+    per-plane float32 statistics, against HBM_BYTES_PER_S; SPLIT_OPS float
+    operations per element against FP32_OPS_PER_S."""
+    n, c = shape[:2]
+    elems = math.prod(shape)
+    io = {"in_relu_fwd_partial": elems * 2 + n * c * 8,
+          "in_relu_fwd_apply": 2 * elems * 2 + n * c * 8 + c * 8}[name]
+    t_bytes = io / HBM_BYTES_PER_S * 1e3
+    t_ops = SPLIT_OPS[name] * elems / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def split_stats(parts, hw):
+    """Mean and rstd of planes of ``hw`` elements from the ranks' B2s sums,
+    as ops/kernels.instance_norm_stats_split combines them (float64)."""
+    from boxsegliver_torch.ops import kernels
+
+    tot = sum(p.double() for p in parts)
+    mean = tot[..., 0] / hw
+    var = torch.clamp_min(tot[..., 1] / hw - mean * mean, 0.0)
+    return mean.float(), torch.rsqrt(var.float() + kernels.IN_EPS)
+
+
+def split_phase(dev):
+    """25a: B2s over the halves of each SPLIT_SHAPES plane, their sums,
+    then B2y on each half: each kernel against its plain version on the same
+    inputs, and the halves' y against B2-fwd's unsharded y (b2_check's bar:
+    one bf16 rounding step, 2^-7 of the value, plus 1e-5; B2s's sums 1e-4
+    relative plus 1e-6·√count, as B2a's); per shape each kernel's device
+    time per launch (graph_ms), wrapper, plain and library (torch.var_mean
+    beside B2s; none computes B2y's function in one call) times and bound.
+    Returns the two kernels' records (the sweep's level 0 as their main
+    numbers, every shape under ``shapes``)."""
+    from boxsegliver_torch.ops import kernels as K
+
+    bf16 = torch.bfloat16
+    out_tol = (2.0 ** -7, 1e-5)
+
+    def close(name, got, ref, rel, abs_):
+        err = (got.float() - ref.float()).abs()
+        bad = err > abs_ + rel * ref.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{name}: {int(bad.sum())} elements off, "
+                                 f"max abs err {float(err.max()):.3e}")
+        return float(err.max())
+
+    recs = {n: {"name": n, "route": "cuda",
+                "source": "boxsegliver_torch/csrc/in_relu.cu",
+                "replaces": "boxsegliver_tpu/ops/pallas_kernels.py:47 "
+                            "(_in_relu_fwd_impl, XLA; split around the "
+                            "all-reduce XLA's partitioner inserts under a "
+                            "sharded spatial axis)",
+                "max_abs_err": 0.0, "shapes": {}} for n in SPLIT_KERNELS}
+    for i, (label, shape) in enumerate(SPLIT_SHAPES.items()):
+        x, _, w, b = b2_inputs(shape, bf16, dev, seed=500 + i)
+        halves = [h.contiguous() for h in x.chunk(SPATIAL_RANKS, dim=2)]
+        part_shape = tuple(halves[0].shape)
+        hw_part = math.prod(part_shape[2:])
+        parts = [K.in_relu_fwd_partial(h) for h in halves]
+        err_s = max(close(f"B2s {label}", p, K.in_relu_fwd_partial_plain(h),
+                          1e-4, 1e-6 * math.sqrt(hw_part))
+                    for p, h in zip(parts, halves))
+        mean, rstd = split_stats(parts, math.prod(shape[2:]))
+        ys = [K.in_relu_fwd_apply(h, mean, rstd, w, b) for h in halves]
+        err_y = max(close(f"B2y {label}", y, K.in_relu_fwd_apply_plain(
+            h, mean, rstd, w, b), *out_tol) for y, h in zip(ys, halves))
+        err_w = close(f"B2s + B2y vs B2-fwd {label}", torch.cat(ys, dim=2),
+                      K.in_relu_fwd(x, w, b)[0], *out_tol)
+        torch.cuda.synchronize()
+        recs["in_relu_fwd_partial"]["max_abs_err"] = max(
+            recs["in_relu_fwd_partial"]["max_abs_err"], err_s)
+        recs["in_relu_fwd_apply"]["max_abs_err"] = max(
+            recs["in_relu_fwd_apply"]["max_abs_err"], err_y, err_w)
+        splits, chunk = K.in_relu_partial_plan(part_shape[0] * part_shape[1],
+                                               hw_part, bf16)
+        print(f"  25a {label}: plane {shape} bf16 in {SPATIAL_RANKS} halves "
+              f"{part_shape}; B2s plan {splits} CTAs a plane of {chunk} "
+              f"elements; max abs err B2s vs plain {err_s:.3e}, B2y vs plain "
+              f"{err_y:.3e}, the halves' y vs B2-fwd's unsharded y "
+              f"{err_w:.3e}")
+
+        # timing on a rank's half, inputs cycling past the L2
+        iters = 20 if hw_part >= 128 * 128 else 50
+        n_sets = max(1, min(iters, math.ceil(COLD_BYTES / (
+            halves[0].numel() * 2))))
+        sets = [halves[0]] + [b2_inputs(part_shape, bf16, dev,
+                                        seed=600 + 10 * i + k)[0]
+                              for k in range(1, n_sets)]
+        h0 = halves[0]
+        dims = tuple(range(2, h0.ndim))
+        t = {"in_relu_fwd_partial": (
+                 lambda j: K.in_relu_fwd_partial(sets[j]),
+                 lambda: K.in_relu_fwd_partial(h0),
+                 lambda: K.in_relu_fwd_partial_plain(h0),
+                 lambda: torch.var_mean(h0, dim=dims)),
+             "in_relu_fwd_apply": (
+                 lambda j: K.in_relu_fwd_apply(sets[j], mean, rstd, w, b),
+                 lambda: K.in_relu_fwd_apply(h0, mean, rstd, w, b),
+                 lambda: K.in_relu_fwd_apply_plain(h0, mean, rstd, w, b),
+                 None)}
+        for n, (dev_call, call, plain, lib) in t.items():
+            row = {"device_ms": min(graph_ms(dev_call, n_sets, iters)
+                                    for _ in range(2)),
+                   "wrapper_ms": cuda_ms(call, iters=iters, warmup=3),
+                   "plain_ms": cuda_ms(plain, iters=iters, warmup=3),
+                   "library_ms": (None if lib is None else
+                                  cuda_ms(lib, iters=iters, warmup=3))}
+            row["bound_ms"], row["bound_by"] = split_bound_ms(n, part_shape)
+            recs[n]["shapes"][f"{label} {part_shape}"] = row
+            lib_txt = ("none" if row["library_ms"] is None
+                       else f"{row['library_ms']:.4f} (torch.var_mean)")
+            print(f"  25a {label} {n} on {part_shape}: device "
+                  f"{row['device_ms']:.4f} ms a launch "
+                  f"({row['bound_ms'] / row['device_ms']:.1%} of its "
+                  f"{row['bound_ms']:.4f} ms {row['bound_by']} bound), "
+                  f"wrapper {row['wrapper_ms']:.4f}, plain "
+                  f"{row['plain_ms']:.4f}, library {lib_txt}")
+            if i == 0:
+                recs[n].update(row, ms=row["wrapper_ms"])
+        del x, halves, parts, ys, sets
+        torch.cuda.empty_cache()
+    print(f"  25a on {smi()}")
+    return recs
+
+
+def spatial_margin_weights(tmp, seed):
+    """25b's weights: GUNet.yml's seeded init (the flags' model) with a
+    Liver margin of 4 logits on the head's bias, its kernel unscaled so that
+    the probabilities move with the forward and a few tumor components
+    reach the sweep; a checkpoint trained for a few steps speckles more
+    components than the sweep's cap and would leave it for the host loop."""
+    from boxsegliver_torch.cli import main as cli
+
+    args = cli.get_args(FLAGS + ["--model_dir", str(Path(tmp) / "md")])
+    model = cli._build_model(args)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.AdjustChannels.bias.copy_(torch.tensor([0.0, 4.0, 0.0]))
+    path = Path(tmp) / "gunet_spatial.pt"
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def recording(fn, outs):
+    """``fn`` that appends each result to ``outs``."""
+    def call(*a, **k):
+        out = fn(*a, **k)
+        outs.append(out)
+        return out
+    for attr in ("ret", "in_zscore", "sliding"):
+        if hasattr(fn, attr):
+            setattr(call, attr, getattr(fn, attr))
+    return call
+
+
+def spatial_sweep(group, tmp, weights):
+    """25b on this process (a rank of ``group``, or one process with None):
+    EvaluateVolume.run_g at the 002_gnet_sp.sh eval flags in float32 with
+    the GuidedSweepPredictor of ``group`` on ``weights``: per-case metrics,
+    results, launches, s/case, each case's merged volume and object count
+    (recorded from run_g's own sweeps), and, timed between
+    synchronizations over one case's sweep, the halo exchanges and
+    all-reduces per forward and their ms."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.volume import EvaluateVolume
+    from boxsegliver_torch.interactive.device_sweep import \
+        GuidedSweepPredictor
+
+    dev = torch.device("cuda")
+    args = cli.get_args(FLAGS + smoke_data(
+        tmp, Path(tmp) / "spatial_md", "--ckpt_path", str(weights),
+        *SPATIAL_SWEEP))
+    ds = cli.resolve_dataset_dir(args)
+    model = cli.build_model_from_args(args, dev)
+    pred = GuidedSweepPredictor(model, args, num_classes=3, tumor_id=2,
+                                device=dev, group=group)
+    ev = EvaluateVolume(args, ds, ["Background"] + list(args.classes),
+                        group=group)
+    metas = cli._test_metas(args, ds)
+    sweep, calls, outs = pred.sweep_case, [], []
+    pred.sweep_case = recording(
+        lambda *a: calls.append(a) or sweep(*a), outs)
+    res, seconds, launches = counted_run(lambda: ev.run_g(pred, metas))
+    out = {"results": res, "s": seconds / len(metas), "cases": len(metas),
+           "launches": launches, "counts": [n for _, n in outs],
+           "outs": [v for v, _ in outs],
+           "per_case": {m: list(v) for m, v in ev._metric_values.items()}}
+    spent = {"ms": 0.0, "all_reduces": 0, "halos": 0}
+    if group is not None:
+        plain_ar, plain_halo = group.all_reduce_, group.halo
+
+        def timed_ar(t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain_ar(t)
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t0) * 1e3
+            spent["all_reduces"] += 1
+            return t
+
+        def counted_halo(x, dim, lo, hi, last_hi=None):
+            # a 1x1 conv's halo of (0, 0) exchanges nothing
+            spent["halos"] += bool(lo or hi)
+            return plain_halo(x, dim, lo, hi, last_hi)
+
+        group.all_reduce_, group.halo = timed_ar, counted_halo
+    steps0 = pred.steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep(*calls[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if group is not None:
+        group.all_reduce_, group.halo = plain_ar, plain_halo
+    steps = pred.steps - steps0
+    out["per_forward"] = {
+        "step_ms": wall / steps, "coll_ms": spent["ms"] / steps,
+        "halos": spent["halos"] / steps,
+        # the halos' own all-reduces are counted apart
+        "all_reduces": (spent["all_reduces"] - spent["halos"]) / steps}
+    return out
+
+
+def spatial_3d(group, tmp):
+    """25c on this process: EvaluateVolume3D.run of phase 21's best UNet3D
+    (201_unet_v1.sh eval, whole volumes) in float32 through
+    make_volume_predict with the depth sharded over ``group`` (None: one
+    process), on the fast path ("pred": argmax and z-score on the card) and
+    the prob path (the host-normalized volume): per-case metrics, results,
+    launches, s/case and each case's output; then the fast path's
+    probabilities ("prob_z", the same z-scored input) for the argmax
+    agreement."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.evaluators.volume3d import (EvaluateVolume3D,
+                                                       make_volume_predict)
+
+    dev = torch.device("cuda")
+    ds = Path(tmp) / "synthetic_nf"
+    args = cli.get_args(nf3d_argv("eval", "chip_smoke_nf3d", tmp,
+                                  Path(tmp) / "nf3d_md", *NF3D_EVAL,
+                                  "--compute_dtype", "float32"))
+    model = cli.build_model_from_args(args, dev)
+    metas = cli._test_metas(args, ds)
+    shards = 0 if group is None else group.size
+
+    def evaluator():
+        return EvaluateVolume3D(args, ds, ["Background"] + list(args.classes),
+                                group=group)
+
+    out = {}
+    for form in ("pred", "prob"):
+        outs = []
+        predict = recording(make_volume_predict(
+            model, dev, ret=form, in_zscore=form == "pred", group=group,
+            z_axis_shards=shards), outs)
+        ev = evaluator()
+        res, seconds, launches = counted_run(lambda: ev.run(predict, metas))
+        out[form] = {"results": res, "s": seconds / len(metas),
+                     "cases": len(metas), "launches": launches, "outs": outs,
+                     "per_case": {m: list(v) for m, v in
+                                  ev._metric_values.items()}}
+    outs = []
+    predict = recording(make_volume_predict(
+        model, dev, ret="prob", in_zscore=True, group=group,
+        z_axis_shards=shards), outs)
+    ev = evaluator()
+    for m in metas:
+        ev.predict_case(predict, np.load(ds / f"volume-{m['PID']}" /
+                                         "volume.npy"))
+    out["prob_z"] = {"outs": outs}
+    return out
+
+
+def _outs_spread(group, outs) -> float:
+    """Largest difference between this rank's outputs and rank 0's."""
+    worst = 0.0
+    for o in outs:
+        t = torch.from_numpy(np.ascontiguousarray(o)).cuda().float()
+        worst = max(worst, float((t - group.broadcast_(t.clone())).abs()
+                                 .max()))
+    return worst
+
+
+def argmax_agreement(got, ref_probs, margin=1e-4):
+    """(voxels whose class differs, of them those where the reference's top
+    two probabilities are further apart than ``margin``) of outputs ``got``
+    (class maps, or probabilities whose argmax is taken) against the
+    reference probabilities: float32 summation orders can flip only
+    near-ties."""
+    diff = far = 0
+    for g, r in zip(got, ref_probs):
+        g = g if g.dtype == np.uint8 else g.argmax(-1)
+        r = np.asarray(r)
+        bad = g != r.argmax(-1)
+        top2 = np.sort(r[bad], axis=-1)[..., -2:]
+        diff += int(bad.sum())
+        far += int(((top2[..., 1] - top2[..., 0]) > margin).sum())
+    return diff, far
+
+
+def spatial_rank(group, tmp, weights, ref_path):
+    """One rank of phase 25's gloo group (25b, 25c).  Rank 0 holds its
+    outputs against one process's (``ref_path``): the largest probability
+    error and the argmax agreement; every rank's outputs are held against
+    rank 0's; the small results of every rank are gathered to rank 0."""
+    from boxsegliver_torch import config as config_mod
+
+    config_mod.resolve_device("cuda")                # TF32 off here too
+    res = {"25b": spatial_sweep(group, tmp, weights),
+           "25c": spatial_3d(group, tmp)}
+    ref = torch.load(ref_path, weights_only=False) if group.chief else None
+    parts = [("25b", res["25b"], "25b", "25b")] + [
+        (f"25c {f}", res["25c"][f], f, "prob_z" if f == "pred" else f)
+        for f in ("pred", "prob", "prob_z")]
+    for _, r, key, probs_key in parts:
+        outs = r.pop("outs")
+        r["spread"] = _outs_spread(group, outs)
+        if ref is not None:
+            if outs[0].dtype != np.uint8:
+                r["err"] = max(float(np.abs(o - w).max())
+                               for o, w in zip(outs, ref[key]))
+            r["flips"] = argmax_agreement(outs, ref[probs_key])
+    return group.gather_to_chief(res)
+
+
+def _metric_errs(got, ref):
+    """Largest per-case metric and result differences of two runs."""
+    if set(got["per_case"]) != set(ref["per_case"]) or \
+            set(got["results"]) != set(ref["results"]):
+        return math.inf, math.inf
+    per_case = max((float(np.max(np.abs(np.asarray(got["per_case"][m])
+                                        - np.asarray(v))))
+                    for m, v in ref["per_case"].items()), default=0.0)
+    totals = max((abs(got["results"][m] - v)
+                  for m, v in ref["results"].items()), default=0.0)
+    return per_case, totals
+
+
+def spatial_check(what, got, ref, ranks_got):
+    """Hold a sharded run (rank 0's ``got``) to one process's ``ref``:
+    probabilities within 1e-4, every rank equal to rank 0, the class of
+    every voxel equal except at near-ties (one process's top two within
+    1e-4), and per-case metrics and totals within 1e-6 where no class
+    flipped (a flipped tie may move a metric: the flips are printed).
+    The other ranks score nothing."""
+    per_case, totals = _metric_errs(got, ref)
+    diff, far = got["flips"]
+    spread = max(r["spread"] for r in ranks_got)
+    err = (f"probabilities max abs err {got['err']:.2e}" if "err" in got
+           else "class maps")
+    print(f"  {what}: {err}, voxels of another class "
+          f"{diff} ({far} outside near-ties), per-case metrics max abs err "
+          f"{per_case:.1e}, totals {totals:.1e}, ranks' spread {spread:.1e}")
+    if not (got.get("err", 0.0) <= 1e-4 and far == 0 and spread == 0.0
+            and (diff or (per_case <= 1e-6 and totals <= 1e-6))
+            and math.isfinite(per_case)
+            and not any(r["results"] for r in ranks_got[1:])):
+        raise AssertionError(f"{what}: the sharded run disagrees with one "
+                             "process")
+
+
+def spatial_phase(tmp, dev, seed):
+    """Phase 25: (a) the split kernels B2s and B2y on the card; (b) run_g's
+    height-sharded sweep and (c) the depth-sharded whole-volume 3-D eval,
+    SPATIAL_RANKS gloo ranks sharing the card (spawned after the kernels
+    were built) against one process run first; (d) the CLIs over NCCL
+    where the machine has two cards.  Returns the split kernels' records
+    and the launch counts per path (rank 0's)."""
+    from boxsegliver_torch.cli import main as cli
+    from boxsegliver_torch.parallel import launch
+
+    recs = split_phase(dev)
+
+    weights = spatial_margin_weights(tmp, seed)
+    t0 = time.perf_counter()
+    one = spatial_sweep(None, tmp, weights)
+    if any(v is None for v in one["outs"]):
+        raise AssertionError(f"25b: the sweep overflows: {one['counts']}")
+    one3 = spatial_3d(None, tmp)
+    ref_path = Path(tmp) / "spatial_ref.pt"
+    torch.save({"25b": one.pop("outs"), **{
+        f: one3[f].pop("outs") for f in ("pred", "prob", "prob_z")}},
+        ref_path)
+    t_one = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(spatial_rank, SPATIAL_RANKS, "cuda:0", tmp, weights,
+                   str(ref_path), backend="gloo")
+    print(f"  {SPATIAL_RANKS} gloo ranks on cuda:0 (25b-c) in "
+          f"{time.perf_counter() - t0:.1f} s with their start; one process "
+          f"in {t_one:.1f} s; {smi()}")
+    paths = {}
+
+    r0 = ranks[0]["25b"]
+    spatial_check(f"25b run_g, 002_gnet_sp.sh eval flags (GUNet.yml, 256^2 "
+                  f"x 3, mirror TTA, --device_sweep on) in float32 on the "
+                  f"seeded Liver-margin weights: {SPATIAL_RANKS} ranks (each "
+                  f"{256 // SPATIAL_RANKS} rows of every image) vs one "
+                  f"process over {one['cases']} cases, merged volumes",
+                  r0, one, [r["25b"] for r in ranks])
+    if any(r["25b"]["counts"] != one["counts"] for r in ranks):
+        raise AssertionError(f"25b: objects {r0['counts']}, one process "
+                             f"{one['counts']}")
+    print(f"  25b objects a case {r0['counts']} on every rank (one process "
+          f"{one['counts']})")
+    # each of one process's B2-fwd launches (IIN_BLOCKS a GUNet.yml
+    # forward) becomes one B2s and one B2y; the modulated levels' plain
+    # norms (GUNET_MOD_NORMS a forward) take their statistics from B2s too
+    fused = one["launches"]["in_relu_fwd"]
+    want = {**one["launches"], "in_relu_fwd": 0,
+            "in_relu_fwd_partial": fused + GUNET_MOD_NORMS * fused
+            // IIN_BLOCKS, "in_relu_fwd_apply": fused}
+    for r in ranks:
+        expect_launches("25b run_g (a rank of 2)", r["25b"]["launches"], want)
+    pf, pf1 = r0["per_forward"], one["per_forward"]
+    print(f"  25b launches a rank {r0['launches']} (one process "
+          f"{one['launches']}: each B2-fwd became one B2s and one B2y, each "
+          f"modulated norm one B2s; B1 renders each whole guide on every "
+          f"rank)")
+    print(f"  25b, {SPATIAL_LABEL}: {r0['s']:.3f} s/case with "
+          f"{SPATIAL_RANKS} ranks (one process {one['s']:.3f}); per forward "
+          f"(a sweep step) {pf['halos']:.0f} halo exchanges and "
+          f"{pf['all_reduces']:.0f} other all-reduces (statistics, the "
+          f"probabilities' gather), {pf['coll_ms']:.3f} of {pf['step_ms']:.3f}"
+          f" ms a step ({100 * pf['coll_ms'] / pf['step_ms']:.1f} %, each "
+          f"between synchronizations); one process {pf1['step_ms']:.3f} ms a "
+          f"step")
+    paths["spatial run_g (rank 0 of 2)"] = r0["launches"]
+
+    pz = ranks[0]["25c"]["prob_z"]
+    print(f"  25c the fast path's probabilities (the same z-scored input, "
+          f"ret prob): max abs err {pz['err']:.2e}, ranks' spread "
+          f"{max(r['25c']['prob_z']['spread'] for r in ranks):.1e}")
+    if not (pz["err"] <= 1e-4 and all(
+            r["25c"]["prob_z"]["spread"] == 0.0 for r in ranks)):
+        raise AssertionError("25c: the sharded probabilities disagree")
+    for form in ("pred", "prob"):                          # 25c
+        got, ref = ranks[0]["25c"][form], one3[form]
+        spatial_check(f"25c 201_unet_v1.sh eval --z_shards {SPATIAL_RANKS} "
+                      f"(ret {form}, float32) on phase 21's best, "
+                      f"{ref['cases']} cases", got, ref,
+                      [r["25c"][form] for r in ranks])
+        print(f"  25c {form}: {got['s']:.3f} s/case with {SPATIAL_RANKS} "
+              f"ranks (one process {ref['s']:.3f}); launches rank 0 "
+              f"{got['launches']}, one process {ref['launches']}")
+        blocks = ref["launches"]["in_relu_fwd"]
+        for r in ranks:
+            expect_launches(f"25c {form} (a rank of 2)",
+                            r["25c"][form]["launches"],
+                            {"in_relu_fwd_partial": blocks,
+                             "in_relu_fwd_apply": blocks})
+        paths[f"spatial UNet3D eval {form} (rank 0 of 2)"] = got["launches"]
+
+    if torch.cuda.device_count() >= 2:                     # 25d
+        for what, argv in (
+                ("002_gnet_sp.sh eval 2", FLAGS + smoke_data(
+                    tmp, Path(tmp) / "spatial_cli_md", "--ckpt_path",
+                    str(weights), "--num_replicas", str(SPATIAL_RANKS))),
+                ("201_unet_v1.sh eval --z_shards 2", nf3d_argv(
+                    "eval", "chip_smoke_nf3d", tmp, Path(tmp) / "nf3d_md",
+                    *NF3D_EVAL, "--z_shards", str(SPATIAL_RANKS)))):
+            res, seconds, _ = counted_run(lambda: cli.main(argv))
+            print(f"  25d {what} through the CLI over NCCL on "
+                  f"{SPATIAL_RANKS} cards: {res} in {seconds:.1f} s")
+            if not res or not all(math.isfinite(v) for v in res.values()):
+                raise AssertionError(f"25d {what}: {res}")
+    else:
+        print(f"  25d not run: {torch.cuda.device_count()} card (the CLIs "
+              f"over NCCL with --num_replicas / --z_shards need "
+              f"{SPATIAL_RANKS})")
+    for n in SPLIT_KERNELS:
+        recs[n]["launches"] = r0["launches"][n]
+    return recs, paths
+
+def elapsed(t_start):
+    """The script's wall time so far, printed before each phase."""
+    print(f"  ({time.perf_counter() - t_start:.0f} s since the start)")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5690,7 +6223,8 @@ def main(argv=None):
         determinism_run(opts.determinism, opts.seed)
         return 0
 
-    print("[1/24] device")
+    t_start = time.perf_counter()
+    print("[1/25] device")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -5705,7 +6239,8 @@ def main(argv=None):
 
     config_mod.resolve_device("cuda")            # TF32 off, stated there
 
-    print("[2/24] build")
+    elapsed(t_start)
+    print("[2/25] build")
     t0 = time.perf_counter()
     build.build_all()
     print(f"  built {list(build.SOURCES)} in {time.perf_counter() - t0:.2f} s "
@@ -5715,7 +6250,8 @@ def main(argv=None):
             if "ptxas info" in line and "Used" in line:
                 print(f"  {name}: " + line.strip())
 
-    print("[3/24] kernel B1 vs plain")
+    elapsed(t_start)
+    print("[3/25] kernel B1 vs plain")
     rec = kernel_phase(dev, opts.seed)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5725,76 +6261,103 @@ def main(argv=None):
                                k_split=2, seed=opts.seed)
         print(f"  synthetic dataset 4 x (24, 256, 256) in "
               f"{time.perf_counter() - t0:.1f} s")
-        print("[4/24] labeling vs scipy")
+        elapsed(t_start)
+        print("[4/25] labeling vs scipy")
         labeling_phase(ds, dev)
-        print("[5/24] flagship guided eval (run_g) through the CLI")
+        elapsed(t_start)
+        print("[5/25] flagship guided eval (run_g) through the CLI")
         paths = {"run_g (device sweep)": slice_phase(tmp, ds, dev, opts.seed)}
         sweep_card_vs_cpu(ds, dev, opts.seed)
-        print("[6/24] profile of one case's sweep (steady state)")
+        elapsed(t_start)
+        print("[6/25] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
-        print("[7/24] kernel B2 vs plain")
+        elapsed(t_start)
+        print("[7/25] kernel B2 vs plain")
         b2 = b2_phase(dev)
         b2_nf_levels(dev)
-        print("[8/24] flagship G-Net training through the CLI")
+        elapsed(t_start)
+        print("[8/25] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
         train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[9/24] profile of the flagship train step (steady state)")
+        elapsed(t_start)
+        print("[9/25] profile of the flagship train step (steady state)")
         profile_train(tmp)
-        print("[10/24] UNet training (001_unet.sh train) through the CLI")
+        elapsed(t_start)
+        print("[10/25] UNet training (001_unet.sh train) through the CLI")
         unet_md = unet_train_phase(tmp)
         unet_train_card_vs_cpu(tmp, dev, opts.seed)
-        print("[11/24] UNet train step in steady state (batch 8, bench.py batch 128)")
+        elapsed(t_start)
+        print("[11/25] UNet train step in steady state (batch 8, bench.py batch 128)")
         unet_bench_phase(tmp, opts.seed)
-        print("[12/24] UNet eval (001_unet.sh eval) through the CLI")
+        elapsed(t_start)
+        print("[12/25] UNet eval (001_unet.sh eval) through the CLI")
         unet_preds = unet_eval_phase(tmp, ds, dev, unet_md)
-        print("[13/24] run_g's host loop: overflow fallback, --device_sweep "
+        elapsed(t_start)
+        print("[13/25] run_g's host loop: overflow fallback, --device_sweep "
               "off, --save_sp_guide")
         paths["run_g host loop (overflow)"] = host_loop_phase(tmp, ds, dev,
                                                               opts.seed)
-        print("[14/24] --steps_per_dispatch 16: the train step as a CUDA "
+        elapsed(t_start)
+        print("[14/25] --steps_per_dispatch 16: the train step as a CUDA "
               "graph (G-Net, UNet)")
         paths["G-Net train, K=16"] = dispatch_phase(tmp, dev)
-        print("[15/24] bench.py step: bf16 moments and K=16 (A/B knobs)")
+        elapsed(t_start)
+        print("[15/25] bench.py step: bf16 moments and K=16 (A/B knobs)")
         bench_knobs_phase(tmp)
-        print("[16/24] train step card vs CPU: boundary and proportion "
+        elapsed(t_start)
+        print("[16/25] train step card vs CPU: boundary and proportion "
               "loss weights; --seed reproducibility in float32")
         weights_card_vs_cpu(tmp, dev, opts.seed)
         determinism_phase(tmp, opts.seed)
-        print("[17/24] serving: --mode export and the REST server on the "
+        elapsed(t_start)
+        print("[17/25] serving: --mode export and the REST server on the "
               "card (GUNet, UNet)")
         paths["serve (GUNet export)"], unet_bundle = serve_phase(
             tmp, dev, opts.seed, unet_md)
-        print("[18/24] prepare -> annotate -> viewers on the card")
+        elapsed(t_start)
+        print("[18/25] prepare -> annotate -> viewers on the card")
         lits = prepare_phase(tmp, opts.seed)
         paths["annotate (preview + Predict)"] = annotate_phase(
             tmp, dev, opts.seed, lits, ds, unet_preds, unet_bundle, unet_md)
-        print("[19/24] NF: 101_unet_v2.sh train and eval, prepare negcache, "
+        elapsed(t_start)
+        print("[19/25] NF: 101_unet_v2.sh train and eval, prepare negcache, "
               "101_unetinter_v10.sh train and eval, run_sp")
         nf_paths, inter_md = nf_phase(tmp, dev, opts.seed)
         paths.update(nf_paths)
-        print("[20/24] click eval (interactive_eval --dim 2): kernel G1, "
+        elapsed(t_start)
+        print("[20/25] click eval (interactive_eval --dim 2): kernel G1, "
               "host loop and device refiner, the new click models, the "
               "click export")
         g1, click_paths = click_eval_phase(tmp, dev, opts.seed, inter_md)
         paths.update(click_paths)
-        print("[21/24] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
+        elapsed(t_start)
+        print("[21/25] the 3D tower (nf_3d, UNet3D.yml): B2 at 3-D planes, "
               "201_unet_v1.sh train and eval, the 3-D click eval, the "
               "cascade and hybrid eval, the UNet3D export served")
         b2_3d, nf3d_paths = nf3d_phase(tmp, dev, opts.seed, inter_md)
         paths.update(nf3d_paths)
-        print("[22/24] nf2 (004_gnet_iin.sh) train, eval, infer and export "
+        elapsed(t_start)
+        print("[22/25] nf2 (004_gnet_iin.sh) train, eval, infer and export "
               "on the card")
         iin_paths, b1_err = iin_phase(tmp, dev, opts.seed)
         paths.update(iin_paths)
         rec["max_abs_err"] = max(rec["max_abs_err"], b1_err)
-        print("[23/24] DenseUNet (003_denseunet.sh) train, eval, sweep and "
+        elapsed(t_start)
+        print("[23/25] DenseUNet (003_denseunet.sh) train, eval, sweep and "
               "export; GUNet --use_se and the VGG contexts on the card")
         paths.update(dense_phase(tmp, dev, opts.seed))
-        print("[24/24] data parallel (001_dist.sh) over a process group: "
+        elapsed(t_start)
+        print("[24/25] data parallel (001_dist.sh) over a process group: "
               "gloo ranks sharing the card against one process (train, "
               "run, run_sp, the refiner), a 1-rank NCCL group's K = 16 "
               "graph")
         paths.update(dist_phase(tmp, dev, opts.seed, unet_md, inter_md))
+        elapsed(t_start)
+        print("[25/25] spatial sharding: the split B2 kernels (B2s, B2y), "
+              "run_g's height-sharded sweep and the depth-sharded 3-D eval "
+              "over gloo ranks sharing the card against one process")
+        split_recs, spatial_paths = spatial_phase(tmp, dev, opts.seed)
+        paths.update(spatial_paths)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "device_ms", "wrapper_ms", "plain_ms", "bound_ms",
@@ -5812,9 +6375,11 @@ def main(argv=None):
     # G1's main path is the device refiner with geodesic guides
     g1["launches"] = paths["click eval on geodesic"][g1["name"]]
     recs.append(g1)
+    recs += [split_recs[n] for n in SPLIT_KERNELS]
     for r in recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     keys += ("launches_by_path",)
+    elapsed(t_start)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(
         x for x in ("unet3d", "shapes") if x in r)} for r in recs]}))
     print(card)

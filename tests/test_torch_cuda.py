@@ -670,3 +670,51 @@ def test_b2_at_ncdhw_planes_matches_plain(dev, shape, path):
     torch.testing.assert_close(s1, s1_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
     torch.testing.assert_close(s2, s2_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
     torch.testing.assert_close(dx.float(), dx_p.float(), **tol)
+
+
+# B2 split around a collective: B2s (partial sums, one CTA or several a
+# plane), B2y (apply), on a rank's part of planes and on odd / unaligned
+# parts (the scalar path)
+SPLIT_SHAPES = [((8, 64, 128, 256), torch.bfloat16),
+                ((1, 30, 12, 256, 256), torch.bfloat16),
+                ((8, 1024, 8, 16), torch.bfloat16),
+                ((2, 3, 7, 9), torch.float32), ((1, 4, 5, 3, 33), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("shape,dtype", SPLIT_SHAPES)
+def test_split_b2_matches_plain_and_counts(dev, shape, dtype):
+    x, _, w, b = _in_relu_inputs(shape, dtype, dev, seed=len(shape))
+    hw = int(np.prod(shape[2:]))
+    n0 = [kernels.in_relu_fwd_partial.launches,
+          kernels.in_relu_fwd_apply.launches]
+    part = kernels.in_relu_fwd_partial(x)
+    part_p = kernels.in_relu_fwd_partial_plain(x)
+    mean = (part_p[..., 0] / hw).contiguous()
+    var = torch.clamp_min(part_p[..., 1] / hw - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + kernels.IN_EPS).contiguous()
+    y = kernels.in_relu_fwd_apply(x, mean, rstd, w, b)
+    y_p = kernels.in_relu_fwd_apply_plain(x, mean, rstd, w, b)
+    torch.cuda.synchronize()
+    assert [kernels.in_relu_fwd_partial.launches,
+            kernels.in_relu_fwd_apply.launches] == [k + 1 for k in n0]
+    assert part.shape == shape[:2] + (2,) and y.dtype == dtype
+    torch.testing.assert_close(part, part_p, rtol=1e-4, atol=1e-4 * hw ** 0.5)
+    torch.testing.assert_close(y.float(), y_p.float(), **_TOL[dtype])
+    # deterministic: the splits are added in a fixed order
+    assert torch.equal(kernels.in_relu_fwd_partial(x), part)
+
+
+def test_split_b2_unaligned_part(dev):
+    x, _, w, b = _in_relu_inputs((2, 3, 16, 16), torch.bfloat16, dev)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    flat[1:] = x.flatten()
+    xu = flat[1:].view(x.shape)
+    part = kernels.in_relu_fwd_partial(xu)
+    torch.testing.assert_close(part, kernels.in_relu_fwd_partial_plain(x),
+                               rtol=1e-4, atol=1e-3)
+    mean = torch.zeros(2, 3, device=dev)
+    rstd = torch.ones(2, 3, device=dev)
+    torch.testing.assert_close(
+        kernels.in_relu_fwd_apply(xu, mean, rstd, w, b).float(),
+        kernels.in_relu_fwd_apply_plain(x, mean, rstd, w, b).float(),
+        **_TOL[torch.bfloat16])

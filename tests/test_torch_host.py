@@ -131,8 +131,9 @@ def test_cuda_device_is_never_silently_dropped(monkeypatch):
 
 @pytest.mark.parametrize("extra,what", [
     # multi-GPU training and eval are ported (tests/test_torch_dist_*.py):
-    # the train case now meets JAX's batch contract, the unguided eval the
-    # empty model_dir inside its two ranks; run_g over replicas names 4b
+    # the train case now meets JAX's batch contract, the unguided eval and
+    # run_g over replicas (item 4b, spatial sharding) the empty model_dir
+    # inside their two ranks
     (["--mode", "train", "--num_replicas", "2"], "--mode train"),
     (["--mode", "export", "--model", "DenseUNet", "--model_config",
       "DenseUNet_tiny.yml", "--im_height", "64", "--im_width", "64"],
@@ -159,9 +160,11 @@ def test_cli_unported_branches_raise(tmp_path, two_datasets, extra, what):
         with pytest.raises(ValueError, match="try --batch_size=2"):
             t_cli.main(argv + ["--batch_size", "3"])
         return
-    if what == "unguided":
+    if what in ("unguided", "item 4b"):
         # the two ranks start and reach the weights: the empty model_dir
-        # names --ckpt_path, raised here as the rank raised it
+        # names --ckpt_path, raised here as the rank raised it (the guided
+        # eval over replicas named ROADMAP item 4b until the height-sharded
+        # sweep was ported)
         what = "--ckpt_path"
     if what == "--mode export":
         # export is ported, and since the DenseUNet slice every config is
