@@ -5,6 +5,8 @@
 //          gz = g * [x_hat * gamma + beta > 0];  s1 = sum_hw gz;  s2 = sum_hw gz * x_hat
 //   B2b  _bwd_apply_kernel (:78-88, call :124-132):
 //          dx = gamma * rstd * (gz - s1 / HW - x_hat * s2 / HW)
+//   B2f  both at once, the whole VJP _in_relu_bwd_pallas (:91-135) but dgamma
+//        and dbeta (sums over N of s2 and s1), where a plane fits on chip
 // and the forward of the same custom VJP, _in_relu_fwd_impl (:47-57), which
 // is plain XLA there ("B2-fwd"):
 //   mean, var over (h, w) per (b, c) (E[x^2] - E[x]^2 clipped at 0, as flax's
@@ -17,11 +19,11 @@
 // of the TPU's sequential h grid.  Loads and stores are 16 bytes a thread (8
 // bf16 or 4 f32) when the plane length and the pointers allow it.
 //
-// Bound on the H100 (3.35 TB/s HBM3): all three kernels do a few flops per
-// byte, far below the ~295 flops/byte where compute would bind, so bytes
-// bind them.  Floors per element in bf16 (f32 doubles them): the forward
-// reads x and writes y and x_hat, 6 B; B2a reads g and x_hat, 4 B; B2b reads
-// g and x_hat and writes dx, 6 B.
+// Bound on the H100 (3.35 TB/s HBM3): every kernel here does a few flops
+// per byte, far below the ~295 flops/byte where compute would bind, so
+// bytes bind them.  Floors per element in bf16 (f32 doubles them): the
+// forward reads x and writes y and x_hat, 6 B; the backward as one function
+// reads g and x_hat and writes dx, 6 B.
 //
 // B2-fwd has three paths, chosen before launch from the shape, the dtype and
 // the pointers' alignment by the launch plan in ops/kernels.in_relu_fwd_plan
@@ -45,8 +47,33 @@
 //   general odd or unaligned planes and planes too large to stage (512^2
 //           f32): one 256-thread CTA per plane reads x twice, once for the
 //           sums and once to normalize, 8 B per bf16 element moved.
-// B2a and B2b run one 256-thread CTA per plane; at the flagship shapes their
-// device time is within 1.3x of the floor, so they keep that design.
+//
+// The backward (the VJP _in_relu_bwd_pallas, pallas_kernels.py:91-135) has
+// three paths, chosen by ops/kernels.in_relu_bwd_plan.  The TPU split it in
+// two kernels only because Mosaic would not hold a plane; Hopper can, so
+// where a plane fits on chip one kernel, B2f (in_relu_bwd), reads g and
+// x_hat once, sums s1 and s2, and writes dx and the sums: 6 B per bf16
+// element, where B2a + B2b move 10 B.
+//   fused warp    planes of at most 32 lanes * 8 packs: one warp a plane,
+//                 eight planes a CTA, g and x_hat in registers, the sums by
+//                 warp shuffles, dx from the registers.
+//   fused staged  planes whose g + x_hat chunks fit a cluster of 1, 2, 4 or
+//                 8 CTAs (the limits are the plan's): each CTA bulk-copies
+//                 its chunk of both operands into shared memory in two
+//                 parts on two mbarriers, sums each part as it lands (0-4 %
+//                 faster than one part at the training shapes:
+//                 tools/b2_bwd_tune.py --parts), the cluster adds its
+//                 partial (s1, s2)
+//                 through distributed shared memory in rank order (no
+//                 atomics: the same from run to run), and each CTA writes dx
+//                 from shared memory.
+//   split         planes too large to stage, unaligned or odd planes: B2a
+//                 (in_relu_bwd_stats) covers a plane with `splits` CTAs of
+//                 `chunk` elements and a second pass adds their partials in
+//                 split order, as B2s does; B2b (in_relu_bwd_apply) runs on a
+//                 2-D grid of `apply_ctas` CTAs a plane x planes, as B2y
+//                 does.  splits = apply_ctas = 1 is the first design, one
+//                 256-thread CTA a plane for each kernel.
 //
 // B2-fwd split around a collective, for planes whose elements lie on several
 // ranks (the spatially sharded evals; in JAX, XLA's partitioner turns the
@@ -82,6 +109,8 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxWarpPacks = 8;             // 16-byte packs a lane may hold
 constexpr int kMaxStageBytes = 64 * 1024;    // a staged CTA's chunk
+constexpr int kMaxBwdStageBytes = 192 * 1024;  // a fused staged CTA's g + x_hat
+constexpr int kStageParts = 2;               // mbarriers a fused staged chunk
 constexpr int kMaxCluster = 8;               // the portable cluster limit
 constexpr int kBulkPiece = 16 * 1024;        // bytes per cp.async.bulk
 
@@ -251,6 +280,71 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// Thread 0: initialise mbarrier `bar` for one arrival that expects `bytes`
+// of bulk copies.
+__device__ __forceinline__ void stage_begin(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Thread 0: bulk-copy `bytes` (a multiple of 16) from global `src` to shared
+// address `dst`, in pieces that complete on mbarrier `bar`.
+__device__ __forceinline__ void stage_copy(uint32_t dst, const void* src,
+                                           uint32_t bytes, uint32_t bar) {
+  const char* from = reinterpret_cast<const char*>(src);
+  for (uint32_t off = 0; off < bytes; off += kBulkPiece) {
+    const uint32_t n = bytes - off < kBulkPiece ? bytes - off : kBulkPiece;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(dst + off),
+        "l"(from + off), "r"(n), "r"(bar)
+        : "memory");
+  }
+}
+
+// Every thread: wait until the copies on `bar` (phase 0) have landed.
+__device__ __forceinline__ void stage_wait(uint32_t bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar) : "memory");
+  }
+}
+
+// (a, b), each CTA's block sum, replaced by the cluster's: every CTA's
+// partial read through distributed shared memory and added in rank order,
+// so every CTA of the cluster gets the same sums with no atomics.  Arrives
+// on the cluster barrier; the CTA must call cluster_leave() before it exits
+// (a peer may still be reading its `partial`).
+__device__ __forceinline__ void cluster_sum2(float& a, float& b,
+                                             float* partial, int cs) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if (threadIdx.x == 0) {
+    partial[0] = a;
+    partial[1] = b;
+  }
+  cluster.sync();
+  a = 0.0f;
+  b = 0.0f;
+  for (int r = 0; r < cs; ++r) {
+    const float* peer = cluster.map_shared_rank(partial, r);
+    a = __fadd_rn(a, peer[0]);
+    b = __fadd_rn(b, peer[1]);
+  }
+  // done reading the peers; the matching wait is cluster_leave()
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_leave() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // Staged path: a cluster of `cs` CTAs per plane, CTA `rank` holding chunk
 // `rank` (hw / cs elements) in shared memory.
 template <typename T>
@@ -275,56 +369,18 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t bar = smem_addr(&full);
 
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                     "r"(bar),
-                 "r"(bytes)
-                 : "memory");
-    const char* src = reinterpret_cast<const char*>(x + base);
-    const uint32_t dst = smem_addr(stage);
-    for (uint32_t off = 0; off < bytes; off += kBulkPiece) {
-      const uint32_t n = bytes - off < kBulkPiece ? bytes - off : kBulkPiece;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];" ::"r"(dst + off),
-          "l"(src + off), "r"(n), "r"(bar)
-          : "memory");
-    }
+    stage_begin(bar, bytes);
+    stage_copy(smem_addr(stage), x + base, bytes, bar);
   }
   __syncthreads();                       // the barrier is initialised
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done) : "r"(bar) : "memory");
-  }
+  stage_wait(bar);
 
   const Pack<T, N>* sp = reinterpret_cast<const Pack<T, N>*>(stage);
   const int groups = chunk / N;
   float s = 0.0f, ss = 0.0f;
   for (int i = threadIdx.x; i < groups; i += kThreads) add_pack(sp[i], s, ss);
   block_sum2(s, ss);
-  if (cs > 1) {
-    // partial sums of every CTA of the cluster, added in rank order
-    cg::cluster_group cluster = cg::this_cluster();
-    if (threadIdx.x == 0) {
-      partial[0] = s;
-      partial[1] = ss;
-    }
-    cluster.sync();
-    s = 0.0f;
-    ss = 0.0f;
-    for (int r = 0; r < cs; ++r) {
-      const float* peer = cluster.map_shared_rank(partial, r);
-      s = __fadd_rn(s, peer[0]);
-      ss = __fadd_rn(ss, peer[1]);
-    }
-    // done reading the peers; the matching wait comes before exit
-    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-  }
+  if (cs > 1) cluster_sum2(s, ss, partial, cs);
   float mean;
   const float rstd = plane_rstd(s, ss, hw, eps, mean);
   if (rank == 0 && threadIdx.x == 0) rstd_out[plane] = rstd;
@@ -338,20 +394,72 @@ __global__ void __launch_bounds__(kThreads)
     yp[i] = po;
     hp[i] = ph;
   }
-  // no CTA may leave while a peer still reads its partial sums
-  if (cs > 1) asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (cs > 1) cluster_leave();
 }
 
+// ---- backward: the same per-element arithmetic on every path -------------
+
+// Running (s1, s2) = (sum gz, sum gz * x_hat) over one pack of g and x_hat,
+// gz = g * [x_hat * gamma + beta > 0].
 template <typename T, int N>
+__device__ __forceinline__ void add_grad_pack(const Pack<T, N>& pg,
+                                              const Pack<T, N>& ph, float gm,
+                                              float bt, float& s1, float& s2) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float h = to_f(ph.v[k]);
+    const float z = __fadd_rn(__fmul_rn(h, gm), bt);
+    const float gz = z > 0.0f ? to_f(pg.v[k]) : 0.0f;
+    s1 = __fadd_rn(s1, gz);
+    s2 = __fadd_rn(s2, __fmul_rn(gz, h));
+  }
+}
+
+// What dx of a plane needs besides g and x_hat.
+struct GradCoef {
+  float gm, bt, m1, m2, coef;
+};
+
+__device__ __forceinline__ GradCoef grad_coef(float gm, float bt, float rstd,
+                                              float s1, float s2, int hw) {
+  const float inv_hw = __fdiv_rn(1.0f, (float)hw);
+  return {gm, bt, __fmul_rn(s1, inv_hw), __fmul_rn(s2, inv_hw),
+          __fmul_rn(gm, rstd)};
+}
+
+// dx = (gamma * rstd) * ((gz - s1 / HW) - x_hat * s2 / HW) of one pack.
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> grad_pack(const Pack<T, N>& pg,
+                                                const Pack<T, N>& ph,
+                                                const GradCoef& k) {
+  Pack<T, N> out;
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const float h = to_f(ph.v[e]);
+    const float z = __fadd_rn(__fmul_rn(h, k.gm), k.bt);
+    const float gz = z > 0.0f ? to_f(pg.v[e]) : 0.0f;
+    const float d = __fsub_rn(__fsub_rn(gz, k.m1), __fmul_rn(h, k.m2));
+    out.v[e] = from_f<T>(__fmul_rn(k.coef, d));
+  }
+  return out;
+}
+
+// B2f, fused warp path: one warp per plane, g and x_hat in registers (P
+// packs of each a lane).
+template <typename T, int P>
 __global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_stats_kernel(const T* __restrict__ g,
-                             const T* __restrict__ xhat,
-                             const float* __restrict__ gamma,
-                             const float* __restrict__ beta,
-                             float* __restrict__ s1_out,
-                             float* __restrict__ s2_out, int channels,
-                             int hw) {
-  const int64_t plane = blockIdx.x;
+    in_relu_bwd_warp_kernel(const T* __restrict__ g,
+                            const T* __restrict__ xhat,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            const float* __restrict__ rstd,
+                            T* __restrict__ dx, float* __restrict__ s1_out,
+                            float* __restrict__ s2_out, int planes,
+                            int channels, int hw) {
+  constexpr int N = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (plane >= planes) return;
   const int c = (int)(plane % channels);
   const int64_t base = plane * hw;
   const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
@@ -359,26 +467,137 @@ __global__ void __launch_bounds__(kThreads)
   const int groups = hw / N;
   const float gm = gamma[c], bt = beta[c];
 
-  float s1 = 0.0f, s2 = 0.0f;
-  for (int i = threadIdx.x; i < groups; i += kThreads) {
-    const Pack<T, N> pg = gp[i];
-    const Pack<T, N> ph = hp[i];
+  Pack<T, N> pg[P], ph[P];
 #pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float h = to_f(ph.v[k]);
-      const float z = __fadd_rn(__fmul_rn(h, gm), bt);
-      const float gz = z > 0.0f ? to_f(pg.v[k]) : 0.0f;
-      s1 = __fadd_rn(s1, gz);
-      s2 = __fadd_rn(s2, __fmul_rn(gz, h));
+  for (int i = 0; i < P; ++i) {
+    const int j = lane + 32 * i;
+    if (j < groups) {
+      pg[i] = gp[j];
+      ph[i] = hp[j];
     }
   }
-  block_sum2(s1, s2);
-  if (threadIdx.x == 0) {
+  float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+    if (lane + 32 * i < groups) add_grad_pack(pg[i], ph[i], gm, bt, s1, s2);
+  warp_sum2(s1, s2);
+  if (lane == 0) {
     s1_out[plane] = s1;
     s2_out[plane] = s2;
   }
+  const GradCoef k = grad_coef(gm, bt, rstd[plane], s1, s2, hw);
+  Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int j = lane + 32 * i;
+    if (j < groups) dp[j] = grad_pack(pg[i], ph[i], k);
+  }
 }
 
+// B2f, fused staged path: a cluster of `cs` CTAs per plane; CTA `rank`
+// holds chunk `rank` (hw / cs elements) of g, then of x_hat, in shared
+// memory.  The chunk lands in kStageParts parts, each on its own mbarrier,
+// so the sums start on the first part while the others arrive.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_staged_kernel(const T* __restrict__ g,
+                              const T* __restrict__ xhat,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dx, float* __restrict__ s1_out,
+                              float* __restrict__ s2_out, int channels,
+                              int hw, int cs) {
+  constexpr int N = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ __align__(8) uint64_t full[kStageParts];
+  __shared__ float partial[2];
+
+  const int rank = (int)(blockIdx.x % cs);
+  const int64_t plane = blockIdx.x / cs;
+  const int c = (int)(plane % channels);
+  const int chunk = hw / cs;
+  const int64_t base = plane * hw + (int64_t)rank * chunk;
+  const uint32_t bytes = (uint32_t)chunk * sizeof(T);
+  const int groups = chunk / N;
+  const int per = (groups + kStageParts - 1) / kStageParts;  // packs a part
+
+  if (threadIdx.x == 0) {
+    const char* gs = reinterpret_cast<const char*>(g + base);
+    const char* hs = reinterpret_cast<const char*>(xhat + base);
+    for (int p = 0; p < kStageParts; ++p) {
+      const uint32_t bar = smem_addr(&full[p]);
+      const int lo = p * per, hi = min(groups, lo + per);
+      if (hi <= lo) continue;            // no copy, and no thread waits
+      const uint32_t off = (uint32_t)lo * 16, n = (uint32_t)(hi - lo) * 16;
+      stage_begin(bar, 2 * n);
+      stage_copy(smem_addr(stage) + off, gs + off, n, bar);
+      stage_copy(smem_addr(stage) + bytes + off, hs + off, n, bar);
+    }
+  }
+  __syncthreads();                       // the barriers are initialised
+
+  const Pack<T, N>* sg = reinterpret_cast<const Pack<T, N>*>(stage);
+  const Pack<T, N>* sh = reinterpret_cast<const Pack<T, N>*>(stage + bytes);
+  const float gm = gamma[c], bt = beta[c];
+  float s1 = 0.0f, s2 = 0.0f;
+  for (int p = 0; p < kStageParts; ++p) {
+    const int lo = p * per, hi = min(groups, lo + per);
+    if (hi <= lo) continue;
+    stage_wait(smem_addr(&full[p]));
+    for (int i = lo + threadIdx.x; i < hi; i += kThreads)
+      add_grad_pack(sg[i], sh[i], gm, bt, s1, s2);
+  }
+  block_sum2(s1, s2);
+  if (cs > 1) cluster_sum2(s1, s2, partial, cs);
+  if (rank == 0 && threadIdx.x == 0) {
+    s1_out[plane] = s1;
+    s2_out[plane] = s2;
+  }
+  const GradCoef k = grad_coef(gm, bt, rstd[plane], s1, s2, hw);
+  Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
+  for (int i = threadIdx.x; i < groups; i += kThreads)
+    dp[i] = grad_pack(sg[i], sh[i], k);
+  if (cs > 1) cluster_leave();
+}
+
+// B2a (split path), first pass: CTA (split, plane) sums elements [split *
+// chunk, min(hw, (split + 1) * chunk)) of the plane into o1 / o2 at (plane *
+// splits + split) * ostride: s1 / s2 themselves when splits == 1, else the
+// interleaved partials of B2s's combine pass.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_stats_kernel(const T* __restrict__ g,
+                             const T* __restrict__ xhat,
+                             const float* __restrict__ gamma,
+                             const float* __restrict__ beta,
+                             float* __restrict__ o1, float* __restrict__ o2,
+                             int ostride, int planes, int channels, int hw,
+                             int splits, int chunk) {
+  const int lo = blockIdx.x * chunk;
+  const int n = min(hw - lo, chunk) / N;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const int c = (int)(plane % channels);
+    const float gm = gamma[c], bt = beta[c];
+    const Pack<T, N>* gp =
+        reinterpret_cast<const Pack<T, N>*>(g + plane * hw + lo);
+    const Pack<T, N>* hp =
+        reinterpret_cast<const Pack<T, N>*>(xhat + plane * hw + lo);
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      add_grad_pack(gp[i], hp[i], gm, bt, s1, s2);
+    block_sum2(s1, s2);
+    if (threadIdx.x == 0) {
+      const int64_t o = (plane * splits + blockIdx.x) * ostride;
+      o1[o] = s1;
+      o2[o] = s2;
+    }
+    __syncthreads();                 // block_sum2's shared slots are reused
+  }
+}
+
+// B2b (split path): CTA (x, y) writes dx of packs x * kThreads + t (stride
+// gridDim.x * kThreads) of planes y, y + gridDim.y, ...
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
     in_relu_bwd_apply_kernel(const T* __restrict__ g,
@@ -388,33 +607,20 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ rstd,
                              const float* __restrict__ s1,
                              const float* __restrict__ s2,
-                             T* __restrict__ dx, int channels, int hw) {
-  const int64_t plane = blockIdx.x;
-  const int c = (int)(plane % channels);
-  const int64_t base = plane * hw;
-  const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
-  const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
-  Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
+                             T* __restrict__ dx, int planes, int channels,
+                             int hw) {
   const int groups = hw / N;
-  const float gm = gamma[c], bt = beta[c];
-  const float inv_hw = __fdiv_rn(1.0f, (float)hw);
-  const float m1 = __fmul_rn(s1[plane], inv_hw);
-  const float m2 = __fmul_rn(s2[plane], inv_hw);
-  const float coef = __fmul_rn(gm, rstd[plane]);
-
-  for (int i = threadIdx.x; i < groups; i += kThreads) {
-    const Pack<T, N> pg = gp[i];
-    const Pack<T, N> ph = hp[i];
-    Pack<T, N> out;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const float h = to_f(ph.v[k]);
-      const float z = __fadd_rn(__fmul_rn(h, gm), bt);
-      const float gz = z > 0.0f ? to_f(pg.v[k]) : 0.0f;
-      const float d = __fsub_rn(__fsub_rn(gz, m1), __fmul_rn(h, m2));
-      out.v[k] = from_f<T>(__fmul_rn(coef, d));
-    }
-    dp[i] = out;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const int c = (int)(plane % channels);
+    const GradCoef k =
+        grad_coef(gamma[c], beta[c], rstd[plane], s1[plane], s2[plane], hw);
+    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + plane * hw);
+    const Pack<T, N>* hp =
+        reinterpret_cast<const Pack<T, N>*>(xhat + plane * hw);
+    Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + plane * hw);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
+         i += gridDim.x * kThreads)
+      dp[i] = grad_pack(gp[i], hp[i], k);
   }
 }
 
@@ -441,11 +647,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B2s, second pass: the splits of each plane added in order.
+// B2s and B2a, second pass: the interleaved partials of each plane's
+// splits added in split order, into o1 / o2 at plane * ostride.
 __global__ void __launch_bounds__(kThreads)
     in_relu_partial_combine_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int planes,
-                                   int splits) {
+                                   float* __restrict__ o1,
+                                   float* __restrict__ o2, int ostride,
+                                   int planes, int splits) {
   const int64_t plane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (plane >= planes) return;
   const float* p = part + 2 * plane * splits;
@@ -454,8 +662,8 @@ __global__ void __launch_bounds__(kThreads)
     s = __fadd_rn(s, p[2 * k]);
     ss = __fadd_rn(ss, p[2 * k + 1]);
   }
-  out[2 * plane] = s;
-  out[2 * plane + 1] = ss;
+  o1[plane * ostride] = s;
+  o2[plane * ostride] = ss;
 }
 
 // B2y: CTA (x, y) normalizes packs x * kThreads + t (stride gridDim.x *
@@ -514,20 +722,21 @@ int launch_warp(const T* x, const float* gm, const float* bt, T* y, T* xh,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_staged(const T* x, const float* gm, const float* bt, T* y, T* xh,
-                  float* rstd, int planes, int channels, int hw, int cs,
-                  int smem, float eps, cudaStream_t st) {
-  static bool smem_set = false;                 // once per dtype
+// Launch `kernel` on `grid` CTAs in clusters of `cs` (no cluster attribute
+// for one) with `smem` bytes of dynamic shared memory; the kernel's limit is
+// raised to `max_smem` on the first launch (`smem_set`).
+template <typename... KArgs, typename... Args>
+int launch_clustered(void (*kernel)(KArgs...), bool& smem_set, int max_smem,
+                     int64_t grid, int cs, int smem, cudaStream_t st,
+                     Args... args) {
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        in_relu_fwd_staged_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxStageBytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
     if (e != cudaSuccess) return (int)e;
     smem_set = true;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((int64_t)planes * cs));
+  cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = (size_t)smem;
   cfg.stream = st;
@@ -538,11 +747,19 @@ int launch_staged(const T* x, const float* gm, const float* bt, T* y, T* xh,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = cs > 1 ? 1 : 0;                // one CTA: no cluster
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, in_relu_fwd_staged_kernel<T>, x, gm, bt, y, xh, rstd, channels,
-      hw, cs, eps);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_staged(const T* x, const float* gm, const float* bt, T* y, T* xh,
+                  float* rstd, int planes, int channels, int hw, int cs,
+                  int smem, float eps, cudaStream_t st) {
+  static bool smem_set = false;                 // once per dtype
+  return launch_clustered(in_relu_fwd_staged_kernel<T>, smem_set,
+                          kMaxStageBytes, (int64_t)planes * cs, cs, smem, st,
+                          x, gm, bt, y, xh, rstd, channels, hw, cs, eps);
 }
 
 template <typename T>
@@ -588,18 +805,86 @@ int launch_fwd(const void* xv, const float* gm, const float* bt, void* yv,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int P>
+int launch_bwd_warp(const T* g, const T* xh, const float* gm, const float* bt,
+                    const float* rstd, T* dx, float* s1, float* s2,
+                    int planes, int channels, int hw, cudaStream_t st) {
+  const unsigned grid = (unsigned)((planes + kWarps - 1) / kWarps);
+  in_relu_bwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
+      g, xh, gm, bt, rstd, dx, s1, s2, planes, channels, hw);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* gv, const void* xhv, const float* gm,
+               const float* bt, const float* rstd, void* dxv, float* s1,
+               float* s2, int planes, int channels, int hw, int path,
+               int packs, int cs, int smem, cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const T* g = (const T*)gv;
+  const T* xh = (const T*)xhv;
+  T* dx = (T*)dxv;
+  const void* ptrs[] = {gv, xhv, dxv};
+  const bool vec = vec_ok<T>(hw, ptrs, 3);
+  const int bad = (int)cudaErrorInvalidValue;
+  if (path == kPathWarp) {
+    if (!vec || (int64_t)packs * 32 * N < hw) return bad;
+#define IN_RELU_BWD_WARP(P)                                                 \
+  launch_bwd_warp<T, P>(g, xh, gm, bt, rstd, dx, s1, s2, planes, channels, \
+                        hw, st)
+    switch (packs) {
+      case 1: return IN_RELU_BWD_WARP(1);
+      case 2: return IN_RELU_BWD_WARP(2);
+      case 4: return IN_RELU_BWD_WARP(4);
+      case kMaxWarpPacks: return IN_RELU_BWD_WARP(kMaxWarpPacks);
+      default: return bad;
+    }
+#undef IN_RELU_BWD_WARP
+  }
+  if (path == kPathStaged) {
+    if (!vec || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
+        hw % (cs * N) || smem != (int)((int64_t)hw / cs * 2 * sizeof(T)) ||
+        smem > kMaxBwdStageBytes)
+      return bad;
+    static bool smem_set = false;               // once per dtype
+    return launch_clustered(in_relu_bwd_staged_kernel<T>, smem_set,
+                            kMaxBwdStageBytes, (int64_t)planes * cs, cs, smem,
+                            st, g, xh, gm, bt, rstd, dx, s1, s2, channels, hw,
+                            cs);
+  }
+  return bad;                // the split path is B2a + B2b, not this kernel
+}
+
 template <typename T>
 int launch_stats(const void* g, const void* xh, const float* gm,
-                 const float* bt, float* s1, float* s2, int planes,
-                 int channels, int hw, cudaStream_t st) {
-  const void* ptrs[] = {g, xh};
+                 const float* bt, float* part, float* s1, float* s2,
+                 int planes, int channels, int hw, int splits, int chunk,
+                 cudaStream_t st) {
   constexpr int N = 16 / sizeof(T);
-  if (vec_ok<T>(hw, ptrs, 2))
-    in_relu_bwd_stats_kernel<T, N><<<planes, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, s1, s2, channels, hw);
+  const void* ptrs[] = {g, xh};
+  if (splits < 1 || chunk < 1 || (int64_t)splits * chunk < hw ||
+      (int64_t)(splits - 1) * chunk >= hw)
+    return (int)cudaErrorInvalidValue;
+  // one split writes s1 / s2 directly, several their interleaved partials
+  float* o1 = splits > 1 ? part : s1;
+  float* o2 = splits > 1 ? part + 1 : s2;
+  const int ostride = splits > 1 ? 2 : 1;
+  const dim3 grid((unsigned)splits,
+                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
+  if (vec_ok<T>(hw, ptrs, 2) && chunk % N == 0)
+    in_relu_bwd_stats_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        (const T*)g, (const T*)xh, gm, bt, o1, o2, ostride, planes, channels,
+        hw, splits, chunk);
   else
-    in_relu_bwd_stats_kernel<T, 1><<<planes, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, s1, s2, channels, hw);
+    in_relu_bwd_stats_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        (const T*)g, (const T*)xh, gm, bt, o1, o2, ostride, planes, channels,
+        hw, splits, chunk);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  in_relu_partial_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
+                                              kThreads),
+                                   kThreads, 0, st>>>(part, s1, s2, 1, planes,
+                                                      splits);
   return (int)cudaGetLastError();
 }
 
@@ -607,15 +892,20 @@ template <typename T>
 int launch_apply(const void* g, const void* xh, const float* gm,
                  const float* bt, const float* rstd, const float* s1,
                  const float* s2, void* dx, int planes, int channels, int hw,
-                 cudaStream_t st) {
-  const void* ptrs[] = {g, xh, dx};
+                 int ctas, cudaStream_t st) {
   constexpr int N = 16 / sizeof(T);
+  const void* ptrs[] = {g, xh, dx};
+  if (ctas < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ctas,
+                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
   if (vec_ok<T>(hw, ptrs, 3))
-    in_relu_bwd_apply_kernel<T, N><<<planes, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, channels, hw);
+    in_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, planes,
+        channels, hw);
   else
-    in_relu_bwd_apply_kernel<T, 1><<<planes, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, channels, hw);
+    in_relu_bwd_apply_kernel<T, 1><<<grid, kThreads, 0, st>>>(
+        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, planes,
+        channels, hw);
   return (int)cudaGetLastError();
 }
 
@@ -640,8 +930,8 @@ int launch_partial(const void* x, float* part, float* out, int planes, int hw,
   if (e != cudaSuccess || splits == 1) return (int)e;
   in_relu_partial_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
                                               kThreads),
-                                   kThreads, 0, st>>>(part, out, planes,
-                                                      splits);
+                                   kThreads, 0, st>>>(part, out, out + 1, 2,
+                                                      planes, splits);
   return (int)cudaGetLastError();
 }
 
@@ -676,8 +966,8 @@ int launch_fwd_apply(const void* x, const float* mean, const float* rstd,
 // [C] f32; rstd, s1, s2: [N * C] f32; x, y, x_hat, g, dx in `dtype`
 // (0 = float32, 1 = bfloat16).  Each function launches on `stream` and
 // returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for
-// an unknown dtype or, in in_relu_fwd, a plan that does not fit the
-// operands.  in_relu_fwd's plan (ops/kernels.in_relu_fwd_plan): `path` 0
+// an unknown dtype or a plan that does not fit the operands.  in_relu_fwd's
+// plan (ops/kernels.in_relu_fwd_plan): `path` 0
 // general, 1 warp with `packs` 16-byte packs a lane (eight planes a CTA),
 // 2 staged on clusters of `cluster` CTAs with `smem_bytes` of dynamic shared
 // memory each.
@@ -700,40 +990,72 @@ extern "C" int in_relu_fwd(const void* x, const void* gamma, const void* beta,
   return (int)cudaErrorInvalidValue;
 }
 
+// B2f: dx in `dtype` and s1, s2 [planes] f32 of the fused backward, under
+// in_relu_bwd_plan's fused plan: `path` 1 warp with `packs` 16-byte packs a
+// lane (eight planes a CTA), 2 staged on clusters of `cluster` CTAs with
+// `smem_bytes` (g + x_hat chunks) of dynamic shared memory each; any other
+// plan, or one that does not fit the operands, is refused.
+extern "C" int in_relu_bwd(const void* g, const void* xhat, const void* gamma,
+                           const void* beta, const void* rstd, void* dx,
+                           void* s1, void* s2, int planes, int channels,
+                           int hw, int dtype, int path, int packs,
+                           int cluster, int smem_bytes, void* stream) {
+  if (planes == 0 || hw == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return launch_bwd<float>(g, xhat, (const float*)gamma,
+                             (const float*)beta, (const float*)rstd, dx,
+                             (float*)s1, (float*)s2, planes, channels, hw,
+                             path, packs, cluster, smem_bytes, st);
+  if (dtype == kBF16)
+    return launch_bwd<__nv_bfloat16>(
+        g, xhat, (const float*)gamma, (const float*)beta, (const float*)rstd,
+        dx, (float*)s1, (float*)s2, planes, channels, hw, path, packs,
+        cluster, smem_bytes, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2a: s1, s2 [planes] f32, each plane covered by `splits` CTAs of `chunk`
+// elements; with splits > 1 the CTAs write `part` [planes, splits, 2] f32
+// scratch and a second launch adds it in split order.
 extern "C" int in_relu_bwd_stats(const void* g, const void* xhat,
                                  const void* gamma, const void* beta,
-                                 void* s1, void* s2, int planes, int channels,
-                                 int hw, int dtype, void* stream) {
+                                 void* part, void* s1, void* s2, int planes,
+                                 int channels, int hw, int splits, int chunk,
+                                 int dtype, void* stream) {
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_stats<float>(g, xhat, (const float*)gamma,
-                               (const float*)beta, (float*)s1, (float*)s2,
-                               planes, channels, hw, st);
+                               (const float*)beta, (float*)part, (float*)s1,
+                               (float*)s2, planes, channels, hw, splits, chunk,
+                               st);
   if (dtype == kBF16)
-    return launch_stats<__nv_bfloat16>(g, xhat, (const float*)gamma,
-                                       (const float*)beta, (float*)s1,
-                                       (float*)s2, planes, channels, hw, st);
+    return launch_stats<__nv_bfloat16>(
+        g, xhat, (const float*)gamma, (const float*)beta, (float*)part,
+        (float*)s1, (float*)s2, planes, channels, hw, splits, chunk, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// B2b: dx in `dtype` from s1, s2 and rstd, `apply_ctas` CTAs a plane.
 extern "C" int in_relu_bwd_apply(const void* g, const void* xhat,
                                  const void* gamma, const void* beta,
                                  const void* rstd, const void* s1,
                                  const void* s2, void* dx, int planes,
-                                 int channels, int hw, int dtype,
-                                 void* stream) {
+                                 int channels, int hw, int apply_ctas,
+                                 int dtype, void* stream) {
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
     return launch_apply<float>(g, xhat, (const float*)gamma,
                                (const float*)beta, (const float*)rstd,
                                (const float*)s1, (const float*)s2, dx, planes,
-                               channels, hw, st);
+                               channels, hw, apply_ctas, st);
   if (dtype == kBF16)
     return launch_apply<__nv_bfloat16>(
         g, xhat, (const float*)gamma, (const float*)beta, (const float*)rstd,
-        (const float*)s1, (const float*)s2, dx, planes, channels, hw, st);
+        (const float*)s1, (const float*)s2, dx, planes, channels, hw,
+        apply_ctas, st);
   return (int)cudaErrorInvalidValue;
 }
 

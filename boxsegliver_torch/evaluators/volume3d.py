@@ -86,7 +86,9 @@ def make_volume_predict(model: torch.nn.Module, device, ret: str = "prob",
     block of planes (whole multiples of ``model.spatial_unit``) and every
     rank returns the whole volume.  A depth that ``z_axis_shards`` does
     not divide raises ValueError, as JAX's ``device_put`` of the volume to
-    ``P(None, "data")`` does."""
+    ``P(None, "data")`` does.  A depth it divides that holds fewer whole
+    units than there are ranks (JAX shards it all the same) runs unsharded
+    on every rank: the same forward, logged once a predict function."""
     shards = int(z_axis_shards or 0)
     if shards > 1 and (group is None or group.size != shards):
         raise ValueError(f"z_axis_shards={shards} needs a group of "
@@ -95,31 +97,45 @@ def make_volume_predict(model: torch.nn.Module, device, ret: str = "prob",
     if shards <= 1:
         group = None
 
+    logged = []
+
     @torch.no_grad()
     def predict(feats):
         feats = {k: to_device(v, device) for k, v in feats.items()}
         depth = feats["images"].shape[1]
-        if group is not None:
+        grp = group
+        if grp is not None:
             if depth % shards:
                 raise ValueError(
                     f"the padded depth {depth} of the volume is not "
                     f"divisible by z_shards={shards}")
-            planes = group.block(depth, model.spatial_unit)
-            feats = {k: v[:, planes].contiguous() for k, v in feats.items()}
+            if depth // model.spatial_unit < shards:
+                if not logged:
+                    logger.info(
+                        "z_shards=%d: a padded depth of %d planes holds "
+                        "fewer than %d whole multiples of %d; every rank "
+                        "runs such a case unsharded", shards, depth, shards,
+                        model.spatial_unit)
+                    logged.append(depth)
+                grp = None
+            else:
+                planes = grp.block(depth, model.spatial_unit)
+                feats = {k: v[:, planes].contiguous()
+                         for k, v in feats.items()}
         x = feats["images"].float()
         if in_zscore:
-            x = zscore(x) if group is None else SpatialShard(group).zscore(x)
+            x = zscore(x) if grp is None else SpatialShard(grp).zscore(x)
         feats["images"] = x
         if blank_guide_channels and "sp_guide" not in feats:
             feats["sp_guide"] = torch.zeros(
                 x.shape[:-1] + (blank_guide_channels,), device=x.device)
-        with sharded(model, group):
+        with sharded(model, grp):
             logits = model(feats)
         out = (logits.argmax(dim=-1).to(torch.int32) if ret == "pred"
                else torch.softmax(logits, dim=-1))
-        if group is not None:
-            out = group.gather_blocks(out.contiguous(), 1, depth,
-                                      model.spatial_unit)
+        if grp is not None:
+            out = grp.gather_blocks(out.contiguous(), 1, depth,
+                                    model.spatial_unit)
         return host(out.to(torch.uint8) if ret == "pred" else out)
 
     predict.ret = ret

@@ -20,13 +20,17 @@ Kernels:
   it.  No single PyTorch call computes this function, so there is no
   library yardstick.
 - B2 fused instance-norm + ReLU, csrc/in_relu.cu: ``in_relu_fwd`` (the
-  forward of pallas_kernels.fused_instance_norm_relu), ``in_relu_bwd_stats``
-  (B2a, replaces _bwd_stats_kernel) and ``in_relu_bwd_apply`` (B2b, replaces
-  _bwd_apply_kernel), tied together by ``InstanceNormReLU``.  Bandwidth
-  bounds them (source note).  The forward takes one of three paths (warp,
-  staged on a thread-block cluster, general), chosen from the shape by
-  ``in_relu_fwd_plan``.  The nearest PyTorch yardstick is two calls,
-  ``F.relu(F.instance_norm(...))``.  B2-fwd is the registered operator
+  forward of pallas_kernels.fused_instance_norm_relu), ``in_relu_bwd``
+  (B2f: the whole VJP in one pass where a plane fits on chip),
+  ``in_relu_bwd_stats`` (B2a, replaces _bwd_stats_kernel) and
+  ``in_relu_bwd_apply`` (B2b, replaces _bwd_apply_kernel), tied together by
+  ``InstanceNormReLU``.  Bandwidth bounds them (source note).  The forward
+  takes one of three paths (warp, staged on a thread-block cluster,
+  general), chosen from the shape by ``in_relu_fwd_plan``; the backward one
+  of three (B2f's fused warp and fused staged, or B2a + B2b split over
+  several CTAs a plane), chosen by ``in_relu_bwd_plan``.  The nearest
+  PyTorch yardstick is two calls, ``F.relu(F.instance_norm(...))``.
+  B2-fwd is the registered operator
   ``torch.ops.boxseg.in_relu_fwd`` (torch.library: CPU implementation the
   plain version; CUDA the kernel, which counts its launches; a fake
   implementation for tracing), so torch.export keeps it as one node of an
@@ -56,7 +60,8 @@ _MAX_BATCH = 65535         # grid.z
 
 # the C functions of each csrc/ source, bound on first use
 _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
-            "in_relu_bwd_stats": "in_relu", "in_relu_bwd_apply": "in_relu",
+            "in_relu_bwd": "in_relu", "in_relu_bwd_stats": "in_relu",
+            "in_relu_bwd_apply": "in_relu",
             "in_relu_fwd_partial": "in_relu", "in_relu_fwd_apply": "in_relu",
             "geodesic2d_raster": "geodesic"}
 _BOUND = {}
@@ -313,12 +318,12 @@ def in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2):
     return (coef * ((gz - m1) - xh * m2)).to(g.dtype)
 
 
-def in_relu_bwd_plain(g, xhat, rstd, weight, bias):
-    """The whole backward in plain PyTorch: gz, s1, s2, dx, then
-    dγ = Σ_n s2 and dβ = Σ_n s1 (pallas_kernels.py:134-135)."""
+def in_relu_bwd_plain(g, xhat, weight, bias, rstd):
+    """Plain version of B2f, the whole backward but its last sums: gz, s1,
+    s2, then dx, as B2a and B2b's plain versions compute them.  Returns
+    (dx, s1, s2); dγ = Σ_n s2 and dβ = Σ_n s1 (pallas_kernels.py:134-135)."""
     s1, s2 = in_relu_bwd_stats_plain(g, xhat, weight, bias)
-    dx = in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2)
-    return dx, s2.sum(dim=0), s1.sum(dim=0)
+    return in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2), s1, s2
 
 
 def _planes(t: torch.Tensor):
@@ -375,6 +380,15 @@ class FwdPlan(NamedTuple):
     smem_bytes: int
 
 
+def _lane_packs(groups: int) -> int:
+    """The 16-byte packs a lane holds on a warp path (1, 2, 4 or 8): the
+    fewest that cover ``groups`` packs with 32 lanes."""
+    packs = 1
+    while packs * 32 < groups:
+        packs *= 2
+    return packs
+
+
 @functools.lru_cache(maxsize=None)
 def in_relu_fwd_plan(planes: int, hw: int, dtype: torch.dtype,
                      aligned: bool = True) -> FwdPlan:
@@ -392,12 +406,9 @@ def in_relu_fwd_plan(planes: int, hw: int, dtype: torch.dtype,
     if aligned and hw % per_pack == 0:
         groups = hw // per_pack
         if groups <= 32 * _WARP_MAX_PACKS:
-            packs = 1
-            while packs * 32 < groups:
-                packs *= 2
             per_cta = FWD_THREADS // 32
-            return FwdPlan(FWD_WARP, -(-planes // per_cta), per_cta, packs,
-                           1, 0)
+            return FwdPlan(FWD_WARP, -(-planes // per_cta), per_cta,
+                           _lane_packs(groups), 1, 0)
         for cs in (1, 2, 4, 8):                   # 8: the portable limit
             if (hw % (cs * per_pack) == 0 and hw // cs * esize <= _STAGE_MAX
                     and planes * cs < 2 ** 31):
@@ -475,53 +486,202 @@ def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.ops.boxseg.in_relu_fwd.default(x, weight, bias, float(eps))
 
 
+# the backward's launch plan (csrc/in_relu.cu): B2f's fused warp (FWD_WARP)
+# or fused staged (FWD_STAGED) path, or B2a + B2b split over several CTAs a
+# plane
+BWD_SPLIT = 0
+# shared memory of a fused staged CTA: its chunks of g and x̂
+_BWD_STAGE_TARGET = 64 * 1024  # the fewest CTAs within this, if any fit,
+_BWD_STAGE_MAX = 192 * 1024    # else within this (csrc kMaxBwdStageBytes)
+_APPLY_PACKS = 4               # B2b: 16-byte packs a thread of a split plan
+# B2a's CTAs in all on a split plan: at UNet3D's [4,30,10,256^2], 4,200 CTAs
+# (35 a plane) reach 83 % of bound, 1,080 (9 a plane: one wave of 8 CTAs a
+# SM and a tail) 69 % (PERF.md §6)
+STATS_TARGET_CTAS = 4096
+
+
+class BwdPlan(NamedTuple):
+    """How the backward covers ``planes`` planes of ``hw`` elements: fused
+    (``path`` FWD_WARP or FWD_STAGED, one B2f launch of ``grid`` CTAs, as
+    FwdPlan's warp and staged paths; ``smem_bytes`` holds the CTA's hw /
+    ``cluster`` elements of g and of x̂) or BWD_SPLIT: B2a on ``splits`` CTAs
+    a plane of ``chunk`` elements each (``grid`` = splits · planes; a second
+    launch adds them when splits > 1), then B2b on ``apply_ctas`` CTAs a
+    plane."""
+    path: int
+    grid: int
+    packs: int
+    cluster: int
+    smem_bytes: int
+    splits: int
+    chunk: int
+    apply_ctas: int
+
+
+def in_relu_bwd_split_plan(planes: int, hw: int, dtype: torch.dtype,
+                           aligned: bool = True,
+                           spread: bool = True) -> BwdPlan:
+    """The split plan: B2a's splits and chunk from in_relu_partial_plan
+    (about STATS_TARGET_CTAS CTAs in all), B2b's CTAs a plane at
+    _APPLY_PACKS packs a thread.  ``spread=False`` gives the first design,
+    one CTA a plane for each kernel, kept to be timed beside the others."""
+    if not spread:
+        return BwdPlan(BWD_SPLIT, planes, 0, 1, 0, 1, hw, 1)
+    splits, chunk = in_relu_partial_plan(planes, hw, dtype, aligned,
+                                         STATS_TARGET_CTAS)
+    per = 16 // (torch.finfo(dtype).bits // 8)
+    groups = hw // per if aligned and hw % per == 0 else hw
+    apply_ctas = -(-groups // (FWD_THREADS * _APPLY_PACKS))
+    return BwdPlan(BWD_SPLIT, splits * planes, 0, 1, 0, splits, chunk,
+                   apply_ctas)
+
+
+@functools.lru_cache(maxsize=None)
+def in_relu_bwd_plan(planes: int, hw: int, dtype: torch.dtype,
+                     aligned: bool = True) -> BwdPlan:
+    """The backward's path for ``planes`` planes of ``hw`` elements of
+    ``dtype``; ``aligned``: g and x̂ both start on 16 bytes (dx is the
+    wrapper's own).
+
+    fused warp when a plane fits 32 lanes x 8 packs of 16 bytes (2,048
+    bf16, 1,024 f32: the 32^2 and 16^2 levels, UNet3D's 5 x 16^2 bridge);
+    fused staged when the plane's g and x̂ split into 1, 2, 4 or 8 chunks
+    of whole packs: the fewest whose g + x̂ chunks fit _BWD_STAGE_TARGET
+    (64 KiB a CTA: the 2-D levels to 256^2 bf16, 128^2 at one CTA, 256^2
+    at four), else the fewest up to _BWD_STAGE_MAX (192 KiB a CTA: UNet3D's
+    10 x 128^2 at four CTAs of 160 KiB); split otherwise (UNet3D's 10 x
+    256^2 level, f32 planes past 8 x 192 KiB, odd or unaligned planes).
+    The limits are where chip_smoke.py phase 7 measures each path fastest
+    (PERF.md §6)."""
+    esize = torch.finfo(dtype).bits // 8
+    per_pack = 16 // esize
+    if aligned and hw % per_pack == 0:
+        groups = hw // per_pack
+        if groups <= 32 * _WARP_MAX_PACKS:
+            return BwdPlan(FWD_WARP, -(-planes // (FWD_THREADS // 32)),
+                           _lane_packs(groups), 1, 0, 1, hw, 1)
+        fits = [(cs, 2 * (hw // cs) * esize) for cs in (1, 2, 4, 8)
+                if hw % (cs * per_pack) == 0 and planes * cs < 2 ** 31]
+        for limit in (_BWD_STAGE_TARGET, _BWD_STAGE_MAX):
+            for cs, smem in fits:
+                if smem <= limit:
+                    return BwdPlan(FWD_STAGED, planes * cs, 0, cs, smem, 1,
+                                   hw, 1)
+    return in_relu_bwd_split_plan(planes, hw, dtype, aligned)
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def _check_plane_stats(name, g, stats):
+    n, c, _ = _planes(g)
+    for what, t in stats:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (n, c)
+                or t.device != g.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous "
+                             f"[{n}, {c}] float32 on {g.device}")
+
+
+def in_relu_bwd(g: torch.Tensor, xhat: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor, rstd: torch.Tensor, plan=None):
+    """Kernel B2f: the backward in one pass, g and x̂ read once — dx in g's
+    dtype and s1 = Σ gz, s2 = Σ gz·x̂ ([N, C] float32), under ``plan``
+    (by default in_relu_bwd_plan's).  Only the fused plans run here: the C
+    launcher refuses a split plan, or one that does not fit the operands,
+    and the wrapper raises."""
+    if g.device.type == "cpu":
+        return in_relu_bwd_plain(g, xhat, weight, bias, rstd)
+    _check_in_relu("in_relu_bwd", g, (xhat,), weight, bias)
+    _check_plane_stats("in_relu_bwd", g, (("rstd", rstd),))
+    n, c, hw = _planes(g)
+    if plan is None:
+        plan = in_relu_bwd_plan(n * c, hw, g.dtype, _aligned(g, xhat))
+    dx = torch.empty_like(g)
+    s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    s2 = torch.empty_like(s1)
+    _launch("in_relu_bwd", g, g.data_ptr(), xhat.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), s1.data_ptr(), s2.data_ptr(), n * c, c, hw,
+            _DTYPES[g.dtype], plan.path, plan.packs, plan.cluster,
+            plan.smem_bytes)
+    in_relu_bwd.launches += 1
+    return dx, s1, s2
+
+
 def in_relu_bwd_stats(g: torch.Tensor, xhat: torch.Tensor,
-                      weight: torch.Tensor, bias: torch.Tensor):
-    """Kernel B2a: per-(n, c) s1 = Σ gz and s2 = Σ gz·x̂ ([N, C] float32)."""
+                      weight: torch.Tensor, bias: torch.Tensor, plan=None):
+    """Kernel B2a: per-(n, c) s1 = Σ gz and s2 = Σ gz·x̂ ([N, C] float32),
+    each plane over ``plan.splits`` CTAs of ``plan.chunk`` elements (by
+    default in_relu_bwd_split_plan's)."""
     if g.device.type == "cpu":
         return in_relu_bwd_stats_plain(g, xhat, weight, bias)
     _check_in_relu("in_relu_bwd_stats", g, (xhat,), weight, bias)
     n, c, hw = _planes(g)
+    if plan is None:
+        plan = in_relu_bwd_split_plan(n * c, hw, g.dtype, _aligned(g, xhat))
     s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
     s2 = torch.empty_like(s1)
+    part = (torch.empty((n * c, plan.splits, 2), dtype=torch.float32,
+                        device=g.device) if plan.splits > 1 else s1)
     _launch("in_relu_bwd_stats", g, g.data_ptr(), xhat.data_ptr(),
-            weight.data_ptr(), bias.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            n * c, c, hw, _DTYPES[g.dtype])
+            weight.data_ptr(), bias.data_ptr(), part.data_ptr(),
+            s1.data_ptr(), s2.data_ptr(), n * c, c, hw, plan.splits,
+            plan.chunk, _DTYPES[g.dtype])
     in_relu_bwd_stats.launches += 1
     return s1, s2
 
 
 def in_relu_bwd_apply(g: torch.Tensor, xhat: torch.Tensor,
                       weight: torch.Tensor, bias: torch.Tensor,
-                      rstd: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor):
-    """Kernel B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW) in g's dtype."""
+                      rstd: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                      plan=None):
+    """Kernel B2b: dx = (γ·rstd)·((gz − s1/HW) − x̂·s2/HW) in g's dtype, on
+    ``plan.apply_ctas`` CTAs a plane (by default in_relu_bwd_split_plan's)."""
     if g.device.type == "cpu":
         return in_relu_bwd_apply_plain(g, xhat, weight, bias, rstd, s1, s2)
     _check_in_relu("in_relu_bwd_apply", g, (xhat,), weight, bias)
+    _check_plane_stats("in_relu_bwd_apply", g,
+                       (("rstd", rstd), ("s1", s1), ("s2", s2)))
     n, c, hw = _planes(g)
-    for name, t in (("rstd", rstd), ("s1", s1), ("s2", s2)):
-        if (t.dtype != torch.float32 or tuple(t.shape) != (n, c)
-                or t.device != g.device or not t.is_contiguous()):
-            raise ValueError(f"in_relu_bwd_apply: {name} must be contiguous "
-                             f"[{n}, {c}] float32 on {g.device}")
+    if plan is None:
+        plan = in_relu_bwd_split_plan(n * c, hw, g.dtype, _aligned(g, xhat))
     dx = torch.empty_like(g)
     _launch("in_relu_bwd_apply", g, g.data_ptr(), xhat.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), rstd.data_ptr(),
             s1.data_ptr(), s2.data_ptr(), dx.data_ptr(), n * c, c, hw,
-            _DTYPES[g.dtype])
+            plan.apply_ctas, _DTYPES[g.dtype])
     in_relu_bwd_apply.launches += 1
     return dx
 
 
+def instance_norm_relu_bwd(g: torch.Tensor, xhat: torch.Tensor,
+                           weight: torch.Tensor, bias: torch.Tensor,
+                           rstd: torch.Tensor, plan=None):
+    """(dx, s1, s2) of the backward on the path ``plan`` names (by default
+    in_relu_bwd_plan's for g's shape and alignment): B2f, or B2a then B2b.
+    On the CPU: B2a's and B2b's plain versions."""
+    if g.device.type != "cpu" and plan is None:
+        n, c, hw = _planes(g)
+        plan = in_relu_bwd_plan(n * c, hw, g.dtype, _aligned(g, xhat))
+    if g.device.type == "cpu" or plan.path == BWD_SPLIT:
+        s1, s2 = in_relu_bwd_stats(g, xhat, weight, bias, plan)
+        return (in_relu_bwd_apply(g, xhat, weight, bias, rstd, s1, s2, plan),
+                s1, s2)
+    return in_relu_bwd(g, xhat, weight, bias, rstd, plan)
+
+
 in_relu_fwd.launches = 0
+in_relu_bwd.launches = 0
 in_relu_bwd_stats.launches = 0
 in_relu_bwd_apply.launches = 0
 
 
 class InstanceNormReLU(torch.autograd.Function):
     """relu(instance_norm(x)·γ + β) over [N, C, *S] planes with eps 1e-6
-    (NCHW for the 2-D models, NCDHW for UNet3D): B2-fwd in
-    ``forward``; B2a, B2b, then dγ = Σ_n s2 and dβ = Σ_n s1 in ``backward``.
+    (NCHW for the 2-D models, NCDHW for UNet3D): B2-fwd in ``forward``;
+    in ``backward`` B2f, or B2a and B2b (in_relu_bwd_plan), then dγ = Σ_n
+    s2 and dβ = Σ_n s1.
     Saves x̂ in x's dtype and rstd in float32, and casts the incoming
     gradient to x̂'s dtype, as the JAX custom VJP does
     (pallas_kernels.py:138-160)."""
@@ -540,8 +700,7 @@ class InstanceNormReLU(torch.autograd.Function):
     def backward(ctx, g):
         xhat, rstd, weight, bias = ctx.saved_tensors
         g = g.to(xhat.dtype).contiguous()
-        s1, s2 = in_relu_bwd_stats(g, xhat, weight, bias)
-        dx = in_relu_bwd_apply(g, xhat, weight, bias, rstd, s1, s2)
+        dx, s1, s2 = instance_norm_relu_bwd(g, xhat, weight, bias, rstd)
         wdt, bdt = ctx.param_dtypes
         return dx, s2.sum(dim=0).to(wdt), s1.sum(dim=0).to(bdt)
 
@@ -561,17 +720,18 @@ PARTIAL_TARGET_CTAS = 1024     # B2s: about 8 CTAs of FWD_THREADS a SM
 
 
 def in_relu_partial_plan(planes: int, hw: int, dtype: torch.dtype,
-                         aligned: bool = True):
-    """(splits, chunk): B2s covers each plane of ``hw`` elements with
-    ``splits`` CTAs of ``chunk`` elements each (the last one ragged), so
-    that about PARTIAL_TARGET_CTAS CTAs run however few the planes (30 at
-    the 3-D eval's level 0), with at least one 16-byte pack a thread; a
-    chunk is a whole number of packs when x is ``aligned`` and ``hw`` a
-    multiple of the pack."""
+                         aligned: bool = True,
+                         target: int = PARTIAL_TARGET_CTAS):
+    """(splits, chunk): B2s (and B2a's split plan) covers each plane of
+    ``hw`` elements with ``splits`` CTAs of ``chunk`` elements each (the
+    last one ragged), so that about ``target`` CTAs run however few the
+    planes (30 at the 3-D eval's level 0), with at least one 16-byte pack a
+    thread; a chunk is a whole number of packs when x is ``aligned`` and
+    ``hw`` a multiple of the pack."""
     esize = torch.finfo(dtype).bits // 8
     per = 16 // esize if aligned and hw % (16 // esize) == 0 else 1
     groups = -(-hw // per)
-    splits = max(1, min(-(-PARTIAL_TARGET_CTAS // max(planes, 1)),
+    splits = max(1, min(-(-target // max(planes, 1)),
                         -(-groups // FWD_THREADS)))
     chunk = -(-groups // splits) * per
     return -(-hw // chunk), chunk
@@ -677,8 +837,7 @@ def instance_norm_relu_split(x: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor, group) -> torch.Tensor:
     """relu(instance_norm(x)·γ + β) of planes split over ``group``'s ranks:
     B2s → all-reduce → B2y.  Inference only: it raises where autograd
-    would record it (JAX shards spatially only at eval; B2a and B2b stay
-    whole-plane kernels)."""
+    would record it (JAX shards spatially only at eval)."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         raise RuntimeError("instance_norm_relu_split is inference only: run "
@@ -692,6 +851,7 @@ def instance_norm_relu_split(x: torch.Tensor, weight: torch.Tensor,
 # name -> wrapper, for launch-count bookkeeping
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
+           "in_relu_bwd": in_relu_bwd,
            "in_relu_bwd_stats": in_relu_bwd_stats,
            "in_relu_bwd_apply": in_relu_bwd_apply,
            "geodesic2d_batch": geodesic2d_batch,

@@ -41,29 +41,40 @@ result line):
 6. profile — one case's sweep in steady state: wall per step, the
    full-width forward alone, and torch.profiler's kernel time by group and
    by name (device busy share).
-7. kernel B2 — the three kernels of csrc/in_relu.cu (in_relu_fwd,
-   in_relu_bwd_stats, in_relu_bwd_apply) and the autograd Function that
-   ties them against their plain PyTorch versions at the four flagship
-   shapes in bf16, at edge cases (H·W not a multiple of the vector width,
-   C = 1, bs = 1), one element either side of each B2-fwd path boundary and
-   on an unaligned x, with the tolerances stated in ``b2_check``; the
-   B2-fwd plan of each flagship shape; per shape and per train step each
-   kernel's device time per launch (``graph_ms``), wrapper time per call,
-   plain and library ("two calls", F.relu(F.instance_norm(...)), forward
-   and backward) times, and the card's bound for the same work; B2-fwd's
-   wrapper time through the registered operator boxseg::in_relu_fwd
-   beside its CUDA implementation called without the dispatcher.  Then the
-   five levels of the NF UNet / UNetInter at batch 16 (b2_nf_levels): each
-   against its plain version, its plan, device time per launch, plain,
-   library and bound, and the sums over one NF train step (18 calls).
+7. kernel B2 — the kernels of csrc/in_relu.cu (in_relu_fwd; the
+   backward: in_relu_bwd, B2f, fused where a plane fits on chip, or
+   in_relu_bwd_stats + in_relu_bwd_apply, B2a + B2b, split over several
+   CTAs a plane) and the autograd Function that ties them against their
+   plain PyTorch versions at the four flagship shapes in bf16, at edge
+   cases (H·W not a multiple of the vector width, C = 1, bs = 1), one
+   element either side of each path boundary of B2-fwd and of the
+   backward, at each staged cluster size, in float32 and on an unaligned
+   x and g, with the tolerances stated in ``b2_check``; every backward
+   plan of ``bwd_alternatives`` (the chosen one, the split plan, the first
+   design with one CTA a plane for B2a and B2b, other clusters) at every
+   shape; the plans of each flagship shape; per shape and per train step
+   each kernel's device time per launch (``graph_ms``), wrapper time per
+   call, plain and library ("two calls", F.relu(F.instance_norm(...)),
+   forward and backward) times, and the card's bound for the same work;
+   the whole backward per shape and per step (``bwd_verdict``) against
+   B2f's bound (6 B a bf16 element) and against the first design timed in
+   the same run, failing if the chosen plan is over 5 % slower than it;
+   B2-fwd's wrapper time through the registered operator
+   boxseg::in_relu_fwd beside its CUDA implementation called without the
+   dispatcher.  Then the five levels of the NF UNet / UNetInter at batch
+   16 (b2_nf_levels): each against its plain version, its plans, device
+   time per launch, plain, library and bound, and the sums over one NF
+   train step (18 calls).
 8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
    online 2D eval every 12, a best checkpoint; then a resume run on the
    streaming (device-resize) sampler to step 30, whose checkpoint is phase
    18's weights; both on one host worker (ONE_WORKER).  The launch counters are
-   zeroed right before each run: B1 must launch at least once per step and
-   each B2 kernel at least ten times per step.  The loss must be finite and
+   zeroed right before each run: B1 must launch at least once per step,
+   B2-fwd at least ten times per step and the backward's kernels as
+   in_relu_bwd_plan has them over the step's ten pairs (B2f; no B2a or
+   B2b).  The loss must be finite and
    fall; checkpoints and sidecars must exist.  Then one train step of a
    small GUNet at 64^2 in float32 without TF32 on the card against the same
    step on the CPU (loss and updated parameters within 1e-4).
@@ -160,8 +171,9 @@ result line):
    written by cli/main.resolve_dataset_dir), every train run on one host
    worker: (a) ``101_unet_v2.sh train`` flags through the CLI (UNet.yml
    full width, instance norm, batch 16, 256^2 x 3): 24 steps with the
-   online eval every 12 (4 batches) and a resume to 30; exactly 18 B2-fwd,
-   B2a and B2b launches a step (B2-fwd 18 more per eval batch, B1 none);
+   online eval every 12 (4 batches) and a resume to 30; exactly 18 B2-fwd
+   and 18 backward launches a step (b2_train_counts: B2f at every level;
+   B2-fwd 18 more per eval batch, B1 none);
    the step in steady state at K = 1 and K = 16 (ms/step, slices/s, busy
    share, device time by kernel group from a profiled window).  (b)
    ``101_unet_v2.sh eval`` with --save_predict on (a)'s best (s/case, 18
@@ -204,15 +216,18 @@ result line):
    card, the response against the eager model within one bf16 step.
 21. 3D tower — nf_3d with UNet3D.yml at full width (init_channels 30,
    max 320, 4 pools) on phase 19's synthetic_nf set (4 cases of 24 x
-   256^2).  (a) B2-fwd / B2a / B2b at every level of the 201_unet_v1.sh
-   train step ([4,30,10,256^2] ... [4,320,5,16^2], planes of D·H·W) and at
+   256^2).  (a) B2-fwd and every backward plan at every level of the
+   201_unet_v1.sh train step ([4,30,10,256^2] ... [4,320,5,16^2], planes
+   of D·H·W) and at
    the whole-volume eval's [1,30,24,256^2], each against its plain version
    (b2_check's tolerances): plan, device time per launch, plain, library
    (F.relu(F.instance_norm), forward and backward) and bound, summed over
    the step's 18 calls.  (b) ``201_unet_v1.sh train`` through the CLI (batch
    4, 10 x 256^2, --random_flip 7, --tumor_percent 0.75, one host worker),
    16 steps with the --eval_per_epoch volume eval every 8: exactly 18
-   B2-fwd, B2a and B2b a step (18 B2-fwd more a forward of the eval); the
+   B2-fwd a step and the backward's kernels by b2_train_counts (14 B2f, 4
+   B2a + B2b at the 10 x 256^2 level; 18 B2-fwd more a forward of the
+   eval); the
    step in steady state at K = 1 and 4 (ms/step, patches/s, busy share,
    device time by kernel group, GFLOP/patch, share of the bf16 peak).
    (c) ``201_unet_v1.sh eval`` (whole volume) and the sliding window
@@ -237,8 +252,8 @@ result line):
    32^2 patch pyramid; instance norm, --zscore --gamma, batch 8, 256^2 x 3,
    bf16) on phase 19's synthetic_nf set, one host worker.  (a) 12 train
    steps through the CLI with the online eval (IinSampler, 4 batches) every
-   6: exactly one B1 launch (the one-click guides, K = 1) and 10 B2-fwd,
-   B2a and B2b a step (B1 1 and B2-fwd 10 an eval batch); the step in
+   6: exactly one B1 launch (the one-click guides, K = 1), 10 B2-fwd and
+   10 B2f a step (B1 1 and B2-fwd 10 an eval batch); the step in
    steady state at K = 1 and K = 16 (ms/step, slices/s, busy share, device
    time by kernel group, B1 and B2 device ms per step against b1_bound_ms
    and b2_bound_ms).  (b) ``004_gnet_iin.sh eval`` (run_patch) with and
@@ -270,7 +285,7 @@ result line):
    float32, cli/eval_all_ckpt (s/checkpoint), the export served (3
    requests) against the eager model (one bf16 step); no kernel launches.  (d)
    ``002_gnet_sp.sh train --use_se`` (GUNet.yml): 8 steps with exactly one
-   B1 and 10 B2-fwd / B2a / B2b launches a step, the step in steady state
+   B1, 10 B2-fwd and 10 B2f launches a step, the step in steady state
    with B1 / B2 device ms per step against their bounds, a GUNet_TINY
    --use_se step card vs CPU (1e-4).  (e) GUNet.yml with each 1-D VGG
    context: one forward at 2 x 128^2 in float32, card vs CPU within 1e-4.
@@ -318,8 +333,9 @@ result line):
    (d) with two or more cards, both CLIs over NCCL (otherwise printed as
    not run).
 Then one JSON line with every kernel's numbers (launches: the train run of
-phase 8 for B1 and B2, the device refiner's geodesic run of phase 20 for
-G1, and per path in ``launches_by_path``: the device sweep of phase 5,
+phase 8 for B1, B2-fwd and B2f, UNet3D's train run of phase 21b for B2a
+and B2b, the device refiner's geodesic run of phase 20 for G1, and per
+path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
 preview and two Predicts of phase 18, phase 19's nf_train, nf_eval,
@@ -333,7 +349,8 @@ the 1-rank NCCL group's K = 16 replays, and phase 25's rank 0 of the
 sharded run_g and 3-D evals (B2s and B2y count the sharded run_g's
 launches); B2's
 ``unet3d`` holds phase 21a's numbers per UNet3D train step and at the eval's
-level 0; ``ms``: wrapper
+level 0, B2f's ``backward`` the whole backward per flagship, NF and UNet3D
+step (chosen plans, the first design and the bound); ``ms``: wrapper
 time, per call for B1 and G1 and summed over one
 train step's calls for B2; ``device_ms``: device time per launch, for B2
 averaged over one train step's launches; ``wrapper_ms``: wrapper time per
@@ -380,8 +397,9 @@ COLD_BYTES = 100 * 2 ** 20
 # float operations per element of B2: fwd = 3 (sum, square, sum) + 2
 # (x − mean, · rstd) + 2 (·γ, + β) + 1 (max); B2a = 2 (affine) + 1 (select)
 # + 3 (two sums, one product); B2b = 2 + 1 + 4 (two subtractions, two
-# products)
-B2_OPS = {"in_relu_fwd": 8, "in_relu_bwd_stats": 6, "in_relu_bwd_apply": 7}
+# products); B2f, the backward as one function = 2 + 1 + 3 + 4
+B2_OPS = {"in_relu_fwd": 8, "in_relu_bwd": 10, "in_relu_bwd_stats": 6,
+          "in_relu_bwd_apply": 7}
 # the instance-norm + ReLU pairs of one flagship train step (batch 8, 256^2,
 # init_channels 64): Encode1_conv{1,2} and up_conv1_{1,2} at 64 channels,
 # up_conv{2,3,4}_{1,2} below
@@ -875,7 +893,7 @@ def kernel_groups(prof):
     kern.sort(key=self_us, reverse=True)
     groups = {"convolutions (cuDNN / CUTLASS)": 0.0,
               "batch norm (fwd, bwd)": 0.0,
-              "B2 in_relu (fwd, bwd_stats, bwd_apply)": 0.0,
+              "B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)": 0.0,
               "B1 guide_render": 0.0,
               "optimizer (multi-tensor foreach)": 0.0,
               "memcpy / memset": 0.0,
@@ -883,7 +901,7 @@ def kernel_groups(prof):
     for e in kern:
         name = e.key.lower()
         if "in_relu" in name:
-            key = "B2 in_relu (fwd, bwd_stats, bwd_apply)"
+            key = "B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)"
         elif "guide_render" in name:
             key = "B1 guide_render"
         elif "batch_norm" in name or "::bn_" in name:
@@ -993,20 +1011,23 @@ def b2_inputs(shape, dtype, dev, seed):
 
 
 def b2_check(shape, dtype, dev, seed, unaligned=False):
-    """The three kernels and InstanceNormReLU's backward against their plain
-    versions on the same inputs; returns the worst abs error per kernel.
-    ``unaligned``: B2-fwd reads x from a contiguous view at an odd element
-    offset (its general path).
+    """B2-fwd, the backward on every plan of ``bwd_alternatives`` (B2f's
+    fused plans, B2a + B2b split and the first design, splits = 1) and
+    InstanceNormReLU's backward against their plain versions on the same
+    inputs; returns the worst abs error per kernel (B2f: dx, s1, s2 of its
+    fused plans; B2a: s1, s2 and B2b: dx of the split ones).
+    ``unaligned``: B2-fwd reads x and the backward g from contiguous views
+    at an odd element offset (B2-fwd's general path, the split backward).
 
-    Tolerances: x̂ and y (fwd) and dx (B2b) are rounded once to the output
+    Tolerances: x̂ and y (fwd) and dx are rounded once to the output
     dtype: float32 within 1e-5 (the per-plane sums in another order, rsqrt
     within 2 ulp), bf16 within one bf16 rounding step, 2^-7 of the value,
-    plus 1e-5.  rstd within 1e-5 relative.  s1, s2 (B2a) and dγ, dβ are
-    float32 sums over H·W (and N): 1e-4 relative plus 1e-6·√count."""
+    plus 1e-5.  rstd within 1e-5 relative.  s1, s2 and dγ, dβ are float32
+    sums over H·W (and N): 1e-4 relative plus 1e-6·√count."""
     from boxsegliver_torch.ops import kernels
 
     x, g, w, b = b2_inputs(shape, dtype, dev, seed)
-    hw = math.prod(shape[2:])
+    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
 
     def close(name, got, ref, rel, abs_):
         err = (got.float() - ref.float()).abs()
@@ -1017,45 +1038,125 @@ def b2_check(shape, dtype, dev, seed, unaligned=False):
                                  f"err {float(err.max()):.3e}")
         return float(err.max())
 
+    def odd_view(t):
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
     out_tol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-5, 1e-5)
     sum_tol = lambda n: (1e-4, 1e-6 * math.sqrt(n))          # noqa: E731
-    x_in = x
-    if unaligned:
-        flat = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
-        flat[1:] = x.flatten()
-        x_in = flat[1:].view(x.shape)
+    x_in, g_in = (odd_view(x), odd_view(g)) if unaligned else (x, g)
     y, xh, rstd = kernels.in_relu_fwd(x_in, w, b)
     y_p, xh_p, rstd_p = kernels.in_relu_fwd_plain(x, w, b)
-    s1, s2 = kernels.in_relu_bwd_stats(g, xh_p, w, b)
-    s1_p, s2_p = kernels.in_relu_bwd_stats_plain(g, xh_p, w, b)
-    dx = kernels.in_relu_bwd_apply(g, xh_p, w, b, rstd_p, s1_p, s2_p)
-    dx_p = kernels.in_relu_bwd_apply_plain(g, xh_p, w, b, rstd_p, s1_p, s2_p)
+    dx_p, s1_p, s2_p = kernels.in_relu_bwd_plain(g, xh_p, w, b, rstd_p)
+    errs = dict.fromkeys(B2_KERNELS, 0.0)
+    errs["in_relu_fwd"] = max(close("y", y, y_p, *out_tol),
+                              close("x_hat", xh, xh_p, *out_tol),
+                              close("rstd", rstd, rstd_p, 1e-5, 0.0))
+
+    def bwd_errs(what, plan, dx, s1, s2, dx_r, s1_r, s2_r, n):
+        # s1, s2: the plane sums, or dγ, dβ (sums over N too) of autograd
+        fused = plan.path != kernels.BWD_SPLIT
+        sums = "in_relu_bwd" if fused else "in_relu_bwd_stats"
+        grad = "in_relu_bwd" if fused else "in_relu_bwd_apply"
+        errs[sums] = max(errs[sums], close(f"s1 ({what})", s1, s1_r,
+                                           *sum_tol(n)),
+                         close(f"s2 ({what})", s2, s2_r, *sum_tol(n)))
+        errs[grad] = max(errs[grad], close(f"dx ({what})", dx, dx_r,
+                                           *out_tol))
+
+    alts = bwd_alternatives(planes, hw, dtype, not unaligned)
+    for what, plan in alts.items():
+        dx, s1, s2 = kernels.instance_norm_relu_bwd(g_in, xh_p, w, b, rstd_p,
+                                                    plan)
+        if not (dx.dtype == dtype and s1.dtype == torch.float32):
+            raise AssertionError("B2 backward output dtypes")
+        bwd_errs(what, plan, dx, s1, s2, dx_p, s1_p, s2_p, hw)
     torch.cuda.synchronize()
-    if not (y.dtype == xh.dtype == dx.dtype == dtype
-            and rstd.dtype == s1.dtype == torch.float32):
+    if not (y.dtype == xh.dtype == dtype and rstd.dtype == torch.float32):
         raise AssertionError("B2 output dtypes")
-    errs = {
-        "in_relu_fwd": max(close("y", y, y_p, *out_tol),
-                           close("x_hat", xh, xh_p, *out_tol),
-                           close("rstd", rstd, rstd_p, 1e-5, 0.0)),
-        "in_relu_bwd_stats": max(close("s1", s1, s1_p, *sum_tol(hw)),
-                                 close("s2", s2, s2_p, *sum_tol(hw))),
-        "in_relu_bwd_apply": close("dx", dx, dx_p, *out_tol),
-    }
-    # the autograd Function: B2-fwd, then B2a, B2b, dγ = Σ_n s2, dβ = Σ_n s1
-    xr = x.clone().requires_grad_(True)
+    # the autograd Function: B2-fwd, then the chosen backward, dγ = Σ_n s2,
+    # dβ = Σ_n s1; held against the plain backward on the x̂ and rstd that
+    # the Function's own forward saved (xr is an aligned copy of x: its
+    # B2-fwd path, and so x̂ within one bf16 step, may differ from x_in's)
+    xr = x_in.clone().requires_grad_(True)
     wr = w.clone().requires_grad_(True)
     br = b.clone().requires_grad_(True)
     dxa, dw, db = torch.autograd.grad(kernels.instance_norm_relu(xr, wr, br),
-                                      (xr, wr, br), g)
-    dx_r, dw_r, db_r = kernels.in_relu_bwd_plain(g, xh, rstd, w, b)
-    n = shape[0] * hw
-    errs["in_relu_bwd_apply"] = max(errs["in_relu_bwd_apply"],
-                                    close("autograd dx", dxa, dx_r, *out_tol))
-    errs["in_relu_bwd_stats"] = max(errs["in_relu_bwd_stats"],
-                                    close("dgamma", dw, dw_r, *sum_tol(n)),
-                                    close("dbeta", db, db_r, *sum_tol(n)))
+                                      (xr, wr, br), g_in)
+    _, xh_a, rstd_a = kernels.in_relu_fwd(xr.detach(), w, b)
+    dx_r, s1_r, s2_r = kernels.in_relu_bwd_plain(g, xh_a, w, b, rstd_a)
+    bwd_errs("autograd", alts["chosen"], dxa, dw, db, dx_r, s2_r.sum(dim=0),
+             s1_r.sum(dim=0), shape[0] * hw)
     return errs
+
+
+def b2_plan_name(plan):
+    """The backward's path in words: fused warp / fused staged xN / split
+    (B2a splits, B2b CTAs a plane)."""
+    from boxsegliver_torch.ops import kernels as K
+
+    if plan.path == K.FWD_WARP:
+        return f"fused warp ({plan.packs} packs a lane)"
+    if plan.path == K.FWD_STAGED:
+        return f"fused staged x{plan.cluster} ({plan.smem_bytes} B a CTA)"
+    return f"split (B2a x{plan.splits}, B2b x{plan.apply_ctas})"
+
+
+def bwd_alternatives(planes, hw, dtype, aligned=True):
+    """The backward's plans checked and timed at one shape: the chosen one
+    (in_relu_bwd_plan), the split plan, the first design ("pair": B2a and
+    B2b at one CTA a plane, splits = 1) and, for a fused staged plan, twice
+    and half its cluster where those fit; for a fused warp plan, one staged
+    CTA a plane."""
+    from boxsegliver_torch.ops import kernels as K
+
+    plan = K.in_relu_bwd_plan(planes, hw, dtype, aligned)
+    alts = {"chosen": plan}
+    for name, p in (("split", K.in_relu_bwd_split_plan(planes, hw, dtype,
+                                                        aligned)),
+                    ("pair", K.in_relu_bwd_split_plan(planes, hw, dtype,
+                                                       aligned, False))):
+        if p != plan:
+            alts[name] = p
+    esize = torch.finfo(dtype).bits // 8
+    per = 16 // esize
+    if plan.path == K.FWD_STAGED:
+        for cs in (2 * plan.cluster, plan.cluster // 2):
+            if 1 <= cs <= 8 and hw % (cs * per) == 0 and (
+                    2 * (hw // cs) * esize <= K._BWD_STAGE_MAX):
+                alts[f"staged x{cs}"] = plan._replace(
+                    grid=planes * cs, cluster=cs,
+                    smem_bytes=2 * (hw // cs) * esize)
+    if plan.path == K.FWD_WARP and 2 * hw * esize <= K._BWD_STAGE_MAX:
+        alts["staged x1"] = plan._replace(path=K.FWD_STAGED, grid=planes,
+                                          packs=0, smem_bytes=2 * hw * esize)
+    return alts
+
+
+def b2_train_counts(shapes, steps, fwd=0):
+    """Exact B2 launches of ``steps`` train steps over ``shapes`` ({[N, C,
+    *S]: calls a step}, bf16) and ``fwd`` forwards more: one B2-fwd a call
+    and forward; the backward's kernels from in_relu_bwd_plan: one B2f a
+    fused call, one B2a and one B2b a split one.  B2a + B2f = blocks x
+    steps."""
+    from boxsegliver_torch.ops import kernels as K
+
+    calls = sum(shapes.values())
+    out = {"in_relu_fwd": calls * (steps + fwd), "in_relu_bwd": 0,
+           "in_relu_bwd_stats": 0, "in_relu_bwd_apply": 0}
+    for shape, k in shapes.items():
+        plan = K.in_relu_bwd_plan(shape[0] * shape[1], math.prod(shape[2:]),
+                                  torch.bfloat16)
+        for n in (("in_relu_bwd",) if plan.path != K.BWD_SPLIT else
+                  ("in_relu_bwd_stats", "in_relu_bwd_apply")):
+            out[n] += k * steps
+    return out
+
+
+def b2_train_kernels(shapes):
+    """The B2 kernels a train step over ``shapes`` launches."""
+    return tuple(n for n, c in b2_train_counts(shapes, 1).items() if c)
 
 
 def fwd_alternatives(planes, hw):
@@ -1078,12 +1179,16 @@ def fwd_alternatives(planes, hw):
 
 def b2_times(shape, dev):
     """Per-call ms at one bf16 shape: each kernel's device time per launch
-    ("device <name>", graph_ms) and wrapper time per call ("<name>"),
-    plain, library ("two calls") for the forward and for the backward (the
-    library's backward is the whole backward of F.relu(F.instance_norm(...)),
-    B2a + B2b + dγ, dβ); B2-fwd's device time under the other plans of
-    ``fwd_alternatives`` ("fwd <plan>"); B2-fwd's CUDA implementation
-    called without the operator's dispatcher ("in_relu_fwd direct")."""
+    ("device <name>", graph_ms; B2a and B2b under the split plan) and
+    wrapper time per call ("<name>"), plain, library ("two calls") for the
+    forward and for the backward (the library's backward is the whole
+    backward of F.relu(F.instance_norm(...)), dx and dγ, dβ); B2-fwd's
+    device time under the other plans of ``fwd_alternatives`` ("fwd
+    <plan>"); the whole backward's device time under each plan of
+    ``bwd_alternatives`` ("bwd <plan>": one B2f, or B2a + B2b); the
+    chosen backward's wrapper time ("in_relu_bwd") and its plain version's
+    ("plain in_relu_bwd"); B2-fwd's CUDA implementation called without the
+    operator's dispatcher ("in_relu_fwd direct")."""
     import torch.nn.functional as F
 
     from boxsegliver_torch.ops import kernels
@@ -1095,7 +1200,8 @@ def b2_times(shape, dev):
     wr = w.clone().requires_grad_(True)
     br = b.clone().requires_grad_(True)
     lib_y = F.relu(F.instance_norm(xr, weight=wr, bias=br, eps=1e-6))
-    iters = 20 if math.prod(shape[2:]) >= 128 * 128 else 50
+    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+    iters = 20 if hw >= 128 * 128 else 50
     # input sets for the device-time loops: COLD_BYTES of x / g in all
     n_sets = max(1, min(iters, math.ceil(COLD_BYTES / (x.numel() * 2))))
     sets = [(x, g, xh, rstd, s1, s2)]
@@ -1104,6 +1210,7 @@ def b2_times(shape, dev):
         _, xhi, rstdi = kernels.in_relu_fwd(xi, w, b)
         sets.append((xi, gi, xhi, rstdi) + kernels.in_relu_bwd_stats(
             gi, xhi, w, b))
+    bwd_plans = bwd_alternatives(planes, hw, torch.bfloat16)
     t = {}
     # kernel, plain, library, then the same again: the best of two turns
     for turn in range(2):
@@ -1118,17 +1225,23 @@ def b2_times(shape, dev):
                      sets[i][1], sets[i][2], w, b, *sets[i][3:]))):
             ms = graph_ms(call, n_sets, iters)
             t["device " + name] = min(ms, t.get("device " + name, ms))
-        for alt, plan in fwd_alternatives(shape[0] * shape[1],
-                                          math.prod(shape[2:])).items():
+        for alt, plan in fwd_alternatives(planes, hw).items():
             ms = graph_ms(lambda i, plan=plan: kernels._fwd_launch(
                 sets[i][0], w, b, kernels.IN_EPS, plan), n_sets, iters)
             t["fwd " + alt] = min(ms, t.get("fwd " + alt, ms))
+        for alt, plan in bwd_plans.items():
+            ms = graph_ms(lambda i, plan=plan: kernels.instance_norm_relu_bwd(
+                sets[i][1], sets[i][2], w, b, sets[i][3], plan), n_sets,
+                iters)
+            t["bwd " + alt] = min(ms, t.get("bwd " + alt, ms))
         for name, fn in (
                 ("in_relu_fwd", lambda: kernels.in_relu_fwd(x, w, b)),
                 # the CUDA implementation without the dispatcher: the
                 # wrapper's path before B2-fwd became a registered operator
                 ("in_relu_fwd direct", lambda: kernels._in_relu_fwd_cuda(
                     x, w, b, kernels.IN_EPS)),
+                ("in_relu_bwd", lambda: kernels.instance_norm_relu_bwd(
+                    g, xh, w, b, rstd)),
                 ("in_relu_bwd_stats",
                  lambda: kernels.in_relu_bwd_stats(g, xh, w, b)),
                 ("in_relu_bwd_apply",
@@ -1136,6 +1249,8 @@ def b2_times(shape, dev):
                                                    s2)),
                 ("plain in_relu_fwd", lambda: kernels.in_relu_fwd_plain(
                     x, w, b)),
+                ("plain in_relu_bwd", lambda: kernels.in_relu_bwd_plain(
+                    g, xh, w, b, rstd)),
                 ("plain in_relu_bwd_stats",
                  lambda: kernels.in_relu_bwd_stats_plain(g, xh, w, b)),
                 ("plain in_relu_bwd_apply",
@@ -1147,22 +1262,56 @@ def b2_times(shape, dev):
                     lib_y, (xr, wr, br), g, retain_graph=True))):
             ms = cuda_ms(fn, iters=iters, warmup=3)
             t[name] = min(ms, t.get(name, ms))
+    t["device in_relu_bwd"] = t["bwd chosen"]
     return t
 
 
 def b2_bound_ms(name, shape):
     """(bound ms, bound_by) of one call: each input read once, each output
     written once, and B2_OPS float operations per element at the float32
-    non-tensor peak.  ``shape``: [N, C, *S] (NCHW or NCDHW)."""
+    non-tensor peak.  ``shape``: [N, C, *S] (NCHW or NCDHW).  B2f's is the
+    backward's as one function: g and x̂ read, dx written (6 B a bf16
+    element), rstd read, s1 and s2 written."""
     n, c = shape[:2]
     elems = math.prod(shape)
     planes, params = n * c * 4, c * 4 * 2            # f32 per-plane, γ and β
     io = {"in_relu_fwd": 3 * elems * 2 + planes,     # x in; y, x̂ out; rstd
+          "in_relu_bwd": 3 * elems * 2 + 3 * planes,
           "in_relu_bwd_stats": 2 * elems * 2 + 2 * planes,
           "in_relu_bwd_apply": 3 * elems * 2 + 3 * planes}[name] + params
     t_bytes = io / HBM_BYTES_PER_S * 1e3
     t_ops = B2_OPS[name] * elems / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def b2_step_bound_ms(shapes):
+    """B2's bound over a train step's calls ({shape: calls}): the forward's
+    and the backward's as one function each (B2f's: 6 B a bf16 element)."""
+    return sum(k * (b2_bound_ms("in_relu_fwd", shape)[0]
+                    + b2_bound_ms("in_relu_bwd", shape)[0])
+               for shape, k in shapes.items())
+
+
+def bwd_verdict(label, shape, t):
+    """One shape's backward: the chosen plan's device ms against B2f's
+    bound (6 B a bf16 element) and against the first design (the pair at
+    splits = 1) and the other plans timed in the same run.  Fails if the
+    chosen plan is more than 5 % slower than the pair (the spread of two
+    timings of one kernel in one run)."""
+    bound, _ = b2_bound_ms("in_relu_bwd", shape)
+    chosen, pair = t["bwd chosen"], t.get("bwd pair", t["bwd chosen"])
+    print(f"  {label} {str(shape):22s} backward: chosen {chosen:.4f} ms "
+          f"({bound / chosen:.1%} of the 6 B bound {bound:.4f}), pair "
+          f"(splits = 1) {pair:.4f} ({bound / pair:.1%}; chosen "
+          f"{pair / chosen:.2f}x faster); " + ", ".join(
+              f"{k[4:]} {v:.4f}" for k, v in t.items()
+              if k.startswith("bwd ") and k not in ("bwd chosen",
+                                                    "bwd pair")))
+    if chosen > 1.05 * pair:
+        raise AssertionError(f"{label} {shape}: the chosen backward "
+                             f"({chosen:.4f} ms) is slower than the pair "
+                             f"({pair:.4f} ms)")
+    return chosen, pair, bound
 
 
 B2_FWD_PATHS = {0: "general", 1: "warp", 2: "staged"}
@@ -1171,31 +1320,37 @@ B2_FWD_PATHS = {0: "general", 1: "warp", 2: "staged"}
 def b2_phase(dev):
     from boxsegliver_torch.ops import kernels
 
-    names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+    names = B2_KERNELS
     worst = dict.fromkeys(names, 0.0)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(s, bf16) for s in B2_STEP_SHAPES] + [
         ((2, 8, 7, 9), f32), ((1, 1, 33, 31), f32), ((1, 3, 64, 64), f32),
         ((3, 1, 5, 3), f32), ((1, 2, 13, 11), bf16), ((2, 64, 32, 32), f32),
-        # one element either side of B2-fwd's path boundaries (warp: 2,048
-        # bf16 / 1,024 f32 a plane; staged: 8 chunks of 64 KiB) and each
-        # staged cluster size
+        # one element either side of the path boundaries of B2-fwd (warp:
+        # 2,048 bf16 / 1,024 f32 a plane; staged: 8 chunks of 64 KiB) and
+        # of the backward (the same warp limit; a staged CTA's 64 KiB of g
+        # + x̂, 8 CTAs of 192 KiB), and each staged cluster size of both
         ((2, 3, 8, 256), bf16), ((2, 3, 1, 2049), bf16), ((2, 3, 8, 257), bf16),
         ((2, 3, 32, 32), f32), ((2, 3, 1, 1025), f32), ((2, 3, 4, 257), f32),
         ((1, 3, 128, 258), bf16), ((1, 2, 256, 256), f32),
         ((1, 2, 512, 512), bf16), ((1, 2, 1, 262152), bf16),
-        ((1, 2, 512, 512), f32)]
+        ((1, 2, 512, 512), f32), ((1, 3, 128, 128), bf16),
+        ((1, 3, 1, 16385), bf16), ((1, 2, 256, 512), bf16),
+        ((1, 3, 128, 129), bf16), ((1, 2, 384, 1024), bf16),
+        ((1, 2, 384, 1025), bf16), ((1, 2, 192, 1024), f32),
+        ((1, 2, 192, 1025), f32)]
     for i, (shape, dtype) in enumerate(cases + [((2, 64, 32, 32), bf16)]):
         unaligned = i == len(cases)
         errs = b2_check(shape, dtype, dev, seed=i, unaligned=unaligned)
-        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
-                                        shape[2] * shape[3], dtype,
-                                        not unaligned)
+        planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+        plan = kernels.in_relu_fwd_plan(planes, hw, dtype, not unaligned)
+        bplan = kernels.in_relu_bwd_plan(planes, hw, dtype, not unaligned)
         path = B2_FWD_PATHS[plan.path] + (
             f" x{plan.cluster}" if plan.cluster > 1 else "") + (
-            " (unaligned x)" if unaligned else "")
-        print(f"  B2 {str(shape):20s} {str(dtype)[6:]:8s} fwd {path}; max "
-              "abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+            " (unaligned x, g)" if unaligned else "")
+        print(f"  B2 {str(shape):20s} {str(dtype)[6:]:8s} fwd {path}, bwd "
+              f"{b2_plan_name(bplan)}; max abs err " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items()))
         for k, v in errs.items():
             worst[k] = max(worst[k], v)
     recs = {n: {"name": n, "route": "cuda",
@@ -1206,6 +1361,9 @@ def b2_phase(dev):
             for n in names}
     recs["in_relu_fwd"]["replaces"] = \
         "boxsegliver_tpu/ops/pallas_kernels.py:47 (_in_relu_fwd_impl, XLA)"
+    recs["in_relu_bwd"]["replaces"] = (
+        "boxsegliver_tpu/ops/pallas_kernels.py:114,124 (_bwd_stats_kernel "
+        "and _bwd_apply_kernel, one pass)")
     recs["in_relu_bwd_stats"]["replaces"] = \
         "boxsegliver_tpu/ops/pallas_kernels.py:114"
     recs["in_relu_bwd_apply"]["replaces"] = \
@@ -1214,22 +1372,33 @@ def b2_phase(dev):
           f"{'wrapper':>8s} {'plain':>8s} {'library':>8s} {'bound':>8s} "
           f"{'of bound':>8s}")
     calls = sum(B2_STEP_SHAPES.values())
-    direct_ms = 0.0
+    direct_ms, bwd = 0.0, {"chosen": 0.0, "pair": 0.0, "bound": 0.0}
     for shape, count in B2_STEP_SHAPES.items():
-        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
-                                        shape[2] * shape[3], bf16)
+        planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+        plan = kernels.in_relu_fwd_plan(planes, hw, bf16)
         print(f"  {str(shape):22s} B2-fwd plan: {B2_FWD_PATHS[plan.path]}, "
               f"grid {plan.grid}, cluster {plan.cluster}, packs a lane "
-              f"{plan.packs}, {plan.smem_bytes} B of dynamic shared memory")
+              f"{plan.packs}, {plan.smem_bytes} B of dynamic shared memory; "
+              f"backward plan: "
+              f"{b2_plan_name(kernels.in_relu_bwd_plan(planes, hw, bf16))}")
         t = b2_times(shape, dev)
         bound, _ = b2_bound_ms("in_relu_fwd", shape)
         print(f"  {str(shape):22s} B2-fwd under other plans: " + ", ".join(
             f"{k[4:]} {v:.4f} ms ({bound / v:.1%} of bound)"
             for k, v in t.items() if k.startswith("fwd ")))
+        for key, v in zip(("chosen", "pair", "bound"),
+                          bwd_verdict("flagship", shape, t)):
+            bwd[key] += count * v
+        fused = kernels.in_relu_bwd_plan(planes, hw, bf16).path \
+            != kernels.BWD_SPLIT
         for n in names:
             bound, by = b2_bound_ms(n, shape)
             lib = t["library fwd" if n == "in_relu_fwd" else "library bwd"]
             r = recs[n]
+            # B2f at the shapes it runs; B2a and B2b (timed under the split
+            # plan) at every shape
+            if n == "in_relu_bwd" and not fused:
+                continue
             r["ms"] += count * t[n]
             r["device_ms"] += count * t["device " + n] / calls
             r["wrapper_ms"] += count * t[n] / calls
@@ -1248,41 +1417,63 @@ def b2_phase(dev):
               f"{step:.4f} ms ({r['device_ms']:.5f} ms per launch), "
               f"wrapper {r['ms']:.4f} ms ({r['wrapper_ms']:.4f} ms per "
               f"call), plain {r['plain_ms']:.4f} ms, library "
-              f"{r['library_ms']:.4f} ms (two calls; the backward row is the "
-              f"whole backward), bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {r['bound_ms'] / step:.1%} of bound")
+              f"{r['library_ms']:.4f} ms (two calls; the backward rows are "
+              f"the whole backward), bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / step:.1%} of bound"
+              + (" (B2a and B2b: under the split plan, which no flagship "
+                 "shape takes)" if r["name"] in ("in_relu_bwd_stats",
+                                                 "in_relu_bwd_apply")
+                 else ""))
+    print(f"  B2 backward per flagship train step ({calls} calls): chosen "
+          f"plans {bwd['chosen']:.4f} ms, {bwd['bound'] / bwd['chosen']:.1%}"
+          f" of the 6 B bound {bwd['bound']:.4f} ms; the pair (splits = 1) "
+          f"{bwd['pair']:.4f} ms ({bwd['bound'] / bwd['pair']:.1%}); "
+          f"{smi()}")
     print(f"  B2-fwd wrapper per call through the operator "
           f"boxseg::in_relu_fwd {recs['in_relu_fwd']['wrapper_ms']:.4f} ms, "
           f"its CUDA implementation called directly (the wrapper before the "
           f"registration) {direct_ms:.4f} ms; {smi()}")
+    recs["backward"] = bwd
     return recs
 
 
 def b2_nf_levels(dev, shapes=None, label="NF", seed=100):
     """B2 at the five levels of the NF UNet / UNetInter at batch 16 (bf16;
     or at ``shapes``, {shape: calls a train step}): each level against its
-    plain version (b2_check's tolerances) with its B2-fwd plan, then per
-    level and per train step (18 calls of each kernel) the device time per
-    launch, plain and library times and the bound.  Returns {kernel:
-    {"device_ms", "bound_ms", "plain_ms", "library_ms", "max_abs_err"} per
-    train step}."""
+    plain version (b2_check's tolerances, every backward plan) with its
+    plans, then per level and per train step (18 calls of each kernel) the
+    device time per launch, plain and library times and the bound, and
+    the whole backward (bwd_verdict) per level and per step.  Returns
+    {kernel: {"device_ms", "bound_ms", "plain_ms", "library_ms",
+    "max_abs_err"} per train step} (B2f at the levels that take a fused
+    plan; B2a and B2b at every level, under the split plan), with
+    "backward": {"chosen", "pair", "bound"} ms per step."""
     from boxsegliver_torch.ops import kernels
 
     shapes = shapes or NF_B2_STEP_SHAPES
-    names = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
+    names = B2_KERNELS
     step = {n: dict.fromkeys(("device_ms", "bound_ms", "plain_ms",
                               "library_ms", "max_abs_err"), 0.0)
             for n in names}
+    bwd = {"chosen": 0.0, "pair": 0.0, "bound": 0.0}
     for i, (shape, count) in enumerate(shapes.items()):
         errs = b2_check(shape, torch.bfloat16, dev, seed=seed + i)
-        plan = kernels.in_relu_fwd_plan(shape[0] * shape[1],
-                                        math.prod(shape[2:]), torch.bfloat16)
+        planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+        plan = kernels.in_relu_fwd_plan(planes, hw, torch.bfloat16)
+        bplan = kernels.in_relu_bwd_plan(planes, hw, torch.bfloat16)
         t = b2_times(shape, dev)
         print(f"  {label} {str(shape):20s} x{count} fwd "
               f"{B2_FWD_PATHS[plan.path]}"
-              f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}; max abs "
-              "err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+              f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}, bwd "
+              f"{b2_plan_name(bplan)}; max abs err " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items()))
+        for key, v in zip(("chosen", "pair", "bound"),
+                          bwd_verdict(label, shape, t)):
+            bwd[key] += count * v
         for n in names:
+            step[n]["max_abs_err"] = max(step[n]["max_abs_err"], errs[n])
+            if n == "in_relu_bwd" and bplan.path == kernels.BWD_SPLIT:
+                continue
             bound, by = b2_bound_ms(n, shape)
             lib = t["library fwd" if n == "in_relu_fwd" else "library bwd"]
             d = t["device " + n]
@@ -1290,17 +1481,23 @@ def b2_nf_levels(dev, shapes=None, label="NF", seed=100):
                            ("plain_ms", t["plain " + n]),
                            ("library_ms", lib)):
                 step[n][key] += count * v
-            step[n]["max_abs_err"] = max(step[n]["max_abs_err"], errs[n])
             print(f"  {label} {str(shape):20s} {n:>18s} device {d:.4f} ms per "
                   f"launch, plain {t['plain ' + n]:.4f}, library {lib:.4f},"
                   f" bound {bound:.4f} ({by}), {bound / d:.1%} of bound")
     calls = sum(shapes.values())
     for n, r in step.items():
-        print(f"  {label} B2 {n} per train step ({calls} calls): device "
-              f"{r['device_ms']:.4f} ms ({r['device_ms'] / calls:.5f} per "
-              f"launch), plain {r['plain_ms']:.4f}, library "
+        if not r["device_ms"]:
+            continue
+        print(f"  {label} B2 {n} per train step: device "
+              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.4f}, library "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} ms, "
               f"{r['bound_ms'] / r['device_ms']:.1%} of bound; {smi()}")
+    print(f"  {label} B2 backward per train step ({calls} calls): chosen "
+          f"plans {bwd['chosen']:.4f} ms, {bwd['bound'] / bwd['chosen']:.1%}"
+          f" of the 6 B bound {bwd['bound']:.4f} ms; the pair (splits = 1) "
+          f"{bwd['pair']:.4f} ms ({bwd['bound'] / bwd['pair']:.1%}), chosen "
+          f"{bwd['pair'] / bwd['chosen']:.2f}x faster; {smi()}")
+    step["backward"] = bwd
     return step
 
 
@@ -1326,9 +1523,18 @@ TRAIN_FLAGS = [
     "--weight_decay_rate", "0.000001", "--learning_policy", "plateau",
     "--learning_rate", "0.001", "--lr_end", "0.0000005", "--lr_decay_rate",
     "0.2", "--eval_per_epoch", "--evaluator", "Volume", "--save_best"]
-B2_KERNELS = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
-# the kernels a train step can run (G1 draws only the click eval's guides)
-TRAIN_KERNELS = ("gaussian_guide_batch",) + B2_KERNELS
+B2_KERNELS = ("in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats",
+              "in_relu_bwd_apply")
+
+
+def train_kernels(shapes=None):
+    """The kernels a guided train step runs (G1 draws only the click eval's
+    guides): B1 and the B2 kernels of b2_train_kernels at ``shapes`` (the
+    flagship's by default)."""
+    return ("gaussian_guide_batch",) + b2_train_kernels(
+        shapes or B2_STEP_SHAPES)
+
+
 # the train runs whose checkpoints later phases check (phase 8's resume to
 # step 30 for the annotator of phase 18, phase 10's best for phase 12's
 # card-vs-CPU device_case) and the runs before them draw their batches from
@@ -1363,11 +1569,13 @@ def train_run(argv, steps_expected):
     if launches["gaussian_guide_batch"] < steps_expected:
         raise AssertionError(f"B1 launched {launches['gaussian_guide_batch']}"
                              f" times in {steps_expected} train steps")
-    for n in B2_KERNELS:
-        if launches[n] < 10 * steps_expected:
+    # 10 pairs a step; the backward's kernels from in_relu_bwd_plan (the
+    # online eval and a K = 16 capture add launches: at least these)
+    for n, c in b2_train_counts(B2_STEP_SHAPES, steps_expected).items():
+        if (launches[n] < c) if c else launches[n]:
             raise AssertionError(f"{n} launched {launches[n]} times in "
-                                 f"{steps_expected} train steps (10 pairs "
-                                 "per step)")
+                                 f"{steps_expected} train steps "
+                                 f"(in_relu_bwd_plan: {c} at least, 0 if 0)")
     return trainer, launches, seconds
 
 
@@ -1782,7 +1990,7 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     (the train loop's drain), then one profiled window.
     The launch counters are zeroed before the warm-up: a path without
     hand-written kernels must launch none, one with them every train kernel
-    (TRAIN_KERNELS); ``kernels_used`` may instead name the kernels that
+    (train_kernels()); ``kernels_used`` may instead name the kernels that
     must launch (the others must not).  ``groups_out`` (a dict) receives
     the profiled window's device ms per step by kernel group.  Returns
     (median s/step, launches, captured launches per replay)."""
@@ -1850,7 +2058,7 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         torch.cuda.synchronize()
         launches = {n: f.launches for n, f in kernels.KERNELS.items()}
         used = (set(kernels_used) if isinstance(kernels_used, tuple)
-                else set(TRAIN_KERNELS) if kernels_used else set())
+                else set(train_kernels()) if kernels_used else set())
         if not all(bool(c) == (n in used) for n, c in launches.items()):
             raise AssertionError(f"{what}: kernel launches {launches}")
         walls = [window(16) for _ in range(3)]
@@ -2983,7 +3191,6 @@ INTER_TRAIN = INTER_MODEL + [
     "--eval_per_epoch", "--save_best", "--save_interval", "50000"]
 NF_EVAL_BATCHES = 4          # online eval batches of the smoke's train runs
 NF_BLOCKS = 18               # full-affine IN + ReLU blocks of both models
-B2_ALL = ("in_relu_fwd", "in_relu_bwd_stats", "in_relu_bwd_apply")
 
 
 def nf_argv(task, mode, tag, tmp, md, *extra):
@@ -3054,9 +3261,7 @@ def nf_train_phase(tmp, ds):
     steps, evals = 24, 2 * NF_EVAL_BATCHES
     expect_launches("nf train", launches, {
         "gaussian_guide_batch": 0,
-        "in_relu_fwd": NF_BLOCKS * (steps + evals),
-        "in_relu_bwd_stats": NF_BLOCKS * steps,
-        "in_relu_bwd_apply": NF_BLOCKS * steps})
+        **b2_train_counts(NF_B2_STEP_SHAPES, steps, evals)})
     loss, dice = _train_log(md)
     s0 = sorted(loss)
     if not np.mean([loss[k] for k in s0[-3:]]) < loss[s0[0]]:
@@ -3064,7 +3269,8 @@ def nf_train_phase(tmp, ds):
     print(f"  nf train (101_unet_v2.sh flags): 24 steps of 16 x 256^2 in "
           f"{seconds:.2f} s ({seconds / 24 * 1e3:.1f} ms/step with set-up and"
           f" two online evals of {NF_EVAL_BATCHES} batches); per train step "
-          f"B2-fwd {NF_BLOCKS} (+{NF_BLOCKS} per eval batch), B2a "
+          f"B2-fwd {NF_BLOCKS} (+{NF_BLOCKS} per eval batch), B2f "
+          f"{launches['in_relu_bwd'] // steps}, B2a "
           f"{launches['in_relu_bwd_stats'] // steps}, B2b "
           f"{launches['in_relu_bwd_apply'] // steps}, B1 0; loss "
           + ", ".join(f"{k}: {loss[k]:.4f}" for k in s0)
@@ -3083,13 +3289,14 @@ def nf_train_phase(tmp, ds):
             *UNET_V2_TRAIN, "--steps_per_dispatch", str(k)))
         walls[k], warm, replay = steady(
             args, ds, f"101_unet_v2.sh train step, K={k}",
-            kernels_used=B2_ALL, prof_steps=8 if k == 1 else 16, top=10)
+            kernels_used=b2_train_kernels(NF_B2_STEP_SHAPES),
+            prof_steps=8 if k == 1 else 16, top=10)
         if k == 1:
             expect_launches("nf steady warm-up", warm, {
-                "gaussian_guide_batch": 0, "in_relu_fwd": 3 * NF_BLOCKS,
-                "in_relu_bwd_stats": 3 * NF_BLOCKS,
-                "in_relu_bwd_apply": 3 * NF_BLOCKS})
-        elif any(c["in_relu_fwd"] != NF_BLOCKS for c in replay.values()):
+                "gaussian_guide_batch": 0,
+                **b2_train_counts(NF_B2_STEP_SHAPES, 3)})
+        elif any(c[n] != v for c in replay.values() for n, v in
+                 b2_train_counts(NF_B2_STEP_SHAPES, 1).items()):
             raise AssertionError(f"nf K=16 replay launches {replay}")
     print(f"  nf train step ms/step (median of 3 windows of 16): K=1 "
           f"{walls[1] * 1e3:.3f}, K=16 {walls[16] * 1e3:.3f}; slices/s "
@@ -3247,14 +3454,12 @@ def nf_inter_train_phase(tmp, ds, dev, seed, preds):
     steps, evals = 24, 2 * NF_EVAL_BATCHES
     expect_launches("nf_inter train", launches, {
         "gaussian_guide_batch": steps + evals,
-        "in_relu_fwd": NF_BLOCKS * (steps + evals),
-        "in_relu_bwd_stats": NF_BLOCKS * steps,
-        "in_relu_bwd_apply": NF_BLOCKS * steps})
+        **b2_train_counts(NF_B2_STEP_SHAPES, steps, evals)})
     loss, dice = _train_log(md)
     print(f"  nf_inter train (101_unetinter_v10.sh flags, --fp_sample): 24 "
           f"steps of 16 x 256^2 in {seconds:.2f} s ({seconds / 24 * 1e3:.1f}"
           f" ms/step with set-up and two online evals); per train step B1 1,"
-          f" B2-fwd / B2a / B2b {NF_BLOCKS} (each eval batch: B1 1, B2-fwd "
+          f" B2-fwd / B2f {NF_BLOCKS} (each eval batch: B1 1, B2-fwd "
           f"{NF_BLOCKS}); loss " + ", ".join(
               f"{k}: {loss[k]:.4f}" for k in sorted(loss))
           + f"; eval NF/Dice {dice}; {smi()}")
@@ -3262,11 +3467,11 @@ def nf_inter_train_phase(tmp, ds, dev, seed, preds):
         "nf_inter", "train", "chip_smoke_nf_inter_b", tmp,
         Path(tmp) / "nf_inter_b", *INTER_TRAIN, "--fp_sample"))
     _, warm, _ = steady(args, ds, "101_unetinter_v10.sh train step, K=1",
-                        kernels_used=True, top=10)
+                        kernels_used=train_kernels(NF_B2_STEP_SHAPES),
+                        top=10)
     expect_launches("nf_inter steady warm-up", warm, {
-        "gaussian_guide_batch": 3, "in_relu_fwd": 3 * NF_BLOCKS,
-        "in_relu_bwd_stats": 3 * NF_BLOCKS,
-        "in_relu_bwd_apply": 3 * NF_BLOCKS})
+        "gaussian_guide_batch": 3,
+        **b2_train_counts(NF_B2_STEP_SHAPES, 3)})
     inter_card_vs_cpu(tmp, ds, dev, seed)
     return md, launches
 
@@ -3347,23 +3552,32 @@ INTER_EVAL = ["--mode", "eval", "--tag", "chip_smoke_inter"] + INTER_MODEL + [
     "instance_norm", "--batch_size", "1", "--dataset", "NF", "--dim", "2"]
 # the model flags of 105_interunet_v1.sh, 104_small_v3.sh, 103_lgnet_v3.sh
 # and 101_unetinter_v13's deltas on 101_unetinter_v10.sh
-NEW_MODEL_TRAIN = {   # path: (flags, IN + ReLU blocks, B1 a step, steady)
+# path: (flags, the IN + ReLU blocks' shapes {[N, C, H, W]: blocks} at
+# batch 16 and 256^2, B1 a step, steady)
+NEW_MODEL_TRAIN = {
     "InterUNet train (105_interunet_v1)": (
         ["--model", "InterUNet", "--loss_numeric_w", "1", "1", "--use_spatial",
          "--local_enhance", "--stddev", "5.", "--img_grad",
-         "--weight_decay_rate", "0.00003"], 25, True, True),
+         "--weight_decay_rate", "0.00003"],
+        {(16, 32, 256, 256): 4, (16, 64, 128, 128): 4, (16, 128, 64, 64): 4,
+         (16, 512, 32, 32): 5, (16, 1024, 32, 32): 2, (16, 256, 64, 64): 2,
+         (16, 128, 128, 128): 2, (16, 64, 256, 256): 2}, True, True),
     "SmallUNet train (104_small_v3)": (
         ["--model", "SmallUNet", "--loss_numeric_w", "1", "1",
          "--use_spatial", "--local_enhance", "--stddev", "5.",
-         "--weight_decay_rate", "0.00003", "--fp_sample"], 19, True, True),
+         "--weight_decay_rate", "0.00003", "--fp_sample"],
+        {(16, 64, 256, 256): 4, (16, 128, 128, 128): 4, (16, 256, 64, 64): 4,
+         (16, 512, 32, 32): 5, (16, 1024, 32, 32): 2}, True, True),
     "LGNet_v3 train (103_lgnet_v3)": (
         ["--model", "LGNet", "--model_config", "LGNet_v3.yml",
          "--loss_numeric_w", "1", "1", "--use_spatial",
-         "--weight_decay_rate", "0.00001"], 9, False, True),
+         "--weight_decay_rate", "0.00001"],
+        {(16, 64, 256, 256): 2, (16, 128, 128, 128): 2, (16, 256, 64, 64): 2,
+         (16, 512, 32, 32): 2, (16, 1024, 16, 16): 1}, False, True),
     "UNetInter --geodesic train (101_unetinter_v13)": (
         ["--model", "UNetInter", "--loss_numeric_w", "1", "1",
          "--use_spatial", "--weight_decay_rate", "0.00003", "--fp_sample",
-         "--geodesic"], NF_BLOCKS, False, False),
+         "--geodesic"], NF_B2_STEP_SHAPES, False, False),
 }
 
 
@@ -3845,13 +4059,14 @@ def new_models_phase(tmp, ds):
     """(e) nf_inter train at the flags of 105_interunet_v1.sh,
     104_small_v3.sh, 103_lgnet_v3.sh (full width, batch 16) and
     101_unetinter_v13's deltas: 8 steps each through the CLI with exact
-    launches a step (B2-fwd / B2a / B2b: the model's IN + ReLU blocks; B1
+    launches a step (B2-fwd and the backward's kernels by in_relu_bwd_plan
+    over the model's IN + ReLU blocks; B1
     one a step under --local_enhance), then the three models' step in
     steady state (K = 1)."""
     from boxsegliver_torch.cli import main as cli
 
     paths, walls = {}, {}
-    for i, (what, (flags, blocks, b1, timed)) in enumerate(
+    for i, (what, (flags, shapes, b1, timed)) in enumerate(
             NEW_MODEL_TRAIN.items()):
         md = Path(tmp) / f"new_model_{i}"
         trainer, seconds, launches = counted_run(lambda: cli.main(nf_argv(
@@ -3861,8 +4076,7 @@ def new_models_phase(tmp, ds):
             raise AssertionError(f"{what} stopped at {trainer.global_step}")
         expect_launches(what, launches, {
             "gaussian_guide_batch": 8 if b1 else 0,
-            "in_relu_fwd": 8 * blocks, "in_relu_bwd_stats": 8 * blocks,
-            "in_relu_bwd_apply": 8 * blocks})
+            **b2_train_counts(shapes, 8)})
         lines = [json.loads(ln) for ln in (md / "summaries" / "metrics.jsonl")
                  .read_text().splitlines()]
         loss = {ln["step"]: ln["value"] for ln in lines
@@ -3870,7 +4084,7 @@ def new_models_phase(tmp, ds):
         if not loss or not all(math.isfinite(v) for v in loss.values()):
             raise AssertionError(f"{what}: train loss {loss}")
         print(f"  {what}: 8 steps of 16 x 256^2 in {seconds:.2f} s; per "
-              f"step B2-fwd / B2a / B2b {blocks}, B1 {int(b1)}; loss "
+              f"step B2-fwd / B2f {sum(shapes.values())}, B1 {int(b1)}; loss "
               + ", ".join(f"{k}: {v:.4f}" for k, v in sorted(loss.items())))
         paths[what] = launches
         if timed:
@@ -3879,7 +4093,8 @@ def new_models_phase(tmp, ds):
                 Path(tmp) / f"new_model_b{i}", *flags))
             walls[what], _, _ = steady(
                 args, ds, f"{what} step, K=1",
-                kernels_used=TRAIN_KERNELS if b1 else B2_ALL, top=6)
+                kernels_used=(train_kernels(shapes) if b1
+                              else b2_train_kernels(shapes)), top=6)
     print("  new click models, ms/step at batch 16 (median of 3 windows of "
           "16): " + ", ".join(f"{k} {v * 1e3:.3f}" for k, v in walls.items())
           + f"; {smi()}")
@@ -4065,8 +4280,10 @@ def b2_3d_phase(dev):
     bound."""
     step = b2_nf_levels(dev, UNET3D_B2_STEP_SHAPES, "UNet3D", seed=200)
     ev = b2_nf_levels(dev, {UNET3D_EVAL_SHAPE: 1}, "UNet3D eval", seed=300)
-    for n in B2_ALL:
+    for n in B2_KERNELS:
         for what, r in (("train step", step[n]), ("eval level 0", ev[n])):
+            if not r["device_ms"]:           # B2f: no fused plan there
+                continue
             share = r["bound_ms"] / r["device_ms"]
             slower = r["device_ms"] > r["library_ms"]
             print(f"  UNet3D B2 {n} ({what}): {share:.1%} of its bound, "
@@ -4094,16 +4311,16 @@ def nf3d_train_phase(tmp, ds):
             md / "ckpt_best" / "best" / "state.pt").exists():
         raise AssertionError(f"nf_3d train stopped at {trainer.global_step}")
     fwd = 2 * eval_forwards_3d(ds, cli.get_args(argv))
-    expect_launches("nf_3d train", launches, {
-        "in_relu_fwd": UNET3D_BLOCKS * (NF3D_STEPS + fwd),
-        "in_relu_bwd_stats": UNET3D_BLOCKS * NF3D_STEPS,
-        "in_relu_bwd_apply": UNET3D_BLOCKS * NF3D_STEPS})
+    expect_launches("nf_3d train", launches,
+                    b2_train_counts(UNET3D_B2_STEP_SHAPES, NF3D_STEPS, fwd))
     loss, dice = _train_log(md, eval_steps=(8, 16))
     print(f"  nf_3d train (201_unet_v1.sh flags): {NF3D_STEPS} steps of 4 x "
           f"10 x 256^2 in {seconds:.2f} s (with set-up and two volume evals "
-          f"of {fwd // 2} forwards); per train step B2-fwd / B2a / B2b "
-          f"{UNET3D_BLOCKS} each (+{UNET3D_BLOCKS} B2-fwd a forward of the "
-          f"eval), B1 0; loss " + ", ".join(
+          f"of {fwd // 2} forwards); per train step B2-fwd {UNET3D_BLOCKS}"
+          f" (+{UNET3D_BLOCKS} a forward of the eval), B2f "
+          f"{launches['in_relu_bwd'] // NF3D_STEPS}, B2a / B2b "
+          f"{launches['in_relu_bwd_stats'] // NF3D_STEPS}, B1 0; loss "
+          + ", ".join(
               f"{k}: {loss[k]:.4f}" for k in sorted(loss))
           + f"; eval NF/Dice {dice}; {smi()}")
     walls = {}
@@ -4113,12 +4330,13 @@ def nf3d_train_phase(tmp, ds):
             *NF3D_TRAIN, "--steps_per_dispatch", str(k)))
         walls[k], warm, replay = steady(
             args, ds, f"201_unet_v1.sh train step, K={k}",
-            kernels_used=B2_ALL, prof_steps=8, top=12)
+            kernels_used=b2_train_kernels(UNET3D_B2_STEP_SHAPES),
+            prof_steps=8, top=12)
         if k == 1:
-            expect_launches("nf_3d steady warm-up", warm, {
-                n: 3 * UNET3D_BLOCKS for n in B2_ALL})
-        elif any(c[n] != UNET3D_BLOCKS for c in replay.values()
-                 for n in B2_ALL):
+            expect_launches("nf_3d steady warm-up", warm,
+                            b2_train_counts(UNET3D_B2_STEP_SHAPES, 3))
+        elif any(c[n] != v for c in replay.values() for n, v in
+                 b2_train_counts(UNET3D_B2_STEP_SHAPES, 1).items()):
             raise AssertionError(f"nf_3d K=4 replay launches {replay}")
     print(f"  nf_3d train step ms/step (median of 3 windows of 16): K=1 "
           f"{walls[1] * 1e3:.3f}, K=4 {walls[4] * 1e3:.3f}; patches/s "
@@ -4267,10 +4485,8 @@ def nf3d_click_phase(tmp, ds):
                      "--num_of_steps", "8", *ONE_WORKER)
     trainer, seconds, launches = counted_run(lambda: cli.main(argv))
     fwd = eval_forwards_3d(ds, cli.get_args(argv))
-    expect_launches("202_unetinter_v2 train", launches, {
-        "in_relu_fwd": UNET3D_BLOCKS * (8 + fwd),
-        "in_relu_bwd_stats": UNET3D_BLOCKS * 8,
-        "in_relu_bwd_apply": UNET3D_BLOCKS * 8})
+    expect_launches("202_unetinter_v2 train", launches,
+                    b2_train_counts(UNET3D_B2_STEP_SHAPES, 8, fwd))
     print(f"  202_unetinter_v2 train: 8 steps of 4 x 10 x 256^2 with 2 "
           f"guide channels in {seconds:.2f} s (set-up and one volume eval "
           f"included); launches {launches}")
@@ -4335,11 +4551,10 @@ def nf3d_cascade_phase(tmp, ds, inter_md):
     finally:
         cascade.CascadeClick2D._slice_pred = orig
     n = len(slices)
-    expect_launches("cascade train", launches, {
-        "gaussian_guide_batch": n,
-        "in_relu_fwd": UNET3D_BLOCKS * 4 + NF_BLOCKS * 4 * n,
-        "in_relu_bwd_stats": UNET3D_BLOCKS * 4,
-        "in_relu_bwd_apply": UNET3D_BLOCKS * 4})
+    want = b2_train_counts(UNET3D_B2_STEP_SHAPES, 4)
+    want["in_relu_fwd"] += NF_BLOCKS * 4 * n
+    expect_launches("cascade train", launches,
+                    {"gaussian_guide_batch": n, **want})
     if not n:
         raise AssertionError("the cascade train run predicted no slice")
     print(f"  cascade train (--use_cascade --use_2d, frozen UNetInter.yml of "
@@ -4545,7 +4760,8 @@ def iin_train_phase(tmp, ds):
     instance norm, PatchCNN context, batch 8, 256^2 x 3, bf16, one host
     worker; 12 steps with the online eval (IinSampler, 4 batches) every 6;
     exact launches; then the step in steady state at K = 1 and K = 16 with
-    B1 / B2 device ms per step against their bounds."""
+    B1 / B2 device ms per step against their bounds (B2's: b2_step_bound_ms,
+    the forward and the backward as one function each)."""
     from boxsegliver_torch.cli import main as cli
 
     md = Path(tmp) / "iin_md"
@@ -4560,14 +4776,12 @@ def iin_train_phase(tmp, ds):
     evals = 2 * NF_EVAL_BATCHES
     expect_launches("nf2 train", launches, {
         "gaussian_guide_batch": IIN_STEPS + evals,
-        "in_relu_fwd": IIN_BLOCKS * (IIN_STEPS + evals),
-        "in_relu_bwd_stats": IIN_BLOCKS * IIN_STEPS,
-        "in_relu_bwd_apply": IIN_BLOCKS * IIN_STEPS})
+        **b2_train_counts(IIN_B2_STEP_SHAPES, IIN_STEPS, evals)})
     loss, dice = _train_log(md, eval_steps=(6, 12))
     print(f"  nf2 train (004_gnet_iin.sh flags): {IIN_STEPS} steps of 8 x "
           f"256^2 in {seconds:.2f} s (with set-up and two online evals of "
           f"{NF_EVAL_BATCHES} batches); per train step B1 1 (K = 1), B2-fwd "
-          f"/ B2a / B2b {IIN_BLOCKS} (each eval batch: B1 1, B2-fwd "
+          f"/ B2f {IIN_BLOCKS} (each eval batch: B1 1, B2-fwd "
           f"{IIN_BLOCKS}); loss " + ", ".join(
               f"{k}: {loss[k]:.4f}" for k in sorted(loss))
           + f"; eval NF/Dice {dice}; {smi()}")
@@ -4575,8 +4789,7 @@ def iin_train_phase(tmp, ds):
     rng = np.random.default_rng(0)
     c, sd, v = guide_inputs(rng, 8, 1, 256, 256, "cuda", n_valid=[1] * 8)
     b1_bound = b1_bound_ms(c, sd, v, 256, 256, sfu_per_s())[0]
-    b2_bound = sum(b2_bound_ms(n, shape)[0] * k for n in B2_ALL
-                   for shape, k in IIN_B2_STEP_SHAPES.items())
+    b2_bound = b2_step_bound_ms(IIN_B2_STEP_SHAPES)
     walls, groups = {}, {}
     for k in (1, 16):
         args = cli.get_args(iin_argv(
@@ -4589,16 +4802,16 @@ def iin_train_phase(tmp, ds):
             groups_out=groups[k])
         if k == 1:
             expect_launches("nf2 steady warm-up", warm, {
-                "gaussian_guide_batch": 3, "in_relu_fwd": 3 * IIN_BLOCKS,
-                "in_relu_bwd_stats": 3 * IIN_BLOCKS,
-                "in_relu_bwd_apply": 3 * IIN_BLOCKS})
+                "gaussian_guide_batch": 3,
+                **b2_train_counts(IIN_B2_STEP_SHAPES, 3)})
         elif any(cnt["gaussian_guide_batch"] != 1
-                 or any(cnt[n] != IIN_BLOCKS for n in B2_ALL)
+                 or any(cnt[n] != v for n, v in b2_train_counts(
+                     IIN_B2_STEP_SHAPES, 1).items())
                  for cnt in replay.values()):
             raise AssertionError(f"nf2 K=16 replay launches {replay}")
     for k in (1, 16):
         b1 = groups[k]["B1 guide_render"]
-        b2 = groups[k]["B2 in_relu (fwd, bwd_stats, bwd_apply)"]
+        b2 = groups[k]["B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)"]
         print(f"  nf2 step K={k}: B1 {b1:.5f} ms/step device (bound "
               f"{b1_bound:.6f} ms, {b1_bound / max(b1, 1e-12):.1%}), B2 "
               f"{b2:.4f} ms/step device (bound {b2_bound:.4f} ms, "
@@ -5154,8 +5367,8 @@ def dense_eval_phase(tmp, ds, dev, md, seed):
 def se_phase(tmp, dev, seed, ds):
     """(d) GUNet --use_se with the 002_gnet_sp.sh train flags (GUNet.yml
     full width, the flagship's dataset, one host worker): 8 steps through
-    the CLI with exactly one B1 launch (the train guide) and 10 B2-fwd /
-    B2a / B2b a step; the step in steady state at K = 1 with B1 and B2
+    the CLI with exactly one B1 launch (the train guide) and 10 B2-fwd and
+    10 backward launches a step (in_relu_bwd_plan: B2f); the step in steady state at K = 1 with B1 and B2
     device ms per step against their bounds; a GUNet_TINY --use_se train
     step card vs CPU (train_card_vs_cpu).  (e) A full-width GUNet.yml
     forward with each 1-D VGG context (2 x 128^2, float32, the context's
@@ -5175,10 +5388,10 @@ def se_phase(tmp, dev, seed, ds):
     del trainer
     expect_launches("GUNet --use_se train", launches, {
         "gaussian_guide_batch": steps,
-        **{n: GUNET_B2_PAIRS * steps for n in B2_KERNELS}})
+        **b2_train_counts(B2_STEP_SHAPES, steps)})
     print(f"  GUNet --use_se train (002_gnet_sp.sh flags, GUNet.yml): "
           f"{steps} steps of 8 x 256^2 in {seconds:.2f} s; launches "
-          f"{launches}: B1 1 and B2-fwd / B2a / B2b {GUNET_B2_PAIRS} a step")
+          f"{launches}: B1 1 and B2-fwd / B2f {GUNET_B2_PAIRS} a step")
 
     rng = np.random.default_rng(seed)
     c, sd, v = guide_inputs(rng, 8, 8, 256, 256, "cuda",
@@ -5186,15 +5399,14 @@ def se_phase(tmp, dev, seed, ds):
     b1_bound = b1_bound_ms(c, sd, v, 256, 256, sfu_per_s())[0]
     # --use_se leaves the modulated levels on the plain norm: B2 runs on
     # the flagship step's pairs
-    b2_bound = sum(b2_bound_ms(n, shape)[0] * k for n in B2_KERNELS
-                   for shape, k in B2_STEP_SHAPES.items())
+    b2_bound = b2_step_bound_ms(B2_STEP_SHAPES)
     args = cli.get_args(smoke_train_argv(
         tmp, 10 ** 6, "--use_se", "--model_dir", str(Path(tmp) / "se_b1")))
     groups = {}
     wall, _, _ = steady(args, ds, "GUNet --use_se train step, K=1",
                         kernels_used=True, top=10, groups_out=groups)
     b1 = groups["B1 guide_render"]
-    b2 = groups["B2 in_relu (fwd, bwd_stats, bwd_apply)"]
+    b2 = groups["B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)"]
     print(f"  GUNet --use_se step K=1: {wall * 1e3:.3f} ms/step; B1 "
           f"{b1:.5f} ms/step device (bound {b1_bound:.6f} ms, "
           f"{b1_bound / max(b1, 1e-12):.1%}), B2 {b2:.4f} ms/step device "
@@ -6228,6 +6440,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    try:
+        import boxsegliver_torch  # noqa: F401
+    except ModuleNotFoundError:
+        print("chip_smoke: the package boxsegliver_torch is missing: run "
+              "chip_smoke.py from the root of a checkout of the repository",
+              file=sys.stderr)
+        return 3
     dev = torch.device("cuda")
     card = smi()
     print(f"  {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -6274,7 +6493,7 @@ def main(argv=None):
         elapsed(t_start)
         print("[7/25] kernel B2 vs plain")
         b2 = b2_phase(dev)
-        b2_nf_levels(dev)
+        nf_b2 = b2_nf_levels(dev)
         elapsed(t_start)
         print("[8/25] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
@@ -6368,20 +6587,33 @@ def main(argv=None):
             "device_ms", "bound_ms", "plain_ms", "library_ms",
             "max_abs_err")} for k, v in b2_3d.items()}
         b2[n]["max_abs_err"] = max(b2[n]["max_abs_err"],
+                                   nf_b2[n]["max_abs_err"],
                                    b2_3d["step"][n]["max_abs_err"],
                                    b2_3d["eval"][n]["max_abs_err"])
+    # the whole backward per train step: chosen plans, the pair (splits =
+    # 1) and B2f's bound, on the flagship, NF and UNet3D steps
+    b2["in_relu_bwd"]["backward"] = {
+        "flagship": b2["backward"], "NF": nf_b2["backward"],
+        "UNet3D": b2_3d["step"]["backward"]}
     for r in recs:
         r["launches"] = launches[r["name"]]
+    # B2a and B2b run where a plane is too large to stage: UNet3D's level 0
+    for n in ("in_relu_bwd_stats", "in_relu_bwd_apply"):
+        b2[n]["launches"] = paths["UNet3D train (201_unet_v1)"][n]
     # G1's main path is the device refiner with geodesic guides
     g1["launches"] = paths["click eval on geodesic"][g1["name"]]
     recs.append(g1)
     recs += [split_recs[n] for n in SPLIT_KERNELS]
+    if not all(r["launches"] for r in recs):
+        raise AssertionError("a kernel did not launch on its main path: "
+                             + str({r["name"]: r["launches"] for r in recs}))
     for r in recs:
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
     keys += ("launches_by_path",)
     elapsed(t_start)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(
-        x for x in ("unet3d", "shapes") if x in r)} for r in recs]}))
+        x for x in ("unet3d", "shapes", "backward") if x in r)}
+        for r in recs]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -202,8 +202,9 @@ def test_b2_autograd_matches_plain(dev):
     y = kernels.instance_norm_relu(x, w, b)
     dx, dw, db = torch.autograd.grad(y, (x, w, b), g)
     _, xh, rstd = kernels.in_relu_fwd_plain(x.detach(), w.detach(), b.detach())
-    want = kernels.in_relu_bwd_plain(g, xh, rstd, w.detach(), b.detach())
-    for got, ref in zip((dx, dw, db), want):
+    dx_p, s1, s2 = kernels.in_relu_bwd_plain(g, xh, w.detach(), b.detach(),
+                                             rstd)
+    for got, ref in zip((dx, dw, db), (dx_p, s2.sum(dim=0), s1.sum(dim=0))):
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
@@ -217,6 +218,122 @@ def test_b2_rejects_what_it_does_not_take(dev):
         kernels.in_relu_fwd(x, w.cpu(), b)
     with pytest.raises(ValueError):
         kernels.in_relu_bwd_stats(g, x.bfloat16(), w, b)
+
+
+# ---------------------------------------------------------------------------
+# the backward on every path of in_relu_bwd_plan: B2f fused warp and fused
+# staged (each cluster size), B2a + B2b split; at chip_smoke.b2_check's
+# tolerances: dx rounded once to its dtype (float32 1e-5 + 1e-5 relative,
+# bf16 2^-7 relative + 1e-5), s1 and s2 float32 sums over the plane (1e-4
+# relative + 1e-6 sqrt(hw))
+# ---------------------------------------------------------------------------
+
+def _b2_close(got, ref, rel, abs_):
+    err = (got.float() - ref.float()).abs()
+    bad = err > abs_ + rel * ref.float().abs()
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()))
+
+
+def _check_bwd(g, xh, w, b, rstd, plan=None):
+    """The backward under ``plan`` against in_relu_bwd_plain, twice:
+    bit-equal from run to run."""
+    dx, s1, s2 = kernels.instance_norm_relu_bwd(g, xh, w, b, rstd, plan)
+    dx_p, s1_p, s2_p = kernels.in_relu_bwd_plain(g, xh, w, b, rstd)
+    again = kernels.instance_norm_relu_bwd(g, xh, w, b, rstd, plan)
+    torch.cuda.synchronize()
+    hw = int(np.prod(g.shape[2:]))
+    assert dx.dtype == g.dtype and dx.shape == g.shape
+    assert s1.dtype == s2.dtype == torch.float32
+    rel = 2.0 ** -7 if g.dtype == torch.bfloat16 else 1e-5
+    _b2_close(dx, dx_p, rel, 1e-5)
+    _b2_close(s1, s1_p, 1e-4, 1e-6 * hw ** 0.5)
+    _b2_close(s2, s2_p, 1e-4, 1e-6 * hw ** 0.5)
+    for a, b_ in zip(again, (dx, s1, s2)):
+        assert torch.equal(a, b_)
+
+
+_W, _S, _X = kernels.FWD_WARP, kernels.FWD_STAGED, kernels.BWD_SPLIT
+# (shape, dtype, path, cluster): each fused warp packing, each staged
+# cluster size (the 64 KiB target and the 192 KiB fallback), one element
+# either side of each boundary, NCDHW planes, and the split path
+_BWD_PATHS = [
+    ((16, 64, 16, 16), _BF, _W, 1), ((2, 5, 32, 32), _BF, _W, 1),
+    ((1, 3, 8, 256), _BF, _W, 1), ((1, 3, 1, 2049), _BF, _X, 1),
+    ((1, 3, 8, 257), _BF, _S, 1), ((1, 3, 32, 32), _F, _W, 1),
+    ((1, 3, 1, 1025), _F, _X, 1), ((1, 3, 4, 257), _F, _S, 1),
+    ((2, 3, 64, 64), _BF, _S, 1), ((1, 3, 128, 128), _BF, _S, 1),
+    ((1, 3, 128, 129), _BF, _S, 2), ((2, 3, 256, 256), _BF, _S, 4),
+    ((1, 2, 256, 512), _BF, _S, 8), ((1, 2, 256, 256), _F, _S, 8),
+    ((1, 2, 10, 128, 128), _BF, _S, 4), ((1, 2, 384, 1024), _BF, _S, 8),
+    ((1, 2, 384, 1025), _BF, _X, 1), ((1, 2, 192, 1024), _F, _S, 8),
+    ((1, 2, 192, 1025), _F, _X, 1), ((4, 320, 5, 16, 16), _BF, _W, 1),
+    ((2, 12, 10, 64, 64), _BF, _S, 4), ((2, 6, 10, 256, 256), _BF, _X, 1),
+    ((16, 128, 64, 64), _BF, _S, 1), ((8, 64, 128, 128), _BF, _S, 1),
+    ((2, 3, 7, 9), _F, _X, 1), ((1, 4, 5, 3, 33), _BF, _X, 1)]
+
+
+@pytest.mark.parametrize("shape,dtype,path,cluster", _BWD_PATHS)
+def test_b2_bwd_paths_match_plain(dev, shape, dtype, path, cluster):
+    n, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    plan = kernels.in_relu_bwd_plan(n * c, hw, dtype)
+    assert (plan.path, plan.cluster) == (path, cluster)
+    _, g, w, b = _in_relu_inputs(shape, dtype, dev, seed=hw % 97)
+    x, _, _, _ = _in_relu_inputs(shape, dtype, dev, seed=hw % 89)
+    _, xh, rstd = kernels.in_relu_fwd_plain(x, w, b)
+    n0 = {k: kernels.KERNELS[k].launches
+          for k in ("in_relu_bwd", "in_relu_bwd_stats", "in_relu_bwd_apply")}
+    dx, _, _ = kernels.instance_norm_relu_bwd(g, xh, w, b, rstd)
+    fused = int(path != _X)
+    assert {k: kernels.KERNELS[k].launches - v for k, v in n0.items()} == {
+        "in_relu_bwd": fused, "in_relu_bwd_stats": 1 - fused,
+        "in_relu_bwd_apply": 1 - fused}
+    _check_bwd(g, xh, w, b, rstd)
+    # the split plan and the first design (one CTA a plane) at every shape
+    for spread in (True, False):
+        _check_bwd(g, xh, w, b, rstd, kernels.in_relu_bwd_split_plan(
+            n * c, hw, dtype, True, spread))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_bwd_unaligned_takes_the_split_path(dev, dtype):
+    """g at an odd element offset: B2a and B2b on single elements."""
+    x, g, w, b = _in_relu_inputs((2, 4, 32, 32), dtype, dev, seed=6)
+    _, xh, rstd = kernels.in_relu_fwd_plain(x, w, b)
+    flat = torch.empty(g.numel() + 1, dtype=dtype, device=dev)
+    flat[1:] = g.flatten()
+    gu = flat[1:].view(g.shape)
+    assert gu.is_contiguous() and gu.data_ptr() % 16
+    n0 = kernels.in_relu_bwd_stats.launches
+    got = kernels.instance_norm_relu_bwd(gu, xh, w, b, rstd)
+    assert kernels.in_relu_bwd_stats.launches == n0 + 1
+    want = kernels.in_relu_bwd_plain(g, xh, w, b, rstd)
+    for a, ref in zip(got, want):
+        rel = 2.0 ** -7 if a.dtype == torch.bfloat16 else 1e-4
+        _b2_close(a, ref, rel, 1e-3)
+    _check_bwd(gu, xh, w, b, rstd)
+
+
+def test_b2_bwd_refuses_a_plan_that_does_not_fit(dev):
+    """The C launcher refuses, the wrapper raises: B2f under a split plan,
+    a warp plan with too few packs, a staged plan whose shared memory does
+    not match the chunk; B2a under splits that do not cover the plane."""
+    x, g, w, b = _in_relu_inputs((2, 3, 64, 64), torch.bfloat16, dev)
+    _, xh, rstd = kernels.in_relu_fwd_plain(x, w, b)
+    plan = kernels.in_relu_bwd_plan(6, 4096, torch.bfloat16)
+    bad = [kernels.in_relu_bwd_split_plan(6, 4096, torch.bfloat16),
+           plan._replace(path=kernels.FWD_WARP, packs=1),
+           plan._replace(smem_bytes=plan.smem_bytes // 2),
+           plan._replace(cluster=3, smem_bytes=plan.smem_bytes // 3)]
+    for p in bad:
+        with pytest.raises(RuntimeError, match="in_relu_bwd launch failed"):
+            kernels.in_relu_bwd(g, xh, w, b, rstd, p)
+    split = kernels.in_relu_bwd_split_plan(6, 4096, torch.bfloat16)
+    with pytest.raises(RuntimeError, match="in_relu_bwd_stats launch failed"):
+        kernels.in_relu_bwd_stats(g, xh, w, b, split._replace(chunk=8))
+    with pytest.raises(RuntimeError, match="in_relu_bwd_apply launch failed"):
+        kernels.in_relu_bwd_apply(g, xh, w, b, rstd, rstd, rstd,
+                                  split._replace(apply_ctas=0))
 
 
 # ---------------------------------------------------------------------------
@@ -279,11 +396,14 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     counts = {n: fn.launches for n, fn in kernels.KERNELS.items()}
     vals_e = _run(eager, batches, 1)
     assert len(graphed._graphs) == 2            # metric / no-metric variant
-    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd_stats",
-              "in_relu_bwd_apply"):
+    # GUNet_TINY's planes at 64^2 take B2f's fused paths: no B2a or B2b
+    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd"):
         assert counts[n] > 0 and counts[n] * 2 == kernels.KERNELS[n].launches
         per = {m: c[n] for m, (_, c) in graphed._graphs.items()}
         assert per[True] == per[False] > 0
+    assert counts["in_relu_bwd"] == counts["in_relu_fwd"]
+    assert kernels.in_relu_bwd_stats.launches == 0
+    assert kernels.in_relu_bwd_apply.launches == 0
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
                                atol=0)
     pe = eager.model.state_dict()
@@ -396,8 +516,9 @@ def test_inter_steps_graphed_match_eager(dev, tmp_path):
     vals_e = _run(eager, batches, 1)
     per = {m: c for m, (_, c) in graphed._graphs.items()}
     assert per and all(c["gaussian_guide_batch"] == 1
-                       and c["in_relu_fwd"] == c["in_relu_bwd_stats"]
-                       == c["in_relu_bwd_apply"] == 10 for c in per.values())
+                       and c["in_relu_fwd"] == c["in_relu_bwd"] == 10
+                       and c["in_relu_bwd_stats"] == c["in_relu_bwd_apply"]
+                       == 0 for c in per.values())
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
                                atol=0)
     _, noisy = trainer(4, "--noise_scale", "0.05", "--random_flip", "3")

@@ -14,7 +14,11 @@ volume, each with the blank click guides of ``--use_spatial``:
 - ``EvaluateVolume3D.run``'s results and per-case metrics within 1e-6;
 - a padded depth that z_shards does not divide: JAX's ``device_put``
   refuses it with ValueError, and so does the port (3 ranks, depth 8),
-  while depth 6 runs on both."""
+  while depth 6 runs on both;
+- a padded depth that z_shards divides but that holds fewer whole
+  multiples of ``spatial_unit`` than there are ranks (2 ranks, depth 2):
+  JAX runs it, and so does the port (every rank runs the case
+  unsharded), at the bars above."""
 
 import types
 
@@ -163,3 +167,57 @@ def test_z_shards_refuse_a_depth_they_do_not_divide(nf_root, bridged,
     np.testing.assert_array_equal(ok, want)
     assert isinstance(refused, str) and "not divisible by z_shards=3" in \
         refused
+
+
+@pytest.fixture(scope="module")
+def shallow_root(tmp_path_factory):
+    root = tmp_path_factory.mktemp("dist3d_shallow") / "synthetic_nf"
+    make_synthetic_dataset(root, n_cases=4, shape=(2, 48, 48), k_split=2,
+                           modality="nf", seed=3)
+    return root
+
+
+def test_z_shards_run_a_depth_under_one_unit_a_rank(shallow_root, bridged,
+                                                    tmp_path):
+    """Depth 2 over 2 ranks: JAX's mesh shards it a plane a rank; the
+    port's blocks come in whole multiples of spatial_unit (2), so each
+    rank runs the whole case, the same forward."""
+    jmodel, state, tstate = bridged
+    raw, norm = _volumes(shallow_root, 2)
+    assert all(v.shape[1] == 2 for v in raw)
+    inputs = {"pred": raw, "prob": norm}
+    ja = jcli.get_args(_argv(shallow_root, tmp_path / "j"))
+    metas = load_meta(shallow_root)
+    want, want_res, want_pc = {}, {}, {}
+    for name, form in FORMS.items():
+        jp = jvol3d.make_volume_predict(jmodel, state, make_mesh(2), 2,
+                                        **form)
+        want[name] = [np.asarray(jp({"images": v})) for v in inputs[name]]
+        ev = jvol3d.EvaluateVolume3D(ja, shallow_root, ["Background", "NF"])
+        want_res[name] = ev.run(jp, metas)
+        want_pc[name] = {k: list(v) for k, v in ev._metric_values.items()}
+
+    ta = cli.get_args(_argv(shallow_root, tmp_path / "t")
+                      + ["--device", "cpu"])
+    got = launch(volume3d_rank, 2, "cpu", {
+        "args": vars(ta), "kw": dict(TINY, in_channels=1, sp_channels=2),
+        "state": tstate, "forms": FORMS, "volumes": None,
+        "inputs": inputs, "ds": shallow_root})
+    assert got["spread"] == 0.0
+    for g, w in zip(got["outputs"]["prob"], want["prob"]):
+        assert not isinstance(g, str), g
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    for g, w in zip(got["outputs"]["pred"], want["prob"]):
+        assert not isinstance(g, str), g
+        top2 = np.sort(w, axis=-1)[..., -2:]
+        sure = (top2[..., 1] - top2[..., 0]) > 1e-4
+        np.testing.assert_array_equal(g[sure], w.argmax(-1)[sure])
+    for name in FORMS:
+        res, pc = got["results"][name], got["per_case"][name]
+        assert set(res) == set(want_res[name]) and "NF/Dice" in res
+        for k, v in want_res[name].items():
+            np.testing.assert_allclose(res[k], v, atol=1e-6, err_msg=k)
+        assert set(pc) == set(want_pc[name])
+        for k, v in want_pc[name].items():
+            np.testing.assert_allclose(pc[k], v, atol=1e-6, err_msg=k)

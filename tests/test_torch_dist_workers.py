@@ -310,10 +310,11 @@ def sweep_rank(group, spec):
 
 def volume3d_rank(group, spec):
     """``make_volume_predict(group, z_axis_shards)`` on every volume of
-    ``spec["volumes"]`` for each form of ``spec["forms"]`` (a refusal as
-    its text), then ``EvaluateVolume3D.run`` of each form over
-    ``spec["ds"]``: rank 0's outputs, results and per-case metrics, and the
-    ranks' largest disagreement."""
+    ``spec["volumes"]`` (or of ``spec["inputs"][form]``) for each form of
+    ``spec["forms"]`` (a refusal as its text), then
+    ``EvaluateVolume3D.run`` of each form over ``spec["ds"]``: rank 0's
+    outputs, results and per-case metrics, and the ranks' largest
+    disagreement."""
     from boxsegliver_torch.data.meta import load_meta
     from boxsegliver_torch.evaluators.volume3d import (EvaluateVolume3D,
                                                        make_volume_predict)
@@ -330,7 +331,9 @@ def volume3d_rank(group, spec):
         predict = make_volume_predict(model, "cpu", group=group,
                                       z_axis_shards=shards, **form)
         outs = []
-        for vol in spec["volumes"]:
+        vols = (spec["inputs"][name] if spec.get("inputs")
+                else spec["volumes"])
+        for vol in vols:
             try:
                 outs.append(predict({"images": vol}))
             except ValueError as e:

@@ -15,7 +15,8 @@ import torch
 from flax import linen as fnn
 
 from boxsegliver_tpu.models.layers import Norm as JNorm
-from boxsegliver_tpu.ops.pallas_kernels import fused_instance_norm_relu
+from boxsegliver_tpu.ops.pallas_kernels import (_in_relu_bwd_pallas,
+                                                fused_instance_norm_relu)
 from boxsegliver_torch.models.layers import (MLP, ConvNormAct, Norm, dropout,
                                              dropout_apply, fused_pair)
 from boxsegliver_torch.ops import kernels
@@ -101,8 +102,8 @@ def test_b2_saves_xhat_in_the_input_dtype(dtype):
 
 
 def test_b2_plain_backward_is_the_written_out_math():
-    """in_relu_bwd_plain's gz, s1, s2, dγ = Σ_n s2, dβ = Σ_n s1 against
-    torch autodiff of the plain forward."""
+    """in_relu_bwd_plain's dx, and dγ = Σ_n s2, dβ = Σ_n s1 from its s1,
+    s2, against torch autodiff of the plain forward."""
     x, g, w, b = _inputs((2, 6, 5, 3), seed=2)
     xt = _nchw(x).double().requires_grad_(True)
     wt = torch.from_numpy(w).double().requires_grad_(True)
@@ -114,10 +115,76 @@ def test_b2_plain_backward_is_the_written_out_math():
     want = torch.autograd.grad(torch.relu(z), (xt, wt, bt), _nchw(g).double())
     _, xhat, rstd = kernels.in_relu_fwd_plain(_nchw(x), torch.from_numpy(w),
                                               torch.from_numpy(b))
-    got = kernels.in_relu_bwd_plain(_nchw(g), xhat, rstd, torch.from_numpy(w),
-                                    torch.from_numpy(b))
-    for a, ref in zip(got, want):
+    dx, s1, s2 = kernels.in_relu_bwd_plain(_nchw(g), xhat,
+                                           torch.from_numpy(w),
+                                           torch.from_numpy(b), rstd)
+    assert s1.shape == s2.shape == (2, 3) and s1.dtype == torch.float32
+    for a, ref in zip((dx, s2.sum(dim=0), s1.sum(dim=0)), want):
         np.testing.assert_allclose(a.numpy(), ref.float().numpy(), **TOL)
+
+
+# [N, C, *S] planes of B2f's plain version: 2-D (NCHW) and 3-D (NCDHW)
+BWD_SHAPES = [(2, 3, 6, 5), (1, 4, 9, 7), (2, 3, 2, 5, 4), (1, 2, 3, 4, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_b2f_plain_matches_the_pallas_backward(shape, dtype):
+    """in_relu_bwd_plain's (dx, s1, s2), B2f's outputs, against JAX's
+    _in_relu_bwd_pallas in interpret mode on the same g, x̂ and rstd (the
+    port's plain forward of one x): dx, and dγ = Σ_n s2, dβ = Σ_n s1 against
+    its two sums.  An NCDHW plane is JAX's [h, w] plane with h = D·H.  In
+    the working dtype, at test_b2_matches_the_pallas_vjp's tolerances: the
+    per-element arithmetic is the same, the sums' order is not."""
+    rng = np.random.default_rng(sum(shape))
+    c = shape[1]
+    x = torch.from_numpy(rng.normal(0.2, 1.5, shape).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dtype)
+    w = torch.from_numpy((rng.normal(size=c) * 0.3 + 1.0).astype(np.float32))
+    b = torch.from_numpy((rng.normal(size=c) * 0.3).astype(np.float32))
+    _, xhat, rstd = kernels.in_relu_fwd_plain(x.to(dtype), w, b)
+    dx, s1, s2 = kernels.in_relu_bwd_plain(g, xhat, w, b, rstd)
+    assert dx.dtype == dtype and s1.dtype == s2.dtype == torch.float32
+    assert s1.shape == s2.shape == shape[:2]
+
+    def nhwc(t):                   # [N, C, *S] -> [N, prod(S[:-1]), W, C]
+        a = t.float().numpy()
+        a = a.reshape(shape[0], c, -1, shape[-1]).transpose(0, 2, 3, 1)
+        return jnp.asarray(a).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                     else jnp.float32)
+
+    dx_j, dw_j, db_j = _in_relu_bwd_pallas(
+        nhwc(g), nhwc(xhat), jnp.asarray(rstd.numpy()), jnp.asarray(w.numpy()),
+        jnp.asarray(b.numpy()), interpret=True)
+    want_dx = np.asarray(dx_j.astype(jnp.float32)).transpose(0, 3, 1, 2)
+    np.testing.assert_allclose(dx.float().numpy().reshape(want_dx.shape),
+                               want_dx, err_msg="dx", **TOL)
+    np.testing.assert_allclose(s2.sum(dim=0).numpy(), np.asarray(dw_j),
+                               err_msg="dgamma", **TOL)
+    np.testing.assert_allclose(s1.sum(dim=0).numpy(), np.asarray(db_j),
+                               err_msg="dbeta", **TOL)
+
+
+def test_b2_backward_on_the_cpu_chains_b2a_and_b2b_plain():
+    """The autograd Function's backward on a CPU tensor: B2a's and B2b's
+    plain versions, no launch counted; the same numbers as B2f's plain
+    version."""
+    x, g, w, b = _inputs((2, 8, 8, 3), seed=4)
+    before = {n: f.launches for n, f in kernels.KERNELS.items()}
+    xt = _nchw(x).requires_grad_(True)
+    y = kernels.instance_norm_relu(xt, torch.from_numpy(w),
+                                   torch.from_numpy(b))
+    (dx,) = torch.autograd.grad(y, (xt,), _nchw(g))
+    assert {n: f.launches for n, f in kernels.KERNELS.items()} == before
+    _, xhat, rstd = kernels.in_relu_fwd_plain(_nchw(x), torch.from_numpy(w),
+                                              torch.from_numpy(b))
+    want = kernels.in_relu_bwd_plain(_nchw(g), xhat, torch.from_numpy(w),
+                                     torch.from_numpy(b), rstd)
+    assert torch.equal(dx, want[0])
+    got = kernels.instance_norm_relu_bwd(_nchw(g), xhat, torch.from_numpy(w),
+                                         torch.from_numpy(b), rstd)
+    for a, ref in zip(got, want):
+        assert torch.equal(a, ref)
 
 
 def test_fused_pair_routes_only_full_affine_instance_norm():

@@ -1,14 +1,20 @@
-"""The launch plan of kernel B2-fwd (ops/kernels.in_relu_fwd_plan): which
-path each shape takes, and that every plan fits the card and covers every
-element of every plane exactly once.  Pure Python: runs on the CPU."""
+"""The launch plans of kernel B2-fwd (ops/kernels.in_relu_fwd_plan) and of
+the backward (in_relu_bwd_plan: B2f's fused paths, or B2a + B2b split):
+which path each shape takes, and that every plan fits the card and covers
+every element of every plane exactly once.  Pure Python: runs on the
+CPU."""
 
 import numpy as np
 import pytest
 import torch
 
-from boxsegliver_torch.ops.kernels import (FWD_GENERAL, FWD_STAGED,
-                                           FWD_THREADS, FWD_WARP,
-                                           in_relu_fwd_plan)
+from boxsegliver_torch.ops.kernels import (BWD_SPLIT, FWD_GENERAL,
+                                           FWD_STAGED, FWD_THREADS, FWD_WARP,
+                                           STATS_TARGET_CTAS, BwdPlan,
+                                           FwdPlan, in_relu_bwd_plan,
+                                           in_relu_bwd_split_plan,
+                                           in_relu_fwd_plan,
+                                           in_relu_partial_plan)
 
 SMEM_PER_CTA = 232448          # 227 KB: the most shared memory a CTA may use
 STATIC_SMEM = 1024             # the staged kernel's own barrier and sums
@@ -226,3 +232,181 @@ def test_unaligned_takes_the_general_path(dtype):
 
 def test_plan_is_cached():
     assert in_relu_fwd_plan(8, 4096, BF16) is in_relu_fwd_plan(8, 4096, BF16)
+
+
+# ---------------------------------------------------------------------------
+# the backward's plan (ops/kernels.in_relu_bwd_plan): B2f fused warp or
+# fused staged, or B2a + B2b split over several CTAs a plane
+# ---------------------------------------------------------------------------
+
+MAX_BWD_STAGE = 192 * 1024     # kMaxBwdStageBytes
+APPLY_PACKS = 4                # B2b's packs a thread on a split plan
+NF_SHAPES = [(16, 64, 256, 256), (16, 128, 128, 128), (16, 256, 64, 64),
+             (16, 512, 32, 32), (16, 1024, 16, 16)]
+UNET3D_SHAPES = [(4, 30, 10, 256, 256), (4, 60, 10, 128, 128),
+                 (4, 120, 10, 64, 64), (4, 240, 10, 32, 32),
+                 (4, 320, 5, 16, 16)]
+
+
+def bwd_launcher_accepts(plan, hw, dtype, aligned):
+    """launch_bwd's checks for a fused plan, launch_stats' and
+    launch_apply's for a split one: what the C launchers refuse."""
+    n = _per_pack(dtype)
+    vec = aligned and hw % n == 0
+    if plan.path == FWD_WARP:
+        return vec and plan.packs in (1, 2, 4, 8) and plan.packs * 32 * n >= hw
+    if plan.path == FWD_STAGED:
+        cs = plan.cluster
+        return (vec and 1 <= cs <= MAX_CLUSTER and cs & (cs - 1) == 0
+                and hw % (cs * n) == 0
+                and plan.smem_bytes == 2 * (hw // cs) * (16 // n)
+                and plan.smem_bytes <= MAX_BWD_STAGE)
+    return (plan.path == BWD_SPLIT and plan.splits >= 1 and plan.chunk >= 1
+            and plan.splits * plan.chunk >= hw
+            and (plan.splits - 1) * plan.chunk < hw and plan.apply_ctas >= 1)
+
+
+def split_coverage(plan, hw, dtype, aligned):
+    """(B2a's reads, B2b's writes) of one plane under a split plan,
+    following the kernels' index arithmetic: CTA split s reads packs i <
+    min(hw − lo, chunk) / N from lo = s·chunk; B2b's CTA x writes packs x·256
+    + t, striding by apply_ctas·256."""
+    n = _per_pack(dtype)
+    vec = n if aligned and hw % n == 0 and plan.chunk % n == 0 else 1
+    reads = sum(strided_writes(hw, s * plan.chunk,
+                               min(hw - s * plan.chunk, plan.chunk) // vec,
+                               vec, FWD_THREADS)
+                for s in range(plan.splits))
+    vec = n if aligned and hw % n == 0 else 1
+    groups = hw // vec
+    stride = plan.apply_ctas * FWD_THREADS
+    i = (np.arange(stride)[:, None]
+         + stride * np.arange(-(-groups // stride))[None, :]).ravel()
+    i = i[i < groups]
+    idx = (i[:, None] * vec + np.arange(vec)[None, :]).ravel()
+    return reads, np.bincount(idx, minlength=hw)
+
+
+def check_bwd_plan(shape, dtype, aligned=True):
+    planes, hw = shape[0] * shape[1], int(np.prod(shape[2:]))
+    plan = in_relu_bwd_plan(planes, hw, dtype, aligned)
+    assert isinstance(plan, BwdPlan)
+    assert bwd_launcher_accepts(plan, hw, dtype, aligned)
+    assert 0 < plan.grid < 2 ** 31
+    if plan.path == BWD_SPLIT:
+        assert (plan.splits, plan.chunk) == in_relu_partial_plan(
+            planes, hw, dtype, aligned, STATS_TARGET_CTAS)
+        assert plan.grid == plan.splits * planes
+        reads, writes = split_coverage(plan, hw, dtype, aligned)
+        assert reads.shape == writes.shape == (hw,)
+        np.testing.assert_array_equal(reads, 1)
+        np.testing.assert_array_equal(writes, 1)
+        return plan
+    # a fused plan covers a plane as B2-fwd's warp and staged paths do
+    fwd = FwdPlan(plan.path, plan.grid, FWD_THREADS // 32, plan.packs,
+                  plan.cluster, plan.smem_bytes // 2)
+    assert plan.grid == launcher_grid(fwd, planes)
+    np.testing.assert_array_equal(coverage(fwd, planes, hw, dtype, aligned),
+                                  1)
+    assert plan.smem_bytes + STATIC_SMEM <= SMEM_PER_CTA
+    assert (plan.splits, plan.chunk, plan.apply_ctas) == (1, hw, 1)
+    return plan
+
+
+# (shape, path, cluster or packs, splits) of every training backward shape
+# in bf16: the flagship's, the NF UNet's and UNet3D's levels
+BWD_TRAIN = [
+    ((8, 64, 256, 256), FWD_STAGED, 4, 1), ((8, 128, 128, 128), FWD_STAGED,
+                                            1, 1),
+    ((8, 256, 64, 64), FWD_STAGED, 1, 1), ((8, 512, 32, 32), FWD_WARP, 4, 1),
+    ((16, 64, 256, 256), FWD_STAGED, 4, 1),
+    ((16, 128, 128, 128), FWD_STAGED, 1, 1),
+    ((16, 256, 64, 64), FWD_STAGED, 1, 1), ((16, 512, 32, 32), FWD_WARP, 4, 1),
+    ((16, 1024, 16, 16), FWD_WARP, 1, 1),
+    ((4, 30, 10, 256, 256), BWD_SPLIT, 1, 35),
+    ((4, 60, 10, 128, 128), FWD_STAGED, 4, 1),
+    ((4, 120, 10, 64, 64), FWD_STAGED, 4, 1),
+    ((4, 240, 10, 32, 32), FWD_STAGED, 1, 1),
+    ((4, 320, 5, 16, 16), FWD_WARP, 8, 1)]
+
+
+@pytest.mark.parametrize("shape,path,k,splits", BWD_TRAIN)
+def test_bwd_training_shapes(shape, path, k, splits):
+    plan = check_bwd_plan(shape, BF16)
+    assert plan.path == path and plan.splits == splits
+    assert (plan.packs if path == FWD_WARP else plan.cluster) == k
+    if path == BWD_SPLIT:                # UNet3D level 0: 120 planes
+        assert plan.chunk == 18728 and plan.apply_ctas == 80
+        assert plan.grid == 35 * 120
+
+
+@pytest.mark.parametrize("shape", FLAGSHIP + NF_SHAPES + UNET3D_SHAPES
+                         + EVAL_SMALL)
+def test_bwd_f32_plans(shape):
+    check_bwd_plan(shape, F32)
+
+
+# (hw, dtype, path) one element either side of each boundary: the warp
+# path's 32 lanes x 8 packs, a staged CTA's 64 KiB target of g + x̂, 8
+# staged CTAs of 192 KiB, and odd planes
+BWD_BOUNDARIES = [
+    (2048, BF16, FWD_WARP), (2049, BF16, BWD_SPLIT), (2056, BF16, FWD_STAGED),
+    (2040, BF16, FWD_WARP), (2047, BF16, BWD_SPLIT),
+    (1024, F32, FWD_WARP), (1025, F32, BWD_SPLIT), (1028, F32, FWD_STAGED),
+    (1020, F32, FWD_WARP),
+    (16384, BF16, FWD_STAGED), (16385, BF16, BWD_SPLIT),
+    (16400, BF16, FWD_STAGED),
+    (8192, F32, FWD_STAGED), (8193, F32, BWD_SPLIT), (8200, F32, FWD_STAGED),
+    (393216, BF16, FWD_STAGED), (393217, BF16, BWD_SPLIT),
+    (393280, BF16, BWD_SPLIT),
+    (196608, F32, FWD_STAGED), (196609, F32, BWD_SPLIT),
+    (196640, F32, BWD_SPLIT), (655360, BF16, BWD_SPLIT),
+    (8, BF16, FWD_WARP), (7, BF16, BWD_SPLIT), (1, F32, BWD_SPLIT)]
+
+
+@pytest.mark.parametrize("hw,dtype,path", BWD_BOUNDARIES)
+def test_bwd_path_boundaries(hw, dtype, path):
+    for planes in (1, 7, 8, 9, 1000):
+        assert check_bwd_plan((planes, 1, hw), dtype).path == path
+
+
+def test_bwd_staged_chunk_choice():
+    # the fewest CTAs whose g + x̂ chunks fit 64 KiB ...
+    assert in_relu_bwd_plan(1, 16384, BF16).cluster == 1          # 64 KiB
+    assert in_relu_bwd_plan(1, 32768, BF16).cluster == 2
+    assert in_relu_bwd_plan(1, 65536, BF16).cluster == 4
+    assert in_relu_bwd_plan(1, 131072, BF16).cluster == 8
+    # ... else the fewest up to 192 KiB a CTA
+    plan = in_relu_bwd_plan(1, 163840, BF16)
+    assert (plan.cluster, plan.smem_bytes) == (4, 163840)
+    plan = in_relu_bwd_plan(1, 393216, BF16)
+    assert (plan.cluster, plan.smem_bytes) == (8, 196608)
+    plan = in_relu_bwd_plan(1, 16400, BF16)     # 2,050 packs: two CTAs
+    assert (plan.cluster, plan.smem_bytes) == (2, 32800)
+    plan = in_relu_bwd_plan(1, 16392, BF16)     # 2,049 packs: one CTA
+    assert (plan.cluster, plan.smem_bytes) == (1, 65568)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+def test_bwd_unaligned_takes_the_split_path(dtype):
+    for shape in FLAGSHIP + NF_SHAPES + UNET3D_SHAPES + [(1, 3, 64, 64)]:
+        assert check_bwd_plan(shape, dtype, aligned=False).path == BWD_SPLIT
+
+
+@pytest.mark.parametrize("planes,hw,dtype", [
+    (120, 655360, BF16), (120, 655360, F32), (30, 1572864, BF16),
+    (8192, 256, BF16), (4, 1001, F32), (3, 262147, BF16), (2, 7, BF16)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_split_plans_cover_each_plane_once(planes, hw, dtype, aligned):
+    for spread in (True, False):
+        plan = in_relu_bwd_split_plan(planes, hw, dtype, aligned, spread)
+        assert bwd_launcher_accepts(plan, hw, dtype, aligned)
+        reads, writes = split_coverage(plan, hw, dtype, aligned)
+        np.testing.assert_array_equal(reads, 1)
+        np.testing.assert_array_equal(writes, 1)
+        if not spread:            # the first design: one CTA a plane each
+            assert (plan.splits, plan.chunk, plan.apply_ctas) == (1, hw, 1)
+
+
+def test_bwd_plan_is_cached():
+    assert in_relu_bwd_plan(8, 4096, BF16) is in_relu_bwd_plan(8, 4096, BF16)
