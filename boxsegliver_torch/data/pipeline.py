@@ -209,7 +209,11 @@ class TrainDataset:
     own ``np.random.RandomState([seed & 0x7FFFFFFF, 0xB0D5E6, wid])``, as the
     JAX package seeds them: one worker yields the JAX package's batches.
     The trainer uploads each batch and runs the device augmentation
-    (make_preprocess_fn) inside its step."""
+    (make_preprocess_fn) inside its step.
+
+    Counters of the consumer's side (one consumer thread): ``gets``, the
+    batches taken, and ``starved``, the takes that found the queue empty
+    and waited for a worker."""
 
     def __init__(self, sampler, args, seed: int = 0, prefetch: int = 4,
                  workers: Optional[int] = None):
@@ -218,6 +222,7 @@ class TrainDataset:
         self._q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
         self._threads = []
+        self.gets = self.starved = 0
         n_workers = (workers if workers is not None
                      else getattr(args, "host_workers", 2))
         for wid in range(max(1, n_workers)):
@@ -240,7 +245,12 @@ class TrainDataset:
         return self
 
     def __next__(self):
-        return self._q.get()
+        self.gets += 1
+        try:
+            return self._q.get_nowait()
+        except queue.Empty:
+            self.starved += 1
+            return self._q.get()
 
     def close(self):
         self._stop.set()

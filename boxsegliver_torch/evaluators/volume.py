@@ -60,6 +60,7 @@ from boxsegliver_torch.ops.image_ops import resize_nearest
 from boxsegliver_torch.ops.kernels import gaussian_guide_batch
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
 from boxsegliver_torch.ops.metrics3d import metric_3d
+from boxsegliver_torch.utils.trace import span
 
 logger = logging.getLogger("boxsegliver")
 
@@ -215,26 +216,31 @@ class EvaluateVolume(EvaluateBase):
                       accumulator: Optional[Dict] = None) -> Dict[str, float]:
         """argmax → back to crop shape → postprocess → metric_3d + confusion
         accumulation (reference _run_actual body, evaluator_liver.py:926-946)."""
-        pred = np.argmax(probs, axis=-1).astype(np.uint8)
-        pred = self._resize_pred_to_crop(pred, case.segmentation.shape[1:])
-        vols = self.postprocess(pred)
-        seg = case.segmentation.astype(np.int32)
-        if self.gt_label_mode == "liver01":
-            seg = np.clip(seg, 0, 1)
-        elif self.gt_label_mode == "tumor":
-            seg = (seg == 2).astype(np.int32)
-        labs = self.postprocess(seg, is_label=True)
+        with span("boxseg.eval.postprocess"):
+            pred = np.argmax(probs, axis=-1).astype(np.uint8)
+            pred = self._resize_pred_to_crop(pred,
+                                             case.segmentation.shape[1:])
+            vols = self.postprocess(pred)
+            seg = case.segmentation.astype(np.int32)
+            if self.gt_label_mode == "liver01":
+                seg = np.clip(seg, 0, 1)
+            elif self.gt_label_mode == "tumor":
+                seg = (seg == 2).astype(np.int32)
+            labs = self.postprocess(seg, is_label=True)
         results = {}
-        for cls in self.classes:
-            if accumulator is not None:
-                conf = ConfusionMatrix(vols[cls].astype(int), labs[cls].astype(int))
-                accumulator[cls + "_tp"] += conf.tp
-                accumulator[cls + "_fp"] += conf.fp
-                accumulator[cls + "_fn"] += conf.fn
-            pairs = metric_3d(vols[cls], labs[cls], required=self.metrics_str,
-                              sampling=case.spacing)
-            for met, value in pairs.items():
-                results[f"{cls}/{met}"] = value
+        with span("boxseg.eval.score"):
+            for cls in self.classes:
+                if accumulator is not None:
+                    conf = ConfusionMatrix(vols[cls].astype(int),
+                                           labs[cls].astype(int))
+                    accumulator[cls + "_tp"] += conf.tp
+                    accumulator[cls + "_fp"] += conf.fp
+                    accumulator[cls + "_fn"] += conf.fn
+                pairs = metric_3d(vols[cls], labs[cls],
+                                  required=self.metrics_str,
+                                  sampling=case.spacing)
+                for met, value in pairs.items():
+                    results[f"{cls}/{met}"] = value
         return results
 
     # ------------------------------------------------------------------
@@ -308,13 +314,14 @@ class EvaluateVolume(EvaluateBase):
         for meta in list(case_metas)[skip:]:
             if 0 < limit <= n:
                 break
-            t0 = time.time()
-            case, probs3d = self.predict_case_g(
-                predict_fn, meta, prior.get(str(int(meta["PID"])), {}),
-                parse_label=do_eval)
-            n += 1
-            self._finish_case(case, probs3d, accumulator, save, save_path,
-                              do_eval, n, t0)
+            with span("boxseg.eval.case"):
+                t0 = time.time()
+                case, probs3d = self.predict_case_g(
+                    predict_fn, meta, prior.get(str(int(meta["PID"])), {}),
+                    parse_label=do_eval)
+                n += 1
+                self._finish_case(case, probs3d, accumulator, save,
+                                  save_path, do_eval, n, t0)
         return self._finish_run(accumulator, n)
 
     # ------------------------------------------------------------------
@@ -488,14 +495,16 @@ class EvaluateVolume(EvaluateBase):
         args = self.args
         tumor_id = (self.classes.index("Tumor") + 1 if "Tumor" in self.classes
                     else len(self.classes))
-        case = parse_case_eval(meta, self.dataset_dir,
-                               im_channel=args.im_channel,
-                               parse_label=parse_label, norm=self.norm,
-                               whole_frame=self.nf)
-        context = None
-        if self.context_list is not None:
-            context = load_eval_context(self.dataset_dir, case.pid,
-                                        self.context_list, args.hist_scale)
+        with span("boxseg.eval.parse"):
+            case = parse_case_eval(meta, self.dataset_dir,
+                                   im_channel=args.im_channel,
+                                   parse_label=parse_label, norm=self.norm,
+                                   whole_frame=self.nf)
+            context = None
+            if self.context_list is not None:
+                context = load_eval_context(self.dataset_dir, case.pid,
+                                            self.context_list,
+                                            args.hist_scale)
         # the device double sweep (interactive/device_sweep.py) unless the
         # predictor has none or guides are dumped; None => host loop
         sweep_dev: Optional[Callable] = getattr(predict_fn, "sweep_case", None)
@@ -512,8 +521,9 @@ class EvaluateVolume(EvaluateBase):
                 logger.info("  case %s: %d objects overflow the device sweep "
                             "caps; host loop", case.pid, n_objs)
         if probs3d is None:
-            probs3d = self._sweep_case_host(predict_fn, case, prior_case,
-                                            context, tumor_id)
+            with span("boxseg.eval.host_loop"):
+                probs3d = self._sweep_case_host(predict_fn, case, prior_case,
+                                                context, tumor_id)
         return case, probs3d
 
     def _sweep_case_host(self, predict_fn: Callable, case: EvalCase,
@@ -552,11 +562,13 @@ class EvaluateVolume(EvaluateBase):
             results = self.evaluate_case(case, probs, accumulator)
             self.append_metrics(results)
         if save:
-            vol = (np.argmax(probs, -1).astype(np.uint8)
-                   if self.args.pred_type == "pred" else probs)
-            self.save_case(case, vol, save_path or
-                           Path(self.args.model_dir) / self.args.save_path,
-                           dtype=self.args.pred_type)
+            with span("boxseg.eval.save"):
+                vol = (np.argmax(probs, -1).astype(np.uint8)
+                       if self.args.pred_type == "pred" else probs)
+                self.save_case(case, vol, save_path or
+                               Path(self.args.model_dir)
+                               / self.args.save_path,
+                               dtype=self.args.pred_type)
         msg = " ".join(f"{k}: {v:.3f}" for k, v in results.items())
         logger.info("Evaluate-%d case %s %s (%.3f s)", n, case.pid, msg,
                     time.time() - t0)

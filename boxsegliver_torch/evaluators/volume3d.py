@@ -44,6 +44,7 @@ from boxsegliver_torch.ops.image_ops import zscore
 from boxsegliver_torch.ops.metrics import ConfusionMatrix
 from boxsegliver_torch.ops.metrics3d import metric_3d
 from boxsegliver_torch.parallel.spatial import SpatialShard, sharded
+from boxsegliver_torch.utils.trace import span
 
 logger = logging.getLogger("boxsegliver")
 
@@ -291,32 +292,38 @@ class EvaluateVolume3D(EvaluateBase):
         for meta in list(case_metas)[getattr(args, "eval_skip_num", 0):]:
             if 0 < limit <= n:
                 break
-            t0 = time.time()
-            pid = int(meta["PID"])
-            case = self.dataset_dir / f"volume-{pid}"
-            vol = np.load(case / "volume.npy")
-            lab = np.load(case / "segmentation.npy")
-            out = self.predict_case(predict_fn, vol, cascade=cascade)
-            pred = (out if out.dtype == np.uint8
-                    else out.argmax(-1).astype(np.uint8))
-            results = {}
-            if do_eval and self.chief:
-                for i, cls in enumerate(self.classes):
-                    p = pred == i + 1
-                    r = lab == i + 1
-                    conf = ConfusionMatrix(p.astype(int), r.astype(int))
-                    accumulator[cls + "_tp"] += conf.tp
-                    accumulator[cls + "_fp"] += conf.fp
-                    accumulator[cls + "_fn"] += conf.fn
-                    pairs = metric_3d(p, r, required=self.metrics_str,
-                                      sampling=meta["spacing"])
-                    for met, v in pairs.items():
-                        results[f"{cls}/{met}"] = v
-                self.append_metrics(results)
-            n += 1
-            msg = " ".join(f"{k}: {v:.3f}" for k, v in results.items())
-            logger.info("Evaluate3D-%d case %s %s (%.3f s)", n, pid, msg,
-                        time.time() - t0)
+            with span("boxseg.eval.case"):
+                t0 = time.time()
+                pid = int(meta["PID"])
+                case = self.dataset_dir / f"volume-{pid}"
+                with span("boxseg.eval.parse"):
+                    vol = np.load(case / "volume.npy")
+                    lab = np.load(case / "segmentation.npy")
+                out = self.predict_case(predict_fn, vol, cascade=cascade)
+                with span("boxseg.eval.postprocess"):
+                    pred = (out if out.dtype == np.uint8
+                            else out.argmax(-1).astype(np.uint8))
+                results = {}
+                if do_eval and self.chief:
+                    with span("boxseg.eval.score"):
+                        for i, cls in enumerate(self.classes):
+                            p = pred == i + 1
+                            r = lab == i + 1
+                            conf = ConfusionMatrix(p.astype(int),
+                                                   r.astype(int))
+                            accumulator[cls + "_tp"] += conf.tp
+                            accumulator[cls + "_fp"] += conf.fp
+                            accumulator[cls + "_fn"] += conf.fn
+                            pairs = metric_3d(p, r,
+                                              required=self.metrics_str,
+                                              sampling=meta["spacing"])
+                            for met, v in pairs.items():
+                                results[f"{cls}/{met}"] = v
+                    self.append_metrics(results)
+                n += 1
+                msg = " ".join(f"{k}: {v:.3f}" for k, v in results.items())
+                logger.info("Evaluate3D-%d case %s %s (%.3f s)", n, pid, msg,
+                            time.time() - t0)
         if not self.chief:
             return {}
         results = self.mean_metrics()

@@ -47,6 +47,7 @@ from boxsegliver_torch.ops.kernels import gaussian_guide_batch
 from boxsegliver_torch.ops.labeling import (label_components, object_moments,
                                             ordered_seeds, wu_ascent)
 from boxsegliver_torch.parallel.spatial import sharded
+from boxsegliver_torch.utils.trace import span
 
 _STD_BUCKETS = (4, 8, 16, 32)
 _DEPTH_BUCKETS = (32, 64, 96, 128, 192, 256)
@@ -163,8 +164,11 @@ class GuidedSweepPredictor:
 
     def _sweep(self, vol, ctx_rows, user, sid0: int, cz: int, d_pad: int,
                channels: int):
-        """Both sweeps as one batch of 2: returns (merged probs [d_pad, ph,
-        pw, nc], max object count over the real slices)."""
+        """Both sweeps as one batch of 2, each step under a
+        ``boxseg.sweep.step`` span whose children split it into its phases
+        (nothing syncs inside the loop, so a span times the host's enqueue);
+        returns (probs [2, d_pad, ph, pw, nc] in each sweep's slice order,
+        object counts [2, d_pad], 0 on the z-padding slices)."""
         dev = self.device
         ph, pw = self.pshape
         k_obj = self.max_objects
@@ -184,76 +188,87 @@ class GuidedSweepPredictor:
         n_objs_out = torch.empty((2, d_pad), dtype=torch.int32, device=dev)
 
         for t in range(d_pad):
-            idx = orders[:, t]
-            sid = idx + sid0
-            centers = torch.cat([u_center[idx], p_center], 1).float()  # [2, M, 2]
-            stds = torch.clamp_min(torch.cat([u_std[idx], p_std], 1),
-                                   self.min_std)
-            zrs = torch.cat([u_zr[idx], p_zr], 1)
-            valid = torch.cat([u_valid[idx], p_valid], 1)
+            with span("boxseg.sweep.step"):
+                with span("boxseg.sweep.guide"):
+                    idx = orders[:, t]
+                    sid = idx + sid0
+                    centers = torch.cat([u_center[idx], p_center],
+                                        1).float()                 # [2, M, 2]
+                    stds = torch.clamp_min(torch.cat([u_std[idx], p_std], 1),
+                                           self.min_std)
+                    zrs = torch.cat([u_zr[idx], p_zr], 1)
+                    valid = torch.cat([u_valid[idx], p_valid], 1)
 
-            guide = gaussian_guide_batch(
-                centers, stds, valid, height=ph, width=pw,
-                scale=self.eval_discount / 2.0, offset=GUIDE_BG)[..., 0]
-            self.steps += 1
+                    guide = gaussian_guide_batch(
+                        centers, stds, valid, height=ph, width=pw,
+                        scale=self.eval_discount / 2.0,
+                        offset=GUIDE_BG)[..., 0]
+                    self.steps += 1
 
-            images = torch.stack([vol[i:i + channels]
-                                  for i in (t, d_pad - 1 - t)])
-            images = images.permute(0, 2, 3, 1)
-            ctx = ctx_rows[idx] if ctx_rows is not None else None
-            probs = self._forward_tta(images, guide, ctx)
+                with span("boxseg.sweep.forward"):
+                    images = torch.stack([vol[i:i + channels]
+                                          for i in (t, d_pad - 1 - t)])
+                    images = images.permute(0, 2, 3, 1)
+                    ctx = ctx_rows[idx] if ctx_rows is not None else None
+                    probs = self._forward_tta(images, guide, ctx)
 
-            pred = torch.argmax(probs, dim=-1) == self.tumor_id
-            labels = label_components(pred)
-            seeds, n_objs = ordered_seeds(labels, k_obj)           # [2, K]
-            obj_valid = seeds < sentinel
-            obj = ((labels[:, None] == seeds[:, :, None, None])
-                   & obj_valid[:, :, None, None])                  # [2, K, h, w]
+                with span("boxseg.sweep.label"):
+                    pred = torch.argmax(probs, dim=-1) == self.tumor_id
+                    labels = label_components(pred)
+                    seeds, n_objs = ordered_seeds(labels, k_obj)   # [2, K]
+                    obj_valid = seeds < sentinel
+                    obj = ((labels[:, None] == seeds[:, :, None, None])
+                           & obj_valid[:, :, None, None])    # [2, K, h, w]
 
-            masked = torch.where(obj, guide[:, None], -1.0).reshape(
-                2, k_obj, -1)
-            support = masked.amax(dim=-1) >= thresh
-            flat_peak = torch.argmax(masked, dim=-1)
-            peak = torch.stack([flat_peak // pw, flat_peak % pw], dim=-1)
+                with span("boxseg.sweep.match"):
+                    masked = torch.where(obj, guide[:, None], -1.0).reshape(
+                        2, k_obj, -1)
+                    support = masked.amax(dim=-1) >= thresh
+                    flat_peak = torch.argmax(masked, dim=-1)
+                    peak = torch.stack([flat_peak // pw, flat_peak % pw],
+                                       dim=-1)
 
-            ic = centers.to(torch.int32)
-            exact = (valid[:, None]
-                     & (peak[:, :, None, 0] == ic[:, None, :, 0])
-                     & (peak[:, :, None, 1] == ic[:, None, :, 1]))  # [2, K, M]
-            any_exact = exact.any(dim=-1)
-            j_exact = torch.argmax(exact.to(torch.uint8), dim=-1)
+                    ic = centers.to(torch.int32)
+                    exact = (valid[:, None]                        # [2, K, M]
+                             & (peak[:, :, None, 0] == ic[:, None, :, 0])
+                             & (peak[:, :, None, 1] == ic[:, None, :, 1]))
+                    any_exact = exact.any(dim=-1)
+                    j_exact = torch.argmax(exact.to(torch.uint8), dim=-1)
 
-            diff = peak[:, :, None].float() - centers[:, None]
-            dist = torch.where(valid[:, None], (diff ** 2).sum(-1),
-                               float("inf"))
-            order = torch.argsort(dist, dim=-1, stable=True)
-            asc = wu_ascent(guide, peak, ic)
-            cand = torch.gather(valid[:, None] & asc, -1, order)
-            has_cand = cand.any(dim=-1)
-            j_near = torch.gather(
-                order, -1,
-                torch.argmax(cand.to(torch.uint8), dim=-1, keepdim=True))[..., 0]
+                    diff = peak[:, :, None].float() - centers[:, None]
+                    dist = torch.where(valid[:, None], (diff ** 2).sum(-1),
+                                       float("inf"))
+                    order = torch.argsort(dist, dim=-1, stable=True)
+                    asc = wu_ascent(guide, peak, ic)
+                    cand = torch.gather(valid[:, None] & asc, -1, order)
+                    has_cand = cand.any(dim=-1)
+                    j_near = torch.gather(
+                        order, -1,
+                        torch.argmax(cand.to(torch.uint8), dim=-1,
+                                     keepdim=True))[..., 0]
 
-            found = torch.where(any_exact, j_exact, j_near)
-            found_ok = any_exact | has_cand
-            zr_f = torch.gather(zrs, 1, found[..., None].expand(-1, -1, 2))
-            sid_c = sid[:, None]
-            zfail = torch.where(fwd_sweep[:, None], sid_c >= zr_f[..., 1],
-                                sid_c <= zr_f[..., 0])
-            p_valid = obj_valid & support & found_ok & ~zfail
+                    found = torch.where(any_exact, j_exact, j_near)
+                    found_ok = any_exact | has_cand
+                    zr_f = torch.gather(zrs, 1,
+                                        found[..., None].expand(-1, -1, 2))
+                    sid_c = sid[:, None]
+                    zfail = torch.where(fwd_sweep[:, None],
+                                        sid_c >= zr_f[..., 1],
+                                        sid_c <= zr_f[..., 0])
 
-            m_center, p_std = object_moments(obj, min_std=self.min_std)
-            p_center = m_center.to(torch.int32)
-            p_zr = zr_f
-            probs_out[:, t] = probs
-            n_objs_out[:, t] = n_objs
+                with span("boxseg.sweep.moments"):
+                    p_valid = obj_valid & support & found_ok & ~zfail
+                    m_center, p_std = object_moments(obj,
+                                                     min_std=self.min_std)
+                    p_center = m_center.to(torch.int32)
+                    p_zr = zr_f
+                    probs_out[:, t] = probs
+                    n_objs_out[:, t] = n_objs
 
-        merged = torch.maximum(probs_out[0], probs_out[1].flip(0))
         # overflow only counts REAL slices: z-padding slices see a flat
         # GUIDE_BG guide, so every object there fails the support threshold
         # and cannot enter the propagation state
-        n_objs_out = torch.where(orders < cz, n_objs_out, 0)
-        return merged, int(n_objs_out.max())
+        return probs_out, torch.where(orders < cz, n_objs_out, 0)
 
     # ------------------------------------------------------------------
 
@@ -264,6 +279,11 @@ class GuidedSweepPredictor:
         """Merged Forward/Backward probability volume [cz, ph, pw, nc] for
         one case, or (None, n_objs) when an object/prior count overflowed
         the static caps."""
+        with span("boxseg.sweep.case"):
+            return self._sweep_case(case, prior_case, context)
+
+    def _sweep_case(self, case: EvalCase, prior_case: Dict,
+                    context: Optional[np.ndarray]):
         dev = self.device
         cz = case.depth
         channels = case.lhc + case.rhc + 1
@@ -273,27 +293,33 @@ class GuidedSweepPredictor:
                          for objs in (prior_case or {}).values()), default=0)
         mu = _bucket(max(mu_needed, 1))
 
-        *user, overflow = self._user_prior_arrays(case, prior_case, d_pad, mu)
-        if overflow:
-            return None, -1
-        user = tuple(torch.from_numpy(u).to(dev) for u in user)
+        with span("boxseg.sweep.prepare"):
+            *user, overflow = self._user_prior_arrays(case, prior_case,
+                                                      d_pad, mu)
+            if overflow:
+                return None, -1
+            user = tuple(torch.from_numpy(u).to(dev) for u in user)
 
-        vol = _resize_stack(np.asarray(case.volume), self.pshape, dev)
-        z_extra = d_pad + channels - 1 - vol.shape[0]
-        if z_extra > 0:
-            vol = torch.cat([vol, vol.new_zeros((z_extra,) + vol.shape[1:])])
+            vol = _resize_stack(np.asarray(case.volume), self.pshape, dev)
+            z_extra = d_pad + channels - 1 - vol.shape[0]
+            if z_extra > 0:
+                vol = torch.cat([vol,
+                                 vol.new_zeros((z_extra,) + vol.shape[1:])])
 
-        ctx_rows = None
-        if context is not None:
-            z0 = case.crop[0]
-            rows = np.zeros((d_pad, context.shape[1]), np.float32)
-            valid_rows = max(0, min(cz, context.shape[0] - z0))
-            if valid_rows:
-                rows[:valid_rows] = context[z0:z0 + valid_rows]
-            ctx_rows = torch.from_numpy(rows).to(dev)
+            ctx_rows = None
+            if context is not None:
+                z0 = case.crop[0]
+                rows = np.zeros((d_pad, context.shape[1]), np.float32)
+                valid_rows = max(0, min(cz, context.shape[0] - z0))
+                if valid_rows:
+                    rows[:valid_rows] = context[z0:z0 + valid_rows]
+                ctx_rows = torch.from_numpy(rows).to(dev)
 
-        merged, n_max = self._sweep(vol, ctx_rows, user, int(case.crop[0]),
+        probs, n_objs = self._sweep(vol, ctx_rows, user, int(case.crop[0]),
                                     cz, d_pad, channels)
-        if n_max > self.max_objects:
-            return None, n_max
-        return merged[:cz].cpu().numpy(), n_max
+        with span("boxseg.sweep.finish"):
+            merged = torch.maximum(probs[0], probs[1].flip(0))
+            n_max = int(n_objs.max())
+            if n_max > self.max_objects:
+                return None, n_max
+            return merged[:cz].cpu().numpy(), n_max

@@ -24,6 +24,11 @@ core/estimator.py:490-758, core/models.py:224-281, core/solver.py:221-243).
   the same step runs eagerly.
 - The kernels' launch counters count on the host; a replay adds what its
   capture recorded (and the capture itself counts nothing).
+- Host spans (utils/trace.py, recorded only under a running profiler):
+  ``boxseg.train.stage`` around the staging, its wait on a pinned set's
+  event included; ``.replay``, ``.step`` and ``.capture`` around each graph
+  replay, eager step and capture; ``.values`` around the values' clone.
+  None sits inside ``_step``: a graph captures it once and replays it.
 - The L2 term 0.5·wd·Σw² is added to the loss value, and its gradient wd·w
   to the decayed tensors' gradients, without going through autograd.
 - Metric tensors stay on the device; every ``fetch_every`` steps (and at an
@@ -97,6 +102,7 @@ from boxsegliver_torch.train.hooks import (AverageMeter, BestKeeper,
                                            SpeedLogger)
 from boxsegliver_torch.train.solver import Optimizer, make_lr_fn
 from boxsegliver_torch.utils.summary import SummaryWriter
+from boxsegliver_torch.utils.trace import span
 
 logger = logging.getLogger("boxsegliver")
 
@@ -437,7 +443,7 @@ class Trainer:
         pool = (next(iter(self._graphs.values()))[0].pool()
                 if self._graphs else None)
         before = {n: fn.launches for n, fn in KERNELS.items()}
-        with torch.cuda.graph(graph, pool=pool):
+        with span("boxseg.train.capture"), torch.cuda.graph(graph, pool=pool):
             self._step(metrics)
         counts = {n: fn.launches - before[n] for n, fn in KERNELS.items()}
         for n, fn in KERNELS.items():
@@ -454,15 +460,17 @@ class Trainer:
         from boxsegliver_torch.ops.kernels import KERNELS
 
         if self._warm < WARMUP_STEPS:
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self._step(metrics)
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            with span("boxseg.train.step"):
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    self._step(metrics)
+                torch.cuda.current_stream(self.device).wait_stream(side)
             self._warm += 1
             return
         graph, counts = self._graphs.get(metrics) or self._capture(metrics)
-        graph.replay()
+        with span("boxseg.train.replay"):
+            graph.replay()
         for n, c in counts.items():
             KERNELS[n].launches += c
 
@@ -473,7 +481,8 @@ class Trainer:
         rows."""
         if self.group is not None:
             raw_batches = [self.group.take_rows(b) for b in raw_batches]
-        lrs = self._stage(raw_batches)
+        with span("boxseg.train.stage"):
+            lrs = self._stage(raw_batches)
         self._ctr.zero_()
         first = self._host_step
         for j in range(len(raw_batches)):
@@ -483,9 +492,11 @@ class Trainer:
             if self._graphed:
                 self._graph_step(metrics)
             else:
-                self._step(metrics)
+                with span("boxseg.train.step"):
+                    self._step(metrics)
         self._host_step += len(raw_batches)
-        out = self._out[:len(raw_batches)].clone()
+        with span("boxseg.train.values"):
+            out = self._out[:len(raw_batches)].clone()
         return [(first + j + 1, out[j], lr) for j, lr in enumerate(lrs)]
 
     def train_step(self, raw_batch: Dict[str, np.ndarray]):
