@@ -17,8 +17,9 @@ classes.  The exported input shape is that size, and the server takes no
 other, so the resize is the identity there.  The model is traced on
 ``--device`` under no_grad with static shapes.  Every full-affine instance
 norm + ReLU of a GUNet traces to one node of the registered operator
-``boxseg::in_relu_fwd`` (ops/kernels.py): a program loaded on the card
-launches kernel B2-fwd there, and on the CPU runs its plain version.  The
+``boxseg::in_relu_fwd`` (ops/kernels.py), and each modulated block to one
+of ``boxseg::modnorm_relu_fwd``: a program loaded on the card launches
+kernels B2-fwd and B3-fwd there, and on the CPU runs their plain versions.  The
 program is moved to the CPU before it is saved, so a bundle exported on the
 card serves on either device, as the JAX bundle lowered for cpu and tpu
 does.
@@ -159,7 +160,7 @@ def load_exported(export_dir, device="cuda"):
     tensor on ``device``."""
     from torch.export.passes import move_to_device_pass
 
-    from boxsegliver_torch.ops import kernels  # noqa: F401  boxseg::in_relu_fwd
+    from boxsegliver_torch.ops import kernels  # noqa: F401  the boxseg operators
 
     if not isinstance(device, torch.device):
         device = config_mod.resolve_device(device)

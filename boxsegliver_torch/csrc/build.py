@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of each source's exported functions, set on load
 _ARGTYPES = {
     "guide_render": {
@@ -38,7 +39,10 @@ _ARGTYPES = {
         "in_relu_bwd_stats": [_P] * 7 + [_I] * 6 + [_P],
         "in_relu_bwd_apply": [_P] * 8 + [_I] * 5 + [_P],
         "in_relu_fwd_partial": [_P] * 3 + [_I] * 5 + [_P],
-        "in_relu_fwd_apply": [_P] * 6 + [_I] * 4 + [_P]},
+        "in_relu_fwd_apply": [_P] * 6 + [_I] * 4 + [_P],
+        "modnorm_relu_fwd": [_P] * 2 + [_L] + [_P] * 6 + [_I] * 3 + [_F]
+        + [_I] * 5 + [_P],
+        "modnorm_relu_bwd": [_P] * 11 + [_I] * 11 + [_P]},
     "geodesic": {
         "geodesic2d_raster": [_P] * 4 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
         "geodesic_chain_clocks": [_P] * 3 + [_I] * 2 + [_P]},

@@ -90,11 +90,38 @@
 //        2 |x| / 3.35 TB/s bounds it.  CTAs tile a plane in a 2-D grid (x:
 //        chunks of the plane, y: planes), so no thread divides an index.
 //
+// Kernel B3: G-Net's modulated block, norm -> * gamma -> + s -> ReLU, in one
+// kernel each way (the JAX package leaves it to XLA:
+// boxsegliver_tpu/models/gunet.py:215-232).  Per (b, c) plane of x:
+//   x_hat = (x - mean) * rstd (B2-fwd's statistics), n = x_hat * w_c + b_c,
+//   y = relu(gamma[b, c] * n + s[b, c, :]),
+// with the norm's scale w and center b, the context's gamma and the spatial
+// term s each optional (1, 0, 1 and 0 stand in, which change no value).
+// B3 is B2's function with gamma and s added, so its kernels are B2's
+// bodies (the device functions fwd_* and bwd_* below) under another
+// epilogue: ModFwd and ModBwd where B2 takes AffineFwd and AffineBwd.
+//   B3-fwd  modnorm_relu_fwd: B2-fwd's three paths and plans (warp, staged,
+//           general) with s read once beside x; in training it writes y,
+//           x_hat and rstd, under no-grad y alone.
+//   B3-bwd  modnorm_relu_bwd: g_m = g * [y > 0]; ds = g_m, written once; the
+//           plane sums a = sum g_m and b = sum g_m * x_hat (d_gamma = w b +
+//           b_c a, d_w and d_b their sums over the batch times gamma, in
+//           ops/kernels); dx = (gamma w rstd) ((g_m - a / HW) - x_hat b / HW).
+//           B2f's fused warp and staged paths (y read beside g and x_hat,
+//           g_m kept in g's place), or B2a's split sums and B2b's apply
+//           pass where a plane does not fit on chip.
+// Bound: the function reads x and s and writes y forward (6 B per bf16
+// element), and reads g, y and x_hat and writes dx and ds backward (10 B):
+// 16 B an element a training step, 6 under no-grad.  The x_hat that the
+// training forward stores for the backward is the design's, not the
+// function's, as in B2's bound (portbench/flops.py).
+//
 // Rounding: the elementwise arithmetic uses explicitly rounded intrinsics so
 // that nvcc contracts nothing into FMAs and each element follows the plain
-// PyTorch version (ops/kernels.in_relu_*_plain) operation by operation; the
-// order of the per-plane sums differs, and rsqrtf is within 2 ulp of
-// torch.rsqrt (the tolerances of chip_smoke.b2_check).
+// PyTorch version (ops/kernels.in_relu_*_plain, modnorm_relu_*_plain)
+// operation by operation; the order of the per-plane sums differs, and
+// rsqrtf is within 2 ulp of torch.rsqrt (the tolerances of
+// chip_smoke.b2_check).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -180,102 +207,6 @@ __device__ __forceinline__ float plane_rstd(float s, float ss, int hw,
   return rsqrtf(__fadd_rn(var, eps));
 }
 
-// y and x_hat of one pack.
-template <typename T, int N>
-__device__ __forceinline__ void norm_pack(const Pack<T, N>& p, float mean,
-                                          float rstd, float gm, float bt,
-                                          Pack<T, N>& po, Pack<T, N>& ph) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float h = __fmul_rn(__fsub_rn(to_f(p.v[k]), mean), rstd);
-    const float z = __fadd_rn(__fmul_rn(h, gm), bt);
-    po.v[k] = from_f<T>(fmaxf(z, 0.0f));
-    ph.v[k] = from_f<T>(h);
-  }
-}
-
-// General path: one CTA per plane, x read twice.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, T* __restrict__ y,
-                       T* __restrict__ xhat, float* __restrict__ rstd_out,
-                       int channels, int hw, float eps) {
-  const int64_t plane = blockIdx.x;
-  const int c = (int)(plane % channels);
-  const int64_t base = plane * hw;
-  const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
-  const int groups = hw / N;
-
-  float s = 0.0f, ss = 0.0f;
-  for (int i = threadIdx.x; i < groups; i += kThreads) add_pack(xp[i], s, ss);
-  block_sum2(s, ss);
-  float mean;
-  const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (threadIdx.x == 0) rstd_out[plane] = rstd;
-  const float gm = gamma[c], bt = beta[c];
-
-  Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
-  Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
-  for (int i = threadIdx.x; i < groups; i += kThreads) {
-    Pack<T, N> po, ph;
-    norm_pack(xp[i], mean, rstd, gm, bt, po, ph);
-    yp[i] = po;
-    hp[i] = ph;
-  }
-}
-
-// Warp path: one warp per plane, the plane in registers (P packs a lane).
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_warp_kernel(const T* __restrict__ x,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta, T* __restrict__ y,
-                            T* __restrict__ xhat, float* __restrict__ rstd_out,
-                            int planes, int channels, int hw, float eps) {
-  constexpr int N = 16 / sizeof(T);
-  const int lane = threadIdx.x % 32;
-  const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
-  if (plane >= planes) return;
-  const int c = (int)(plane % channels);
-  const int64_t base = plane * hw;
-  const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
-  const int groups = hw / N;
-
-  Pack<T, N> p[P];
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int j = lane + 32 * i;
-    if (j < groups) {
-      p[i] = xp[j];
-    } else {
-#pragma unroll
-      for (int k = 0; k < N; ++k) p[i].v[k] = from_f<T>(0.0f);
-    }
-  }
-  float s = 0.0f, ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < P; ++i) add_pack(p[i], s, ss);
-  warp_sum2(s, ss);
-  float mean;
-  const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (lane == 0) rstd_out[plane] = rstd;
-  const float gm = gamma[c], bt = beta[c];
-
-  Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
-  Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
-#pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int j = lane + 32 * i;
-    if (j < groups) {
-      Pack<T, N> po, ph;
-      norm_pack(p[i], mean, rstd, gm, bt, po, ph);
-      yp[j] = po;
-      hp[j] = ph;
-    }
-  }
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -345,16 +276,305 @@ __device__ __forceinline__ void cluster_leave() {
   asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// Staged path: a cluster of `cs` CTAs per plane, CTA `rank` holding chunk
-// `rank` (hw / cs elements) in shared memory.
+// ---- epilogues: what B2 and B3 do per plane and per element ----------------
+//
+// The kernel bodies below (fwd_*, bwd_*) are written once, templated on an
+// epilogue Epi that gives each plane's constants (Epi::Plane, e.plane(p))
+// and the per-element step:
+//   forward   z = e.z(k, x_hat, s), y = relu(z); Epi::kSpatial: s is read
+//             (e.s_plane) beside x;
+//   backward  g is kept where e.keep(k, x_hat, y) (the ReLU's mask), dx's
+//             coefficient is e.coef(k, rstd); Epi::kReadsY: the mask is read
+//             from y, g_m replaces g where g is held and is written as ds.
+
+// B2-fwd: z = x_hat * gamma_c + beta_c.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_staged_kernel(const T* __restrict__ x,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              T* __restrict__ y, T* __restrict__ xhat,
-                              float* __restrict__ rstd_out, int channels,
-                              int hw, int cs, float eps) {
+struct AffineFwd {
+  static constexpr bool kSpatial = false;
+  const float* gamma;
+  const float* beta;
+  int channels;
+  struct Plane {
+    float gm, bt;
+  };
+  __device__ __forceinline__ Plane plane(int64_t p) const {
+    const int c = (int)(p % channels);
+    return {gamma[c], beta[c]};
+  }
+  __device__ __forceinline__ const T* s_plane(int64_t, int) const {
+    return nullptr;
+  }
+  __device__ __forceinline__ float z(const Plane& k, float h, float) const {
+    return __fadd_rn(__fmul_rn(h, k.gm), k.bt);
+  }
+};
+
+// B3's per-plane operands: gamma [planes] f32 (the context's slice), weight
+// and bias [channels] f32 (the norm's scale and center), each null where the
+// block has none.
+struct ModParams {
+  const float* gamma;
+  const float* weight;
+  const float* bias;
+  int channels;
+};
+
+struct ModPlane {
+  float gm, w, b;
+};
+
+__device__ __forceinline__ ModPlane mod_plane(const ModParams& mp,
+                                              int64_t plane) {
+  const int c = (int)(plane % mp.channels);
+  return {mp.gamma ? mp.gamma[plane] : 1.0f, mp.weight ? mp.weight[c] : 1.0f,
+          mp.bias ? mp.bias[c] : 0.0f};
+}
+
+// B3-fwd: z = (x_hat * w_c + b_c) * gamma[b, c] + s.  s holds [N, C, *S]
+// planes of hw contiguous elements, sample b at b * s_bstride (a channel
+// slice of a wider tensor has s_bstride > C * hw), or is null.
+template <typename T>
+struct ModFwd {
+  static constexpr bool kSpatial = true;
+  ModParams mp;
+  const T* s;
+  int64_t s_bstride;
+  using Plane = ModPlane;
+  __device__ __forceinline__ Plane plane(int64_t p) const {
+    return mod_plane(mp, p);
+  }
+  __device__ __forceinline__ const T* s_plane(int64_t p, int hw) const {
+    return s ? s + (p / mp.channels) * s_bstride +
+                   (p % mp.channels) * (int64_t)hw
+             : nullptr;
+  }
+  __device__ __forceinline__ float z(const Plane& k, float h, float sv) const {
+    return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(h, k.w), k.b), k.gm), sv);
+  }
+};
+
+// B2's backward: the mask recomputed from x_hat, dx's coefficient gamma_c *
+// rstd.
+struct AffineBwd {
+  static constexpr bool kReadsY = false;
+  const float* gamma;
+  const float* beta;
+  int channels;
+  struct Plane {
+    float gm, bt;
+  };
+  __device__ __forceinline__ Plane plane(int64_t p) const {
+    const int c = (int)(p % channels);
+    return {gamma[c], beta[c]};
+  }
+  __device__ __forceinline__ bool keep(const Plane& k, float h, float) const {
+    return __fadd_rn(__fmul_rn(h, k.gm), k.bt) > 0.0f;
+  }
+  __device__ __forceinline__ float coef(const Plane& k, float rstd) const {
+    return __fmul_rn(k.gm, rstd);
+  }
+};
+
+// B3's backward: the mask y > 0, dx's coefficient gamma[b, c] * w_c * rstd.
+struct ModBwd {
+  static constexpr bool kReadsY = true;
+  ModParams mp;
+  using Plane = ModPlane;
+  __device__ __forceinline__ Plane plane(int64_t p) const {
+    return mod_plane(mp, p);
+  }
+  __device__ __forceinline__ bool keep(const Plane&, float, float yv) const {
+    return yv > 0.0f;
+  }
+  __device__ __forceinline__ float coef(const Plane& k, float rstd) const {
+    return __fmul_rn(__fmul_rn(k.gm, k.w), rstd);
+  }
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> zero_pack() {
+  Pack<T, N> p;
+#pragma unroll
+  for (int k = 0; k < N; ++k) p.v[k] = from_f<T>(0.0f);
+  return p;
+}
+
+// Pack i of the spatial plane sp where the epilogue reads one, else zeros
+// (which no epilogue without s reads).
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ Pack<T, N> s_pack(const T* sp, int i) {
+  if constexpr (Epi::kSpatial) {
+    if (sp) return reinterpret_cast<const Pack<T, N>*>(sp)[i];
+  }
+  return zero_pack<T, N>();
+}
+
+// y and x_hat of one pack (ps: the spatial term's pack).
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ void norm_pack(const Epi& e,
+                                          const typename Epi::Plane& k,
+                                          const Pack<T, N>& p,
+                                          const Pack<T, N>& ps, float mean,
+                                          float rstd, Pack<T, N>& po,
+                                          Pack<T, N>& ph) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = __fmul_rn(__fsub_rn(to_f(p.v[i]), mean), rstd);
+    po.v[i] = from_f<T>(fmaxf(e.z(k, h, to_f(ps.v[i])), 0.0f));
+    ph.v[i] = from_f<T>(h);
+  }
+}
+
+// Running (s1, s2) = (sum gz, sum gz * x_hat) over one pack of g and x_hat,
+// gz = g where the epilogue keeps the element, else 0 (py: y's pack, read
+// only under Epi::kReadsY, where gz also replaces g in pg: g itself or 0,
+// exact in any dtype).
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ void grad_sum_pack(const Epi& e,
+                                              const typename Epi::Plane& k,
+                                              Pack<T, N>& pg,
+                                              const Pack<T, N>& ph,
+                                              const Pack<T, N>& py, float& s1,
+                                              float& s2) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = to_f(ph.v[i]);
+    float yv = 0.0f;
+    if constexpr (Epi::kReadsY) yv = to_f(py.v[i]);
+    const float gz = e.keep(k, h, yv) ? to_f(pg.v[i]) : 0.0f;
+    if constexpr (Epi::kReadsY) pg.v[i] = from_f<T>(gz);
+    s1 = __fadd_rn(s1, gz);
+    s2 = __fadd_rn(s2, __fmul_rn(gz, h));
+  }
+}
+
+// What dx of a plane needs besides g and x_hat.
+struct GradCoef {
+  float m1, m2, coef;
+};
+
+template <typename Epi>
+__device__ __forceinline__ GradCoef grad_coef(const Epi& e,
+                                              const typename Epi::Plane& k,
+                                              float rstd, float s1, float s2,
+                                              int hw) {
+  const float inv_hw = __fdiv_rn(1.0f, (float)hw);
+  return {__fmul_rn(s1, inv_hw), __fmul_rn(s2, inv_hw), e.coef(k, rstd)};
+}
+
+// dx = coef * ((gz - s1 / HW) - x_hat * s2 / HW) of one pack: under
+// Epi::kReadsY pg holds gz already, else the mask is taken again.
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ Pack<T, N> grad_pack(const Epi& e,
+                                                const typename Epi::Plane& k,
+                                                const GradCoef& c,
+                                                const Pack<T, N>& pg,
+                                                const Pack<T, N>& ph) {
+  Pack<T, N> out;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = to_f(ph.v[i]);
+    float gz = to_f(pg.v[i]);
+    if constexpr (!Epi::kReadsY) gz = e.keep(k, h, 0.0f) ? gz : 0.0f;
+    const float d = __fsub_rn(__fsub_rn(gz, c.m1), __fmul_rn(h, c.m2));
+    out.v[i] = from_f<T>(__fmul_rn(c.coef, d));
+  }
+  return out;
+}
+
+// ---- the forward's bodies: B2-fwd's paths, B3-fwd's under ModFwd ----------
+// xhat and rstd_out may be null (B3 under no-grad).
+
+// General path: one CTA per plane, x read twice.
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void fwd_general(const Epi& e,
+                                            const T* __restrict__ x,
+                                            T* __restrict__ y,
+                                            T* __restrict__ xhat,
+                                            float* __restrict__ rstd_out,
+                                            int hw, float eps) {
+  const int64_t plane = blockIdx.x;
+  const int64_t base = plane * hw;
+  const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
+  const T* sp = e.s_plane(plane, hw);
+  const int groups = hw / N;
+
+  float s = 0.0f, ss = 0.0f;
+  for (int i = threadIdx.x; i < groups; i += kThreads) add_pack(xp[i], s, ss);
+  block_sum2(s, ss);
+  float mean;
+  const float rstd = plane_rstd(s, ss, hw, eps, mean);
+  if (rstd_out && threadIdx.x == 0) rstd_out[plane] = rstd;
+  const typename Epi::Plane k = e.plane(plane);
+
+  Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
+  Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
+  for (int i = threadIdx.x; i < groups; i += kThreads) {
+    Pack<T, N> po, ph;
+    norm_pack(e, k, xp[i], s_pack<Epi, T, N>(sp, i), mean, rstd, po, ph);
+    yp[i] = po;
+    if (xhat) hp[i] = ph;
+  }
+}
+
+// Warp path: one warp per plane, the plane (and s) in registers, P packs a
+// lane.
+template <typename T, int P, typename Epi>
+__device__ __forceinline__ void fwd_warp(const Epi& e,
+                                         const T* __restrict__ x,
+                                         T* __restrict__ y,
+                                         T* __restrict__ xhat,
+                                         float* __restrict__ rstd_out,
+                                         int planes, int hw, float eps) {
+  constexpr int N = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+  const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
+  if (plane >= planes) return;
+  const int64_t base = plane * hw;
+  const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
+  const T* sp = e.s_plane(plane, hw);
+  const int groups = hw / N;
+
+  Pack<T, N> p[P], ps[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int j = lane + 32 * i;
+    p[i] = j < groups ? xp[j] : zero_pack<T, N>();
+    ps[i] = j < groups ? s_pack<Epi, T, N>(sp, j) : zero_pack<T, N>();
+  }
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) add_pack(p[i], s, ss);
+  warp_sum2(s, ss);
+  float mean;
+  const float rstd = plane_rstd(s, ss, hw, eps, mean);
+  if (rstd_out && lane == 0) rstd_out[plane] = rstd;
+  const typename Epi::Plane k = e.plane(plane);
+
+  Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
+  Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int j = lane + 32 * i;
+    if (j < groups) {
+      Pack<T, N> po, ph;
+      norm_pack(e, k, p[i], ps[i], mean, rstd, po, ph);
+      yp[j] = po;
+      if (xhat) hp[j] = ph;
+    }
+  }
+}
+
+// Staged path: a cluster of `cs` CTAs per plane, CTA `rank` holding chunk
+// `rank` (hw / cs elements) of x in shared memory; s, where the epilogue
+// has one, is read from device memory as each element is normalized.
+template <typename T, typename Epi>
+__device__ __forceinline__ void fwd_staged(const Epi& e,
+                                           const T* __restrict__ x,
+                                           T* __restrict__ y,
+                                           T* __restrict__ xhat,
+                                           float* __restrict__ rstd_out,
+                                           int hw, int cs, float eps) {
   constexpr int N = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t full;
@@ -362,11 +582,12 @@ __global__ void __launch_bounds__(kThreads)
 
   const int rank = (int)(blockIdx.x % cs);
   const int64_t plane = blockIdx.x / cs;
-  const int c = (int)(plane % channels);
   const int chunk = hw / cs;
   const int64_t base = plane * hw + (int64_t)rank * chunk;
   const uint32_t bytes = (uint32_t)chunk * sizeof(T);
   const uint32_t bar = smem_addr(&full);
+  const T* sp = e.s_plane(plane, hw);
+  if (sp) sp += (int64_t)rank * chunk;
 
   if (threadIdx.x == 0) {
     stage_begin(bar, bytes);
@@ -375,139 +596,122 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();                       // the barrier is initialised
   stage_wait(bar);
 
-  const Pack<T, N>* sp = reinterpret_cast<const Pack<T, N>*>(stage);
+  const Pack<T, N>* xs = reinterpret_cast<const Pack<T, N>*>(stage);
   const int groups = chunk / N;
   float s = 0.0f, ss = 0.0f;
-  for (int i = threadIdx.x; i < groups; i += kThreads) add_pack(sp[i], s, ss);
+  for (int i = threadIdx.x; i < groups; i += kThreads) add_pack(xs[i], s, ss);
   block_sum2(s, ss);
   if (cs > 1) cluster_sum2(s, ss, partial, cs);
   float mean;
   const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (rank == 0 && threadIdx.x == 0) rstd_out[plane] = rstd;
-  const float gm = gamma[c], bt = beta[c];
+  if (rstd_out && rank == 0 && threadIdx.x == 0) rstd_out[plane] = rstd;
+  const typename Epi::Plane k = e.plane(plane);
 
   Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
   Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
-  for (int i = threadIdx.x; i < groups; i += kThreads) {
+  auto out = [&](int i) {
     Pack<T, N> po, ph;
-    norm_pack(sp[i], mean, rstd, gm, bt, po, ph);
+    norm_pack(e, k, xs[i], s_pack<Epi, T, N>(sp, i), mean, rstd, po, ph);
     yp[i] = po;
-    hp[i] = ph;
+    if (xhat) hp[i] = ph;
+  };
+  if constexpr (Epi::kSpatial) {
+#pragma unroll 4                         // s's loads in flight together
+    for (int i = threadIdx.x; i < groups; i += kThreads) out(i);
+  } else {
+    for (int i = threadIdx.x; i < groups; i += kThreads) out(i);
   }
   if (cs > 1) cluster_leave();
 }
 
-// ---- backward: the same per-element arithmetic on every path -------------
+// ---- the backward's bodies: B2f, B2a, B2b; B3-bwd's under ModBwd -----------
+// y and ds are read and written only under Epi::kReadsY (ds may be null
+// there: s takes no gradient).
 
-// Running (s1, s2) = (sum gz, sum gz * x_hat) over one pack of g and x_hat,
-// gz = g * [x_hat * gamma + beta > 0].
-template <typename T, int N>
-__device__ __forceinline__ void add_grad_pack(const Pack<T, N>& pg,
-                                              const Pack<T, N>& ph, float gm,
-                                              float bt, float& s1, float& s2) {
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const float h = to_f(ph.v[k]);
-    const float z = __fadd_rn(__fmul_rn(h, gm), bt);
-    const float gz = z > 0.0f ? to_f(pg.v[k]) : 0.0f;
-    s1 = __fadd_rn(s1, gz);
-    s2 = __fadd_rn(s2, __fmul_rn(gz, h));
-  }
+// Pack i of y where the epilogue reads y, else of x_hat (which it ignores).
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ const Pack<T, N>& y_pack(const Pack<T, N>* yp,
+                                                    const Pack<T, N>* hp,
+                                                    int64_t i) {
+  if constexpr (Epi::kReadsY) return yp[i];
+  return hp[i];
 }
 
-// What dx of a plane needs besides g and x_hat.
-struct GradCoef {
-  float gm, bt, m1, m2, coef;
-};
-
-__device__ __forceinline__ GradCoef grad_coef(float gm, float bt, float rstd,
-                                              float s1, float s2, int hw) {
-  const float inv_hw = __fdiv_rn(1.0f, (float)hw);
-  return {gm, bt, __fmul_rn(s1, inv_hw), __fmul_rn(s2, inv_hw),
-          __fmul_rn(gm, rstd)};
-}
-
-// dx = (gamma * rstd) * ((gz - s1 / HW) - x_hat * s2 / HW) of one pack.
-template <typename T, int N>
-__device__ __forceinline__ Pack<T, N> grad_pack(const Pack<T, N>& pg,
-                                                const Pack<T, N>& ph,
-                                                const GradCoef& k) {
-  Pack<T, N> out;
-#pragma unroll
-  for (int e = 0; e < N; ++e) {
-    const float h = to_f(ph.v[e]);
-    const float z = __fadd_rn(__fmul_rn(h, k.gm), k.bt);
-    const float gz = z > 0.0f ? to_f(pg.v[e]) : 0.0f;
-    const float d = __fsub_rn(__fsub_rn(gz, k.m1), __fmul_rn(h, k.m2));
-    out.v[e] = from_f<T>(__fmul_rn(k.coef, d));
-  }
-  return out;
-}
-
-// B2f, fused warp path: one warp per plane, g and x_hat in registers (P
-// packs of each a lane).
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_warp_kernel(const T* __restrict__ g,
-                            const T* __restrict__ xhat,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta,
-                            const float* __restrict__ rstd,
-                            T* __restrict__ dx, float* __restrict__ s1_out,
-                            float* __restrict__ s2_out, int planes,
-                            int channels, int hw) {
+// Fused warp path: one warp per plane, g and x_hat (and y) in registers, P
+// packs of each a lane.
+template <typename T, int P, typename Epi>
+__device__ __forceinline__ void bwd_warp(const Epi& e, const T* __restrict__ g,
+                                         const T* __restrict__ y,
+                                         const T* __restrict__ xhat,
+                                         const float* __restrict__ rstd,
+                                         T* __restrict__ dx,
+                                         T* __restrict__ ds,
+                                         float* __restrict__ s1_out,
+                                         float* __restrict__ s2_out,
+                                         int planes, int hw) {
   constexpr int N = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
   const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
   if (plane >= planes) return;
-  const int c = (int)(plane % channels);
   const int64_t base = plane * hw;
   const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
+  const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
   const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
+  Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
   const int groups = hw / N;
-  const float gm = gamma[c], bt = beta[c];
+  const typename Epi::Plane k = e.plane(plane);
 
-  Pack<T, N> pg[P], ph[P];
+  Pack<T, N> pg[P], ph[P], py[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int j = lane + 32 * i;
     if (j < groups) {
       pg[i] = gp[j];
       ph[i] = hp[j];
+      if constexpr (Epi::kReadsY) py[i] = yp[j];
     }
   }
   float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < P; ++i)
-    if (lane + 32 * i < groups) add_grad_pack(pg[i], ph[i], gm, bt, s1, s2);
+  for (int i = 0; i < P; ++i) {
+    const int j = lane + 32 * i;
+    if (j < groups) {
+      grad_sum_pack(e, k, pg[i], ph[i], Epi::kReadsY ? py[i] : ph[i], s1, s2);
+      if constexpr (Epi::kReadsY)
+        if (ds) sp[j] = pg[i];
+    }
+  }
   warp_sum2(s1, s2);
   if (lane == 0) {
     s1_out[plane] = s1;
     s2_out[plane] = s2;
   }
-  const GradCoef k = grad_coef(gm, bt, rstd[plane], s1, s2, hw);
+  const GradCoef c = grad_coef(e, k, rstd[plane], s1, s2, hw);
   Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int j = lane + 32 * i;
-    if (j < groups) dp[j] = grad_pack(pg[i], ph[i], k);
+    if (j < groups) dp[j] = grad_pack(e, k, c, pg[i], ph[i]);
   }
 }
 
-// B2f, fused staged path: a cluster of `cs` CTAs per plane; CTA `rank`
-// holds chunk `rank` (hw / cs elements) of g, then of x_hat, in shared
-// memory.  The chunk lands in kStageParts parts, each on its own mbarrier,
-// so the sums start on the first part while the others arrive.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_staged_kernel(const T* __restrict__ g,
-                              const T* __restrict__ xhat,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              const float* __restrict__ rstd,
-                              T* __restrict__ dx, float* __restrict__ s1_out,
-                              float* __restrict__ s2_out, int channels,
-                              int hw, int cs) {
+// Fused staged path: a cluster of `cs` CTAs per plane; CTA `rank` holds
+// chunk `rank` (hw / cs elements) of g, then of x_hat, in shared memory.
+// The chunk lands in kStageParts parts, each on its own mbarrier, so the
+// sums start on the first part while the others arrive.  y, where the
+// epilogue reads it, comes from device memory in the first pass, which
+// leaves g_m in g's place for the second.
+template <typename T, typename Epi>
+__device__ __forceinline__ void bwd_staged(const Epi& e,
+                                           const T* __restrict__ g,
+                                           const T* __restrict__ y,
+                                           const T* __restrict__ xhat,
+                                           const float* __restrict__ rstd,
+                                           T* __restrict__ dx,
+                                           T* __restrict__ ds,
+                                           float* __restrict__ s1_out,
+                                           float* __restrict__ s2_out, int hw,
+                                           int cs) {
   constexpr int N = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t full[kStageParts];
@@ -515,7 +719,6 @@ __global__ void __launch_bounds__(kThreads)
 
   const int rank = (int)(blockIdx.x % cs);
   const int64_t plane = blockIdx.x / cs;
-  const int c = (int)(plane % channels);
   const int chunk = hw / cs;
   const int64_t base = plane * hw + (int64_t)rank * chunk;
   const uint32_t bytes = (uint32_t)chunk * sizeof(T);
@@ -537,55 +740,70 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();                       // the barriers are initialised
 
-  const Pack<T, N>* sg = reinterpret_cast<const Pack<T, N>*>(stage);
+  Pack<T, N>* sg = reinterpret_cast<Pack<T, N>*>(stage);
   const Pack<T, N>* sh = reinterpret_cast<const Pack<T, N>*>(stage + bytes);
-  const float gm = gamma[c], bt = beta[c];
+  const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
+  Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
+  const typename Epi::Plane k = e.plane(plane);
   float s1 = 0.0f, s2 = 0.0f;
   for (int p = 0; p < kStageParts; ++p) {
     const int lo = p * per, hi = min(groups, lo + per);
     if (hi <= lo) continue;
     stage_wait(smem_addr(&full[p]));
-    for (int i = lo + threadIdx.x; i < hi; i += kThreads)
-      add_grad_pack(sg[i], sh[i], gm, bt, s1, s2);
+    if constexpr (Epi::kReadsY) {
+#pragma unroll 4                         // y's loads in flight together
+      for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+        Pack<T, N> pg = sg[i];
+        grad_sum_pack(e, k, pg, sh[i], yp[i], s1, s2);
+        sg[i] = pg;
+        if (ds) sp[i] = pg;
+      }
+    } else {
+      for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+        Pack<T, N> pg = sg[i];
+        grad_sum_pack(e, k, pg, sh[i], sh[i], s1, s2);
+      }
+    }
   }
-  block_sum2(s1, s2);
+  block_sum2(s1, s2);                    // its barrier also publishes sg
   if (cs > 1) cluster_sum2(s1, s2, partial, cs);
   if (rank == 0 && threadIdx.x == 0) {
     s1_out[plane] = s1;
     s2_out[plane] = s2;
   }
-  const GradCoef k = grad_coef(gm, bt, rstd[plane], s1, s2, hw);
+  const GradCoef c = grad_coef(e, k, rstd[plane], s1, s2, hw);
   Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
   for (int i = threadIdx.x; i < groups; i += kThreads)
-    dp[i] = grad_pack(sg[i], sh[i], k);
+    dp[i] = grad_pack(e, k, c, sg[i], sh[i]);
   if (cs > 1) cluster_leave();
 }
 
-// B2a (split path), first pass: CTA (split, plane) sums elements [split *
-// chunk, min(hw, (split + 1) * chunk)) of the plane into o1 / o2 at (plane *
+// Split path, first pass: CTA (split, plane) sums elements [split * chunk,
+// min(hw, (split + 1) * chunk)) of the plane into o1 / o2 at (plane *
 // splits + split) * ostride: s1 / s2 themselves when splits == 1, else the
-// interleaved partials of B2s's combine pass.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_stats_kernel(const T* __restrict__ g,
-                             const T* __restrict__ xhat,
-                             const float* __restrict__ gamma,
-                             const float* __restrict__ beta,
-                             float* __restrict__ o1, float* __restrict__ o2,
-                             int ostride, int planes, int channels, int hw,
-                             int splits, int chunk) {
+// interleaved partials of the combine pass.
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void bwd_stats(const Epi& e,
+                                          const T* __restrict__ g,
+                                          const T* __restrict__ y,
+                                          const T* __restrict__ xhat,
+                                          float* __restrict__ o1,
+                                          float* __restrict__ o2, int ostride,
+                                          int planes, int hw, int splits,
+                                          int chunk) {
   const int lo = blockIdx.x * chunk;
   const int n = min(hw - lo, chunk) / N;
   for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
-    const int c = (int)(plane % channels);
-    const float gm = gamma[c], bt = beta[c];
-    const Pack<T, N>* gp =
-        reinterpret_cast<const Pack<T, N>*>(g + plane * hw + lo);
-    const Pack<T, N>* hp =
-        reinterpret_cast<const Pack<T, N>*>(xhat + plane * hw + lo);
+    const typename Epi::Plane k = e.plane(plane);
+    const int64_t base = plane * hw + lo;
+    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
+    const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
+    const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      add_grad_pack(gp[i], hp[i], gm, bt, s1, s2);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      Pack<T, N> pg = gp[i];
+      grad_sum_pack(e, k, pg, hp[i], y_pack<Epi>(yp, hp, i), s1, s2);
+    }
     block_sum2(s1, s2);
     if (threadIdx.x == 0) {
       const int64_t o = (plane * splits + blockIdx.x) * ostride;
@@ -596,8 +814,126 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B2b (split path): CTA (x, y) writes dx of packs x * kThreads + t (stride
-// gridDim.x * kThreads) of planes y, y + gridDim.y, ...
+// Split path, apply: CTA (x, y) writes dx (and ds) of packs x * kThreads + t
+// (stride gridDim.x * kThreads) of planes y, y + gridDim.y, ...
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void bwd_apply(const Epi& e,
+                                          const T* __restrict__ g,
+                                          const T* __restrict__ y,
+                                          const T* __restrict__ xhat,
+                                          const float* __restrict__ rstd,
+                                          const float* __restrict__ s1,
+                                          const float* __restrict__ s2,
+                                          T* __restrict__ dx,
+                                          T* __restrict__ ds, int planes,
+                                          int hw) {
+  const int groups = hw / N;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const typename Epi::Plane k = e.plane(plane);
+    const GradCoef c = grad_coef(e, k, rstd[plane], s1[plane], s2[plane], hw);
+    const int64_t base = plane * hw;
+    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
+    const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
+    const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
+    Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
+    Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
+         i += gridDim.x * kThreads) {
+      Pack<T, N> pg = gp[i];
+      const Pack<T, N> ph = hp[i];
+      if constexpr (Epi::kReadsY) {
+        float u = 0.0f, v = 0.0f;        // the sums are the first pass's
+        grad_sum_pack(e, k, pg, ph, yp[i], u, v);
+        if (ds) sp[i] = pg;
+      }
+      dp[i] = grad_pack(e, k, c, pg, ph);
+    }
+  }
+}
+
+// ---- B2's kernels ----------------------------------------------------------
+
+// B2-fwd, general path: one CTA per plane, x read twice.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, T* __restrict__ y,
+                       T* __restrict__ xhat, float* __restrict__ rstd_out,
+                       int channels, int hw, float eps) {
+  fwd_general<T, N>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat,
+                    rstd_out, hw, eps);
+}
+
+// B2-fwd, warp path.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_warp_kernel(const T* __restrict__ x,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta, T* __restrict__ y,
+                            T* __restrict__ xhat, float* __restrict__ rstd_out,
+                            int planes, int channels, int hw, float eps) {
+  fwd_warp<T, P>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat, rstd_out,
+                 planes, hw, eps);
+}
+
+// B2-fwd, staged path.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_staged_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              T* __restrict__ y, T* __restrict__ xhat,
+                              float* __restrict__ rstd_out, int channels,
+                              int hw, int cs, float eps) {
+  fwd_staged<T>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat, rstd_out,
+                hw, cs, eps);
+}
+
+// B2f, fused warp path.
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_warp_kernel(const T* __restrict__ g,
+                            const T* __restrict__ xhat,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            const float* __restrict__ rstd,
+                            T* __restrict__ dx, float* __restrict__ s1_out,
+                            float* __restrict__ s2_out, int planes,
+                            int channels, int hw) {
+  bwd_warp<T, P>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd,
+                 dx, nullptr, s1_out, s2_out, planes, hw);
+}
+
+// B2f, fused staged path.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_staged_kernel(const T* __restrict__ g,
+                              const T* __restrict__ xhat,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dx, float* __restrict__ s1_out,
+                              float* __restrict__ s2_out, int channels,
+                              int hw, int cs) {
+  bwd_staged<T>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd, dx,
+                nullptr, s1_out, s2_out, hw, cs);
+}
+
+// B2a (split path), first pass.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_stats_kernel(const T* __restrict__ g,
+                             const T* __restrict__ xhat,
+                             const float* __restrict__ gamma,
+                             const float* __restrict__ beta,
+                             float* __restrict__ o1, float* __restrict__ o2,
+                             int ostride, int planes, int channels, int hw,
+                             int splits, int chunk) {
+  bwd_stats<T, N>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, o1, o2,
+                  ostride, planes, hw, splits, chunk);
+}
+
+// B2b (split path).
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
     in_relu_bwd_apply_kernel(const T* __restrict__ g,
@@ -609,19 +945,8 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ s2,
                              T* __restrict__ dx, int planes, int channels,
                              int hw) {
-  const int groups = hw / N;
-  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
-    const int c = (int)(plane % channels);
-    const GradCoef k =
-        grad_coef(gamma[c], beta[c], rstd[plane], s1[plane], s2[plane], hw);
-    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + plane * hw);
-    const Pack<T, N>* hp =
-        reinterpret_cast<const Pack<T, N>*>(xhat + plane * hw);
-    Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + plane * hw);
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
-         i += gridDim.x * kThreads)
-      dp[i] = grad_pack(gp[i], hp[i], k);
-  }
+  bwd_apply<T, N>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd,
+                  s1, s2, dx, nullptr, planes, hw);
 }
 
 // B2s, first pass: CTA (split, plane) sums elements [split * chunk,
@@ -647,13 +972,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// B2s and B2a, second pass: the interleaved partials of each plane's
-// splits added in split order, into o1 / o2 at plane * ostride.
-__global__ void __launch_bounds__(kThreads)
-    in_relu_partial_combine_kernel(const float* __restrict__ part,
-                                   float* __restrict__ o1,
-                                   float* __restrict__ o2, int ostride,
-                                   int planes, int splits) {
+// The interleaved partials of each plane's splits added in split order,
+// into o1 / o2 at plane * ostride (one thread a plane).
+__device__ __forceinline__ void combine_partials(const float* __restrict__ part,
+                                                 float* __restrict__ o1,
+                                                 float* __restrict__ o2,
+                                                 int ostride, int planes,
+                                                 int splits) {
   const int64_t plane = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (plane >= planes) return;
   const float* p = part + 2 * plane * splits;
@@ -664,6 +989,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   o1[plane * ostride] = s;
   o2[plane * ostride] = ss;
+}
+
+// B2s and B2a, second pass.
+__global__ void __launch_bounds__(kThreads)
+    in_relu_partial_combine_kernel(const float* __restrict__ part,
+                                   float* __restrict__ o1,
+                                   float* __restrict__ o2, int ostride,
+                                   int planes, int splits) {
+  combine_partials(part, o1, o2, ostride, planes, splits);
 }
 
 // B2y: CTA (x, y) normalizes packs x * kThreads + t (stride gridDim.x *
@@ -697,6 +1031,91 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- B3's kernels: B2's bodies under ModFwd and ModBwd ----------------------
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_fwd_kernel(ModFwd<T> e, const T* __restrict__ x,
+                            T* __restrict__ y, T* __restrict__ xhat,
+                            float* __restrict__ rstd_out, int hw, float eps) {
+  fwd_general<T, N>(e, x, y, xhat, rstd_out, hw, eps);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_fwd_warp_kernel(ModFwd<T> e, const T* __restrict__ x,
+                                 T* __restrict__ y, T* __restrict__ xhat,
+                                 float* __restrict__ rstd_out, int planes,
+                                 int hw, float eps) {
+  fwd_warp<T, P>(e, x, y, xhat, rstd_out, planes, hw, eps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_fwd_staged_kernel(ModFwd<T> e, const T* __restrict__ x,
+                                   T* __restrict__ y, T* __restrict__ xhat,
+                                   float* __restrict__ rstd_out, int hw,
+                                   int cs, float eps) {
+  fwd_staged<T>(e, x, y, xhat, rstd_out, hw, cs, eps);
+}
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_bwd_warp_kernel(ModBwd e, const T* __restrict__ g,
+                                 const T* __restrict__ y,
+                                 const T* __restrict__ xhat,
+                                 const float* __restrict__ rstd,
+                                 T* __restrict__ dx, T* __restrict__ ds,
+                                 float* __restrict__ a_out,
+                                 float* __restrict__ b_out, int planes,
+                                 int hw) {
+  bwd_warp<T, P>(e, g, y, xhat, rstd, dx, ds, a_out, b_out, planes, hw);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_bwd_staged_kernel(ModBwd e, const T* __restrict__ g,
+                                   const T* __restrict__ y,
+                                   const T* __restrict__ xhat,
+                                   const float* __restrict__ rstd,
+                                   T* __restrict__ dx, T* __restrict__ ds,
+                                   float* __restrict__ a_out,
+                                   float* __restrict__ b_out, int hw, int cs) {
+  bwd_staged<T>(e, g, y, xhat, rstd, dx, ds, a_out, b_out, hw, cs);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_bwd_stats_kernel(ModBwd e, const T* __restrict__ g,
+                                  const T* __restrict__ y,
+                                  const T* __restrict__ xhat,
+                                  float* __restrict__ o1,
+                                  float* __restrict__ o2, int ostride,
+                                  int planes, int hw, int splits, int chunk) {
+  bwd_stats<T, N>(e, g, y, xhat, o1, o2, ostride, planes, hw, splits, chunk);
+}
+
+// the split sums' second pass under B3's name
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_combine_kernel(const float* __restrict__ part,
+                                float* __restrict__ o1, float* __restrict__ o2,
+                                int ostride, int planes, int splits) {
+  combine_partials(part, o1, o2, ostride, planes, splits);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_bwd_apply_kernel(ModBwd e, const T* __restrict__ g,
+                                  const T* __restrict__ y,
+                                  const T* __restrict__ xhat,
+                                  const float* __restrict__ rstd,
+                                  const float* __restrict__ a,
+                                  const float* __restrict__ b,
+                                  T* __restrict__ dx, T* __restrict__ ds,
+                                  int planes, int hw) {
+  bwd_apply<T, N>(e, g, y, xhat, rstd, a, b, dx, ds, planes, hw);
+}
+
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kMaxGridY = 65535;
@@ -710,16 +1129,6 @@ bool vec_ok(int hw, const void* const* ptrs, int n) {
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
   return true;
-}
-
-template <typename T, int P>
-int launch_warp(const T* x, const float* gm, const float* bt, T* y, T* xh,
-                float* rstd, int planes, int channels, int hw, float eps,
-                cudaStream_t st) {
-  const unsigned grid = (unsigned)((planes + kWarps - 1) / kWarps);
-  in_relu_fwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
-      x, gm, bt, y, xh, rstd, planes, channels, hw, eps);
-  return (int)cudaGetLastError();
 }
 
 // Launch `kernel` on `grid` CTAs in clusters of `cs` (no cluster attribute
@@ -752,160 +1161,265 @@ int launch_clustered(void (*kernel)(KArgs...), bool& smem_set, int max_smem,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_staged(const T* x, const float* gm, const float* bt, T* y, T* xh,
-                  float* rstd, int planes, int channels, int hw, int cs,
-                  int smem, float eps, cudaStream_t st) {
-  static bool smem_set = false;                 // once per dtype
-  return launch_clustered(in_relu_fwd_staged_kernel<T>, smem_set,
-                          kMaxStageBytes, (int64_t)planes * cs, cs, smem, st,
-                          x, gm, bt, y, xh, rstd, channels, hw, cs, eps);
-}
+// ---- launches: one launcher a direction, for B2's kernels and B3's ---------
+//
+// A family F (B2's or B3's) holds a launch's operands and gives each path's
+// kernel: warp<P>, staged, general<N> forward; warp<P>, staged, stats<N>,
+// combine, apply<N> backward.  The launchers check the plan (ops/kernels:
+// in_relu_fwd_plan, in_relu_bwd_plan) against the operands and refuse one
+// that does not fit.
 
-template <typename T>
-int launch_fwd(const void* xv, const float* gm, const float* bt, void* yv,
-               void* xhv, float* rstd, int planes, int channels, int hw,
-               float eps, int path, int packs, int cs, int smem,
+template <typename Tp>
+struct InReluFwdLaunch {
+  using T = Tp;
+  const T* x;
+  const float* gamma;
+  const float* beta;
+  T* y;
+  T* xh;
+  float* rstd;
+  int planes, channels, hw;
+  float eps;
+  template <int P>
+  void warp(unsigned grid, cudaStream_t st) const {
+    in_relu_fwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        x, gamma, beta, y, xh, rstd, planes, channels, hw, eps);
+  }
+  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
+    static bool smem_set = false;               // once per dtype
+    return launch_clustered(in_relu_fwd_staged_kernel<T>, smem_set,
+                            kMaxStageBytes, grid, cs, smem, st, x, gamma,
+                            beta, y, xh, rstd, channels, hw, cs, eps);
+  }
+  template <int N>
+  void general(cudaStream_t st) const {
+    in_relu_fwd_kernel<T, N><<<planes, kThreads, 0, st>>>(
+        x, gamma, beta, y, xh, rstd, channels, hw, eps);
+  }
+};
+
+template <typename Tp>
+struct ModnormFwdLaunch {
+  using T = Tp;
+  ModFwd<T> e;
+  const T* x;
+  T* y;
+  T* xh;
+  float* rstd;
+  int planes, hw;
+  float eps;
+  template <int P>
+  void warp(unsigned grid, cudaStream_t st) const {
+    modnorm_relu_fwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, x, y, xh, rstd, planes, hw, eps);
+  }
+  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
+    static bool smem_set = false;               // once per dtype
+    return launch_clustered(modnorm_relu_fwd_staged_kernel<T>, smem_set,
+                            kMaxStageBytes, grid, cs, smem, st, e, x, y, xh,
+                            rstd, hw, cs, eps);
+  }
+  template <int N>
+  void general(cudaStream_t st) const {
+    modnorm_relu_fwd_kernel<T, N><<<planes, kThreads, 0, st>>>(
+        e, x, y, xh, rstd, hw, eps);
+  }
+};
+
+// The forward under in_relu_fwd_plan's plan: `path` 0 general, 1 warp with
+// `packs` 16-byte packs a lane (eight planes a CTA), 2 staged on clusters of
+// `cs` CTAs with `smem` bytes of dynamic shared memory each; `vec`: every
+// operand's planes start 16-byte aligned.
+template <typename F>
+int launch_fwd(const F& f, bool vec, int path, int packs, int cs, int smem,
                cudaStream_t st) {
+  using T = typename F::T;
   constexpr int N = 16 / sizeof(T);
-  const T* x = (const T*)xv;
-  T* y = (T*)yv;
-  T* xh = (T*)xhv;
-  const void* ptrs[] = {xv, yv, xhv};
-  const bool vec = vec_ok<T>(hw, ptrs, 3);
-  const int bad = (int)cudaErrorInvalidValue;
+  const int hw = f.hw, bad = (int)cudaErrorInvalidValue;
   if (path == kPathWarp) {
     if (!vec || (int64_t)packs * 32 * N < hw) return bad;
-#define IN_RELU_WARP(P) \
-  launch_warp<T, P>(x, gm, bt, y, xh, rstd, planes, channels, hw, eps, st)
+    const unsigned grid = (unsigned)((f.planes + kWarps - 1) / kWarps);
     switch (packs) {
-      case 1: return IN_RELU_WARP(1);
-      case 2: return IN_RELU_WARP(2);
-      case 4: return IN_RELU_WARP(4);
-      case kMaxWarpPacks: return IN_RELU_WARP(kMaxWarpPacks);
+      case 1: f.template warp<1>(grid, st); break;
+      case 2: f.template warp<2>(grid, st); break;
+      case 4: f.template warp<4>(grid, st); break;
+      case kMaxWarpPacks: f.template warp<kMaxWarpPacks>(grid, st); break;
       default: return bad;
     }
-#undef IN_RELU_WARP
+    return (int)cudaGetLastError();
   }
   if (path == kPathStaged) {
     if (!vec || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
         hw % (cs * N) || smem != (int)((int64_t)hw / cs * sizeof(T)) ||
         smem > kMaxStageBytes)
       return bad;
-    return launch_staged<T>(x, gm, bt, y, xh, rstd, planes, channels, hw, cs,
-                            smem, eps, st);
+    return f.staged((int64_t)f.planes * cs, cs, smem, st);
   }
   if (path != kPathGeneral) return bad;
   if (vec)
-    in_relu_fwd_kernel<T, N><<<planes, kThreads, 0, st>>>(
-        x, gm, bt, y, xh, rstd, channels, hw, eps);
+    f.template general<N>(st);
   else
-    in_relu_fwd_kernel<T, 1><<<planes, kThreads, 0, st>>>(
-        x, gm, bt, y, xh, rstd, channels, hw, eps);
+    f.template general<1>(st);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int P>
-int launch_bwd_warp(const T* g, const T* xh, const float* gm, const float* bt,
-                    const float* rstd, T* dx, float* s1, float* s2,
-                    int planes, int channels, int hw, cudaStream_t st) {
-  const unsigned grid = (unsigned)((planes + kWarps - 1) / kWarps);
-  in_relu_bwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
-      g, xh, gm, bt, rstd, dx, s1, s2, planes, channels, hw);
-  return (int)cudaGetLastError();
-}
+template <typename Tp>
+struct InReluBwdLaunch {
+  using T = Tp;
+  const T* g;
+  const T* xh;
+  const float* gamma;
+  const float* beta;
+  const float* rstd;
+  T* dx;
+  float* s1;
+  float* s2;
+  int planes, channels, hw;
+  template <int P>
+  void warp(unsigned grid, cudaStream_t st) const {
+    in_relu_bwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        g, xh, gamma, beta, rstd, dx, s1, s2, planes, channels, hw);
+  }
+  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
+    static bool smem_set = false;               // once per dtype
+    return launch_clustered(in_relu_bwd_staged_kernel<T>, smem_set,
+                            kMaxBwdStageBytes, grid, cs, smem, st, g, xh,
+                            gamma, beta, rstd, dx, s1, s2, channels, hw, cs);
+  }
+  template <int N>
+  void stats(dim3 grid, float* o1, float* o2, int ostride, int splits,
+             int chunk, cudaStream_t st) const {
+    in_relu_bwd_stats_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        g, xh, gamma, beta, o1, o2, ostride, planes, channels, hw, splits,
+        chunk);
+  }
+  void combine(const float* part, int splits, cudaStream_t st) const {
+    in_relu_partial_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
+                                                kThreads),
+                                     kThreads, 0, st>>>(part, s1, s2, 1,
+                                                        planes, splits);
+  }
+  template <int N>
+  void apply(dim3 grid, cudaStream_t st) const {
+    in_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        g, xh, gamma, beta, rstd, s1, s2, dx, planes, channels, hw);
+  }
+};
 
-template <typename T>
-int launch_bwd(const void* gv, const void* xhv, const float* gm,
-               const float* bt, const float* rstd, void* dxv, float* s1,
-               float* s2, int planes, int channels, int hw, int path,
-               int packs, int cs, int smem, cudaStream_t st) {
+template <typename Tp>
+struct ModnormBwdLaunch {
+  using T = Tp;
+  ModBwd e;
+  const T* g;
+  const T* y;
+  const T* xh;
+  const float* rstd;
+  T* dx;
+  T* ds;
+  float* s1;
+  float* s2;
+  int planes, hw;
+  template <int P>
+  void warp(unsigned grid, cudaStream_t st) const {
+    modnorm_relu_bwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, g, y, xh, rstd, dx, ds, s1, s2, planes, hw);
+  }
+  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
+    static bool smem_set = false;               // once per dtype
+    return launch_clustered(modnorm_relu_bwd_staged_kernel<T>, smem_set,
+                            kMaxBwdStageBytes, grid, cs, smem, st, e, g, y,
+                            xh, rstd, dx, ds, s1, s2, hw, cs);
+  }
+  template <int N>
+  void stats(dim3 grid, float* o1, float* o2, int ostride, int splits,
+             int chunk, cudaStream_t st) const {
+    modnorm_relu_bwd_stats_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        e, g, y, xh, o1, o2, ostride, planes, hw, splits, chunk);
+  }
+  void combine(const float* part, int splits, cudaStream_t st) const {
+    modnorm_relu_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
+                                             kThreads),
+                                  kThreads, 0, st>>>(part, s1, s2, 1, planes,
+                                                     splits);
+  }
+  template <int N>
+  void apply(dim3 grid, cudaStream_t st) const {
+    modnorm_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
+        e, g, y, xh, rstd, s1, s2, dx, ds, planes, hw);
+  }
+};
+
+// The fused backward under in_relu_bwd_plan's plan: `path` 1 warp with
+// `packs` 16-byte packs a lane (eight planes a CTA), 2 staged on clusters of
+// `cs` CTAs with `smem` bytes (the g + x_hat chunks) each; the split path
+// is launch_bwd_sums and launch_bwd_apply.
+template <typename F>
+int launch_bwd_fused(const F& f, bool vec, int path, int packs, int cs,
+                     int smem, cudaStream_t st) {
+  using T = typename F::T;
   constexpr int N = 16 / sizeof(T);
-  const T* g = (const T*)gv;
-  const T* xh = (const T*)xhv;
-  T* dx = (T*)dxv;
-  const void* ptrs[] = {gv, xhv, dxv};
-  const bool vec = vec_ok<T>(hw, ptrs, 3);
-  const int bad = (int)cudaErrorInvalidValue;
+  const int hw = f.hw, bad = (int)cudaErrorInvalidValue;
   if (path == kPathWarp) {
     if (!vec || (int64_t)packs * 32 * N < hw) return bad;
-#define IN_RELU_BWD_WARP(P)                                                 \
-  launch_bwd_warp<T, P>(g, xh, gm, bt, rstd, dx, s1, s2, planes, channels, \
-                        hw, st)
+    const unsigned grid = (unsigned)((f.planes + kWarps - 1) / kWarps);
     switch (packs) {
-      case 1: return IN_RELU_BWD_WARP(1);
-      case 2: return IN_RELU_BWD_WARP(2);
-      case 4: return IN_RELU_BWD_WARP(4);
-      case kMaxWarpPacks: return IN_RELU_BWD_WARP(kMaxWarpPacks);
+      case 1: f.template warp<1>(grid, st); break;
+      case 2: f.template warp<2>(grid, st); break;
+      case 4: f.template warp<4>(grid, st); break;
+      case kMaxWarpPacks: f.template warp<kMaxWarpPacks>(grid, st); break;
       default: return bad;
     }
-#undef IN_RELU_BWD_WARP
+    return (int)cudaGetLastError();
   }
   if (path == kPathStaged) {
     if (!vec || cs < 1 || cs > kMaxCluster || (cs & (cs - 1)) ||
         hw % (cs * N) || smem != (int)((int64_t)hw / cs * 2 * sizeof(T)) ||
         smem > kMaxBwdStageBytes)
       return bad;
-    static bool smem_set = false;               // once per dtype
-    return launch_clustered(in_relu_bwd_staged_kernel<T>, smem_set,
-                            kMaxBwdStageBytes, (int64_t)planes * cs, cs, smem,
-                            st, g, xh, gm, bt, rstd, dx, s1, s2, channels, hw,
-                            cs);
+    return f.staged((int64_t)f.planes * cs, cs, smem, st);
   }
-  return bad;                // the split path is B2a + B2b, not this kernel
+  return bad;
 }
 
-template <typename T>
-int launch_stats(const void* g, const void* xh, const float* gm,
-                 const float* bt, float* part, float* s1, float* s2,
-                 int planes, int channels, int hw, int splits, int chunk,
-                 cudaStream_t st) {
+// The split path's sums into f.s1, f.s2 [planes]: each plane covered by
+// `splits` CTAs of `chunk` elements; with splits > 1 they write `part`
+// [planes, splits, 2] and F's combine pass adds it in split order.
+template <typename F>
+int launch_bwd_sums(const F& f, bool vec, float* part, int splits, int chunk,
+                    cudaStream_t st) {
+  using T = typename F::T;
   constexpr int N = 16 / sizeof(T);
-  const void* ptrs[] = {g, xh};
-  if (splits < 1 || chunk < 1 || (int64_t)splits * chunk < hw ||
-      (int64_t)(splits - 1) * chunk >= hw)
+  if (splits < 1 || chunk < 1 || (int64_t)splits * chunk < f.hw ||
+      (int64_t)(splits - 1) * chunk >= f.hw)
     return (int)cudaErrorInvalidValue;
   // one split writes s1 / s2 directly, several their interleaved partials
-  float* o1 = splits > 1 ? part : s1;
-  float* o2 = splits > 1 ? part + 1 : s2;
+  float* o1 = splits > 1 ? part : f.s1;
+  float* o2 = splits > 1 ? part + 1 : f.s2;
   const int ostride = splits > 1 ? 2 : 1;
   const dim3 grid((unsigned)splits,
-                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
-  if (vec_ok<T>(hw, ptrs, 2) && chunk % N == 0)
-    in_relu_bwd_stats_kernel<T, N><<<grid, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, o1, o2, ostride, planes, channels,
-        hw, splits, chunk);
+                  (unsigned)(f.planes < kMaxGridY ? f.planes : kMaxGridY));
+  if (vec && chunk % N == 0)
+    f.template stats<N>(grid, o1, o2, ostride, splits, chunk, st);
   else
-    in_relu_bwd_stats_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, o1, o2, ostride, planes, channels,
-        hw, splits, chunk);
+    f.template stats<1>(grid, o1, o2, ostride, splits, chunk, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
-  in_relu_partial_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
-                                              kThreads),
-                                   kThreads, 0, st>>>(part, s1, s2, 1, planes,
-                                                      splits);
+  f.combine(part, splits, st);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_apply(const void* g, const void* xh, const float* gm,
-                 const float* bt, const float* rstd, const float* s1,
-                 const float* s2, void* dx, int planes, int channels, int hw,
-                 int ctas, cudaStream_t st) {
+// The split path's apply pass, `ctas` CTAs a plane.
+template <typename F>
+int launch_bwd_apply(const F& f, bool vec, int ctas, cudaStream_t st) {
+  using T = typename F::T;
   constexpr int N = 16 / sizeof(T);
-  const void* ptrs[] = {g, xh, dx};
   if (ctas < 1) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)ctas,
-                  (unsigned)(planes < kMaxGridY ? planes : kMaxGridY));
-  if (vec_ok<T>(hw, ptrs, 3))
-    in_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, planes,
-        channels, hw);
+                  (unsigned)(f.planes < kMaxGridY ? f.planes : kMaxGridY));
+  if (vec)
+    f.template apply<N>(grid, st);
   else
-    in_relu_bwd_apply_kernel<T, 1><<<grid, kThreads, 0, st>>>(
-        (const T*)g, (const T*)xh, gm, bt, rstd, s1, s2, (T*)dx, planes,
-        channels, hw);
+    f.template apply<1>(grid, st);
   return (int)cudaGetLastError();
 }
 
@@ -960,6 +1474,61 @@ int launch_fwd_apply(const void* x, const float* mean, const float* rstd,
   return (int)cudaGetLastError();
 }
 
+// The C entry points' bodies for one dtype.
+
+template <typename T>
+int in_relu_fwd_t(const void* x, const float* gamma, const float* beta,
+                  void* y, void* xhat, float* rstd, int planes, int channels,
+                  int hw, float eps, int path, int packs, int cs, int smem,
+                  cudaStream_t st) {
+  const InReluFwdLaunch<T> f = {(const T*)x, gamma, beta, (T*)y, (T*)xhat,
+                                rstd, planes, channels, hw, eps};
+  const void* ptrs[] = {x, y, xhat};
+  return launch_fwd(f, vec_ok<T>(hw, ptrs, 3), path, packs, cs, smem, st);
+}
+
+template <typename T>
+InReluBwdLaunch<T> in_relu_bwd_family(const void* g, const void* xhat,
+                                      const void* gamma, const void* beta,
+                                      const void* rstd, void* dx, void* s1,
+                                      void* s2, int planes, int channels,
+                                      int hw) {
+  return {(const T*)g, (const T*)xhat, (const float*)gamma,
+          (const float*)beta, (const float*)rstd, (T*)dx, (float*)s1,
+          (float*)s2, planes, channels, hw};
+}
+
+template <typename T>
+int modnorm_relu_fwd_t(const ModFwd<T>& e, const void* x, void* y,
+                       void* xhat, float* rstd, int planes, int hw, float eps,
+                       int path, int packs, int cs, int smem,
+                       cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const ModnormFwdLaunch<T> f = {e, (const T*)x, (T*)y, (T*)xhat, rstd,
+                                 planes, hw, eps};
+  const void* ptrs[] = {x, y, xhat, e.s};
+  const bool vec = vec_ok<T>(hw, ptrs, 4) && e.s_bstride % N == 0;
+  return launch_fwd(f, vec, path, packs, cs, smem, st);
+}
+
+template <typename T>
+int modnorm_relu_bwd_t(const ModBwd& e, const void* g, const void* y,
+                       const void* xhat, const float* rstd, void* dx,
+                       void* ds, float* a, float* b, float* part, int planes,
+                       int hw, int path, int packs, int cs, int smem,
+                       int splits, int chunk, int apply_ctas,
+                       cudaStream_t st) {
+  const ModnormBwdLaunch<T> f = {e, (const T*)g, (const T*)y, (const T*)xhat,
+                                 rstd, (T*)dx, (T*)ds, a, b, planes, hw};
+  const void* ptrs[] = {g, y, xhat, dx, ds};
+  const bool vec = vec_ok<T>(hw, ptrs, 5);
+  if (path != kPathGeneral)
+    return launch_bwd_fused(f, vec, path, packs, cs, smem, st);
+  if (apply_ctas < 1) return (int)cudaErrorInvalidValue;
+  const int err = launch_bwd_sums(f, vec, part, splits, chunk, st);
+  return err ? err : launch_bwd_apply(f, vec, apply_ctas, st);
+}
+
 }  // namespace
 
 // All tensors are contiguous NCHW; planes = N * C, hw = H * W; gamma, beta:
@@ -979,14 +1548,13 @@ extern "C" int in_relu_fwd(const void* x, const void* gamma, const void* beta,
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   if (dtype == kF32)
-    return launch_fwd<float>(x, (const float*)gamma, (const float*)beta, y,
-                             xhat, (float*)rstd, planes, channels, hw, eps,
-                             path, packs, cluster, smem_bytes, st);
+    return in_relu_fwd_t<float>(x, (const float*)gamma, (const float*)beta,
+                                y, xhat, (float*)rstd, planes, channels, hw,
+                                eps, path, packs, cluster, smem_bytes, st);
   if (dtype == kBF16)
-    return launch_fwd<__nv_bfloat16>(x, (const float*)gamma,
-                                     (const float*)beta, y, xhat,
-                                     (float*)rstd, planes, channels, hw, eps,
-                                     path, packs, cluster, smem_bytes, st);
+    return in_relu_fwd_t<__nv_bfloat16>(
+        x, (const float*)gamma, (const float*)beta, y, xhat, (float*)rstd,
+        planes, channels, hw, eps, path, packs, cluster, smem_bytes, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1002,16 +1570,18 @@ extern "C" int in_relu_bwd(const void* g, const void* xhat, const void* gamma,
                            int cluster, int smem_bytes, void* stream) {
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  const void* ptrs[] = {g, xhat, dx};
   if (dtype == kF32)
-    return launch_bwd<float>(g, xhat, (const float*)gamma,
-                             (const float*)beta, (const float*)rstd, dx,
-                             (float*)s1, (float*)s2, planes, channels, hw,
-                             path, packs, cluster, smem_bytes, st);
+    return launch_bwd_fused(
+        in_relu_bwd_family<float>(g, xhat, gamma, beta, rstd, dx, s1, s2,
+                                  planes, channels, hw),
+        vec_ok<float>(hw, ptrs, 3), path, packs, cluster, smem_bytes, st);
   if (dtype == kBF16)
-    return launch_bwd<__nv_bfloat16>(
-        g, xhat, (const float*)gamma, (const float*)beta, (const float*)rstd,
-        dx, (float*)s1, (float*)s2, planes, channels, hw, path, packs,
-        cluster, smem_bytes, st);
+    return launch_bwd_fused(
+        in_relu_bwd_family<__nv_bfloat16>(g, xhat, gamma, beta, rstd, dx, s1,
+                                          s2, planes, channels, hw),
+        vec_ok<__nv_bfloat16>(hw, ptrs, 3), path, packs, cluster, smem_bytes,
+        st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1025,15 +1595,18 @@ extern "C" int in_relu_bwd_stats(const void* g, const void* xhat,
                                  int dtype, void* stream) {
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  const void* ptrs[] = {g, xhat};
   if (dtype == kF32)
-    return launch_stats<float>(g, xhat, (const float*)gamma,
-                               (const float*)beta, (float*)part, (float*)s1,
-                               (float*)s2, planes, channels, hw, splits, chunk,
-                               st);
+    return launch_bwd_sums(
+        in_relu_bwd_family<float>(g, xhat, gamma, beta, nullptr, nullptr, s1,
+                                  s2, planes, channels, hw),
+        vec_ok<float>(hw, ptrs, 2), (float*)part, splits, chunk, st);
   if (dtype == kBF16)
-    return launch_stats<__nv_bfloat16>(
-        g, xhat, (const float*)gamma, (const float*)beta, (float*)part,
-        (float*)s1, (float*)s2, planes, channels, hw, splits, chunk, st);
+    return launch_bwd_sums(
+        in_relu_bwd_family<__nv_bfloat16>(g, xhat, gamma, beta, nullptr,
+                                          nullptr, s1, s2, planes, channels,
+                                          hw),
+        vec_ok<__nv_bfloat16>(hw, ptrs, 2), (float*)part, splits, chunk, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1046,16 +1619,19 @@ extern "C" int in_relu_bwd_apply(const void* g, const void* xhat,
                                  int dtype, void* stream) {
   if (planes == 0 || hw == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
+  const void* ptrs[] = {g, xhat, dx};
+  void* sums[] = {const_cast<void*>(s1), const_cast<void*>(s2)};
   if (dtype == kF32)
-    return launch_apply<float>(g, xhat, (const float*)gamma,
-                               (const float*)beta, (const float*)rstd,
-                               (const float*)s1, (const float*)s2, dx, planes,
-                               channels, hw, apply_ctas, st);
+    return launch_bwd_apply(
+        in_relu_bwd_family<float>(g, xhat, gamma, beta, rstd, dx, sums[0],
+                                  sums[1], planes, channels, hw),
+        vec_ok<float>(hw, ptrs, 3), apply_ctas, st);
   if (dtype == kBF16)
-    return launch_apply<__nv_bfloat16>(
-        g, xhat, (const float*)gamma, (const float*)beta, (const float*)rstd,
-        (const float*)s1, (const float*)s2, dx, planes, channels, hw,
-        apply_ctas, st);
+    return launch_bwd_apply(
+        in_relu_bwd_family<__nv_bfloat16>(g, xhat, gamma, beta, rstd, dx,
+                                          sums[0], sums[1], planes, channels,
+                                          hw),
+        vec_ok<__nv_bfloat16>(hw, ptrs, 3), apply_ctas, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1094,5 +1670,65 @@ extern "C" int in_relu_fwd_apply(const void* x, const void* mean,
     return launch_fwd_apply<__nv_bfloat16>(
         x, (const float*)mean, (const float*)rstd, (const float*)gamma,
         (const float*)beta, y, planes, channels, hw, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3-fwd: y (and in training x_hat and rstd) of relu((x_hat * w + b) *
+// gamma + s) on in_relu_fwd's plans.  x, s, y, x_hat in `dtype`; s [N, C,
+// *S] with contiguous planes, sample b at b * s_bstride elements; gamma
+// [planes] f32, weight and bias [channels] f32; s, gamma, weight and bias
+// each null where the block has none; x_hat and rstd both null under
+// no-grad.
+extern "C" int modnorm_relu_fwd(const void* x, const void* s,
+                                long long s_bstride, const void* gamma,
+                                const void* weight, const void* bias, void* y,
+                                void* xhat, void* rstd, int planes,
+                                int channels, int hw, float eps, int dtype,
+                                int path, int packs, int cluster,
+                                int smem_bytes, void* stream) {
+  if (planes == 0 || hw == 0) return 0;
+  if ((xhat == nullptr) != (rstd == nullptr) || channels < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ModParams mp = {(const float*)gamma, (const float*)weight,
+                        (const float*)bias, channels};
+  if (dtype == kF32)
+    return modnorm_relu_fwd_t<float>(
+        {mp, (const float*)s, (int64_t)s_bstride}, x, y, xhat, (float*)rstd,
+        planes, hw, eps, path, packs, cluster, smem_bytes, st);
+  if (dtype == kBF16)
+    return modnorm_relu_fwd_t<__nv_bfloat16>(
+        {mp, (const __nv_bfloat16*)s, (int64_t)s_bstride}, x, y, xhat,
+        (float*)rstd, planes, hw, eps, path, packs, cluster, smem_bytes, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3-bwd: dx and ds (null where s takes no gradient) in `dtype`, and the
+// plane sums a = sum g_m, b = sum g_m * x_hat [planes] f32, under
+// in_relu_bwd_plan's plan (`path` 1 fused warp, 2 fused staged, 0 split
+// with `part` [planes, splits, 2] f32 scratch when splits > 1).
+extern "C" int modnorm_relu_bwd(const void* g, const void* y, const void* xhat,
+                                const void* rstd, const void* gamma,
+                                const void* weight, void* dx, void* ds,
+                                void* a, void* b, void* part, int planes,
+                                int channels, int hw, int dtype, int path,
+                                int packs, int cluster, int smem_bytes,
+                                int splits, int chunk, int apply_ctas,
+                                void* stream) {
+  if (planes == 0 || hw == 0) return 0;
+  if (channels < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ModBwd e = {{(const float*)gamma, (const float*)weight, nullptr,
+                     channels}};
+  if (dtype == kF32)
+    return modnorm_relu_bwd_t<float>(
+        e, g, y, xhat, (const float*)rstd, dx, ds, (float*)a, (float*)b,
+        (float*)part, planes, hw, path, packs, cluster, smem_bytes, splits,
+        chunk, apply_ctas, st);
+  if (dtype == kBF16)
+    return modnorm_relu_bwd_t<__nv_bfloat16>(
+        e, g, y, xhat, (const float*)rstd, dx, ds, (float*)a, (float*)b,
+        (float*)part, planes, hw, path, packs, cluster, smem_bytes, splits,
+        chunk, apply_ctas, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,7 +23,11 @@ Input and output are NHWC (``{"images", "context", "sp_guide"}`` → logits
 after the first norm of each encoder level and ``side_dropout`` on the
 context MLP's hidden layers draw their masks from ``g``.  Every
 instance-norm + ReLU pair with a full affine (the decoder, and the
-unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2.
+unmodulated encoder levels when ``dropout`` is 0) runs through kernel B2;
+each modulated block whose norm → ·γ → +s → ReLU has nothing between them
+(``_b3_block``: instance norm, no dropout there in train mode, no
+after-affine, no squeeze-excitation) runs through kernel B3, the spatial
+conv then giving each block its half as a tensor of its own.
 ``img_grad`` concatenates the image gradients to the images (JAX
 gunet.py:135-137).  ``context_model="conv"`` (nf2 / IIN) reads a rank-4
 context, the image-patch pyramid [bs, 32, 32, context_channels], with
@@ -32,8 +36,9 @@ layers.PatchCNN.
 Under ``parallel.spatial.sharded`` (the height-sharded sweep, inference
 only) the images and the guide hold this rank's rows (a block of whole
 multiples of ``spatial_unit`` = 2^num_down_samples rows) and the context
-stays whole: the convs exchange halos, the norms, kernel B2 and the SE mean
-sum their statistics over the ranks, ``img_grad``'s dy takes the next
+stays whole: the convs exchange halos, the norms, kernel B2, B3's split
+form and the SE mean sum their statistics over the ranks, ``img_grad``'s
+dy takes the next
 rank's first row, and the pools and transpose convs stay local.
 """
 
@@ -53,6 +58,8 @@ from boxsegliver_torch.models.layers import (MLP, VGG_REPS, VGG1D,
                                              fused_pair, he_normal_,
                                              image_gradients, init_kernel_,
                                              max_pool2x2, norm_relu)
+from boxsegliver_torch.ops.kernels import (modnorm_relu_split,
+                                           modulated_norm_relu)
 
 
 class GUNet(nn.Module):
@@ -205,6 +212,17 @@ class GUNet(nn.Module):
     def _layer(self, name: str) -> nn.Module:
         return self._modules[name]
 
+    def _b3_block(self, norm: Optional[Norm], j: int, train: bool) -> bool:
+        """Whether modulated block ``j`` of a level is kernel B3's function:
+        an instance norm, no dropout between it and the modulation, no
+        after-affine and no squeeze-excitation; γ and s may each be absent.
+        Under a spatial shard it takes B3's split form, which rounds once
+        as B3 does, so that the sharded forward is the unsharded one."""
+        return (norm is not None and norm.normalizer == "instance_norm"
+                and not self.after_affine
+                and not (self.use_context and self.use_se)
+                and not (j == 0 and train and self.dropout))
+
     def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.dtype or torch.float32
@@ -221,9 +239,17 @@ class GUNet(nn.Module):
             for i in range(n + 1):
                 if i in self.mod_layers:
                     layer = self._layer(f"spatial_conv{i + 1}")
-                    spatial_params[i] = (layer(gs, train=train)
-                                         if isinstance(layer, ConvNormAct)
-                                         else layer(gs))
+                    if isinstance(layer, Conv) and self.spatial is None:
+                        # a half of its own for each block: its gradient
+                        # is the block's ds, with no copy of the whole
+                        half = layer.out_channels // 2
+                        spatial_params[i] = [layer(gs, rows=(k * half,
+                                                             (k + 1) * half))
+                                             for k in range(2)]
+                    else:
+                        sp = (layer(gs, train=train)
+                              if isinstance(layer, ConvNormAct) else layer(gs))
+                        spatial_params[i] = sp.chunk(2, dim=1)
                 if i < n:
                     gs = avg_pool_same(gs)
 
@@ -251,6 +277,24 @@ class GUNet(nn.Module):
                     # function
                     x = norm_relu(x, norm, self.spatial)
                     continue
+                if not plain_level and self._b3_block(norm, j, train):
+                    # norm · γ + s → ReLU is kernel B3's function (its
+                    # split form under a spatial shard)
+                    gamma = sp = None
+                    if self.use_context:
+                        gamma = context_params[:, density_mod_id:
+                                               density_mod_id + ch]
+                        density_mod_id += ch
+                    if self.use_spatial:
+                        sp = spatial_params[i][j]
+                    if self.spatial is None:
+                        x = modulated_norm_relu(x, gamma, sp, norm.weight,
+                                                norm.bias, norm.eps)
+                    else:
+                        x = modnorm_relu_split(x, gamma, sp, norm.weight,
+                                               norm.bias, self.spatial.group,
+                                               norm.eps)
+                    continue
                 if norm is not None:
                     x = norm(x, train=train)
                 if j == 0:
@@ -271,7 +315,7 @@ class GUNet(nn.Module):
                     x = x * gamma[:, :, None, None]
                     density_mod_id += ch
                 if self.use_spatial and modulated:
-                    x = x + spatial_params[i][:, ch * j:ch * (j + 1)]
+                    x = x + spatial_params[i][j]
                 if self.after_affine:
                     x = self._layer(name + "_affine")(x)
                 x = F.relu(x)

@@ -136,18 +136,25 @@ class Conv(nn.Conv2d):
 
     spatial = None      # a parallel.spatial.SpatialShard while sharded
 
-    def forward(self, x):
-        b = None if self.bias is None else self.bias.to(x.dtype)
+    def forward(self, x, rows: Optional[Tuple[int, int]] = None):
+        """``rows`` (lo, hi): output channels lo:hi alone, a tensor of its
+        own whose gradient reaches those rows of the weight with no copy of
+        the whole output (G-Net's spatial term of one modulated block)."""
+        w, b = self.weight, self.bias
+        if rows is not None:
+            w = w[rows[0]:rows[1]]
+            b = None if b is None else b[rows[0]:rows[1]]
+        w = w.to(x.dtype)
+        b = None if b is None else b.to(x.dtype)
         if self.spatial is not None:
-            return self.spatial.conv(x, self.weight.to(x.dtype), b,
-                                     self.stride, self.dilation)
+            return self.spatial.conv(x, w, b, self.stride, self.dilation)
         if self.stride[0] > 1:
             k, s, d = self.kernel_size[0], self.stride[0], self.dilation[0]
             ph = same_pads(x.shape[-2], k, s, d)
             pw = same_pads(x.shape[-1], k, s, d)
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, self.weight.to(x.dtype), b, stride=self.stride,
-                        padding=self.padding, dilation=self.dilation)
+        return F.conv2d(x, w, b, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
 
 
 class Conv3(nn.Conv3d):

@@ -35,6 +35,17 @@ Kernels:
   plain version; CUDA the kernel, which counts its launches; a fake
   implementation for tracing), so torch.export keeps it as one node of an
   exported model and a loaded program launches the kernel on the card.
+- B3 G-Net's modulated block, csrc/in_relu.cu: ``modnorm_relu_fwd`` and
+  ``modnorm_relu_bwd``, tied together by ``ModulatedNormReLU``: instance
+  norm (the norm's scale and center optional) · the context's γ + the
+  spatial term s → ReLU, each of γ and s optional.  Not a TPU kernel: JAX
+  leaves the chain to XLA (boxsegliver_tpu/models/gunet.py:215-232).
+  Bytes bound it, 16 an element a bf16 training step and 6 under no-grad
+  (source note); it is B2's kernels under another epilogue and takes
+  B2's plans (``in_relu_fwd_plan``, ``in_relu_bwd_plan``).  B3-fwd is
+  the registered operator ``torch.ops.boxseg.modnorm_relu_fwd``, as B2-fwd
+  is; under no-grad it writes y alone.  No single PyTorch call computes
+  it.
 - G1 ``geodesic2d_batch`` — csrc/geodesic.cu: the 2-D geodesic raster scan
   of N fields at once, the device refiner's geodesic click guides.  The
   edge weights are computed once a launch (scratch the wrapper allocates);
@@ -63,6 +74,7 @@ _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
             "in_relu_bwd": "in_relu", "in_relu_bwd_stats": "in_relu",
             "in_relu_bwd_apply": "in_relu",
             "in_relu_fwd_partial": "in_relu", "in_relu_fwd_apply": "in_relu",
+            "modnorm_relu_fwd": "in_relu", "modnorm_relu_bwd": "in_relu",
             "geodesic2d_raster": "geodesic"}
 _BOUND = {}
 
@@ -272,25 +284,64 @@ def _plane_view(t: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
     return per.reshape(lead + (1,) * (t.ndim - 2))
 
 
-def in_relu_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor, eps: float = IN_EPS):
-    """Plain PyTorch version of B2-fwd, operation for operation: f32
-    statistics over each (n, c) plane of x [N, C, *S] (variance E[x²] −
-    E[x]² clipped at 0, flax's), rstd = rsqrt(var + eps), x̂ = (x − mean)·
-    rstd, y = relu(x̂·γ + β).  Returns y and x̂ in x's dtype and rstd
-    [N, C] f32 (float64 throughout for a float64 x, which only the CPU
-    takes: torch.autograd.gradcheck)."""
+def _plane_norm(x: torch.Tensor, eps: float, exact: bool = False):
+    """(x̂ f32, rstd [N, C] f32) of B2-fwd's and B3-fwd's plain versions:
+    f32 statistics over each (n, c) plane of x [N, C, *S] (variance E[x²]
+    − E[x]² clipped at 0, flax's), rstd = rsqrt(var + eps), x̂ = (x −
+    mean)·rstd (float64 throughout for a float64 x, which only the CPU
+    takes: torch.autograd.gradcheck).  With ``exact`` the statistics come
+    from exact float64 sums (_exact_stats) instead of f32 ones."""
     xf = _acc(x)
+    if exact:
+        mean, rstd = _exact_stats(x, eps)
+        return ((xf - _plane_view(x, mean)) * _plane_view(x, rstd), rstd)
     dims = tuple(range(2, x.ndim))
     inv_hw = 1.0 / math.prod(x.shape[2:])
     mean = xf.sum(dim=dims, keepdim=True) * inv_hw
     var = torch.clamp_min((xf * xf).sum(dim=dims, keepdim=True) * inv_hw
                           - mean * mean, 0.0)
     rstd = torch.rsqrt(var + eps)
-    xhat = (xf - mean) * rstd
+    return (xf - mean) * rstd, rstd.reshape(x.shape[:2])
+
+
+def _plane_sums(x: torch.Tensor) -> torch.Tensor:
+    """[N, C, 2] float64 (Σx, Σx²) over each (n, c) plane of x: exact for
+    bf16 and f32 planes of the port's sizes, so the sums of a plane's
+    parts are the whole plane's."""
+    xd = x.double()
+    dims = tuple(range(2, x.ndim))
+    return torch.stack([xd.sum(dim=dims), (xd * xd).sum(dim=dims)], dim=-1)
+
+
+def _stats_of_sums(sums: torch.Tensor, count, eps: float,
+                   dtype: torch.dtype):
+    """mean and rstd [N, C] in ``dtype`` from plane sums (Σx, Σx²) [N, C,
+    2] of ``count`` elements, divided in float64: the variance E[x²] −
+    E[x]² clipped at 0 (flax's), rstd = rsqrt(var + eps)."""
+    sums = sums.double()
+    mean = sums[..., 0] / count
+    var = torch.clamp_min(sums[..., 1] / count - mean * mean, 0.0)
+    return mean.to(dtype), torch.rsqrt(var.to(dtype) + eps)
+
+
+def _exact_stats(x: torch.Tensor, eps: float):
+    """mean and rstd [N, C] of x's planes as instance_norm_stats_split
+    makes them on the CPU from the ranks' parts: _plane_sums, then
+    _stats_of_sums."""
+    return _stats_of_sums(_plane_sums(x), math.prod(x.shape[2:]), eps,
+                          _acc(x).dtype)
+
+
+def in_relu_fwd_plain(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, eps: float = IN_EPS,
+                      exact: bool = False):
+    """Plain PyTorch version of B2-fwd, operation for operation: x̂ and
+    rstd of _plane_norm, y = relu(x̂·γ + β).  Returns y and x̂ in x's dtype
+    and rstd [N, C] f32 (float64 for a float64 x).  ``exact``: the CPU's
+    statistics (_plane_norm)."""
+    xhat, rstd = _plane_norm(x, eps, exact)
     z = xhat * _plane_view(x, _acc(weight)) + _plane_view(x, _acc(bias))
-    return (torch.clamp_min(z, 0.0).to(x.dtype), xhat.to(x.dtype),
-            rstd.reshape(x.shape[:2]))
+    return torch.clamp_min(z, 0.0).to(x.dtype), xhat.to(x.dtype), rstd
 
 
 def _relu_grad(g, xhat, weight, bias):
@@ -460,7 +511,16 @@ def _in_relu_fwd_cuda(x, weight, bias, eps):
     return out
 
 
-_LIB.impl("in_relu_fwd", in_relu_fwd_plain, "CPU")
+def _in_relu_fwd_cpu(x, weight, bias, eps):
+    # On the CPU B2-fwd and B3-fwd take their plain versions with exact
+    # plane statistics, which instance_norm_stats_split also takes there
+    # from the ranks' parts: a spatially sharded forward on the CPU is the
+    # unsharded one bit for bit (the card's kernels and split statistics
+    # sum in f32)
+    return in_relu_fwd_plain(x, weight, bias, eps, exact=True)
+
+
+_LIB.impl("in_relu_fwd", _in_relu_fwd_cpu, "CPU")
 _LIB.impl("in_relu_fwd", _in_relu_fwd_cuda, "CUDA")
 
 
@@ -819,18 +879,17 @@ in_relu_fwd_apply.launches = 0
 def instance_norm_stats_split(x: torch.Tensor, group, eps: float = IN_EPS):
     """Instance-norm statistics of planes split over ``group``'s ranks
     (each holds its part of every plane of x [N, C, *S]): B2s's float32
-    partial sums and the element count all-reduced in float64 (as
-    layers._SyncBatchNorm), the variance E[x²] − E[x]² clipped at 0, as
-    in_relu_fwd_plain's.  Returns mean and rstd = rsqrt(var + eps), each
-    [N, C] float32."""
-    part = in_relu_fwd_partial(x.contiguous())
+    partial sums (on the CPU the exact float64 ones of _plane_sums) and the
+    element count all-reduced in float64 (as layers._SyncBatchNorm), the
+    variance E[x²] − E[x]² clipped at 0, as in_relu_fwd_plain's.  Returns
+    mean and rstd = rsqrt(var + eps), each [N, C] float32."""
+    part = (_plane_sums(x) if x.device.type == "cpu"
+            else in_relu_fwd_partial(x.contiguous()))
     count = torch.full((1,), float(_planes(x)[2]), dtype=torch.float64,
                        device=x.device)
     buf = group.all_reduce_(torch.cat([part.double().reshape(-1), count]))
-    sums = buf[:-1].view(part.shape)
-    mean = sums[..., 0] / buf[-1]
-    var = torch.clamp_min(sums[..., 1] / buf[-1] - mean * mean, 0.0)
-    return mean.float(), torch.rsqrt(var.float() + eps)
+    return _stats_of_sums(buf[:-1].view(part.shape), buf[-1], eps,
+                          torch.float32)
 
 
 def instance_norm_relu_split(x: torch.Tensor, weight: torch.Tensor,
@@ -848,6 +907,298 @@ def instance_norm_relu_split(x: torch.Tensor, weight: torch.Tensor,
                              bias.float().contiguous())
 
 
+# ---------------------------------------------------------------------------
+# B3: G-Net's modulated block, relu((instance_norm(x)·w + b)·γ + s) over
+# [N, C, *S] planes; the norm's scale w and center b ([C]), the context's γ
+# ([N, C]) and the spatial term s (like x) each optional
+# ---------------------------------------------------------------------------
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def modnorm_relu_fwd_plain(x: torch.Tensor, gamma=None, s=None, weight=None,
+                           bias=None, eps: float = IN_EPS,
+                           train: bool = True, exact: bool = False):
+    """Plain PyTorch version of B3-fwd, operation for operation: B2-fwd's
+    f32 statistics and x̂ (_plane_norm; ``exact``: the CPU's), n = x̂·w +
+    b, z = n·γ + s (each term skipped where its operand is None), y =
+    relu(z) rounded once to x's dtype.  Returns y and x̂ in x's dtype and
+    rstd [N, C] f32 (float64 for a float64 x); with ``train`` False x̂ and
+    rstd are empty: nothing at inference needs them."""
+    xhat, rstd = _plane_norm(x, eps, exact)
+    y = _modnorm_y(x, xhat, gamma, s, weight, bias)
+    if not train:
+        return y, x.new_empty(0), rstd.new_empty(0)
+    return y, xhat.to(x.dtype), rstd
+
+
+def _modnorm_y(x, xhat, gamma, s, weight, bias):
+    """B3's y from the float32 x̂: relu((x̂·w + b)·γ + s), each term
+    skipped where its operand is None, rounded once to x's dtype."""
+    z = xhat
+    if weight is not None:
+        z = z * _plane_view(x, _acc(weight))
+    if bias is not None:
+        z = z + _plane_view(x, _acc(bias))
+    if gamma is not None:
+        z = z * _plane_view(x, _acc(gamma))
+    if s is not None:
+        z = z + _acc(s)
+    return torch.clamp_min(z, 0.0).to(x.dtype)
+
+
+def modnorm_relu_bwd_plain(g, y, xhat, rstd, gamma=None, weight=None,
+                           want_ds: bool = True):
+    """Plain version of B3-bwd: g_m = g·[y > 0]; a = Σ_plane g_m and b =
+    Σ_plane g_m·x̂ ([N, C] f32); dx = (γ·w·rstd)·((g_m − a/HW) − x̂·b/HW)
+    and ds = g_m (None unless ``want_ds``) in g's dtype.  Returns (dx, ds,
+    a, b); ModulatedNormReLU.backward makes dγ, dw and db of a and b."""
+    gm = torch.where(y > 0, _acc(g), 0.0)
+    xh = _acc(xhat)
+    dims = tuple(range(2, g.ndim))
+    a, b = gm.sum(dim=dims), (gm * xh).sum(dim=dims)
+    inv_hw = 1.0 / math.prod(g.shape[2:])
+    coef = rstd
+    if gamma is not None and weight is not None:
+        coef = (_acc(gamma) * _acc(weight).view(1, -1)) * rstd
+    elif gamma is not None or weight is not None:
+        k = _acc(gamma) if gamma is not None else _acc(weight).view(1, -1)
+        coef = k * rstd
+    dx = _plane_view(g, coef) * ((gm - _plane_view(g, a * inv_hw))
+                                 - xh * _plane_view(g, b * inv_hw))
+    return dx.to(g.dtype), gm.to(g.dtype) if want_ds else None, a, b
+
+
+def _check_modnorm(name, x, others, gamma, s, weight, bias):
+    """B3's operands: x and ``others`` contiguous [N, C, *S] float32 or
+    bfloat16 of one dtype; s like x (any sample stride); γ [N, C], w and b
+    [C] contiguous float32; all on x's device."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype} is not float32 or "
+                        "bfloat16")
+    if x.ndim < 3:
+        raise ValueError(f"{name}: expected [N, C, *S], got "
+                         f"{tuple(x.shape)}")
+    n, c, hw = _planes(x)
+    if n * c >= 2 ** 31 or hw >= 2 ** 31:
+        raise ValueError(f"{name}: {tuple(x.shape)} exceeds the kernel's "
+                         "limits")
+    for t in tuple(others) + (() if s is None else (s,)):
+        if t.shape != x.shape or t.dtype != x.dtype:
+            raise ValueError(f"{name}: operands {tuple(t.shape)} {t.dtype} "
+                             f"vs {tuple(x.shape)} {x.dtype}")
+    for what, t, shape in (("gamma", gamma, (n, c)), ("weight", weight, (c,)),
+                           ("bias", bias, (c,))):
+        if t is not None and (t.dtype != torch.float32
+                              or tuple(t.shape) != shape
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: {what} must be contiguous "
+                             f"{list(shape)} float32")
+    for t in (x,) + tuple(others) + (gamma, s, weight, bias):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{x.device}")
+    for t in (x,) + tuple(others):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+
+
+# B3-fwd is the operator boxseg::modnorm_relu_fwd, as B2-fwd is: an exported
+# G-Net keeps it as one node that a loaded program dispatches by device
+_LIB.define("modnorm_relu_fwd(Tensor x, Tensor? gamma, Tensor? s, "
+            "Tensor? weight, Tensor? bias, float eps, bool train) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _modnorm_fwd_launch(x, gamma, s, weight, bias, eps, train, plan=None):
+    """Launch B3-fwd on checked CUDA operands under ``plan`` (by default
+    in_relu_fwd_plan's for x's shape and the operands' alignment); the C
+    launcher refuses a plan that does not fit them.  Counts nothing: the
+    operator's CUDA implementation does."""
+    if s is not None and s.stride()[1:] != x.stride()[1:]:
+        s = s.contiguous()      # B3 reads whole planes, at any sample stride
+    n, c, hw = _planes(x)
+    y = torch.empty_like(x)
+    if train:
+        xhat = torch.empty_like(x)
+        rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    else:
+        xhat, rstd = x.new_empty(0), x.new_empty(0, dtype=torch.float32)
+    sbs = 0 if s is None else s.stride(0)
+    if plan is None:
+        per = 16 // x.element_size()
+        aligned = (_aligned(x, y, *([xhat] if train else []),
+                            *([] if s is None else [s])) and sbs % per == 0)
+        plan = in_relu_fwd_plan(n * c, hw, x.dtype, aligned)
+    _launch("modnorm_relu_fwd", x, x.data_ptr(), _ptr(s), sbs, _ptr(gamma),
+            _ptr(weight), _ptr(bias), y.data_ptr(),
+            xhat.data_ptr() if train else None,
+            rstd.data_ptr() if train else None, n * c, c, hw, float(eps),
+            _DTYPES[x.dtype], plan.path, plan.packs, plan.cluster,
+            plan.smem_bytes)
+    return y, xhat, rstd
+
+
+def _modnorm_relu_fwd_cuda(x, gamma, s, weight, bias, eps, train):
+    x = x.contiguous()          # an exported graph's layout (_in_relu_fwd_cuda)
+    _check_modnorm("modnorm_relu_fwd", x, (), gamma, s, weight, bias)
+    out = _modnorm_fwd_launch(x, gamma, s, weight, bias, eps, train)
+    modnorm_relu_fwd.launches += 1
+    return out
+
+
+def _modnorm_relu_fwd_cpu(x, gamma, s, weight, bias, eps, train):
+    # exact plane statistics, as _in_relu_fwd_cpu's
+    return modnorm_relu_fwd_plain(x, gamma, s, weight, bias, eps, train,
+                                  exact=True)
+
+
+_LIB.impl("modnorm_relu_fwd", _modnorm_relu_fwd_cpu, "CPU")
+_LIB.impl("modnorm_relu_fwd", _modnorm_relu_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("boxseg::modnorm_relu_fwd", lib=_LIB)
+def _modnorm_relu_fwd_fake(x, gamma, s, weight, bias, eps, train):
+    y = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if not train:
+        return y, x.new_empty(0), x.new_empty(0, dtype=torch.float32)
+    return y, torch.empty_like(y), x.new_empty(x.shape[:2],
+                                               dtype=torch.float32)
+
+
+def modnorm_relu_fwd(x: torch.Tensor, gamma=None, s=None, weight=None,
+                     bias=None, eps: float = IN_EPS, train: bool = True):
+    """Kernel B3-fwd: (y, x̂, rstd) of relu((instance_norm(x)·w + b)·γ + s),
+    through the operator ``torch.ops.boxseg.modnorm_relu_fwd``, on
+    in_relu_fwd_plan's paths.
+
+    x: [N, C, *S] float32 or bfloat16, contiguous; γ: [N, C], w and b: [C],
+    each float32 and contiguous; s: like x, each plane contiguous (a
+    channel slice of a wider tensor is read in place).  Any of γ, s, w and
+    b may be None.  y and x̂ come back in x's dtype, rstd [N, C] float32;
+    with ``train`` False only y is written (x̂ and rstd are empty)."""
+    if x.device.type == "cuda" and not x.is_contiguous():
+        raise ValueError("modnorm_relu_fwd: operands must be contiguous")
+    return torch.ops.boxseg.modnorm_relu_fwd.default(
+        x, gamma, s, weight, bias, float(eps), bool(train))
+
+
+def modnorm_relu_bwd(g: torch.Tensor, y: torch.Tensor, xhat: torch.Tensor,
+                     rstd: torch.Tensor, gamma=None, weight=None,
+                     want_ds: bool = True, plan=None):
+    """Kernel B3-bwd: (dx, ds, a, b) as modnorm_relu_bwd_plain gives them,
+    under ``plan`` (by default in_relu_bwd_plan's for g's shape and
+    alignment): one fused launch where a plane fits on chip, else the split
+    sums, added in order, and an apply pass.  ds is written only with
+    ``want_ds``.  The sums' order is fixed: equal from run to run."""
+    if g.device.type == "cpu":
+        return modnorm_relu_bwd_plain(g, y, xhat, rstd, gamma, weight,
+                                      want_ds)
+    _check_modnorm("modnorm_relu_bwd", g, (y, xhat), gamma, None, weight,
+                   None)
+    _check_plane_stats("modnorm_relu_bwd", g, (("rstd", rstd),))
+    n, c, hw = _planes(g)
+    if plan is None:
+        plan = in_relu_bwd_plan(n * c, hw, g.dtype, _aligned(g, y, xhat))
+    dx = torch.empty_like(g)
+    ds = torch.empty_like(g) if want_ds else None
+    a = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    b = torch.empty_like(a)
+    part = (torch.empty((n * c, plan.splits, 2), dtype=torch.float32,
+                        device=g.device)
+            if plan.path == BWD_SPLIT and plan.splits > 1 else None)
+    _launch("modnorm_relu_bwd", g, g.data_ptr(), y.data_ptr(),
+            xhat.data_ptr(), rstd.data_ptr(), _ptr(gamma), _ptr(weight),
+            dx.data_ptr(), _ptr(ds), a.data_ptr(), b.data_ptr(), _ptr(part),
+            n * c, c, hw, _DTYPES[g.dtype], plan.path, plan.packs,
+            plan.cluster, plan.smem_bytes, plan.splits, plan.chunk,
+            plan.apply_ctas)
+    modnorm_relu_bwd.launches += 1
+    return dx, ds, a, b
+
+
+modnorm_relu_fwd.launches = 0
+modnorm_relu_bwd.launches = 0
+
+
+def _f32_operands(x, *ts):
+    pdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return [None if t is None else t.to(pdt).contiguous() for t in ts]
+
+
+class ModulatedNormReLU(torch.autograd.Function):
+    """relu((instance_norm(x)·w + b)·γ + s) over [N, C, *S] planes: B3-fwd
+    in ``forward``; in ``backward`` B3-bwd, then dγ = w·b + b_c·a per plane
+    and dw = Σ_n γ·b, db = Σ_n γ·a from its plane sums a = Σ g_m and b =
+    Σ g_m·x̂.  Saves y (whose sign is the ReLU's mask), x̂ in x's dtype,
+    rstd and the float32 γ, w, b; casts the incoming gradient to y's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, s, weight, bias, eps):
+        ops = _f32_operands(x, gamma, weight, bias)
+        y, xhat, rstd = modnorm_relu_fwd(x.contiguous(), ops[0], s, ops[1],
+                                         ops[2], eps)
+        ctx.save_for_backward(y, xhat, rstd, *ops)
+        ctx.dtypes = [None if t is None else t.dtype
+                      for t in (gamma, weight, bias)]
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, xhat, rstd, gamma, weight, bias = ctx.saved_tensors
+        _, need_g, need_s, need_w, need_b, _ = ctx.needs_input_grad
+        dx, ds, a, b = modnorm_relu_bwd(g.to(y.dtype).contiguous(), y, xhat,
+                                        rstd, gamma, weight, need_s)
+        gdt, wdt, bdt = ctx.dtypes
+        dgamma = dw = db = None
+        if need_g:
+            dgamma = b if weight is None else b * weight
+            if bias is not None:
+                dgamma = dgamma + a * bias
+            dgamma = dgamma.to(gdt)
+        if need_w:
+            dw = (b if gamma is None else b * gamma).sum(dim=0).to(wdt)
+        if need_b:
+            db = (a if gamma is None else a * gamma).sum(dim=0).to(bdt)
+        return dx, dgamma, ds, dw, db, None
+
+
+def modulated_norm_relu(x: torch.Tensor, gamma=None, s=None, weight=None,
+                        bias=None, eps: float = IN_EPS) -> torch.Tensor:
+    """G-Net's modulated block relu((instance_norm(x)·w + b)·γ + s) through
+    kernel B3: x [N, C, *S]; γ [N, C] (the context's slice), s like x (the
+    spatial term), w and b [C] (the norm's scale and center), each may be
+    None.  Through autograd where an operand needs a gradient, else B3-fwd
+    writing y alone."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, gamma, s, weight, bias)):
+        return ModulatedNormReLU.apply(x, gamma, s, weight, bias, eps)
+    ops = _f32_operands(x, gamma, weight, bias)
+    return modnorm_relu_fwd(x.contiguous(), ops[0], s, ops[1], ops[2], eps,
+                            train=False)[0]
+
+
+def modnorm_relu_split(x: torch.Tensor, gamma, s, weight, bias, group,
+                       eps: float = IN_EPS) -> torch.Tensor:
+    """B3's function of planes split over ``group``'s ranks (each holds its
+    part of every plane of x and of s): instance_norm_stats_split's
+    statistics, then modnorm_relu_fwd_plain's arithmetic in float32,
+    rounded once, so that a sharded forward computes what B3 computes on
+    whole planes (on the CPU, where both take exact plane sums, bit for
+    bit).  Inference only."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, gamma, s, weight, bias)):
+        raise RuntimeError("modnorm_relu_split is inference only: run it "
+                           "under torch.no_grad() or inference_mode()")
+    mean, rstd = instance_norm_stats_split(x, group, eps)
+    xhat = (_acc(x) - _plane_view(x, mean)) * _plane_view(x, rstd)
+    return _modnorm_y(x, xhat, gamma, s, weight, bias)
+
+
 # name -> wrapper, for launch-count bookkeeping
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
@@ -856,7 +1207,9 @@ KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_bwd_apply": in_relu_bwd_apply,
            "geodesic2d_batch": geodesic2d_batch,
            "in_relu_fwd_partial": in_relu_fwd_partial,
-           "in_relu_fwd_apply": in_relu_fwd_apply}
+           "in_relu_fwd_apply": in_relu_fwd_apply,
+           "modnorm_relu_fwd": modnorm_relu_fwd,
+           "modnorm_relu_bwd": modnorm_relu_bwd}
 
 
 def reset_launch_counts():

@@ -778,14 +778,15 @@ def slice_phase(tmp, ds, dev, seed):
     if launches["gaussian_guide_batch"] < steps:
         raise AssertionError(f"B1 launched {launches['gaussian_guide_batch']}"
                              f" times for {steps} sweep steps")
+    expect_b3_forwards("run_g (device sweep)", launches)
     want = expected_all_liver(ds, test_metas)
     if abs(results["Liver/Dice"] - want) > 1e-9 or results["Tumor/Dice"]:
         raise AssertionError(f"Liver/Dice {results['Liver/Dice']} (expected "
                              f"{want}), Tumor/Dice {results['Tumor/Dice']}")
     n_cases = len(test_metas)
     print(f"  slice: {n_cases} cases, {sum(depths)} slices, {steps} sweep "
-          f"steps (x 8 images of 256^2), launches {launches} (B2-fwd runs "
-          f"in every GUNet forward of the sweep)")
+          f"steps (x 8 images of 256^2), launches {launches} (B2-fwd and "
+          f"B3-fwd run in every GUNet forward of the sweep)")
     print(f"  slice: {seconds / n_cases:.3f} s/case, "
           f"{sum(depths) / seconds:.2f} slices/s, "
           f"{steps / seconds:.2f} sweep steps/s on {smi()}")
@@ -894,6 +895,7 @@ def kernel_groups(prof):
     groups = {"convolutions (cuDNN / CUTLASS)": 0.0,
               "batch norm (fwd, bwd)": 0.0,
               "B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)": 0.0,
+              "B3 modnorm_relu (fwd, bwd)": 0.0,
               "B1 guide_render": 0.0,
               "optimizer (multi-tensor foreach)": 0.0,
               "memcpy / memset": 0.0,
@@ -902,6 +904,8 @@ def kernel_groups(prof):
         name = e.key.lower()
         if "in_relu" in name:
             key = "B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)"
+        elif "modnorm_relu" in name:
+            key = "B3 modnorm_relu (fwd, bwd)"
         elif "guide_render" in name:
             key = "B1 guide_render"
         elif "batch_norm" in name or "::bn_" in name:
@@ -1502,6 +1506,314 @@ def b2_nf_levels(dev, shapes=None, label="NF", seed=100):
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: kernel B3 (G-Net's modulated block) against its plain version
+# ---------------------------------------------------------------------------
+
+# GUNet.yml's modulated blocks of one flagship train step (batch 8, 256^2,
+# bf16): the two convs of each encoder level 1-4; the guided sweep's
+# forward takes the same shapes (2 sweeps x 4 mirrors)
+B3_STEP_SHAPES = {(8, 128, 128, 128): 2, (8, 256, 64, 64): 2,
+                  (8, 512, 32, 32): 2, (8, 1024, 16, 16): 2}
+B3_KERNELS = ("modnorm_relu_fwd", "modnorm_relu_bwd")
+# float operations per element of B3 (GUNet.yml's block: center b, no
+# scale): fwd = 3 (sum, square, sum) + 2 (x − mean, · rstd) + 1 (+ b) + 2
+# (·γ, + s) + 1 (max); bwd = 1 (select) + 3 (two sums, one product) + 4 (two
+# subtractions, two products)
+B3_OPS = {"modnorm_relu_fwd": 9, "modnorm_relu_bwd": 8}
+
+
+def b3_inputs(shape, dtype, dev, seed, fix=False):
+    """x, g and GUNet.yml's operands of B3: the context's γ [N, C], the
+    spatial term s (a tensor of its own, as the spatial conv gives each
+    block its half; with ``fix`` the first channel half of a [N, 2C, *S]
+    tensor) and the norm's center b [C]; no scale."""
+    x, g, _, b = b2_inputs(shape, dtype, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n, c = shape[:2]
+    gamma = torch.randn((n, c), generator=gen, device=dev) * 0.5 + 1.0
+    wide = torch.randn((n, 2 * c) + tuple(shape[2:]), generator=gen,
+                       device=dev).to(dtype)
+    s = wide[:, :c] if fix else wide[:, :c].contiguous()
+    return x, g, gamma, s, b
+
+
+def b3_fwd_plans(planes, hw, dtype, aligned):
+    """B3-fwd's plans checked at one shape: the chosen one
+    (in_relu_fwd_plan), the general path, and for aligned bf16 the other
+    plans of fwd_alternatives that fit the shape (a staged cluster whose
+    chunks are whole 16-byte packs within 64 KiB)."""
+    from boxsegliver_torch.ops import kernels as K
+
+    plans = {"chosen": K.in_relu_fwd_plan(planes, hw, dtype, aligned),
+             "general": K.FwdPlan(K.FWD_GENERAL, planes, 1, 0, 1, 0)}
+    if aligned and dtype == torch.bfloat16:
+        plans.update({k: p for k, p in fwd_alternatives(planes, hw).items()
+                      if p.path != K.FWD_STAGED or (
+                          hw % (8 * p.cluster) == 0
+                          and p.smem_bytes == 2 * hw // p.cluster
+                          and p.smem_bytes <= 64 * 1024)})
+    return plans
+
+
+def b3_check(shape, dtype, dev, seed, unaligned=False, fix=False):
+    """B3-fwd under every plan of b3_fwd_plans (training, and y alone under
+    no-grad), B3-bwd under every plan of ``bwd_alternatives`` (twice: equal
+    from run to run) and ModulatedNormReLU's backward against their plain
+    versions on the same inputs, at b2_check's tolerances (y, x̂ and dx
+    rounded once to their dtype, the plane sums and dγ, db float32 sums in
+    another order); ds, a masked copy of g, must be equal.  ``unaligned``:
+    x and g at an odd element offset; ``fix``: s the first half of a wider
+    tensor.  Returns the worst abs error per kernel (B3-fwd: y, x̂; B3-bwd:
+    dx and the plane sums)."""
+    from boxsegliver_torch.ops import kernels
+
+    x, g, gamma, s, b = b3_inputs(shape, dtype, dev, seed, fix)
+    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+    what = f"B3 {tuple(shape)} {dtype}"
+
+    def close(name, got, ref, rel, abs_):
+        err = (got.float() - ref.float()).abs()
+        bad = err > abs_ + rel * ref.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{what} {name}: {int(bad.sum())} elements "
+                                 f"off, max abs err {float(err.max()):.3e}")
+        return float(err.max())
+
+    def odd_view(t):
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    out_tol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+    sum_tol = lambda n: (1e-4, 1e-6 * math.sqrt(n))          # noqa: E731
+    x_in, g_in = (odd_view(x), odd_view(g)) if unaligned else (x, g)
+    y_p, xh_p, rstd_p = kernels.modnorm_relu_fwd_plain(x, gamma, s, None, b)
+    dx_p, ds_p, a_p, b_p = kernels.modnorm_relu_bwd_plain(
+        g, y_p, xh_p, rstd_p, gamma)
+    errs = dict.fromkeys(B3_KERNELS, 0.0)
+    for name, plan in b3_fwd_plans(planes, hw, dtype, not unaligned).items():
+        y, xh, rstd = kernels._modnorm_fwd_launch(
+            x_in, gamma, s, None, b, kernels.IN_EPS, True, plan)
+        y0, _, _ = kernels._modnorm_fwd_launch(
+            x_in, gamma, s, None, b, kernels.IN_EPS, False, plan)
+        if not (y.dtype == xh.dtype == dtype and rstd.dtype == torch.float32):
+            raise AssertionError(f"{what}: B3-fwd output dtypes")
+        errs["modnorm_relu_fwd"] = max(
+            errs["modnorm_relu_fwd"], close(f"y ({name})", y, y_p, *out_tol),
+            close(f"x_hat ({name})", xh, xh_p, *out_tol),
+            close(f"rstd ({name})", rstd, rstd_p, 1e-5, 0.0))
+        if not torch.equal(y0, y):
+            raise AssertionError(f"{what}: the no-grad y ({name}) is not "
+                                 f"the training y")
+    for name, plan in bwd_alternatives(planes, hw, dtype,
+                                       not unaligned).items():
+        dx, ds, a, b_ = kernels.modnorm_relu_bwd(g_in, y_p, xh_p, rstd_p,
+                                                 gamma, plan=plan)
+        again = kernels.modnorm_relu_bwd(g_in, y_p, xh_p, rstd_p, gamma,
+                                         plan=plan)
+        if not all(torch.equal(u, v) for u, v in zip(again, (dx, ds, a, b_))):
+            raise AssertionError(f"{what}: B3-bwd ({name}) differs from run "
+                                 f"to run")
+        if not torch.equal(ds, ds_p):
+            raise AssertionError(f"{what}: ds ({name}) is not g_m")
+        errs["modnorm_relu_bwd"] = max(
+            errs["modnorm_relu_bwd"],
+            close(f"dx ({name})", dx, dx_p, *out_tol),
+            close(f"a ({name})", a, a_p, *sum_tol(hw)),
+            close(f"b ({name})", b_, b_p, *sum_tol(hw)))
+    # the autograd Function: dx, ds as B3-bwd's, dγ = Σ g_m·x̂ + b_c·Σ g_m
+    # per plane (no scale), db = Σ_n γ·Σ g_m; held against the plain
+    # backward on the x̂ and rstd that the Function's own forward saved (its
+    # leaf is an aligned copy of x_in, whose B3-fwd plan may differ)
+    leaves = [t.clone().requires_grad_(True) for t in (x_in, gamma, s, b)]
+    y_a = kernels.modulated_norm_relu(leaves[0], leaves[1], leaves[2], None,
+                                      leaves[3])
+    dxa, dga, dsa, dba = torch.autograd.grad(y_a, leaves, g_in)
+    ya, xha, rstda = kernels._modnorm_fwd_launch(
+        leaves[0].detach(), gamma, leaves[2].detach(), None, b,
+        kernels.IN_EPS, True)
+    dx_r, ds_r, a_r, b_r = kernels.modnorm_relu_bwd_plain(g, ya, xha, rstda,
+                                                          gamma)
+    torch.cuda.synchronize()
+    if not torch.equal(dsa, ds_r):
+        raise AssertionError(f"{what}: autograd's ds is not g_m")
+    errs["modnorm_relu_bwd"] = max(
+        errs["modnorm_relu_bwd"], close("dx (autograd)", dxa, dx_r, *out_tol),
+        close("dgamma (autograd)", dga, b_r + a_r * b, *sum_tol(hw)),
+        close("db (autograd)", dba, (a_r * gamma).sum(dim=0),
+              *sum_tol(shape[0] * hw)))
+    return errs
+
+
+def b3_bound_ms(name, shape, train=True):
+    """(bound ms, bound_by) of one call: the function's least bytes, B2's
+    rule (portbench/flops.py): B3-fwd reads x and s and writes y (6 B a
+    bf16 element; x̂, which the training forward also writes for B3-bwd, is
+    the design's choice and not counted), B3-bwd reads g, y and x̂ and
+    writes dx and ds (10 B): 16 B an element a training step, 6 under
+    no-grad; the per-plane γ, rstd and sums besides, and B3_OPS at the
+    float32 non-tensor peak."""
+    n, c = shape[:2]
+    elems, esize = math.prod(shape), 2
+    planes = n * c * 4
+    io = {"modnorm_relu_fwd": 3 * elems * esize + planes * (2 if train
+                                                            else 1),
+          "modnorm_relu_bwd": 5 * elems * esize + 4 * planes}[name] + c * 4
+    t_bytes = io / HBM_BYTES_PER_S * 1e3
+    t_ops = B3_OPS[name] * elems / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def b3_times(shape, dev):
+    """Per-call ms at one bf16 shape: B3-fwd's device time per launch in
+    training and under no-grad, B3-bwd's under the chosen plan ("device
+    <name>", graph_ms over COLD_BYTES of inputs, so reads miss the L2), the
+    wrappers ("<name>"), the plain versions, and the chain B3 replaced
+    ("chain fwd": instance norm with its center, ·γ, + s, ReLU; "chain
+    bwd": autograd's backward of it)."""
+    import torch.nn.functional as F
+
+    from boxsegliver_torch.ops import kernels
+
+    x, g, gamma, s, b = b3_inputs(shape, torch.bfloat16, dev, seed=1)
+    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+    iters = 20 if hw >= 128 * 128 else 50
+    per_set = 5 * x.numel() * 2              # x, s; g, y, x̂
+    n_sets = max(1, min(iters, math.ceil(COLD_BYTES / per_set)))
+    sets = []
+    for i in range(n_sets):
+        xi, gi, _, si, _ = b3_inputs(shape, torch.bfloat16, dev, seed=1 + i)
+        sets.append((xi, gi, si) + kernels.modnorm_relu_fwd(xi, gamma, si,
+                                                            None, b))
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, s, b)]
+
+    def chain(xx, gm, ss, bb):
+        z = F.instance_norm(xx.float(), eps=kernels.IN_EPS) + bb[:, None,
+                                                                 None]
+        return F.relu((z * gm[:, :, None, None] + ss.float()).to(xx.dtype))
+
+    chain_y = chain(*leaves)
+    t = {}
+    for turn in range(2):
+        for name, call in (
+                ("modnorm_relu_fwd", lambda i: kernels.modnorm_relu_fwd(
+                    sets[i][0], gamma, sets[i][2], None, b)),
+                ("modnorm_relu_fwd no-grad",
+                 lambda i: kernels.modnorm_relu_fwd(
+                     sets[i][0], gamma, sets[i][2], None, b, train=False)),
+                ("modnorm_relu_bwd", lambda i: kernels.modnorm_relu_bwd(
+                    sets[i][1], *sets[i][3:], gamma))):
+            ms = graph_ms(call, n_sets, iters)
+            t["device " + name] = min(ms, t.get("device " + name, ms))
+        y, xh, rstd = sets[0][3:]
+        for name, fn in (
+                ("modnorm_relu_fwd", lambda: kernels.modnorm_relu_fwd(
+                    x, gamma, s, None, b)),
+                ("modnorm_relu_bwd", lambda: kernels.modnorm_relu_bwd(
+                    g, y, xh, rstd, gamma)),
+                ("plain modnorm_relu_fwd",
+                 lambda: kernels.modnorm_relu_fwd_plain(x, gamma, s, None,
+                                                        b)),
+                ("plain modnorm_relu_bwd",
+                 lambda: kernels.modnorm_relu_bwd_plain(g, y, xh, rstd,
+                                                        gamma)),
+                ("chain fwd", lambda: chain(x, gamma, s, b)),
+                ("chain bwd", lambda: torch.autograd.grad(
+                    chain_y, leaves, g, retain_graph=True))):
+            ms = cuda_ms(fn, iters=iters, warmup=3)
+            t[name] = min(ms, t.get(name, ms))
+    return t
+
+
+def b3_phase(dev):
+    """B3 at the flagship's four modulated levels (bf16, batch 8: the train
+    step's and the sweep forward's shapes) on every plan, with s its own
+    tensor and a half of a wider one (--fix), then f32, unaligned and
+    boundary cases (b3_check); per level and per train step the device
+    time per launch against b3_bound_ms, the plain versions and the chain
+    B3 replaced.  Returns the kernels line's records of B3-fwd and
+    B3-bwd."""
+    from boxsegliver_torch.ops import kernels
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = dict.fromkeys(B3_KERNELS, 0.0)
+    cases = [(s, bf16, False, False) for s in B3_STEP_SHAPES] + [
+        (s, bf16, False, True) for s in B3_STEP_SHAPES] + [
+        ((2, 64, 32, 32), f32, False, False), ((2, 8, 128, 128), f32, False,
+                                               False),
+        ((2, 3, 8, 257), bf16, False, False), ((2, 3, 1, 2049), bf16, False,
+                                               False),
+        ((1, 2, 512, 512), bf16, False, False), ((2, 3, 7, 9), f32, False,
+                                                 False),
+        ((2, 64, 32, 32), bf16, True, False), ((2, 8, 64, 64), f32, True,
+                                               False)]
+    for i, (shape, dtype, unaligned, fix) in enumerate(cases):
+        errs = b3_check(shape, dtype, dev, seed=300 + i, unaligned=unaligned,
+                        fix=fix)
+        planes, hw = shape[0] * shape[1], math.prod(shape[2:])
+        plan = kernels.in_relu_fwd_plan(planes, hw, dtype, not unaligned)
+        bplan = kernels.in_relu_bwd_plan(planes, hw, dtype, not unaligned)
+        print(f"  B3 {str(shape):20s} {str(dtype)[6:]:8s} fwd "
+              f"{B2_FWD_PATHS[plan.path]}"
+              f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}, bwd "
+              f"{b2_plan_name(bplan)}"
+              f"{' (unaligned x, g)' if unaligned else ''}"
+              f"{' (s a half of a wider tensor)' if fix else ''}; every "
+              f"plan; max abs err " + ", ".join(f"{k} {v:.3e}"
+                                               for k, v in errs.items()))
+        for k, v in errs.items():
+            worst[k] = max(worst[k], v)
+    recs = {n: {"name": n, "route": "cuda",
+                "source": "boxsegliver_torch/csrc/in_relu.cu",
+                "replaces": "boxsegliver_tpu/models/gunet.py:215-232 (norm, "
+                            "·γ, + s, ReLU; XLA)",
+                "max_abs_err": worst[n], "ms": 0.0, "device_ms": 0.0,
+                "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_by": "bytes", "library_ms": 0.0, "shapes": {}}
+            for n in B3_KERNELS}
+    calls = sum(B3_STEP_SHAPES.values())
+    no_grad = {"device_ms": 0.0, "bound_ms": 0.0}
+    for shape, count in B3_STEP_SHAPES.items():
+        t = b3_times(shape, dev)
+        for n in B3_KERNELS:
+            bound, by = b3_bound_ms(n, shape)
+            d = t["device " + n]
+            lib = t["chain fwd" if n == "modnorm_relu_fwd" else "chain bwd"]
+            r = recs[n]
+            r["ms"] += count * t[n]
+            r["device_ms"] += count * d / calls
+            r["wrapper_ms"] += count * t[n] / calls
+            r["plain_ms"] += count * t["plain " + n]
+            r["library_ms"] += count * lib
+            r["bound_ms"] += count * bound
+            r["bound_by"] = by
+            r["shapes"][str(shape)] = {"device_ms": d, "bound_ms": bound,
+                                       "of_bound": bound / d}
+            print(f"  {str(shape):22s} {n:>18s} device {d:.5f} ms per "
+                  f"launch ({bound / d:.1%} of {bound:.5f}, {by}), wrapper "
+                  f"{t[n]:.4f}, plain {t['plain ' + n]:.4f}, chain {lib:.4f}")
+        both = t["device modnorm_relu_fwd"] + t["device modnorm_relu_bwd"]
+        d0 = t["device modnorm_relu_fwd no-grad"]
+        b0, _ = b3_bound_ms("modnorm_relu_fwd", shape, train=False)
+        no_grad["device_ms"] += count * d0
+        no_grad["bound_ms"] += count * b0
+        print(f"  {str(shape):22s} B3-fwd no-grad device {d0:.5f} ms per "
+              f"launch ({b0 / d0:.1%} of {b0:.5f}); B3 a step at this level "
+              f"{both:.5f} ms a block against the chain's "
+              f"{t['chain fwd'] + t['chain bwd']:.4f}")
+    step = sum(r["device_ms"] * calls for r in recs.values())
+    bound = sum(r["bound_ms"] for r in recs.values())
+    chain = sum(r["library_ms"] for r in recs.values())
+    print(f"  B3 per flagship train step ({calls} blocks): device {step:.4f} "
+          f"ms, {bound / step:.1%} of the 16 B bound {bound:.4f} ms; the "
+          f"chain it replaced {chain:.4f} ms; a sweep forward (no-grad) "
+          f"{no_grad['device_ms']:.4f} ms, "
+          f"{no_grad['bound_ms'] / no_grad['device_ms']:.1%} of the 6 B "
+          f"bound; {smi()}")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the flagship G-Net training through the CLI
 # ---------------------------------------------------------------------------
 
@@ -1527,12 +1839,14 @@ B2_KERNELS = ("in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats",
               "in_relu_bwd_apply")
 
 
-def train_kernels(shapes=None):
+def train_kernels(shapes=None, b3=None):
     """The kernels a guided train step runs (G1 draws only the click eval's
-    guides): B1 and the B2 kernels of b2_train_kernels at ``shapes`` (the
-    flagship's by default)."""
+    guides): B1, the B2 kernels of b2_train_kernels at ``shapes`` (the
+    flagship's by default) and, where ``b3`` (by default for the flagship's
+    GUNet.yml, ``shapes`` None), B3-fwd and B3-bwd."""
+    b3 = shapes is None if b3 is None else b3
     return ("gaussian_guide_batch",) + b2_train_kernels(
-        shapes or B2_STEP_SHAPES)
+        shapes or B2_STEP_SHAPES) + (B3_KERNELS if b3 else ())
 
 
 # the train runs whose checkpoints later phases check (phase 8's resume to
@@ -1553,9 +1867,11 @@ def smoke_train_argv(tmp, steps, *extra):
         "--eval_num_batches_per_epoch", "4", "--log_step", "4"] + list(extra)
 
 
-def train_run(argv, steps_expected):
-    """One CLI train run with the launch counters zeroed right before it;
-    returns (trainer, launches, seconds)."""
+def train_run(argv, steps_expected, b3=True):
+    """One CLI train run of GUNet.yml with the launch counters zeroed right
+    before it (``b3`` False: a variant whose modulated blocks stay off B3,
+    whose caller checks its counts); returns (trainer, launches,
+    seconds)."""
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.ops import kernels
 
@@ -1576,6 +1892,20 @@ def train_run(argv, steps_expected):
             raise AssertionError(f"{n} launched {launches[n]} times in "
                                  f"{steps_expected} train steps "
                                  f"(in_relu_bwd_plan: {c} at least, 0 if 0)")
+    # B3: one B3-fwd a forward and one B3-bwd a backward for each of
+    # GUNet.yml's 8 modulated blocks, where B2 runs its 10 pairs: exactly
+    # 8/10 of B2's forwards and backwards (B2a + B2f), at least 8 a step
+    b2_bwd = launches["in_relu_bwd"] + launches["in_relu_bwd_stats"]
+    want = {"modnorm_relu_fwd": launches["in_relu_fwd"], "modnorm_relu_bwd":
+            b2_bwd} if b3 else {}
+    for n, c in want.items():
+        if (launches[n] * GUNET_B2_PAIRS != c * GUNET_MOD_BLOCKS
+                or launches[n] < GUNET_MOD_BLOCKS * steps_expected):
+            raise AssertionError(
+                f"{n} launched {launches[n]} times in {steps_expected} train "
+                f"steps, B2's counterpart {c}: {GUNET_MOD_BLOCKS} for every "
+                f"{GUNET_B2_PAIRS} of B2's, {GUNET_MOD_BLOCKS} a step at "
+                f"least")
     return trainer, launches, seconds
 
 
@@ -1990,8 +2320,8 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
     (the train loop's drain), then one profiled window.
     The launch counters are zeroed before the warm-up: a path without
     hand-written kernels must launch none, one with them every train kernel
-    (train_kernels()); ``kernels_used`` may instead name the kernels that
-    must launch (the others must not).  ``groups_out`` (a dict) receives
+    of GUNet.yml (train_kernels(): B1, B2 and B3); ``kernels_used`` may
+    instead name the kernels that must launch (the others must not).  ``groups_out`` (a dict) receives
     the profiled window's device ms per step by kernel group.  Returns
     (median s/step, launches, captured launches per replay)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2602,6 +2932,22 @@ def determinism_phase(tmp, seed):
 # B2-fwd): the two of the unmodulated first level and the eight of the
 # decoder
 GUNET_B2_PAIRS = 10
+# modulated blocks of one GUNet.yml (and GUNet_IIN.yml) forward, levels 1-4
+# (kernel B3: one B3-fwd a forward, one B3-bwd a backward; under a spatial
+# shard B3's split form, its statistics from B2s)
+GUNET_MOD_BLOCKS = 8
+
+
+def expect_b3_forwards(what, launches):
+    """A no-grad GUNet.yml path (the sweep, serving): one B3-fwd for each
+    of the 8 modulated blocks of every forward, whose 10 other pairs
+    launch B2-fwd, and no B3-bwd."""
+    fwd, b2 = launches["modnorm_relu_fwd"], launches["in_relu_fwd"]
+    if not fwd or fwd * GUNET_B2_PAIRS != b2 * GUNET_MOD_BLOCKS or \
+            launches["modnorm_relu_bwd"]:
+        raise AssertionError(f"{what}: B3 launches {launches}, expected "
+                             f"{GUNET_MOD_BLOCKS} B3-fwd for every "
+                             f"{GUNET_B2_PAIRS} B2-fwd and no B3-bwd")
 
 
 def serve_features(sig, n, seed):
@@ -2807,6 +3153,7 @@ def serve_phase(tmp, dev, seed, unet_md):
         raise AssertionError(f"GUNet serving launched B2-fwd "
                              f"{gper['in_relu_fwd']} times per 8-slice "
                              f"request ({GUNET_B2_PAIRS} pairs per forward)")
+    expect_b3_forwards("GUNet serving", gper)
     _, _, ulaunch, _ = serve_bundle(ubundle, "serve UNet", seed=seed)
     if any(ulaunch.values()):
         raise AssertionError(f"the batch-norm UNet bundle launched {ulaunch}")
@@ -4776,7 +5123,9 @@ def iin_train_phase(tmp, ds):
     evals = 2 * NF_EVAL_BATCHES
     expect_launches("nf2 train", launches, {
         "gaussian_guide_batch": IIN_STEPS + evals,
-        **b2_train_counts(IIN_B2_STEP_SHAPES, IIN_STEPS, evals)})
+        **b2_train_counts(IIN_B2_STEP_SHAPES, IIN_STEPS, evals),
+        "modnorm_relu_fwd": GUNET_MOD_BLOCKS * (IIN_STEPS + evals),
+        "modnorm_relu_bwd": GUNET_MOD_BLOCKS * IIN_STEPS})
     loss, dice = _train_log(md, eval_steps=(6, 12))
     print(f"  nf2 train (004_gnet_iin.sh flags): {IIN_STEPS} steps of 8 x "
           f"256^2 in {seconds:.2f} s (with set-up and two online evals of "
@@ -4803,10 +5152,13 @@ def iin_train_phase(tmp, ds):
         if k == 1:
             expect_launches("nf2 steady warm-up", warm, {
                 "gaussian_guide_batch": 3,
-                **b2_train_counts(IIN_B2_STEP_SHAPES, 3)})
+                **b2_train_counts(IIN_B2_STEP_SHAPES, 3),
+                "modnorm_relu_fwd": 3 * GUNET_MOD_BLOCKS,
+                "modnorm_relu_bwd": 3 * GUNET_MOD_BLOCKS})
         elif any(cnt["gaussian_guide_batch"] != 1
                  or any(cnt[n] != v for n, v in b2_train_counts(
                      IIN_B2_STEP_SHAPES, 1).items())
+                 or any(cnt[n] != GUNET_MOD_BLOCKS for n in B3_KERNELS)
                  for cnt in replay.values()):
             raise AssertionError(f"nf2 K=16 replay launches {replay}")
     for k in (1, 16):
@@ -4850,7 +5202,8 @@ def iin_eval_phase(tmp, ds, md):
             EvaluateVolume._finish_case = orig
         expect_launches(f"nf2 eval ({name})", launches, {
             "gaussian_guide_batch": sum(batches),
-            "in_relu_fwd": IIN_BLOCKS * sum(batches)})
+            "in_relu_fwd": IIN_BLOCKS * sum(batches),
+            "modnorm_relu_fwd": GUNET_MOD_BLOCKS * sum(batches)})
         if not all(math.isfinite(v) for v in res.values()):
             raise AssertionError(f"nf2 eval ({name}): {res}")
         per_case = np.diff([t0] + timer)
@@ -4868,7 +5221,8 @@ def iin_eval_phase(tmp, ds, md):
         "infer", "chip_smoke_iin", tmp, md, *IIN_EVAL, "--case_id",
         str(meta["PID"]), "--pos", str(sid), str(y), str(x))))
     expect_launches("nf2 infer --pos", launches, {
-        "gaussian_guide_batch": 1, "in_relu_fwd": IIN_BLOCKS})
+        "gaussian_guide_batch": 1, "in_relu_fwd": IIN_BLOCKS,
+        "modnorm_relu_fwd": GUNET_MOD_BLOCKS})
     with np.load(out["infer_path"]) as z:
         if z["prob"].shape != (256, 256, 2) or not np.isfinite(
                 z["prob"]).all():
@@ -5072,7 +5426,8 @@ def iin_phase(tmp, dev, seed):
                                *IIN_EVAL))
     *_, per_req = serve_bundle(bundle, "nf2 bundle (GUNet_IIN.yml)",
                                requests=1, seed=seed)
-    expect_launches("nf2 serving", per_req, {"in_relu_fwd": IIN_BLOCKS})
+    expect_launches("nf2 serving", per_req, {
+        "in_relu_fwd": IIN_BLOCKS, "modnorm_relu_fwd": GUNET_MOD_BLOCKS})
     paths["serve (nf2 export)"] = {n: int(v) for n, v in per_req.items()}
     ev_args = iin_card_vs_cpu(tmp, ds, dev, seed)
     b1_err = iin_guides_card_vs_cpu(tmp, ds, dev, seed, ev_args)
@@ -5379,9 +5734,10 @@ def se_phase(tmp, dev, seed, ds):
     from boxsegliver_torch.models.layers import VGG_REPS
 
     steps = 8
+    # --use_se with a context leaves the modulated blocks off B3
     trainer, launches, seconds = train_run(smoke_train_argv(
         tmp, steps, "--use_se", "--model_dir", str(Path(tmp) / "se_md"),
-        *ONE_WORKER), steps)
+        *ONE_WORKER), steps, b3=False)
     if trainer.global_step != steps:
         raise AssertionError(f"--use_se train stopped at "
                              f"{trainer.global_step}")
@@ -5404,7 +5760,8 @@ def se_phase(tmp, dev, seed, ds):
         tmp, 10 ** 6, "--use_se", "--model_dir", str(Path(tmp) / "se_b1")))
     groups = {}
     wall, _, _ = steady(args, ds, "GUNet --use_se train step, K=1",
-                        kernels_used=True, top=10, groups_out=groups)
+                        kernels_used=train_kernels(b3=False), top=10,
+                        groups_out=groups)
     b1 = groups["B1 guide_render"]
     b2 = groups["B2 in_relu (fwd, bwd, bwd_stats, bwd_apply)"]
     print(f"  GUNet --use_se step K=1: {wall * 1e3:.3f} ms/step; B1 "
@@ -5938,8 +6295,6 @@ SPLIT_OPS = {"in_relu_fwd_partial": 3, "in_relu_fwd_apply": 5}
 # that a briefly trained model's components stay on the device sweep
 SPATIAL_SWEEP = ["--compute_dtype", "float32", "--device_sweep", "on",
                  "--sweep_max_objects", "64"]
-# GUNet.yml's modulated encoder levels 1-4: two plain instance norms each
-GUNET_MOD_NORMS = 8
 SPATIAL_LABEL = ("2 ranks sharing one card over gloo: a correctness run, not "
                  "a scaling figure")
 
@@ -6352,19 +6707,20 @@ def spatial_phase(tmp, dev, seed):
     print(f"  25b objects a case {r0['counts']} on every rank (one process "
           f"{one['counts']})")
     # each of one process's B2-fwd launches (IIN_BLOCKS a GUNet.yml
-    # forward) becomes one B2s and one B2y; the modulated levels' plain
-    # norms (GUNET_MOD_NORMS a forward) take their statistics from B2s too
+    # forward) becomes one B2s and one B2y; the modulated blocks (one B3-fwd
+    # each in one process) take B3's split form, its statistics from B2s
+    # too (GUNET_MOD_BLOCKS a forward)
     fused = one["launches"]["in_relu_fwd"]
-    want = {**one["launches"], "in_relu_fwd": 0,
-            "in_relu_fwd_partial": fused + GUNET_MOD_NORMS * fused
+    want = {**one["launches"], "in_relu_fwd": 0, "modnorm_relu_fwd": 0,
+            "in_relu_fwd_partial": fused + GUNET_MOD_BLOCKS * fused
             // IIN_BLOCKS, "in_relu_fwd_apply": fused}
     for r in ranks:
         expect_launches("25b run_g (a rank of 2)", r["25b"]["launches"], want)
     pf, pf1 = r0["per_forward"], one["per_forward"]
     print(f"  25b launches a rank {r0['launches']} (one process "
           f"{one['launches']}: each B2-fwd became one B2s and one B2y, each "
-          f"modulated norm one B2s; B1 renders each whole guide on every "
-          f"rank)")
+          f"B3-fwd one B2s in B3's split form; B1 renders each whole guide "
+          f"on every rank)")
     print(f"  25b, {SPATIAL_LABEL}: {r0['s']:.3f} s/case with "
           f"{SPATIAL_RANKS} ranks (one process {one['s']:.3f}); per forward "
           f"(a sweep step) {pf['halos']:.0f} halo exchanges and "
@@ -6491,9 +6847,10 @@ def main(argv=None):
         print("[6/25] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
         elapsed(t_start)
-        print("[7/25] kernel B2 vs plain")
+        print("[7/25] kernels B2 and B3 vs plain")
         b2 = b2_phase(dev)
         nf_b2 = b2_nf_levels(dev)
+        b3 = b3_phase(dev)
         elapsed(t_start)
         print("[8/25] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
@@ -6604,11 +6961,16 @@ def main(argv=None):
     g1["launches"] = paths["click eval on geodesic"][g1["name"]]
     recs.append(g1)
     recs += [split_recs[n] for n in SPLIT_KERNELS]
+    # B3's main path is the flagship train step
+    for n in B3_KERNELS:
+        b3[n]["launches"] = launches[n]
+        recs.append(b3[n])
     if not all(r["launches"] for r in recs):
         raise AssertionError("a kernel did not launch on its main path: "
                              + str({r["name"]: r["launches"] for r in recs}))
     for r in recs:
-        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
+        r["launches_by_path"] = {p: c.get(r["name"], 0)
+                                 for p, c in paths.items()}
     keys += ("launches_by_path",)
     elapsed(t_start)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(

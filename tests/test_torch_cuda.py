@@ -337,6 +337,210 @@ def test_b2_bwd_refuses_a_plan_that_does_not_fit(dev):
 
 
 # ---------------------------------------------------------------------------
+# kernel B3: G-Net's modulated block, norm -> * gamma -> + s -> ReLU, against
+# its plain version at B2's tolerances (y, x_hat and dx rounded once to
+# their dtype; a and b float32 plane sums in another order); ds is g_m, a
+# masked copy of g, and must be equal
+# ---------------------------------------------------------------------------
+
+def _b3_inputs(shape, dtype, dev, seed=0, gamma=True, s=True, weight=False,
+               bias=True):
+    """x, g and the optional operands of B3; s is the first channel half
+    of a [N, 2C, *S] tensor, as GUNet's spatial conv gives it with --fix."""
+    rng = np.random.default_rng(seed)
+    n, c = shape[:2]
+    x, g, w, b = _in_relu_inputs(shape, dtype, dev, seed)
+    gm = torch.from_numpy(rng.normal(1.0, 0.5, (n, c)).astype(np.float32))
+    wide = (n, 2 * c) + tuple(shape[2:])
+    sp = torch.from_numpy(rng.normal(0.0, 1.0, wide).astype(np.float32))
+    return (x, g, gm.to(dev) if gamma else None,
+            sp.to(dev, dtype)[:, :c] if s else None,
+            w if weight else None, b if bias else None)
+
+
+def _check_b3(x, g, gamma, s, w, b, fwd_plan=None, bwd_plan=None):
+    """B3-fwd and B3-bwd against their plain versions, and the backward
+    twice: bit-equal from run to run."""
+    n0 = {k: kernels.KERNELS[k].launches
+          for k in ("modnorm_relu_fwd", "modnorm_relu_bwd")}
+    y, xh, rstd = kernels.modnorm_relu_fwd(x, gamma, s, w, b)
+    y_p, xh_p, rstd_p = kernels.modnorm_relu_fwd_plain(x, gamma, s, w, b)
+    bwd = kernels.modnorm_relu_bwd(g, y_p, xh_p, rstd_p, gamma, w,
+                                   plan=bwd_plan)
+    again = kernels.modnorm_relu_bwd(g, y_p, xh_p, rstd_p, gamma, w,
+                                     plan=bwd_plan)
+    ref = kernels.modnorm_relu_bwd_plain(g, y_p, xh_p, rstd_p, gamma, w)
+    torch.cuda.synchronize()
+    assert {k: kernels.KERNELS[k].launches - v for k, v in n0.items()} == {
+        "modnorm_relu_fwd": 1, "modnorm_relu_bwd": 2}
+    dtype = x.dtype
+    assert y.dtype == xh.dtype == bwd[0].dtype == bwd[1].dtype == dtype
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(y.float(), y_p.float(), **_TOL[dtype])
+    torch.testing.assert_close(xh.float(), xh_p.float(), **_TOL[dtype])
+    hw = int(np.prod(x.shape[2:]))
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    _b2_close(bwd[0], ref[0], rel, 1e-5)
+    assert torch.equal(bwd[1], ref[1])
+    for got, want in zip(bwd[2:], ref[2:]):
+        _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
+    for a, b_ in zip(again, bwd):
+        assert torch.equal(a, b_)
+
+
+# GUNet.yml's four modulated levels at batch 8 (the flagship's train step
+# and the guided sweep's forward: 2 sweeps x 4 mirrors), bf16
+B3_LEVELS = [(8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32),
+             (8, 1024, 16, 16)]
+
+
+@pytest.mark.parametrize("shape", B3_LEVELS)
+def test_b3_at_the_flagship_levels_matches_plain(dev, shape):
+    """GUNet.yml's block (context γ, spatial s, center only), then s as a
+    tensor of its own (the spatial conv's half for each block)."""
+    ops = _b3_inputs(shape, torch.bfloat16, dev, seed=shape[1])
+    _check_b3(*ops)
+    x, g, gamma, s, w, b = ops
+    _check_b3(x, g, gamma, s.contiguous(), w, b)
+
+
+@pytest.mark.parametrize("gamma,s,weight,bias", [
+    (True, True, True, True), (True, False, False, True),
+    (False, True, True, False), (False, False, False, False),
+    (True, True, True, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_optional_operands_match_plain(dev, gamma, s, weight, bias,
+                                          dtype):
+    _check_b3(*_b3_inputs((3, 16, 32, 32), dtype, dev, seed=11, gamma=gamma,
+                          s=s, weight=weight, bias=bias))
+
+
+# B3-fwd on each path of in_relu_fwd_plan and B3-bwd on each of
+# in_relu_bwd_plan, one element either side of the boundaries
+_B3_PATHS = [
+    ((1, 3, 8, 256), _BF, _W, _W), ((1, 3, 8, 257), _BF, _S, _S),
+    ((1, 3, 1, 2049), _BF, kernels.FWD_GENERAL, _X),
+    ((1, 3, 32, 32), _F, _W, _W), ((1, 3, 4, 257), _F, _S, _S),
+    ((1, 3, 1, 1025), _F, kernels.FWD_GENERAL, _X),
+    ((1, 3, 128, 258), _BF, _S, _S), ((2, 3, 256, 256), _BF, _S, _S),
+    ((1, 2, 512, 512), _BF, _S, _S), ((1, 2, 256, 256), _F, _S, _S),
+    ((1, 2, 384, 1025), _BF, kernels.FWD_GENERAL, _X),
+    ((1, 2, 512, 512), _F, kernels.FWD_GENERAL, _X),
+    ((2, 3, 7, 9), _F, kernels.FWD_GENERAL, _X),
+    ((1, 4, 5, 3, 33), _BF, kernels.FWD_GENERAL, _X)]
+
+
+@pytest.mark.parametrize("shape,dtype,fwd,bwd", _B3_PATHS)
+def test_b3_paths_match_plain(dev, shape, dtype, fwd, bwd):
+    n, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    assert kernels.in_relu_fwd_plan(n * c, hw, dtype).path == fwd
+    assert kernels.in_relu_bwd_plan(n * c, hw, dtype).path == bwd
+    ops = _b3_inputs(shape, dtype, dev, seed=hw % 89, weight=True)
+    _check_b3(*ops)
+    # the split plan, and the first design (one CTA a plane), everywhere
+    for spread in (True, False):
+        _check_b3(*ops, bwd_plan=kernels.in_relu_bwd_split_plan(
+            n * c, hw, dtype, True, spread))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_unaligned_operands(dev, dtype):
+    """x and g at an odd element offset: the general forward and the split
+    backward on single elements."""
+    x, g, gamma, s, w, b = _b3_inputs((2, 4, 32, 32), dtype, dev, seed=4)
+
+    def odd(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.flatten()
+        return flat[1:].view(t.shape)
+
+    xu, gu = odd(x), odd(g)
+    assert xu.is_contiguous() and xu.data_ptr() % 16
+    _check_b3(xu, gu, gamma, s, w, b)
+
+
+def test_b3_no_grad_writes_y_alone(dev):
+    """Under no-grad (the sweep's forward) B3-fwd writes only y, equal to
+    the training forward's; modulated_norm_relu takes that form."""
+    x, _, gamma, s, w, b = _b3_inputs((8, 256, 64, 64), torch.bfloat16, dev)
+    gamma = gamma.bfloat16().float()        # the context's values, in bf16
+    y, xh, rstd = kernels.modnorm_relu_fwd(x, gamma, s, w, b, train=False)
+    y_t, _, _ = kernels.modnorm_relu_fwd(x, gamma, s, w, b)
+    assert xh.numel() == rstd.numel() == 0
+    assert torch.equal(y, y_t)
+    n0 = kernels.modnorm_relu_fwd.launches
+    with torch.no_grad():
+        y_m = kernels.modulated_norm_relu(x, gamma.bfloat16(), s, None, b)
+    assert kernels.modnorm_relu_fwd.launches == n0 + 1
+    assert torch.equal(y_m, y)
+
+
+def test_b3_autograd_matches_plain(dev):
+    """ModulatedNormReLU on the card against the CPU's (plain) Function:
+    dx, dγ, ds, dw, db, float32."""
+    ops = _b3_inputs((2, 8, 24, 20), torch.float32, dev, seed=3, weight=True)
+    x, g = ops[0], ops[1]
+    leaves = [t.detach().clone().requires_grad_(True) for t in
+              (x, ops[2], ops[3].contiguous(), ops[4], ops[5])]
+    y = kernels.modulated_norm_relu(*leaves)
+    got = torch.autograd.grad(y, leaves, g)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(kernels.modulated_norm_relu(*cpu), cpu,
+                              g.cpu())
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=1e-4)
+
+
+def test_b3_refuses_what_it_does_not_take(dev):
+    x, g, gamma, s, w, b = _b3_inputs((2, 4, 8, 8), torch.float32, dev)
+    y, xh, rstd = kernels.modnorm_relu_fwd_plain(x, gamma, s, w, b)
+    with pytest.raises(TypeError):
+        kernels.modnorm_relu_fwd(x.half(), gamma, None, w, b)
+    with pytest.raises(ValueError):
+        kernels.modnorm_relu_fwd(x, gamma.t().contiguous(), s, w, b)
+    with pytest.raises(ValueError):
+        kernels.modnorm_relu_fwd(x, gamma, s.bfloat16(), w, b)
+    plan = kernels.in_relu_bwd_plan(8, 64, torch.float32)
+    with pytest.raises(RuntimeError, match="modnorm_relu_bwd launch failed"):
+        kernels.modnorm_relu_bwd(g, y, xh, rstd, gamma, w,
+                                 plan=plan._replace(packs=0))
+
+
+def test_gunet_yml_step_launches_b3_per_modulated_block(dev):
+    """GUNet.yml (bf16, 64^2, batch 2): a train step launches B3-fwd and
+    B3-bwd once for each of its 8 modulated blocks and B2 for its 10 other
+    norm + ReLU pairs; a no-grad forward (the sweep's) B3-fwd 8 times."""
+    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
+
+    model = build_model("GUNet", model_kwargs=dict(
+        MODEL_CONFIGS["GUNet.yml"], use_context=True, use_spatial=True,
+        normalizer="instance_norm", in_channels=3, context_length=200),
+        num_classes=3, dtype=torch.bfloat16)
+    model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.default_rng(0)
+    feats = {"images": rng.normal(size=(2, 64, 64, 3)),
+             "sp_guide": rng.uniform(0.5, 1.0, (2, 64, 64, 1)),
+             "context": rng.normal(size=(2, 200))}
+    feats = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for k, v in feats.items()}
+    kernels.reset_launch_counts()
+    model(feats, train=True).square().mean().backward()
+    torch.cuda.synchronize()
+    counts = {n: f.launches for n, f in kernels.KERNELS.items()}
+    assert counts["modnorm_relu_fwd"] == counts["modnorm_relu_bwd"] == 8
+    assert counts["in_relu_fwd"] == counts["in_relu_bwd"] == 10
+    grads = [p.grad for p in model.parameters()]
+    assert all(g_ is not None and bool(torch.isfinite(g_).all())
+               for g_ in grads)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(feats)
+    assert kernels.modnorm_relu_fwd.launches == 8
+    assert kernels.modnorm_relu_bwd.launches == 0
+
+
+# ---------------------------------------------------------------------------
 # --steps_per_dispatch K > 1: the train step captured in a CUDA graph
 # ---------------------------------------------------------------------------
 
@@ -386,7 +590,9 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     turns a gradient within round-off of 0 into ±lr): small bias vectors
     differ by up to 2e-3 of their own norm between two eager runs, and by
     as much between a graphed and an eager run.  Each replay adds its
-    captured launches of B1 and B2 to their counters."""
+    captured launches of B1, B2 and B3 to their counters: B3-fwd and
+    B3-bwd once for each of GUNet_TINY's 4 modulated blocks, B2 for its 6
+    other norm + ReLU pairs."""
     quiet = ("--noise_scale", "0", "--random_flip", "0", "--side_dropout",
              "0")
     graphed, batches = _graph_trainers(tmp_path, 4, *quiet)
@@ -397,11 +603,14 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     vals_e = _run(eager, batches, 1)
     assert len(graphed._graphs) == 2            # metric / no-metric variant
     # GUNet_TINY's planes at 64^2 take B2f's fused paths: no B2a or B2b
-    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd"):
+    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd",
+              "modnorm_relu_fwd", "modnorm_relu_bwd"):
         assert counts[n] > 0 and counts[n] * 2 == kernels.KERNELS[n].launches
         per = {m: c[n] for m, (_, c) in graphed._graphs.items()}
         assert per[True] == per[False] > 0
     assert counts["in_relu_bwd"] == counts["in_relu_fwd"]
+    assert counts["modnorm_relu_fwd"] == counts["modnorm_relu_bwd"]
+    assert counts["modnorm_relu_fwd"] * 6 == counts["in_relu_fwd"] * 4
     assert kernels.in_relu_bwd_stats.launches == 0
     assert kernels.in_relu_bwd_apply.launches == 0
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
@@ -553,7 +762,8 @@ def test_b2_fwd_operator_launches_the_kernel(dev):
 def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
     """A GUNet_TINY bundle exported on the card (64^2, float32, TF32 off)
     serves on the CPU and on the card within 1e-4; on the card each request
-    launches B2-fwd once per full-affine pair of the forward (6)."""
+    launches B2-fwd once per full-affine pair of the forward (6) and B3-fwd
+    once per modulated block (4)."""
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.cli.export import load_exported
 
@@ -574,10 +784,12 @@ def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
     on_card, sig = load_exported(bundle, "cuda")
     assert sig["model"] == "GUNet"
     n0 = kernels.in_relu_fwd.launches
+    m0 = kernels.modnorm_relu_fwd.launches
     card = on_card(feats)
     torch.cuda.synchronize()
     assert card.device.type == "cuda"
     assert kernels.in_relu_fwd.launches == n0 + 6
+    assert kernels.modnorm_relu_fwd.launches == m0 + 4
     torch.testing.assert_close(card.cpu(), on_cpu(feats), atol=1e-4, rtol=0)
 
 

@@ -160,7 +160,9 @@ def _sharded_case(group, name, x, unit):
     from boxsegliver_torch.models import layers
     from boxsegliver_torch.ops.image_ops import zscore
     from boxsegliver_torch.ops.kernels import (instance_norm_relu,
-                                               instance_norm_relu_split)
+                                               instance_norm_relu_split,
+                                               modnorm_relu_split,
+                                               modulated_norm_relu)
     from boxsegliver_torch.parallel.spatial import SpatialShard
 
     torch.manual_seed(0)
@@ -205,6 +207,15 @@ def _sharded_case(group, name, x, unit):
         b = torch.randn(x.shape[1])
         whole = instance_norm_relu(x, w, b)
         part = instance_norm_relu_split(local, w, b, group)
+    elif name == "modnorm":
+        c = x.shape[1]
+        gamma = torch.randn(x.shape[0], c)
+        sp = torch.randn_like(x)
+        b = torch.randn(c)
+        whole = modulated_norm_relu(x, gamma, sp, None, b)
+        part = modnorm_relu_split(
+            local, gamma, sp.narrow(dim, blk.start, blk.stop - blk.start),
+            None, b, group)
     elif name.startswith("norm_"):
         scale = name == "norm_full"
         mod = layers.Norm("instance_norm", x.shape[1], use_bias=True,

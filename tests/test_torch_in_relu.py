@@ -168,7 +168,8 @@ def test_b2f_plain_matches_the_pallas_backward(shape, dtype):
 def test_b2_backward_on_the_cpu_chains_b2a_and_b2b_plain():
     """The autograd Function's backward on a CPU tensor: B2a's and B2b's
     plain versions, no launch counted; the same numbers as B2f's plain
-    version."""
+    version (on the x̂ and rstd of the CPU's forward, the plain version with
+    exact statistics)."""
     x, g, w, b = _inputs((2, 8, 8, 3), seed=4)
     before = {n: f.launches for n, f in kernels.KERNELS.items()}
     xt = _nchw(x).requires_grad_(True)
@@ -177,7 +178,7 @@ def test_b2_backward_on_the_cpu_chains_b2a_and_b2b_plain():
     (dx,) = torch.autograd.grad(y, (xt,), _nchw(g))
     assert {n: f.launches for n, f in kernels.KERNELS.items()} == before
     _, xhat, rstd = kernels.in_relu_fwd_plain(_nchw(x), torch.from_numpy(w),
-                                              torch.from_numpy(b))
+                                              torch.from_numpy(b), exact=True)
     want = kernels.in_relu_bwd_plain(_nchw(g), xhat, torch.from_numpy(w),
                                      torch.from_numpy(b), rstd)
     assert torch.equal(dx, want[0])

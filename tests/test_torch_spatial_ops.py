@@ -10,7 +10,8 @@ gathered result equal to rank 0's:
 - both pools on a ragged SAME row, the transpose conv;
 - ``image_gradients`` (NHWC, H sharded);
 - the split B2 (B2s's plain version, the all-reduce, B2y's) on 2-D and
-  3-D planes, and ``Norm``'s split instance norm with and without scale;
+  3-D planes, ``Norm``'s split instance norm with and without scale, and
+  B3's split form (G-Net's modulated block);
 - the whole-volume z-score and the spatial mean (``--use_se``);
 - the halo exchange itself in float32 and bfloat16;
 
@@ -52,6 +53,7 @@ CASES = {
     "in_relu_3d": ("in_relu", _x(1, 3, 8, 6, 7), 2),
     "norm_center": ("norm_center", _x(2, 3, 24, 10), 2),
     "norm_full": ("norm_full", _x(2, 3, 24, 10), 2),
+    "modnorm": ("modnorm", _x(2, 3, 24, 10), 2),
     "zscore": ("zscore", _x(1, 12, 6, 7, 1, positive=True), 2),
     "se_mean": ("mean", _x(2, 3, 24, 10), 2),
     "halo_f32": ("halo", _x(2, 3, 24, 10), 2),
