@@ -26,10 +26,17 @@ DenseNet-161 ``.h5`` import (utils/h5_import.py) map them by name.  Input
 num_classes]; NCHW inside.  ``forward(inputs, train=True, generator=g)``
 is train mode: batch statistics and their running update, dropout masks
 from ``g``.
+
+Host spans (utils/trace.py, recorded only under a running profiler and
+never inside a CUDA-graph capture): ``boxseg.dense.stem`` (conv1, its
+batch norm, the pool), ``.block2`` .. ``.block5`` (the bottlenecks; block
+5's closing batch norm), ``.transition2`` .. ``.transition4`` and
+``.decoder`` (``line0`` to ``AdjustChannels``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -39,11 +46,21 @@ from torch import nn
 from boxsegliver_torch.models.layers import (BatchNorm, Conv, avg_pool_same,
                                              dropout, init_kernel_,
                                              max_pool3x3_same, upsample2x)
+from boxsegliver_torch.utils.trace import span
 
 ENCODER_BN = dict(momentum=0.999, eps=1e-5)
 DECODER_BN = dict(momentum=0.999, eps=1e-3)
 # the unconditional dropout before bn_up4 (reference DenseUNet.py:116)
 UP4_DROPOUT = 0.3
+_OFF = contextlib.nullcontext()
+
+
+def _stage_span(name: str, x: torch.Tensor):
+    """``utils.trace.span(name)`` around a stage of the forward, or nothing
+    while x's CUDA stream captures a graph: a replay shows no host span."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return _OFF
+    return span(name)
 
 
 class DenseUNet(nn.Module):
@@ -132,33 +149,38 @@ class DenseUNet(nn.Module):
         m = self._modules
 
         box = []
-        x = self._bn(self.conv1(x), "conv1_bn", train)
-        box.append(x)                                       # H/2
-        x = max_pool3x3_same(x)
+        with _stage_span("boxseg.dense.stem", x):
+            x = self._bn(self.conv1(x), "conv1_bn", train)
+            box.append(x)                                   # H/2
+            x = max_pool3x3_same(x)
         for k, n in enumerate(self.nb_layers):
             stage = k + 2
-            for b in range(1, n + 1):
-                base = f"conv{stage}_{b}"
-                y = self._bn(x, base + "_x1_bn", train)
-                y = self._drop(m[base + "_x1"](y), train, generator)
-                y = self._bn(y, base + "_x2_bn", train)
-                y = self._drop(m[base + "_x2"](y), train, generator)
-                x = torch.cat([x, y], dim=1)
+            with _stage_span(f"boxseg.dense.block{stage}", x):
+                for b in range(1, n + 1):
+                    base = f"conv{stage}_{b}"
+                    y = self._bn(x, base + "_x1_bn", train)
+                    y = self._drop(m[base + "_x1"](y), train, generator)
+                    y = self._bn(y, base + "_x2_bn", train)
+                    y = self._drop(m[base + "_x2"](y), train, generator)
+                    x = torch.cat([x, y], dim=1)
+                if k == 3:
+                    x = self._bn(x, f"conv{stage}_blk_bn", train)
+            box.append(x)                       # H/4 .. H/16, then H/32
             if k < 3:
-                box.append(x)                               # H/4 .. H/16
-                x = self._bn(x, f"conv{stage}_blk_bn", train)
-                x = self._drop(m[f"conv{stage}_blk"](x), train, generator)
-                x = avg_pool_same(x)
-        x = self._bn(x, f"conv{len(self.nb_layers) + 1}_blk_bn", train)
-        box.append(x)                                       # H/32
+                with _stage_span(f"boxseg.dense.transition{stage}", x):
+                    x = self._bn(x, f"conv{stage}_blk_bn", train)
+                    x = self._drop(m[f"conv{stage}_blk"](x), train,
+                                   generator)
+                    x = avg_pool_same(x)
 
-        x = self.line0(box[3]) + upsample2x(x)
-        x = self._bn(self.conv_up0(x), "bn_up0", train)
-        for i, skip in ((1, box[2]), (2, box[1]), (3, box[0])):
-            x = skip + upsample2x(x)
-            x = self._bn(m[f"conv_up{i}"](x), f"bn_up{i}", train)
-        x = self.conv_up4(upsample2x(x))
-        x = dropout(x, UP4_DROPOUT, train, generator)
-        x = self._bn(x, "bn_up4", train)
-        logits = self.AdjustChannels(x)
+        with _stage_span("boxseg.dense.decoder", x):
+            x = self.line0(box[3]) + upsample2x(x)
+            x = self._bn(self.conv_up0(x), "bn_up0", train)
+            for i, skip in ((1, box[2]), (2, box[1]), (3, box[0])):
+                x = skip + upsample2x(x)
+                x = self._bn(m[f"conv_up{i}"](x), f"bn_up{i}", train)
+            x = self.conv_up4(upsample2x(x))
+            x = dropout(x, UP4_DROPOUT, train, generator)
+            x = self._bn(x, "bn_up4", train)
+            logits = self.AdjustChannels(x)
         return logits.float().permute(0, 2, 3, 1)
