@@ -14,15 +14,20 @@ entry/main_export.py:28-120):
 The serve function is JAX's: images cast to float32 and resized to
 ``--im_height`` x ``--im_width``, the model in eval mode, softmax over the
 classes.  The exported input shape is that size, and the server takes no
-other, so the resize is the identity there.  The model is traced on
-``--device`` under no_grad with static shapes.  Every full-affine instance
-norm + ReLU of a GUNet traces to one node of the registered operator
-``boxseg::in_relu_fwd`` (ops/kernels.py), and each modulated block to one
-of ``boxseg::modnorm_relu_fwd``: a program loaded on the card launches
+other, so the resize is the identity there.  The model is traced on the
+CPU under no_grad with static shapes, whatever ``--device``: there
+torch.export's fake convolutions lay out their outputs as the card's
+convolutions do (channels-last for channels-last operands, where on the
+card they report contiguous ones), so the graph holds the operators of the
+layouts the card then runs.  Every full-affine instance
+norm + ReLU of a GUNet traces to one node of a registered operator
+(ops/kernels.py: ``boxseg::in_relu_nhwc_fwd`` on its channels-last
+activations, ``boxseg::in_relu_fwd`` on contiguous ones), and each modulated
+block to one of ``boxseg::modnorm_relu_nhwc_fwd`` (``boxseg::modnorm_relu_fwd``
+on contiguous activations): a program loaded on the card launches
 kernels B2-fwd and B3-fwd there, and on the CPU runs their plain versions.  The
-program is moved to the CPU before it is saved, so a bundle exported on the
-card serves on either device, as the JAX bundle lowered for cpu and tpu
-does.
+program is saved on the CPU, so a bundle serves on either device, as the JAX
+bundle lowered for cpu and tpu does.
 
     python -m boxsegliver_torch.cli.main liver --mode export --model GUNet \\
         --classes Liver Tumor --im_height 256 --im_width 256 \\
@@ -119,23 +124,21 @@ class Serve(nn.Module):
 def export_model(args, dataset_dir=None, out_dir=None, device=None) -> Path:
     """Trace the serve function of the flagged model and write the bundle;
     returns its directory.  Weights: cli/main.restore_weights(export=True).
-    ``device``: where to trace (default ``--device``, which is the card
-    unless ``--device cpu``); ``dataset_dir`` is unused (the JAX signature
-    builds its trainer from it)."""
-    from torch.export.passes import move_to_device_pass
-
+    ``device``: the flags' device (default ``--device``, which is the card
+    unless ``--device cpu``), which must exist; the trace runs on the CPU
+    (the module's docstring says why).  ``dataset_dir`` is unused (the JAX
+    signature builds its trainer from it)."""
     if device is None:
-        device = config_mod.resolve_device(args.device)
+        config_mod.resolve_device(args.device)
     feats = build_feature_template(args)
     model = _build_model(args)
     args.restored_from = restore_weights(args, model, export=True)
-    model = model.to(device).eval()
-    example = {k: torch.from_numpy(v).to(device) for k, v in feats.items()}
+    model = model.cpu().eval()
+    example = {k: torch.from_numpy(v) for k, v in feats.items()}
     with torch.no_grad():
         program = torch.export.export(
             Serve(model, (args.im_height, args.im_width)), (example,),
             strict=False)
-    program = move_to_device_pass(program, "cpu")
 
     out = Path(out_dir or Path(args.model_dir) / "export")
     out.mkdir(parents=True, exist_ok=True)

@@ -1529,6 +1529,1136 @@ int modnorm_relu_bwd_t(const ModBwd& e, const void* g, const void* y,
   return err ? err : launch_bwd_apply(f, vec, apply_ctas, st);
 }
 
+// ---- channels-last (NHWC) plans: B2 and B3 over [N, H * W, C] slabs ------
+//
+// A channels-last activation holds sample n as an [H * W, C] slab, C
+// innermost, so an (n, c) plane is a column of the slab with its elements C
+// apart.  The NHWC plans keep each thread on fixed channels: thread t of a
+// CTA owns the pack of `pack` channels (a 16-byte vector, 8 bf16 or 4 f32;
+// one element where C or a pointer does not allow it) at column v = t % V of
+// the CTA's channel tile (V packs, at most kNhwcMaxTile channels), and walks
+// the rows r = t / V, r + R, ... (R = kThreads / V).  A warp's loads cover
+// 32 / V rows of V * 16 contiguous bytes, whole 128-byte lines at V = 8, so
+// they coalesce at every width of G-Net.  A thread keeps its channels' sums
+// in float32 registers and its channels' constants (mean, rstd, gamma, ...)
+// in registers for the whole slab.  The CTA adds the sums over its row
+// groups in a fixed order (shuffles within a warp, then the warps in order
+// through shared memory), so the outputs are equal from run to run.
+// The forward writes y and each plane's mean and rstd, not x_hat: the
+// backward reads x in x_hat's place and takes x_hat from it again in
+// float32 (2 B an element less written forward, and x_hat unrounded).
+//   staged  a cluster of `cs` CTAs covers all rows of one (sample, tile),
+//           each CTA hw / cs rows of it, which it copies into shared memory
+//           (cp.async: x and s forward; g, x and y backward).  The CTAs add
+//           their sums through distributed shared memory in rank order and
+//           apply from shared memory: each operand is read once.
+//   split   a tile too large for a cluster (G-Net's 256^2 level): a sums
+//           pass writes each CTA's partial (a chunk of `chunk` rows), the
+//           combine pass adds a plane's partials in a fixed order (a warp a
+//           plane), and the apply pass reads the operands again, the
+//           samples in reverse so that its first reads find the L2 warm.
+// Bound: the function's bytes, as the NCHW plans' (B2 10 B an element a
+// bf16 training step, B3 16 B, 6 under no-grad); the split plan reads its
+// operands twice.  The same sums pass also gives channel_sums_nhwc, the
+// channel sums of a channels-last tensor (a conv bias's gradient).
+
+constexpr int kNhwcMaxTile = 64;                 // channels a CTA covers
+constexpr int kNhwcMaxStageBytes = 200 * 1024;   // a staged CTA's operands
+constexpr int kNhwcParts = 4;        // commit groups a staged CTA's copies
+constexpr int kNhwcUnroll = 8;       // rows a split-plan thread loads at once
+constexpr int kNhwcUnrollGrad = 4;   // the same, of two or three operands
+constexpr int kNhwcMinBlocks = 2;                // CTAs an SM should hold
+
+// 16-byte asynchronous copy global -> shared (cp.async, cached in L2 only),
+// completed per thread by the commit groups below.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most `pending` of the thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> ld_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, N>*>(p);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void st_pack(T* p, const Pack<T, N>& v) {
+  *reinterpret_cast<Pack<T, N>*>(p) = v;
+}
+
+// A store marked as streaming (evict first from L2), where it is 16 bytes:
+// the split plan's apply pass keeps the L2 for the operands it reads again.
+template <typename T, int N>
+__device__ __forceinline__ void st_pack_cs(T* p, const Pack<T, N>& v) {
+  if constexpr (sizeof(Pack<T, N>) == 16)
+    __stcs(reinterpret_cast<int4*>(p), *reinterpret_cast<const int4*>(&v));
+  else
+    st_pack(p, v);
+}
+
+// A thread's place in an NHWC CTA: column v of V packs, row group r of R,
+// and the channel of its first element.
+struct NhwcLane {
+  int v, r, R, c0;
+};
+
+__device__ __forceinline__ NhwcLane nhwc_lane(int V, int tile, int pack) {
+  const int v = (int)threadIdx.x % V;
+  return {v, (int)threadIdx.x / V, kThreads / V, (tile * V + v) * pack};
+}
+
+// Running (sum x, sum x^2) of each channel of one pack.
+template <typename T, int N>
+__device__ __forceinline__ void add_cols(const Pack<T, N>& p, float (&a)[N],
+                                         float (&b)[N]) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float v = to_f(p.v[k]);
+    a[k] = __fadd_rn(a[k], v);
+    b[k] = __fadd_rn(b[k], __fmul_rn(v, v));
+  }
+}
+
+// Each channel's (a, b) added over the CTA's row groups in a fixed order:
+// the lanes of a warp that share a column by shuffles, then the warps in
+// order through `red` [kWarps][kNhwcMaxTile][2].  The tile's sums land in
+// `out` [V * N][2]; ends on a barrier, so `out` is visible to every thread.
+template <int N>
+__device__ __forceinline__ void nhwc_block_sum(float (&a)[N], float (&b)[N],
+                                               int V, float* red, float* out) {
+  for (int o = V; o < 32; o <<= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      a[k] = __fadd_rn(a[k], __shfl_xor_sync(0xffffffffu, a[k], o));
+      b[k] = __fadd_rn(b[k], __shfl_xor_sync(0xffffffffu, b[k], o));
+    }
+  }
+  const int lane = (int)threadIdx.x % 32, warp = (int)threadIdx.x / 32;
+  if (lane < V) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      float* q = red + 2 * (warp * kNhwcMaxTile + lane * N + k);
+      q[0] = a[k];
+      q[1] = b[k];
+    }
+  }
+  __syncthreads();
+  if ((int)threadIdx.x < 2 * V * N) {  // moment t % 2 of channel t / 2
+    float s = 0.0f;
+    for (int w = 0; w < kWarps; ++w)
+      s = __fadd_rn(s, red[2 * w * kNhwcMaxTile + threadIdx.x]);
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// y and x_hat of one pack, each element under its own channel's constants.
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ void norm_cols(const Epi& e,
+                                          const typename Epi::Plane (&k)[N],
+                                          const float (&mean)[N],
+                                          const float (&rs)[N],
+                                          const Pack<T, N>& p,
+                                          const Pack<T, N>& ps,
+                                          Pack<T, N>& po, Pack<T, N>& ph) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float h = __fmul_rn(__fsub_rn(to_f(p.v[j]), mean[j]), rs[j]);
+    po.v[j] = from_f<T>(fmaxf(e.z(k[j], h, to_f(ps.v[j])), 0.0f));
+    ph.v[j] = from_f<T>(h);
+  }
+}
+
+// Running (s1, s2) = (sum gz, sum gz * x_hat) of each channel of one pack,
+// as grad_sum_pack (x_hat given in float32, h): under Epi::kReadsY gz
+// replaces g in pg.
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ void grad_sum_cols(
+    const Epi& e, const typename Epi::Plane (&k)[N], Pack<T, N>& pg,
+    const float (&hv)[N], const Pack<T, N>& py, float (&a)[N],
+    float (&b)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float h = hv[j];
+    float yv = 0.0f;
+    if constexpr (Epi::kReadsY) yv = to_f(py.v[j]);
+    const float gz = e.keep(k[j], h, yv) ? to_f(pg.v[j]) : 0.0f;
+    if constexpr (Epi::kReadsY) pg.v[j] = from_f<T>(gz);
+    a[j] = __fadd_rn(a[j], gz);
+    b[j] = __fadd_rn(b[j], __fmul_rn(gz, h));
+  }
+}
+
+// dx of one pack, as grad_pack, each element under its channel's constants
+// (x_hat given in float32, h).
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ Pack<T, N> grad_cols(
+    const Epi& e, const typename Epi::Plane (&k)[N], const GradCoef (&c)[N],
+    const Pack<T, N>& pg, const float (&hv)[N]) {
+  Pack<T, N> out;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float h = hv[j];
+    float gz = to_f(pg.v[j]);
+    if constexpr (!Epi::kReadsY) gz = e.keep(k[j], h, 0.0f) ? gz : 0.0f;
+    const float d = __fsub_rn(__fsub_rn(gz, c[j].m1), __fmul_rn(h, c[j].m2));
+    out.v[j] = from_f<T>(__fmul_rn(c[j].coef, d));
+  }
+  return out;
+}
+
+// x_hat of one pack in float32, (x - mean) * rstd as the forward computes
+// it: the NHWC plans keep x for the backward, not x_hat.
+template <typename T, int N>
+__device__ __forceinline__ void xhat_cols(const Pack<T, N>& p,
+                                          const float (&mean)[N],
+                                          const float (&rs)[N],
+                                          float (&h)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    h[j] = __fmul_rn(__fsub_rn(to_f(p.v[j]), mean[j]), rs[j]);
+}
+
+// The spatial term's pack at element offset `o` where the epilogue reads
+// one, else zeros.
+template <typename Epi, typename T, int N>
+__device__ __forceinline__ Pack<T, N> s_cols(const T* s, int64_t o) {
+  if constexpr (Epi::kSpatial) {
+    if (s) return ld_pack<T, N>(s + o);
+  }
+  return zero_pack<T, N>();
+}
+
+// `out` [2 * tc] replaced by the cluster's sums, read from every CTA's
+// `part` through distributed shared memory and added in rank order, so
+// every CTA gets the same sums with no atomics.  A CTA that called it must
+// pass one more cluster barrier before it exits (a peer may still read its
+// `part`).
+__device__ __forceinline__ void nhwc_cluster_add(float* out, float* part,
+                                                 int tc, int cs) {
+  cg::cluster_group cluster = cg::this_cluster();
+  if ((int)threadIdx.x < 2 * tc) part[threadIdx.x] = out[threadIdx.x];
+  cluster.sync();
+  if ((int)threadIdx.x < 2 * tc) {
+    float s = 0.0f;
+    for (int q = 0; q < cs; ++q)
+      s = __fadd_rn(s, cluster.map_shared_rank(part, q)[threadIdx.x]);
+    out[threadIdx.x] = s;
+  }
+  __syncthreads();
+}
+
+// The thread's rows l.r + k * l.R (k < K) of `arrays` operands (src[a] at
+// the CTA's first row, rows `pitch[a]` elements apart) copied into `dst`
+// ([arrays][rows][V] packs, the thread's column at l.v) in kNhwcParts
+// commit groups: cp.async where a pack is 16 bytes, so that every copy is
+// in flight at once and each part can be summed as it lands (a thread reads
+// back only its own copies: no barrier); plain loads otherwise.
+template <typename T, int N, int A>
+__device__ __forceinline__ void nhwc_stage(Pack<T, N>* dst,
+                                           const T* const (&src)[A],
+                                           const int64_t (&pitch)[A],
+                                           int arrays, const NhwcLane& l,
+                                           int rows, int V, int K, int per) {
+  for (int q = 0; q < kNhwcParts; ++q) {
+    for (int k = q * per; k < min(K, (q + 1) * per); ++k) {
+      const int i = l.r + k * l.R;
+#pragma unroll
+      for (int a = 0; a < A; ++a) {
+        if (a >= arrays) break;
+        Pack<T, N>* d = dst + ((int64_t)a * rows + i) * V + l.v;
+        const T* from = src[a] + (int64_t)i * pitch[a];
+        if constexpr (sizeof(Pack<T, N>) == 16)
+          cp_async16(d, from);
+        else
+          *d = ld_pack<T, N>(from);
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// Staged forward: a cluster of `cs` CTAs per (sample, tile); CTA `rank`
+// keeps rows [rank * hw / cs, (rank + 1) * hw / cs) of x in shared memory,
+// and of s (B3's spatial term, `s_row` elements a row and `s_sample` a
+// sample apart; null for B2 or where the block has none) after them.  It
+// writes y and, in training, each channel's mean and rstd (mean_out and
+// rstd_out null under no-grad).
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void nhwc_fwd_staged(
+    const Epi& e, const T* __restrict__ x, const T* __restrict__ s,
+    int64_t s_row, int64_t s_sample, T* __restrict__ y,
+    float* __restrict__ mean_out, float* __restrict__ rstd_out, int C, int hw,
+    int V, int cs, float eps) {
+  using P = Pack<T, N>;
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ float red[2 * kWarps * kNhwcMaxTile];
+  __shared__ float sums[2 * kNhwcMaxTile];
+  __shared__ float part[2 * kNhwcMaxTile];
+  const int tc = V * N, tiles = C / tc;
+  const int rank = (int)(blockIdx.x % cs);
+  const int item = (int)(blockIdx.x / cs);
+  const int tile = item % tiles;
+  const int64_t n = item / tiles;
+  const int rows = hw / cs, row0 = rank * rows;
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + row0) * C + l.c0;
+  const bool has_s = Epi::kSpatial && s;
+  const P* st = reinterpret_cast<const P*>(stage) + l.v;  // row i: st[i * V]
+  const P* ss = st + (int64_t)rows * V;                   // s's after them
+  const int K = rows > l.r ? (rows - l.r + l.R - 1) / l.R : 0;
+  const int per = (K + kNhwcParts - 1) / kNhwcParts;
+  {
+    const T* src[2] = {x + base,
+                       has_s ? s + n * s_sample + (int64_t)row0 * s_row + l.c0
+                             : x};
+    const int64_t pitch[2] = {C, s_row};
+    nhwc_stage<T, N, 2>(reinterpret_cast<P*>(stage), src, pitch,
+                        has_s ? 2 : 1, l, rows, V, K, per);
+  }
+  float a[N], b[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) a[k] = b[k] = 0.0f;
+  for (int q = 0; q < kNhwcParts; ++q) {
+    cp_async_wait(kNhwcParts - 1 - q);
+    for (int k = q * per; k < min(K, (q + 1) * per); ++k)
+      add_cols(st[(l.r + k * l.R) * V], a, b);
+  }
+  nhwc_block_sum<N>(a, b, V, red, sums);
+  if (cs > 1) nhwc_cluster_add(sums, part, tc, cs);
+  if ((int)threadIdx.x < tc) {     // channel t's mean and rstd, over its sums
+    const int t = threadIdx.x;
+    float mean;
+    const float r = plane_rstd(sums[2 * t], sums[2 * t + 1], hw, eps, mean);
+    sums[2 * t] = mean;
+    sums[2 * t + 1] = r;
+    if (rstd_out && rank == 0) {
+      mean_out[n * C + tile * tc + t] = mean;
+      rstd_out[n * C + tile * tc + t] = r;
+    }
+  }
+  __syncthreads();
+  typename Epi::Plane k[N];
+  float mean[N], rs[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mean[j] = sums[2 * (l.v * N + j)];
+    rs[j] = sums[2 * (l.v * N + j) + 1];
+    k[j] = e.plane(n * C + l.c0 + j);
+  }
+  for (int i = l.r; i < rows; i += l.R) {
+    P po, ph;
+    norm_cols(e, k, mean, rs, st[i * V],
+              has_s ? ss[i * V] : zero_pack<T, N>(), po, ph);
+    st_pack(y + base + (int64_t)i * C, po);
+  }
+  if (cs > 1) cg::this_cluster().sync();       // peers done with `part`
+}
+
+// A thread's channels' mean and rstd (the forward's, of sample n).
+template <int N>
+__device__ __forceinline__ void nhwc_stats_of(const float* __restrict__ mean,
+                                              const float* __restrict__ rstd,
+                                              int64_t p, float (&mx)[N],
+                                              float (&rx)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    mx[j] = mean[p + j];
+    rx[j] = rstd[p + j];
+  }
+}
+
+// Staged backward: as the forward, with g, x and, where the epilogue reads
+// it, y in shared memory; x_hat is taken from x again, in float32.  The
+// first pass leaves g_m in g's place for the second and writes ds (if not
+// null).
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void nhwc_bwd_staged(
+    const Epi& e, const T* __restrict__ g, const T* __restrict__ y,
+    const T* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ rstd, T* __restrict__ dx, T* __restrict__ ds,
+    float* __restrict__ s1_out, float* __restrict__ s2_out, int C, int hw,
+    int V, int cs) {
+  using P = Pack<T, N>;
+  extern __shared__ __align__(128) unsigned char stage[];
+  __shared__ float red[2 * kWarps * kNhwcMaxTile];
+  __shared__ float sums[2 * kNhwcMaxTile];
+  __shared__ float part[2 * kNhwcMaxTile];
+  const int tc = V * N, tiles = C / tc;
+  const int rank = (int)(blockIdx.x % cs);
+  const int item = (int)(blockIdx.x / cs);
+  const int tile = item % tiles;
+  const int64_t n = item / tiles;
+  const int rows = hw / cs, row0 = rank * rows;
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + row0) * C + l.c0;
+  P* sg = reinterpret_cast<P*>(stage) + l.v;
+  const P* sx = sg + (int64_t)rows * V;
+  const P* sy = sx + (int64_t)rows * V;
+  const int K = rows > l.r ? (rows - l.r + l.R - 1) / l.R : 0;
+  const int per = (K + kNhwcParts - 1) / kNhwcParts;
+  {
+    const T* src[3] = {g + base, x + base,
+                       Epi::kReadsY ? y + base : g + base};
+    const int64_t pitch[3] = {C, C, C};
+    nhwc_stage<T, N, 3>(reinterpret_cast<P*>(stage), src, pitch,
+                        Epi::kReadsY ? 3 : 2, l, rows, V, K, per);
+  }
+  typename Epi::Plane k[N];
+  float a[N], b[N], mx[N], rx[N];
+  nhwc_stats_of<N>(mean, rstd, n * C + l.c0, mx, rx);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    k[j] = e.plane(n * C + l.c0 + j);
+    a[j] = b[j] = 0.0f;
+  }
+  for (int q = 0; q < kNhwcParts; ++q) {
+    cp_async_wait(kNhwcParts - 1 - q);
+    for (int kk = q * per; kk < min(K, (q + 1) * per); ++kk) {
+      const int i = l.r + kk * l.R;
+      P pg = sg[i * V];
+      float h[N];
+      xhat_cols(sx[i * V], mx, rx, h);
+      if constexpr (Epi::kReadsY) {
+        grad_sum_cols(e, k, pg, h, sy[i * V], a, b);
+        sg[i * V] = pg;
+        if (ds) st_pack(ds + base + (int64_t)i * C, pg);
+      } else {
+        grad_sum_cols(e, k, pg, h, pg, a, b);
+      }
+    }
+  }
+  nhwc_block_sum<N>(a, b, V, red, sums);
+  if (cs > 1) nhwc_cluster_add(sums, part, tc, cs);
+  if ((int)threadIdx.x < tc) {     // channel t's sums out, its coefficients
+    const int t = threadIdx.x;
+    const int64_t p = n * C + tile * tc + t;
+    if (rank == 0) {
+      s1_out[p] = sums[2 * t];
+      s2_out[p] = sums[2 * t + 1];
+    }
+    const GradCoef gc =
+        grad_coef(e, e.plane(p), rstd[p], sums[2 * t], sums[2 * t + 1], hw);
+    red[3 * t] = gc.m1;                // red is free after nhwc_block_sum
+    red[3 * t + 1] = gc.m2;
+    red[3 * t + 2] = gc.coef;
+  }
+  __syncthreads();
+  GradCoef c[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const float* q = red + 3 * (l.v * N + j);
+    c[j] = {q[0], q[1], q[2]};
+  }
+  for (int i = l.r; i < rows; i += l.R) {
+    float h[N];
+    xhat_cols(sx[i * V], mx, rx, h);
+    st_pack(dx + base + (int64_t)i * C, grad_cols(e, k, c, sg[i * V], h));
+  }
+  if (cs > 1) cg::this_cluster().sync();
+}
+
+// Split plan, the forward's sums pass: CTA (split, tile, n) adds rows
+// [split * chunk, min(hw, (split + 1) * chunk)) of its tile and writes
+// (sum x, sum x^2) of each channel to part[((n * C + c) * splits + split) *
+// 2], the layout combine_partials adds in split order.
+template <typename T, int N>
+__device__ __forceinline__ void nhwc_sums_x(const T* __restrict__ x,
+                                            float* __restrict__ part, int C,
+                                            int hw, int V, int splits,
+                                            int chunk) {
+  using P = Pack<T, N>;
+  __shared__ float red[2 * kWarps * kNhwcMaxTile];
+  __shared__ float sums[2 * kNhwcMaxTile];
+  const int tc = V * N, tile = blockIdx.y;
+  const int64_t n = blockIdx.z;
+  const int lo = blockIdx.x * chunk, rows = min(hw - lo, chunk);
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + lo) * C + l.c0;
+  float a[N], b[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) a[k] = b[k] = 0.0f;
+  for (int i0 = l.r; i0 < rows; i0 += kNhwcUnroll * l.R) {
+    P p[kNhwcUnroll];
+#pragma unroll
+    for (int u = 0; u < kNhwcUnroll; ++u)
+      if (i0 + u * l.R < rows)
+        p[u] = ld_pack<T, N>(x + base + (int64_t)(i0 + u * l.R) * C);
+#pragma unroll
+    for (int u = 0; u < kNhwcUnroll; ++u)
+      if (i0 + u * l.R < rows) add_cols(p[u], a, b);
+  }
+  nhwc_block_sum<N>(a, b, V, red, sums);
+  if ((int)threadIdx.x < 2 * tc) {
+    const int t = threadIdx.x;
+    part[((n * C + tile * tc + t / 2) * splits + blockIdx.x) * 2 + t % 2] =
+        sums[t];
+  }
+}
+
+// Split plan, the backward's sums pass: as nhwc_sums_x over (sum gz, sum
+// gz * x_hat), x_hat taken from x again.
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void nhwc_sums_grad(
+    const Epi& e, const T* __restrict__ g, const T* __restrict__ y,
+    const T* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ rstd, float* __restrict__ part, int C, int hw,
+    int V, int splits, int chunk) {
+  using P = Pack<T, N>;
+  __shared__ float red[2 * kWarps * kNhwcMaxTile];
+  __shared__ float sums[2 * kNhwcMaxTile];
+  const int tc = V * N, tile = blockIdx.y;
+  const int64_t n = blockIdx.z;
+  const int lo = blockIdx.x * chunk, rows = min(hw - lo, chunk);
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + lo) * C + l.c0;
+  typename Epi::Plane k[N];
+  float a[N], b[N], mx[N], rx[N];
+  nhwc_stats_of<N>(mean, rstd, n * C + l.c0, mx, rx);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    k[j] = e.plane(n * C + l.c0 + j);
+    a[j] = b[j] = 0.0f;
+  }
+  for (int i0 = l.r; i0 < rows; i0 += kNhwcUnrollGrad * l.R) {
+    P pg[kNhwcUnrollGrad], px[kNhwcUnrollGrad], py[kNhwcUnrollGrad];
+#pragma unroll
+    for (int u = 0; u < kNhwcUnrollGrad; ++u) {
+      const int64_t o = base + (int64_t)(i0 + u * l.R) * C;
+      if (i0 + u * l.R < rows) {
+        pg[u] = ld_pack<T, N>(g + o);
+        px[u] = ld_pack<T, N>(x + o);
+        if constexpr (Epi::kReadsY) py[u] = ld_pack<T, N>(y + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kNhwcUnrollGrad; ++u)
+      if (i0 + u * l.R < rows) {
+        float h[N];
+        xhat_cols(px[u], mx, rx, h);
+        grad_sum_cols(e, k, pg[u], h, Epi::kReadsY ? py[u] : pg[u], a, b);
+      }
+  }
+  nhwc_block_sum<N>(a, b, V, red, sums);
+  if ((int)threadIdx.x < 2 * tc) {
+    const int t = threadIdx.x;
+    part[((n * C + tile * tc + t / 2) * splits + blockIdx.x) * 2 + t % 2] =
+        sums[t];
+  }
+}
+
+// Split plan, the forward's apply pass: CTA (chunk, tile, n) writes y of
+// its rows from the combined sums `tot` [N * C][2]; the first chunk's CTAs
+// write mean and rstd (null under no-grad).  The sums pass read the
+// samples in order; the apply pass walks them in reverse, so that its first
+// reads find what the sums pass left in L2.
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void nhwc_fwd_apply(
+    const Epi& e, const T* __restrict__ x, const T* __restrict__ s,
+    int64_t s_row, int64_t s_sample, const float* __restrict__ tot,
+    T* __restrict__ y, float* __restrict__ mean_out,
+    float* __restrict__ rstd_out, int C, int hw, int V, int chunk,
+    float eps) {
+  using P = Pack<T, N>;
+  const int tile = blockIdx.y, ci = gridDim.x - 1 - blockIdx.x;
+  const int64_t n = gridDim.z - 1 - blockIdx.z;
+  const int lo = ci * chunk, rows = min(hw - lo, chunk);
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + lo) * C + l.c0;
+  typename Epi::Plane k[N];
+  float mean[N], rs[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int64_t p = n * C + l.c0 + j;
+    rs[j] = plane_rstd(tot[2 * p], tot[2 * p + 1], hw, eps, mean[j]);
+    k[j] = e.plane(p);
+    if (rstd_out && ci == 0 && l.r == 0) {
+      mean_out[p] = mean[j];
+      rstd_out[p] = rs[j];
+    }
+  }
+  const T* sp = Epi::kSpatial && s
+                    ? s + n * s_sample + (int64_t)lo * s_row + l.c0
+                    : nullptr;
+  // B3 reads s beside x: half the rows at once, within the registers
+  constexpr int U = Epi::kSpatial ? kNhwcUnrollGrad : kNhwcUnroll;
+  for (int i0 = l.r; i0 < rows; i0 += U * l.R) {
+    P p[U], ps[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * l.R;
+      if (i < rows) {
+        p[u] = ld_pack<T, N>(x + base + (int64_t)i * C);
+        ps[u] = s_cols<Epi, T, N>(sp, (int64_t)i * s_row);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * l.R;
+      if (i < rows) {
+        P po, ph;
+        norm_cols(e, k, mean, rs, p[u], ps[u], po, ph);
+        st_pack_cs(y + base + (int64_t)i * C, po);
+      }
+    }
+  }
+}
+
+// Split plan, the backward's apply pass: dx (and ds under Epi::kReadsY)
+// from the combined sums s1, s2 [N * C], x_hat taken from x again; the
+// samples in reverse, as nhwc_fwd_apply's.
+template <typename T, int N, typename Epi>
+__device__ __forceinline__ void nhwc_bwd_apply(
+    const Epi& e, const T* __restrict__ g, const T* __restrict__ y,
+    const T* __restrict__ x, const float* __restrict__ mean,
+    const float* __restrict__ rstd, const float* __restrict__ s1,
+    const float* __restrict__ s2, T* __restrict__ dx, T* __restrict__ ds,
+    int C, int hw, int V, int chunk) {
+  using P = Pack<T, N>;
+  const int tile = blockIdx.y, ci = gridDim.x - 1 - blockIdx.x;
+  const int64_t n = gridDim.z - 1 - blockIdx.z;
+  const int lo = ci * chunk, rows = min(hw - lo, chunk);
+  const NhwcLane l = nhwc_lane(V, tile, N);
+  const int64_t base = (n * hw + lo) * C + l.c0;
+  typename Epi::Plane k[N];
+  GradCoef c[N];
+  float mx[N], rx[N];
+  nhwc_stats_of<N>(mean, rstd, n * C + l.c0, mx, rx);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int64_t p = n * C + l.c0 + j;
+    k[j] = e.plane(p);
+    c[j] = grad_coef(e, k[j], rx[j], s1[p], s2[p], hw);
+  }
+  for (int i0 = l.r; i0 < rows; i0 += kNhwcUnrollGrad * l.R) {
+    P pg[kNhwcUnrollGrad], px[kNhwcUnrollGrad], py[kNhwcUnrollGrad];
+#pragma unroll
+    for (int u = 0; u < kNhwcUnrollGrad; ++u) {
+      const int64_t o = base + (int64_t)(i0 + u * l.R) * C;
+      if (i0 + u * l.R < rows) {
+        pg[u] = ld_pack<T, N>(g + o);
+        px[u] = ld_pack<T, N>(x + o);
+        if constexpr (Epi::kReadsY) py[u] = ld_pack<T, N>(y + o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kNhwcUnrollGrad; ++u) {
+      const int i = i0 + u * l.R;
+      if (i < rows) {
+        const int64_t o = base + (int64_t)i * C;
+        float h[N];
+        xhat_cols(px[u], mx, rx, h);
+        if constexpr (Epi::kReadsY) {
+          float ua[N], ub[N];          // the sums are the first pass's
+#pragma unroll
+          for (int j = 0; j < N; ++j) ua[j] = ub[j] = 0.0f;
+          grad_sum_cols(e, k, pg[u], h, py[u], ua, ub);
+          if (ds) st_pack_cs(ds + o, pg[u]);
+        }
+        st_pack_cs(dx + o, grad_cols(e, k, c, pg[u], h));
+      }
+    }
+  }
+}
+
+// ---- the NHWC kernels: B2's under AffineFwd / AffineBwd, B3's under ModFwd
+// / ModBwd (named so that a trace tells B2 from B3)
+
+#define NHWC_KERNEL \
+  template <typename T, int N>       \
+  __global__ void __launch_bounds__(kThreads, kNhwcMinBlocks)
+
+NHWC_KERNEL in_relu_nhwc_fwd_staged_kernel(AffineFwd<T> e, const T* x, T* y,
+                                           float* mean, float* rstd, int C,
+                                           int hw, int V, int cs, float eps) {
+  nhwc_fwd_staged<T, N>(e, x, (const T*)nullptr, 0, 0, y, mean, rstd, C, hw,
+                        V, cs, eps);
+}
+
+NHWC_KERNEL in_relu_nhwc_sums_kernel(const T* x, float* part, int C, int hw,
+                                     int V, int splits, int chunk) {
+  nhwc_sums_x<T, N>(x, part, C, hw, V, splits, chunk);
+}
+
+NHWC_KERNEL in_relu_nhwc_fwd_apply_kernel(AffineFwd<T> e, const T* x,
+                                          const float* tot, T* y, float* mean,
+                                          float* rstd, int C, int hw, int V,
+                                          int chunk, float eps) {
+  nhwc_fwd_apply<T, N>(e, x, (const T*)nullptr, 0, 0, tot, y, mean, rstd, C,
+                       hw, V, chunk, eps);
+}
+
+NHWC_KERNEL in_relu_nhwc_bwd_staged_kernel(AffineBwd e, const T* g,
+                                           const T* x, const float* mean,
+                                           const float* rstd, T* dx,
+                                           float* s1, float* s2, int C,
+                                           int hw, int V, int cs) {
+  nhwc_bwd_staged<T, N>(e, g, (const T*)nullptr, x, mean, rstd, dx,
+                        (T*)nullptr, s1, s2, C, hw, V, cs);
+}
+
+NHWC_KERNEL in_relu_nhwc_bwd_sums_kernel(AffineBwd e, const T* g, const T* x,
+                                         const float* mean, const float* rstd,
+                                         float* part, int C, int hw, int V,
+                                         int splits, int chunk) {
+  nhwc_sums_grad<T, N>(e, g, (const T*)nullptr, x, mean, rstd, part, C, hw,
+                       V, splits, chunk);
+}
+
+NHWC_KERNEL in_relu_nhwc_bwd_apply_kernel(AffineBwd e, const T* g, const T* x,
+                                          const float* mean,
+                                          const float* rstd, const float* s1,
+                                          const float* s2, T* dx, int C,
+                                          int hw, int V, int chunk) {
+  nhwc_bwd_apply<T, N>(e, g, (const T*)nullptr, x, mean, rstd, s1, s2, dx,
+                       (T*)nullptr, C, hw, V, chunk);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_fwd_staged_kernel(ModFwd<T> e, const T* x,
+                                                const T* s, int64_t s_row,
+                                                int64_t s_sample, T* y,
+                                                float* mean, float* rstd,
+                                                int C, int hw, int V, int cs,
+                                                float eps) {
+  nhwc_fwd_staged<T, N>(e, x, s, s_row, s_sample, y, mean, rstd, C, hw, V, cs,
+                        eps);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_sums_kernel(const T* x, float* part, int C,
+                                          int hw, int V, int splits,
+                                          int chunk) {
+  nhwc_sums_x<T, N>(x, part, C, hw, V, splits, chunk);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_fwd_apply_kernel(ModFwd<T> e, const T* x,
+                                               const T* s, int64_t s_row,
+                                               int64_t s_sample,
+                                               const float* tot, T* y,
+                                               float* mean, float* rstd,
+                                               int C, int hw, int V,
+                                               int chunk, float eps) {
+  nhwc_fwd_apply<T, N>(e, x, s, s_row, s_sample, tot, y, mean, rstd, C, hw, V,
+                       chunk, eps);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_bwd_staged_kernel(ModBwd e, const T* g,
+                                                const T* y, const T* x,
+                                                const float* mean,
+                                                const float* rstd, T* dx,
+                                                T* ds, float* a, float* b,
+                                                int C, int hw, int V, int cs) {
+  nhwc_bwd_staged<T, N>(e, g, y, x, mean, rstd, dx, ds, a, b, C, hw, V, cs);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_bwd_sums_kernel(ModBwd e, const T* g,
+                                              const T* y, const T* x,
+                                              const float* mean,
+                                              const float* rstd, float* part,
+                                              int C, int hw, int V, int splits,
+                                              int chunk) {
+  nhwc_sums_grad<T, N>(e, g, y, x, mean, rstd, part, C, hw, V, splits, chunk);
+}
+
+NHWC_KERNEL modnorm_relu_nhwc_bwd_apply_kernel(ModBwd e, const T* g,
+                                               const T* y, const T* x,
+                                               const float* mean,
+                                               const float* rstd,
+                                               const float* a, const float* b,
+                                               T* dx, T* ds, int C, int hw,
+                                               int V, int chunk) {
+  nhwc_bwd_apply<T, N>(e, g, y, x, mean, rstd, a, b, dx, ds, C, hw, V, chunk);
+}
+
+// Channel sums of a channels-last tensor (a conv bias's gradient, where
+// the tensor is the gradient of the conv's output): the split plan's sums
+// pass over all the tensor's rows as one sample, under a name of its own
+// (it is neither B2 nor B3).
+NHWC_KERNEL channel_sums_nhwc_kernel(const T* x, float* part, int C, int rows,
+                                     int V, int splits, int chunk) {
+  nhwc_sums_x<T, N>(x, part, C, rows, V, splits, chunk);
+}
+
+#undef NHWC_KERNEL
+
+// The split plan's combine, one warp a plane: lane j adds chunks j, j + 32,
+// ... in order, then the lanes' sums by shuffles (the same order on every
+// run), into (o1, o2) at plane * ostride.
+__device__ __forceinline__ void nhwc_combine_warp(const float* __restrict__ part,
+                                                  float* __restrict__ o1,
+                                                  float* __restrict__ o2,
+                                                  int ostride, int planes,
+                                                  int splits) {
+  const int64_t plane = ((int64_t)blockIdx.x * kThreads + threadIdx.x) / 32;
+  const int lane = (int)threadIdx.x % 32;
+  if (plane >= planes) return;             // a whole warp: plane is uniform
+  const float* p = part + 2 * plane * splits;
+  float s = 0.0f, ss = 0.0f;
+  for (int k = lane; k < splits; k += 32) {
+    s = __fadd_rn(s, p[2 * k]);
+    ss = __fadd_rn(ss, p[2 * k + 1]);
+  }
+  warp_sum2(s, ss);
+  if (lane == 0) {
+    o1[plane * ostride] = s;
+    o2[plane * ostride] = ss;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    in_relu_nhwc_combine_kernel(const float* part, float* o1, float* o2,
+                                int ostride, int planes, int splits) {
+  nhwc_combine_warp(part, o1, o2, ostride, planes, splits);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    modnorm_relu_nhwc_combine_kernel(const float* part, float* o1, float* o2,
+                                     int ostride, int planes, int splits) {
+  nhwc_combine_warp(part, o1, o2, ostride, planes, splits);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    channel_sums_combine_kernel(const float* part, float* o1, float* o2,
+                                int ostride, int planes, int splits) {
+  nhwc_combine_warp(part, o1, o2, ostride, planes, splits);
+}
+
+
+// ---- NHWC launches ----------------------------------------------------------
+//
+// ops/kernels.in_relu_nhwc_plan's plan: `path` kPathStaged (a cluster of
+// `cs` CTAs a (sample, tile), `smem` bytes of dynamic shared memory each) or
+// kPathGeneral for the split plan (`splits` chunks of `chunk` rows a sample,
+// then the combine and apply passes); `pack` elements a thread's vector,
+// `v` vectors a row of the tile.
+struct NhwcPlan {
+  int path, pack, v, cs, smem, splits, chunk;
+};
+
+// A family (B2 or B3, forward or backward) gives the paths' launches for
+// pack P: staged<P>, sums<P>, combine, apply<P>, and arrays(), the operands
+// a staged CTA keeps (x, and B3's s where given; g and x_hat, and B3's y).
+template <int P, typename F>
+int nhwc_run(const F& f, const NhwcPlan& p, cudaStream_t st) {
+  using T = typename F::T;
+  const int tiles = f.C / (p.v * P);
+  if (p.path == kPathStaged) {
+    if (p.cs < 1 || p.cs > kMaxCluster || (p.cs & (p.cs - 1)) ||
+        f.hw % p.cs ||
+        p.smem != (int)((int64_t)f.hw / p.cs * p.v * P * sizeof(T) *
+                        f.arrays()) ||
+        p.smem > kNhwcMaxStageBytes)
+      return (int)cudaErrorInvalidValue;
+    return f.template staged<P>(p, (int64_t)f.n * tiles * p.cs, st);
+  }
+  if (p.path != kPathGeneral || p.splits < 1 || p.chunk < 1 ||
+      (int64_t)p.splits * p.chunk < f.hw ||
+      (int64_t)(p.splits - 1) * p.chunk >= f.hw || f.n > kMaxGridY ||
+      tiles > kMaxGridY)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)p.splits, (unsigned)tiles, (unsigned)f.n);
+  f.template sums<P>(p, grid, st);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  f.combine(p, st);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  f.template apply<P>(p, grid, st);
+  return (int)cudaGetLastError();
+}
+
+// The plan checked against the operands, then run at its pack: 16 / sizeof(T)
+// elements where C and every pointer allow 16-byte vectors (`vec`), 4 bf16
+// (the split backward: its threads hold half the channels' constants), else
+// 1.
+template <typename F>
+int nhwc_launch(const F& f, bool vec, const NhwcPlan& p, cudaStream_t st) {
+  using T = typename F::T;
+  constexpr int N = 16 / sizeof(T);
+  if (p.v < 1 || p.v > 32 || (p.v & (p.v - 1)) || p.v * p.pack > kNhwcMaxTile ||
+      f.C % (p.v * p.pack))
+    return (int)cudaErrorInvalidValue;
+  if (p.pack == N && vec && f.C % N == 0) return nhwc_run<N>(f, p, st);
+  if constexpr (N == 8) {  // 8-byte vectors of bf16: fewer registers a thread
+    if (p.pack == 4 && vec && f.C % 4 == 0) return nhwc_run<4>(f, p, st);
+  }
+  if (p.pack == 1) return nhwc_run<1>(f, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the split plan's combine: each plane's partials added in a fixed order
+// into (o1, o2) at plane * ostride
+template <typename K>
+void nhwc_combine(K kernel, const float* part, float* o1, float* o2,
+                  int ostride, int planes, int splits, cudaStream_t st) {
+  kernel<<<(unsigned)(((int64_t)planes * 32 + kThreads - 1) / kThreads),
+           kThreads, 0, st>>>(part, o1, o2, ostride, planes, splits);
+}
+
+template <typename Tp>
+struct InReluNhwcFwd {
+  using T = Tp;
+  AffineFwd<T> e;
+  const T* x;
+  T* y;
+  float* mean;
+  float* rstd;
+  float* part;
+  float* tot;
+  int n, C, hw;
+  float eps;
+  int arrays() const { return 1; }
+  template <int P>
+  int staged(const NhwcPlan& p, int64_t grid, cudaStream_t st) const {
+    static bool smem_set = false;               // once per dtype and pack
+    return launch_clustered(in_relu_nhwc_fwd_staged_kernel<T, P>, smem_set,
+                            kNhwcMaxStageBytes, grid, p.cs, p.smem, st, e, x,
+                            y, mean, rstd, C, hw, p.v, p.cs, eps);
+  }
+  template <int P>
+  void sums(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    in_relu_nhwc_sums_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        x, part, C, hw, p.v, p.splits, p.chunk);
+  }
+  void combine(const NhwcPlan& p, cudaStream_t st) const {
+    nhwc_combine(in_relu_nhwc_combine_kernel, part, tot, tot + 1, 2, n * C,
+                 p.splits, st);
+  }
+  template <int P>
+  void apply(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    in_relu_nhwc_fwd_apply_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, x, tot, y, mean, rstd, C, hw, p.v, p.chunk, eps);
+  }
+};
+
+template <typename Tp>
+struct ModnormNhwcFwd {
+  using T = Tp;
+  ModFwd<T> e;
+  const T* x;
+  const T* s;
+  int64_t s_row, s_sample;
+  T* y;
+  float* mean;
+  float* rstd;
+  float* part;
+  float* tot;
+  int n, C, hw;
+  float eps;
+  int arrays() const { return s ? 2 : 1; }
+  template <int P>
+  int staged(const NhwcPlan& p, int64_t grid, cudaStream_t st) const {
+    static bool smem_set = false;
+    return launch_clustered(modnorm_relu_nhwc_fwd_staged_kernel<T, P>,
+                            smem_set, kNhwcMaxStageBytes, grid, p.cs, p.smem,
+                            st, e, x, s, s_row, s_sample, y, mean, rstd, C,
+                            hw, p.v, p.cs, eps);
+  }
+  template <int P>
+  void sums(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    modnorm_relu_nhwc_sums_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        x, part, C, hw, p.v, p.splits, p.chunk);
+  }
+  void combine(const NhwcPlan& p, cudaStream_t st) const {
+    nhwc_combine(modnorm_relu_nhwc_combine_kernel, part, tot, tot + 1, 2,
+                 n * C, p.splits, st);
+  }
+  template <int P>
+  void apply(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    modnorm_relu_nhwc_fwd_apply_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, x, s, s_row, s_sample, tot, y, mean, rstd, C, hw, p.v, p.chunk,
+        eps);
+  }
+};
+
+template <typename Tp>
+struct InReluNhwcBwd {
+  using T = Tp;
+  AffineBwd e;
+  const T* g;
+  const T* x;
+  const float* mean;
+  const float* rstd;
+  T* dx;
+  float* s1;
+  float* s2;
+  float* part;
+  int n, C, hw;
+  int arrays() const { return 2; }
+  template <int P>
+  int staged(const NhwcPlan& p, int64_t grid, cudaStream_t st) const {
+    static bool smem_set = false;
+    return launch_clustered(in_relu_nhwc_bwd_staged_kernel<T, P>, smem_set,
+                            kNhwcMaxStageBytes, grid, p.cs, p.smem, st, e, g,
+                            x, mean, rstd, dx, s1, s2, C, hw, p.v, p.cs);
+  }
+  template <int P>
+  void sums(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    in_relu_nhwc_bwd_sums_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, g, x, mean, rstd, part, C, hw, p.v, p.splits, p.chunk);
+  }
+  void combine(const NhwcPlan& p, cudaStream_t st) const {
+    nhwc_combine(in_relu_nhwc_combine_kernel, part, s1, s2, 1, n * C,
+                 p.splits, st);
+  }
+  template <int P>
+  void apply(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    in_relu_nhwc_bwd_apply_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, g, x, mean, rstd, s1, s2, dx, C, hw, p.v, p.chunk);
+  }
+};
+
+template <typename Tp>
+struct ModnormNhwcBwd {
+  using T = Tp;
+  ModBwd e;
+  const T* g;
+  const T* y;
+  const T* x;
+  const float* mean;
+  const float* rstd;
+  T* dx;
+  T* ds;
+  float* s1;
+  float* s2;
+  float* part;
+  int n, C, hw;
+  int arrays() const { return 3; }
+  template <int P>
+  int staged(const NhwcPlan& p, int64_t grid, cudaStream_t st) const {
+    static bool smem_set = false;
+    return launch_clustered(modnorm_relu_nhwc_bwd_staged_kernel<T, P>,
+                            smem_set, kNhwcMaxStageBytes, grid, p.cs, p.smem,
+                            st, e, g, y, x, mean, rstd, dx, ds, s1, s2, C, hw,
+                            p.v, p.cs);
+  }
+  template <int P>
+  void sums(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    modnorm_relu_nhwc_bwd_sums_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, g, y, x, mean, rstd, part, C, hw, p.v, p.splits, p.chunk);
+  }
+  void combine(const NhwcPlan& p, cudaStream_t st) const {
+    nhwc_combine(modnorm_relu_nhwc_combine_kernel, part, s1, s2, 1, n * C,
+                 p.splits, st);
+  }
+  template <int P>
+  void apply(const NhwcPlan& p, dim3 grid, cudaStream_t st) const {
+    modnorm_relu_nhwc_bwd_apply_kernel<T, P><<<grid, kThreads, 0, st>>>(
+        e, g, y, x, mean, rstd, s1, s2, dx, ds, C, hw, p.v, p.chunk);
+  }
+};
+
+// 16-byte vectors fit: every pointer on 16 bytes and `strides` (elements)
+// multiples of the vector.
+template <typename T>
+bool nhwc_vec_ok(const void* const* ptrs, int n, const int64_t* strides,
+                 int ns) {
+  constexpr int N = 16 / sizeof(T);
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+  for (int i = 0; i < ns; ++i)
+    if (strides[i] % N) return false;
+  return true;
+}
+
+template <typename T>
+int in_relu_nhwc_fwd_t(const void* x, const float* gamma, const float* beta,
+                       void* y, float* mean, float* rstd, float* part,
+                       float* tot, int n, int C, int hw, float eps,
+                       const NhwcPlan& p, cudaStream_t st) {
+  const InReluNhwcFwd<T> f = {{gamma, beta, C}, (const T*)x, (T*)y, mean,
+                              rstd, part, tot, n, C, hw, eps};
+  const void* ptrs[] = {x, y};
+  return nhwc_launch(f, nhwc_vec_ok<T>(ptrs, 2, nullptr, 0), p, st);
+}
+
+template <typename T>
+int modnorm_relu_nhwc_fwd_t(const ModParams& mp, const void* x, const void* s,
+                            int64_t s_row, int64_t s_sample, void* y,
+                            float* mean, float* rstd, float* part, float* tot,
+                            int n, int C, int hw, float eps, const NhwcPlan& p,
+                            cudaStream_t st) {
+  const ModnormNhwcFwd<T> f = {{mp, nullptr, 0}, (const T*)x, (const T*)s,
+                               s_row, s_sample, (T*)y, mean, rstd, part, tot,
+                               n, C, hw, eps};
+  const void* ptrs[] = {x, y, s};
+  const int64_t strides[] = {s_row, s_sample};
+  return nhwc_launch(f, nhwc_vec_ok<T>(ptrs, 3, strides, s ? 2 : 0), p, st);
+}
+
+template <typename T>
+int in_relu_nhwc_bwd_t(const void* g, const void* x, const float* mean,
+                       const float* gamma, const float* beta,
+                       const float* rstd, void* dx, float* s1, float* s2,
+                       float* part, int n, int C, int hw, const NhwcPlan& p,
+                       cudaStream_t st) {
+  const InReluNhwcBwd<T> f = {{gamma, beta, C}, (const T*)g, (const T*)x,
+                              mean, rstd, (T*)dx, s1, s2, part, n, C, hw};
+  const void* ptrs[] = {g, x, dx};
+  return nhwc_launch(f, nhwc_vec_ok<T>(ptrs, 3, nullptr, 0), p, st);
+}
+
+template <typename T>
+int modnorm_relu_nhwc_bwd_t(const ModBwd& e, const void* g, const void* y,
+                            const void* x, const float* mean,
+                            const float* rstd, void* dx, void* ds, float* a,
+                            float* b, float* part, int n, int C, int hw,
+                            const NhwcPlan& p, cudaStream_t st) {
+  const ModnormNhwcBwd<T> f = {e, (const T*)g, (const T*)y, (const T*)x,
+                               mean, rstd, (T*)dx, (T*)ds, a, b, part, n, C,
+                               hw};
+  const void* ptrs[] = {g, y, x, dx, ds};
+  return nhwc_launch(f, nhwc_vec_ok<T>(ptrs, 5, nullptr, 0), p, st);
+}
+
+// channel_sums_nhwc's launches for dtype T at pack P.
+template <typename T, int P>
+int channel_sums_t(const void* x, float* part, float* out, int C, int rows,
+                   int v, int splits, int chunk, cudaStream_t st) {
+  const dim3 grid((unsigned)splits, (unsigned)(C / (v * P)), 1);
+  channel_sums_nhwc_kernel<T, P><<<grid, kThreads, 0, st>>>(
+      (const T*)x, part, C, rows, v, splits, chunk);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  nhwc_combine(channel_sums_combine_kernel, part, out, out + 1, 2, C, splits,
+               st);
+  return (int)cudaGetLastError();
+}
+
+// The plan checked as the split plan's (nhwc_launch, nhwc_run), then run.
+template <typename T>
+int channel_sums_plan(const void* x, float* part, float* out, int C, int rows,
+                      int pack, int v, int splits, int chunk,
+                      cudaStream_t st) {
+  constexpr int N = 16 / sizeof(T);
+  const void* ptrs[] = {x};
+  if (v < 1 || v > 32 || (v & (v - 1)) || v * pack > kNhwcMaxTile ||
+      C % (v * pack) || C / (v * pack) > kMaxGridY || splits < 1 ||
+      chunk < 1 || (int64_t)splits * chunk < rows ||
+      (int64_t)(splits - 1) * chunk >= rows)
+    return (int)cudaErrorInvalidValue;
+  if (pack == N && C % N == 0 && nhwc_vec_ok<T>(ptrs, 1, nullptr, 0))
+    return channel_sums_t<T, N>(x, part, out, C, rows, v, splits, chunk, st);
+  if (pack == 1)
+    return channel_sums_t<T, 1>(x, part, out, C, rows, v, splits, chunk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // All tensors are contiguous NCHW; planes = N * C, hw = H * W; gamma, beta:
@@ -1730,5 +2860,145 @@ extern "C" int modnorm_relu_bwd(const void* g, const void* y, const void* xhat,
         e, g, y, xhat, (const float*)rstd, dx, ds, (float*)a, (float*)b,
         (float*)part, planes, hw, path, packs, cluster, smem_bytes, splits,
         chunk, apply_ctas, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Channels-last (NHWC) B2 and B3: x, y, g, dx and ds hold [n, hw,
+// channels] slabs (sample, row, channel; channels innermost), gamma, beta,
+// weight and bias [channels] f32, mean, rstd, s1, s2 (a, b), and B3's gamma
+// [n * channels] f32.  The forward writes y and, in training, each plane's
+// mean and rstd, not x_hat: the backward takes x and takes x_hat from it
+// again, in float32.  The plan
+// (ops/kernels.in_relu_nhwc_plan): `path` 2 staged on clusters of `cluster`
+// CTAs with `smem_bytes` of dynamic shared memory each, or 0 split (`splits`
+// chunks of `chunk` rows a sample; scratch `part` [n * channels, splits, 2]
+// f32 and, forward, `tot` [n * channels, 2] f32); `pack` elements a
+// thread's vector (16 bytes' worth, or 1) and `v` vectors a row of a CTA's
+// channel tile.  Returns as the NCHW entries do; a plan that does not fit
+// the operands is refused.
+extern "C" int in_relu_nhwc_fwd(const void* x, const void* gamma,
+                                const void* beta, void* y, void* mean,
+                                void* rstd, void* part, void* tot, int n,
+                                int channels, int hw, float eps, int dtype,
+                                int path, int pack, int v, int cluster,
+                                int smem_bytes, int splits, int chunk,
+                                void* stream) {
+  if (n == 0 || hw == 0 || channels == 0) return 0;
+  const NhwcPlan p = {path, pack, v, cluster, smem_bytes, splits, chunk};
+  if ((path != kPathStaged && (!part || !tot)) || !mean || !rstd)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return in_relu_nhwc_fwd_t<float>(x, (const float*)gamma,
+                                     (const float*)beta, y, (float*)mean,
+                                     (float*)rstd, (float*)part, (float*)tot,
+                                     n, channels, hw, eps, p, st);
+  if (dtype == kBF16)
+    return in_relu_nhwc_fwd_t<__nv_bfloat16>(
+        x, (const float*)gamma, (const float*)beta, y, (float*)mean,
+        (float*)rstd, (float*)part, (float*)tot, n, channels, hw, eps, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2's backward over NHWC slabs from g and the forward's x, mean and rstd:
+// dx, and s1, s2 [n * channels] f32.
+extern "C" int in_relu_nhwc_bwd(const void* g, const void* x,
+                                const void* mean, const void* gamma,
+                                const void* beta, const void* rstd, void* dx,
+                                void* s1, void* s2, void* part, int n,
+                                int channels, int hw, int dtype, int path,
+                                int pack, int v, int cluster, int smem_bytes,
+                                int splits, int chunk, void* stream) {
+  if (n == 0 || hw == 0 || channels == 0) return 0;
+  const NhwcPlan p = {path, pack, v, cluster, smem_bytes, splits, chunk};
+  if (path != kPathStaged && !part) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return in_relu_nhwc_bwd_t<float>(
+        g, x, (const float*)mean, (const float*)gamma, (const float*)beta,
+        (const float*)rstd, dx, (float*)s1, (float*)s2, (float*)part, n,
+        channels, hw, p, st);
+  if (dtype == kBF16)
+    return in_relu_nhwc_bwd_t<__nv_bfloat16>(
+        g, x, (const float*)mean, (const float*)gamma, (const float*)beta,
+        (const float*)rstd, dx, (float*)s1, (float*)s2, (float*)part, n,
+        channels, hw, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3-fwd over NHWC slabs; s [n, hw, channels] with rows `s_row` and samples
+// `s_sample` elements apart (a channel slice of a wider tensor), or null;
+// mean and rstd both null under no-grad.
+extern "C" int modnorm_relu_nhwc_fwd(const void* x, const void* s,
+                                     long long s_row, long long s_sample,
+                                     const void* gamma, const void* weight,
+                                     const void* bias, void* y, void* mean,
+                                     void* rstd, void* part, void* tot, int n,
+                                     int channels, int hw, float eps,
+                                     int dtype, int path, int pack, int v,
+                                     int cluster, int smem_bytes, int splits,
+                                     int chunk, void* stream) {
+  if (n == 0 || hw == 0 || channels == 0) return 0;
+  if ((mean == nullptr) != (rstd == nullptr)) return (int)cudaErrorInvalidValue;
+  const NhwcPlan p = {path, pack, v, cluster, smem_bytes, splits, chunk};
+  if (path != kPathStaged && (!part || !tot)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ModParams mp = {(const float*)gamma, (const float*)weight,
+                        (const float*)bias, channels};
+  if (dtype == kF32)
+    return modnorm_relu_nhwc_fwd_t<float>(
+        mp, x, s, (int64_t)s_row, (int64_t)s_sample, y, (float*)mean,
+        (float*)rstd, (float*)part, (float*)tot, n, channels, hw, eps, p, st);
+  if (dtype == kBF16)
+    return modnorm_relu_nhwc_fwd_t<__nv_bfloat16>(
+        mp, x, s, (int64_t)s_row, (int64_t)s_sample, y, (float*)mean,
+        (float*)rstd, (float*)part, (float*)tot, n, channels, hw, eps, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B3-bwd over NHWC slabs from g, the forward's y, x, mean and rstd: dx, ds
+// (null where s takes no gradient), a and b [n * channels] f32.
+extern "C" int modnorm_relu_nhwc_bwd(const void* g, const void* y,
+                                     const void* x, const void* mean,
+                                     const void* rstd, const void* gamma,
+                                     const void* weight, void* dx, void* ds,
+                                     void* a, void* b, void* part, int n,
+                                     int channels, int hw, int dtype, int path,
+                                     int pack, int v, int cluster,
+                                     int smem_bytes, int splits, int chunk,
+                                     void* stream) {
+  if (n == 0 || hw == 0 || channels == 0) return 0;
+  const NhwcPlan p = {path, pack, v, cluster, smem_bytes, splits, chunk};
+  if (path != kPathStaged && !part) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const ModBwd e = {{(const float*)gamma, (const float*)weight, nullptr,
+                     channels}};
+  if (dtype == kF32)
+    return modnorm_relu_nhwc_bwd_t<float>(
+        e, g, y, x, (const float*)mean, (const float*)rstd, dx, ds, (float*)a,
+        (float*)b, (float*)part, n, channels, hw, p, st);
+  if (dtype == kBF16)
+    return modnorm_relu_nhwc_bwd_t<__nv_bfloat16>(
+        e, g, y, x, (const float*)mean, (const float*)rstd, dx, ds, (float*)a,
+        (float*)b, (float*)part, n, channels, hw, p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// (sum x, sum x^2) [channels, 2] f32 of each channel of a channels-last x
+// ([rows, channels] in `dtype`: every position of every sample), on the
+// split plan of ops/kernels.in_relu_nhwc_split_plan (`pack`, `v`, `splits`
+// chunks of `chunk` rows; scratch `part` [channels, splits, 2] f32).
+extern "C" int channel_sums_nhwc(const void* x, void* part, void* out,
+                                 int channels, int rows, int dtype, int pack,
+                                 int v, int splits, int chunk, void* stream) {
+  if (rows == 0 || channels == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == kF32)
+    return channel_sums_plan<float>(x, (float*)part, (float*)out, channels,
+                                    rows, pack, v, splits, chunk, st);
+  if (dtype == kBF16)
+    return channel_sums_plan<__nv_bfloat16>(x, (float*)part, (float*)out,
+                                            channels, rows, pack, v, splits,
+                                            chunk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -18,7 +18,8 @@ reference NetworksV2/GUNet.py:31-488).
 - decoder: standard UNet decoder; final 1x1 conv; logits in float32.
 
 Input and output are NHWC (``{"images", "context", "sp_guide"}`` → logits
-[bs, h, w, num_classes]), as in the JAX package; NCHW is used inside.
+[bs, h, w, num_classes]), as in the JAX package; inside, the activations are
+[N, C, H, W] tensors laid out channels-last (NCHW under a spatial shard).
 ``forward(inputs, train=True, generator=g)`` is train mode: ``--dropout``
 after the first norm of each encoder level and ``side_dropout`` on the
 context MLP's hidden layers draw their masks from ``g``.  Every
@@ -173,6 +174,14 @@ class GUNet(nn.Module):
             self.add_module(f"up_conv{i + 1}_2",
                             ConvNormAct(ch, ch, normalizer=norm))
         self.AdjustChannels = Conv(init_channels, num_classes, 1)
+        self._channels_last()
+
+    def _channels_last(self):
+        """The conv and transpose-conv kernels channels-last, as the
+        activations are (``_layout``): cuDNN takes them with no copy, and
+        their gradients come back in the parameters' own layout, so the
+        optimizer's multi-tensor updates stay on their fast path."""
+        return self.to(memory_format=torch.channels_last)
 
     # ------------------------------------------------------------------
 
@@ -180,7 +189,9 @@ class GUNet(nn.Module):
         """flax's initializers from a seeded generator: kernels per
         ``weight_init``, the context subnet's last layer he_normal (the VGG
         contexts': zeros kernel, ones bias), biases zero, norm scales /
-        affine gammas one."""
+        affine gammas one.  The kernels are drawn laid out contiguous, so that
+        a seed gives every layout the same values."""
+        self.to(memory_format=torch.contiguous_format)
         with torch.no_grad():
             for mod in self.modules():
                 if isinstance(mod, (Conv, Conv1, Dense, UpConv)):
@@ -201,7 +212,7 @@ class GUNet(nn.Module):
                 mlp = getattr(self.context, "MLP_0", self.context)
                 last = mlp._modules[f"Dense_{mlp.n_layers - 1}"]
                 he_normal_(last.weight, last.in_features, generator)
-        return self
+        return self._channels_last()
 
     @property
     def spatial_unit(self) -> int:
@@ -211,6 +222,15 @@ class GUNet(nn.Module):
 
     def _layer(self, name: str) -> nn.Module:
         return self._modules[name]
+
+    def _layout(self, x: torch.Tensor) -> torch.Tensor:
+        """x [N, C, H, W] channels-last where unsharded: every conv, pool,
+        ``cat``, B2 and B3 keeps that layout to the logits (B2 and B3 on
+        their NHWC plans), so cuDNN's NHWC convolutions take and give it
+        with no transposes.  Under a spatial shard x as it comes."""
+        if self.spatial is not None:
+            return x
+        return x.contiguous(memory_format=torch.channels_last)
 
     def _b3_block(self, norm: Optional[Norm], j: int, train: bool) -> bool:
         """Whether modulated block ``j`` of a level is kernel B3's function:
@@ -235,7 +255,7 @@ class GUNet(nn.Module):
 
         spatial_params = [None] * (n + 1)
         if self.use_spatial:
-            gs = inputs["sp_guide"].to(dt).permute(0, 3, 1, 2)
+            gs = self._layout(inputs["sp_guide"].to(dt).permute(0, 3, 1, 2))
             for i in range(n + 1):
                 if i in self.mod_layers:
                     layer = self._layer(f"spatial_conv{i + 1}")
@@ -258,7 +278,7 @@ class GUNet(nn.Module):
             dy, dx = (image_gradients(images) if self.spatial is None
                       else self.spatial.image_gradients(images))
             images = torch.cat([images, dy, dx], dim=-1)
-        x = images.to(dt).permute(0, 3, 1, 2)
+        x = self._layout(images.to(dt).permute(0, 3, 1, 2))
         density_mod_id = 0
         skips = []
         for i in range(n + 1):

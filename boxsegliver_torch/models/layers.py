@@ -38,8 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from boxsegliver_torch.ops.kernels import (instance_norm_relu,
-                                           instance_norm_relu_split)
+from boxsegliver_torch.ops.kernels import (channel_sums_nhwc,
+                                           instance_norm_relu,
+                                           instance_norm_relu_split, is_nhwc)
 from boxsegliver_torch.parallel.mesh import RankGenerator
 
 # flax nn.BatchNorm(momentum=0.99): ra <- 0.99 * ra + 0.01 * batch statistic
@@ -116,6 +117,41 @@ def he_normal_(weight: torch.Tensor, fan_in: int,
                                  generator=generator)
 
 
+def kernel_like(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A conv kernel ``w`` cast to the dtype of its input ``x`` and laid out
+    as ``x`` is: channels-last for a channels-last x (the 2-D models'
+    activations: cuDNN's NHWC convolutions read the kernel as it is, and
+    with a channels-last parameter its gradient comes back in the
+    parameter's own layout), contiguous otherwise."""
+    fmt = torch.channels_last if is_nhwc(x) else torch.contiguous_format
+    return w.to(x.dtype, memory_format=fmt)
+
+
+class _BiasGrad(torch.autograd.Function):
+    """The identity on a conv's output y that already holds the bias b;
+    its backward hands b the gradient's channel sums (channel_sums_nhwc:
+    the NHWC kernel for a channels-last gradient, PyTorch's sum else)."""
+
+    @staticmethod
+    def forward(ctx, y, b):
+        ctx.dtype = b.dtype
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, channel_sums_nhwc(g).to(ctx.dtype)
+
+
+def conv_with_bias(conv, x, w, b, *args, **kwargs):
+    """``conv(x, w, b, ...)`` whose bias, where it takes a gradient, gets
+    channel_sums_nhwc of the output's gradient: the conv's own backward
+    sums a channels-last gradient (the 2-D models') at a fraction of the
+    card's bandwidth."""
+    if b is not None and b.requires_grad and torch.is_grad_enabled():
+        return _BiasGrad.apply(conv(x, w, b.detach(), *args, **kwargs), b)
+    return conv(x, w, b, *args, **kwargs)
+
+
 def same_pads(size: int, kernel: int, stride: int = 1,
               dilation: int = 1):
     """XLA's SAME padding along one axis: (before, after)."""
@@ -144,7 +180,7 @@ class Conv(nn.Conv2d):
         if rows is not None:
             w = w[rows[0]:rows[1]]
             b = None if b is None else b[rows[0]:rows[1]]
-        w = w.to(x.dtype)
+        w = kernel_like(w, x)
         b = None if b is None else b.to(x.dtype)
         if self.spatial is not None:
             return self.spatial.conv(x, w, b, self.stride, self.dilation)
@@ -153,8 +189,8 @@ class Conv(nn.Conv2d):
             ph = same_pads(x.shape[-2], k, s, d)
             pw = same_pads(x.shape[-1], k, s, d)
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-        return F.conv2d(x, w, b, stride=self.stride, padding=self.padding,
-                        dilation=self.dilation)
+        return conv_with_bias(F.conv2d, x, w, b, stride=self.stride,
+                              padding=self.padding, dilation=self.dilation)
 
 
 class Conv3(nn.Conv3d):
@@ -461,7 +497,8 @@ class UpConv(nn.Module):
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(x.dtype)
-        x = F.conv_transpose2d(x, self.weight.to(x.dtype), b, stride=2)
+        x = conv_with_bias(F.conv_transpose2d, x, kernel_like(self.weight, x),
+                           b, stride=2)
         return F.relu(x)
 
 

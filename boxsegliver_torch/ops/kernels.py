@@ -75,6 +75,10 @@ _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
             "in_relu_bwd_apply": "in_relu",
             "in_relu_fwd_partial": "in_relu", "in_relu_fwd_apply": "in_relu",
             "modnorm_relu_fwd": "in_relu", "modnorm_relu_bwd": "in_relu",
+            "in_relu_nhwc_fwd": "in_relu", "in_relu_nhwc_bwd": "in_relu",
+            "modnorm_relu_nhwc_fwd": "in_relu",
+            "modnorm_relu_nhwc_bwd": "in_relu",
+            "channel_sums_nhwc": "in_relu",
             "geodesic2d_raster": "geodesic"}
 _BOUND = {}
 
@@ -284,24 +288,35 @@ def _plane_view(t: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
     return per.reshape(lead + (1,) * (t.ndim - 2))
 
 
-def _plane_norm(x: torch.Tensor, eps: float, exact: bool = False):
-    """(x̂ f32, rstd [N, C] f32) of B2-fwd's and B3-fwd's plain versions:
-    f32 statistics over each (n, c) plane of x [N, C, *S] (variance E[x²]
-    − E[x]² clipped at 0, flax's), rstd = rsqrt(var + eps), x̂ = (x −
-    mean)·rstd (float64 throughout for a float64 x, which only the CPU
-    takes: torch.autograd.gradcheck).  With ``exact`` the statistics come
-    from exact float64 sums (_exact_stats) instead of f32 ones."""
-    xf = _acc(x)
+def _plane_stats(x: torch.Tensor, eps: float, exact: bool = False):
+    """(mean, rstd), each [N, C] f32, of B2-fwd's and B3-fwd's plain
+    versions: f32 statistics over each (n, c) plane of x [N, C, *S]
+    (variance E[x²] − E[x]² clipped at 0, flax's), rstd = rsqrt(var + eps)
+    (float64 throughout for a float64 x, which only the CPU takes:
+    torch.autograd.gradcheck).  With ``exact`` the statistics come from
+    exact float64 sums (_exact_stats) instead of f32 ones."""
     if exact:
-        mean, rstd = _exact_stats(x, eps)
-        return ((xf - _plane_view(x, mean)) * _plane_view(x, rstd), rstd)
+        return _exact_stats(x, eps)
+    xf = _acc(x)
     dims = tuple(range(2, x.ndim))
     inv_hw = 1.0 / math.prod(x.shape[2:])
-    mean = xf.sum(dim=dims, keepdim=True) * inv_hw
-    var = torch.clamp_min((xf * xf).sum(dim=dims, keepdim=True) * inv_hw
-                          - mean * mean, 0.0)
-    rstd = torch.rsqrt(var + eps)
-    return (xf - mean) * rstd, rstd.reshape(x.shape[:2])
+    mean = xf.sum(dim=dims) * inv_hw
+    var = torch.clamp_min((xf * xf).sum(dim=dims) * inv_hw - mean * mean,
+                          0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def _xhat(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor):
+    """x̂ = (x − mean)·rstd in x's accumulation dtype, mean and rstd [N,
+    C]: the forward's, and the NHWC plans' backward's, which takes x̂ from
+    x again."""
+    return (_acc(x) - _plane_view(x, mean)) * _plane_view(x, rstd)
+
+
+def _plane_norm(x: torch.Tensor, eps: float, exact: bool = False):
+    """(x̂ f32, rstd [N, C] f32) of _plane_stats's statistics."""
+    mean, rstd = _plane_stats(x, eps, exact)
+    return _xhat(x, mean, rstd), rstd
 
 
 def _plane_sums(x: torch.Tensor) -> torch.Tensor:
@@ -405,7 +420,52 @@ def _check_in_relu(name, act, others, weight, bias):
         if t.device != act.device:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{act.device}")
-        if not t.is_contiguous():
+    _check_layout(name, act, others, (weight, bias))
+
+
+# The layouts B2 and B3 take: contiguous [N, C, *S] (NCHW, NCDHW), each
+# (n, c) plane contiguous, on the NCHW plans; channels-last [N, C, H, W]
+# (NHWC), each sample an [H·W, C] slab with C innermost, on the NHWC plans.
+# The strides choose: a tensor that is both (C or H·W of 1) is contiguous;
+# any other layout (NDHWC among them: UNet3D's first conv, on its
+# channels-last input) is copied contiguous first.
+_CHANNELS_LAST = {4: torch.channels_last}
+
+
+def is_nhwc(t: torch.Tensor) -> bool:
+    """Whether t [N, C, H, W] is channels-last and not contiguous: B2 and
+    B3 take their NHWC plans there, and a conv its kernel channels-last
+    (models/layers.kernel_like)."""
+    fmt = _CHANNELS_LAST.get(t.ndim)
+    return (fmt is not None and not t.is_contiguous()
+            and t.is_contiguous(memory_format=fmt))
+
+
+def _format(t: torch.Tensor) -> torch.memory_format:
+    """The memory format of B2's and B3's outputs for operand t."""
+    return _CHANNELS_LAST[t.ndim] if is_nhwc(t) else torch.contiguous_format
+
+
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t itself in a layout B2 and B3 take, else a contiguous copy."""
+    return t if t.is_contiguous() or is_nhwc(t) else t.contiguous()
+
+
+def _as_layout(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """t in ``like``'s layout: itself where it is in it already."""
+    return t.contiguous(memory_format=_format(like))
+
+
+def _check_layout(name, act, others, params):
+    """``act`` and ``others`` in one layout B2 and B3 take; ``params``
+    (None where absent) contiguous."""
+    nhwc = is_nhwc(act)
+    for t in (act,) + tuple(others):
+        if not (is_nhwc(t) if nhwc else t.is_contiguous()):
+            raise ValueError(f"{name}: operands must be contiguous or "
+                             "channels-last, all in one layout")
+    for t in params:
+        if t is not None and not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
 
 
@@ -538,7 +598,9 @@ def in_relu_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
     x: [N, C, *S] (NCHW, NCDHW, ...) float32 or bfloat16, contiguous;
     each (n, c) plane of prod(S) elements is normalized; weight, bias: [C]
-    float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32."""
+    float32.  y and x̂ come back in x's dtype, rstd as [N, C] float32.
+    A channels-last x takes the NHWC plans' operator instead
+    (in_relu_fwd_nhwc_op)."""
     # the wrapper keeps the kernel's contract; the operator also takes the
     # channels-last x an exported graph may hand it
     if x.device.type == "cuda" and not x.is_contiguous():
@@ -739,28 +801,40 @@ in_relu_bwd_apply.launches = 0
 
 class InstanceNormReLU(torch.autograd.Function):
     """relu(instance_norm(x)·γ + β) over [N, C, *S] planes with eps 1e-6
-    (NCHW for the 2-D models, NCDHW for UNet3D): B2-fwd in ``forward``;
-    in ``backward`` B2f, or B2a and B2b (in_relu_bwd_plan), then dγ = Σ_n
-    s2 and dβ = Σ_n s1.
-    Saves x̂ in x's dtype and rstd in float32, and casts the incoming
+    (channels-last for the 2-D models, NCDHW for UNet3D, NCHW under a
+    spatial shard): B2-fwd in ``forward``; in ``backward`` B2f, or B2a and
+    B2b (in_relu_bwd_plan), or the NHWC plans, then dγ = Σ_n s2 and dβ =
+    Σ_n s1.  Saves x̂ in x's dtype and rstd in float32, and casts the incoming
     gradient to x̂'s dtype, as the JAX custom VJP does
-    (pallas_kernels.py:138-160)."""
+    (pallas_kernels.py:138-160); on the NHWC plans it saves x and the
+    planes' mean instead, and the backward takes x̂ from x again, in
+    float32."""
 
     @staticmethod
     def forward(ctx, x, weight, bias):
         pdt = torch.float64 if x.dtype == torch.float64 else torch.float32
         weight32 = weight.to(pdt).contiguous()
         bias32 = bias.to(pdt).contiguous()
-        y, xhat, rstd = in_relu_fwd(x.contiguous(), weight32, bias32)
-        ctx.save_for_backward(xhat, rstd, weight32, bias32)
+        x = _dense(x)
+        # the NHWC plans keep x and the planes' mean (aux), the NCHW plans x̂
+        ctx.nhwc = is_nhwc(x)
+        y, aux, rstd = (in_relu_fwd_nhwc_op if ctx.nhwc else in_relu_fwd)(
+            x, weight32, bias32)
+        ctx.save_for_backward(*((x, aux) if ctx.nhwc else (aux,)), rstd,
+                              weight32, bias32)
         ctx.param_dtypes = (weight.dtype, bias.dtype)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        xhat, rstd, weight, bias = ctx.saved_tensors
-        g = g.to(xhat.dtype).contiguous()
-        dx, s1, s2 = instance_norm_relu_bwd(g, xhat, weight, bias, rstd)
+        if ctx.nhwc:
+            x, mean, rstd, weight, bias = ctx.saved_tensors
+            dx, s1, s2 = in_relu_bwd_nhwc(_as_layout(g.to(x.dtype), x), x,
+                                          mean, weight, bias, rstd)
+        else:
+            xhat, rstd, weight, bias = ctx.saved_tensors
+            dx, s1, s2 = instance_norm_relu_bwd(g.to(xhat.dtype).contiguous(),
+                                                xhat, weight, bias, rstd)
         wdt, bdt = ctx.param_dtypes
         return dx, s2.sum(dim=0).to(wdt), s1.sum(dim=0).to(bdt)
 
@@ -971,9 +1045,10 @@ def modnorm_relu_bwd_plain(g, y, xhat, rstd, gamma=None, weight=None,
 
 
 def _check_modnorm(name, x, others, gamma, s, weight, bias):
-    """B3's operands: x and ``others`` contiguous [N, C, *S] float32 or
-    bfloat16 of one dtype; s like x (any sample stride); γ [N, C], w and b
-    [C] contiguous float32; all on x's device."""
+    """B3's operands: x and ``others`` [N, C, *S] float32 or bfloat16 of
+    one dtype and one layout B3 takes; s like x (any strides: the launch
+    copies what it cannot read in place); γ [N, C], w and b [C] contiguous
+    float32; all on x's device."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} is not float32 or "
                         "bfloat16")
@@ -999,9 +1074,7 @@ def _check_modnorm(name, x, others, gamma, s, weight, bias):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: operands on {t.device} and "
                              f"{x.device}")
-    for t in (x,) + tuple(others):
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: operands must be contiguous")
+    _check_layout(name, x, others, ())
 
 
 # B3-fwd is the operator boxseg::modnorm_relu_fwd, as B2-fwd is: an exported
@@ -1077,7 +1150,9 @@ def modnorm_relu_fwd(x: torch.Tensor, gamma=None, s=None, weight=None,
     each float32 and contiguous; s: like x, each plane contiguous (a
     channel slice of a wider tensor is read in place).  Any of γ, s, w and
     b may be None.  y and x̂ come back in x's dtype, rstd [N, C] float32;
-    with ``train`` False only y is written (x̂ and rstd are empty)."""
+    with ``train`` False only y is written (x̂ and rstd are empty).  A
+    channels-last x takes the NHWC plans' operator instead
+    (modnorm_relu_fwd_nhwc_op)."""
     if x.device.type == "cuda" and not x.is_contiguous():
         raise ValueError("modnorm_relu_fwd: operands must be contiguous")
     return torch.ops.boxseg.modnorm_relu_fwd.default(
@@ -1132,25 +1207,37 @@ class ModulatedNormReLU(torch.autograd.Function):
     in ``forward``; in ``backward`` B3-bwd, then dγ = w·b + b_c·a per plane
     and dw = Σ_n γ·b, db = Σ_n γ·a from its plane sums a = Σ g_m and b =
     Σ g_m·x̂.  Saves y (whose sign is the ReLU's mask), x̂ in x's dtype,
-    rstd and the float32 γ, w, b; casts the incoming gradient to y's
-    dtype."""
+    rstd and the float32 γ, w, b (on the NHWC plans x and the planes' mean
+    in x̂'s place: the backward takes x̂ from x again); casts the incoming
+    gradient to y's dtype and layout."""
 
     @staticmethod
     def forward(ctx, x, gamma, s, weight, bias, eps):
         ops = _f32_operands(x, gamma, weight, bias)
-        y, xhat, rstd = modnorm_relu_fwd(x.contiguous(), ops[0], s, ops[1],
-                                         ops[2], eps)
-        ctx.save_for_backward(y, xhat, rstd, *ops)
+        x = _dense(x)
+        # the NHWC plans keep x and the planes' mean (aux), the NCHW plans x̂
+        ctx.nhwc = is_nhwc(x)
+        y, aux, rstd = (modnorm_relu_fwd_nhwc_op if ctx.nhwc
+                        else modnorm_relu_fwd)(x, ops[0], s, ops[1], ops[2],
+                                               eps)
+        ctx.save_for_backward(y, *((x, aux) if ctx.nhwc else (aux,)), rstd,
+                              *ops)
         ctx.dtypes = [None if t is None else t.dtype
                       for t in (gamma, weight, bias)]
         return y
 
     @staticmethod
     def backward(ctx, g):
-        y, xhat, rstd, gamma, weight, bias = ctx.saved_tensors
         _, need_g, need_s, need_w, need_b, _ = ctx.needs_input_grad
-        dx, ds, a, b = modnorm_relu_bwd(g.to(y.dtype).contiguous(), y, xhat,
-                                        rstd, gamma, weight, need_s)
+        if ctx.nhwc:
+            y, x, mean, rstd, gamma, weight, bias = ctx.saved_tensors
+            dx, ds, a, b = modnorm_relu_bwd_nhwc(
+                _as_layout(g.to(y.dtype), y), y, x, mean, rstd, gamma, weight,
+                need_s)
+        else:
+            y, xhat, rstd, gamma, weight, bias = ctx.saved_tensors
+            dx, ds, a, b = modnorm_relu_bwd(g.to(y.dtype).contiguous(), y,
+                                            xhat, rstd, gamma, weight, need_s)
         gdt, wdt, bdt = ctx.dtypes
         dgamma = dw = db = None
         if need_g:
@@ -1177,8 +1264,9 @@ def modulated_norm_relu(x: torch.Tensor, gamma=None, s=None, weight=None,
             for t in (x, gamma, s, weight, bias)):
         return ModulatedNormReLU.apply(x, gamma, s, weight, bias, eps)
     ops = _f32_operands(x, gamma, weight, bias)
-    return modnorm_relu_fwd(x.contiguous(), ops[0], s, ops[1], ops[2], eps,
-                            train=False)[0]
+    x = _dense(x)
+    return (modnorm_relu_fwd_nhwc_op if is_nhwc(x) else modnorm_relu_fwd)(
+        x, ops[0], s, ops[1], ops[2], eps, train=False)[0]
 
 
 def modnorm_relu_split(x: torch.Tensor, gamma, s, weight, bias, group,
@@ -1199,7 +1287,401 @@ def modnorm_relu_split(x: torch.Tensor, gamma, s, weight, bias, group,
     return _modnorm_y(x, xhat, gamma, s, weight, bias)
 
 
-# name -> wrapper, for launch-count bookkeeping
+# ---------------------------------------------------------------------------
+# B2 and B3 over channels-last activations: the NHWC plans (csrc/in_relu.cu)
+# ---------------------------------------------------------------------------
+
+NHWC_SPLIT, NHWC_STAGED = 0, 2   # the plans' `path`: C's kPathGeneral, Staged
+_NHWC_MAX_TILE = 64              # kNhwcMaxTile: channels a CTA covers
+_NHWC_ROW = 64                   # bytes of a tile's row, at most, by choice
+_NHWC_MIN_ROW = 32               # and at least, where c allows it
+_NHWC_STAGE_MAX = 128 * 1024     # a staged CTA's operands, by choice
+_NHWC_ROWS_PER_THREAD = 16       # the split plan's rows a thread a chunk
+
+
+class NhwcPlan(NamedTuple):
+    """How an NHWC launch covers n samples of hw rows and c channels: a
+    thread's vector of ``pack`` channels (16 bytes' worth, or 1), ``v``
+    vectors a row of a CTA's channel tile; ``path`` NHWC_STAGED: a cluster
+    of ``cluster`` CTAs a (sample, tile), each keeping hw / cluster rows of
+    its operands in ``smem_bytes`` of shared memory; or NHWC_SPLIT: a sums
+    pass over ``splits`` chunks of ``chunk`` rows a sample, the combine pass
+    and an apply pass."""
+    path: int
+    pack: int
+    v: int
+    cluster: int
+    smem_bytes: int
+    splits: int
+    chunk: int
+
+
+def _nhwc_pack(c: int, dtype: torch.dtype, aligned: bool) -> int:
+    per = 16 // (torch.finfo(dtype).bits // 8)
+    return per if aligned and c % per == 0 else 1
+
+
+def _nhwc_widths(c: int, pack: int):
+    """The tile widths (vectors a row) that cover c channels in whole
+    tiles of at most _NHWC_MAX_TILE channels, widest first."""
+    return [v for v in (32, 16, 8, 4, 2, 1)
+            if v * pack <= _NHWC_MAX_TILE and (c // pack) % v == 0]
+
+
+@functools.lru_cache(maxsize=None)
+def in_relu_nhwc_plan(n: int, c: int, hw: int, dtype: torch.dtype,
+                      aligned: bool = True, arrays: int = 1,
+                      grad: bool = False) -> NhwcPlan:
+    """The NHWC plan for n samples of hw rows of c channels of ``dtype``;
+    ``aligned``: every operand starts on 16 bytes; ``arrays``: the operands
+    a staged CTA keeps (B2: x forward, g and x backward; B3 adds s and y);
+    ``grad``: a backward's plan.
+
+    pack: 16 bytes of channels where c allows, else one.  staged when a
+    (sample, tile) fits a cluster of 1, 2, 4 or 8 CTAs of at most 128 KiB
+    each: tiles of 64-byte rows where c allows (32 bf16 channels; else the
+    widest below, not under 32 bytes), on the fewest CTAs; split otherwise
+    (G-Net's 256^2 level, and B2's backward and B3 at 128^2, whose second
+    read mostly finds the L2).  The limits are where chip_smoke.py phase 7c
+    measures the plans fastest at G-Net's shapes (PERF.md §6)."""
+    esize = torch.finfo(dtype).bits // 8
+    pack = _nhwc_pack(c, dtype, aligned)
+    widths = _nhwc_widths(c, pack)
+    least = min(_NHWC_MIN_ROW, widths[0] * pack * esize)
+    rows = [v for v in widths
+            if least <= v * pack * esize <= _NHWC_ROW][:1] or widths[-1:]
+    for v in rows:
+        for cs in (1, 2, 4, 8):
+            smem = hw // cs * v * pack * esize * arrays
+            if (hw % cs == 0 and smem <= _NHWC_STAGE_MAX
+                    and n * (c // (v * pack)) * cs < 2 ** 31):
+                return NhwcPlan(NHWC_STAGED, pack, v, cs, smem, 1, hw)
+    return in_relu_nhwc_split_plan(n, c, hw, dtype, aligned, grad)
+
+
+def in_relu_nhwc_split_plan(n: int, c: int, hw: int, dtype: torch.dtype,
+                            aligned: bool = True,
+                            grad: bool = False) -> NhwcPlan:
+    """The split plan: the widest tile (whole 128-byte rows where c allows)
+    and chunks of _NHWC_ROWS_PER_THREAD rows a thread; a backward's
+    (``grad``) in bf16 at 4 channels a thread, whose constants then fit the
+    registers (10–16 % faster at G-Net's 256² and 128² levels than 8,
+    chip_smoke.py phase 7c)."""
+    pack = _nhwc_pack(c, dtype, aligned)
+    if pack == 8 and grad:
+        pack = 4
+    v = _nhwc_widths(c, pack)[0]
+    chunk = FWD_THREADS // v * _NHWC_ROWS_PER_THREAD
+    return NhwcPlan(NHWC_SPLIT, pack, v, 1, 0, -(-hw // chunk), chunk)
+
+
+def _nhwc_scratch(plan: NhwcPlan, n: int, c: int, dev, fwd: bool):
+    """The split plan's scratch: per-chunk partials [n·c, splits, 2] and,
+    forward, the combined sums [n·c, 2] (float32); None on a staged plan."""
+    if plan.path != NHWC_SPLIT:
+        return None, None
+    part = torch.empty((n * c, plan.splits, 2), dtype=torch.float32,
+                       device=dev)
+    tot = (torch.empty((n * c, 2), dtype=torch.float32, device=dev)
+           if fwd else None)
+    return part, tot
+
+
+def _nhwc_rows(t: torch.Tensor):
+    """(row, sample) strides in elements of t [N, C, *S] where its channels
+    lie innermost and its spatial positions evenly apart (a channel slice of
+    a channels-last tensor), else None."""
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        return None
+    row = t.stride(-1) if t.shape[-1] > 1 else t.shape[1]
+    step = row
+    for d in range(t.ndim - 1, 1, -1):
+        if t.shape[d] > 1 and t.stride(d) != step:
+            return None
+        step *= t.shape[d]
+    return (row, t.stride(0)) if row >= t.shape[1] else None
+
+
+def _check_nhwc(name, t):
+    if not is_nhwc(t):
+        raise ValueError(f"{name}: expected a channels-last [N, C, *S] "
+                         f"tensor, got strides {t.stride()}")
+
+
+def in_relu_fwd_nhwc_plain(x: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor, eps: float = IN_EPS,
+                           exact: bool = False):
+    """Plain version of B2-fwd's NHWC plans: y as in_relu_fwd_plain gives
+    it, and the planes' mean and rstd [N, C] (no x̂: the backward takes it
+    from x again, _xhat)."""
+    mean, rstd = _plane_stats(x, eps, exact)
+    z = _xhat(x, mean, rstd) * _plane_view(x, _acc(weight)) \
+        + _plane_view(x, _acc(bias))
+    return torch.clamp_min(z, 0.0).to(x.dtype), mean, rstd
+
+
+def in_relu_fwd_nhwc(x: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float = IN_EPS, plan=None):
+    """Kernel B2-fwd's NHWC plans: (y, mean, rstd) for a channels-last x
+    (NHWC) under ``plan`` (by default in_relu_nhwc_plan's); y
+    channels-last, the planes' mean and rstd [N, C] float32.  No x̂: the
+    backward (in_relu_bwd_nhwc) takes it from x again.  On the CPU: the
+    plain version."""
+    if x.device.type == "cpu":
+        return in_relu_fwd_nhwc_plain(x, weight, bias, eps)
+    _check_in_relu("in_relu_fwd_nhwc", x, (), weight, bias)
+    _check_nhwc("in_relu_fwd_nhwc", x)
+    n, c, hw = _planes(x)
+    y = torch.empty_like(x, memory_format=_format(x))
+    mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    rstd = torch.empty_like(mean)
+    if plan is None:
+        plan = in_relu_nhwc_plan(n, c, hw, x.dtype, _aligned(x, y))
+    part, tot = _nhwc_scratch(plan, n, c, x.device, True)
+    _launch("in_relu_nhwc_fwd", x, x.data_ptr(), weight.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            _ptr(part), _ptr(tot), n, c, hw, float(eps), _DTYPES[x.dtype],
+            *plan)
+    in_relu_fwd_nhwc.launches += 1
+    return y, mean, rstd
+
+
+def in_relu_bwd_nhwc(g: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
+                     weight: torch.Tensor, bias: torch.Tensor,
+                     rstd: torch.Tensor, plan=None):
+    """B2's backward on the NHWC plans: (dx, s1, s2) as B2f gives them, from
+    channels-last g and the forward's x, mean and rstd (x̂ taken from x
+    again, in float32), under ``plan`` (by default
+    in_relu_nhwc_plan's, g and x a staged CTA's operands).  On the CPU:
+    the plain version."""
+    if g.device.type == "cpu":
+        return in_relu_bwd_plain(g, _xhat(x, mean, rstd), weight, bias, rstd)
+    _check_in_relu("in_relu_bwd_nhwc", g, (x,), weight, bias)
+    _check_nhwc("in_relu_bwd_nhwc", g)
+    _check_plane_stats("in_relu_bwd_nhwc", g, (("mean", mean),
+                                               ("rstd", rstd)))
+    n, c, hw = _planes(g)
+    dx = torch.empty_like(g, memory_format=_format(g))
+    s1 = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    s2 = torch.empty_like(s1)
+    if plan is None:
+        plan = in_relu_nhwc_plan(n, c, hw, g.dtype, _aligned(g, x, dx), 2,
+                                 True)
+    part, _ = _nhwc_scratch(plan, n, c, g.device, False)
+    _launch("in_relu_nhwc_bwd", g, g.data_ptr(), x.data_ptr(),
+            mean.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+            rstd.data_ptr(), dx.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+            _ptr(part), n, c, hw, _DTYPES[g.dtype], *plan)
+    in_relu_bwd_nhwc.launches += 1
+    return dx, s1, s2
+
+
+def modnorm_relu_fwd_nhwc_plain(x: torch.Tensor, gamma=None, s=None,
+                                weight=None, bias=None, eps: float = IN_EPS,
+                                train: bool = True, exact: bool = False):
+    """Plain version of B3-fwd's NHWC plans: y as modnorm_relu_fwd_plain
+    gives it, and the planes' mean and rstd [N, C] (empty with ``train``
+    False)."""
+    mean, rstd = _plane_stats(x, eps, exact)
+    y = _modnorm_y(x, _xhat(x, mean, rstd), gamma, s, weight, bias)
+    if not train:
+        return y, mean.new_empty(0), rstd.new_empty(0)
+    return y, mean, rstd
+
+
+def modnorm_relu_fwd_nhwc(x: torch.Tensor, gamma=None, s=None, weight=None,
+                          bias=None, eps: float = IN_EPS, train: bool = True,
+                          plan=None):
+    """Kernel B3-fwd's NHWC plans: (y, mean, rstd) for a channels-last x,
+    under ``plan`` (by default in_relu_nhwc_plan's: x, and s where given,
+    a staged CTA's operands); with ``train`` False y alone (mean and rstd
+    empty).  No x̂: the backward takes it from x again.  s is read in place
+    where its channels lie innermost with its rows evenly apart, else
+    copied channels-last.  On the CPU: the plain version."""
+    if x.device.type == "cpu":
+        return modnorm_relu_fwd_nhwc_plain(x, gamma, s, weight, bias, eps,
+                                           train)
+    _check_modnorm("modnorm_relu_fwd_nhwc", x, (), gamma, s, weight, bias)
+    _check_nhwc("modnorm_relu_fwd_nhwc", x)
+    n, c, hw = _planes(x)
+    rows = None if s is None else _nhwc_rows(s)
+    if s is not None and rows is None:
+        s = s.contiguous(memory_format=_format(x))
+        rows = _nhwc_rows(s)
+    s_row, s_sample = rows or (0, 0)
+    y = torch.empty_like(x, memory_format=_format(x))
+    if train:
+        mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
+    else:
+        mean = rstd = x.new_empty(0, dtype=torch.float32)
+    if plan is None:
+        per = 16 // x.element_size()
+        aligned = (_aligned(x, y, *([] if s is None else [s]))
+                   and s_row % per == 0 and s_sample % per == 0)
+        plan = in_relu_nhwc_plan(n, c, hw, x.dtype, aligned,
+                                 1 if s is None else 2)
+    part, tot = _nhwc_scratch(plan, n, c, x.device, True)
+    _launch("modnorm_relu_nhwc_fwd", x, x.data_ptr(), _ptr(s), s_row,
+            s_sample, _ptr(gamma), _ptr(weight), _ptr(bias), y.data_ptr(),
+            mean.data_ptr() if train else None,
+            rstd.data_ptr() if train else None, _ptr(part), _ptr(tot), n, c,
+            hw, float(eps), _DTYPES[x.dtype], *plan)
+    modnorm_relu_fwd_nhwc.launches += 1
+    return y, mean, rstd
+
+
+def modnorm_relu_bwd_nhwc(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
+                          mean: torch.Tensor, rstd: torch.Tensor, gamma=None,
+                          weight=None, want_ds: bool = True, plan=None):
+    """Kernel B3-bwd's NHWC plans: (dx, ds, a, b) as modnorm_relu_bwd gives
+    them, from channels-last g and the forward's y, x, mean and rstd (x̂
+    taken from x again, in float32), under ``plan``
+    (by default in_relu_nhwc_plan's, g, x and y a staged CTA's operands).
+    On the CPU: the plain version."""
+    if g.device.type == "cpu":
+        return modnorm_relu_bwd_plain(g, y, _xhat(x, mean, rstd), rstd, gamma,
+                                      weight, want_ds)
+    _check_modnorm("modnorm_relu_bwd_nhwc", g, (y, x), gamma, None, weight,
+                   None)
+    _check_nhwc("modnorm_relu_bwd_nhwc", g)
+    _check_plane_stats("modnorm_relu_bwd_nhwc", g, (("mean", mean),
+                                                    ("rstd", rstd)))
+    n, c, hw = _planes(g)
+    dx = torch.empty_like(g, memory_format=_format(g))
+    ds = torch.empty_like(dx) if want_ds else None
+    a = torch.empty((n, c), dtype=torch.float32, device=g.device)
+    b = torch.empty_like(a)
+    if plan is None:
+        plan = in_relu_nhwc_plan(n, c, hw, g.dtype,
+                                 _aligned(g, y, x, dx, *([ds] if want_ds
+                                                        else [])), 3, True)
+    part, _ = _nhwc_scratch(plan, n, c, g.device, False)
+    _launch("modnorm_relu_nhwc_bwd", g, g.data_ptr(), y.data_ptr(),
+            x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _ptr(gamma),
+            _ptr(weight), dx.data_ptr(), _ptr(ds), a.data_ptr(), b.data_ptr(),
+            _ptr(part), n, c, hw, _DTYPES[g.dtype], *plan)
+    modnorm_relu_bwd_nhwc.launches += 1
+    return dx, ds, a, b
+
+
+in_relu_fwd_nhwc.launches = 0
+in_relu_bwd_nhwc.launches = 0
+modnorm_relu_fwd_nhwc.launches = 0
+modnorm_relu_bwd_nhwc.launches = 0
+
+
+# B2-fwd and B3-fwd on the NHWC plans are operators of their own,
+# boxseg::in_relu_nhwc_fwd and boxseg::modnorm_relu_nhwc_fwd, for the reason
+# boxseg::in_relu_fwd is one (an exported GUNet keeps each as a node); each
+# returns (y channels-last, the planes' mean, rstd), whatever layout an
+# exported graph hands it: the card's implementations lay x out
+# channels-last first
+_LIB.define("in_relu_nhwc_fwd(Tensor x, Tensor weight, Tensor bias, "
+            "float eps) -> (Tensor, Tensor, Tensor)")
+_LIB.define("modnorm_relu_nhwc_fwd(Tensor x, Tensor? gamma, Tensor? s, "
+            "Tensor? weight, Tensor? bias, float eps, bool train) "
+            "-> (Tensor, Tensor, Tensor)")
+
+
+def _cl(x: torch.Tensor) -> torch.Tensor:
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def _nhwc_outputs_like(x, train=True):
+    """Empty outputs of the NHWC operators for x: y channels-last, then the
+    planes' mean and rstd [N, C] float32 (both empty under no-grad)."""
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    stats = x.new_empty(x.shape[:2] if train else (0,), dtype=torch.float32)
+    return y, stats, torch.empty_like(stats)
+
+
+def _in_relu_nhwc_fwd_cpu(x, weight, bias, eps):
+    # exact plane statistics, as _in_relu_fwd_cpu's
+    return in_relu_fwd_nhwc_plain(_cl(x), weight, bias, eps, exact=True)
+
+
+def _in_relu_nhwc_fwd_cuda(x, weight, bias, eps):
+    return in_relu_fwd_nhwc(_cl(x), weight, bias, eps)
+
+
+def _modnorm_relu_nhwc_fwd_cpu(x, gamma, s, weight, bias, eps, train):
+    return modnorm_relu_fwd_nhwc_plain(_cl(x), gamma, s, weight, bias, eps,
+                                       train, exact=True)
+
+
+def _modnorm_relu_nhwc_fwd_cuda(x, gamma, s, weight, bias, eps, train):
+    return modnorm_relu_fwd_nhwc(_cl(x), gamma, s, weight, bias, eps, train)
+
+
+_LIB.impl("in_relu_nhwc_fwd", _in_relu_nhwc_fwd_cpu, "CPU")
+_LIB.impl("in_relu_nhwc_fwd", _in_relu_nhwc_fwd_cuda, "CUDA")
+_LIB.impl("modnorm_relu_nhwc_fwd", _modnorm_relu_nhwc_fwd_cpu, "CPU")
+_LIB.impl("modnorm_relu_nhwc_fwd", _modnorm_relu_nhwc_fwd_cuda, "CUDA")
+
+
+@torch.library.register_fake("boxseg::in_relu_nhwc_fwd", lib=_LIB)
+def _in_relu_nhwc_fwd_fake(x, weight, bias, eps):
+    return _nhwc_outputs_like(x)
+
+
+@torch.library.register_fake("boxseg::modnorm_relu_nhwc_fwd", lib=_LIB)
+def _modnorm_relu_nhwc_fwd_fake(x, gamma, s, weight, bias, eps, train):
+    return _nhwc_outputs_like(x, train)
+
+
+def in_relu_fwd_nhwc_op(x: torch.Tensor, weight: torch.Tensor,
+                        bias: torch.Tensor, eps: float = IN_EPS):
+    """B2-fwd on the NHWC plans through ``torch.ops.boxseg.in_relu_nhwc_fwd``:
+    (y, mean, rstd) for a channels-last x, as in_relu_fwd_nhwc gives them
+    (on the CPU the plain version, with exact statistics)."""
+    return torch.ops.boxseg.in_relu_nhwc_fwd.default(x, weight, bias,
+                                                     float(eps))
+
+
+def modnorm_relu_fwd_nhwc_op(x: torch.Tensor, gamma=None, s=None,
+                             weight=None, bias=None, eps: float = IN_EPS,
+                             train: bool = True):
+    """B3-fwd on the NHWC plans through
+    ``torch.ops.boxseg.modnorm_relu_nhwc_fwd``: (y, mean, rstd) for a
+    channels-last x, as modnorm_relu_fwd_nhwc gives them (on the CPU the
+    plain version, with exact statistics)."""
+    return torch.ops.boxseg.modnorm_relu_nhwc_fwd.default(
+        x, gamma, s, weight, bias, float(eps), bool(train))
+
+
+def channel_sums_nhwc(t: torch.Tensor) -> torch.Tensor:
+    """Σ over every axis but the channels of t [N, C, *S], [C] float32:
+    the gradient of a conv's bias, where t is the gradient of the conv's
+    output.  For a channels-last CUDA t the NHWC split plan's sums pass
+    over all N·prod(S) rows (a kernel of its own, channel_sums_nhwc_kernel:
+    PyTorch's reduction reads a channels-last tensor at a fraction of the
+    card's bandwidth); otherwise, and on the CPU, its plain version,
+    PyTorch's float32 sum.  Counts its launches apart from KERNELS: it is
+    neither B2 nor B3."""
+    if t.device.type != "cuda" or not is_nhwc(t) or t.dtype not in _DTYPES:
+        return t.sum(dim=(0,) + tuple(range(2, t.ndim)), dtype=torch.float32)
+    n, c, hw = _planes(t)
+    rows = n * hw
+    if rows >= 2 ** 31:
+        raise ValueError(f"channel_sums_nhwc: {tuple(t.shape)} exceeds the "
+                         "kernel's limits")
+    plan = in_relu_nhwc_split_plan(1, c, rows, t.dtype, _aligned(t))
+    part = torch.empty((c, plan.splits, 2), dtype=torch.float32,
+                       device=t.device)
+    out = torch.empty((c, 2), dtype=torch.float32, device=t.device)
+    _launch("channel_sums_nhwc", t, t.data_ptr(), part.data_ptr(),
+            out.data_ptr(), c, rows, _DTYPES[t.dtype], plan.pack, plan.v,
+            plan.splits, plan.chunk)
+    channel_sums_nhwc.launches += 1
+    return out[:, 0]
+
+
+channel_sums_nhwc.launches = 0
+
+
+# name -> wrapper, for launch-count bookkeeping (the NHWC plans count apart
+# from the NCHW ones)
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
            "in_relu_bwd": in_relu_bwd,
@@ -1209,9 +1691,13 @@ KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd_partial": in_relu_fwd_partial,
            "in_relu_fwd_apply": in_relu_fwd_apply,
            "modnorm_relu_fwd": modnorm_relu_fwd,
-           "modnorm_relu_bwd": modnorm_relu_bwd}
+           "modnorm_relu_bwd": modnorm_relu_bwd,
+           "in_relu_fwd_nhwc": in_relu_fwd_nhwc,
+           "in_relu_bwd_nhwc": in_relu_bwd_nhwc,
+           "modnorm_relu_fwd_nhwc": modnorm_relu_fwd_nhwc,
+           "modnorm_relu_bwd_nhwc": modnorm_relu_bwd_nhwc}
 
 
 def reset_launch_counts():
-    for fn in KERNELS.values():
+    for fn in list(KERNELS.values()) + [channel_sums_nhwc]:
         fn.launches = 0

@@ -64,7 +64,13 @@ result line):
    dispatcher.  Then the five levels of the NF UNet / UNetInter at batch
    16 (b2_nf_levels): each against its plain version, its plans, device
    time per launch, plain, library and bound, and the sums over one NF
-   train step (18 calls).
+   train step (18 calls).  Then B2's and B3's NHWC plans (nhwc_phase:
+   G-Net's channels-last activations) at the flagship's train-step shapes:
+   every plan of nhwc_alternatives timed, the chosen one against the bound,
+   the NCHW plans on the same data and the plain versions, per train step
+   against the benchmark's 10 and 16 B an element; and cudnn_transposes,
+   cuDNN's layout transposes of two G-Net convs with NCHW activations
+   (cudnn.benchmark off and on) and channels-last ones.
 8. train — the flagship G-Net training (``002_gnet_sp.sh train`` flags) at
    full width, batch 8, 256^2, bf16 through
    ``boxsegliver_torch.cli.main.main`` with --device_cache: 24 steps, an
@@ -333,8 +339,10 @@ result line):
    (d) with two or more cards, both CLIs over NCCL (otherwise printed as
    not run).
 Then one JSON line with every kernel's numbers (launches: the train run of
-phase 8 for B1, B2-fwd and B2f, UNet3D's train run of phase 21b for B2a
-and B2b, the device refiner's geodesic run of phase 20 for G1, and per
+phase 8 for B1 and B2's and B3's NHWC plans, UNet3D's train run of phase
+21b for B2's NCHW plans (B2-fwd, B2f, B2a and B2b), the train run of phase
+8 for B3's NCHW plans (0: no model path takes them since GUNet went
+channels-last), the device refiner's geodesic run of phase 20 for G1, and per
 path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
@@ -1163,6 +1171,28 @@ def b2_train_kernels(shapes):
     return tuple(n for n, c in b2_train_counts(shapes, 1).items() if c)
 
 
+def nhwc_counts(counts):
+    """A G-Net path's launches: ``counts`` under the NCHW plans' names (as
+    b2_train_counts gives them) moved to the NHWC plans', since GUNet's
+    activations are channels-last: one in_relu_fwd_nhwc a B2-fwd, one
+    in_relu_bwd_nhwc a backward (B2f, or B2a with its B2b), B3's to its
+    NHWC wrappers, and 0 for the NCHW plans."""
+    out = dict(counts)
+    fwd = out.pop("in_relu_fwd", 0)
+    bwd = out.pop("in_relu_bwd", 0) + out.pop("in_relu_bwd_stats", 0)
+    out.pop("in_relu_bwd_apply", None)
+    out.update({n: 0 for n in B2_KERNELS})
+    if fwd:
+        out["in_relu_fwd_nhwc"] = fwd
+    if bwd:
+        out["in_relu_bwd_nhwc"] = bwd
+    for n in ("modnorm_relu_fwd", "modnorm_relu_bwd"):
+        if out.get(n):
+            out[n + "_nhwc"] = out[n]
+        out[n] = 0
+    return {n: c for n, c in out.items() if c or n in counts}
+
+
 def fwd_alternatives(planes, hw):
     """Other B2-fwd plans for a bf16 shape, timed beside the chosen one: the
     general path (one CTA a plane, x read twice: the first design of this
@@ -1275,16 +1305,20 @@ def b2_bound_ms(name, shape):
     written once, and B2_OPS float operations per element at the float32
     non-tensor peak.  ``shape``: [N, C, *S] (NCHW or NCDHW).  B2f's is the
     backward's as one function: g and x̂ read, dx written (6 B a bf16
-    element), rstd read, s1 and s2 written."""
+    element), rstd read, s1 and s2 written.  The NHWC plans' forward writes
+    no x̂ (4 B a bf16 element, the planes' mean and rstd); their backward
+    reads x for x̂ (6 B, the planes' mean besides)."""
     n, c = shape[:2]
     elems = math.prod(shape)
     planes, params = n * c * 4, c * 4 * 2            # f32 per-plane, γ and β
     io = {"in_relu_fwd": 3 * elems * 2 + planes,     # x in; y, x̂ out; rstd
           "in_relu_bwd": 3 * elems * 2 + 3 * planes,
           "in_relu_bwd_stats": 2 * elems * 2 + 2 * planes,
-          "in_relu_bwd_apply": 3 * elems * 2 + 3 * planes}[name] + params
+          "in_relu_bwd_apply": 3 * elems * 2 + 3 * planes,
+          "in_relu_fwd_nhwc": 2 * elems * 2 + 2 * planes,   # mean, rstd out
+          "in_relu_bwd_nhwc": 3 * elems * 2 + 4 * planes}[name] + params
     t_bytes = io / HBM_BYTES_PER_S * 1e3
-    t_ops = B2_OPS[name] * elems / FP32_OPS_PER_S * 1e3
+    t_ops = B2_OPS[NHWC_OF.get(name, name)] * elems / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1814,6 +1848,389 @@ def b3_phase(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: B2 and B3 on their NHWC plans (G-Net's channels-last
+# activations), and what cudnn.benchmark alone does to cuDNN's transposes
+# ---------------------------------------------------------------------------
+
+NHWC_KERNELS = ("in_relu_fwd_nhwc", "in_relu_bwd_nhwc",
+                "modnorm_relu_fwd_nhwc", "modnorm_relu_bwd_nhwc")
+# B2's (fwd, bwd) and B3's: the NCHW kernel each NHWC one stands beside
+NHWC_OF = {"in_relu_fwd_nhwc": "in_relu_fwd", "in_relu_bwd_nhwc":
+           "in_relu_bwd", "modnorm_relu_fwd_nhwc": "modnorm_relu_fwd",
+           "modnorm_relu_bwd_nhwc": "modnorm_relu_bwd"}
+
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def nhwc_alternatives(n, c, hw, arrays, grad):
+    """The NHWC plans timed at one bf16 shape: the chosen one, the split
+    plan (and with 2, 4 and 8 times its chunk), and each tile width's
+    staged plan (32-byte rows and wider) at its fewest CTAs within 64 and
+    192 KiB."""
+    from boxsegliver_torch.ops import kernels as K
+
+    bf16 = torch.bfloat16
+    split = K.in_relu_nhwc_split_plan(n, c, hw, bf16, True, grad)
+    out = {"chosen": K.in_relu_nhwc_plan(n, c, hw, bf16, True, arrays, grad),
+           "split": split}
+    for k in (2, 4, 8):                 # longer chunks: fewer partial sums
+        chunk = split.chunk * k
+        out[f"split chunk x{k}"] = split._replace(chunk=chunk,
+                                                  splits=-(-hw // chunk))
+    if grad:                            # the split backward at 8 channels
+        wide = K._nhwc_widths(c, 8)[0]
+        chunk = 256 // wide * 16
+        out["split 8 channels"] = split._replace(pack=8, v=wide, chunk=chunk,
+                                                 splits=-(-hw // chunk))
+    for v in K._nhwc_widths(c, 8):
+        for limit in (64 * 1024, 192 * 1024):
+            fit = [cs for cs in (1, 2, 4, 8) if hw % cs == 0
+                   and hw // cs * v * 16 * arrays <= limit]
+            if fit and v > 1:
+                cs = fit[0]
+                out[f"staged v{v} x{cs}"] = K.NhwcPlan(
+                    K.NHWC_STAGED, 8, v, cs, hw // cs * v * 16 * arrays, 1,
+                    hw)
+    return out
+
+
+def nhwc_plan_name(p):
+    from boxsegliver_torch.ops import kernels as K
+
+    if p.path == K.NHWC_STAGED:
+        return f"staged v{p.v} x{p.cluster} ({p.smem_bytes // 1024} KiB)"
+    return f"split v{p.v}, {p.splits} chunks"
+
+
+def nhwc_times(shape, dev, b3):
+    """Device ms per launch at one bf16 shape (graph_ms over COLD_BYTES of
+    inputs): the NHWC forward and backward under each plan of
+    nhwc_alternatives, the NCHW plans' on the same data, B3's forward under
+    no-grad; the chosen plans' and the plain versions' wrapper ms; and the
+    worst error of every plan against the plain versions (nhwc_check)."""
+    from boxsegliver_torch.ops import kernels as K
+
+    n, c = shape[:2]
+    hw = math.prod(shape[2:])
+    iters = 20 if hw >= 128 * 128 else 50
+    n_sets = max(1, min(iters, math.ceil(COLD_BYTES / (5 * n * c * hw * 2))))
+    sets = []
+    for i in range(n_sets):
+        if b3:
+            x, g, gamma, s, b = b3_inputs(shape, torch.bfloat16, dev, 11 + i)
+            w = None
+            y, xh, rstd = K.modnorm_relu_fwd(x, gamma, s, None, b)
+        else:
+            x, g, w, b = b2_inputs(shape, torch.bfloat16, dev, 11 + i)
+            gamma = s = None
+            y, xh, rstd = K.in_relu_fwd(x, w, b)
+        xc, sc = _cl(x), None if s is None else _cl(s)
+        _, mean_c, rstd_c = (K.modnorm_relu_fwd_nhwc(xc, gamma, sc, None, b)
+                             if b3 else K.in_relu_fwd_nhwc(xc, w, b))
+        sets.append(dict(x=x, g=g, y=y, xh=xh, rstd=rstd, s=s, xc=xc,
+                         gc=_cl(g), yc=_cl(y), sc=sc, mean_c=mean_c,
+                         rstd_c=rstd_c))
+    if b3:
+        fwd = lambda i, p=None, nchw=False, train=True: (  # noqa: E731
+            K.modnorm_relu_fwd(sets[i]["x"], gamma, sets[i]["s"], None, b,
+                               train=train) if nchw else
+            K.modnorm_relu_fwd_nhwc(sets[i]["xc"], gamma, sets[i]["sc"], None,
+                                    b, train=train, plan=p))
+        bwd = lambda i, p=None, nchw=False: (  # noqa: E731
+            K.modnorm_relu_bwd(sets[i]["g"], sets[i]["y"], sets[i]["xh"],
+                               sets[i]["rstd"], gamma) if nchw else
+            K.modnorm_relu_bwd_nhwc(sets[i]["gc"], sets[i]["yc"],
+                                    sets[i]["xc"], sets[i]["mean_c"],
+                                    sets[i]["rstd_c"], gamma, plan=p))
+    else:
+        fwd = lambda i, p=None, nchw=False, train=True: (  # noqa: E731
+            K.in_relu_fwd(sets[i]["x"], w, b) if nchw else
+            K.in_relu_fwd_nhwc(sets[i]["xc"], w, b, plan=p))
+        bwd = lambda i, p=None, nchw=False: (  # noqa: E731
+            K.instance_norm_relu_bwd(sets[i]["g"], sets[i]["xh"], w, b,
+                                     sets[i]["rstd"]) if nchw else
+            K.in_relu_bwd_nhwc(sets[i]["gc"], sets[i]["xc"],
+                               sets[i]["mean_c"], w, b, sets[i]["rstd_c"],
+                               plan=p))
+    t = {}
+    alts = {"fwd": nhwc_alternatives(n, c, hw, 2 if b3 else 1, False),
+            "bwd": nhwc_alternatives(n, c, hw, 3 if b3 else 2, True)}
+    for turn in range(2):
+        for d, fn in (("fwd", fwd), ("bwd", bwd)):
+            for name, p in alts[d].items():
+                ms = graph_ms(lambda i, p=p: fn(i, p), n_sets, iters)
+                t[f"{d} {name}"] = min(ms, t.get(f"{d} {name}", ms))
+            ms = graph_ms(lambda i: fn(i, nchw=True), n_sets, iters)
+            t[f"{d} nchw"] = min(ms, t.get(f"{d} nchw", ms))
+        if b3:
+            ms = graph_ms(lambda i: fwd(i, train=False), n_sets, iters)
+            t["fwd no-grad"] = min(ms, t.get("fwd no-grad", ms))
+    z = sets[0]
+    xh_c = K._xhat(z["xc"], z["mean_c"], z["rstd_c"])
+    if b3:
+        plain_f = lambda: K.modnorm_relu_fwd_nhwc_plain(  # noqa: E731
+            z["xc"], gamma, z["sc"], None, b)
+        plain_b = lambda: K.modnorm_relu_bwd_plain(  # noqa: E731
+            z["gc"], z["yc"], xh_c, z["rstd_c"], gamma)
+    else:
+        plain_f = lambda: K.in_relu_fwd_nhwc_plain(  # noqa: E731
+            z["xc"], w, b)
+        plain_b = lambda: K.in_relu_bwd_plain(  # noqa: E731
+            z["gc"], xh_c, w, b, z["rstd_c"])
+    t["plain fwd"] = cuda_ms(plain_f, iters=5, warmup=1)
+    t["plain bwd"] = cuda_ms(plain_b, iters=5, warmup=1)
+    t["wrapper fwd"] = cuda_ms(lambda: fwd(0), iters=20, warmup=2)
+    t["wrapper bwd"] = cuda_ms(lambda: bwd(0), iters=20, warmup=2)
+    t["err fwd"], t["err bwd"] = nhwc_check(
+        f"{'B3' if b3 else 'B2'} NHWC {tuple(shape)}", alts, fwd, bwd,
+        plain_f(), plain_b(), hw, b3)
+    t["plans"] = {d: nhwc_plan_name(alts[d]["chosen"]) for d in alts}
+    return t
+
+
+def nhwc_check(what, alts, fwd, bwd, ref_f, ref_b, hw, b3):
+    """Every plan of ``alts`` (the chosen one among them) on the first
+    input set, run twice (bit-equal from run to run), each output against
+    the plain versions' (ref_f: y, mean, rstd; ref_b: dx and the plane sums,
+    B3's ds between them) at b2_check's tolerances: y and dx rounded once to
+    bf16, the plane sums float32 sums in another order, the planes' mean
+    and rstd float32, B3's ds (a masked copy of g) equal, B3's no-grad y the
+    training y.  Returns the worst abs error (forward, backward)."""
+    def close(name, got, ref, rel, abs_):
+        err = (got.float() - ref.float()).abs()
+        bad = err > abs_ + rel * ref.float().abs()
+        if bool(bad.any()):
+            raise AssertionError(f"{what} {name}: {int(bad.sum())} elements "
+                                 f"off, max abs err {float(err.max()):.3e}")
+        return float(err.max())
+
+    out_tol, sums = (2.0 ** -7, 1e-5), (1e-4, 1e-6 * math.sqrt(hw))
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for d, fn, ref in (("fwd", fwd, ref_f), ("bwd", bwd, ref_b)):
+        for name, p in alts[d].items():
+            got, again = fn(0, p), fn(0, p)
+            if not all(torch.equal(u, v) for u, v in zip(got, again)
+                       if u is not None):
+                raise AssertionError(f"{what} {d} ({name}) differs from run "
+                                     "to run")
+            want = ref
+            if d == "fwd":
+                outs = (("y", out_tol), ("mean", (1e-5, 1e-5)),
+                        ("rstd", (1e-5, 0.0)))
+                if b3 and not torch.equal(fn(0, p, train=False)[0], got[0]):
+                    raise AssertionError(f"{what}: the no-grad y ({name}) is "
+                                         "not the training y")
+            elif b3:
+                if not torch.equal(got[1], ref[1]):
+                    raise AssertionError(f"{what}: ds ({name}) is not g_m")
+                got, want = got[:1] + got[2:], ref[:1] + ref[2:]
+                outs = ("dx", out_tol), ("a", sums), ("b", sums)
+            else:
+                outs = ("dx", out_tol), ("s1", sums), ("s2", sums)
+            for (o, tol), u, v in zip(outs, got, want):
+                errs[d] = max(errs[d], close(f"{d} {o} ({name})", u, v, *tol))
+    return errs["fwd"], errs["bwd"]
+
+
+def cudnn_transposes(dev):
+    """cuDNN's layout transposes (kernels named nchwToNhwc / nhwcToNchw) and
+    the convolutions' device ms in a profiled forward + backward of G-Net's
+    level-0 and level-1 3x3 convs ([8, 64, 256^2] and [8, 128, 128^2],
+    bf16): NCHW activations with cudnn.benchmark off (the parent's layout)
+    and on, and channels-last activations."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for layout in ("nchw", "nchw benchmark", "channels-last"):
+        torch.backends.cudnn.benchmark = layout == "nchw benchmark"
+        xs, ws = [], []
+        for c, h in ((64, 256), (128, 128)):
+            x = torch.randn((8, c, h, h), device=dev, dtype=torch.bfloat16)
+            w = torch.randn((c, c, 3, 3), device=dev) * 0.05
+            if layout == "channels-last":
+                x = _cl(x)
+            xs.append(x.requires_grad_(True))
+            ws.append(w.requires_grad_(True))
+
+        def step():
+            for x, w in zip(xs, ws):
+                y = F.conv2d(x, w.to(x.dtype), padding=1)
+                torch.autograd.grad(y, (x, w), torch.ones_like(y))
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                step()
+            torch.cuda.synchronize()
+        trans = conv = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", 0.0) or getattr(
+                e, "cuda_time_total", 0.0)
+            name = e.key.lower()
+            if "nchwtonhwc" in name or "nhwctonchw" in name:
+                trans += us
+            elif any(k in name for k in ("xmma", "conv", "gemm", "cudnn",
+                                         "sm90_", "implicit")):
+                conv += us
+        out[layout] = {"transposes_ms": trans / 5e3, "conv_ms": conv / 5e3}
+        print(f"  cuDNN, {layout:15s}: transposes {trans / 5e3:.4f} ms, "
+              f"convolutions {conv / 5e3:.4f} ms a forward + backward of the "
+              "two convs")
+    torch.backends.cudnn.benchmark = False
+    return out
+
+
+def nhwc_phase(dev):
+    """B2 and B3 on their NHWC plans at the flagship's train-step shapes
+    (bf16, batch 8: B2 at levels 0-3, B3 at 1-4): every plan checked against
+    the plain versions (nhwc_check), each plan's device time per launch, the
+    chosen one against the bound (b2_bound_ms: 4 B an element forward, 6 B
+    backward; b3_bound_ms: 6 and 10 B), the NCHW plans' time on the same
+    data and the plain versions'; per train step against the benchmark's
+    bounds (B2 10 B an element, B3 16 B); then channel_sums_phase and
+    cudnn_transposes.  Returns the kernels line's records of the four NHWC
+    kernels and channel_sums_nhwc (library_ms None: no single PyTorch call
+    does what an NHWC plan does; the NCHW plans' times are under
+    ``shapes``)."""
+    recs = {n: {"name": n, "route": "cuda",
+                "source": "boxsegliver_torch/csrc/in_relu.cu",
+                "replaces": f"{NHWC_OF[n]}'s function on channels-last "
+                            "operands",
+                "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+                "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_by": "bytes", "library_ms": None, "shapes": {}}
+            for n in NHWC_KERNELS}
+    step = {"b2": [0.0, 0.0, 0.0], "b3": [0.0, 0.0, 0.0]}  # nhwc, nchw, bound
+    for b3, shapes in ((False, B2_STEP_SHAPES), (True, B3_STEP_SHAPES)):
+        fam = "b3" if b3 else "b2"
+        names = NHWC_KERNELS[2:] if b3 else NHWC_KERNELS[:2]
+        calls = sum(shapes.values())
+        for shape, count in shapes.items():
+            t = nhwc_times(shape, dev, b3)
+            print(f"  {fam.upper()} {str(shape):20s} plans: fwd "
+                  f"{t['plans']['fwd']}, bwd {t['plans']['bwd']}; max abs "
+                  f"err fwd {t['err fwd']:.3e}, bwd {t['err bwd']:.3e}")
+            print("    " + ", ".join(f"{k} {v:.5f}" for k, v in t.items()
+                                     if isinstance(v, float)
+                                     and not k.startswith("err")))
+            for d, n in zip(("fwd", "bwd"), names):
+                if b3:
+                    bound, by = b3_bound_ms(NHWC_OF[n], shape)
+                else:
+                    bound, by = b2_bound_ms(n, shape)
+                dev_ms = t[f"{d} chosen"]
+                r = recs[n]
+                r["max_abs_err"] = max(r["max_abs_err"], t[f"err {d}"])
+                r["device_ms"] += count * dev_ms / calls
+                r["wrapper_ms"] += count * t[f"wrapper {d}"] / calls
+                r["ms"] += count * dev_ms
+                r["plain_ms"] += count * t[f"plain {d}"]
+                r["bound_ms"] += count * bound
+                r["bound_by"] = by
+                r["shapes"][str(shape)] = {
+                    "device_ms": dev_ms, "bound_ms": bound,
+                    "of_bound": bound / dev_ms, "nchw_ms": t[f"{d} nchw"],
+                    "plain_ms": t[f"plain {d}"]}
+                print(f"    {n:22s} device {dev_ms:.5f} ms per launch "
+                      f"({bound / dev_ms:.1%} of {bound:.5f}, {by}); NCHW "
+                      f"plan {t[f'{d} nchw']:.5f}; plain "
+                      f"{t[f'plain {d}']:.4f}")
+                step[fam][0] += count * dev_ms
+                step[fam][1] += count * t[f"{d} nchw"]
+            elems = math.prod(shape)
+            step[fam][2] += count * elems * (16 if b3 else 10) / \
+                HBM_BYTES_PER_S * 1e3
+    for fam, (nhwc, nchw, bound) in step.items():
+        print(f"  {fam.upper()} per flagship train step: NHWC plans "
+              f"{nhwc:.4f} ms ({bound / nhwc:.1%} of the benchmark's "
+              f"{'16' if fam == 'b3' else '10'} B bound {bound:.4f} ms), "
+              f"NCHW plans {nchw:.4f} ms ({bound / nchw:.1%})")
+    recs["channel_sums_nhwc"] = channel_sums_phase(dev)
+    cudnn_transposes(dev)
+    print(f"  {smi()}")
+    return recs
+
+
+# the channels-last gradients whose channel sums a GUNet.yml backward takes
+# for its 13 conv biases (models/layers.conv_with_bias: the spatial convs'
+# halves at levels 1-4, the four transpose convs, the head), bf16 at batch
+# 8; the head's [8, 3, 256^2] takes one element a thread
+CHANNEL_SUMS_SHAPES = {(8, 64, 256, 256): 1, (8, 128, 128, 128): 3,
+                       (8, 256, 64, 64): 3, (8, 512, 32, 32): 3,
+                       (8, 1024, 16, 16): 2, (8, 3, 256, 256): 1}
+GUNET_BIAS_SUMS = sum(CHANNEL_SUMS_SHAPES.values())
+
+
+def channel_sums_phase(dev):
+    """channel_sums_nhwc at CHANNEL_SUMS_SHAPES: twice (bit-equal from run
+    to run) against its plain version, the float32 sum of the upcast
+    gradient (1e-4 relative + 1e-5 sqrt(rows)); device ms (graph_ms over
+    COLD_BYTES of inputs) against its bound (2 B an element read), wrapper
+    ms, the plain version's ms and PyTorch's own reduction of the bf16
+    gradient to float32 (library_ms: what the conv's backward ran for the
+    bias).  Returns the kernels line's record, summed over one flagship
+    backward's 13 launches."""
+    from boxsegliver_torch.ops import kernels as K
+
+    rec = {"name": "channel_sums_nhwc", "route": "cuda",
+           "source": "boxsegliver_torch/csrc/in_relu.cu",
+           "replaces": "a conv bias's gradient: the sum of a channels-last "
+                       "output gradient over all but the channels (XLA's "
+                       "reduction)",
+           "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
+           "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+           "bound_by": "bytes", "library_ms": 0.0, "shapes": {}}
+    calls = sum(CHANNEL_SUMS_SHAPES.values())
+    for shape, count in CHANNEL_SUMS_SHAPES.items():
+        c = shape[1]
+        rows = math.prod(shape) // c
+        n_sets = max(1, min(20, math.ceil(COLD_BYTES / (2 * c * rows))))
+        gen = torch.Generator(device=dev).manual_seed(31)
+        gs = [_cl(torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)) for _ in range(n_sets)]
+        got, again = K.channel_sums_nhwc(gs[0]), K.channel_sums_nhwc(gs[0])
+        want = gs[0].float().sum(dim=(0, 2, 3))
+        err = (got - want).abs()
+        if not torch.equal(got, again):
+            raise AssertionError(f"channel_sums_nhwc {shape} differs from run "
+                                 "to run")
+        if bool((err > 1e-5 * math.sqrt(rows) + 1e-4 * want.abs()).any()):
+            raise AssertionError(f"channel_sums_nhwc {shape}: max abs err "
+                                 f"{float(err.max()):.3e}")
+        dev_ms = graph_ms(lambda i: K.channel_sums_nhwc(gs[i]), n_sets, 20)
+        wrap = cuda_ms(lambda: K.channel_sums_nhwc(gs[0]), iters=20, warmup=2)
+        plain = cuda_ms(lambda: gs[0].float().sum(dim=(0, 2, 3)), iters=10,
+                        warmup=2)
+        lib = graph_ms(lambda i: gs[i].sum(dim=(0, 2, 3), dtype=torch.float32),
+                       n_sets, 20)
+        bound = (math.prod(shape) * 2 + c * 8) / HBM_BYTES_PER_S * 1e3
+        rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+        rec["device_ms"] += count * dev_ms / calls
+        rec["wrapper_ms"] += count * wrap / calls
+        rec["ms"] += count * dev_ms
+        rec["plain_ms"] += count * plain
+        rec["library_ms"] += count * lib
+        rec["bound_ms"] += count * bound
+        rec["shapes"][str(shape)] = {"device_ms": dev_ms, "bound_ms": bound,
+                                     "of_bound": bound / dev_ms,
+                                     "library_ms": lib}
+        print(f"  channel_sums_nhwc {str(shape):20s} device {dev_ms:.5f} ms "
+              f"({bound / dev_ms:.1%} of {bound:.5f}, bytes); wrapper "
+              f"{wrap:.4f}; plain {plain:.4f}; PyTorch's reduction {lib:.5f};"
+              f" max abs err {float(err.max()):.3e}")
+    print(f"  channel_sums_nhwc per flagship backward ({calls} biases): "
+          f"{rec['ms']:.4f} ms ({rec['bound_ms'] / rec['ms']:.1%} of "
+          f"{rec['bound_ms']:.4f}), PyTorch's reduction "
+          f"{rec['library_ms']:.4f} ms")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the flagship G-Net training through the CLI
 # ---------------------------------------------------------------------------
 
@@ -1843,10 +2260,16 @@ def train_kernels(shapes=None, b3=None):
     """The kernels a guided train step runs (G1 draws only the click eval's
     guides): B1, the B2 kernels of b2_train_kernels at ``shapes`` (the
     flagship's by default) and, where ``b3`` (by default for the flagship's
-    GUNet.yml, ``shapes`` None), B3-fwd and B3-bwd."""
+    GUNet.yml, ``shapes`` None), B3-fwd and B3-bwd; the flagship's
+    channels-last, B2 and B3 on their NHWC plans."""
     b3 = shapes is None if b3 is None else b3
-    return ("gaussian_guide_batch",) + b2_train_kernels(
-        shapes or B2_STEP_SHAPES) + (B3_KERNELS if b3 else ())
+    counts = {**b2_train_counts(shapes or B2_STEP_SHAPES, 1),
+              **({"modnorm_relu_fwd": 1, "modnorm_relu_bwd": 1} if b3
+                 else {})}
+    if shapes is None:
+        counts = nhwc_counts(counts)
+    return ("gaussian_guide_batch",) + tuple(n for n, c in counts.items()
+                                             if c)
 
 
 # the train runs whose checkpoints later phases check (phase 8's resume to
@@ -1885,19 +2308,25 @@ def train_run(argv, steps_expected, b3=True):
     if launches["gaussian_guide_batch"] < steps_expected:
         raise AssertionError(f"B1 launched {launches['gaussian_guide_batch']}"
                              f" times in {steps_expected} train steps")
-    # 10 pairs a step; the backward's kernels from in_relu_bwd_plan (the
-    # online eval and a K = 16 capture add launches: at least these)
-    for n, c in b2_train_counts(B2_STEP_SHAPES, steps_expected).items():
+    # 10 pairs a step on B2's NHWC plans (GUNet's activations are
+    # channels-last), none on its NCHW plans (the online eval and a K = 16
+    # capture add launches: at least these)
+    for n, c in nhwc_counts(b2_train_counts(B2_STEP_SHAPES,
+                                            steps_expected)).items():
         if (launches[n] < c) if c else launches[n]:
             raise AssertionError(f"{n} launched {launches[n]} times in "
-                                 f"{steps_expected} train steps "
-                                 f"(in_relu_bwd_plan: {c} at least, 0 if 0)")
+                                 f"{steps_expected} train steps ({c} at "
+                                 "least, 0 if 0)")
     # B3: one B3-fwd a forward and one B3-bwd a backward for each of
     # GUNet.yml's 8 modulated blocks, where B2 runs its 10 pairs: exactly
-    # 8/10 of B2's forwards and backwards (B2a + B2f), at least 8 a step
-    b2_bwd = launches["in_relu_bwd"] + launches["in_relu_bwd_stats"]
-    want = {"modnorm_relu_fwd": launches["in_relu_fwd"], "modnorm_relu_bwd":
-            b2_bwd} if b3 else {}
+    # 8/10 of B2's forwards and backwards, at least 8 a step; the NCHW
+    # plans none
+    want = {"modnorm_relu_fwd_nhwc": launches["in_relu_fwd_nhwc"],
+            "modnorm_relu_bwd_nhwc": launches["in_relu_bwd_nhwc"]} if b3 \
+        else {}
+    if launches["modnorm_relu_fwd"] or launches["modnorm_relu_bwd"]:
+        raise AssertionError(f"B3's NCHW plans launched in a GUNet train "
+                             f"run: {launches}")
     for n, c in want.items():
         if (launches[n] * GUNET_B2_PAIRS != c * GUNET_MOD_BLOCKS
                 or launches[n] < GUNET_MOD_BLOCKS * steps_expected):
@@ -1910,9 +2339,17 @@ def train_run(argv, steps_expected, b3=True):
 
 
 def train_phase(tmp):
+    from boxsegliver_torch.ops import kernels
+
     md = Path(tmp) / "train_md"
     trainer, launches, seconds = train_run(
         smoke_train_argv(tmp, 24, "--device_cache", *ONE_WORKER), 24)
+    # a GUNet.yml backward takes channel_sums_nhwc for each of its 13 conv
+    # biases (CHANNEL_SUMS_SHAPES); the online eval none
+    sums = launches["channel_sums_nhwc"] = kernels.channel_sums_nhwc.launches
+    if sums != GUNET_BIAS_SUMS * 24:
+        raise AssertionError(f"channel_sums_nhwc launched {sums} times in 24 "
+                             f"train steps, not {GUNET_BIAS_SUMS} a step")
     if trainer.global_step != 24:
         raise AssertionError(f"train stopped at step {trainer.global_step}")
     for rel in ("ckpt/24/state.pt", "ckpt_best/best/state.pt", "best_result",
@@ -2389,7 +2826,10 @@ def steady(args, ds, what, kernels_used=False, prof_steps: int = 8,
         launches = {n: f.launches for n, f in kernels.KERNELS.items()}
         used = (set(kernels_used) if isinstance(kernels_used, tuple)
                 else set(train_kernels()) if kernels_used else set())
-        if not all(bool(c) == (n in used) for n, c in launches.items()):
+        # a model other than GUNet: its layout follows its input (fold_nhwc)
+        seen = (launches if any(n in NHWC_OF for n in used)
+                else fold_nhwc(launches))
+        if not all(bool(c) == (n in used) for n, c in seen.items()):
             raise AssertionError(f"{what}: kernel launches {launches}")
         walls = [window(16) for _ in range(3)]
         with profile(activities=[ProfilerActivity.CPU,
@@ -2941,10 +3381,12 @@ GUNET_MOD_BLOCKS = 8
 def expect_b3_forwards(what, launches):
     """A no-grad GUNet.yml path (the sweep, serving): one B3-fwd for each
     of the 8 modulated blocks of every forward, whose 10 other pairs
-    launch B2-fwd, and no B3-bwd."""
-    fwd, b2 = launches["modnorm_relu_fwd"], launches["in_relu_fwd"]
-    if not fwd or fwd * GUNET_B2_PAIRS != b2 * GUNET_MOD_BLOCKS or \
-            launches["modnorm_relu_bwd"]:
+    launch B2-fwd, all on the NHWC plans (GUNet's activations are
+    channels-last), and no B3-bwd."""
+    fwd, b2 = launches["modnorm_relu_fwd_nhwc"], launches["in_relu_fwd_nhwc"]
+    if not fwd or fwd * GUNET_B2_PAIRS != b2 * GUNET_MOD_BLOCKS or any(
+            launches[n] for n in ("modnorm_relu_bwd", "modnorm_relu_bwd_nhwc",
+                                  "modnorm_relu_fwd", "in_relu_fwd")):
         raise AssertionError(f"{what}: B3 launches {launches}, expected "
                              f"{GUNET_MOD_BLOCKS} B3-fwd for every "
                              f"{GUNET_B2_PAIRS} B2-fwd and no B3-bwd")
@@ -3050,7 +3492,8 @@ def serve_bundle(bundle, what, requests=20, seed=0):
         with np.load(io.BytesIO(_post(url, _npz(**big),
                                       "application/x-npz"))) as z:
             big_probs = z["predictions"]
-        big_fwd = kernels.in_relu_fwd.launches
+        big_fwd = (kernels.in_relu_fwd.launches
+                   + kernels.in_relu_fwd_nhwc.launches)
         one = {k: v[:1].tolist() for k, v in feats.items()}
         js = json.loads(_post(url, json.dumps({"inputs": one}).encode(),
                               "application/json"))
@@ -3149,9 +3592,9 @@ def serve_phase(tmp, dev, seed, unet_md):
 
     feats, probs, glaunch, gper = serve_bundle(gbundle, "serve GUNet",
                                                seed=seed)
-    if gper["in_relu_fwd"] < GUNET_B2_PAIRS:
+    if gper["in_relu_fwd_nhwc"] < GUNET_B2_PAIRS:
         raise AssertionError(f"GUNet serving launched B2-fwd "
-                             f"{gper['in_relu_fwd']} times per 8-slice "
+                             f"{gper['in_relu_fwd_nhwc']} times per 8-slice "
                              f"request ({GUNET_B2_PAIRS} pairs per forward)")
     expect_b3_forwards("GUNet serving", gper)
     _, _, ulaunch, _ = serve_bundle(ubundle, "serve UNet", seed=seed)
@@ -3379,7 +3822,7 @@ def annotate_phase(tmp, dev, seed, lits, ds, unet_preds, unet_bundle,
           f"{walls[1]:.3f} s; launches per Predict {per_predict}; metrics "
           f"{r['metrics']}, {r['guides']} guide(s); {smi()}")
     for p in per_predict:
-        if not (p["gaussian_guide_batch"] > 0 and p["in_relu_fwd"] > 0):
+        if not (p["gaussian_guide_batch"] > 0 and p["in_relu_fwd_nhwc"] > 0):
             raise AssertionError(f"a Predict launched {p}")
 
     # the live map against the CLI's --real_sp infer on the same weights
@@ -3551,8 +3994,24 @@ def nf_argv(task, mode, tag, tmp, md, *extra):
         "4", *ONE_WORKER] + list(extra)
 
 
+def fold_nhwc(launches):
+    """``launches`` with B2's and B3's NHWC plans counted under their NCHW
+    counterparts (NHWC_OF): the count of a model whose layout follows its
+    input's strides (UNet, UNetInter and the click models take the
+    channels-last view of their input permute and keep it, UNet3D
+    contiguous planes), where the strides choose which plans run."""
+    out = dict(launches)
+    for n, of in NHWC_OF.items():
+        out[of] = out.get(of, 0) + out.pop(n, 0)
+    return out
+
+
 def expect_launches(what, launches, want):
-    """Exact launch counts; a kernel ``want`` does not name must read 0."""
+    """Exact launch counts; a kernel ``want`` does not name must read 0.
+    Where ``want`` names no NHWC plan (a model other than GUNet), the NHWC
+    plans count as their NCHW counterparts (fold_nhwc)."""
+    if not any(n in NHWC_OF for n in want):
+        launches = fold_nhwc(launches)
     if set(want) - set(launches) or launches != {
             n: want.get(n, 0) for n in launches}:
         raise AssertionError(f"{what}: kernel launches {launches}, "
@@ -3617,7 +4076,8 @@ def nf_train_phase(tmp, ds):
           f"{seconds:.2f} s ({seconds / 24 * 1e3:.1f} ms/step with set-up and"
           f" two online evals of {NF_EVAL_BATCHES} batches); per train step "
           f"B2-fwd {NF_BLOCKS} (+{NF_BLOCKS} per eval batch), B2f "
-          f"{launches['in_relu_bwd'] // steps}, B2a "
+          f"{fold_nhwc(launches)['in_relu_bwd'] // steps} (NHWC plans "
+          f"{launches['in_relu_bwd_nhwc'] // steps}), B2a "
           f"{launches['in_relu_bwd_stats'] // steps}, B2b "
           f"{launches['in_relu_bwd_apply'] // steps}, B1 0; loss "
           + ", ".join(f"{k}: {loss[k]:.4f}" for k in s0)
@@ -3642,7 +4102,7 @@ def nf_train_phase(tmp, ds):
             expect_launches("nf steady warm-up", warm, {
                 "gaussian_guide_batch": 0,
                 **b2_train_counts(NF_B2_STEP_SHAPES, 3)})
-        elif any(c[n] != v for c in replay.values() for n, v in
+        elif any(fold_nhwc(c)[n] != v for c in replay.values() for n, v in
                  b2_train_counts(NF_B2_STEP_SHAPES, 1).items()):
             raise AssertionError(f"nf K=16 replay launches {replay}")
     print(f"  nf train step ms/step (median of 3 windows of 16): K=1 "
@@ -4466,7 +4926,7 @@ def click_export_phase(tmp, dev, seed, md):
         raise AssertionError(f"click export signature {sig['inputs']}")
     feats, probs, launches, per_req = serve_bundle(
         bundle, "serve UNetInter (click export)", requests=5, seed=seed)
-    if per_req["in_relu_fwd"] != NF_BLOCKS:
+    if fold_nhwc(per_req)["in_relu_fwd"] != NF_BLOCKS:
         raise AssertionError(f"click serving B2-fwd per request {per_req}")
     live = cli.build_model_from_args(cli.get_args(
         ["eval" if a == "export" else a for a in argv]), dev)
@@ -5121,11 +5581,11 @@ def iin_train_phase(tmp, ds):
             md / "ckpt_best" / "best" / "state.pt").exists():
         raise AssertionError(f"nf2 train stopped at {trainer.global_step}")
     evals = 2 * NF_EVAL_BATCHES
-    expect_launches("nf2 train", launches, {
+    expect_launches("nf2 train", launches, nhwc_counts({
         "gaussian_guide_batch": IIN_STEPS + evals,
         **b2_train_counts(IIN_B2_STEP_SHAPES, IIN_STEPS, evals),
         "modnorm_relu_fwd": GUNET_MOD_BLOCKS * (IIN_STEPS + evals),
-        "modnorm_relu_bwd": GUNET_MOD_BLOCKS * IIN_STEPS})
+        "modnorm_relu_bwd": GUNET_MOD_BLOCKS * IIN_STEPS}))
     loss, dice = _train_log(md, eval_steps=(6, 12))
     print(f"  nf2 train (004_gnet_iin.sh flags): {IIN_STEPS} steps of 8 x "
           f"256^2 in {seconds:.2f} s (with set-up and two online evals of "
@@ -5150,15 +5610,16 @@ def iin_train_phase(tmp, ds):
             kernels_used=True, prof_steps=8 if k == 1 else 16, top=10,
             groups_out=groups[k])
         if k == 1:
-            expect_launches("nf2 steady warm-up", warm, {
+            expect_launches("nf2 steady warm-up", warm, nhwc_counts({
                 "gaussian_guide_batch": 3,
                 **b2_train_counts(IIN_B2_STEP_SHAPES, 3),
                 "modnorm_relu_fwd": 3 * GUNET_MOD_BLOCKS,
-                "modnorm_relu_bwd": 3 * GUNET_MOD_BLOCKS})
+                "modnorm_relu_bwd": 3 * GUNET_MOD_BLOCKS}))
         elif any(cnt["gaussian_guide_batch"] != 1
-                 or any(cnt[n] != v for n, v in b2_train_counts(
-                     IIN_B2_STEP_SHAPES, 1).items())
-                 or any(cnt[n] != GUNET_MOD_BLOCKS for n in B3_KERNELS)
+                 or any(cnt[n] != v for n, v in nhwc_counts({
+                     **b2_train_counts(IIN_B2_STEP_SHAPES, 1),
+                     "modnorm_relu_fwd": GUNET_MOD_BLOCKS,
+                     "modnorm_relu_bwd": GUNET_MOD_BLOCKS}).items())
                  for cnt in replay.values()):
             raise AssertionError(f"nf2 K=16 replay launches {replay}")
     for k in (1, 16):
@@ -5200,10 +5661,10 @@ def iin_eval_phase(tmp, ds, md):
             res, seconds, launches = counted_run(lambda: cli.main(argv))
         finally:
             EvaluateVolume._finish_case = orig
-        expect_launches(f"nf2 eval ({name})", launches, {
+        expect_launches(f"nf2 eval ({name})", launches, nhwc_counts({
             "gaussian_guide_batch": sum(batches),
             "in_relu_fwd": IIN_BLOCKS * sum(batches),
-            "modnorm_relu_fwd": GUNET_MOD_BLOCKS * sum(batches)})
+            "modnorm_relu_fwd": GUNET_MOD_BLOCKS * sum(batches)}))
         if not all(math.isfinite(v) for v in res.values()):
             raise AssertionError(f"nf2 eval ({name}): {res}")
         per_case = np.diff([t0] + timer)
@@ -5220,9 +5681,9 @@ def iin_eval_phase(tmp, ds, md):
     out, seconds, launches = counted_run(lambda: cli.main(iin_argv(
         "infer", "chip_smoke_iin", tmp, md, *IIN_EVAL, "--case_id",
         str(meta["PID"]), "--pos", str(sid), str(y), str(x))))
-    expect_launches("nf2 infer --pos", launches, {
+    expect_launches("nf2 infer --pos", launches, nhwc_counts({
         "gaussian_guide_batch": 1, "in_relu_fwd": IIN_BLOCKS,
-        "modnorm_relu_fwd": GUNET_MOD_BLOCKS})
+        "modnorm_relu_fwd": GUNET_MOD_BLOCKS}))
     with np.load(out["infer_path"]) as z:
         if z["prob"].shape != (256, 256, 2) or not np.isfinite(
                 z["prob"]).all():
@@ -5426,8 +5887,8 @@ def iin_phase(tmp, dev, seed):
                                *IIN_EVAL))
     *_, per_req = serve_bundle(bundle, "nf2 bundle (GUNet_IIN.yml)",
                                requests=1, seed=seed)
-    expect_launches("nf2 serving", per_req, {
-        "in_relu_fwd": IIN_BLOCKS, "modnorm_relu_fwd": GUNET_MOD_BLOCKS})
+    expect_launches("nf2 serving", per_req, nhwc_counts({
+        "in_relu_fwd": IIN_BLOCKS, "modnorm_relu_fwd": GUNET_MOD_BLOCKS}))
     paths["serve (nf2 export)"] = {n: int(v) for n, v in per_req.items()}
     ev_args = iin_card_vs_cpu(tmp, ds, dev, seed)
     b1_err = iin_guides_card_vs_cpu(tmp, ds, dev, seed, ev_args)
@@ -5742,9 +6203,9 @@ def se_phase(tmp, dev, seed, ds):
         raise AssertionError(f"--use_se train stopped at "
                              f"{trainer.global_step}")
     del trainer
-    expect_launches("GUNet --use_se train", launches, {
+    expect_launches("GUNet --use_se train", launches, nhwc_counts({
         "gaussian_guide_batch": steps,
-        **b2_train_counts(B2_STEP_SHAPES, steps)})
+        **b2_train_counts(B2_STEP_SHAPES, steps)}))
     print(f"  GUNet --use_se train (002_gnet_sp.sh flags, GUNet.yml): "
           f"{steps} steps of 8 x 256^2 in {seconds:.2f} s; launches "
           f"{launches}: B1 1 and B2-fwd / B2f {GUNET_B2_PAIRS} a step")
@@ -6180,7 +6641,7 @@ def dist_phase(tmp, dev, seed, unet_md, inter_md):
         if part == "24a" and any(want.values()):
             raise AssertionError(f"24a: the batch-norm UNet launched {want}")
         if part == "24b" and not (want["gaussian_guide_batch"]
-                                  and want["in_relu_fwd"]):
+                                  and want["in_relu_fwd_nhwc"]):
             raise AssertionError(f"24b: one process launched {want}")
         print(f"  {part} launches a rank over {DIST_STEPS} steps = one "
               f"process's (batch {8 * DIST_RANKS}): {want}")
@@ -6710,10 +7171,11 @@ def spatial_phase(tmp, dev, seed):
     # forward) becomes one B2s and one B2y; the modulated blocks (one B3-fwd
     # each in one process) take B3's split form, its statistics from B2s
     # too (GUNET_MOD_BLOCKS a forward)
-    fused = one["launches"]["in_relu_fwd"]
-    want = {**one["launches"], "in_relu_fwd": 0, "modnorm_relu_fwd": 0,
-            "in_relu_fwd_partial": fused + GUNET_MOD_BLOCKS * fused
-            // IIN_BLOCKS, "in_relu_fwd_apply": fused}
+    fused = one["launches"]["in_relu_fwd_nhwc"]
+    want = {**one["launches"], "in_relu_fwd_nhwc": 0,
+            "modnorm_relu_fwd_nhwc": 0, "in_relu_fwd_partial": fused
+            + GUNET_MOD_BLOCKS * fused // IIN_BLOCKS,
+            "in_relu_fwd_apply": fused}
     for r in ranks:
         expect_launches("25b run_g (a rank of 2)", r["25b"]["launches"], want)
     pf, pf1 = r0["per_forward"], one["per_forward"]
@@ -6847,10 +7309,12 @@ def main(argv=None):
         print("[6/25] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
         elapsed(t_start)
-        print("[7/25] kernels B2 and B3 vs plain")
+        print("[7/25] kernels B2 and B3 vs plain; their NHWC plans; cuDNN's "
+              "transposes")
         b2 = b2_phase(dev)
         nf_b2 = b2_nf_levels(dev)
         b3 = b3_phase(dev)
+        nhwc = nhwc_phase(dev)
         elapsed(t_start)
         print("[8/25] flagship G-Net training through the CLI")
         launches = paths["G-Net train"] = train_phase(tmp)
@@ -6954,23 +7418,34 @@ def main(argv=None):
         "UNet3D": b2_3d["step"]["backward"]}
     for r in recs:
         r["launches"] = launches[r["name"]]
-    # B2a and B2b run where a plane is too large to stage: UNet3D's level 0
-    for n in ("in_relu_bwd_stats", "in_relu_bwd_apply"):
+    # B2's NCHW plans run where a model passes NCHW planes (G-Net's
+    # activations are channels-last): UNet3D's train step takes B2-fwd, B2f
+    # and, where a plane is too large to stage (level 0), B2a and B2b
+    for n in B2_KERNELS:
         b2[n]["launches"] = paths["UNet3D train (201_unet_v1)"][n]
     # G1's main path is the device refiner with geodesic guides
     g1["launches"] = paths["click eval on geodesic"][g1["name"]]
     recs.append(g1)
     recs += [split_recs[n] for n in SPLIT_KERNELS]
-    # B3's main path is the flagship train step
+    # B3's NCHW plans have no main path left (GUNet is channels-last, or
+    # sharded on B3's split form): their launches are the card tests' alone
     for n in B3_KERNELS:
         b3[n]["launches"] = launches[n]
         recs.append(b3[n])
-    if not all(r["launches"] for r in recs):
+    # B2's and B3's NHWC plans and the conv biases' channel sums: the
+    # flagship train step
+    for n in NHWC_KERNELS + ("channel_sums_nhwc",):
+        nhwc[n]["launches"] = launches[n]
+        recs.append(nhwc[n])
+    if not all(r["launches"] for r in recs if r["name"] not in B3_KERNELS):
         raise AssertionError("a kernel did not launch on its main path: "
                              + str({r["name"]: r["launches"] for r in recs}))
     for r in recs:
+        # channel_sums_nhwc is counted on the flagship's train path alone
         r["launches_by_path"] = {p: c.get(r["name"], 0)
-                                 for p, c in paths.items()}
+                                 for p, c in paths.items()
+                                 if r["name"] in c
+                                 or r["name"] != "channel_sums_nhwc"}
     keys += ("launches_by_path",)
     elapsed(t_start)
     print(json.dumps({"kernels": [{k: r[k] for k in keys + tuple(

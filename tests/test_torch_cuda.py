@@ -528,16 +528,195 @@ def test_gunet_yml_step_launches_b3_per_modulated_block(dev):
     model(feats, train=True).square().mean().backward()
     torch.cuda.synchronize()
     counts = {n: f.launches for n, f in kernels.KERNELS.items()}
-    assert counts["modnorm_relu_fwd"] == counts["modnorm_relu_bwd"] == 8
-    assert counts["in_relu_fwd"] == counts["in_relu_bwd"] == 10
+    # GUNet's activations are channels-last: B2 and B3 on their NHWC plans
+    assert (counts["modnorm_relu_fwd_nhwc"] == counts["modnorm_relu_bwd_nhwc"]
+            == 8)
+    assert counts["in_relu_fwd_nhwc"] == counts["in_relu_bwd_nhwc"] == 10
+    assert not any(counts[k] for k in (
+        "in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats", "in_relu_bwd_apply",
+        "modnorm_relu_fwd", "modnorm_relu_bwd"))
+    # the biases of the 8 spatial half convs, 4 transpose convs and the
+    # head take their gradients from the channel sums
+    assert kernels.channel_sums_nhwc.launches == 13
     grads = [p.grad for p in model.parameters()]
     assert all(g_ is not None and bool(torch.isfinite(g_).all())
                for g_ in grads)
     kernels.reset_launch_counts()
     with torch.no_grad():
         model(feats)
-    assert kernels.modnorm_relu_fwd.launches == 8
-    assert kernels.modnorm_relu_bwd.launches == 0
+    assert kernels.modnorm_relu_fwd_nhwc.launches == 8
+    assert kernels.in_relu_fwd_nhwc.launches == 10
+    assert kernels.modnorm_relu_bwd_nhwc.launches == 0
+    assert kernels.modnorm_relu_fwd.launches == kernels.in_relu_fwd.launches \
+        == 0
+
+
+# ---------------------------------------------------------------------------
+# B2 and B3 on their NHWC plans (channels-last operands, GUNet's), against
+# the plain versions at the tolerances above, equal from run to run, and
+# within one bf16 rounding of the NCHW plans on the same data
+# ---------------------------------------------------------------------------
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _is_cl(t):
+    return t.is_contiguous(memory_format=torch.channels_last)
+
+
+# G-Net's five levels at batch 8 (GUNet.yml, 256^2, bf16), and ragged
+# shapes: rows that no CTA's row groups divide, one sample, 8 channels, a
+# tile of 8 channels (24), channels that take one element a thread (30, 3)
+NHWC_LEVELS = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
+               (8, 512, 32, 32), (8, 1024, 16, 16)]
+NHWC_SHAPES = ([(s, _BF) for s in NHWC_LEVELS]
+               + [((2, 64, 13, 11), _BF), ((1, 128, 33, 31), _BF),
+                  ((3, 8, 17, 9), _BF), ((2, 24, 5, 7), _BF),
+                  ((2, 30, 9, 10), _BF), ((2, 64, 13, 11), _F),
+                  ((1, 3, 16, 16), _F)])
+
+
+def _nhwc_plans(shape, dtype, arrays, grad=False):
+    """The default plan, and the split plan where the default is staged."""
+    n, c, h, w = shape
+    plans = [None]
+    if kernels.in_relu_nhwc_plan(n, c, h * w, dtype, True, arrays,
+                                 grad).path == kernels.NHWC_STAGED:
+        plans.append(kernels.in_relu_nhwc_split_plan(n, c, h * w, dtype,
+                                                     True, grad))
+    return plans
+
+
+def _nhwc_counts():
+    return {k: f.launches for k, f in kernels.KERNELS.items()}
+
+
+@pytest.mark.parametrize("shape,dtype", NHWC_SHAPES)
+def test_b2_nhwc_matches_plain(dev, shape, dtype):
+    """y, the planes' mean and rstd against the plain version's; the
+    backward (x̂ taken from x again, in float32, with the forward's
+    statistics) against the plain backward on that x̂."""
+    x, g, w, b = _in_relu_inputs(shape, dtype, dev, seed=shape[1])
+    y_p, mean_p, rstd_p = kernels.in_relu_fwd_nhwc_plain(x, w, b)
+    y_nchw = kernels.in_relu_fwd(x, w, b)[0]
+    hw = shape[2] * shape[3]
+    tol = _TOL[dtype]
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for fp, bp in zip(_nhwc_plans(shape, dtype, 1),
+                      _nhwc_plans(shape, dtype, 2, True)):
+        before = _nhwc_counts()
+        fwd = [kernels.in_relu_fwd_nhwc(_cl(x), w, b, plan=fp)
+               for _ in range(2)]
+        y, mean, rstd = fwd[0]
+        xh = kernels._xhat(x, mean, rstd)
+        dx_p, s1_p, s2_p = kernels.in_relu_bwd_plain(g, xh, w, b, rstd)
+        bwd = [kernels.in_relu_bwd_nhwc(_cl(g), _cl(x), mean, w, b, rstd,
+                                        plan=bp) for _ in range(2)]
+        torch.cuda.synchronize()
+        after = _nhwc_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] > before[k]
+                } == {"in_relu_fwd_nhwc": 2, "in_relu_bwd_nhwc": 2}
+        dx, s1, s2 = bwd[0]
+        assert _is_cl(y) and _is_cl(dx)
+        torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+        torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y.float(), y_p.float(), **tol)
+        _b2_close(dx, dx_p, rel, 1e-5)
+        for got, want in ((s1, s1_p), (s2, s2_p)):
+            _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
+        for one, two in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+            assert torch.equal(one, two)
+        torch.testing.assert_close(y.float(), y_nchw.float(), **tol)
+
+
+@pytest.mark.parametrize("shape,dtype", NHWC_SHAPES)
+def test_b3_nhwc_matches_plain(dev, shape, dtype):
+    """GUNet.yml's block (context γ, spatial s, center) with s the first
+    channel half of a channels-last tensor, read in place; the backward
+    against the plain one on the x̂ the forward's statistics give."""
+    x, g, gamma, s, w, b = _b3_inputs(shape, dtype, dev, seed=shape[1])
+    c = shape[1]
+    s_cl = _cl(torch.cat([s, torch.zeros_like(s)], dim=1))[:, :c]
+    y_p, mean_p, rstd_p = kernels.modnorm_relu_fwd_nhwc_plain(x, gamma, s, w,
+                                                              b)
+    y_nchw = kernels.modnorm_relu_fwd(x, gamma, s, w, b)[0]
+    hw = shape[2] * shape[3]
+    tol = _TOL[dtype]
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    for fp, bp in zip(_nhwc_plans(shape, dtype, 2),
+                      _nhwc_plans(shape, dtype, 3, True)):
+        before = _nhwc_counts()
+        fwd = [kernels.modnorm_relu_fwd_nhwc(_cl(x), gamma, s_cl, w, b,
+                                             plan=fp) for _ in range(2)]
+        y_ng = kernels.modnorm_relu_fwd_nhwc(_cl(x), gamma, s_cl, w, b,
+                                             train=False, plan=fp)[0]
+        y, mean, rstd = fwd[0]
+        xh = kernels._xhat(x, mean, rstd)
+        ref = kernels.modnorm_relu_bwd_plain(g, y, xh, rstd, gamma, w)
+        bwd = [kernels.modnorm_relu_bwd_nhwc(_cl(g), y, _cl(x), mean, rstd,
+                                             gamma, w, plan=bp)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        after = _nhwc_counts()
+        assert {k: after[k] - before[k] for k in after if after[k] > before[k]
+                } == {"modnorm_relu_fwd_nhwc": 3, "modnorm_relu_bwd_nhwc": 2}
+        dx, ds, a, b_ = bwd[0]
+        assert _is_cl(y) and _is_cl(dx) and _is_cl(ds)
+        torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+        torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(y.float(), y_p.float(), **tol)
+        assert torch.equal(y_ng, y)
+        _b2_close(dx, ref[0], rel, 1e-5)
+        assert torch.equal(ds, ref[1])
+        for got, want in ((a, ref[2]), (b_, ref[3])):
+            _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
+        for one, two in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+            assert torch.equal(one, two)
+        torch.testing.assert_close(y.float(), y_nchw.float(), **tol)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((8, 128, 128, 128), _BF), ((8, 64, 256, 256), _BF),
+    ((8, 3, 256, 256), _BF), ((8, 1024, 16, 16), _BF), ((2, 30, 9, 10), _BF),
+    ((3, 24, 7, 5), _F)])
+def test_channel_sums_nhwc_matches_plain(dev, shape, dtype):
+    """A conv bias's gradient from a channels-last one: the channel sums
+    against PyTorch's float32 sum, equal from run to run."""
+    g = _cl(torch.randn(shape, device=dev).to(dtype))
+    n0 = kernels.channel_sums_nhwc.launches
+    got = kernels.channel_sums_nhwc(g)
+    again = kernels.channel_sums_nhwc(g)
+    want = g.float().sum(dim=(0, 2, 3))
+    torch.cuda.synchronize()
+    assert kernels.channel_sums_nhwc.launches == n0 + 2
+    rows = g.numel() // g.shape[1]
+    _b2_close(got, want, 1e-4, 1e-5 * rows ** 0.5)
+    assert torch.equal(got, again)
+
+
+def test_b2_and_b3_take_the_plan_of_their_layout(dev):
+    """The strides choose: contiguous x takes the NCHW plans, channels-last
+    x the NHWC ones (autograd through both agrees), anything else raises."""
+    x, g, w, b = _in_relu_inputs((2, 16, 24, 20), torch.float32, dev, seed=4)
+    grads = []
+    for inp, name in ((x, "in_relu_fwd"), (_cl(x), "in_relu_fwd_nhwc")):
+        before = _nhwc_counts()
+        leaf = inp.detach().requires_grad_(True)
+        out = kernels.instance_norm_relu(leaf, w, b)
+        grads.append(torch.autograd.grad(out, leaf, _cl(g))[0])
+        after = _nhwc_counts()
+        assert after[name] == before[name] + 1
+        assert _is_cl(out) == (name == "in_relu_fwd_nhwc")
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
+    gamma = torch.ones((2, 16), device=dev)
+    for fn in (lambda t: kernels.in_relu_fwd(t, w, b),
+               lambda t: kernels.modnorm_relu_fwd(t, gamma)):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.transpose(2, 3))
+    with pytest.raises(ValueError, match="one layout"):
+        ones = torch.ones((2, 16), device=dev)
+        kernels.in_relu_bwd_nhwc(_cl(g), x, ones, w, b, ones)
 
 
 # ---------------------------------------------------------------------------
@@ -592,7 +771,8 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     as much between a graphed and an eager run.  Each replay adds its
     captured launches of B1, B2 and B3 to their counters: B3-fwd and
     B3-bwd once for each of GUNet_TINY's 4 modulated blocks, B2 for its 6
-    other norm + ReLU pairs."""
+    other norm + ReLU pairs, all on the NHWC plans (GUNet's activations are
+    channels-last)."""
     quiet = ("--noise_scale", "0", "--random_flip", "0", "--side_dropout",
              "0")
     graphed, batches = _graph_trainers(tmp_path, 4, *quiet)
@@ -602,17 +782,18 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     counts = {n: fn.launches for n, fn in kernels.KERNELS.items()}
     vals_e = _run(eager, batches, 1)
     assert len(graphed._graphs) == 2            # metric / no-metric variant
-    # GUNet_TINY's planes at 64^2 take B2f's fused paths: no B2a or B2b
-    for n in ("gaussian_guide_batch", "in_relu_fwd", "in_relu_bwd",
-              "modnorm_relu_fwd", "modnorm_relu_bwd"):
+    for n in ("gaussian_guide_batch", "in_relu_fwd_nhwc", "in_relu_bwd_nhwc",
+              "modnorm_relu_fwd_nhwc", "modnorm_relu_bwd_nhwc"):
         assert counts[n] > 0 and counts[n] * 2 == kernels.KERNELS[n].launches
         per = {m: c[n] for m, (_, c) in graphed._graphs.items()}
         assert per[True] == per[False] > 0
-    assert counts["in_relu_bwd"] == counts["in_relu_fwd"]
-    assert counts["modnorm_relu_fwd"] == counts["modnorm_relu_bwd"]
-    assert counts["modnorm_relu_fwd"] * 6 == counts["in_relu_fwd"] * 4
-    assert kernels.in_relu_bwd_stats.launches == 0
-    assert kernels.in_relu_bwd_apply.launches == 0
+    assert counts["in_relu_bwd_nhwc"] == counts["in_relu_fwd_nhwc"]
+    assert counts["modnorm_relu_fwd_nhwc"] == counts["modnorm_relu_bwd_nhwc"]
+    assert (counts["modnorm_relu_fwd_nhwc"] * 6
+            == counts["in_relu_fwd_nhwc"] * 4)
+    for n in ("in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats",
+              "in_relu_bwd_apply", "modnorm_relu_fwd", "modnorm_relu_bwd"):
+        assert kernels.KERNELS[n].launches == 0
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
                                atol=0)
     pe = eager.model.state_dict()
@@ -688,7 +869,8 @@ def test_inter_steps_graphed_match_eager(dev, tmp_path):
     """nf_inter (UNetInter_TINY, --local_enhance, float32, TF32 off,
     flips, noise and gamma off): 8 steps as 2 dispatches of 4 against 8
     eager steps; each replay launches B1 once (the click guides) and B2 per
-    block, and the losses agree within 1e-4 relative.  With gamma, noise
+    block (its NHWC plans: the model keeps the channels-last view of its
+    input permute), and the losses agree within 1e-4 relative.  With gamma, noise
     and flips on (the 101_unetinter_v10.sh pipeline) the graphed steps run
     and stay finite."""
     from boxsegliver_torch.cli import main as cli
@@ -725,8 +907,9 @@ def test_inter_steps_graphed_match_eager(dev, tmp_path):
     vals_e = _run(eager, batches, 1)
     per = {m: c for m, (_, c) in graphed._graphs.items()}
     assert per and all(c["gaussian_guide_batch"] == 1
-                       and c["in_relu_fwd"] == c["in_relu_bwd"] == 10
-                       and c["in_relu_bwd_stats"] == c["in_relu_bwd_apply"]
+                       and c["in_relu_fwd_nhwc"] == c["in_relu_bwd_nhwc"]
+                       == 10 and c["in_relu_fwd"] == c["in_relu_bwd"]
+                       == c["in_relu_bwd_stats"] == c["in_relu_bwd_apply"]
                        == 0 for c in per.values())
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
                                atol=0)
@@ -760,10 +943,12 @@ def test_b2_fwd_operator_launches_the_kernel(dev):
 
 
 def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
-    """A GUNet_TINY bundle exported on the card (64^2, float32, TF32 off)
-    serves on the CPU and on the card within 1e-4; on the card each request
-    launches B2-fwd once per full-affine pair of the forward (6) and B3-fwd
-    once per modulated block (4)."""
+    """A GUNet_TINY bundle exported with the card as the device (64^2,
+    float32, TF32 off; traced on the CPU) serves on the CPU and on the card
+    within 1e-4; on the card each request launches B2-fwd once per
+    full-affine pair of the forward (6) and B3-fwd once per modulated block
+    (4), on their NHWC plans (the exported graph keeps GUNet's channels-last
+    activations)."""
     from boxsegliver_torch.cli import main as cli
     from boxsegliver_torch.cli.export import load_exported
 
@@ -783,13 +968,13 @@ def test_export_on_the_card_serves_on_cpu_and_card(dev, tmp_path):
     on_cpu, _ = load_exported(bundle, "cpu")
     on_card, sig = load_exported(bundle, "cuda")
     assert sig["model"] == "GUNet"
-    n0 = kernels.in_relu_fwd.launches
-    m0 = kernels.modnorm_relu_fwd.launches
+    n0 = kernels.in_relu_fwd_nhwc.launches
+    m0 = kernels.modnorm_relu_fwd_nhwc.launches
     card = on_card(feats)
     torch.cuda.synchronize()
     assert card.device.type == "cuda"
-    assert kernels.in_relu_fwd.launches == n0 + 6
-    assert kernels.modnorm_relu_fwd.launches == m0 + 4
+    assert kernels.in_relu_fwd_nhwc.launches == n0 + 6
+    assert kernels.modnorm_relu_fwd_nhwc.launches == m0 + 4
     torch.testing.assert_close(card.cpu(), on_cpu(feats), atol=1e-4, rtol=0)
 
 
@@ -852,12 +1037,12 @@ def test_annotate_predict_on_the_card_matches_cpu(dev, tmp_path):
                                    device=d, model_argv=argv)
         app.interactions = {str(pid): prior}
         n1 = kernels.gaussian_guide_batch.launches
-        n2 = kernels.in_relu_fwd.launches
+        n2 = kernels.in_relu_fwd_nhwc.launches
         metrics = app.predict_case(pid)["metrics"]
         if d == "cuda":
             torch.cuda.synchronize()
             assert kernels.gaussian_guide_batch.launches > n1
-            assert kernels.in_relu_fwd.launches > n2
+            assert kernels.in_relu_fwd_nhwc.launches > n2
         evaluator, predictor = app._predictor
         _, probs = evaluator.predict_case_g(predictor, meta, prior)
         out[d] = (probs, app._live[pid], metrics)

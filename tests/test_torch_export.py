@@ -128,14 +128,16 @@ def test_port_bundle_matches_live_model(bundles):
 
 
 def test_in_relu_op_in_exported_graph(bundles):
-    """B2-fwd is one node of the registered operator per full-affine
+    """B2-fwd is one node of a registered operator per full-affine
     instance-norm + ReLU pair (GUNet_TINY: the two of its unmodulated first
-    level and the four of its decoder); batch norm has none."""
+    level and the four of its decoder, boxseg::in_relu_nhwc_fwd on its
+    channels-last activations); batch norm has none."""
     model, _, pdir, _ = bundles
     program = torch.export.load(pdir / "model.pt2")
     nodes = [n for n in program.graph.nodes
              if n.op == "call_function"
-             and n.target is torch.ops.boxseg.in_relu_fwd.default]
+             and n.target in (torch.ops.boxseg.in_relu_fwd.default,
+                              torch.ops.boxseg.in_relu_nhwc_fwd.default)]
     assert len(nodes) == (6 if model == "GUNet" else 0)
 
 

@@ -292,7 +292,8 @@ def test_nf2_export_matches_jax_bundle(nf_root, tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     program = torch.export.load(pdir / "model.pt2")
     nodes = [n for n in program.graph.nodes if n.op == "call_function"
-             and n.target is torch.ops.boxseg.in_relu_fwd.default]
+             and n.target in (torch.ops.boxseg.in_relu_fwd.default,
+                              torch.ops.boxseg.in_relu_nhwc_fwd.default)]
     assert len(nodes) == 6        # level 0 (2) and the decoder (4)
 
 

@@ -1,8 +1,9 @@
 """The launch plans of kernel B2-fwd (ops/kernels.in_relu_fwd_plan) and of
-the backward (in_relu_bwd_plan: B2f's fused paths, or B2a + B2b split):
-which path each shape takes, and that every plan fits the card and covers
-every element of every plane exactly once.  Pure Python: runs on the
-CPU."""
+the backward (in_relu_bwd_plan: B2f's fused paths, or B2a + B2b split), and
+B2's and B3's NHWC plans (in_relu_nhwc_plan): which path each shape takes,
+that every plan fits the card and covers every element of every plane
+exactly once, and that the operands' strides choose between the NCHW and
+NHWC plans.  Pure Python: runs on the CPU."""
 
 import numpy as np
 import pytest
@@ -10,10 +11,13 @@ import torch
 
 from boxsegliver_torch.ops.kernels import (BWD_SPLIT, FWD_GENERAL,
                                            FWD_STAGED, FWD_THREADS, FWD_WARP,
+                                           NHWC_SPLIT, NHWC_STAGED,
                                            STATS_TARGET_CTAS, BwdPlan,
                                            FwdPlan, in_relu_bwd_plan,
                                            in_relu_bwd_split_plan,
                                            in_relu_fwd_plan,
+                                           in_relu_nhwc_plan,
+                                           in_relu_nhwc_split_plan,
                                            in_relu_partial_plan)
 
 SMEM_PER_CTA = 232448          # 227 KB: the most shared memory a CTA may use
@@ -410,3 +414,165 @@ def test_split_plans_cover_each_plane_once(planes, hw, dtype, aligned):
 
 def test_bwd_plan_is_cached():
     assert in_relu_bwd_plan(8, 4096, BF16) is in_relu_bwd_plan(8, 4096, BF16)
+
+
+# ---------------------------------------------------------------------------
+# the NHWC plans (channels-last operands, G-Net's): which plan each of
+# G-Net's shapes takes, that every plan fits the C launcher's checks and
+# covers every row once, and the choice of plans by strides
+# ---------------------------------------------------------------------------
+
+NHWC_MAX_STAGE = 200 * 1024    # kNhwcMaxStageBytes
+NHWC_MAX_TILE = 64             # kNhwcMaxTile
+GRID_Y = 65535                 # kMaxGridY
+
+
+def nhwc_launcher_accepts(plan, n, c, hw, dtype, arrays, aligned=True):
+    """nhwc_launch's and nhwc_run's checks: what the C launcher refuses."""
+    per = _per_pack(dtype)
+    esize = 16 // per
+    packs = ((per, 1) if aligned and c % per == 0 else (1,))
+    if dtype == BF16 and aligned and c % 4 == 0:
+        packs += (4,)                    # 8-byte vectors of bf16
+    if plan.pack not in packs:
+        return False
+    v = plan.v
+    if not (1 <= v <= 32 and v & (v - 1) == 0
+            and v * plan.pack <= NHWC_MAX_TILE and c % (v * plan.pack) == 0):
+        return False
+    tiles = c // (v * plan.pack)
+    if plan.path == NHWC_STAGED:
+        cs = plan.cluster
+        return (1 <= cs <= MAX_CLUSTER and cs & (cs - 1) == 0 and hw % cs == 0
+                and plan.smem_bytes
+                == hw // cs * v * plan.pack * esize * arrays
+                and plan.smem_bytes <= NHWC_MAX_STAGE
+                and n * tiles * cs < 2 ** 31)
+    return (plan.path == NHWC_SPLIT and plan.splits >= 1 and plan.chunk >= 1
+            and plan.splits * plan.chunk >= hw
+            and (plan.splits - 1) * plan.chunk < hw
+            and n <= GRID_Y and tiles <= GRID_Y)
+
+
+# G-Net's five levels at batch 8 (GUNet.yml, 256^2): B2 forward (x) and
+# backward (g, x), B3 forward (x, s) and backward (g, x, y):
+# (shape, staged operands, a backward's plan, (path, v, cluster))
+NHWC_GNET = [
+    ((8, 64, 256, 256), 1, False, (NHWC_SPLIT, 8, 1)),
+    ((8, 64, 256, 256), 2, True, (NHWC_SPLIT, 16, 1)),
+    ((8, 128, 128, 128), 1, False, (NHWC_STAGED, 4, 8)),
+    ((8, 128, 128, 128), 2, True, (NHWC_SPLIT, 16, 1)),
+    ((8, 128, 128, 128), 2, False, (NHWC_SPLIT, 8, 1)),
+    ((8, 128, 128, 128), 3, True, (NHWC_SPLIT, 16, 1)),
+    ((8, 256, 64, 64), 1, False, (NHWC_STAGED, 4, 2)),
+    ((8, 256, 64, 64), 2, True, (NHWC_STAGED, 4, 4)),
+    ((8, 256, 64, 64), 2, False, (NHWC_STAGED, 4, 4)),
+    ((8, 256, 64, 64), 3, True, (NHWC_STAGED, 4, 8)),
+    ((8, 512, 32, 32), 1, False, (NHWC_STAGED, 4, 1)),
+    ((8, 512, 32, 32), 2, True, (NHWC_STAGED, 4, 1)),
+    ((8, 512, 32, 32), 3, True, (NHWC_STAGED, 4, 2)),
+    ((8, 1024, 16, 16), 2, False, (NHWC_STAGED, 4, 1)),
+    ((8, 1024, 16, 16), 3, True, (NHWC_STAGED, 4, 1))]
+
+
+@pytest.mark.parametrize("shape,arrays,grad,want", NHWC_GNET)
+def test_nhwc_plan_at_gnet_levels(shape, arrays, grad, want):
+    """64-byte rows staged on the fewest CTAs within 128 KiB each; the split
+    plan's whole 128-byte rows where a (sample, tile) does not fit, in 4
+    channels a thread for a backward."""
+    n, c, h, w = shape
+    plan = in_relu_nhwc_plan(n, c, h * w, BF16, True, arrays, grad)
+    assert (plan.path, plan.v, plan.cluster) == want
+    assert plan.pack == (4 if plan.path == NHWC_SPLIT and grad else 8)
+    assert nhwc_launcher_accepts(plan, n, c, h * w, BF16, arrays)
+
+
+NHWC_EDGE = [((2, 64, 13, 11), BF16), ((1, 128, 33, 31), BF16),
+             ((3, 8, 17, 9), BF16), ((2, 24, 5, 7), BF16),
+             ((2, 30, 9, 10), BF16), ((2, 64, 13, 11), F32),
+             ((1, 3, 16, 16), F32), ((1, 16, 512, 512), BF16),
+             ((4, 30, 10, 256 * 256), BF16), ((2, 1024, 1, 1), F32)]
+
+
+@pytest.mark.parametrize("shape,dtype", NHWC_EDGE + [
+    (s, BF16) for s, _, _, _ in NHWC_GNET])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_nhwc_plans_fit_and_cover_every_row(shape, dtype, aligned):
+    n, c = shape[:2]
+    hw = int(np.prod(shape[2:]))
+    for arrays, grad in ((1, False), (2, False), (2, True), (3, True)):
+        plan = in_relu_nhwc_plan(n, c, hw, dtype, aligned, arrays, grad)
+        assert nhwc_launcher_accepts(plan, n, c, hw, dtype, arrays, aligned)
+        if not aligned or c % _per_pack(dtype):
+            assert plan.pack == 1
+        if plan.path == NHWC_STAGED:     # rows of at most 64 bytes
+            assert plan.v * plan.pack * (16 // _per_pack(dtype)) <= 64
+    for grad in (False, True):
+        split = in_relu_nhwc_split_plan(n, c, hw, dtype, aligned, grad)
+        assert split.path == NHWC_SPLIT
+        assert nhwc_launcher_accepts(split, n, c, hw, dtype, 1, aligned)
+    # the chunks tile [0, hw): every row in exactly one chunk
+    cover = np.zeros(hw, dtype=np.int64)
+    for k in range(split.splits):
+        cover[k * split.chunk:min(hw, (k + 1) * split.chunk)] += 1
+    assert (cover == 1).all()
+
+
+def test_nhwc_launcher_refuses_a_plan_that_does_not_fit():
+    plan = in_relu_nhwc_plan(8, 256, 4096, BF16)
+    for bad in (plan._replace(v=3), plan._replace(cluster=16),
+                plan._replace(smem_bytes=plan.smem_bytes + 16),
+                plan._replace(pack=4)):
+        assert not nhwc_launcher_accepts(bad, 8, 256, 4096, BF16, 1)
+    split = in_relu_nhwc_split_plan(8, 64, 65536, BF16)
+    assert not nhwc_launcher_accepts(split._replace(splits=split.splits - 1),
+                                     8, 64, 65536, BF16, 1)
+
+
+@pytest.mark.parametrize("make,nhwc", [
+    (lambda: torch.empty(2, 16, 8, 8), False),
+    (lambda: torch.empty(2, 16, 8, 8).contiguous(
+        memory_format=torch.channels_last), True),
+    (lambda: torch.empty(2, 8, 8, 16).permute(0, 3, 1, 2), True),
+    (lambda: torch.empty(2, 16, 8, 8).transpose(2, 3), False),
+    # a channel slice of a channels-last tensor: not dense
+    (lambda: torch.empty(2, 32, 8, 8).contiguous(
+        memory_format=torch.channels_last)[:, :16], False),
+    # both layouts at once: the NCHW plans
+    (lambda: torch.empty(2, 1, 8, 8).contiguous(
+        memory_format=torch.channels_last), False),
+    (lambda: torch.empty(2, 16, 1, 1).contiguous(
+        memory_format=torch.channels_last), False),
+    # NDHWC: copied contiguous, the NCHW plans (UNet3D's first block)
+    (lambda: torch.empty(2, 4, 3, 8, 8).contiguous(
+        memory_format=torch.channels_last_3d), False),
+    (lambda: torch.empty(2, 16, 8).transpose(1, 2), False)],
+    ids=["nchw", "channels_last", "permuted_nhwc", "transposed",
+         "channel_slice", "one_channel", "one_pixel", "ndhwc", "rank3"])
+def test_the_strides_choose_the_plans(make, nhwc):
+    """B2 and B3 take their NHWC plans for a channels-last (not also
+    contiguous) operand, their NCHW plans for a contiguous one; each plan's
+    operators' fake implementations give what the card's do: y in x's
+    layout, then x̂ (boxseg::in_relu_fwd, boxseg::modnorm_relu_fwd) or the
+    planes' mean [N, C] (boxseg::in_relu_nhwc_fwd,
+    boxseg::modnorm_relu_nhwc_fwd), and rstd."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from boxsegliver_torch.ops import kernels
+
+    x = make()
+    assert kernels.is_nhwc(x) == nhwc
+    if not (nhwc or x.is_contiguous()):
+        return
+    with FakeTensorMode() as mode:
+        fx = mode.from_tensor(x)
+        w = torch.ones(x.shape[1])
+        ops = torch.ops.boxseg
+        b2, b3 = ((ops.in_relu_nhwc_fwd, ops.modnorm_relu_nhwc_fwd) if nhwc
+                  else (ops.in_relu_fwd, ops.modnorm_relu_fwd))
+        for y, aux, rstd in (b2(fx, w, w, 1e-6),
+                             b3(fx, None, None, w, None, 1e-6, True)):
+            assert y.stride() == x.stride()
+            assert kernels.is_nhwc(y) == nhwc
+            assert aux.shape == (x.shape[:2] if nhwc else x.shape)
+            assert rstd.shape == x.shape[:2]
