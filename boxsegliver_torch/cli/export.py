@@ -23,11 +23,13 @@ layouts the card then runs.  Every full-affine instance
 norm + ReLU of a GUNet traces to one node of a registered operator
 (ops/kernels.py: ``boxseg::in_relu_nhwc_fwd`` on its channels-last
 activations, ``boxseg::in_relu_fwd`` on contiguous ones), and each modulated
-block to one of ``boxseg::modnorm_relu_nhwc_fwd`` (``boxseg::modnorm_relu_fwd``
-on contiguous activations): a program loaded on the card launches
-kernels B2-fwd and B3-fwd there, and on the CPU runs their plain versions.  The
-program is saved on the CPU, so a bundle serves on either device, as the JAX
-bundle lowered for cpu and tpu does.
+block to one of ``boxseg::modnorm_relu_nhwc_fwd``, whatever its layout: a
+program loaded on the card launches kernels B2-fwd and B3-fwd there, and on
+the CPU runs their plain versions.  The program is saved on the CPU, so a
+bundle serves on either device, as the JAX bundle lowered for cpu and tpu
+does.  A bundle exported while GUNet's activations were contiguous holds
+nodes of B3's former NCHW operator, which the port no longer has: export it
+again from its checkpoint.
 
     python -m boxsegliver_torch.cli.main liver --mode export --model GUNet \\
         --classes Liver Tumor --im_height 256 --im_width 256 \\

@@ -40,9 +40,6 @@ _ARGTYPES = {
         "in_relu_bwd_apply": [_P] * 8 + [_I] * 5 + [_P],
         "in_relu_fwd_partial": [_P] * 3 + [_I] * 5 + [_P],
         "in_relu_fwd_apply": [_P] * 6 + [_I] * 4 + [_P],
-        "modnorm_relu_fwd": [_P] * 2 + [_L] + [_P] * 6 + [_I] * 3 + [_F]
-        + [_I] * 5 + [_P],
-        "modnorm_relu_bwd": [_P] * 11 + [_I] * 11 + [_P],
         "in_relu_nhwc_fwd": [_P] * 8 + [_I] * 3 + [_F] + [_I] * 8 + [_P],
         "in_relu_nhwc_bwd": [_P] * 10 + [_I] * 11 + [_P],
         "modnorm_relu_nhwc_fwd": [_P] * 2 + [_L] * 2 + [_P] * 8 + [_I] * 3

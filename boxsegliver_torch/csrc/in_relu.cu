@@ -97,24 +97,20 @@
 //   y = relu(gamma[b, c] * n + s[b, c, :]),
 // with the norm's scale w and center b, the context's gamma and the spatial
 // term s each optional (1, 0, 1 and 0 stand in, which change no value).
-// B3 is B2's function with gamma and s added, so its kernels are B2's
-// bodies (the device functions fwd_* and bwd_* below) under another
-// epilogue: ModFwd and ModBwd where B2 takes AffineFwd and AffineBwd.
-//   B3-fwd  modnorm_relu_fwd: B2-fwd's three paths and plans (warp, staged,
-//           general) with s read once beside x; in training it writes y,
-//           x_hat and rstd, under no-grad y alone.
-//   B3-bwd  modnorm_relu_bwd: g_m = g * [y > 0]; ds = g_m, written once; the
-//           plane sums a = sum g_m and b = sum g_m * x_hat (d_gamma = w b +
-//           b_c a, d_w and d_b their sums over the batch times gamma, in
-//           ops/kernels); dx = (gamma w rstd) ((g_m - a / HW) - x_hat b / HW).
-//           B2f's fused warp and staged paths (y read beside g and x_hat,
-//           g_m kept in g's place), or B2a's split sums and B2b's apply
-//           pass where a plane does not fit on chip.
+// B3 takes G-Net's channels-last activations alone: its kernels are the
+// NHWC plans' bodies (nhwc_* below) under its epilogue, ModFwd and ModBwd
+// where B2 takes AffineFwd and AffineBwd.
+//   B3-fwd  modnorm_relu_nhwc_fwd: the staged and split plans, s read beside
+//           x; in training it writes y and each plane's mean and rstd,
+//           under no-grad y alone.
+//   B3-bwd  modnorm_relu_nhwc_bwd: g_m = g * [y > 0]; ds = g_m, written once;
+//           the plane sums a = sum g_m and b = sum g_m * x_hat, x_hat taken
+//           from x again (d_gamma = w b + b_c a, d_w and d_b their sums over
+//           the batch times gamma, in ops/kernels); dx = (gamma w rstd)
+//           ((g_m - a / HW) - x_hat b / HW).
 // Bound: the function reads x and s and writes y forward (6 B per bf16
-// element), and reads g, y and x_hat and writes dx and ds backward (10 B):
-// 16 B an element a training step, 6 under no-grad.  The x_hat that the
-// training forward stores for the backward is the design's, not the
-// function's, as in B2's bound (portbench/flops.py).
+// element), and reads g, y and x and writes dx and ds backward (10 B):
+// 16 B an element a training step, 6 under no-grad (portbench/flops.py).
 //
 // Rounding: the elementwise arithmetic uses explicitly rounded intrinsics so
 // that nvcc contracts nothing into FMAs and each element follows the plain
@@ -278,17 +274,18 @@ __device__ __forceinline__ void cluster_leave() {
 
 // ---- epilogues: what B2 and B3 do per plane and per element ----------------
 //
-// The kernel bodies below (fwd_*, bwd_*) are written once, templated on an
-// epilogue Epi that gives each plane's constants (Epi::Plane, e.plane(p))
-// and the per-element step:
+// The NHWC bodies below (nhwc_*) are written once, templated on an epilogue
+// Epi that gives each plane's constants (Epi::Plane, e.plane(p)) and the
+// per-element step:
 //   forward   z = e.z(k, x_hat, s), y = relu(z); Epi::kSpatial: s is read
-//             (e.s_plane) beside x;
+//             beside x;
 //   backward  g is kept where e.keep(k, x_hat, y) (the ReLU's mask), dx's
 //             coefficient is e.coef(k, rstd); Epi::kReadsY: the mask is read
 //             from y, g_m replaces g where g is held and is written as ds.
+// B2 takes AffineFwd and AffineBwd (its NCHW kernels too), B3 ModFwd and
+// ModBwd.
 
 // B2-fwd: z = x_hat * gamma_c + beta_c.
-template <typename T>
 struct AffineFwd {
   static constexpr bool kSpatial = false;
   const float* gamma;
@@ -300,9 +297,6 @@ struct AffineFwd {
   __device__ __forceinline__ Plane plane(int64_t p) const {
     const int c = (int)(p % channels);
     return {gamma[c], beta[c]};
-  }
-  __device__ __forceinline__ const T* s_plane(int64_t, int) const {
-    return nullptr;
   }
   __device__ __forceinline__ float z(const Plane& k, float h, float) const {
     return __fadd_rn(__fmul_rn(h, k.gm), k.bt);
@@ -330,23 +324,14 @@ __device__ __forceinline__ ModPlane mod_plane(const ModParams& mp,
           mp.bias ? mp.bias[c] : 0.0f};
 }
 
-// B3-fwd: z = (x_hat * w_c + b_c) * gamma[b, c] + s.  s holds [N, C, *S]
-// planes of hw contiguous elements, sample b at b * s_bstride (a channel
-// slice of a wider tensor has s_bstride > C * hw), or is null.
-template <typename T>
+// B3-fwd: z = (x_hat * w_c + b_c) * gamma[b, c] + s (s 0 where the block has
+// none).
 struct ModFwd {
   static constexpr bool kSpatial = true;
   ModParams mp;
-  const T* s;
-  int64_t s_bstride;
   using Plane = ModPlane;
   __device__ __forceinline__ Plane plane(int64_t p) const {
     return mod_plane(mp, p);
-  }
-  __device__ __forceinline__ const T* s_plane(int64_t p, int hw) const {
-    return s ? s + (p / mp.channels) * s_bstride +
-                   (p % mp.channels) * (int64_t)hw
-             : nullptr;
   }
   __device__ __forceinline__ float z(const Plane& k, float h, float sv) const {
     return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(h, k.w), k.b), k.gm), sv);
@@ -399,55 +384,6 @@ __device__ __forceinline__ Pack<T, N> zero_pack() {
   return p;
 }
 
-// Pack i of the spatial plane sp where the epilogue reads one, else zeros
-// (which no epilogue without s reads).
-template <typename Epi, typename T, int N>
-__device__ __forceinline__ Pack<T, N> s_pack(const T* sp, int i) {
-  if constexpr (Epi::kSpatial) {
-    if (sp) return reinterpret_cast<const Pack<T, N>*>(sp)[i];
-  }
-  return zero_pack<T, N>();
-}
-
-// y and x_hat of one pack (ps: the spatial term's pack).
-template <typename Epi, typename T, int N>
-__device__ __forceinline__ void norm_pack(const Epi& e,
-                                          const typename Epi::Plane& k,
-                                          const Pack<T, N>& p,
-                                          const Pack<T, N>& ps, float mean,
-                                          float rstd, Pack<T, N>& po,
-                                          Pack<T, N>& ph) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float h = __fmul_rn(__fsub_rn(to_f(p.v[i]), mean), rstd);
-    po.v[i] = from_f<T>(fmaxf(e.z(k, h, to_f(ps.v[i])), 0.0f));
-    ph.v[i] = from_f<T>(h);
-  }
-}
-
-// Running (s1, s2) = (sum gz, sum gz * x_hat) over one pack of g and x_hat,
-// gz = g where the epilogue keeps the element, else 0 (py: y's pack, read
-// only under Epi::kReadsY, where gz also replaces g in pg: g itself or 0,
-// exact in any dtype).
-template <typename Epi, typename T, int N>
-__device__ __forceinline__ void grad_sum_pack(const Epi& e,
-                                              const typename Epi::Plane& k,
-                                              Pack<T, N>& pg,
-                                              const Pack<T, N>& ph,
-                                              const Pack<T, N>& py, float& s1,
-                                              float& s2) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const float h = to_f(ph.v[i]);
-    float yv = 0.0f;
-    if constexpr (Epi::kReadsY) yv = to_f(py.v[i]);
-    const float gz = e.keep(k, h, yv) ? to_f(pg.v[i]) : 0.0f;
-    if constexpr (Epi::kReadsY) pg.v[i] = from_f<T>(gz);
-    s1 = __fadd_rn(s1, gz);
-    s2 = __fadd_rn(s2, __fmul_rn(gz, h));
-  }
-}
-
 // What dx of a plane needs besides g and x_hat.
 struct GradCoef {
   float m1, m2, coef;
@@ -462,11 +398,45 @@ __device__ __forceinline__ GradCoef grad_coef(const Epi& e,
   return {__fmul_rn(s1, inv_hw), __fmul_rn(s2, inv_hw), e.coef(k, rstd)};
 }
 
-// dx = coef * ((gz - s1 / HW) - x_hat * s2 / HW) of one pack: under
-// Epi::kReadsY pg holds gz already, else the mask is taken again.
-template <typename Epi, typename T, int N>
-__device__ __forceinline__ Pack<T, N> grad_pack(const Epi& e,
-                                                const typename Epi::Plane& k,
+// ---- B2's NCHW kernels: a (b, c) plane is hw contiguous elements ----------
+
+// y and x_hat of one pack.
+template <typename T, int N>
+__device__ __forceinline__ void norm_pack(const AffineFwd& e,
+                                          const AffineFwd::Plane& k,
+                                          const Pack<T, N>& p, float mean,
+                                          float rstd, Pack<T, N>& po,
+                                          Pack<T, N>& ph) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = __fmul_rn(__fsub_rn(to_f(p.v[i]), mean), rstd);
+    po.v[i] = from_f<T>(fmaxf(e.z(k, h, 0.0f), 0.0f));
+    ph.v[i] = from_f<T>(h);
+  }
+}
+
+// Running (s1, s2) = (sum gz, sum gz * x_hat) over one pack of g and x_hat,
+// gz = g where the ReLU kept the element, else 0.
+template <typename T, int N>
+__device__ __forceinline__ void grad_sum_pack(const AffineBwd& e,
+                                              const AffineBwd::Plane& k,
+                                              const Pack<T, N>& pg,
+                                              const Pack<T, N>& ph, float& s1,
+                                              float& s2) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float h = to_f(ph.v[i]);
+    const float gz = e.keep(k, h, 0.0f) ? to_f(pg.v[i]) : 0.0f;
+    s1 = __fadd_rn(s1, gz);
+    s2 = __fadd_rn(s2, __fmul_rn(gz, h));
+  }
+}
+
+// dx = coef * ((gz - s1 / HW) - x_hat * s2 / HW) of one pack, the mask taken
+// again from x_hat.
+template <typename T, int N>
+__device__ __forceinline__ Pack<T, N> grad_pack(const AffineBwd& e,
+                                                const AffineBwd::Plane& k,
                                                 const GradCoef& c,
                                                 const Pack<T, N>& pg,
                                                 const Pack<T, N>& ph) {
@@ -474,29 +444,24 @@ __device__ __forceinline__ Pack<T, N> grad_pack(const Epi& e,
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     const float h = to_f(ph.v[i]);
-    float gz = to_f(pg.v[i]);
-    if constexpr (!Epi::kReadsY) gz = e.keep(k, h, 0.0f) ? gz : 0.0f;
+    const float gz = e.keep(k, h, 0.0f) ? to_f(pg.v[i]) : 0.0f;
     const float d = __fsub_rn(__fsub_rn(gz, c.m1), __fmul_rn(h, c.m2));
     out.v[i] = from_f<T>(__fmul_rn(c.coef, d));
   }
   return out;
 }
 
-// ---- the forward's bodies: B2-fwd's paths, B3-fwd's under ModFwd ----------
-// xhat and rstd_out may be null (B3 under no-grad).
-
-// General path: one CTA per plane, x read twice.
-template <typename T, int N, typename Epi>
-__device__ __forceinline__ void fwd_general(const Epi& e,
-                                            const T* __restrict__ x,
-                                            T* __restrict__ y,
-                                            T* __restrict__ xhat,
-                                            float* __restrict__ rstd_out,
-                                            int hw, float eps) {
+// B2-fwd, general path: one CTA per plane, x read twice.
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, T* __restrict__ y,
+                       T* __restrict__ xhat, float* __restrict__ rstd_out,
+                       int channels, int hw, float eps) {
+  const AffineFwd e = {gamma, beta, channels};
   const int64_t plane = blockIdx.x;
   const int64_t base = plane * hw;
   const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
-  const T* sp = e.s_plane(plane, hw);
   const int groups = hw / N;
 
   float s = 0.0f, ss = 0.0f;
@@ -504,43 +469,42 @@ __device__ __forceinline__ void fwd_general(const Epi& e,
   block_sum2(s, ss);
   float mean;
   const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (rstd_out && threadIdx.x == 0) rstd_out[plane] = rstd;
-  const typename Epi::Plane k = e.plane(plane);
+  if (threadIdx.x == 0) rstd_out[plane] = rstd;
+  const AffineFwd::Plane k = e.plane(plane);
 
   Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
   Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
   for (int i = threadIdx.x; i < groups; i += kThreads) {
     Pack<T, N> po, ph;
-    norm_pack(e, k, xp[i], s_pack<Epi, T, N>(sp, i), mean, rstd, po, ph);
+    norm_pack(e, k, xp[i], mean, rstd, po, ph);
     yp[i] = po;
-    if (xhat) hp[i] = ph;
+    hp[i] = ph;
   }
 }
 
-// Warp path: one warp per plane, the plane (and s) in registers, P packs a
+// B2-fwd, warp path: one warp per plane, the plane in registers, P packs a
 // lane.
-template <typename T, int P, typename Epi>
-__device__ __forceinline__ void fwd_warp(const Epi& e,
-                                         const T* __restrict__ x,
-                                         T* __restrict__ y,
-                                         T* __restrict__ xhat,
-                                         float* __restrict__ rstd_out,
-                                         int planes, int hw, float eps) {
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_warp_kernel(const T* __restrict__ x,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta, T* __restrict__ y,
+                            T* __restrict__ xhat, float* __restrict__ rstd_out,
+                            int planes, int channels, int hw, float eps) {
   constexpr int N = 16 / sizeof(T);
+  const AffineFwd e = {gamma, beta, channels};
   const int lane = threadIdx.x % 32;
   const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
   if (plane >= planes) return;
   const int64_t base = plane * hw;
   const Pack<T, N>* xp = reinterpret_cast<const Pack<T, N>*>(x + base);
-  const T* sp = e.s_plane(plane, hw);
   const int groups = hw / N;
 
-  Pack<T, N> p[P], ps[P];
+  Pack<T, N> p[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int j = lane + 32 * i;
     p[i] = j < groups ? xp[j] : zero_pack<T, N>();
-    ps[i] = j < groups ? s_pack<Epi, T, N>(sp, j) : zero_pack<T, N>();
   }
   float s = 0.0f, ss = 0.0f;
 #pragma unroll
@@ -548,8 +512,8 @@ __device__ __forceinline__ void fwd_warp(const Epi& e,
   warp_sum2(s, ss);
   float mean;
   const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (rstd_out && lane == 0) rstd_out[plane] = rstd;
-  const typename Epi::Plane k = e.plane(plane);
+  if (lane == 0) rstd_out[plane] = rstd;
+  const AffineFwd::Plane k = e.plane(plane);
 
   Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
   Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
@@ -558,27 +522,28 @@ __device__ __forceinline__ void fwd_warp(const Epi& e,
     const int j = lane + 32 * i;
     if (j < groups) {
       Pack<T, N> po, ph;
-      norm_pack(e, k, p[i], ps[i], mean, rstd, po, ph);
+      norm_pack(e, k, p[i], mean, rstd, po, ph);
       yp[j] = po;
-      if (xhat) hp[j] = ph;
+      hp[j] = ph;
     }
   }
 }
 
-// Staged path: a cluster of `cs` CTAs per plane, CTA `rank` holding chunk
-// `rank` (hw / cs elements) of x in shared memory; s, where the epilogue
-// has one, is read from device memory as each element is normalized.
-template <typename T, typename Epi>
-__device__ __forceinline__ void fwd_staged(const Epi& e,
-                                           const T* __restrict__ x,
-                                           T* __restrict__ y,
-                                           T* __restrict__ xhat,
-                                           float* __restrict__ rstd_out,
-                                           int hw, int cs, float eps) {
+// B2-fwd, staged path: a cluster of `cs` CTAs per plane, CTA `rank` holding
+// chunk `rank` (hw / cs elements) of x in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_fwd_staged_kernel(const T* __restrict__ x,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              T* __restrict__ y, T* __restrict__ xhat,
+                              float* __restrict__ rstd_out, int channels,
+                              int hw, int cs, float eps) {
   constexpr int N = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t full;
   __shared__ float partial[2];
+  const AffineFwd e = {gamma, beta, channels};
 
   const int rank = (int)(blockIdx.x % cs);
   const int64_t plane = blockIdx.x / cs;
@@ -586,8 +551,6 @@ __device__ __forceinline__ void fwd_staged(const Epi& e,
   const int64_t base = plane * hw + (int64_t)rank * chunk;
   const uint32_t bytes = (uint32_t)chunk * sizeof(T);
   const uint32_t bar = smem_addr(&full);
-  const T* sp = e.s_plane(plane, hw);
-  if (sp) sp += (int64_t)rank * chunk;
 
   if (threadIdx.x == 0) {
     stage_begin(bar, bytes);
@@ -604,83 +567,56 @@ __device__ __forceinline__ void fwd_staged(const Epi& e,
   if (cs > 1) cluster_sum2(s, ss, partial, cs);
   float mean;
   const float rstd = plane_rstd(s, ss, hw, eps, mean);
-  if (rstd_out && rank == 0 && threadIdx.x == 0) rstd_out[plane] = rstd;
-  const typename Epi::Plane k = e.plane(plane);
+  if (rank == 0 && threadIdx.x == 0) rstd_out[plane] = rstd;
+  const AffineFwd::Plane k = e.plane(plane);
 
   Pack<T, N>* yp = reinterpret_cast<Pack<T, N>*>(y + base);
   Pack<T, N>* hp = reinterpret_cast<Pack<T, N>*>(xhat + base);
-  auto out = [&](int i) {
+  for (int i = threadIdx.x; i < groups; i += kThreads) {
     Pack<T, N> po, ph;
-    norm_pack(e, k, xs[i], s_pack<Epi, T, N>(sp, i), mean, rstd, po, ph);
+    norm_pack(e, k, xs[i], mean, rstd, po, ph);
     yp[i] = po;
-    if (xhat) hp[i] = ph;
-  };
-  if constexpr (Epi::kSpatial) {
-#pragma unroll 4                         // s's loads in flight together
-    for (int i = threadIdx.x; i < groups; i += kThreads) out(i);
-  } else {
-    for (int i = threadIdx.x; i < groups; i += kThreads) out(i);
+    hp[i] = ph;
   }
   if (cs > 1) cluster_leave();
 }
 
-// ---- the backward's bodies: B2f, B2a, B2b; B3-bwd's under ModBwd -----------
-// y and ds are read and written only under Epi::kReadsY (ds may be null
-// there: s takes no gradient).
-
-// Pack i of y where the epilogue reads y, else of x_hat (which it ignores).
-template <typename Epi, typename T, int N>
-__device__ __forceinline__ const Pack<T, N>& y_pack(const Pack<T, N>* yp,
-                                                    const Pack<T, N>* hp,
-                                                    int64_t i) {
-  if constexpr (Epi::kReadsY) return yp[i];
-  return hp[i];
-}
-
-// Fused warp path: one warp per plane, g and x_hat (and y) in registers, P
+// B2f, fused warp path: one warp per plane, g and x_hat in registers, P
 // packs of each a lane.
-template <typename T, int P, typename Epi>
-__device__ __forceinline__ void bwd_warp(const Epi& e, const T* __restrict__ g,
-                                         const T* __restrict__ y,
-                                         const T* __restrict__ xhat,
-                                         const float* __restrict__ rstd,
-                                         T* __restrict__ dx,
-                                         T* __restrict__ ds,
-                                         float* __restrict__ s1_out,
-                                         float* __restrict__ s2_out,
-                                         int planes, int hw) {
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_warp_kernel(const T* __restrict__ g,
+                            const T* __restrict__ xhat,
+                            const float* __restrict__ gamma,
+                            const float* __restrict__ beta,
+                            const float* __restrict__ rstd,
+                            T* __restrict__ dx, float* __restrict__ s1_out,
+                            float* __restrict__ s2_out, int planes,
+                            int channels, int hw) {
   constexpr int N = 16 / sizeof(T);
+  const AffineBwd e = {gamma, beta, channels};
   const int lane = threadIdx.x % 32;
   const int64_t plane = (int64_t)blockIdx.x * kWarps + threadIdx.x / 32;
   if (plane >= planes) return;
   const int64_t base = plane * hw;
   const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
-  const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
   const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
-  Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
   const int groups = hw / N;
-  const typename Epi::Plane k = e.plane(plane);
+  const AffineBwd::Plane k = e.plane(plane);
 
-  Pack<T, N> pg[P], ph[P], py[P];
+  Pack<T, N> pg[P], ph[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int j = lane + 32 * i;
     if (j < groups) {
       pg[i] = gp[j];
       ph[i] = hp[j];
-      if constexpr (Epi::kReadsY) py[i] = yp[j];
     }
   }
   float s1 = 0.0f, s2 = 0.0f;
 #pragma unroll
-  for (int i = 0; i < P; ++i) {
-    const int j = lane + 32 * i;
-    if (j < groups) {
-      grad_sum_pack(e, k, pg[i], ph[i], Epi::kReadsY ? py[i] : ph[i], s1, s2);
-      if constexpr (Epi::kReadsY)
-        if (ds) sp[j] = pg[i];
-    }
-  }
+  for (int i = 0; i < P; ++i)
+    if (lane + 32 * i < groups) grad_sum_pack(e, k, pg[i], ph[i], s1, s2);
   warp_sum2(s1, s2);
   if (lane == 0) {
     s1_out[plane] = s1;
@@ -695,27 +631,25 @@ __device__ __forceinline__ void bwd_warp(const Epi& e, const T* __restrict__ g,
   }
 }
 
-// Fused staged path: a cluster of `cs` CTAs per plane; CTA `rank` holds
+// B2f, fused staged path: a cluster of `cs` CTAs per plane; CTA `rank` holds
 // chunk `rank` (hw / cs elements) of g, then of x_hat, in shared memory.
 // The chunk lands in kStageParts parts, each on its own mbarrier, so the
-// sums start on the first part while the others arrive.  y, where the
-// epilogue reads it, comes from device memory in the first pass, which
-// leaves g_m in g's place for the second.
-template <typename T, typename Epi>
-__device__ __forceinline__ void bwd_staged(const Epi& e,
-                                           const T* __restrict__ g,
-                                           const T* __restrict__ y,
-                                           const T* __restrict__ xhat,
-                                           const float* __restrict__ rstd,
-                                           T* __restrict__ dx,
-                                           T* __restrict__ ds,
-                                           float* __restrict__ s1_out,
-                                           float* __restrict__ s2_out, int hw,
-                                           int cs) {
+// sums start on the first part while the others arrive.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_staged_kernel(const T* __restrict__ g,
+                              const T* __restrict__ xhat,
+                              const float* __restrict__ gamma,
+                              const float* __restrict__ beta,
+                              const float* __restrict__ rstd,
+                              T* __restrict__ dx, float* __restrict__ s1_out,
+                              float* __restrict__ s2_out, int channels,
+                              int hw, int cs) {
   constexpr int N = 16 / sizeof(T);
   extern __shared__ __align__(128) unsigned char stage[];
   __shared__ __align__(8) uint64_t full[kStageParts];
   __shared__ float partial[2];
+  const AffineBwd e = {gamma, beta, channels};
 
   const int rank = (int)(blockIdx.x % cs);
   const int64_t plane = blockIdx.x / cs;
@@ -740,32 +674,18 @@ __device__ __forceinline__ void bwd_staged(const Epi& e,
   }
   __syncthreads();                       // the barriers are initialised
 
-  Pack<T, N>* sg = reinterpret_cast<Pack<T, N>*>(stage);
+  const Pack<T, N>* sg = reinterpret_cast<const Pack<T, N>*>(stage);
   const Pack<T, N>* sh = reinterpret_cast<const Pack<T, N>*>(stage + bytes);
-  const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
-  Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
-  const typename Epi::Plane k = e.plane(plane);
+  const AffineBwd::Plane k = e.plane(plane);
   float s1 = 0.0f, s2 = 0.0f;
   for (int p = 0; p < kStageParts; ++p) {
     const int lo = p * per, hi = min(groups, lo + per);
     if (hi <= lo) continue;
     stage_wait(smem_addr(&full[p]));
-    if constexpr (Epi::kReadsY) {
-#pragma unroll 4                         // y's loads in flight together
-      for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-        Pack<T, N> pg = sg[i];
-        grad_sum_pack(e, k, pg, sh[i], yp[i], s1, s2);
-        sg[i] = pg;
-        if (ds) sp[i] = pg;
-      }
-    } else {
-      for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-        Pack<T, N> pg = sg[i];
-        grad_sum_pack(e, k, pg, sh[i], sh[i], s1, s2);
-      }
-    }
+    for (int i = lo + threadIdx.x; i < hi; i += kThreads)
+      grad_sum_pack(e, k, sg[i], sh[i], s1, s2);
   }
-  block_sum2(s1, s2);                    // its barrier also publishes sg
+  block_sum2(s1, s2);
   if (cs > 1) cluster_sum2(s1, s2, partial, cs);
   if (rank == 0 && threadIdx.x == 0) {
     s1_out[plane] = s1;
@@ -778,32 +698,30 @@ __device__ __forceinline__ void bwd_staged(const Epi& e,
   if (cs > 1) cluster_leave();
 }
 
-// Split path, first pass: CTA (split, plane) sums elements [split * chunk,
-// min(hw, (split + 1) * chunk)) of the plane into o1 / o2 at (plane *
+// B2a (split path), first pass: CTA (split, plane) sums elements [split *
+// chunk, min(hw, (split + 1) * chunk)) of the plane into o1 / o2 at (plane *
 // splits + split) * ostride: s1 / s2 themselves when splits == 1, else the
 // interleaved partials of the combine pass.
-template <typename T, int N, typename Epi>
-__device__ __forceinline__ void bwd_stats(const Epi& e,
-                                          const T* __restrict__ g,
-                                          const T* __restrict__ y,
-                                          const T* __restrict__ xhat,
-                                          float* __restrict__ o1,
-                                          float* __restrict__ o2, int ostride,
-                                          int planes, int hw, int splits,
-                                          int chunk) {
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    in_relu_bwd_stats_kernel(const T* __restrict__ g,
+                             const T* __restrict__ xhat,
+                             const float* __restrict__ gamma,
+                             const float* __restrict__ beta,
+                             float* __restrict__ o1, float* __restrict__ o2,
+                             int ostride, int planes, int channels, int hw,
+                             int splits, int chunk) {
+  const AffineBwd e = {gamma, beta, channels};
   const int lo = blockIdx.x * chunk;
   const int n = min(hw - lo, chunk) / N;
   for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
-    const typename Epi::Plane k = e.plane(plane);
+    const AffineBwd::Plane k = e.plane(plane);
     const int64_t base = plane * hw + lo;
     const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
-    const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
     const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      Pack<T, N> pg = gp[i];
-      grad_sum_pack(e, k, pg, hp[i], y_pack<Epi>(yp, hp, i), s1, s2);
-    }
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      grad_sum_pack(e, k, gp[i], hp[i], s1, s2);
     block_sum2(s1, s2);
     if (threadIdx.x == 0) {
       const int64_t o = (plane * splits + blockIdx.x) * ostride;
@@ -814,126 +732,8 @@ __device__ __forceinline__ void bwd_stats(const Epi& e,
   }
 }
 
-// Split path, apply: CTA (x, y) writes dx (and ds) of packs x * kThreads + t
-// (stride gridDim.x * kThreads) of planes y, y + gridDim.y, ...
-template <typename T, int N, typename Epi>
-__device__ __forceinline__ void bwd_apply(const Epi& e,
-                                          const T* __restrict__ g,
-                                          const T* __restrict__ y,
-                                          const T* __restrict__ xhat,
-                                          const float* __restrict__ rstd,
-                                          const float* __restrict__ s1,
-                                          const float* __restrict__ s2,
-                                          T* __restrict__ dx,
-                                          T* __restrict__ ds, int planes,
-                                          int hw) {
-  const int groups = hw / N;
-  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
-    const typename Epi::Plane k = e.plane(plane);
-    const GradCoef c = grad_coef(e, k, rstd[plane], s1[plane], s2[plane], hw);
-    const int64_t base = plane * hw;
-    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
-    const Pack<T, N>* yp = reinterpret_cast<const Pack<T, N>*>(y + base);
-    const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
-    Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
-    Pack<T, N>* sp = reinterpret_cast<Pack<T, N>*>(ds + base);
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
-         i += gridDim.x * kThreads) {
-      Pack<T, N> pg = gp[i];
-      const Pack<T, N> ph = hp[i];
-      if constexpr (Epi::kReadsY) {
-        float u = 0.0f, v = 0.0f;        // the sums are the first pass's
-        grad_sum_pack(e, k, pg, ph, yp[i], u, v);
-        if (ds) sp[i] = pg;
-      }
-      dp[i] = grad_pack(e, k, c, pg, ph);
-    }
-  }
-}
-
-// ---- B2's kernels ----------------------------------------------------------
-
-// B2-fwd, general path: one CTA per plane, x read twice.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
-                       const float* __restrict__ beta, T* __restrict__ y,
-                       T* __restrict__ xhat, float* __restrict__ rstd_out,
-                       int channels, int hw, float eps) {
-  fwd_general<T, N>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat,
-                    rstd_out, hw, eps);
-}
-
-// B2-fwd, warp path.
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_warp_kernel(const T* __restrict__ x,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta, T* __restrict__ y,
-                            T* __restrict__ xhat, float* __restrict__ rstd_out,
-                            int planes, int channels, int hw, float eps) {
-  fwd_warp<T, P>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat, rstd_out,
-                 planes, hw, eps);
-}
-
-// B2-fwd, staged path.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_fwd_staged_kernel(const T* __restrict__ x,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              T* __restrict__ y, T* __restrict__ xhat,
-                              float* __restrict__ rstd_out, int channels,
-                              int hw, int cs, float eps) {
-  fwd_staged<T>(AffineFwd<T>{gamma, beta, channels}, x, y, xhat, rstd_out,
-                hw, cs, eps);
-}
-
-// B2f, fused warp path.
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_warp_kernel(const T* __restrict__ g,
-                            const T* __restrict__ xhat,
-                            const float* __restrict__ gamma,
-                            const float* __restrict__ beta,
-                            const float* __restrict__ rstd,
-                            T* __restrict__ dx, float* __restrict__ s1_out,
-                            float* __restrict__ s2_out, int planes,
-                            int channels, int hw) {
-  bwd_warp<T, P>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd,
-                 dx, nullptr, s1_out, s2_out, planes, hw);
-}
-
-// B2f, fused staged path.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_staged_kernel(const T* __restrict__ g,
-                              const T* __restrict__ xhat,
-                              const float* __restrict__ gamma,
-                              const float* __restrict__ beta,
-                              const float* __restrict__ rstd,
-                              T* __restrict__ dx, float* __restrict__ s1_out,
-                              float* __restrict__ s2_out, int channels,
-                              int hw, int cs) {
-  bwd_staged<T>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd, dx,
-                nullptr, s1_out, s2_out, hw, cs);
-}
-
-// B2a (split path), first pass.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    in_relu_bwd_stats_kernel(const T* __restrict__ g,
-                             const T* __restrict__ xhat,
-                             const float* __restrict__ gamma,
-                             const float* __restrict__ beta,
-                             float* __restrict__ o1, float* __restrict__ o2,
-                             int ostride, int planes, int channels, int hw,
-                             int splits, int chunk) {
-  bwd_stats<T, N>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, o1, o2,
-                  ostride, planes, hw, splits, chunk);
-}
-
-// B2b (split path).
+// B2b (split path): CTA (x, y) writes dx of packs x * kThreads + t (stride
+// gridDim.x * kThreads) of planes y, y + gridDim.y, ...
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
     in_relu_bwd_apply_kernel(const T* __restrict__ g,
@@ -945,8 +745,19 @@ __global__ void __launch_bounds__(kThreads)
                              const float* __restrict__ s2,
                              T* __restrict__ dx, int planes, int channels,
                              int hw) {
-  bwd_apply<T, N>(AffineBwd{gamma, beta, channels}, g, nullptr, xhat, rstd,
-                  s1, s2, dx, nullptr, planes, hw);
+  const AffineBwd e = {gamma, beta, channels};
+  const int groups = hw / N;
+  for (int64_t plane = blockIdx.y; plane < planes; plane += gridDim.y) {
+    const AffineBwd::Plane k = e.plane(plane);
+    const GradCoef c = grad_coef(e, k, rstd[plane], s1[plane], s2[plane], hw);
+    const int64_t base = plane * hw;
+    const Pack<T, N>* gp = reinterpret_cast<const Pack<T, N>*>(g + base);
+    const Pack<T, N>* hp = reinterpret_cast<const Pack<T, N>*>(xhat + base);
+    Pack<T, N>* dp = reinterpret_cast<Pack<T, N>*>(dx + base);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < groups;
+         i += gridDim.x * kThreads)
+      dp[i] = grad_pack(e, k, c, gp[i], hp[i]);
+  }
 }
 
 // B2s, first pass: CTA (split, plane) sums elements [split * chunk,
@@ -1031,91 +842,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ---- B3's kernels: B2's bodies under ModFwd and ModBwd ----------------------
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_fwd_kernel(ModFwd<T> e, const T* __restrict__ x,
-                            T* __restrict__ y, T* __restrict__ xhat,
-                            float* __restrict__ rstd_out, int hw, float eps) {
-  fwd_general<T, N>(e, x, y, xhat, rstd_out, hw, eps);
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_fwd_warp_kernel(ModFwd<T> e, const T* __restrict__ x,
-                                 T* __restrict__ y, T* __restrict__ xhat,
-                                 float* __restrict__ rstd_out, int planes,
-                                 int hw, float eps) {
-  fwd_warp<T, P>(e, x, y, xhat, rstd_out, planes, hw, eps);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_fwd_staged_kernel(ModFwd<T> e, const T* __restrict__ x,
-                                   T* __restrict__ y, T* __restrict__ xhat,
-                                   float* __restrict__ rstd_out, int hw,
-                                   int cs, float eps) {
-  fwd_staged<T>(e, x, y, xhat, rstd_out, hw, cs, eps);
-}
-
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_bwd_warp_kernel(ModBwd e, const T* __restrict__ g,
-                                 const T* __restrict__ y,
-                                 const T* __restrict__ xhat,
-                                 const float* __restrict__ rstd,
-                                 T* __restrict__ dx, T* __restrict__ ds,
-                                 float* __restrict__ a_out,
-                                 float* __restrict__ b_out, int planes,
-                                 int hw) {
-  bwd_warp<T, P>(e, g, y, xhat, rstd, dx, ds, a_out, b_out, planes, hw);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_bwd_staged_kernel(ModBwd e, const T* __restrict__ g,
-                                   const T* __restrict__ y,
-                                   const T* __restrict__ xhat,
-                                   const float* __restrict__ rstd,
-                                   T* __restrict__ dx, T* __restrict__ ds,
-                                   float* __restrict__ a_out,
-                                   float* __restrict__ b_out, int hw, int cs) {
-  bwd_staged<T>(e, g, y, xhat, rstd, dx, ds, a_out, b_out, hw, cs);
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_bwd_stats_kernel(ModBwd e, const T* __restrict__ g,
-                                  const T* __restrict__ y,
-                                  const T* __restrict__ xhat,
-                                  float* __restrict__ o1,
-                                  float* __restrict__ o2, int ostride,
-                                  int planes, int hw, int splits, int chunk) {
-  bwd_stats<T, N>(e, g, y, xhat, o1, o2, ostride, planes, hw, splits, chunk);
-}
-
-// the split sums' second pass under B3's name
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_combine_kernel(const float* __restrict__ part,
-                                float* __restrict__ o1, float* __restrict__ o2,
-                                int ostride, int planes, int splits) {
-  combine_partials(part, o1, o2, ostride, planes, splits);
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-    modnorm_relu_bwd_apply_kernel(ModBwd e, const T* __restrict__ g,
-                                  const T* __restrict__ y,
-                                  const T* __restrict__ xhat,
-                                  const float* __restrict__ rstd,
-                                  const float* __restrict__ a,
-                                  const float* __restrict__ b,
-                                  T* __restrict__ dx, T* __restrict__ ds,
-                                  int planes, int hw) {
-  bwd_apply<T, N>(e, g, y, xhat, rstd, a, b, dx, ds, planes, hw);
-}
-
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
 constexpr int kMaxGridY = 65535;
@@ -1161,13 +887,13 @@ int launch_clustered(void (*kernel)(KArgs...), bool& smem_set, int max_smem,
   return (int)cudaGetLastError();
 }
 
-// ---- launches: one launcher a direction, for B2's kernels and B3's ---------
+// ---- B2's NCHW launches -----------------------------------------------------
 //
-// A family F (B2's or B3's) holds a launch's operands and gives each path's
-// kernel: warp<P>, staged, general<N> forward; warp<P>, staged, stats<N>,
-// combine, apply<N> backward.  The launchers check the plan (ops/kernels:
-// in_relu_fwd_plan, in_relu_bwd_plan) against the operands and refuse one
-// that does not fit.
+// InReluFwdLaunch and InReluBwdLaunch hold a launch's operands and give each
+// path's kernel: warp<P>, staged, general<N> forward; warp<P>, staged,
+// stats<N>, combine, apply<N> backward.  The launchers check the plan
+// (ops/kernels: in_relu_fwd_plan, in_relu_bwd_plan) against the operands and
+// refuse one that does not fit.
 
 template <typename Tp>
 struct InReluFwdLaunch {
@@ -1195,34 +921,6 @@ struct InReluFwdLaunch {
   void general(cudaStream_t st) const {
     in_relu_fwd_kernel<T, N><<<planes, kThreads, 0, st>>>(
         x, gamma, beta, y, xh, rstd, channels, hw, eps);
-  }
-};
-
-template <typename Tp>
-struct ModnormFwdLaunch {
-  using T = Tp;
-  ModFwd<T> e;
-  const T* x;
-  T* y;
-  T* xh;
-  float* rstd;
-  int planes, hw;
-  float eps;
-  template <int P>
-  void warp(unsigned grid, cudaStream_t st) const {
-    modnorm_relu_fwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
-        e, x, y, xh, rstd, planes, hw, eps);
-  }
-  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
-    static bool smem_set = false;               // once per dtype
-    return launch_clustered(modnorm_relu_fwd_staged_kernel<T>, smem_set,
-                            kMaxStageBytes, grid, cs, smem, st, e, x, y, xh,
-                            rstd, hw, cs, eps);
-  }
-  template <int N>
-  void general(cudaStream_t st) const {
-    modnorm_relu_fwd_kernel<T, N><<<planes, kThreads, 0, st>>>(
-        e, x, y, xh, rstd, hw, eps);
   }
 };
 
@@ -1303,49 +1001,6 @@ struct InReluBwdLaunch {
   void apply(dim3 grid, cudaStream_t st) const {
     in_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
         g, xh, gamma, beta, rstd, s1, s2, dx, planes, channels, hw);
-  }
-};
-
-template <typename Tp>
-struct ModnormBwdLaunch {
-  using T = Tp;
-  ModBwd e;
-  const T* g;
-  const T* y;
-  const T* xh;
-  const float* rstd;
-  T* dx;
-  T* ds;
-  float* s1;
-  float* s2;
-  int planes, hw;
-  template <int P>
-  void warp(unsigned grid, cudaStream_t st) const {
-    modnorm_relu_bwd_warp_kernel<T, P><<<grid, kThreads, 0, st>>>(
-        e, g, y, xh, rstd, dx, ds, s1, s2, planes, hw);
-  }
-  int staged(int64_t grid, int cs, int smem, cudaStream_t st) const {
-    static bool smem_set = false;               // once per dtype
-    return launch_clustered(modnorm_relu_bwd_staged_kernel<T>, smem_set,
-                            kMaxBwdStageBytes, grid, cs, smem, st, e, g, y,
-                            xh, rstd, dx, ds, s1, s2, hw, cs);
-  }
-  template <int N>
-  void stats(dim3 grid, float* o1, float* o2, int ostride, int splits,
-             int chunk, cudaStream_t st) const {
-    modnorm_relu_bwd_stats_kernel<T, N><<<grid, kThreads, 0, st>>>(
-        e, g, y, xh, o1, o2, ostride, planes, hw, splits, chunk);
-  }
-  void combine(const float* part, int splits, cudaStream_t st) const {
-    modnorm_relu_combine_kernel<<<(unsigned)((planes + kThreads - 1) /
-                                             kThreads),
-                                  kThreads, 0, st>>>(part, s1, s2, 1, planes,
-                                                     splits);
-  }
-  template <int N>
-  void apply(dim3 grid, cudaStream_t st) const {
-    modnorm_relu_bwd_apply_kernel<T, N><<<grid, kThreads, 0, st>>>(
-        e, g, y, xh, rstd, s1, s2, dx, ds, planes, hw);
   }
 };
 
@@ -1498,37 +1153,6 @@ InReluBwdLaunch<T> in_relu_bwd_family(const void* g, const void* xhat,
           (float*)s2, planes, channels, hw};
 }
 
-template <typename T>
-int modnorm_relu_fwd_t(const ModFwd<T>& e, const void* x, void* y,
-                       void* xhat, float* rstd, int planes, int hw, float eps,
-                       int path, int packs, int cs, int smem,
-                       cudaStream_t st) {
-  constexpr int N = 16 / sizeof(T);
-  const ModnormFwdLaunch<T> f = {e, (const T*)x, (T*)y, (T*)xhat, rstd,
-                                 planes, hw, eps};
-  const void* ptrs[] = {x, y, xhat, e.s};
-  const bool vec = vec_ok<T>(hw, ptrs, 4) && e.s_bstride % N == 0;
-  return launch_fwd(f, vec, path, packs, cs, smem, st);
-}
-
-template <typename T>
-int modnorm_relu_bwd_t(const ModBwd& e, const void* g, const void* y,
-                       const void* xhat, const float* rstd, void* dx,
-                       void* ds, float* a, float* b, float* part, int planes,
-                       int hw, int path, int packs, int cs, int smem,
-                       int splits, int chunk, int apply_ctas,
-                       cudaStream_t st) {
-  const ModnormBwdLaunch<T> f = {e, (const T*)g, (const T*)y, (const T*)xhat,
-                                 rstd, (T*)dx, (T*)ds, a, b, planes, hw};
-  const void* ptrs[] = {g, y, xhat, dx, ds};
-  const bool vec = vec_ok<T>(hw, ptrs, 5);
-  if (path != kPathGeneral)
-    return launch_bwd_fused(f, vec, path, packs, cs, smem, st);
-  if (apply_ctas < 1) return (int)cudaErrorInvalidValue;
-  const int err = launch_bwd_sums(f, vec, part, splits, chunk, st);
-  return err ? err : launch_bwd_apply(f, vec, apply_ctas, st);
-}
-
 // ---- channels-last (NHWC) plans: B2 and B3 over [N, H * W, C] slabs ------
 //
 // A channels-last activation holds sample n as an [H * W, C] slab, C
@@ -1557,8 +1181,8 @@ int modnorm_relu_bwd_t(const ModBwd& e, const void* g, const void* y,
 //           combine pass adds a plane's partials in a fixed order (a warp a
 //           plane), and the apply pass reads the operands again, the
 //           samples in reverse so that its first reads find the L2 warm.
-// Bound: the function's bytes, as the NCHW plans' (B2 10 B an element a
-// bf16 training step, B3 16 B, 6 under no-grad); the split plan reads its
+// Bound: the function's bytes (B2 10 B an element a bf16 training step, as
+// its NCHW kernels'; B3 16 B, 6 under no-grad); the split plan reads its
 // operands twice.  The same sums pass also gives channel_sums_nhwc, the
 // channel sums of a channels-last tensor (a conv bias's gradient).
 
@@ -2184,7 +1808,7 @@ __device__ __forceinline__ void nhwc_bwd_apply(
   template <typename T, int N>       \
   __global__ void __launch_bounds__(kThreads, kNhwcMinBlocks)
 
-NHWC_KERNEL in_relu_nhwc_fwd_staged_kernel(AffineFwd<T> e, const T* x, T* y,
+NHWC_KERNEL in_relu_nhwc_fwd_staged_kernel(AffineFwd e, const T* x, T* y,
                                            float* mean, float* rstd, int C,
                                            int hw, int V, int cs, float eps) {
   nhwc_fwd_staged<T, N>(e, x, (const T*)nullptr, 0, 0, y, mean, rstd, C, hw,
@@ -2196,7 +1820,7 @@ NHWC_KERNEL in_relu_nhwc_sums_kernel(const T* x, float* part, int C, int hw,
   nhwc_sums_x<T, N>(x, part, C, hw, V, splits, chunk);
 }
 
-NHWC_KERNEL in_relu_nhwc_fwd_apply_kernel(AffineFwd<T> e, const T* x,
+NHWC_KERNEL in_relu_nhwc_fwd_apply_kernel(AffineFwd e, const T* x,
                                           const float* tot, T* y, float* mean,
                                           float* rstd, int C, int hw, int V,
                                           int chunk, float eps) {
@@ -2230,7 +1854,7 @@ NHWC_KERNEL in_relu_nhwc_bwd_apply_kernel(AffineBwd e, const T* g, const T* x,
                        (T*)nullptr, C, hw, V, chunk);
 }
 
-NHWC_KERNEL modnorm_relu_nhwc_fwd_staged_kernel(ModFwd<T> e, const T* x,
+NHWC_KERNEL modnorm_relu_nhwc_fwd_staged_kernel(ModFwd e, const T* x,
                                                 const T* s, int64_t s_row,
                                                 int64_t s_sample, T* y,
                                                 float* mean, float* rstd,
@@ -2246,7 +1870,7 @@ NHWC_KERNEL modnorm_relu_nhwc_sums_kernel(const T* x, float* part, int C,
   nhwc_sums_x<T, N>(x, part, C, hw, V, splits, chunk);
 }
 
-NHWC_KERNEL modnorm_relu_nhwc_fwd_apply_kernel(ModFwd<T> e, const T* x,
+NHWC_KERNEL modnorm_relu_nhwc_fwd_apply_kernel(ModFwd e, const T* x,
                                                const T* s, int64_t s_row,
                                                int64_t s_sample,
                                                const float* tot, T* y,
@@ -2413,7 +2037,7 @@ void nhwc_combine(K kernel, const float* part, float* o1, float* o2,
 template <typename Tp>
 struct InReluNhwcFwd {
   using T = Tp;
-  AffineFwd<T> e;
+  AffineFwd e;
   const T* x;
   T* y;
   float* mean;
@@ -2449,7 +2073,7 @@ struct InReluNhwcFwd {
 template <typename Tp>
 struct ModnormNhwcFwd {
   using T = Tp;
-  ModFwd<T> e;
+  ModFwd e;
   const T* x;
   const T* s;
   int64_t s_row, s_sample;
@@ -2593,7 +2217,7 @@ int modnorm_relu_nhwc_fwd_t(const ModParams& mp, const void* x, const void* s,
                             float* mean, float* rstd, float* part, float* tot,
                             int n, int C, int hw, float eps, const NhwcPlan& p,
                             cudaStream_t st) {
-  const ModnormNhwcFwd<T> f = {{mp, nullptr, 0}, (const T*)x, (const T*)s,
+  const ModnormNhwcFwd<T> f = {{mp}, (const T*)x, (const T*)s,
                                s_row, s_sample, (T*)y, mean, rstd, part, tot,
                                n, C, hw, eps};
   const void* ptrs[] = {x, y, s};
@@ -2800,66 +2424,6 @@ extern "C" int in_relu_fwd_apply(const void* x, const void* mean,
     return launch_fwd_apply<__nv_bfloat16>(
         x, (const float*)mean, (const float*)rstd, (const float*)gamma,
         (const float*)beta, y, planes, channels, hw, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// B3-fwd: y (and in training x_hat and rstd) of relu((x_hat * w + b) *
-// gamma + s) on in_relu_fwd's plans.  x, s, y, x_hat in `dtype`; s [N, C,
-// *S] with contiguous planes, sample b at b * s_bstride elements; gamma
-// [planes] f32, weight and bias [channels] f32; s, gamma, weight and bias
-// each null where the block has none; x_hat and rstd both null under
-// no-grad.
-extern "C" int modnorm_relu_fwd(const void* x, const void* s,
-                                long long s_bstride, const void* gamma,
-                                const void* weight, const void* bias, void* y,
-                                void* xhat, void* rstd, int planes,
-                                int channels, int hw, float eps, int dtype,
-                                int path, int packs, int cluster,
-                                int smem_bytes, void* stream) {
-  if (planes == 0 || hw == 0) return 0;
-  if ((xhat == nullptr) != (rstd == nullptr) || channels < 1)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const ModParams mp = {(const float*)gamma, (const float*)weight,
-                        (const float*)bias, channels};
-  if (dtype == kF32)
-    return modnorm_relu_fwd_t<float>(
-        {mp, (const float*)s, (int64_t)s_bstride}, x, y, xhat, (float*)rstd,
-        planes, hw, eps, path, packs, cluster, smem_bytes, st);
-  if (dtype == kBF16)
-    return modnorm_relu_fwd_t<__nv_bfloat16>(
-        {mp, (const __nv_bfloat16*)s, (int64_t)s_bstride}, x, y, xhat,
-        (float*)rstd, planes, hw, eps, path, packs, cluster, smem_bytes, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-// B3-bwd: dx and ds (null where s takes no gradient) in `dtype`, and the
-// plane sums a = sum g_m, b = sum g_m * x_hat [planes] f32, under
-// in_relu_bwd_plan's plan (`path` 1 fused warp, 2 fused staged, 0 split
-// with `part` [planes, splits, 2] f32 scratch when splits > 1).
-extern "C" int modnorm_relu_bwd(const void* g, const void* y, const void* xhat,
-                                const void* rstd, const void* gamma,
-                                const void* weight, void* dx, void* ds,
-                                void* a, void* b, void* part, int planes,
-                                int channels, int hw, int dtype, int path,
-                                int packs, int cluster, int smem_bytes,
-                                int splits, int chunk, int apply_ctas,
-                                void* stream) {
-  if (planes == 0 || hw == 0) return 0;
-  if (channels < 1) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const ModBwd e = {{(const float*)gamma, (const float*)weight, nullptr,
-                     channels}};
-  if (dtype == kF32)
-    return modnorm_relu_bwd_t<float>(
-        e, g, y, xhat, (const float*)rstd, dx, ds, (float*)a, (float*)b,
-        (float*)part, planes, hw, path, packs, cluster, smem_bytes, splits,
-        chunk, apply_ctas, st);
-  if (dtype == kBF16)
-    return modnorm_relu_bwd_t<__nv_bfloat16>(
-        e, g, y, xhat, (const float*)rstd, dx, ds, (float*)a, (float*)b,
-        (float*)part, planes, hw, path, packs, cluster, smem_bytes, splits,
-        chunk, apply_ctas, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,8 +4,7 @@
 The JAX package reads its model configs from YAML files; the port keeps its
 own copies as Python dicts (``MODEL_CONFIGS``, keyed by the YAML file name;
 tests/test_torch_gunet.py holds them equal to the ``.yml`` files): every
-config of the JAX package is carried; ``UNPORTED_CONFIGS`` would name one
-that is not.
+config of the JAX package is carried (tests/test_torch_model_select.py).
 
 Flax infers a model's input widths at init from a feature template (JAX
 cli/main.build_feature_template); the port's constructors take them from
@@ -99,10 +98,6 @@ MODEL_CONFIGS: Dict[str, Dict[str, Any]] = {
                            "ret_prob": False, "ret_pred": True},
 }
 
-# configs/models of the JAX package that the port does not carry yet, with
-# the ROADMAP item that ports them (none since the DenseUNet slice)
-UNPORTED_CONFIGS: Dict[str, str] = {}
-
 # Which constructor fields each model pulls from the flag namespace.
 _ARG_FIELDS = {
     "UNet": ("normalizer", "without_norm", "img_grad", "weight_init"),
@@ -126,14 +121,8 @@ _RUNTIME_KEYS = ("ret_prob", "ret_pred", "build_metrics", "build_summaries")
 
 def load_model_config(model: str, model_config: Optional[str] = None) -> Dict:
     """Model hyperparams by config file name (``--model_config`` or
-    ``<model>.yml``).  A config of the JAX package that the port lacks
-    raises NotImplementedError naming its queue item; a name the JAX
-    package lacks too gives {}, as there."""
-    name = model_config or (model + ".yml")
-    if name in UNPORTED_CONFIGS:
-        raise NotImplementedError(f"model config {name} is not ported yet "
-                                  f"(ROADMAP {UNPORTED_CONFIGS[name]})")
-    return dict(MODEL_CONFIGS.get(name, {}))
+    ``<model>.yml``); a name the JAX package lacks gives {}, as there."""
+    return dict(MODEL_CONFIGS.get(model_config or (model + ".yml"), {}))
 
 
 def get_model_params(args) -> Dict[str, Any]:

@@ -35,17 +35,16 @@ Kernels:
   plain version; CUDA the kernel, which counts its launches; a fake
   implementation for tracing), so torch.export keeps it as one node of an
   exported model and a loaded program launches the kernel on the card.
-- B3 G-Net's modulated block, csrc/in_relu.cu: ``modnorm_relu_fwd`` and
-  ``modnorm_relu_bwd``, tied together by ``ModulatedNormReLU``: instance
-  norm (the norm's scale and center optional) · the context's γ + the
-  spatial term s → ReLU, each of γ and s optional.  Not a TPU kernel: JAX
-  leaves the chain to XLA (boxsegliver_tpu/models/gunet.py:215-232).
+- B3 G-Net's modulated block, csrc/in_relu.cu: ``modnorm_relu_fwd_nhwc``
+  and ``modnorm_relu_bwd_nhwc``, tied together by ``ModulatedNormReLU``:
+  instance norm (the norm's scale and center optional) · the context's γ +
+  the spatial term s → ReLU, each of γ and s optional.  Not a TPU kernel:
+  JAX leaves the chain to XLA (boxsegliver_tpu/models/gunet.py:215-232).
   Bytes bound it, 16 an element a bf16 training step and 6 under no-grad
-  (source note); it is B2's kernels under another epilogue and takes
-  B2's plans (``in_relu_fwd_plan``, ``in_relu_bwd_plan``).  B3-fwd is
-  the registered operator ``torch.ops.boxseg.modnorm_relu_fwd``, as B2-fwd
-  is; under no-grad it writes y alone.  No single PyTorch call computes
-  it.
+  (source note).  It takes channels-last operands alone, on the NHWC plans
+  it shares with B2 (``in_relu_nhwc_plan``); B3-fwd is the registered
+  operator ``torch.ops.boxseg.modnorm_relu_nhwc_fwd``, as B2-fwd is one;
+  under no-grad it writes y alone.  No single PyTorch call computes it.
 - G1 ``geodesic2d_batch`` — csrc/geodesic.cu: the 2-D geodesic raster scan
   of N fields at once, the device refiner's geodesic click guides.  The
   edge weights are computed once a launch (scratch the wrapper allocates);
@@ -74,7 +73,6 @@ _LIBRARY = {"guide_render": "guide_render", "in_relu_fwd": "in_relu",
             "in_relu_bwd": "in_relu", "in_relu_bwd_stats": "in_relu",
             "in_relu_bwd_apply": "in_relu",
             "in_relu_fwd_partial": "in_relu", "in_relu_fwd_apply": "in_relu",
-            "modnorm_relu_fwd": "in_relu", "modnorm_relu_bwd": "in_relu",
             "in_relu_nhwc_fwd": "in_relu", "in_relu_nhwc_bwd": "in_relu",
             "modnorm_relu_nhwc_fwd": "in_relu",
             "modnorm_relu_nhwc_bwd": "in_relu",
@@ -423,19 +421,19 @@ def _check_in_relu(name, act, others, weight, bias):
     _check_layout(name, act, others, (weight, bias))
 
 
-# The layouts B2 and B3 take: contiguous [N, C, *S] (NCHW, NCDHW), each
-# (n, c) plane contiguous, on the NCHW plans; channels-last [N, C, H, W]
-# (NHWC), each sample an [H·W, C] slab with C innermost, on the NHWC plans.
-# The strides choose: a tensor that is both (C or H·W of 1) is contiguous;
-# any other layout (NDHWC among them: UNet3D's first conv, on its
-# channels-last input) is copied contiguous first.
+# The layouts B2 takes: contiguous [N, C, *S] (NCHW, NCDHW), each (n, c)
+# plane contiguous, on the NCHW plans; channels-last [N, C, H, W] (NHWC),
+# each sample an [H·W, C] slab with C innermost, on the NHWC plans.  The
+# strides choose: a tensor that is both (C or H·W of 1) is contiguous; any
+# other layout (NDHWC among them: UNet3D's first conv, on its channels-last
+# input) is copied contiguous first.  B3 has the NHWC plans alone.
 _CHANNELS_LAST = {4: torch.channels_last}
 
 
 def is_nhwc(t: torch.Tensor) -> bool:
-    """Whether t [N, C, H, W] is channels-last and not contiguous: B2 and
-    B3 take their NHWC plans there, and a conv its kernel channels-last
-    (models/layers.kernel_like)."""
+    """Whether t [N, C, H, W] is channels-last and not contiguous: B2 takes
+    its NHWC plans there (its NCHW plans for a tensor that is both), and a
+    conv its kernel channels-last (models/layers.kernel_like)."""
     fmt = _CHANNELS_LAST.get(t.ndim)
     return (fmt is not None and not t.is_contiguous()
             and t.is_contiguous(memory_format=fmt))
@@ -447,7 +445,7 @@ def _format(t: torch.Tensor) -> torch.memory_format:
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
-    """t itself in a layout B2 and B3 take, else a contiguous copy."""
+    """t itself in a layout B2 takes, else a contiguous copy."""
     return t if t.is_contiguous() or is_nhwc(t) else t.contiguous()
 
 
@@ -1045,10 +1043,11 @@ def modnorm_relu_bwd_plain(g, y, xhat, rstd, gamma=None, weight=None,
 
 
 def _check_modnorm(name, x, others, gamma, s, weight, bias):
-    """B3's operands: x and ``others`` [N, C, *S] float32 or bfloat16 of
-    one dtype and one layout B3 takes; s like x (any strides: the launch
-    copies what it cannot read in place); γ [N, C], w and b [C] contiguous
-    float32; all on x's device."""
+    """B3's operands: x and ``others`` [N, C, H, W] float32 or bfloat16 of
+    one dtype and one layout (the NHWC wrappers then ask for channels-last,
+    _check_nhwc); s like x (any strides: the launch copies what it cannot
+    read in place); γ [N, C], w and b [C] contiguous float32; all on x's
+    device."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: dtype {x.dtype} is not float32 or "
                         "bfloat16")
@@ -1077,151 +1076,36 @@ def _check_modnorm(name, x, others, gamma, s, weight, bias):
     _check_layout(name, x, others, ())
 
 
-# B3-fwd is the operator boxseg::modnorm_relu_fwd, as B2-fwd is: an exported
-# G-Net keeps it as one node that a loaded program dispatches by device
-_LIB.define("modnorm_relu_fwd(Tensor x, Tensor? gamma, Tensor? s, "
-            "Tensor? weight, Tensor? bias, float eps, bool train) "
-            "-> (Tensor, Tensor, Tensor)")
-
-
-def _modnorm_fwd_launch(x, gamma, s, weight, bias, eps, train, plan=None):
-    """Launch B3-fwd on checked CUDA operands under ``plan`` (by default
-    in_relu_fwd_plan's for x's shape and the operands' alignment); the C
-    launcher refuses a plan that does not fit them.  Counts nothing: the
-    operator's CUDA implementation does."""
-    if s is not None and s.stride()[1:] != x.stride()[1:]:
-        s = s.contiguous()      # B3 reads whole planes, at any sample stride
-    n, c, hw = _planes(x)
-    y = torch.empty_like(x)
-    if train:
-        xhat = torch.empty_like(x)
-        rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
-    else:
-        xhat, rstd = x.new_empty(0), x.new_empty(0, dtype=torch.float32)
-    sbs = 0 if s is None else s.stride(0)
-    if plan is None:
-        per = 16 // x.element_size()
-        aligned = (_aligned(x, y, *([xhat] if train else []),
-                            *([] if s is None else [s])) and sbs % per == 0)
-        plan = in_relu_fwd_plan(n * c, hw, x.dtype, aligned)
-    _launch("modnorm_relu_fwd", x, x.data_ptr(), _ptr(s), sbs, _ptr(gamma),
-            _ptr(weight), _ptr(bias), y.data_ptr(),
-            xhat.data_ptr() if train else None,
-            rstd.data_ptr() if train else None, n * c, c, hw, float(eps),
-            _DTYPES[x.dtype], plan.path, plan.packs, plan.cluster,
-            plan.smem_bytes)
-    return y, xhat, rstd
-
-
-def _modnorm_relu_fwd_cuda(x, gamma, s, weight, bias, eps, train):
-    x = x.contiguous()          # an exported graph's layout (_in_relu_fwd_cuda)
-    _check_modnorm("modnorm_relu_fwd", x, (), gamma, s, weight, bias)
-    out = _modnorm_fwd_launch(x, gamma, s, weight, bias, eps, train)
-    modnorm_relu_fwd.launches += 1
-    return out
-
-
-def _modnorm_relu_fwd_cpu(x, gamma, s, weight, bias, eps, train):
-    # exact plane statistics, as _in_relu_fwd_cpu's
-    return modnorm_relu_fwd_plain(x, gamma, s, weight, bias, eps, train,
-                                  exact=True)
-
-
-_LIB.impl("modnorm_relu_fwd", _modnorm_relu_fwd_cpu, "CPU")
-_LIB.impl("modnorm_relu_fwd", _modnorm_relu_fwd_cuda, "CUDA")
-
-
-@torch.library.register_fake("boxseg::modnorm_relu_fwd", lib=_LIB)
-def _modnorm_relu_fwd_fake(x, gamma, s, weight, bias, eps, train):
-    y = torch.empty_like(x, memory_format=torch.contiguous_format)
-    if not train:
-        return y, x.new_empty(0), x.new_empty(0, dtype=torch.float32)
-    return y, torch.empty_like(y), x.new_empty(x.shape[:2],
-                                               dtype=torch.float32)
-
-
-def modnorm_relu_fwd(x: torch.Tensor, gamma=None, s=None, weight=None,
-                     bias=None, eps: float = IN_EPS, train: bool = True):
-    """Kernel B3-fwd: (y, x̂, rstd) of relu((instance_norm(x)·w + b)·γ + s),
-    through the operator ``torch.ops.boxseg.modnorm_relu_fwd``, on
-    in_relu_fwd_plan's paths.
-
-    x: [N, C, *S] float32 or bfloat16, contiguous; γ: [N, C], w and b: [C],
-    each float32 and contiguous; s: like x, each plane contiguous (a
-    channel slice of a wider tensor is read in place).  Any of γ, s, w and
-    b may be None.  y and x̂ come back in x's dtype, rstd [N, C] float32;
-    with ``train`` False only y is written (x̂ and rstd are empty).  A
-    channels-last x takes the NHWC plans' operator instead
-    (modnorm_relu_fwd_nhwc_op)."""
-    if x.device.type == "cuda" and not x.is_contiguous():
-        raise ValueError("modnorm_relu_fwd: operands must be contiguous")
-    return torch.ops.boxseg.modnorm_relu_fwd.default(
-        x, gamma, s, weight, bias, float(eps), bool(train))
-
-
-def modnorm_relu_bwd(g: torch.Tensor, y: torch.Tensor, xhat: torch.Tensor,
-                     rstd: torch.Tensor, gamma=None, weight=None,
-                     want_ds: bool = True, plan=None):
-    """Kernel B3-bwd: (dx, ds, a, b) as modnorm_relu_bwd_plain gives them,
-    under ``plan`` (by default in_relu_bwd_plan's for g's shape and
-    alignment): one fused launch where a plane fits on chip, else the split
-    sums, added in order, and an apply pass.  ds is written only with
-    ``want_ds``.  The sums' order is fixed: equal from run to run."""
-    if g.device.type == "cpu":
-        return modnorm_relu_bwd_plain(g, y, xhat, rstd, gamma, weight,
-                                      want_ds)
-    _check_modnorm("modnorm_relu_bwd", g, (y, xhat), gamma, None, weight,
-                   None)
-    _check_plane_stats("modnorm_relu_bwd", g, (("rstd", rstd),))
-    n, c, hw = _planes(g)
-    if plan is None:
-        plan = in_relu_bwd_plan(n * c, hw, g.dtype, _aligned(g, y, xhat))
-    dx = torch.empty_like(g)
-    ds = torch.empty_like(g) if want_ds else None
-    a = torch.empty((n, c), dtype=torch.float32, device=g.device)
-    b = torch.empty_like(a)
-    part = (torch.empty((n * c, plan.splits, 2), dtype=torch.float32,
-                        device=g.device)
-            if plan.path == BWD_SPLIT and plan.splits > 1 else None)
-    _launch("modnorm_relu_bwd", g, g.data_ptr(), y.data_ptr(),
-            xhat.data_ptr(), rstd.data_ptr(), _ptr(gamma), _ptr(weight),
-            dx.data_ptr(), _ptr(ds), a.data_ptr(), b.data_ptr(), _ptr(part),
-            n * c, c, hw, _DTYPES[g.dtype], plan.path, plan.packs,
-            plan.cluster, plan.smem_bytes, plan.splits, plan.chunk,
-            plan.apply_ctas)
-    modnorm_relu_bwd.launches += 1
-    return dx, ds, a, b
-
-
-modnorm_relu_fwd.launches = 0
-modnorm_relu_bwd.launches = 0
-
-
 def _f32_operands(x, *ts):
     pdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     return [None if t is None else t.to(pdt).contiguous() for t in ts]
 
 
+def _b3_layout(x: torch.Tensor) -> torch.Tensor:
+    """x [N, C, H, W] channels-last, copied so where it is in another
+    layout: B3 has the NHWC plans alone."""
+    if x.ndim != 4:
+        raise ValueError(f"B3: expected x [N, C, H, W], got {tuple(x.shape)}")
+    return _cl(x)
+
+
 class ModulatedNormReLU(torch.autograd.Function):
-    """relu((instance_norm(x)·w + b)·γ + s) over [N, C, *S] planes: B3-fwd
-    in ``forward``; in ``backward`` B3-bwd, then dγ = w·b + b_c·a per plane
-    and dw = Σ_n γ·b, db = Σ_n γ·a from its plane sums a = Σ g_m and b =
-    Σ g_m·x̂.  Saves y (whose sign is the ReLU's mask), x̂ in x's dtype,
-    rstd and the float32 γ, w, b (on the NHWC plans x and the planes' mean
-    in x̂'s place: the backward takes x̂ from x again); casts the incoming
-    gradient to y's dtype and layout."""
+    """relu((instance_norm(x)·w + b)·γ + s) over x [N, C, H, W]: B3-fwd on
+    the NHWC plans in ``forward`` (x laid out channels-last first,
+    _b3_layout; y comes back channels-last); in ``backward`` B3-bwd, then
+    dγ = w·b + b_c·a per plane and dw = Σ_n γ·b, db = Σ_n γ·a from its
+    plane sums a = Σ g_m and b = Σ g_m·x̂.  Saves y (whose sign is the
+    ReLU's mask), x and the planes' mean and rstd (the backward takes x̂
+    from x again) and the float32 γ, w, b; casts the incoming gradient to
+    y's dtype, channels-last."""
 
     @staticmethod
     def forward(ctx, x, gamma, s, weight, bias, eps):
         ops = _f32_operands(x, gamma, weight, bias)
-        x = _dense(x)
-        # the NHWC plans keep x and the planes' mean (aux), the NCHW plans x̂
-        ctx.nhwc = is_nhwc(x)
-        y, aux, rstd = (modnorm_relu_fwd_nhwc_op if ctx.nhwc
-                        else modnorm_relu_fwd)(x, ops[0], s, ops[1], ops[2],
-                                               eps)
-        ctx.save_for_backward(y, *((x, aux) if ctx.nhwc else (aux,)), rstd,
-                              *ops)
+        x = _b3_layout(x)
+        y, mean, rstd = modnorm_relu_fwd_nhwc_op(x, ops[0], s, ops[1], ops[2],
+                                                 eps)
+        ctx.save_for_backward(y, x, mean, rstd, *ops)
         ctx.dtypes = [None if t is None else t.dtype
                       for t in (gamma, weight, bias)]
         return y
@@ -1229,15 +1113,9 @@ class ModulatedNormReLU(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         _, need_g, need_s, need_w, need_b, _ = ctx.needs_input_grad
-        if ctx.nhwc:
-            y, x, mean, rstd, gamma, weight, bias = ctx.saved_tensors
-            dx, ds, a, b = modnorm_relu_bwd_nhwc(
-                _as_layout(g.to(y.dtype), y), y, x, mean, rstd, gamma, weight,
-                need_s)
-        else:
-            y, xhat, rstd, gamma, weight, bias = ctx.saved_tensors
-            dx, ds, a, b = modnorm_relu_bwd(g.to(y.dtype).contiguous(), y,
-                                            xhat, rstd, gamma, weight, need_s)
+        y, x, mean, rstd, gamma, weight, bias = ctx.saved_tensors
+        dx, ds, a, b = modnorm_relu_bwd_nhwc(_cl(g.to(y.dtype)), y, x, mean,
+                                             rstd, gamma, weight, need_s)
         gdt, wdt, bdt = ctx.dtypes
         dgamma = dw = db = None
         if need_g:
@@ -1255,18 +1133,18 @@ class ModulatedNormReLU(torch.autograd.Function):
 def modulated_norm_relu(x: torch.Tensor, gamma=None, s=None, weight=None,
                         bias=None, eps: float = IN_EPS) -> torch.Tensor:
     """G-Net's modulated block relu((instance_norm(x)·w + b)·γ + s) through
-    kernel B3: x [N, C, *S]; γ [N, C] (the context's slice), s like x (the
-    spatial term), w and b [C] (the norm's scale and center), each may be
-    None.  Through autograd where an operand needs a gradient, else B3-fwd
-    writing y alone."""
+    kernel B3's NHWC plans: x [N, C, H, W] in any layout (laid out
+    channels-last first; y comes back channels-last); γ [N, C] (the
+    context's slice), s like x (the spatial term), w and b [C] (the norm's
+    scale and center), each may be None.  Through autograd where an operand
+    needs a gradient, else B3-fwd writing y alone."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, gamma, s, weight, bias)):
         return ModulatedNormReLU.apply(x, gamma, s, weight, bias, eps)
     ops = _f32_operands(x, gamma, weight, bias)
-    x = _dense(x)
-    return (modnorm_relu_fwd_nhwc_op if is_nhwc(x) else modnorm_relu_fwd)(
-        x, ops[0], s, ops[1], ops[2], eps, train=False)[0]
+    return modnorm_relu_fwd_nhwc_op(_b3_layout(x), ops[0], s, ops[1], ops[2],
+                                    eps, train=False)[0]
 
 
 def modnorm_relu_split(x: torch.Tensor, gamma, s, weight, bias, group,
@@ -1403,7 +1281,9 @@ def _nhwc_rows(t: torch.Tensor):
 
 
 def _check_nhwc(name, t):
-    if not is_nhwc(t):
+    # a tensor that is also contiguous (C or H·W of 1) lies in memory as its
+    # channels-last form does
+    if t.ndim != 4 or not t.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{name}: expected a channels-last [N, C, *S] "
                          f"tensor, got strides {t.stride()}")
 
@@ -1534,8 +1414,8 @@ def modnorm_relu_fwd_nhwc(x: torch.Tensor, gamma=None, s=None, weight=None,
 def modnorm_relu_bwd_nhwc(g: torch.Tensor, y: torch.Tensor, x: torch.Tensor,
                           mean: torch.Tensor, rstd: torch.Tensor, gamma=None,
                           weight=None, want_ds: bool = True, plan=None):
-    """Kernel B3-bwd's NHWC plans: (dx, ds, a, b) as modnorm_relu_bwd gives
-    them, from channels-last g and the forward's y, x, mean and rstd (x̂
+    """Kernel B3-bwd's NHWC plans: (dx, ds, a, b) as modnorm_relu_bwd_plain
+    gives them, from channels-last g and the forward's y, x, mean and rstd (x̂
     taken from x again, in float32), under ``plan``
     (by default in_relu_nhwc_plan's, g, x and y a staged CTA's operands).
     On the CPU: the plain version."""
@@ -1680,8 +1560,8 @@ def channel_sums_nhwc(t: torch.Tensor) -> torch.Tensor:
 channel_sums_nhwc.launches = 0
 
 
-# name -> wrapper, for launch-count bookkeeping (the NHWC plans count apart
-# from the NCHW ones)
+# name -> wrapper, for launch-count bookkeeping (B2's NHWC plans count apart
+# from its NCHW ones)
 KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "in_relu_fwd": in_relu_fwd,
            "in_relu_bwd": in_relu_bwd,
@@ -1690,8 +1570,6 @@ KERNELS = {"gaussian_guide_batch": gaussian_guide_batch,
            "geodesic2d_batch": geodesic2d_batch,
            "in_relu_fwd_partial": in_relu_fwd_partial,
            "in_relu_fwd_apply": in_relu_fwd_apply,
-           "modnorm_relu_fwd": modnorm_relu_fwd,
-           "modnorm_relu_bwd": modnorm_relu_bwd,
            "in_relu_fwd_nhwc": in_relu_fwd_nhwc,
            "in_relu_bwd_nhwc": in_relu_bwd_nhwc,
            "modnorm_relu_fwd_nhwc": modnorm_relu_fwd_nhwc,

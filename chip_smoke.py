@@ -67,7 +67,7 @@ result line):
    train step (18 calls).  Then B2's and B3's NHWC plans (nhwc_phase:
    G-Net's channels-last activations) at the flagship's train-step shapes:
    every plan of nhwc_alternatives timed, the chosen one against the bound,
-   the NCHW plans on the same data and the plain versions, per train step
+   B2's NCHW plans on the same data and the plain versions, per train step
    against the benchmark's 10 and 16 B an element; and cudnn_transposes,
    cuDNN's layout transposes of two G-Net convs with NCHW activations
    (cudnn.benchmark off and on) and channels-last ones.
@@ -340,9 +340,8 @@ result line):
    not run).
 Then one JSON line with every kernel's numbers (launches: the train run of
 phase 8 for B1 and B2's and B3's NHWC plans, UNet3D's train run of phase
-21b for B2's NCHW plans (B2-fwd, B2f, B2a and B2b), the train run of phase
-8 for B3's NCHW plans (0: no model path takes them since GUNet went
-channels-last), the device refiner's geodesic run of phase 20 for G1, and per
+21b for B2's NCHW plans (B2-fwd, B2f, B2a and B2b), the device refiner's
+geodesic run of phase 20 for G1, and per
 path in ``launches_by_path``: the device sweep of phase 5,
 the train run of phase 8, the overflow run of phase 13, the K = 16 train
 run of phase 14, the 20 GUNet requests of phase 17, the annotator's
@@ -1172,11 +1171,11 @@ def b2_train_kernels(shapes):
 
 
 def nhwc_counts(counts):
-    """A G-Net path's launches: ``counts`` under the NCHW plans' names (as
-    b2_train_counts gives them) moved to the NHWC plans', since GUNet's
+    """A G-Net path's launches: B2's ``counts`` under its NCHW plans' names
+    (as b2_train_counts gives them) moved to the NHWC plans', since GUNet's
     activations are channels-last: one in_relu_fwd_nhwc a B2-fwd, one
-    in_relu_bwd_nhwc a backward (B2f, or B2a with its B2b), B3's to its
-    NHWC wrappers, and 0 for the NCHW plans."""
+    in_relu_bwd_nhwc a backward (B2f, or B2a with its B2b), and 0 for the
+    NCHW plans; other counts (B1, B3) as they are."""
     out = dict(counts)
     fwd = out.pop("in_relu_fwd", 0)
     bwd = out.pop("in_relu_bwd", 0) + out.pop("in_relu_bwd_stats", 0)
@@ -1186,10 +1185,6 @@ def nhwc_counts(counts):
         out["in_relu_fwd_nhwc"] = fwd
     if bwd:
         out["in_relu_bwd_nhwc"] = bwd
-    for n in ("modnorm_relu_fwd", "modnorm_relu_bwd"):
-        if out.get(n):
-            out[n + "_nhwc"] = out[n]
-        out[n] = 0
     return {n: c for n, c in out.items() if c or n in counts}
 
 
@@ -1540,324 +1535,59 @@ def b2_nf_levels(dev, shapes=None, label="NF", seed=100):
 
 
 # ---------------------------------------------------------------------------
-# phase 7b: kernel B3 (G-Net's modulated block) against its plain version
-# ---------------------------------------------------------------------------
-
-# GUNet.yml's modulated blocks of one flagship train step (batch 8, 256^2,
-# bf16): the two convs of each encoder level 1-4; the guided sweep's
-# forward takes the same shapes (2 sweeps x 4 mirrors)
-B3_STEP_SHAPES = {(8, 128, 128, 128): 2, (8, 256, 64, 64): 2,
-                  (8, 512, 32, 32): 2, (8, 1024, 16, 16): 2}
-B3_KERNELS = ("modnorm_relu_fwd", "modnorm_relu_bwd")
-# float operations per element of B3 (GUNet.yml's block: center b, no
-# scale): fwd = 3 (sum, square, sum) + 2 (x − mean, · rstd) + 1 (+ b) + 2
-# (·γ, + s) + 1 (max); bwd = 1 (select) + 3 (two sums, one product) + 4 (two
-# subtractions, two products)
-B3_OPS = {"modnorm_relu_fwd": 9, "modnorm_relu_bwd": 8}
-
-
-def b3_inputs(shape, dtype, dev, seed, fix=False):
-    """x, g and GUNet.yml's operands of B3: the context's γ [N, C], the
-    spatial term s (a tensor of its own, as the spatial conv gives each
-    block its half; with ``fix`` the first channel half of a [N, 2C, *S]
-    tensor) and the norm's center b [C]; no scale."""
-    x, g, _, b = b2_inputs(shape, dtype, dev, seed)
-    gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    n, c = shape[:2]
-    gamma = torch.randn((n, c), generator=gen, device=dev) * 0.5 + 1.0
-    wide = torch.randn((n, 2 * c) + tuple(shape[2:]), generator=gen,
-                       device=dev).to(dtype)
-    s = wide[:, :c] if fix else wide[:, :c].contiguous()
-    return x, g, gamma, s, b
-
-
-def b3_fwd_plans(planes, hw, dtype, aligned):
-    """B3-fwd's plans checked at one shape: the chosen one
-    (in_relu_fwd_plan), the general path, and for aligned bf16 the other
-    plans of fwd_alternatives that fit the shape (a staged cluster whose
-    chunks are whole 16-byte packs within 64 KiB)."""
-    from boxsegliver_torch.ops import kernels as K
-
-    plans = {"chosen": K.in_relu_fwd_plan(planes, hw, dtype, aligned),
-             "general": K.FwdPlan(K.FWD_GENERAL, planes, 1, 0, 1, 0)}
-    if aligned and dtype == torch.bfloat16:
-        plans.update({k: p for k, p in fwd_alternatives(planes, hw).items()
-                      if p.path != K.FWD_STAGED or (
-                          hw % (8 * p.cluster) == 0
-                          and p.smem_bytes == 2 * hw // p.cluster
-                          and p.smem_bytes <= 64 * 1024)})
-    return plans
-
-
-def b3_check(shape, dtype, dev, seed, unaligned=False, fix=False):
-    """B3-fwd under every plan of b3_fwd_plans (training, and y alone under
-    no-grad), B3-bwd under every plan of ``bwd_alternatives`` (twice: equal
-    from run to run) and ModulatedNormReLU's backward against their plain
-    versions on the same inputs, at b2_check's tolerances (y, x̂ and dx
-    rounded once to their dtype, the plane sums and dγ, db float32 sums in
-    another order); ds, a masked copy of g, must be equal.  ``unaligned``:
-    x and g at an odd element offset; ``fix``: s the first half of a wider
-    tensor.  Returns the worst abs error per kernel (B3-fwd: y, x̂; B3-bwd:
-    dx and the plane sums)."""
-    from boxsegliver_torch.ops import kernels
-
-    x, g, gamma, s, b = b3_inputs(shape, dtype, dev, seed, fix)
-    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
-    what = f"B3 {tuple(shape)} {dtype}"
-
-    def close(name, got, ref, rel, abs_):
-        err = (got.float() - ref.float()).abs()
-        bad = err > abs_ + rel * ref.float().abs()
-        if bool(bad.any()):
-            raise AssertionError(f"{what} {name}: {int(bad.sum())} elements "
-                                 f"off, max abs err {float(err.max()):.3e}")
-        return float(err.max())
-
-    def odd_view(t):
-        flat = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
-        flat[1:] = t.flatten()
-        return flat[1:].view(t.shape)
-
-    out_tol = (2.0 ** -7, 1e-5) if dtype == torch.bfloat16 else (1e-5, 1e-5)
-    sum_tol = lambda n: (1e-4, 1e-6 * math.sqrt(n))          # noqa: E731
-    x_in, g_in = (odd_view(x), odd_view(g)) if unaligned else (x, g)
-    y_p, xh_p, rstd_p = kernels.modnorm_relu_fwd_plain(x, gamma, s, None, b)
-    dx_p, ds_p, a_p, b_p = kernels.modnorm_relu_bwd_plain(
-        g, y_p, xh_p, rstd_p, gamma)
-    errs = dict.fromkeys(B3_KERNELS, 0.0)
-    for name, plan in b3_fwd_plans(planes, hw, dtype, not unaligned).items():
-        y, xh, rstd = kernels._modnorm_fwd_launch(
-            x_in, gamma, s, None, b, kernels.IN_EPS, True, plan)
-        y0, _, _ = kernels._modnorm_fwd_launch(
-            x_in, gamma, s, None, b, kernels.IN_EPS, False, plan)
-        if not (y.dtype == xh.dtype == dtype and rstd.dtype == torch.float32):
-            raise AssertionError(f"{what}: B3-fwd output dtypes")
-        errs["modnorm_relu_fwd"] = max(
-            errs["modnorm_relu_fwd"], close(f"y ({name})", y, y_p, *out_tol),
-            close(f"x_hat ({name})", xh, xh_p, *out_tol),
-            close(f"rstd ({name})", rstd, rstd_p, 1e-5, 0.0))
-        if not torch.equal(y0, y):
-            raise AssertionError(f"{what}: the no-grad y ({name}) is not "
-                                 f"the training y")
-    for name, plan in bwd_alternatives(planes, hw, dtype,
-                                       not unaligned).items():
-        dx, ds, a, b_ = kernels.modnorm_relu_bwd(g_in, y_p, xh_p, rstd_p,
-                                                 gamma, plan=plan)
-        again = kernels.modnorm_relu_bwd(g_in, y_p, xh_p, rstd_p, gamma,
-                                         plan=plan)
-        if not all(torch.equal(u, v) for u, v in zip(again, (dx, ds, a, b_))):
-            raise AssertionError(f"{what}: B3-bwd ({name}) differs from run "
-                                 f"to run")
-        if not torch.equal(ds, ds_p):
-            raise AssertionError(f"{what}: ds ({name}) is not g_m")
-        errs["modnorm_relu_bwd"] = max(
-            errs["modnorm_relu_bwd"],
-            close(f"dx ({name})", dx, dx_p, *out_tol),
-            close(f"a ({name})", a, a_p, *sum_tol(hw)),
-            close(f"b ({name})", b_, b_p, *sum_tol(hw)))
-    # the autograd Function: dx, ds as B3-bwd's, dγ = Σ g_m·x̂ + b_c·Σ g_m
-    # per plane (no scale), db = Σ_n γ·Σ g_m; held against the plain
-    # backward on the x̂ and rstd that the Function's own forward saved (its
-    # leaf is an aligned copy of x_in, whose B3-fwd plan may differ)
-    leaves = [t.clone().requires_grad_(True) for t in (x_in, gamma, s, b)]
-    y_a = kernels.modulated_norm_relu(leaves[0], leaves[1], leaves[2], None,
-                                      leaves[3])
-    dxa, dga, dsa, dba = torch.autograd.grad(y_a, leaves, g_in)
-    ya, xha, rstda = kernels._modnorm_fwd_launch(
-        leaves[0].detach(), gamma, leaves[2].detach(), None, b,
-        kernels.IN_EPS, True)
-    dx_r, ds_r, a_r, b_r = kernels.modnorm_relu_bwd_plain(g, ya, xha, rstda,
-                                                          gamma)
-    torch.cuda.synchronize()
-    if not torch.equal(dsa, ds_r):
-        raise AssertionError(f"{what}: autograd's ds is not g_m")
-    errs["modnorm_relu_bwd"] = max(
-        errs["modnorm_relu_bwd"], close("dx (autograd)", dxa, dx_r, *out_tol),
-        close("dgamma (autograd)", dga, b_r + a_r * b, *sum_tol(hw)),
-        close("db (autograd)", dba, (a_r * gamma).sum(dim=0),
-              *sum_tol(shape[0] * hw)))
-    return errs
-
-
-def b3_bound_ms(name, shape, train=True):
-    """(bound ms, bound_by) of one call: the function's least bytes, B2's
-    rule (portbench/flops.py): B3-fwd reads x and s and writes y (6 B a
-    bf16 element; x̂, which the training forward also writes for B3-bwd, is
-    the design's choice and not counted), B3-bwd reads g, y and x̂ and
-    writes dx and ds (10 B): 16 B an element a training step, 6 under
-    no-grad; the per-plane γ, rstd and sums besides, and B3_OPS at the
-    float32 non-tensor peak."""
-    n, c = shape[:2]
-    elems, esize = math.prod(shape), 2
-    planes = n * c * 4
-    io = {"modnorm_relu_fwd": 3 * elems * esize + planes * (2 if train
-                                                            else 1),
-          "modnorm_relu_bwd": 5 * elems * esize + 4 * planes}[name] + c * 4
-    t_bytes = io / HBM_BYTES_PER_S * 1e3
-    t_ops = B3_OPS[name] * elems / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def b3_times(shape, dev):
-    """Per-call ms at one bf16 shape: B3-fwd's device time per launch in
-    training and under no-grad, B3-bwd's under the chosen plan ("device
-    <name>", graph_ms over COLD_BYTES of inputs, so reads miss the L2), the
-    wrappers ("<name>"), the plain versions, and the chain B3 replaced
-    ("chain fwd": instance norm with its center, ·γ, + s, ReLU; "chain
-    bwd": autograd's backward of it)."""
-    import torch.nn.functional as F
-
-    from boxsegliver_torch.ops import kernels
-
-    x, g, gamma, s, b = b3_inputs(shape, torch.bfloat16, dev, seed=1)
-    planes, hw = shape[0] * shape[1], math.prod(shape[2:])
-    iters = 20 if hw >= 128 * 128 else 50
-    per_set = 5 * x.numel() * 2              # x, s; g, y, x̂
-    n_sets = max(1, min(iters, math.ceil(COLD_BYTES / per_set)))
-    sets = []
-    for i in range(n_sets):
-        xi, gi, _, si, _ = b3_inputs(shape, torch.bfloat16, dev, seed=1 + i)
-        sets.append((xi, gi, si) + kernels.modnorm_relu_fwd(xi, gamma, si,
-                                                            None, b))
-    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, s, b)]
-
-    def chain(xx, gm, ss, bb):
-        z = F.instance_norm(xx.float(), eps=kernels.IN_EPS) + bb[:, None,
-                                                                 None]
-        return F.relu((z * gm[:, :, None, None] + ss.float()).to(xx.dtype))
-
-    chain_y = chain(*leaves)
-    t = {}
-    for turn in range(2):
-        for name, call in (
-                ("modnorm_relu_fwd", lambda i: kernels.modnorm_relu_fwd(
-                    sets[i][0], gamma, sets[i][2], None, b)),
-                ("modnorm_relu_fwd no-grad",
-                 lambda i: kernels.modnorm_relu_fwd(
-                     sets[i][0], gamma, sets[i][2], None, b, train=False)),
-                ("modnorm_relu_bwd", lambda i: kernels.modnorm_relu_bwd(
-                    sets[i][1], *sets[i][3:], gamma))):
-            ms = graph_ms(call, n_sets, iters)
-            t["device " + name] = min(ms, t.get("device " + name, ms))
-        y, xh, rstd = sets[0][3:]
-        for name, fn in (
-                ("modnorm_relu_fwd", lambda: kernels.modnorm_relu_fwd(
-                    x, gamma, s, None, b)),
-                ("modnorm_relu_bwd", lambda: kernels.modnorm_relu_bwd(
-                    g, y, xh, rstd, gamma)),
-                ("plain modnorm_relu_fwd",
-                 lambda: kernels.modnorm_relu_fwd_plain(x, gamma, s, None,
-                                                        b)),
-                ("plain modnorm_relu_bwd",
-                 lambda: kernels.modnorm_relu_bwd_plain(g, y, xh, rstd,
-                                                        gamma)),
-                ("chain fwd", lambda: chain(x, gamma, s, b)),
-                ("chain bwd", lambda: torch.autograd.grad(
-                    chain_y, leaves, g, retain_graph=True))):
-            ms = cuda_ms(fn, iters=iters, warmup=3)
-            t[name] = min(ms, t.get(name, ms))
-    return t
-
-
-def b3_phase(dev):
-    """B3 at the flagship's four modulated levels (bf16, batch 8: the train
-    step's and the sweep forward's shapes) on every plan, with s its own
-    tensor and a half of a wider one (--fix), then f32, unaligned and
-    boundary cases (b3_check); per level and per train step the device
-    time per launch against b3_bound_ms, the plain versions and the chain
-    B3 replaced.  Returns the kernels line's records of B3-fwd and
-    B3-bwd."""
-    from boxsegliver_torch.ops import kernels
-
-    bf16, f32 = torch.bfloat16, torch.float32
-    worst = dict.fromkeys(B3_KERNELS, 0.0)
-    cases = [(s, bf16, False, False) for s in B3_STEP_SHAPES] + [
-        (s, bf16, False, True) for s in B3_STEP_SHAPES] + [
-        ((2, 64, 32, 32), f32, False, False), ((2, 8, 128, 128), f32, False,
-                                               False),
-        ((2, 3, 8, 257), bf16, False, False), ((2, 3, 1, 2049), bf16, False,
-                                               False),
-        ((1, 2, 512, 512), bf16, False, False), ((2, 3, 7, 9), f32, False,
-                                                 False),
-        ((2, 64, 32, 32), bf16, True, False), ((2, 8, 64, 64), f32, True,
-                                               False)]
-    for i, (shape, dtype, unaligned, fix) in enumerate(cases):
-        errs = b3_check(shape, dtype, dev, seed=300 + i, unaligned=unaligned,
-                        fix=fix)
-        planes, hw = shape[0] * shape[1], math.prod(shape[2:])
-        plan = kernels.in_relu_fwd_plan(planes, hw, dtype, not unaligned)
-        bplan = kernels.in_relu_bwd_plan(planes, hw, dtype, not unaligned)
-        print(f"  B3 {str(shape):20s} {str(dtype)[6:]:8s} fwd "
-              f"{B2_FWD_PATHS[plan.path]}"
-              f"{f' x{plan.cluster}' if plan.cluster > 1 else ''}, bwd "
-              f"{b2_plan_name(bplan)}"
-              f"{' (unaligned x, g)' if unaligned else ''}"
-              f"{' (s a half of a wider tensor)' if fix else ''}; every "
-              f"plan; max abs err " + ", ".join(f"{k} {v:.3e}"
-                                               for k, v in errs.items()))
-        for k, v in errs.items():
-            worst[k] = max(worst[k], v)
-    recs = {n: {"name": n, "route": "cuda",
-                "source": "boxsegliver_torch/csrc/in_relu.cu",
-                "replaces": "boxsegliver_tpu/models/gunet.py:215-232 (norm, "
-                            "·γ, + s, ReLU; XLA)",
-                "max_abs_err": worst[n], "ms": 0.0, "device_ms": 0.0,
-                "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "bound_by": "bytes", "library_ms": 0.0, "shapes": {}}
-            for n in B3_KERNELS}
-    calls = sum(B3_STEP_SHAPES.values())
-    no_grad = {"device_ms": 0.0, "bound_ms": 0.0}
-    for shape, count in B3_STEP_SHAPES.items():
-        t = b3_times(shape, dev)
-        for n in B3_KERNELS:
-            bound, by = b3_bound_ms(n, shape)
-            d = t["device " + n]
-            lib = t["chain fwd" if n == "modnorm_relu_fwd" else "chain bwd"]
-            r = recs[n]
-            r["ms"] += count * t[n]
-            r["device_ms"] += count * d / calls
-            r["wrapper_ms"] += count * t[n] / calls
-            r["plain_ms"] += count * t["plain " + n]
-            r["library_ms"] += count * lib
-            r["bound_ms"] += count * bound
-            r["bound_by"] = by
-            r["shapes"][str(shape)] = {"device_ms": d, "bound_ms": bound,
-                                       "of_bound": bound / d}
-            print(f"  {str(shape):22s} {n:>18s} device {d:.5f} ms per "
-                  f"launch ({bound / d:.1%} of {bound:.5f}, {by}), wrapper "
-                  f"{t[n]:.4f}, plain {t['plain ' + n]:.4f}, chain {lib:.4f}")
-        both = t["device modnorm_relu_fwd"] + t["device modnorm_relu_bwd"]
-        d0 = t["device modnorm_relu_fwd no-grad"]
-        b0, _ = b3_bound_ms("modnorm_relu_fwd", shape, train=False)
-        no_grad["device_ms"] += count * d0
-        no_grad["bound_ms"] += count * b0
-        print(f"  {str(shape):22s} B3-fwd no-grad device {d0:.5f} ms per "
-              f"launch ({b0 / d0:.1%} of {b0:.5f}); B3 a step at this level "
-              f"{both:.5f} ms a block against the chain's "
-              f"{t['chain fwd'] + t['chain bwd']:.4f}")
-    step = sum(r["device_ms"] * calls for r in recs.values())
-    bound = sum(r["bound_ms"] for r in recs.values())
-    chain = sum(r["library_ms"] for r in recs.values())
-    print(f"  B3 per flagship train step ({calls} blocks): device {step:.4f} "
-          f"ms, {bound / step:.1%} of the 16 B bound {bound:.4f} ms; the "
-          f"chain it replaced {chain:.4f} ms; a sweep forward (no-grad) "
-          f"{no_grad['device_ms']:.4f} ms, "
-          f"{no_grad['bound_ms'] / no_grad['device_ms']:.1%} of the 6 B "
-          f"bound; {smi()}")
-    return recs
-
-
-# ---------------------------------------------------------------------------
 # phase 7c: B2 and B3 on their NHWC plans (G-Net's channels-last
 # activations), and what cudnn.benchmark alone does to cuDNN's transposes
 # ---------------------------------------------------------------------------
 
 NHWC_KERNELS = ("in_relu_fwd_nhwc", "in_relu_bwd_nhwc",
                 "modnorm_relu_fwd_nhwc", "modnorm_relu_bwd_nhwc")
-# B2's (fwd, bwd) and B3's: the NCHW kernel each NHWC one stands beside
+# B2's (fwd, bwd): the NCHW kernel each NHWC one stands beside (B3 has the
+# NHWC plans alone)
 NHWC_OF = {"in_relu_fwd_nhwc": "in_relu_fwd", "in_relu_bwd_nhwc":
-           "in_relu_bwd", "modnorm_relu_fwd_nhwc": "modnorm_relu_fwd",
-           "modnorm_relu_bwd_nhwc": "modnorm_relu_bwd"}
+           "in_relu_bwd"}
+
+# GUNet.yml's modulated blocks of one flagship train step (batch 8, 256^2,
+# bf16): the two convs of each encoder level 1-4; the guided sweep's
+# forward takes the same shapes (2 sweeps x 4 mirrors)
+B3_STEP_SHAPES = {(8, 128, 128, 128): 2, (8, 256, 64, 64): 2,
+                  (8, 512, 32, 32): 2, (8, 1024, 16, 16): 2}
+# float operations per element of B3 (GUNet.yml's block: center b, no
+# scale): fwd = 3 (sum, square, sum) + 2 (x − mean, · rstd) + 1 (+ b) + 2
+# (·γ, + s) + 1 (max); bwd = 1 (select) + 3 (two sums, one product) + 4 (two
+# subtractions, two products)
+B3_OPS = {"modnorm_relu_fwd_nhwc": 9, "modnorm_relu_bwd_nhwc": 8}
+
+
+def b3_inputs(shape, dtype, dev, seed):
+    """x, g and GUNet.yml's operands of B3: the context's γ [N, C], the
+    spatial term s (a tensor of its own, as the spatial conv gives each
+    block its half) and the norm's center b [C]; no scale."""
+    x, g, _, b = b2_inputs(shape, dtype, dev, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    n, c = shape[:2]
+    gamma = torch.randn((n, c), generator=gen, device=dev) * 0.5 + 1.0
+    wide = torch.randn((n, 2 * c) + tuple(shape[2:]), generator=gen,
+                       device=dev).to(dtype)
+    return x, g, gamma, wide[:, :c].contiguous(), b
+
+
+def b3_bound_ms(name, shape, train=True):
+    """(bound ms, bound_by) of one call: the function's least bytes, B2's
+    rule (portbench/flops.py): B3-fwd reads x and s and writes y (6 B a
+    bf16 element), B3-bwd reads g, y and x (x̂ taken from it again) and
+    writes dx and ds (10 B): 16 B an element a training step, 6 under
+    no-grad; the per-plane γ, rstd and sums besides, and B3_OPS at the
+    float32 non-tensor peak."""
+    n, c = shape[:2]
+    elems, esize = math.prod(shape), 2
+    planes = n * c * 4
+    io = {"modnorm_relu_fwd_nhwc": 3 * elems * esize + planes * (2 if train
+                                                                 else 1),
+          "modnorm_relu_bwd_nhwc": 5 * elems * esize + 4 * planes}[name] \
+        + c * 4
+    t_bytes = io / HBM_BYTES_PER_S * 1e3
+    t_ops = B3_OPS[name] * elems / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _cl(t):
@@ -1907,9 +1637,10 @@ def nhwc_plan_name(p):
 def nhwc_times(shape, dev, b3):
     """Device ms per launch at one bf16 shape (graph_ms over COLD_BYTES of
     inputs): the NHWC forward and backward under each plan of
-    nhwc_alternatives, the NCHW plans' on the same data, B3's forward under
-    no-grad; the chosen plans' and the plain versions' wrapper ms; and the
-    worst error of every plan against the plain versions (nhwc_check)."""
+    nhwc_alternatives, B2's NCHW plans' on the same data, B3's forward
+    under no-grad; the chosen plans' and the plain versions' wrapper ms;
+    and the worst error of every plan against the plain versions
+    (nhwc_check)."""
     from boxsegliver_torch.ops import kernels as K
 
     n, c = shape[:2]
@@ -1920,27 +1651,23 @@ def nhwc_times(shape, dev, b3):
     for i in range(n_sets):
         if b3:
             x, g, gamma, s, b = b3_inputs(shape, torch.bfloat16, dev, 11 + i)
-            w = None
-            y, xh, rstd = K.modnorm_relu_fwd(x, gamma, s, None, b)
+            w, sc = None, _cl(s)
+            yc, mean_c, rstd_c = K.modnorm_relu_fwd_nhwc(_cl(x), gamma, sc,
+                                                         None, b)
+            nchw = {}
         else:
             x, g, w, b = b2_inputs(shape, torch.bfloat16, dev, 11 + i)
-            gamma = s = None
-            y, xh, rstd = K.in_relu_fwd(x, w, b)
-        xc, sc = _cl(x), None if s is None else _cl(s)
-        _, mean_c, rstd_c = (K.modnorm_relu_fwd_nhwc(xc, gamma, sc, None, b)
-                             if b3 else K.in_relu_fwd_nhwc(xc, w, b))
-        sets.append(dict(x=x, g=g, y=y, xh=xh, rstd=rstd, s=s, xc=xc,
-                         gc=_cl(g), yc=_cl(y), sc=sc, mean_c=mean_c,
-                         rstd_c=rstd_c))
+            gamma = sc = yc = None
+            _, xh, rstd = K.in_relu_fwd(x, w, b)
+            _, mean_c, rstd_c = K.in_relu_fwd_nhwc(_cl(x), w, b)
+            nchw = dict(x=x, g=g, xh=xh, rstd=rstd)
+        sets.append(dict(nchw, xc=_cl(x), gc=_cl(g), yc=yc, sc=sc,
+                         mean_c=mean_c, rstd_c=rstd_c))
     if b3:
-        fwd = lambda i, p=None, nchw=False, train=True: (  # noqa: E731
-            K.modnorm_relu_fwd(sets[i]["x"], gamma, sets[i]["s"], None, b,
-                               train=train) if nchw else
+        fwd = lambda i, p=None, train=True: (  # noqa: E731
             K.modnorm_relu_fwd_nhwc(sets[i]["xc"], gamma, sets[i]["sc"], None,
                                     b, train=train, plan=p))
-        bwd = lambda i, p=None, nchw=False: (  # noqa: E731
-            K.modnorm_relu_bwd(sets[i]["g"], sets[i]["y"], sets[i]["xh"],
-                               sets[i]["rstd"], gamma) if nchw else
+        bwd = lambda i, p=None: (  # noqa: E731
             K.modnorm_relu_bwd_nhwc(sets[i]["gc"], sets[i]["yc"],
                                     sets[i]["xc"], sets[i]["mean_c"],
                                     sets[i]["rstd_c"], gamma, plan=p))
@@ -1962,8 +1689,9 @@ def nhwc_times(shape, dev, b3):
             for name, p in alts[d].items():
                 ms = graph_ms(lambda i, p=p: fn(i, p), n_sets, iters)
                 t[f"{d} {name}"] = min(ms, t.get(f"{d} {name}", ms))
-            ms = graph_ms(lambda i: fn(i, nchw=True), n_sets, iters)
-            t[f"{d} nchw"] = min(ms, t.get(f"{d} nchw", ms))
+            if not b3:
+                ms = graph_ms(lambda i: fn(i, nchw=True), n_sets, iters)
+                t[f"{d} nchw"] = min(ms, t.get(f"{d} nchw", ms))
         if b3:
             ms = graph_ms(lambda i: fwd(i, train=False), n_sets, iters)
             t["fwd no-grad"] = min(ms, t.get("fwd no-grad", ms))
@@ -2090,17 +1818,19 @@ def nhwc_phase(dev):
     (bf16, batch 8: B2 at levels 0-3, B3 at 1-4): every plan checked against
     the plain versions (nhwc_check), each plan's device time per launch, the
     chosen one against the bound (b2_bound_ms: 4 B an element forward, 6 B
-    backward; b3_bound_ms: 6 and 10 B), the NCHW plans' time on the same
+    backward; b3_bound_ms: 6 and 10 B), B2's NCHW plans' time on the same
     data and the plain versions'; per train step against the benchmark's
     bounds (B2 10 B an element, B3 16 B); then channel_sums_phase and
     cudnn_transposes.  Returns the kernels line's records of the four NHWC
     kernels and channel_sums_nhwc (library_ms None: no single PyTorch call
-    does what an NHWC plan does; the NCHW plans' times are under
+    does what an NHWC plan does; B2's NCHW plans' times are under
     ``shapes``)."""
     recs = {n: {"name": n, "route": "cuda",
                 "source": "boxsegliver_torch/csrc/in_relu.cu",
-                "replaces": f"{NHWC_OF[n]}'s function on channels-last "
-                            "operands",
+                "replaces": (f"{NHWC_OF[n]}'s function on channels-last "
+                             "operands" if n in NHWC_OF else
+                             "boxsegliver_tpu/models/gunet.py:215-232 (norm, "
+                             "·γ, + s, ReLU; XLA)"),
                 "max_abs_err": 0.0, "ms": 0.0, "device_ms": 0.0,
                 "wrapper_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "bound_by": "bytes", "library_ms": None, "shapes": {}}
@@ -2119,10 +1849,7 @@ def nhwc_phase(dev):
                                      if isinstance(v, float)
                                      and not k.startswith("err")))
             for d, n in zip(("fwd", "bwd"), names):
-                if b3:
-                    bound, by = b3_bound_ms(NHWC_OF[n], shape)
-                else:
-                    bound, by = b2_bound_ms(n, shape)
+                bound, by = (b3_bound_ms if b3 else b2_bound_ms)(n, shape)
                 dev_ms = t[f"{d} chosen"]
                 r = recs[n]
                 r["max_abs_err"] = max(r["max_abs_err"], t[f"err {d}"])
@@ -2132,24 +1859,26 @@ def nhwc_phase(dev):
                 r["plain_ms"] += count * t[f"plain {d}"]
                 r["bound_ms"] += count * bound
                 r["bound_by"] = by
+                nchw = t.get(f"{d} nchw")
                 r["shapes"][str(shape)] = {
                     "device_ms": dev_ms, "bound_ms": bound,
-                    "of_bound": bound / dev_ms, "nchw_ms": t[f"{d} nchw"],
+                    "of_bound": bound / dev_ms, "nchw_ms": nchw,
                     "plain_ms": t[f"plain {d}"]}
                 print(f"    {n:22s} device {dev_ms:.5f} ms per launch "
-                      f"({bound / dev_ms:.1%} of {bound:.5f}, {by}); NCHW "
-                      f"plan {t[f'{d} nchw']:.5f}; plain "
-                      f"{t[f'plain {d}']:.4f}")
+                      f"({bound / dev_ms:.1%} of {bound:.5f}, {by}); "
+                      + ("" if nchw is None else f"NCHW plan {nchw:.5f}; ")
+                      + f"plain {t[f'plain {d}']:.4f}")
                 step[fam][0] += count * dev_ms
-                step[fam][1] += count * t[f"{d} nchw"]
+                step[fam][1] += count * (nchw or 0.0)
             elems = math.prod(shape)
             step[fam][2] += count * elems * (16 if b3 else 10) / \
                 HBM_BYTES_PER_S * 1e3
     for fam, (nhwc, nchw, bound) in step.items():
         print(f"  {fam.upper()} per flagship train step: NHWC plans "
               f"{nhwc:.4f} ms ({bound / nhwc:.1%} of the benchmark's "
-              f"{'16' if fam == 'b3' else '10'} B bound {bound:.4f} ms), "
-              f"NCHW plans {nchw:.4f} ms ({bound / nchw:.1%})")
+              f"{'16' if fam == 'b3' else '10'} B bound {bound:.4f} ms)"
+              + (f", NCHW plans {nchw:.4f} ms ({bound / nchw:.1%})"
+                 if nchw else ""))
     recs["channel_sums_nhwc"] = channel_sums_phase(dev)
     cudnn_transposes(dev)
     print(f"  {smi()}")
@@ -2264,8 +1993,8 @@ def train_kernels(shapes=None, b3=None):
     channels-last, B2 and B3 on their NHWC plans."""
     b3 = shapes is None if b3 is None else b3
     counts = {**b2_train_counts(shapes or B2_STEP_SHAPES, 1),
-              **({"modnorm_relu_fwd": 1, "modnorm_relu_bwd": 1} if b3
-                 else {})}
+              **({"modnorm_relu_fwd_nhwc": 1, "modnorm_relu_bwd_nhwc": 1}
+                 if b3 else {})}
     if shapes is None:
         counts = nhwc_counts(counts)
     return ("gaussian_guide_batch",) + tuple(n for n, c in counts.items()
@@ -2319,14 +2048,10 @@ def train_run(argv, steps_expected, b3=True):
                                  "least, 0 if 0)")
     # B3: one B3-fwd a forward and one B3-bwd a backward for each of
     # GUNet.yml's 8 modulated blocks, where B2 runs its 10 pairs: exactly
-    # 8/10 of B2's forwards and backwards, at least 8 a step; the NCHW
-    # plans none
+    # 8/10 of B2's forwards and backwards, at least 8 a step
     want = {"modnorm_relu_fwd_nhwc": launches["in_relu_fwd_nhwc"],
             "modnorm_relu_bwd_nhwc": launches["in_relu_bwd_nhwc"]} if b3 \
         else {}
-    if launches["modnorm_relu_fwd"] or launches["modnorm_relu_bwd"]:
-        raise AssertionError(f"B3's NCHW plans launched in a GUNet train "
-                             f"run: {launches}")
     for n, c in want.items():
         if (launches[n] * GUNET_B2_PAIRS != c * GUNET_MOD_BLOCKS
                 or launches[n] < GUNET_MOD_BLOCKS * steps_expected):
@@ -3385,8 +3110,7 @@ def expect_b3_forwards(what, launches):
     channels-last), and no B3-bwd."""
     fwd, b2 = launches["modnorm_relu_fwd_nhwc"], launches["in_relu_fwd_nhwc"]
     if not fwd or fwd * GUNET_B2_PAIRS != b2 * GUNET_MOD_BLOCKS or any(
-            launches[n] for n in ("modnorm_relu_bwd", "modnorm_relu_bwd_nhwc",
-                                  "modnorm_relu_fwd", "in_relu_fwd")):
+            launches[n] for n in ("modnorm_relu_bwd_nhwc", "in_relu_fwd")):
         raise AssertionError(f"{what}: B3 launches {launches}, expected "
                              f"{GUNET_MOD_BLOCKS} B3-fwd for every "
                              f"{GUNET_B2_PAIRS} B2-fwd and no B3-bwd")
@@ -5584,8 +5308,8 @@ def iin_train_phase(tmp, ds):
     expect_launches("nf2 train", launches, nhwc_counts({
         "gaussian_guide_batch": IIN_STEPS + evals,
         **b2_train_counts(IIN_B2_STEP_SHAPES, IIN_STEPS, evals),
-        "modnorm_relu_fwd": GUNET_MOD_BLOCKS * (IIN_STEPS + evals),
-        "modnorm_relu_bwd": GUNET_MOD_BLOCKS * IIN_STEPS}))
+        "modnorm_relu_fwd_nhwc": GUNET_MOD_BLOCKS * (IIN_STEPS + evals),
+        "modnorm_relu_bwd_nhwc": GUNET_MOD_BLOCKS * IIN_STEPS}))
     loss, dice = _train_log(md, eval_steps=(6, 12))
     print(f"  nf2 train (004_gnet_iin.sh flags): {IIN_STEPS} steps of 8 x "
           f"256^2 in {seconds:.2f} s (with set-up and two online evals of "
@@ -5613,13 +5337,13 @@ def iin_train_phase(tmp, ds):
             expect_launches("nf2 steady warm-up", warm, nhwc_counts({
                 "gaussian_guide_batch": 3,
                 **b2_train_counts(IIN_B2_STEP_SHAPES, 3),
-                "modnorm_relu_fwd": 3 * GUNET_MOD_BLOCKS,
-                "modnorm_relu_bwd": 3 * GUNET_MOD_BLOCKS}))
+                "modnorm_relu_fwd_nhwc": 3 * GUNET_MOD_BLOCKS,
+                "modnorm_relu_bwd_nhwc": 3 * GUNET_MOD_BLOCKS}))
         elif any(cnt["gaussian_guide_batch"] != 1
                  or any(cnt[n] != v for n, v in nhwc_counts({
                      **b2_train_counts(IIN_B2_STEP_SHAPES, 1),
-                     "modnorm_relu_fwd": GUNET_MOD_BLOCKS,
-                     "modnorm_relu_bwd": GUNET_MOD_BLOCKS}).items())
+                     "modnorm_relu_fwd_nhwc": GUNET_MOD_BLOCKS,
+                     "modnorm_relu_bwd_nhwc": GUNET_MOD_BLOCKS}).items())
                  for cnt in replay.values()):
             raise AssertionError(f"nf2 K=16 replay launches {replay}")
     for k in (1, 16):
@@ -5664,7 +5388,7 @@ def iin_eval_phase(tmp, ds, md):
         expect_launches(f"nf2 eval ({name})", launches, nhwc_counts({
             "gaussian_guide_batch": sum(batches),
             "in_relu_fwd": IIN_BLOCKS * sum(batches),
-            "modnorm_relu_fwd": GUNET_MOD_BLOCKS * sum(batches)}))
+            "modnorm_relu_fwd_nhwc": GUNET_MOD_BLOCKS * sum(batches)}))
         if not all(math.isfinite(v) for v in res.values()):
             raise AssertionError(f"nf2 eval ({name}): {res}")
         per_case = np.diff([t0] + timer)
@@ -5683,7 +5407,7 @@ def iin_eval_phase(tmp, ds, md):
         str(meta["PID"]), "--pos", str(sid), str(y), str(x))))
     expect_launches("nf2 infer --pos", launches, nhwc_counts({
         "gaussian_guide_batch": 1, "in_relu_fwd": IIN_BLOCKS,
-        "modnorm_relu_fwd": GUNET_MOD_BLOCKS}))
+        "modnorm_relu_fwd_nhwc": GUNET_MOD_BLOCKS}))
     with np.load(out["infer_path"]) as z:
         if z["prob"].shape != (256, 256, 2) or not np.isfinite(
                 z["prob"]).all():
@@ -5888,7 +5612,8 @@ def iin_phase(tmp, dev, seed):
     *_, per_req = serve_bundle(bundle, "nf2 bundle (GUNet_IIN.yml)",
                                requests=1, seed=seed)
     expect_launches("nf2 serving", per_req, nhwc_counts({
-        "in_relu_fwd": IIN_BLOCKS, "modnorm_relu_fwd": GUNET_MOD_BLOCKS}))
+        "in_relu_fwd": IIN_BLOCKS,
+        "modnorm_relu_fwd_nhwc": GUNET_MOD_BLOCKS}))
     paths["serve (nf2 export)"] = {n: int(v) for n, v in per_req.items()}
     ev_args = iin_card_vs_cpu(tmp, ds, dev, seed)
     b1_err = iin_guides_card_vs_cpu(tmp, ds, dev, seed, ev_args)
@@ -7309,11 +7034,10 @@ def main(argv=None):
         print("[6/25] profile of one case's sweep (steady state)")
         profile_sweep(tmp, ds)
         elapsed(t_start)
-        print("[7/25] kernels B2 and B3 vs plain; their NHWC plans; cuDNN's "
-              "transposes")
+        print("[7/25] kernel B2 vs plain; B2 and B3 on their NHWC plans; "
+              "cuDNN's transposes")
         b2 = b2_phase(dev)
         nf_b2 = b2_nf_levels(dev)
-        b3 = b3_phase(dev)
         nhwc = nhwc_phase(dev)
         elapsed(t_start)
         print("[8/25] flagship G-Net training through the CLI")
@@ -7427,17 +7151,12 @@ def main(argv=None):
     g1["launches"] = paths["click eval on geodesic"][g1["name"]]
     recs.append(g1)
     recs += [split_recs[n] for n in SPLIT_KERNELS]
-    # B3's NCHW plans have no main path left (GUNet is channels-last, or
-    # sharded on B3's split form): their launches are the card tests' alone
-    for n in B3_KERNELS:
-        b3[n]["launches"] = launches[n]
-        recs.append(b3[n])
     # B2's and B3's NHWC plans and the conv biases' channel sums: the
     # flagship train step
     for n in NHWC_KERNELS + ("channel_sums_nhwc",):
         nhwc[n]["launches"] = launches[n]
         recs.append(nhwc[n])
-    if not all(r["launches"] for r in recs if r["name"] not in B3_KERNELS):
+    if not all(r["launches"] for r in recs):
         raise AssertionError("a kernel did not launch on its main path: "
                              + str({r["name"]: r["launches"] for r in recs}))
     for r in recs:

@@ -6,6 +6,8 @@ they run without the repo's JAX conftest:
 
 Where torch sees no GPU each test skips itself with the reason."""
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -337,11 +339,21 @@ def test_b2_bwd_refuses_a_plan_that_does_not_fit(dev):
 
 
 # ---------------------------------------------------------------------------
-# kernel B3: G-Net's modulated block, norm -> * gamma -> + s -> ReLU, against
-# its plain version at B2's tolerances (y, x_hat and dx rounded once to
-# their dtype; a and b float32 plane sums in another order); ds is g_m, a
-# masked copy of g, and must be equal
+# B2 and B3 on their NHWC plans (channels-last operands, GUNet's), against
+# the plain versions at B2's tolerances (y and dx rounded once to their
+# dtype; the plane sums float32 sums in another order), equal from run to
+# run; B3's ds is g_m, a masked copy of g, and must be equal.  B3 has the
+# NHWC plans alone; B2's are also held within one rounding of its NCHW
+# plans on the same data
 # ---------------------------------------------------------------------------
+
+def _cl(t):
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+def _is_cl(t):
+    return t.is_contiguous(memory_format=torch.channels_last)
+
 
 def _b3_inputs(shape, dtype, dev, seed=0, gamma=True, s=True, weight=False,
                bias=True):
@@ -358,233 +370,29 @@ def _b3_inputs(shape, dtype, dev, seed=0, gamma=True, s=True, weight=False,
             w if weight else None, b if bias else None)
 
 
-def _check_b3(x, g, gamma, s, w, b, fwd_plan=None, bwd_plan=None):
-    """B3-fwd and B3-bwd against their plain versions, and the backward
-    twice: bit-equal from run to run."""
-    n0 = {k: kernels.KERNELS[k].launches
-          for k in ("modnorm_relu_fwd", "modnorm_relu_bwd")}
-    y, xh, rstd = kernels.modnorm_relu_fwd(x, gamma, s, w, b)
-    y_p, xh_p, rstd_p = kernels.modnorm_relu_fwd_plain(x, gamma, s, w, b)
-    bwd = kernels.modnorm_relu_bwd(g, y_p, xh_p, rstd_p, gamma, w,
-                                   plan=bwd_plan)
-    again = kernels.modnorm_relu_bwd(g, y_p, xh_p, rstd_p, gamma, w,
-                                     plan=bwd_plan)
-    ref = kernels.modnorm_relu_bwd_plain(g, y_p, xh_p, rstd_p, gamma, w)
-    torch.cuda.synchronize()
-    assert {k: kernels.KERNELS[k].launches - v for k, v in n0.items()} == {
-        "modnorm_relu_fwd": 1, "modnorm_relu_bwd": 2}
-    dtype = x.dtype
-    assert y.dtype == xh.dtype == bwd[0].dtype == bwd[1].dtype == dtype
-    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
-    torch.testing.assert_close(y.float(), y_p.float(), **_TOL[dtype])
-    torch.testing.assert_close(xh.float(), xh_p.float(), **_TOL[dtype])
-    hw = int(np.prod(x.shape[2:]))
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-    _b2_close(bwd[0], ref[0], rel, 1e-5)
-    assert torch.equal(bwd[1], ref[1])
-    for got, want in zip(bwd[2:], ref[2:]):
-        _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
-    for a, b_ in zip(again, bwd):
-        assert torch.equal(a, b_)
-
-
-# GUNet.yml's four modulated levels at batch 8 (the flagship's train step
-# and the guided sweep's forward: 2 sweeps x 4 mirrors), bf16
-B3_LEVELS = [(8, 128, 128, 128), (8, 256, 64, 64), (8, 512, 32, 32),
-             (8, 1024, 16, 16)]
-
-
-@pytest.mark.parametrize("shape", B3_LEVELS)
-def test_b3_at_the_flagship_levels_matches_plain(dev, shape):
-    """GUNet.yml's block (context γ, spatial s, center only), then s as a
-    tensor of its own (the spatial conv's half for each block)."""
-    ops = _b3_inputs(shape, torch.bfloat16, dev, seed=shape[1])
-    _check_b3(*ops)
-    x, g, gamma, s, w, b = ops
-    _check_b3(x, g, gamma, s.contiguous(), w, b)
-
-
-@pytest.mark.parametrize("gamma,s,weight,bias", [
-    (True, True, True, True), (True, False, False, True),
-    (False, True, True, False), (False, False, False, False),
-    (True, True, True, False)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_b3_optional_operands_match_plain(dev, gamma, s, weight, bias,
-                                          dtype):
-    _check_b3(*_b3_inputs((3, 16, 32, 32), dtype, dev, seed=11, gamma=gamma,
-                          s=s, weight=weight, bias=bias))
-
-
-# B3-fwd on each path of in_relu_fwd_plan and B3-bwd on each of
-# in_relu_bwd_plan, one element either side of the boundaries
-_B3_PATHS = [
-    ((1, 3, 8, 256), _BF, _W, _W), ((1, 3, 8, 257), _BF, _S, _S),
-    ((1, 3, 1, 2049), _BF, kernels.FWD_GENERAL, _X),
-    ((1, 3, 32, 32), _F, _W, _W), ((1, 3, 4, 257), _F, _S, _S),
-    ((1, 3, 1, 1025), _F, kernels.FWD_GENERAL, _X),
-    ((1, 3, 128, 258), _BF, _S, _S), ((2, 3, 256, 256), _BF, _S, _S),
-    ((1, 2, 512, 512), _BF, _S, _S), ((1, 2, 256, 256), _F, _S, _S),
-    ((1, 2, 384, 1025), _BF, kernels.FWD_GENERAL, _X),
-    ((1, 2, 512, 512), _F, kernels.FWD_GENERAL, _X),
-    ((2, 3, 7, 9), _F, kernels.FWD_GENERAL, _X),
-    ((1, 4, 5, 3, 33), _BF, kernels.FWD_GENERAL, _X)]
-
-
-@pytest.mark.parametrize("shape,dtype,fwd,bwd", _B3_PATHS)
-def test_b3_paths_match_plain(dev, shape, dtype, fwd, bwd):
-    n, c = shape[:2]
-    hw = int(np.prod(shape[2:]))
-    assert kernels.in_relu_fwd_plan(n * c, hw, dtype).path == fwd
-    assert kernels.in_relu_bwd_plan(n * c, hw, dtype).path == bwd
-    ops = _b3_inputs(shape, dtype, dev, seed=hw % 89, weight=True)
-    _check_b3(*ops)
-    # the split plan, and the first design (one CTA a plane), everywhere
-    for spread in (True, False):
-        _check_b3(*ops, bwd_plan=kernels.in_relu_bwd_split_plan(
-            n * c, hw, dtype, True, spread))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_b3_unaligned_operands(dev, dtype):
-    """x and g at an odd element offset: the general forward and the split
-    backward on single elements."""
-    x, g, gamma, s, w, b = _b3_inputs((2, 4, 32, 32), dtype, dev, seed=4)
-
-    def odd(t):
-        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
-        flat[1:] = t.flatten()
-        return flat[1:].view(t.shape)
-
-    xu, gu = odd(x), odd(g)
-    assert xu.is_contiguous() and xu.data_ptr() % 16
-    _check_b3(xu, gu, gamma, s, w, b)
-
-
-def test_b3_no_grad_writes_y_alone(dev):
-    """Under no-grad (the sweep's forward) B3-fwd writes only y, equal to
-    the training forward's; modulated_norm_relu takes that form."""
-    x, _, gamma, s, w, b = _b3_inputs((8, 256, 64, 64), torch.bfloat16, dev)
-    gamma = gamma.bfloat16().float()        # the context's values, in bf16
-    y, xh, rstd = kernels.modnorm_relu_fwd(x, gamma, s, w, b, train=False)
-    y_t, _, _ = kernels.modnorm_relu_fwd(x, gamma, s, w, b)
-    assert xh.numel() == rstd.numel() == 0
-    assert torch.equal(y, y_t)
-    n0 = kernels.modnorm_relu_fwd.launches
-    with torch.no_grad():
-        y_m = kernels.modulated_norm_relu(x, gamma.bfloat16(), s, None, b)
-    assert kernels.modnorm_relu_fwd.launches == n0 + 1
-    assert torch.equal(y_m, y)
-
-
-def test_b3_autograd_matches_plain(dev):
-    """ModulatedNormReLU on the card against the CPU's (plain) Function:
-    dx, dγ, ds, dw, db, float32."""
-    ops = _b3_inputs((2, 8, 24, 20), torch.float32, dev, seed=3, weight=True)
-    x, g = ops[0], ops[1]
-    leaves = [t.detach().clone().requires_grad_(True) for t in
-              (x, ops[2], ops[3].contiguous(), ops[4], ops[5])]
-    y = kernels.modulated_norm_relu(*leaves)
-    got = torch.autograd.grad(y, leaves, g)
-    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
-    ref = torch.autograd.grad(kernels.modulated_norm_relu(*cpu), cpu,
-                              g.cpu())
-    for a, r in zip(got, ref):
-        torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=1e-4)
-
-
-def test_b3_refuses_what_it_does_not_take(dev):
-    x, g, gamma, s, w, b = _b3_inputs((2, 4, 8, 8), torch.float32, dev)
-    y, xh, rstd = kernels.modnorm_relu_fwd_plain(x, gamma, s, w, b)
-    with pytest.raises(TypeError):
-        kernels.modnorm_relu_fwd(x.half(), gamma, None, w, b)
-    with pytest.raises(ValueError):
-        kernels.modnorm_relu_fwd(x, gamma.t().contiguous(), s, w, b)
-    with pytest.raises(ValueError):
-        kernels.modnorm_relu_fwd(x, gamma, s.bfloat16(), w, b)
-    plan = kernels.in_relu_bwd_plan(8, 64, torch.float32)
-    with pytest.raises(RuntimeError, match="modnorm_relu_bwd launch failed"):
-        kernels.modnorm_relu_bwd(g, y, xh, rstd, gamma, w,
-                                 plan=plan._replace(packs=0))
-
-
-def test_gunet_yml_step_launches_b3_per_modulated_block(dev):
-    """GUNet.yml (bf16, 64^2, batch 2): a train step launches B3-fwd and
-    B3-bwd once for each of its 8 modulated blocks and B2 for its 10 other
-    norm + ReLU pairs; a no-grad forward (the sweep's) B3-fwd 8 times."""
-    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
-
-    model = build_model("GUNet", model_kwargs=dict(
-        MODEL_CONFIGS["GUNet.yml"], use_context=True, use_spatial=True,
-        normalizer="instance_norm", in_channels=3, context_length=200),
-        num_classes=3, dtype=torch.bfloat16)
-    model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
-    rng = np.random.default_rng(0)
-    feats = {"images": rng.normal(size=(2, 64, 64, 3)),
-             "sp_guide": rng.uniform(0.5, 1.0, (2, 64, 64, 1)),
-             "context": rng.normal(size=(2, 200))}
-    feats = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
-             for k, v in feats.items()}
-    kernels.reset_launch_counts()
-    model(feats, train=True).square().mean().backward()
-    torch.cuda.synchronize()
-    counts = {n: f.launches for n, f in kernels.KERNELS.items()}
-    # GUNet's activations are channels-last: B2 and B3 on their NHWC plans
-    assert (counts["modnorm_relu_fwd_nhwc"] == counts["modnorm_relu_bwd_nhwc"]
-            == 8)
-    assert counts["in_relu_fwd_nhwc"] == counts["in_relu_bwd_nhwc"] == 10
-    assert not any(counts[k] for k in (
-        "in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats", "in_relu_bwd_apply",
-        "modnorm_relu_fwd", "modnorm_relu_bwd"))
-    # the biases of the 8 spatial half convs, 4 transpose convs and the
-    # head take their gradients from the channel sums
-    assert kernels.channel_sums_nhwc.launches == 13
-    grads = [p.grad for p in model.parameters()]
-    assert all(g_ is not None and bool(torch.isfinite(g_).all())
-               for g_ in grads)
-    kernels.reset_launch_counts()
-    with torch.no_grad():
-        model(feats)
-    assert kernels.modnorm_relu_fwd_nhwc.launches == 8
-    assert kernels.in_relu_fwd_nhwc.launches == 10
-    assert kernels.modnorm_relu_bwd_nhwc.launches == 0
-    assert kernels.modnorm_relu_fwd.launches == kernels.in_relu_fwd.launches \
-        == 0
-
-
-# ---------------------------------------------------------------------------
-# B2 and B3 on their NHWC plans (channels-last operands, GUNet's), against
-# the plain versions at the tolerances above, equal from run to run, and
-# within one bf16 rounding of the NCHW plans on the same data
-# ---------------------------------------------------------------------------
-
-def _cl(t):
-    return t.contiguous(memory_format=torch.channels_last)
-
-
-def _is_cl(t):
-    return t.is_contiguous(memory_format=torch.channels_last)
-
-
 # G-Net's five levels at batch 8 (GUNet.yml, 256^2, bf16), and ragged
 # shapes: rows that no CTA's row groups divide, one sample, 8 channels, a
-# tile of 8 channels (24), channels that take one element a thread (30, 3)
+# tile of 8 channels (24), channels that take one element a thread (30, 3);
+# one channel and one pixel, where a channels-last tensor is also contiguous
 NHWC_LEVELS = [(8, 64, 256, 256), (8, 128, 128, 128), (8, 256, 64, 64),
                (8, 512, 32, 32), (8, 1024, 16, 16)]
 NHWC_SHAPES = ([(s, _BF) for s in NHWC_LEVELS]
                + [((2, 64, 13, 11), _BF), ((1, 128, 33, 31), _BF),
                   ((3, 8, 17, 9), _BF), ((2, 24, 5, 7), _BF),
                   ((2, 30, 9, 10), _BF), ((2, 64, 13, 11), _F),
-                  ((1, 3, 16, 16), _F)])
+                  ((1, 3, 16, 16), _F), ((2, 1, 16, 16), _BF),
+                  ((2, 1, 16, 16), _F), ((4, 64, 1, 1), _BF),
+                  ((4, 64, 1, 1), _F)])
 
 
-def _nhwc_plans(shape, dtype, arrays, grad=False):
+def _nhwc_plans(shape, dtype, arrays, grad=False, aligned=True):
     """The default plan, and the split plan where the default is staged."""
     n, c, h, w = shape
     plans = [None]
-    if kernels.in_relu_nhwc_plan(n, c, h * w, dtype, True, arrays,
+    if kernels.in_relu_nhwc_plan(n, c, h * w, dtype, aligned, arrays,
                                  grad).path == kernels.NHWC_STAGED:
         plans.append(kernels.in_relu_nhwc_split_plan(n, c, h * w, dtype,
-                                                     True, grad))
+                                                     aligned, grad))
     return plans
 
 
@@ -630,50 +438,193 @@ def test_b2_nhwc_matches_plain(dev, shape, dtype):
         torch.testing.assert_close(y.float(), y_nchw.float(), **tol)
 
 
+def _check_b3(x, g, gamma, s, w, b, fp=None, bp=None):
+    """B3-fwd on channels-last x under plan ``fp`` twice and under no-grad
+    (y alone, the training y), B3-bwd under ``bp`` twice (None: the
+    default plans), against the plain versions, the backward's on the x̂
+    the forward's statistics give; bit-equal from run to run."""
+    dtype = x.dtype
+    hw = x.shape[2] * x.shape[3]
+    tol = _TOL[dtype]
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    y_p, mean_p, rstd_p = kernels.modnorm_relu_fwd_nhwc_plain(x, gamma, s, w,
+                                                              b)
+    before = _nhwc_counts()
+    fwd = [kernels.modnorm_relu_fwd_nhwc(x, gamma, s, w, b, plan=fp)
+           for _ in range(2)]
+    y_ng, mean_ng, rstd_ng = kernels.modnorm_relu_fwd_nhwc(
+        x, gamma, s, w, b, train=False, plan=fp)
+    y, mean, rstd = fwd[0]
+    ref = kernels.modnorm_relu_bwd_plain(g, y, kernels._xhat(x, mean, rstd),
+                                         rstd, gamma, w)
+    bwd = [kernels.modnorm_relu_bwd_nhwc(g, y, x, mean, rstd, gamma, w,
+                                         plan=bp) for _ in range(2)]
+    torch.cuda.synchronize()
+    after = _nhwc_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] > before[k]
+            } == {"modnorm_relu_fwd_nhwc": 3, "modnorm_relu_bwd_nhwc": 2}
+    dx, ds, a, b_ = bwd[0]
+    assert y.dtype == dx.dtype == ds.dtype == dtype
+    assert _is_cl(y) and _is_cl(dx) and _is_cl(ds)
+    torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(y.float(), y_p.float(), **tol)
+    assert mean_ng.numel() == rstd_ng.numel() == 0
+    assert torch.equal(y_ng, y)
+    _b2_close(dx, ref[0], rel, 1e-5)
+    assert torch.equal(ds, ref[1])
+    for got, want in ((a, ref[2]), (b_, ref[3])):
+        _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
+    for one, two in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(one, two)
+
+
 @pytest.mark.parametrize("shape,dtype", NHWC_SHAPES)
 def test_b3_nhwc_matches_plain(dev, shape, dtype):
     """GUNet.yml's block (context γ, spatial s, center) with s the first
-    channel half of a channels-last tensor, read in place; the backward
-    against the plain one on the x̂ the forward's statistics give."""
+    channel half of a channels-last tensor, read in place, on every plan."""
     x, g, gamma, s, w, b = _b3_inputs(shape, dtype, dev, seed=shape[1])
     c = shape[1]
     s_cl = _cl(torch.cat([s, torch.zeros_like(s)], dim=1))[:, :c]
-    y_p, mean_p, rstd_p = kernels.modnorm_relu_fwd_nhwc_plain(x, gamma, s, w,
-                                                              b)
-    y_nchw = kernels.modnorm_relu_fwd(x, gamma, s, w, b)[0]
-    hw = shape[2] * shape[3]
-    tol = _TOL[dtype]
-    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     for fp, bp in zip(_nhwc_plans(shape, dtype, 2),
                       _nhwc_plans(shape, dtype, 3, True)):
-        before = _nhwc_counts()
-        fwd = [kernels.modnorm_relu_fwd_nhwc(_cl(x), gamma, s_cl, w, b,
-                                             plan=fp) for _ in range(2)]
-        y_ng = kernels.modnorm_relu_fwd_nhwc(_cl(x), gamma, s_cl, w, b,
-                                             train=False, plan=fp)[0]
-        y, mean, rstd = fwd[0]
-        xh = kernels._xhat(x, mean, rstd)
-        ref = kernels.modnorm_relu_bwd_plain(g, y, xh, rstd, gamma, w)
-        bwd = [kernels.modnorm_relu_bwd_nhwc(_cl(g), y, _cl(x), mean, rstd,
-                                             gamma, w, plan=bp)
-               for _ in range(2)]
-        torch.cuda.synchronize()
-        after = _nhwc_counts()
-        assert {k: after[k] - before[k] for k in after if after[k] > before[k]
-                } == {"modnorm_relu_fwd_nhwc": 3, "modnorm_relu_bwd_nhwc": 2}
-        dx, ds, a, b_ = bwd[0]
-        assert _is_cl(y) and _is_cl(dx) and _is_cl(ds)
-        torch.testing.assert_close(rstd, rstd_p, rtol=1e-5, atol=0)
-        torch.testing.assert_close(mean, mean_p, rtol=1e-5, atol=1e-5)
-        torch.testing.assert_close(y.float(), y_p.float(), **tol)
-        assert torch.equal(y_ng, y)
-        _b2_close(dx, ref[0], rel, 1e-5)
-        assert torch.equal(ds, ref[1])
-        for got, want in ((a, ref[2]), (b_, ref[3])):
-            _b2_close(got, want, 1e-4, 1e-6 * hw ** 0.5)
-        for one, two in zip(fwd[0] + bwd[0], fwd[1] + bwd[1]):
-            assert torch.equal(one, two)
-        torch.testing.assert_close(y.float(), y_nchw.float(), **tol)
+        _check_b3(_cl(x), _cl(g), gamma, s_cl, w, b, fp, bp)
+
+
+@pytest.mark.parametrize("gamma,s,weight,bias",
+                         list(itertools.product((True, False), repeat=4)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_optional_operands_match_plain(dev, gamma, s, weight, bias,
+                                          dtype):
+    """Every combination of γ, s, w and b; s a channel slice of an NCHW
+    tensor, which the launch copies channels-last."""
+    x, g, *ops = _b3_inputs((3, 16, 32, 32), dtype, dev, seed=11,
+                            gamma=gamma, s=s, weight=weight, bias=bias)
+    _check_b3(_cl(x), _cl(g), *ops)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_unaligned_operands(dev, dtype):
+    """Channels-last x and g at an odd element offset: one element a
+    thread, on the staged plan and the split plan."""
+    shape = (2, 32, 16, 16)
+    x, g, gamma, s, w, b = _b3_inputs(shape, dtype, dev, seed=4)
+
+    def odd(t):
+        t = _cl(t)
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        u = flat.as_strided(t.shape, t.stride(), 1)
+        u.copy_(t)
+        return u
+
+    xu, gu = odd(x), odd(g)
+    assert _is_cl(xu) and xu.data_ptr() % 16
+    plans = zip(_nhwc_plans(shape, dtype, 2, aligned=False),
+                _nhwc_plans(shape, dtype, 3, True, aligned=False))
+    for fp, bp in plans:
+        assert fp is None or fp.pack == 1
+        _check_b3(xu, gu, gamma, s, w, b, fp, bp)
+
+
+def test_b3_no_grad_writes_y_alone(dev):
+    """Under no-grad (the sweep's forward) B3-fwd writes only y, equal to
+    the training forward's; modulated_norm_relu takes that form."""
+    x, _, gamma, s, w, b = _b3_inputs((8, 256, 64, 64), torch.bfloat16, dev)
+    x, s = _cl(x), _cl(s)
+    gamma = gamma.bfloat16().float()        # the context's values, in bf16
+    y, mean, rstd = kernels.modnorm_relu_fwd_nhwc(x, gamma, s, w, b,
+                                                  train=False)
+    y_t, _, _ = kernels.modnorm_relu_fwd_nhwc(x, gamma, s, w, b)
+    assert mean.numel() == rstd.numel() == 0
+    assert torch.equal(y, y_t)
+    n0 = kernels.modnorm_relu_fwd_nhwc.launches
+    with torch.no_grad():
+        y_m = kernels.modulated_norm_relu(x, gamma.bfloat16(), s, None, b)
+    assert kernels.modnorm_relu_fwd_nhwc.launches == n0 + 1
+    assert torch.equal(y_m, y)
+
+
+@pytest.mark.parametrize("layout", [torch.contiguous_format,
+                                    torch.channels_last])
+def test_b3_autograd_matches_plain(dev, layout):
+    """ModulatedNormReLU on the card against the CPU's (plain) Function:
+    dx, dγ, ds, dw, db, float32; x and s contiguous (laid out channels-last
+    first) or channels-last."""
+    ops = _b3_inputs((2, 8, 24, 20), torch.float32, dev, seed=3, weight=True)
+    x, g = ops[0], ops[1]
+    leaves = [t.detach().contiguous(memory_format=layout).requires_grad_(True)
+              if t.ndim == 4 else t.detach().clone().requires_grad_(True)
+              for t in (x, ops[2], ops[3], ops[4], ops[5])]
+    y = kernels.modulated_norm_relu(*leaves)
+    assert _is_cl(y)
+    got = torch.autograd.grad(y, leaves, g)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(kernels.modulated_norm_relu(*cpu), cpu,
+                              g.cpu())
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), r, atol=1e-4, rtol=1e-4)
+
+
+def test_b3_refuses_what_it_does_not_take(dev):
+    x, g, gamma, s, w, b = _b3_inputs((2, 4, 8, 8), torch.float32, dev)
+    x, g, s = _cl(x), _cl(g), _cl(s)
+    y, mean, rstd = kernels.modnorm_relu_fwd_nhwc_plain(x, gamma, s, w, b)
+    with pytest.raises(TypeError):
+        kernels.modnorm_relu_fwd_nhwc(x.half(), gamma, None, w, b)
+    with pytest.raises(ValueError):
+        kernels.modnorm_relu_fwd_nhwc(x, gamma.t().contiguous(), s, w, b)
+    with pytest.raises(ValueError):
+        kernels.modnorm_relu_fwd_nhwc(x, gamma, s.bfloat16(), w, b)
+    with pytest.raises(ValueError, match=r"\[N, C, H, W\]"):
+        kernels.modulated_norm_relu(x[0], gamma[0], None, w, b)
+    plan = kernels.in_relu_nhwc_plan(2, 4, 64, torch.float32, True, 3, True)
+    with pytest.raises(RuntimeError,
+                       match="modnorm_relu_nhwc_bwd launch failed"):
+        kernels.modnorm_relu_bwd_nhwc(g, _cl(y), x, mean, rstd, gamma, w,
+                                      plan=plan._replace(v=3))
+
+
+def test_gunet_yml_step_launches_b3_per_modulated_block(dev):
+    """GUNet.yml (bf16, 64^2, batch 2): a train step launches B3-fwd and
+    B3-bwd once for each of its 8 modulated blocks and B2 for its 10 other
+    norm + ReLU pairs, all on the NHWC plans (GUNet's activations are
+    channels-last); a no-grad forward (the sweep's) B3-fwd 8 times."""
+    from boxsegliver_torch.models import MODEL_CONFIGS, build_model
+
+    model = build_model("GUNet", model_kwargs=dict(
+        MODEL_CONFIGS["GUNet.yml"], use_context=True, use_spatial=True,
+        normalizer="instance_norm", in_channels=3, context_length=200),
+        num_classes=3, dtype=torch.bfloat16)
+    model = model.reset_parameters(torch.Generator().manual_seed(0)).to(dev)
+    rng = np.random.default_rng(0)
+    feats = {"images": rng.normal(size=(2, 64, 64, 3)),
+             "sp_guide": rng.uniform(0.5, 1.0, (2, 64, 64, 1)),
+             "context": rng.normal(size=(2, 200))}
+    feats = {k: torch.from_numpy(v.astype(np.float32)).to(dev)
+             for k, v in feats.items()}
+    kernels.reset_launch_counts()
+    model(feats, train=True).square().mean().backward()
+    torch.cuda.synchronize()
+    counts = {n: f.launches for n, f in kernels.KERNELS.items()}
+    assert (counts["modnorm_relu_fwd_nhwc"] == counts["modnorm_relu_bwd_nhwc"]
+            == 8)
+    assert counts["in_relu_fwd_nhwc"] == counts["in_relu_bwd_nhwc"] == 10
+    assert not any(counts[k] for k in (
+        "in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats",
+        "in_relu_bwd_apply"))
+    # the biases of the 8 spatial half convs, 4 transpose convs and the
+    # head take their gradients from the channel sums
+    assert kernels.channel_sums_nhwc.launches == 13
+    grads = [p.grad for p in model.parameters()]
+    assert all(g_ is not None and bool(torch.isfinite(g_).all())
+               for g_ in grads)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        model(feats)
+    assert kernels.modnorm_relu_fwd_nhwc.launches == 8
+    assert kernels.in_relu_fwd_nhwc.launches == 10
+    assert kernels.modnorm_relu_bwd_nhwc.launches == 0
+    assert kernels.in_relu_fwd.launches == 0
 
 
 @pytest.mark.parametrize("shape,dtype", [
@@ -696,8 +647,9 @@ def test_channel_sums_nhwc_matches_plain(dev, shape, dtype):
 
 
 def test_b2_and_b3_take_the_plan_of_their_layout(dev):
-    """The strides choose: contiguous x takes the NCHW plans, channels-last
-    x the NHWC ones (autograd through both agrees), anything else raises."""
+    """The strides choose B2's plans: contiguous x takes the NCHW plans,
+    channels-last x the NHWC ones (autograd through both agrees); B2's NCHW
+    wrapper and B3's NHWC one raise on any other layout."""
     x, g, w, b = _in_relu_inputs((2, 16, 24, 20), torch.float32, dev, seed=4)
     grads = []
     for inp, name in ((x, "in_relu_fwd"), (_cl(x), "in_relu_fwd_nhwc")):
@@ -711,7 +663,7 @@ def test_b2_and_b3_take_the_plan_of_their_layout(dev):
     torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
     gamma = torch.ones((2, 16), device=dev)
     for fn in (lambda t: kernels.in_relu_fwd(t, w, b),
-               lambda t: kernels.modnorm_relu_fwd(t, gamma)):
+               lambda t: kernels.modnorm_relu_fwd_nhwc(t, gamma)):
         with pytest.raises(ValueError, match="contiguous"):
             fn(x.transpose(2, 3))
     with pytest.raises(ValueError, match="one layout"):
@@ -792,7 +744,7 @@ def test_graphed_steps_match_eager_steps(dev, tmp_path):
     assert (counts["modnorm_relu_fwd_nhwc"] * 6
             == counts["in_relu_fwd_nhwc"] * 4)
     for n in ("in_relu_fwd", "in_relu_bwd", "in_relu_bwd_stats",
-              "in_relu_bwd_apply", "modnorm_relu_fwd", "modnorm_relu_bwd"):
+              "in_relu_bwd_apply"):
         assert kernels.KERNELS[n].launches == 0
     torch.testing.assert_close(vals_g[:, :2], vals_e[:, :2], rtol=1e-4,
                                atol=0)

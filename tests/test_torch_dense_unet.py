@@ -54,7 +54,7 @@ from boxsegliver_torch.cli.export import load_exported
 from boxsegliver_torch.data.synthetic import make_synthetic_dataset
 from boxsegliver_torch.evaluators import device_eval as t_device_eval
 from boxsegliver_torch.evaluators import volume as t_volume
-from boxsegliver_torch.models import MODEL_CONFIGS, UNPORTED_CONFIGS
+from boxsegliver_torch.models import MODEL_CONFIGS, load_model_config
 from boxsegliver_torch.models import build_model as tbuild
 from boxsegliver_torch.models import layers
 from boxsegliver_torch.models.weights import (flax_key_to_torch,
@@ -99,7 +99,7 @@ def _jax_variables(rng, size=64):
 
 
 def test_registered_and_carried():
-    assert UNPORTED_CONFIGS == {}
+    assert load_model_config("DenseUNet") == MODEL_CONFIGS["DenseUNet.yml"]
     model = _port()
     assert type(model).__name__ == "DenseUNet"
     assert model.conv1.weight.shape == (8, 3, 7, 7)

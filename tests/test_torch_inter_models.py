@@ -34,6 +34,7 @@ from boxsegliver_tpu.cli import main as jmain
 from boxsegliver_tpu.data import pipeline_inter as jpi
 from boxsegliver_tpu.data import sampler_inter as jsi
 from boxsegliver_tpu.models import build_model as jbuild
+from boxsegliver_tpu.models import load_model_config as jload_config
 from boxsegliver_tpu.models.layers import sobel_edges as jsobel
 from boxsegliver_tpu.train.solver import Solver
 from boxsegliver_tpu.train.trainer import create_train_state
@@ -45,7 +46,7 @@ from boxsegliver_torch.data import pipeline_inter as tpi
 from boxsegliver_torch.data import sampler_inter as tsi
 from boxsegliver_torch.data.pipeline import batch_to_device
 from boxsegliver_torch.data.synthetic import make_synthetic_dataset
-from boxsegliver_torch.models import MODEL_CONFIGS, UNPORTED_CONFIGS
+from boxsegliver_torch.models import MODEL_CONFIGS
 from boxsegliver_torch.models import build_model as tbuild
 from boxsegliver_torch.models.layers import Conv, avg_pool_same, sobel_edges
 from boxsegliver_torch.models.weights import (flax_to_state_dict,
@@ -111,7 +112,7 @@ def test_forward_matches_jax(case):
 def test_configs_leave_the_unported_list():
     for name in ("InterUNet.yml", "SmallUNet.yml", "LGNet.yml",
                  "LGNet_v3.yml"):
-        assert name in MODEL_CONFIGS and name not in UNPORTED_CONFIGS
+        assert MODEL_CONFIGS[name] == jload_config("GUNet", name)
     args = cli.get_args(["nf_inter", "--mode", "train", "--tag", "t",
                          "--model", "InterUNet", "--classes", "NF",
                          "--img_grad", "--device", "cpu", "--model_dir",

@@ -538,41 +538,56 @@ def test_nhwc_launcher_refuses_a_plan_that_does_not_fit():
     # a channel slice of a channels-last tensor: not dense
     (lambda: torch.empty(2, 32, 8, 8).contiguous(
         memory_format=torch.channels_last)[:, :16], False),
-    # both layouts at once: the NCHW plans
+    # both layouts at once: B2's NCHW plans
     (lambda: torch.empty(2, 1, 8, 8).contiguous(
         memory_format=torch.channels_last), False),
     (lambda: torch.empty(2, 16, 1, 1).contiguous(
         memory_format=torch.channels_last), False),
-    # NDHWC: copied contiguous, the NCHW plans (UNet3D's first block)
+    # NDHWC: copied contiguous, B2's NCHW plans (UNet3D's first block)
     (lambda: torch.empty(2, 4, 3, 8, 8).contiguous(
         memory_format=torch.channels_last_3d), False),
     (lambda: torch.empty(2, 16, 8).transpose(1, 2), False)],
     ids=["nchw", "channels_last", "permuted_nhwc", "transposed",
          "channel_slice", "one_channel", "one_pixel", "ndhwc", "rank3"])
-def test_the_strides_choose_the_plans(make, nhwc):
-    """B2 and B3 take their NHWC plans for a channels-last (not also
-    contiguous) operand, their NCHW plans for a contiguous one; each plan's
-    operators' fake implementations give what the card's do: y in x's
-    layout, then x̂ (boxseg::in_relu_fwd, boxseg::modnorm_relu_fwd) or the
-    planes' mean [N, C] (boxseg::in_relu_nhwc_fwd,
-    boxseg::modnorm_relu_nhwc_fwd), and rstd."""
+def test_the_strides_choose_the_plans(monkeypatch, make, nhwc):
+    """B2 takes its NHWC plans for a channels-last (not also contiguous)
+    operand, its NCHW plans for a contiguous one; B3 its NHWC plans for x
+    of any 4-D layout (laid out channels-last first) and refuses another
+    rank.  The operators' fake implementations give what the card's do:
+    y in x's layout (B2) or channels-last (B3), then x̂
+    (boxseg::in_relu_fwd) or the planes' mean [N, C]
+    (boxseg::in_relu_nhwc_fwd, boxseg::modnorm_relu_nhwc_fwd), and rstd."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from boxsegliver_torch.ops import kernels
 
     x = make()
     assert kernels.is_nhwc(x) == nhwc
-    if not (nhwc or x.is_contiguous()):
-        return
     with FakeTensorMode() as mode:
         fx = mode.from_tensor(x)
         w = torch.ones(x.shape[1])
         ops = torch.ops.boxseg
-        b2, b3 = ((ops.in_relu_nhwc_fwd, ops.modnorm_relu_nhwc_fwd) if nhwc
-                  else (ops.in_relu_fwd, ops.modnorm_relu_fwd))
-        for y, aux, rstd in (b2(fx, w, w, 1e-6),
-                             b3(fx, None, None, w, None, 1e-6, True)):
-            assert y.stride() == x.stride()
-            assert kernels.is_nhwc(y) == nhwc
-            assert aux.shape == (x.shape[:2] if nhwc else x.shape)
-            assert rstd.shape == x.shape[:2]
+        if x.ndim != 4:
+            with pytest.raises(ValueError, match=r"\[N, C, H, W\]"):
+                kernels.modulated_norm_relu(fx, None, None, w)
+        else:
+            seen, real = [], kernels.modnorm_relu_fwd_nhwc_op
+            monkeypatch.setattr(kernels, "modnorm_relu_fwd_nhwc_op",
+                                lambda t, *a, **k: seen.append(t)
+                                or real(t, *a, **k))
+            y = kernels.modulated_norm_relu(fx, None, None, w)
+            assert len(seen) == 1 and y.shape == x.shape
+            for t in (seen[0], y):
+                assert t.is_contiguous(memory_format=torch.channels_last)
+            y, mean, rstd = ops.modnorm_relu_nhwc_fwd(fx, None, None, w, None,
+                                                      1e-6, True)
+            assert y.is_contiguous(memory_format=torch.channels_last)
+            assert mean.shape == rstd.shape == x.shape[:2]
+        if not (nhwc or x.is_contiguous()):
+            return
+        b2 = ops.in_relu_nhwc_fwd if nhwc else ops.in_relu_fwd
+        y, aux, rstd = b2(fx, w, w, 1e-6)
+        assert y.stride() == x.stride()
+        assert kernels.is_nhwc(y) == nhwc
+        assert aux.shape == (x.shape[:2] if nhwc else x.shape)
+        assert rstd.shape == x.shape[:2]

@@ -18,8 +18,7 @@ import pytest
 import torch
 
 from boxsegliver_torch.cli import main as cli
-from boxsegliver_torch.models import (MODEL_CONFIGS, UNPORTED_CONFIGS,
-                                      load_model_config)
+from boxsegliver_torch.models import MODEL_CONFIGS, load_model_config
 from boxsegliver_torch.train.checkpoint import CheckpointManager
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -30,12 +29,8 @@ JAX_CONFIGS = sorted(
 
 @pytest.mark.parametrize("name", JAX_CONFIGS)
 def test_every_jax_config_is_carried_or_refused(name):
-    if name in MODEL_CONFIGS:
-        assert name not in UNPORTED_CONFIGS
-        assert load_model_config("GUNet", name) == MODEL_CONFIGS[name]
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            load_model_config("GUNet", name)
+    assert name in MODEL_CONFIGS
+    assert load_model_config("GUNet", name) == MODEL_CONFIGS[name]
 
 
 def test_unetinter_configs_are_ported():
@@ -43,7 +38,7 @@ def test_unetinter_configs_are_ported():
     the nf_inter slice: carried, and built as the port's UNetInter with the
     guide's channels from --guide_channel."""
     assert {"UNetInter.yml", "UNetInter_TINY.yml"} <= set(MODEL_CONFIGS)
-    assert not {"UNetInter.yml", "UNetInter_TINY.yml"} & set(UNPORTED_CONFIGS)
+    assert {"UNetInter.yml", "UNetInter_TINY.yml"} <= set(JAX_CONFIGS)
     args = cli.get_args(["nf_inter", "--mode", "train", "--tag", "t",
                          "--model", "UNetInter", "--model_config",
                          "UNetInter_TINY.yml", "--classes", "NF",
@@ -55,8 +50,7 @@ def test_unetinter_configs_are_ported():
 
 
 def test_unported_list_names_only_jax_configs():
-    assert set(UNPORTED_CONFIGS) <= set(JAX_CONFIGS)
-    assert set(MODEL_CONFIGS) | set(UNPORTED_CONFIGS) == set(JAX_CONFIGS)
+    assert set(MODEL_CONFIGS) == set(JAX_CONFIGS)
     assert load_model_config("GUNet", "NoSuchConfig.yml") == {}
 
 

@@ -159,18 +159,40 @@ def test_b3_plain_backward_is_autodiff_of_the_plain_forward():
 
 
 def test_b3_no_grad_form_gives_y_alone():
-    """Under no-grad modulated_norm_relu runs B3-fwd without x̂ and rstd;
-    y equals the training forward's."""
+    """Under no-grad modulated_norm_relu runs B3-fwd without the planes'
+    mean and rstd; y equals the training forward's."""
     x, _, s, gamma, w, b = (torch.from_numpy(a) for a in _inputs(
         (2, 8, 8, 4), seed=5, dtype=torch.bfloat16))
     x, s = _nchw(x.numpy(), torch.bfloat16), _nchw(s.numpy(), torch.bfloat16)
-    y, xhat, rstd = kernels.modnorm_relu_fwd(x, gamma, s, w, b, train=False)
-    assert xhat.numel() == rstd.numel() == 0
-    y_t, xhat_t, rstd_t = kernels.modnorm_relu_fwd(x, gamma, s, w, b)
-    assert xhat_t.dtype == torch.bfloat16 and rstd_t.shape == (2, 4)
+    y, mean, rstd = kernels.modnorm_relu_fwd_nhwc_op(x, gamma, s, w, b,
+                                                     train=False)
+    assert mean.numel() == rstd.numel() == 0
+    y_t, mean_t, rstd_t = kernels.modnorm_relu_fwd_nhwc_op(x, gamma, s, w, b)
+    assert mean_t.dtype == rstd_t.dtype == torch.float32
+    assert mean_t.shape == rstd_t.shape == (2, 4)
     with torch.no_grad():
         y_m = kernels.modulated_norm_relu(x, gamma, s, w, b)
     assert torch.equal(y, y_t) and torch.equal(y_m, y)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_takes_any_layout_of_x(dtype):
+    """B3 has the NHWC plans alone: a contiguous NCHW x is laid out
+    channels-last first, so y and every gradient equal those of the same
+    call on x's channels-last copy."""
+    x, g, s, gamma, w, b = _inputs((2, 6, 5, 3), seed=7, dtype=dtype)
+    x, g, s = _nchw(x, dtype), _nchw(g, dtype), _nchw(s, dtype)
+    gamma, w, b = (torch.from_numpy(t) for t in (gamma, w, b))
+    outs = []
+    for layout in (torch.contiguous_format, torch.channels_last):
+        leaves = [t.clone().requires_grad_(True) for t in (gamma, w, b)]
+        xl, sl = (t.contiguous(memory_format=layout).requires_grad_(True)
+                  for t in (x, s))
+        y = kernels.modulated_norm_relu(xl, leaves[0], sl, *leaves[1:])
+        outs.append([y] + list(torch.autograd.grad(y, [xl, sl] + leaves, g)))
+    for got, want in zip(*outs):
+        assert got.dtype == want.dtype and torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -23,13 +23,14 @@ from flax import traverse_util
 
 from boxsegliver_tpu import config as jconfig
 from boxsegliver_tpu.models import build_model as jbuild
+from boxsegliver_tpu.models import load_model_config as jload_config
 from boxsegliver_tpu.models.layers import Norm as JNorm
 from boxsegliver_tpu.train.solver import Solver
 from boxsegliver_tpu.train.trainer import create_train_state
 from boxsegliver_tpu.train.trainer import make_loss_fn as jmake_loss_fn
 from boxsegliver_tpu.train.trainer import make_train_step
 from boxsegliver_torch import config as tconfig
-from boxsegliver_torch.models import MODEL_CONFIGS, UNPORTED_CONFIGS
+from boxsegliver_torch.models import MODEL_CONFIGS
 from boxsegliver_torch.models import build_model as tbuild
 from boxsegliver_torch.models.weights import (flax_to_state_dict,
                                               state_dict_to_flax)
@@ -139,8 +140,7 @@ def test_unet3d_config_is_carried_and_built_from_the_flags():
     """UNet3D.yml moved to the ported side: carried as the JAX file says,
     and built with JAX's 3-D template widths (one image channel, two with
     --use_cascade; --guide_channel guide channels under --use_spatial)."""
-    assert "UNet3D.yml" in MODEL_CONFIGS and "UNet3D.yml" not in \
-        UNPORTED_CONFIGS
+    assert MODEL_CONFIGS["UNet3D.yml"] == jload_config("UNet3D")
     parser = tconfig.build_parser()
     for extra, cin in (([], 1), (["--use_cascade"], 2),
                        (["--use_spatial", "--guide_channel", "1"], 2),
